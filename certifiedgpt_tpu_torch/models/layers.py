@@ -1,0 +1,161 @@
+"""Shared building blocks (plain functions on tensors) and ``ParamTree``.
+
+Port of ``certifiedgpt_tpu/models/layers.py``. Parameters keep the JAX
+layout: dense leaves ``{"kernel": [in, out], "bias": [out]}`` or the int8
+``{"kernel_q", "scale"}`` form, norms computed in f32 whatever the
+activation dtype, per-layer weights stacked on a leading ``[L, ...]`` axis.
+Float products accumulate in f32 and round once to the activation dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from certifiedgpt_tpu_torch.ops import quantization as Q
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors in the JAX layout, held as buffers so that
+    ``.to(device)`` and ``state_dict`` see them; ``tree()`` returns the
+    dict that the ``*_apply`` functions take. Frozen: no gradients."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        self._names = list(tree)
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                self.add_module(name, ParamTree(value))
+            else:
+                self.register_buffer(name, value)
+
+    def tree(self) -> Dict[str, Any]:
+        out = {}
+        for name in self._names:
+            value = getattr(self, name)
+            out[name] = value.tree() if isinstance(value, ParamTree) else value
+        return out
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_slice(stacked: Dict[str, Any], layer: int) -> Dict[str, Any]:
+    """Layer ``layer`` of a tree stacked on a leading ``[L, ...]`` axis
+    (views, no copies)."""
+    return tree_map(lambda a: a[layer], stacked)
+
+
+def dense(params, x: torch.Tensor, act_quant: bool = False) -> torch.Tensor:
+    if "kernel_q" in params and act_quant:
+        # W8A8: (xq @ wq) * xs * ws, dynamic per-row activation quant
+        out = Q.w8a8_matmul(x, params["kernel_q"], params["scale"])
+    elif "kernel_q" in params:
+        # weight-only int8: the per-output-channel scale commutes with the
+        # contraction and multiplies the f32 result. On CUDA the bf16 copy
+        # of the int8 kernel is made on every call (a plain-PyTorch cost
+        # the decode path pays; see ROADMAP.md).
+        kq = params["kernel_q"]
+        if x.device.type == "cuda" and x.dtype != torch.float32:
+            acc = torch.matmul(x, kq.to(x.dtype)).float()
+        else:
+            acc = torch.matmul(x.float(), kq.float())
+        out = (acc * params["scale"]).to(x.dtype)
+    else:
+        # f32 accumulation, one rounding to x's dtype (cuBLAS and the CPU
+        # kernels accumulate bf16 products in f32, like the JAX einsums'
+        # preferred_element_type=float32)
+        out = torch.matmul(x, params["kernel"].to(x.dtype))
+    if "bias" in params:
+        out = out + params["bias"].to(x.dtype)
+    return out
+
+
+def layer_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    out = normed * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
+def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (normed * params["scale"].float()).to(x.dtype)
+
+
+def embed(params, ids: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][ids]
+
+
+def rotary_tables(
+    head_dim: int, max_len: int, theta: float = 10000.0, device=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[max_len, head_dim] f32 cos/sin tables (HF-LLaMA rotate-half)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    inv_freq = 1.0 / (theta ** exps)
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rotary(
+    x: torch.Tensor,  # [B, S, H, Dh]
+    cos: torch.Tensor,  # [max_len, Dh]
+    sin: torch.Tensor,
+    positions: torch.Tensor,  # [B, S] int
+) -> torch.Tensor:
+    c = cos[positions][:, :, None, :]
+    s = sin[positions][:, :, None, :]
+    x32 = x.float()
+    return (x32 * c + _rotate_half(x32) * s).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, computed in f32 and rounded to x's dtype."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x.float()).to(x.dtype)
+
+
+def ln_dense(params, x: torch.Tensor, ln_params, eps: float = 1e-6,
+             act_quant: bool = False) -> torch.Tensor:
+    """``dense(params, layer_norm(ln_params, x))``; on the W8A8 path the LN
+    and the activation quant are one kernel (``ops.quantization.ln_quant_rows``)."""
+    if "kernel_q" in params and act_quant:
+        xq, xs = Q.ln_quant_rows(x, ln_params["scale"], ln_params["bias"], eps)
+        out = Q._w8a8_epilogue(xq, xs, params["kernel_q"], params["scale"], x.dtype)
+    else:
+        return dense(params, layer_norm(ln_params, x, eps), act_quant=act_quant)
+    if "bias" in params:
+        out = out + params["bias"].to(out.dtype)
+    return out
+
+
+def gelu_dense(params, x: torch.Tensor, act_quant: bool = False) -> torch.Tensor:
+    """``dense(params, gelu(x))``; on the W8A8 path the GELU and the
+    activation quant are one kernel (``ops.quantization.gelu_quant_rows``)."""
+    if "kernel_q" in params and act_quant:
+        out = Q.w8a8_gelu_matmul(x, params["kernel_q"], params["scale"])
+    else:
+        return dense(params, gelu(x), act_quant=act_quant)
+    if "bias" in params:
+        out = out + params["bias"].to(out.dtype)
+    return out

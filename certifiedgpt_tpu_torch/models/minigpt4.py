@@ -1,0 +1,175 @@
+"""MiniGPT-4 assembly: EVA ViT -> ln_vision -> Q-Former -> llama_proj -> decoder.
+
+Port of the generation path of ``certifiedgpt_tpu/models/minigpt4.py``
+(``encode_img``, ``assemble_embeds``, greedy ``generate`` with the KV cache
+and ``early_exit``). Prompts are left-padded, so every row's last prompt
+token sits at slot S-1 and decoding proceeds from one cache offset.
+Sampling, beam search, candidate ranking and the training loss wait for
+later slices.
+
+The parameter tree is ``{"vit", "ln_vision", "qformer", "llama_proj",
+"llama"}`` as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from certifiedgpt_tpu_torch.common.stages import StageClock, stage
+from certifiedgpt_tpu_torch.models import layers as L
+from certifiedgpt_tpu_torch.models.eva_vit import EvaViT, EvaViTConfig, eva_vit_apply
+from certifiedgpt_tpu_torch.models.llama import (
+    Llama,
+    LlamaConfig,
+    embed_tokens,
+    init_kv_cache,
+    llama_apply,
+    lm_head_logits,
+)
+from certifiedgpt_tpu_torch.models.qformer import QFormer, QFormerConfig, qformer_apply
+
+
+@dataclasses.dataclass(frozen=True)
+class MiniGPT4Config:
+    vit: EvaViTConfig = dataclasses.field(default_factory=EvaViTConfig.eva_vit_g)
+    qformer: QFormerConfig = dataclasses.field(default_factory=QFormerConfig.blip2)
+    llama: LlamaConfig = dataclasses.field(default_factory=LlamaConfig)
+    max_txt_len: int = 160
+    max_context_len: int = 3800
+
+    @staticmethod
+    def tiny(**overrides) -> "MiniGPT4Config":
+        vit = EvaViTConfig.tiny()
+        base = dict(
+            vit=vit,
+            qformer=QFormerConfig.tiny(encoder_width=vit.embed_dim),
+            llama=LlamaConfig.tiny(),
+            max_txt_len=16,
+            max_context_len=128,
+        )
+        base.update(overrides)
+        return MiniGPT4Config(**base)
+
+    @property
+    def num_img_tokens(self) -> int:
+        return self.qformer.num_query_tokens
+
+
+def encode_img(params: Dict[str, Any], cfg: MiniGPT4Config, images: torch.Tensor,
+               clock: Optional[StageClock] = None) -> torch.Tensor:
+    """images [B, H, W, C] -> projected image tokens [B, 32, llama_hidden]."""
+    with stage(clock, "vit"):
+        feats = eva_vit_apply(params["vit"], cfg.vit, images)
+    with stage(clock, "qformer"):
+        # ln_vision is a plain nn.LayerNorm in the reference: eps 1e-5,
+        # not the ViT's 1e-6
+        feats = L.layer_norm(params["ln_vision"], feats, eps=1e-5)
+        queries = qformer_apply(params["qformer"], cfg.qformer, feats)
+        out = L.dense(params["llama_proj"], queries.float())
+        return out.to(cfg.llama.dtype)
+
+
+def assemble_embeds(params: Dict[str, Any], cfg: MiniGPT4Config,
+                    input_ids: torch.Tensor,  # [B, S]
+                    img_embeds: torch.Tensor,  # [B, T_img, D]
+                    img_pos: torch.Tensor,  # [B] start slot of the image span
+                    ) -> torch.Tensor:
+    text = embed_tokens(params["llama"], input_ids)
+    t_img = img_embeds.shape[1]
+    slots = img_pos[:, None] + torch.arange(t_img, device=text.device)[None, :]
+    rows = torch.arange(text.shape[0], device=text.device)[:, None]
+    text[rows, slots] = img_embeds.to(text.dtype)
+    return text
+
+
+def generate(
+    params: Dict[str, Any],
+    cfg: MiniGPT4Config,
+    batch: Dict[str, torch.Tensor],
+    max_new_tokens: int,
+    eos_token_id: int,
+    pad_token_id: int = 0,
+    *,
+    early_exit: bool = False,
+    clock: Optional[StageClock] = None,
+) -> torch.Tensor:
+    """Greedy decode with a KV cache. ``batch`` holds a left-padded prompt:
+    image [B, H, W, C], input_ids [B, S], attention_mask [B, S], img_pos [B].
+
+    Returns [B, max_new_tokens] token ids, ``pad_token_id`` after a row's
+    EOS. ``early_exit`` stops once every row has emitted EOS (one host
+    sync per step); the output is identical to the full loop's."""
+    img_embeds = encode_img(params, cfg, batch["image"], clock)
+    with stage(clock, "prefill"):
+        embeds = assemble_embeds(params, cfg, batch["input_ids"], img_embeds, batch["img_pos"])
+        b, s, _ = embeds.shape
+        device = embeds.device
+        mask = batch["attention_mask"].to(torch.int32)
+        # rotary positions: left pads get 0, real tokens count up
+        positions = (torch.cumsum(mask, dim=1) - 1).clamp_min(0)
+        prompt_len = mask.sum(dim=1)
+        cache = init_kv_cache(cfg.llama, b, s + max_new_tokens, device)
+        # decode slots are marked valid up front; causal masking hides the
+        # unwritten ones
+        cache_mask = torch.cat(
+            [mask, torch.ones((b, max_new_tokens), dtype=torch.int32, device=device)], dim=1
+        )
+        # only the last position's logits are needed after the prefill
+        _, hidden, cache = llama_apply(params["llama"], cfg.llama, embeds, cache_mask,
+                                       positions, cache, 0, compute_logits=False)
+        token = torch.argmax(lm_head_logits(params["llama"], hidden[:, -1, :]), dim=-1)
+
+    with stage(clock, "decode"):
+        out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
+        positions = prompt_len.long()
+        done = torch.zeros((b,), dtype=torch.bool, device=device)
+        for t in range(max_new_tokens):
+            if early_exit and bool(done.all()):
+                break
+            out[:, t] = torch.where(done, pad_token_id, token)
+            done = done | (token == eos_token_id)
+            if t == max_new_tokens - 1:
+                break  # the next token would fall outside the output
+            if clock is not None:
+                clock.count("decode_step")
+            tok_embed = embed_tokens(params["llama"], token[:, None])
+            logits, _, cache = llama_apply(params["llama"], cfg.llama, tok_embed, cache_mask,
+                                           positions[:, None], cache, s + t)
+            new_token = torch.argmax(logits[:, -1, :], dim=-1)
+            token = torch.where(done, eos_token_id, new_token)
+            positions = positions + 1
+        return out
+
+
+def generate_greedy(params, cfg, batch, max_new_tokens, eos_token_id, pad_token_id=0,
+                    early_exit: bool = False, clock: Optional[StageClock] = None):
+    """Greedy decode (the certification hot path)."""
+    return generate(params, cfg, batch, max_new_tokens, eos_token_id, pad_token_id,
+                    early_exit=early_exit, clock=clock)
+
+
+class MiniGPT4(nn.Module):
+    """The whole model as modules, one per tower, with parameters in the
+    JAX layout; ``tree()`` gives the parameter dict the functions take."""
+
+    def __init__(self, cfg: MiniGPT4Config, params: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.vit = EvaViT(cfg.vit, params["vit"])
+        self.ln_vision = L.ParamTree(params["ln_vision"])
+        self.qformer = QFormer(cfg.qformer, params["qformer"])
+        self.llama_proj = L.ParamTree(params["llama_proj"])
+        self.llama = Llama(cfg.llama, params["llama"])
+
+    def tree(self) -> Dict[str, Any]:
+        return {
+            "vit": self.vit.params.tree(),
+            "ln_vision": self.ln_vision.tree(),
+            "qformer": self.qformer.params.tree(),
+            "llama_proj": self.llama_proj.tree(),
+            "llama": self.llama.params.tree(),
+        }

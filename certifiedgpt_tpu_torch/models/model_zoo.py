@@ -1,0 +1,183 @@
+"""Model holder and seeded synthetic initialization at the serving layout.
+
+``MiniGPT4Model`` holds (cfg, params, tokenizer) as in
+``certifiedgpt_tpu/models/model_zoo.py``. ``build_synthetic_model`` makes
+full-width weights from a seed directly on the target device, with the
+serving quantization applied (int8 decoder kernels, int8 ViT qkv/proj/fc1/
+fc2 kernels), module by module so that the peak stays about one float
+layer stack above the final footprint: the counterpart of the JAX
+``bench.py::build_full_int8_params`` and of ``MiniGPT4Model.from_config``
+without checkpoints. Loading real checkpoints waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from certifiedgpt_tpu_torch.data.text import ByteTokenizer
+from certifiedgpt_tpu_torch.models.minigpt4 import MiniGPT4, MiniGPT4Config
+from certifiedgpt_tpu_torch.ops.quantization import int8_kernel_layout, quantize_kernel
+
+
+class MiniGPT4Model:
+    """Holds the config, the model (one module per tower, parameters in the
+    JAX layout) and the tokenizer. ``params`` is the parameter dict the
+    ``models.minigpt4`` functions take."""
+
+    def __init__(self, cfg: MiniGPT4Config, params: Dict[str, Any], tokenizer):
+        self.cfg = cfg
+        self.module = MiniGPT4(cfg, params)
+        self.tokenizer = tokenizer
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self.module.tree()
+
+    @property
+    def device(self) -> torch.device:
+        return self.module.llama.params.embed_tokens.embedding.device
+
+
+class _Init:
+    """Seeded draws on one device."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+    def normal(self, shape, std: float, dtype=torch.float32) -> torch.Tensor:
+        out = torch.randn(shape, generator=self.gen, device=self.device)
+        return (out * std).to(dtype)
+
+    def dense(self, d_in: int, d_out: int, dtype, bias: bool = True) -> Dict[str, torch.Tensor]:
+        p = {"kernel": self.normal((d_in, d_out), 1.0 / math.sqrt(d_in), dtype)}
+        if bias:
+            p["bias"] = torch.zeros((d_out,), dtype=dtype, device=self.device)
+        return p
+
+    def stacked_int8(self, layers: int, d_in: int, d_out: int,
+                     std: float) -> Dict[str, torch.Tensor]:
+        """A ``[L, in, out]`` int8 kernel with per-(layer, out-channel)
+        scales, drawn in f32 one layer at a time and stored column-major
+        for ``torch._int_mm``."""
+        kq = int8_kernel_layout(
+            torch.empty((layers, d_in, d_out), dtype=torch.int8, device=self.device))
+        scale = torch.empty((layers, d_out), dtype=torch.float32, device=self.device)
+        for layer in range(layers):
+            q = quantize_kernel(self.normal((d_in, d_out), std))
+            kq[layer].copy_(q["kernel_q"])
+            scale[layer].copy_(q["scale"])
+        return {"kernel_q": kq, "scale": scale}
+
+    def const(self, shape, value: float, dtype) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+
+def _vit_params(init: _Init, cfg) -> Dict[str, Any]:
+    d, n, i, dt = cfg.embed_dim, cfg.depth, cfg.mlp_hidden, cfg.dtype
+    patch_in = cfg.in_channels * cfg.patch_size ** 2
+
+    def layer_dense(d_in, d_out, bias=True):
+        p = init.stacked_int8(n, d_in, d_out, 1.0 / math.sqrt(d_in))
+        if bias:
+            p["bias"] = init.const((n, d_out), 0.0, dt)
+        return p
+
+    ln = {"scale": init.const((n, d), 1.0, dt), "bias": init.const((n, d), 0.0, dt)}
+    return {
+        "patch_embed": init.dense(patch_in, d, dt),
+        "cls_token": init.normal((1, 1, d), 0.02, dt),
+        "pos_embed": init.normal((1, cfg.seq_len, d), 0.02, dt),
+        "layers": {
+            "norm1": ln,
+            "qkv": layer_dense(d, 3 * d, bias=False),
+            "q_bias": init.const((n, d), 0.0, dt),
+            "v_bias": init.const((n, d), 0.0, dt),
+            "proj": layer_dense(d, d),
+            "norm2": {k: v.clone() for k, v in ln.items()},
+            "fc1": layer_dense(d, i),
+            "fc2": layer_dense(i, d),
+        },
+    }
+
+
+def _qformer_params(init: _Init, cfg) -> Dict[str, Any]:
+    d, dw, dt = cfg.hidden_size, cfg.encoder_width, cfg.dtype
+
+    def ln():
+        return {"scale": init.const((d,), 1.0, dt), "bias": init.const((d,), 0.0, dt)}
+
+    layers = {}
+    for i in range(cfg.num_layers):
+        lp = {
+            "self_q": init.dense(d, d, dt), "self_k": init.dense(d, d, dt),
+            "self_v": init.dense(d, d, dt), "self_out": init.dense(d, d, dt),
+            "self_ln": ln(),
+            "int_q": init.dense(d, cfg.intermediate_size, dt),
+            "out_q": init.dense(cfg.intermediate_size, d, dt),
+            "ffn_ln_q": ln(),
+        }
+        if cfg.has_cross_attention(i):
+            lp.update({
+                "cross_q": init.dense(d, d, dt), "cross_k": init.dense(dw, d, dt),
+                "cross_v": init.dense(dw, d, dt), "cross_out": init.dense(d, d, dt),
+                "cross_ln": ln(),
+            })
+        layers[f"layer_{i}"] = lp
+    return {
+        "query_tokens": init.normal((1, cfg.num_query_tokens, d), 0.02, dt),
+        "embeddings_ln": ln(),
+        "layers": layers,
+    }
+
+
+def _llama_params(init: _Init, cfg) -> Dict[str, Any]:
+    d, n, dt = cfg.hidden_size, cfg.num_layers, cfg.dtype
+    hd = cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    inter = cfg.intermediate_size
+    mods = {
+        "q_proj": (d, hd), "k_proj": (d, kvd), "v_proj": (d, kvd), "o_proj": (hd, d),
+        "gate_proj": (d, inter), "up_proj": (d, inter), "down_proj": (inter, d),
+    }
+    layers = {name: init.stacked_int8(n, di, do, 0.02)
+              for name, (di, do) in mods.items()}
+    layers["input_layernorm"] = {"scale": init.const((n, d), 1.0, dt)}
+    layers["post_attention_layernorm"] = {"scale": init.const((n, d), 1.0, dt)}
+    return {
+        "embed_tokens": {"embedding": init.normal((cfg.vocab_size, d), 0.02, dt)},
+        "layers": layers,
+        "norm": {"scale": init.const((d,), 1.0, dt)},
+        "lm_head": {"kernel": init.normal((d, cfg.vocab_size), 0.02, dt)},
+    }
+
+
+def build_synthetic_params(cfg: MiniGPT4Config, device="cuda",
+                           seed: int = 0) -> Dict[str, Any]:
+    """Seeded random parameters at the serving layout: int8 ViT qkv/proj/
+    fc1/fc2 and decoder layer kernels, every other leaf in its float
+    dtype."""
+    init = _Init(seed, device)
+    return {
+        "vit": _vit_params(init, cfg.vit),
+        "ln_vision": {"scale": init.const((cfg.vit.embed_dim,), 1.0, cfg.vit.dtype),
+                      "bias": init.const((cfg.vit.embed_dim,), 0.0, cfg.vit.dtype)},
+        "qformer": _qformer_params(init, cfg.qformer),
+        # the projection is the trained leaf; f32 as in the JAX package
+        "llama_proj": init.dense(cfg.qformer.hidden_size, cfg.llama.hidden_size,
+                                 torch.float32),
+        "llama": _llama_params(init, cfg.llama),
+    }
+
+
+def build_synthetic_model(cfg: MiniGPT4Config, device="cuda",
+                          seed: int = 0) -> MiniGPT4Model:
+    """Seeded random MiniGPT-4 at ``cfg``'s widths on ``device``, with the
+    byte-level tokenizer, at the serving layout of the certify configs
+    (``quantize_llama`` and ``quantize_vit`` on)."""
+    params = build_synthetic_params(cfg, device, seed)
+    return MiniGPT4Model(cfg, params, ByteTokenizer())

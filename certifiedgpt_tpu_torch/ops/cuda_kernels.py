@@ -1,0 +1,156 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``*.cu`` file under ``certifiedgpt_tpu_torch/csrc/`` is compiled by
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface, loaded with ``ctypes``. The build happens at first use, into
+``build/certifiedgpt_tpu_torch/`` beside the package, and the library file is
+keyed by a hash of the sources, so an edited source rebuilds. The sources
+compile in parallel, one ``nvcc`` per file, and link once.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` turns a non-zero code into an exception. Nothing here falls back:
+a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "certifiedgpt_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+
+# C entry point -> argument types (all return an int cudaError_t code)
+_SIGNATURES = {
+    "cgpt_ln_quant": (_P, _P, _P, _P, _P, _I64, _I32, ctypes.c_float, _P),
+    "cgpt_gelu_quant": (_P, _P, _P, _I64, _I32, _P),
+    "cgpt_cls_split_attention": (
+        _P, _P, _P, _I64, _I64, _I64,  # q, k, v and their strides
+        _P, _P, _I64, _I64,  # kc, vc and their strides
+        _P, _I64, _I64, _I64,  # out and its strides
+        _I32, _I32, _I32, _I32,  # B, H, N, D
+        _P,  # stream
+    ),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+    """The loaded library with how it was obtained: ``seconds`` spent
+    compiling (0 when the hashed library already existed) and the
+    compiler's output (``ptxas -v``: registers, shared memory, spills)."""
+
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float
+    log: str
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of certifiedgpt_tpu_torch are "
+        "built with the CUDA toolkit (sm_90a) at first use"
+    )
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(files) -> str:
+    h = hashlib.sha256()
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(target: Path) -> str:
+    nvcc = _nvcc()
+    units = sorted(CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (u.stem + ".o") for u in units]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(u), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for u, o in zip(units, objs)
+        ]
+        failed = []
+        for unit, proc in zip(units, procs):
+            out, _ = proc.communicate()
+            log.append(f"== {unit.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(unit.name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(log)
+            )
+        so_tmp = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(so_tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(so_tmp, target)
+    return "\n".join(log)
+
+
+@functools.cache
+def build() -> Build:
+    """Compile (if the hashed library is missing) and load the kernels."""
+    target = BUILD_DIR / f"libcgpt_kernels_{_digest(_sources())}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not target.exists():
+        log = _compile(target)
+    seconds = time.perf_counter() - t0 if log else 0.0
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cgpt_error_string.argtypes = (ctypes.c_int,)
+    lib.cgpt_error_string.restype = ctypes.c_char_p
+    return Build(lib, target, seconds, log)
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if code != 0:
+        msg = build().lib.cgpt_error_string(code).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {code} ({msg})")
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,186 @@
+"""Decoder-to-label certification mapping.
+
+Port of ``certifiedgpt_tpu/smoothing/classifier.py`` (single device).
+``Smooth`` needs a discrete classifier; MiniGPT-4 emits free text. The
+bridge, fixed before any sampling so Cohen's guarantee holds:
+
+1. ``AnswerVocabulary``: a fixed label set per question (normalized
+   candidate answers + one catch-all OTHER class), normalized with the
+   official VQA pipeline.
+2. ``make_noisy_generate_fn``: tile the clean image to a Monte-Carlo batch,
+   add Gaussian noise on the device, run encode -> greedy decode, return
+   token ids.
+3. ``make_sample_fn``: the ``sample_fn(x, num, seed, should_stop=None)``
+   of ``Smooth``. Each chunk's noise comes from a generator seeded by
+   (seed, chunk index) alone, so a run stopped early sees exactly the first
+   draws of the full run. The host decodes the tokens and maps them to
+   labels.
+
+Chunks run one after another: the JAX package's bounded asynchronous
+look-ahead (``dispatch_window``) has no counterpart yet, so one chunk's
+noisy images are in flight at a time.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from certifiedgpt_tpu_torch.common.stages import StageClock, stage
+from certifiedgpt_tpu_torch.data.text import (
+    BatchSpec,
+    build_gen_batch,
+    clean_answer,
+    decode_until_eos,
+)
+from certifiedgpt_tpu_torch.models.minigpt4 import generate_greedy
+from certifiedgpt_tpu_torch.ops.noise import noisy_tile
+from certifiedgpt_tpu_torch.vqa_tools.vqa_eval import normalize_answer
+
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+
+
+class AnswerVocabulary:
+    """Fixed, order-stable label set; the last class id is OTHER."""
+
+    def __init__(self, answers: Sequence[str]):
+        seen: Dict[str, int] = {}
+        for ans in answers:
+            norm = normalize_answer(ans)
+            if norm and norm not in seen:
+                seen[norm] = len(seen)
+        self.index = seen
+        self.labels: List[str] = list(seen.keys())
+
+    @property
+    def other_label(self) -> int:
+        return len(self.labels)
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.labels) + 1  # + OTHER
+
+    def label_of(self, text: str) -> int:
+        norm = normalize_answer(clean_answer(text))
+        return self.index.get(norm, self.other_label)
+
+    def text_of(self, label: int) -> str:
+        if 0 <= label < len(self.labels):
+            return self.labels[label]
+        return "<other>"
+
+
+def check_dispatch_window_hbm(window: int, mc_batch: int, img_size: int,
+                              device=None, logger=None,
+                              free_bytes: Optional[int] = None) -> int:
+    """Bytes guard for the noisy-image buffers in flight.
+
+    Each in-flight chunk owns a ``[mc_batch, img, img, 3]`` f32 buffer.
+    Raises when ``window`` of them exceed the device's free memory
+    (``torch.cuda.mem_get_info``), warns past half of it; returns the
+    estimated bytes. Skips the check on a CPU device (no memory figure)."""
+    est = int(window) * int(mc_batch) * int(img_size) ** 2 * 3 * 4
+    if free_bytes is None:
+        device = torch.device(device if device is not None else "cuda")
+        if device.type != "cuda":
+            return est
+        free_bytes, _ = torch.cuda.mem_get_info(device)
+    if est > free_bytes:
+        raise ValueError(
+            f"dispatch window x mc_batch needs ~{est / 1e9:.1f} GB of device "
+            f"memory for in-flight noisy-image buffers but only "
+            f"{free_bytes / 1e9:.1f} GB is free (window={window}, "
+            f"mc_batch={mc_batch}, img={img_size}); lower run.mc_batch"
+        )
+    if est > free_bytes // 2 and logger is not None:
+        logger.warning(
+            "noisy-image buffers (~%.1f GB, window=%d x mc_batch=%d) exceed "
+            "half the free device memory (%.1f GB)",
+            est / 1e9, window, mc_batch, free_bytes / 1e9,
+        )
+    return est
+
+
+def chunk_seed(seed: int, chunk: int) -> int:
+    """64-bit generator seed of one chunk: splitmix64 of (seed, chunk), so
+    chunk noise depends on nothing else (not on the draw budget)."""
+    h = (int(seed) * 0x9E3779B97F4A7C15 + int(chunk) + 1) & _MASK64
+    h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return h ^ (h >> 31)
+
+
+def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: int,
+                           seq_len: int = 64, early_exit: bool = False):
+    """Returns ``fn(image_hwc, input_ids, attention_mask, img_pos, generator,
+    clock=None) -> token ids [mc_batch, T]`` for a one-row ``[1, S]``
+    prompt, which is tiled (as a view) to the Monte-Carlo batch."""
+    cfg = model.cfg
+    eos = model.tokenizer.eos_token_id
+    pad = model.tokenizer.pad_token_id
+
+    def fn(image, input_ids, attention_mask, img_pos, generator,
+           clock: Optional[StageClock] = None):
+        if input_ids.shape[-1] != seq_len:
+            raise ValueError(
+                f"prompt length {input_ids.shape[-1]} != gen seq_len {seq_len}: "
+                "rebuild the prompt with the gen's BatchSpec"
+            )
+        with stage(clock, "noise"):
+            images = noisy_tile(image, mc_batch, sigma, generator)
+        batch = {"image": images, "input_ids": input_ids.expand(mc_batch, -1),
+                 "attention_mask": attention_mask.expand(mc_batch, -1),
+                 "img_pos": img_pos.expand(mc_batch)}
+        return generate_greedy(model.params, cfg, batch, max_new_tokens, eos, pad,
+                               early_exit=early_exit, clock=clock)
+
+    return fn
+
+
+def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: float,
+                   mc_batch: int = 32, max_new_tokens: int = 10, seq_len: int = 64,
+                   early_exit: bool = False, clock: Optional[StageClock] = None,
+                   ) -> Callable[..., np.ndarray]:
+    """Bind (model, question prompt, vocab, sigma) into the
+    ``sample_fn(x, num, seed, should_stop=None) -> labels`` interface of
+    ``Smooth``. ``should_stop(labels_so_far)`` is polled after each chunk;
+    when it fires, the labels drawn so far are returned (a prefix of the
+    full-budget stream)."""
+    device = model.device
+    check_dispatch_window_hbm(1, mc_batch, model.cfg.vit.img_size, device,
+                              logger=logging.getLogger(__name__))
+    spec = BatchSpec(seq_len=seq_len, num_img_tokens=model.cfg.num_img_tokens)
+    prompt = build_gen_batch(model.tokenizer, [instruction], spec)
+    p_ids, p_am, p_pos = (
+        torch.as_tensor(prompt[k], device=device).long()
+        for k in ("input_ids", "attention_mask", "img_pos")
+    )
+    gen = make_noisy_generate_fn(model, sigma, mc_batch, max_new_tokens,
+                                 seq_len=seq_len, early_exit=early_exit)
+    tokenizer = model.tokenizer
+
+    def sample_fn(x: np.ndarray, num: int, seed: int, should_stop=None) -> np.ndarray:
+        image = torch.as_tensor(np.asarray(x, np.float32), device=device)
+        labels = np.empty((num,), np.int64)
+        n_chunks = (num + mc_batch - 1) // mc_batch
+        done = 0
+        for chunk in range(n_chunks):
+            generator = torch.Generator(device=device)
+            generator.manual_seed(chunk_seed(seed, chunk))
+            tokens = gen(image, p_ids, p_am, p_pos, generator, clock=clock)
+            tokens = tokens.cpu().numpy()
+            with stage(clock, "host_labels"):
+                take = min(mc_batch, num - done)
+                for i in range(take):
+                    labels[done + i] = vocab.label_of(decode_until_eos(tokenizer, tokens[i]))
+                done += take
+            if done >= num:
+                break
+            if should_stop is not None and should_stop(labels[:done]):
+                return labels[:done]
+        return labels
+
+    return sample_fn
