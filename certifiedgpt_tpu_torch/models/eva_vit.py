@@ -5,15 +5,22 @@ unfold + matmul in torch-conv (C, ph, pw) order, BEiT attention (fused
 biasless qkv kernel, q/v bias vectors, zero k bias), pre-norm blocks,
 exact-GELU MLP, no final norm. Returns the [cls] + patch token sequence.
 
-Two layer forms, as in the JAX package:
-- ``attn_impl="flash_cls"`` with a patch count divisible by 128 (the
-  serving path): the split-stream tower, cls and patch residual streams kept
-  apart across all layers, attention through the cls-split CUDA kernel
-  (``ops/flash_attention.py``), and on the W8A8 path the LN + row-quant and
-  GELU + row-quant CUDA kernels (``ops/quantization.py``);
-- ``attn_impl="xla"``: the plain block over the concatenated sequence.
-The JAX package's ``"flash"`` and ``"flash_custom"`` forms wait for the port
-of its ``_flash_kernel``.
+The attention forms of the JAX package (``EvaViTConfig.attn_impl``):
+- ``"flash_cls"`` with a patch count divisible by 128 (the serving path):
+  the split-stream tower, cls and patch residual streams kept apart across
+  all layers, attention through the cls-split CUDA kernel
+  (``ops/flash_attention.py``), and on the W8A8 path the LN + row-quant
+  CUDA kernel (``ops/quantization.py``) at the qkv and fc1 inputs;
+- ``"flash"``, and ``"flash_cls"`` with any other patch count: the block
+  over the concatenated sequence, q, k, v as ``[B, H, S, dh]`` views of one
+  fused qkv product, attention through the flash CUDA kernel
+  (``builtin_flash_attention_bhsd``);
+- ``"flash_custom"``: the same block with the qkv product split into
+  ``[B, S, H, dh]`` views, attention through the flash CUDA kernel
+  (``flash_attention``);
+- ``"xla"``: the same block with plain attention.
+Every block form runs its fc2 input through the GELU + row-quant CUDA kernel
+on the W8A8 path. Any other string raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from certifiedgpt_tpu_torch.ops import quantization as Q
 from certifiedgpt_tpu_torch.ops.attention import multi_head_attention
 from certifiedgpt_tpu_torch.ops.flash_attention import (
     CLS_SPLIT_Q_PREMUL_LOG2E,
+    builtin_flash_attention_bhsd,
     cls_split_attention_parts,
+    flash_attention,
 )
 
 
@@ -44,7 +53,9 @@ class EvaViTConfig:
     mlp_hidden: int = 6144  # round(1408 * 4.3637)
     layer_norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
-    # "xla" (plain attention) or "flash_cls" (the cls-split serving path)
+    # "xla" (plain attention), "flash" / "flash_custom" (the flash kernel on
+    # [B, H, S, dh] / [B, S, H, dh] views) or "flash_cls" (the cls-split
+    # serving path; "flash" when the patch count is not a multiple of 128)
     attn_impl: str = "xla"
     # W8A8: with int8 qkv/proj/fc1/fc2 kernels, also quantize activations
     act_quant: bool = False
@@ -94,8 +105,8 @@ def _qkv_heads(lp: Dict[str, Any], hidden: torch.Tensor, cfg: EvaViTConfig,
     ``[B, S, 3, H, dh]`` (port of the JAX ``_qkv_headpadded``).
 
     The JAX package pads dh to 128 lanes in this product; here nothing is
-    padded in device memory: the cls-split kernel reads the strided views
-    and pads inside shared memory. ``q_premul`` folds a factor into the q
+    padded in device memory: the attention kernels read the strided views
+    and pad inside shared memory. ``q_premul`` folds a factor into the q
     weights (float kernels) or into the f32 dequant scale (int8 kernels),
     and into the q bias. ``ln`` is the pre-attention LayerNorm, fused with
     the activation quant on the W8A8 path."""
@@ -134,12 +145,28 @@ def _vit_block(x: torch.Tensor, lp: Dict[str, Any], cfg: EvaViTConfig) -> torch.
     h, dh = cfg.num_heads, cfg.head_dim
     aq = cfg.act_quant
     hidden = L.layer_norm(lp["norm1"], x, cfg.layer_norm_eps)
-    qkv = L.dense(lp["qkv"], hidden, act_quant=aq)  # biasless [B, S, 3D]
-    q, k, v = qkv.split(d, dim=-1)
-    q = (q + lp["q_bias"].to(q.dtype)).reshape(b, s, h, dh)
-    k = k.reshape(b, s, h, dh)  # k bias is identically zero
-    v = (v + lp["v_bias"].to(v.dtype)).reshape(b, s, h, dh)
-    attn = multi_head_attention(q, k, v)
+    if cfg.attn_impl in ("flash", "flash_cls"):
+        # "flash_cls" lands here only when the patch count is not a multiple
+        # of 128; the eligible case takes the split-stream tower
+        qp, kp, vp = _qkv_heads(lp, hidden, cfg)
+        attn = builtin_flash_attention_bhsd(qp, kp, vp, dh).transpose(1, 2)  # [B, S, H, dh]
+    else:
+        qkv = L.dense(lp["qkv"], hidden, act_quant=aq)  # biasless [B, S, 3D]
+        q, k, v = qkv.split(d, dim=-1)
+        q = (q + lp["q_bias"].to(q.dtype)).reshape(b, s, h, dh)
+        k = k.reshape(b, s, h, dh)  # k bias is identically zero
+        v = (v + lp["v_bias"].to(v.dtype)).reshape(b, s, h, dh)
+        if cfg.attn_impl == "flash_custom":
+            attn = flash_attention(q, k, v)
+        elif cfg.attn_impl == "xla":
+            attn = multi_head_attention(q, k, v)
+        else:
+            # a typo ("Flash", "flash-custom") must not fall back to another
+            # path silently
+            raise ValueError(
+                f"unknown attn_impl {cfg.attn_impl!r}: "
+                "use 'xla', 'flash', 'flash_cls' or 'flash_custom'"
+            )
     x = x + L.dense(lp["proj"], attn.reshape(b, s, d), act_quant=aq)
     hidden = L.layer_norm(lp["norm2"], x, cfg.layer_norm_eps)
     hidden = L.gelu_dense(lp["fc2"], L.dense(lp["fc1"], hidden, act_quant=aq), act_quant=aq)
@@ -185,12 +212,6 @@ def eva_vit_apply(params: Dict[str, Any], cfg: EvaViTConfig,
         for layer in range(depth):
             xc, xp = _vit_block_split(xc, xp, L.layer_slice(params["layers"], layer), cfg)
         return torch.cat([xc, xp], dim=1)
-    if cfg.attn_impl != "xla":
-        raise NotImplementedError(
-            f"attn_impl {cfg.attn_impl!r} with {cfg.num_patches} patches is not "
-            "ported yet: use 'xla', or 'flash_cls' with a patch count divisible "
-            "by 128 (the flash forms wait for the port of _flash_kernel)"
-        )
     x = torch.cat([cls, x], dim=1) + pos
     for layer in range(depth):
         x = _vit_block(x, L.layer_slice(params["layers"], layer), cfg)

@@ -1,25 +1,85 @@
-"""Model holder and seeded synthetic initialization at the serving layout.
+"""Model holder, config parsing and seeded synthetic initialization.
 
 ``MiniGPT4Model`` holds (cfg, params, tokenizer) as in
-``certifiedgpt_tpu/models/model_zoo.py``. ``build_synthetic_model`` makes
-full-width weights from a seed directly on the target device, with the
-serving quantization applied (int8 decoder kernels, int8 ViT qkv/proj/fc1/
-fc2 kernels), module by module so that the peak stays about one float
-layer stack above the final footprint: the counterpart of the JAX
-``bench.py::build_full_int8_params`` and of ``MiniGPT4Model.from_config``
-without checkpoints. Loading real checkpoints waits for a later slice.
+``certifiedgpt_tpu/models/model_zoo.py``; ``MiniGPT4Model.from_config`` is
+the synthetic half of its ``from_config``: it reads a config's model block
+(a plain mapping) into a ``MiniGPT4Config`` (``config_from_block``) and makes
+the seeded synthetic weights on the target device. ``build_synthetic_model``
+makes full-width weights from a seed directly on the device, each layer
+stack of the ViT and the decoder at the serving int8 layout or in its float
+dtype, module by module so that the peak stays about one float layer stack
+above the final footprint: the counterpart of the JAX
+``bench.py::build_full_int8_params`` and of ``init_minigpt4`` followed by
+``quantize_eva_vit``/``quantize_llama``. Loading real checkpoints waits for a
+later slice (ROADMAP.md, modules item 10).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import math
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Mapping
 
 import torch
 
 from certifiedgpt_tpu_torch.data.text import ByteTokenizer
+from certifiedgpt_tpu_torch.models.eva_vit import EvaViTConfig
+from certifiedgpt_tpu_torch.models.llama import LlamaConfig
 from certifiedgpt_tpu_torch.models.minigpt4 import MiniGPT4, MiniGPT4Config
+from certifiedgpt_tpu_torch.models.qformer import QFormerConfig
 from certifiedgpt_tpu_torch.ops.quantization import int8_kernel_layout, quantize_kernel
+
+logger = logging.getLogger(__name__)
+
+#: model-block keys that name checkpoint files, as the JAX package reads them
+CHECKPOINT_KEYS = ("llama_model", "eva_vit_g_pth", "vit_ckpt", "q_former_model",
+                   "qformer_ckpt", "ckpt", "minigpt4_ckpt")
+
+
+def config_from_block(model_cfg: Mapping[str, Any]) -> MiniGPT4Config:
+    """The ``MiniGPT4Config`` of a config's model block, as the JAX
+    package's ``MiniGPT4Model.from_config`` (:163-223) resolves it:
+    ``model_size`` ``tiny`` gives ``MiniGPT4Config.tiny()`` (which ignores
+    ``image_size``, ``num_query_token``, ``vit_attn_impl`` and
+    ``max_txt_len``, as there); any other size is the full model at
+    ``image_size``, ``num_query_token``, ``vit_attn_impl`` and
+    ``max_txt_len``. ``act_quant`` turns on W8A8 in the ViT and the decoder,
+    ``kv_quant`` the int8 KV cache, ``max_position_embeddings`` sets the
+    decoder's rotary table length. ``remat`` (with ``remat_policy`` and
+    ``remat_every``, which act only under it) is a training knob and raises
+    ``NotImplementedError`` until the training slice is ported."""
+    if model_cfg.get("remat"):
+        raise NotImplementedError(
+            "model.remat: rematerialization belongs to the training forward, which "
+            "is not ported yet (ROADMAP.md, modules item 12)"
+        )
+    if model_cfg.get("model_size", "full") == "tiny":
+        cfg = MiniGPT4Config.tiny()
+    else:
+        cfg = MiniGPT4Config(
+            vit=EvaViTConfig(
+                img_size=int(model_cfg.get("image_size", 448)),
+                attn_impl=str(model_cfg.get("vit_attn_impl", "xla")),
+            ),
+            qformer=QFormerConfig(num_query_tokens=int(model_cfg.get("num_query_token", 32))),
+            llama=LlamaConfig(),
+            max_txt_len=int(model_cfg.get("max_txt_len", 160)),
+        )
+    aq = bool(model_cfg.get("act_quant", False))
+    kvq = bool(model_cfg.get("kv_quant", False))
+    mpe = model_cfg.get("max_position_embeddings")
+    if aq or kvq or mpe:
+        cfg = dataclasses.replace(
+            cfg,
+            vit=dataclasses.replace(cfg.vit, act_quant=aq),
+            llama=dataclasses.replace(
+                cfg.llama, act_quant=aq, kv_quant=kvq,
+                max_position_embeddings=int(mpe) if mpe else cfg.llama.max_position_embeddings,
+            ),
+        )
+    return cfg
 
 
 class MiniGPT4Model:
@@ -40,6 +100,34 @@ class MiniGPT4Model:
     def device(self) -> torch.device:
         return self.module.llama.params.embed_tokens.embedding.device
 
+    @classmethod
+    def from_config(cls, model_cfg: Mapping[str, Any], device="cuda") -> "MiniGPT4Model":
+        """The model of a config's model block (a plain mapping, e.g. the
+        ``model:`` block of a certify YAML) with seeded synthetic weights
+        (``init_seed``) on ``device``: int8 ViT layer kernels with
+        ``quantize_vit``, int8 decoder layer kernels with ``quantize_llama``,
+        float kernels otherwise; the byte-level tokenizer. A checkpoint path
+        that exists raises ``NotImplementedError`` (loading waits for
+        ROADMAP.md modules item 10); a configured path that does not exist is
+        logged and the random init kept, as in the JAX package."""
+        for key in CHECKPOINT_KEYS:
+            path = model_cfg.get(key)
+            if not path:
+                continue
+            if os.path.exists(str(path)):
+                raise NotImplementedError(
+                    f"model.{key} = {path}: loading checkpoints is not ported yet "
+                    "(ROADMAP.md, modules item 10: checkpoint loaders)"
+                )
+            logger.warning("%s path %s not found; using random init", key, path)
+        cfg = config_from_block(model_cfg)
+        params = build_synthetic_params(
+            cfg, device, seed=int(model_cfg.get("init_seed", 0)),
+            quantize_vit=bool(model_cfg.get("quantize_vit", False)),
+            quantize_llama=bool(model_cfg.get("quantize_llama", False)),
+        )
+        return cls(cfg, params, ByteTokenizer())
+
 
 class _Init:
     """Seeded draws on one device."""
@@ -59,6 +147,14 @@ class _Init:
             p["bias"] = torch.zeros((d_out,), dtype=dtype, device=self.device)
         return p
 
+    def stacked(self, layers: int, d_in: int, d_out: int, std: float, dtype,
+                quantize: bool) -> Dict[str, torch.Tensor]:
+        """A ``[L, in, out]`` layer kernel: int8 (``stacked_int8``) when
+        ``quantize``, else ``{"kernel"}`` in ``dtype``."""
+        if quantize:
+            return self.stacked_int8(layers, d_in, d_out, std)
+        return {"kernel": self.normal((layers, d_in, d_out), std, dtype)}
+
     def stacked_int8(self, layers: int, d_in: int, d_out: int,
                      std: float) -> Dict[str, torch.Tensor]:
         """A ``[L, in, out]`` int8 kernel with per-(layer, out-channel)
@@ -77,12 +173,12 @@ class _Init:
         return torch.full(shape, value, dtype=dtype, device=self.device)
 
 
-def _vit_params(init: _Init, cfg) -> Dict[str, Any]:
+def _vit_params(init: _Init, cfg, quantize: bool) -> Dict[str, Any]:
     d, n, i, dt = cfg.embed_dim, cfg.depth, cfg.mlp_hidden, cfg.dtype
     patch_in = cfg.in_channels * cfg.patch_size ** 2
 
     def layer_dense(d_in, d_out, bias=True):
-        p = init.stacked_int8(n, d_in, d_out, 1.0 / math.sqrt(d_in))
+        p = init.stacked(n, d_in, d_out, 1.0 / math.sqrt(d_in), dt, quantize)
         if bias:
             p["bias"] = init.const((n, d_out), 0.0, dt)
         return p
@@ -135,7 +231,7 @@ def _qformer_params(init: _Init, cfg) -> Dict[str, Any]:
     }
 
 
-def _llama_params(init: _Init, cfg) -> Dict[str, Any]:
+def _llama_params(init: _Init, cfg, quantize: bool) -> Dict[str, Any]:
     d, n, dt = cfg.hidden_size, cfg.num_layers, cfg.dtype
     hd = cfg.num_heads * cfg.head_dim
     kvd = cfg.num_kv_heads * cfg.head_dim
@@ -144,7 +240,7 @@ def _llama_params(init: _Init, cfg) -> Dict[str, Any]:
         "q_proj": (d, hd), "k_proj": (d, kvd), "v_proj": (d, kvd), "o_proj": (hd, d),
         "gate_proj": (d, inter), "up_proj": (d, inter), "down_proj": (inter, d),
     }
-    layers = {name: init.stacked_int8(n, di, do, 0.02)
+    layers = {name: init.stacked(n, di, do, 0.02, dt, quantize)
               for name, (di, do) in mods.items()}
     layers["input_layernorm"] = {"scale": init.const((n, d), 1.0, dt)}
     layers["post_attention_layernorm"] = {"scale": init.const((n, d), 1.0, dt)}
@@ -156,21 +252,23 @@ def _llama_params(init: _Init, cfg) -> Dict[str, Any]:
     }
 
 
-def build_synthetic_params(cfg: MiniGPT4Config, device="cuda",
-                           seed: int = 0) -> Dict[str, Any]:
-    """Seeded random parameters at the serving layout: int8 ViT qkv/proj/
-    fc1/fc2 and decoder layer kernels, every other leaf in its float
-    dtype."""
+def build_synthetic_params(cfg: MiniGPT4Config, device="cuda", seed: int = 0,
+                           quantize_vit: bool = True,
+                           quantize_llama: bool = True) -> Dict[str, Any]:
+    """Seeded random parameters in the JAX package's tree: with
+    ``quantize_vit`` the ViT qkv/proj/fc1/fc2 layer kernels are int8, with
+    ``quantize_llama`` the decoder layer kernels; every other leaf is in its
+    float dtype."""
     init = _Init(seed, device)
     return {
-        "vit": _vit_params(init, cfg.vit),
+        "vit": _vit_params(init, cfg.vit, quantize_vit),
         "ln_vision": {"scale": init.const((cfg.vit.embed_dim,), 1.0, cfg.vit.dtype),
                       "bias": init.const((cfg.vit.embed_dim,), 0.0, cfg.vit.dtype)},
         "qformer": _qformer_params(init, cfg.qformer),
         # the projection is the trained leaf; f32 as in the JAX package
         "llama_proj": init.dense(cfg.qformer.hidden_size, cfg.llama.hidden_size,
                                  torch.float32),
-        "llama": _llama_params(init, cfg.llama),
+        "llama": _llama_params(init, cfg.llama, quantize_llama),
     }
 
 

@@ -37,18 +37,30 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 
 # C entry point -> argument types (all return an int cudaError_t code)
 _SIGNATURES = {
-    "cgpt_ln_quant": (_P, _P, _P, _P, _P, _I64, _I32, ctypes.c_float, _P),
+    "cgpt_ln_quant": (_P, _P, _P, _P, _P, _I64, _I32, _F32, _P),
     "cgpt_gelu_quant": (_P, _P, _P, _I64, _I32, _P),
     "cgpt_cls_split_attention": (
         _P, _P, _P, _I64, _I64, _I64,  # q, k, v and their strides
         _P, _P, _I64, _I64,  # kc, vc and their strides
         _P, _I64, _I64, _I64,  # out and its strides
         _I32, _I32, _I32, _I32,  # B, H, N, D
+        _F32,  # scale_log2
         _P,  # stream
     ),
+    "cgpt_flash_attention": (
+        _P, _I64, _I64, _I64,  # q and its (b, h, s) strides
+        _P, _I64, _I64, _I64,  # k
+        _P, _I64, _I64, _I64,  # v
+        _P, _I64, _I64, _I64,  # out
+        _I32, _I32, _I32, _I32,  # B, H, S, D
+        _F32, _I32,  # scale_log2, causal
+        _P,  # stream
+    ),
+    "cgpt_noisy_tile": (_P, _P, _P, _P, _I64, _I32, _P),  # x, seed, sigma, out, elems, n
 }
 
 

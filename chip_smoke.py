@@ -11,24 +11,31 @@ Phases, each of which exits non-zero on any failure:
    TF32 off for float32 matmuls and convolutions.
 2. Build: compiles the CUDA kernels from ``certifiedgpt_tpu_torch/csrc/``
    (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary.
-3. Kernels: calls each kernel's wrapper at the main path's shapes, holds the
-   result against its plain PyTorch version on the same card, and times the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call (CUDA events). Tolerances: int8 codes equal except
-   +-1 on at most 0.1 % of elements and row scales within rtol 1e-2;
-   attention within atol 2e-2 (bf16).
+3. Kernels: calls each of the six kernels' wrappers at the main path's
+   shapes, holds the result against its plain PyTorch version on the same
+   card, and times the kernel, the plain version and, where one PyTorch call
+   computes the same function, that call (CUDA events): the cls-split,
+   LN + row-quant and GELU + row-quant kernels; the flash kernel at
+   [96, 1025, 16, 88] in both layouts and causal at [4, 333, 16, 88]; the
+   explicit-scale cls-split form at [96, 16, 1025, 88]; the noise kernel at
+   96 copies of a 448x448x3 image. Tolerances: int8 codes equal except +-1
+   on at most 0.1 % of elements and row scales within rtol 1e-2; attention
+   within atol 2e-2 (bf16) and 1e-2 relative (Frobenius); noise: values
+   within 1e-5 of the plain version on the same seed words, moments of
+   (out - x) / sigma within 0.01 of 0 and 1, sigma = 0 exact.
 4. Main path: builds MiniGPT-4 at full width (EVA ViT-g/14 at 448 px with 39
    layers, the 12-layer Q-Former, a 32-layer 4096-wide Vicuna-7B-shaped
-   decoder) from seeded synthetic weights at the serving layout of
+   decoder) through ``MiniGPT4Model.from_config`` from the model block of
    ``configs/certify_configs/vqav2_certify_noise_0.5.yaml`` (int8 ViT and
-   decoder kernels, W8A8 activations, int8 KV cache, cls-split attention,
-   early exit) and certifies one seeded synthetic 448x448 image with
-   n0 = 100, n = 1000, sigma = 0.5, mc_batch = 96 through
-   ``agents.certify.certify_item``, after one warm-up certification of a
-   single chunk each way. The kernels' launch counters are reset just before
-   and read just after; each must be > 0 (and equal to its launches per chunk
-   times the chunks run). Prints per-stage seconds, peak device memory and
-   the certify row, and checks the row. Then times one decode step against
+   decoder kernels, W8A8 activations, int8 KV cache, cls-split attention)
+   with seeded synthetic weights, and certifies one seeded synthetic
+   448x448 image with n0 = 100, n = 1000, sigma = 0.5, mc_batch = 96, early
+   exit, through ``agents.certify.certify_item``, after one warm-up
+   certification of a single chunk each way. The kernels' launch counters
+   are reset just before and read just after; each kernel of the path must
+   have launched its launches per chunk times the chunks run, every other
+   kernel never. Prints per-stage seconds, peak device memory and the
+   certify row, and checks the row. Then times one decode step against
    converting the int8 decoder weights to bf16, and checks the outputs: the
    ViT through the kernels against the ViT through their plain versions on
    8 images (a cls stream below the 17 rows ``torch._int_mm`` takes), finite
@@ -36,6 +43,16 @@ Phases, each of which exits non-zero on any failure:
 5. Profile: the warm-up's certification (one chunk each way) once more
    without and once under ``torch.profiler``; prints the device time summed
    by kernel group and the top kernels against the call's wall time.
+6. Attention forms: the same parameters under ``vit_attn_impl`` flash_custom
+   and flash (configs parsed from the model block with the form changed).
+   Their ViT tokens on 8 images agree with the flash_cls tower's within
+   5e-2 relative (Frobenius); each of the three forms certifies the image
+   over two chunks (n0 = n = 96) after a warm-up, with per-stage seconds
+   and launch counts (flash_custom and flash: the flash kernel and the
+   GELU kernel once a layer per chunk, no other kernel).
+7. Entries: the noise kernel mode of ``noisy_tile`` and
+   ``cls_split_attention_scaled``, which no certify path calls, each driven
+   once through its entry point at the shapes above, launches counted.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -53,20 +70,53 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# 32-bit integer operations: 64 INT32 lanes per SM (Hopper white paper),
+# one operation each, against the 128 FP32 lanes that the f32 peak counts
+# at two FLOPs per fused multiply-add
+PEAK_INT32_OPS = PEAK_F32_FLOPS / 4
 
 # f32 operations per element counted for the row-quant bounds (LayerNorm:
 # two reductions, centre, scale, affine, round, absmax, divide, rint, clip;
 # GELU: ~15 for erf plus the same quantization tail)
 LN_QUANT_OPS_PER_ELEM = 12
 GELU_QUANT_OPS_PER_ELEM = 25
+# the noise kernel per element: half a Philox4x32-10 call (ten rounds of two
+# low and two high 32-bit multiply words and two three-input xors, one
+# instruction each; the key schedule is the same for every counter of a
+# launch, so the function needs it once, not per element) and two uniforms
+# (shift, or; the subtract is f32) in integers; logf (~15), cosf (~25 with
+# its range reduction), sqrtf (~6) and five multiplies and adds in f32
+NOISE_INT_OPS_PER_ELEM = 10 * 6 / 2 + 2 * 2
+NOISE_F32_OPS_PER_ELEM = 51
 
 # main-path shapes at mc_batch 96 (EVA ViT-g/14 at 448 px)
 MC_BATCH = 96
 VIT_TOKENS = 1024
+VIT_SEQ = VIT_TOKENS + 1
 VIT_WIDTH = 1408
 VIT_HEADS = 16
+VIT_HEAD_DIM = VIT_WIDTH // VIT_HEADS
 VIT_MLP = 6144
 VIT_DEPTH = 39
+IMAGE_HWC = (448, 448, 3)
+# the causal case of the flash kernel (the decoder-prefill form, in tests)
+CAUSAL_SHAPE = (4, 333, VIT_HEADS, VIT_HEAD_DIM)
+
+# model block of configs/certify_configs/vqav2_certify_noise_0.5.yaml; its
+# checkpoint paths are left out: the weights are seeded synthetic ones
+CERTIFY_MODEL_BLOCK = {
+    "arch": "minigpt4",
+    "vit_attn_impl": "flash_cls",
+    "quantize_llama": True,
+    "quantize_vit": True,
+    "act_quant": True,
+    "kv_quant": True,
+    "model_size": "full",
+    "image_size": 448,
+    "num_query_token": 32,
+}
+# the ViT's attention forms that the flash kernel serves, beside flash_cls
+FLASH_FORMS = ("flash_custom", "flash")
 
 RUN_CFG = {  # run block of configs/certify_configs/vqav2_certify_noise_0.5.yaml
     "noise_level": 0.5,
@@ -120,9 +170,12 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
+def bound_ms(bytes_moved: float, ops: float, peak_ops: float, *more_ops):
+    """The larger of the bytes' time and each operation type's time
+    (``more_ops``: further (ops, peak) pairs, for a kernel that mixes
+    types on separate units)."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
+    t_ops = max(o / p * 1e3 for o, p in ((ops, peak_ops), *more_ops))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -269,6 +322,201 @@ def check_cls_split(torch, device):
             "wrapper_ms": wrapper_ms}
 
 
+def fused_bshd(torch, g, device, b, s, h, d):
+    """q, k, v as ``[B, S, H, D]`` views of one fused qkv product
+    ``[B, S, 3 H D]`` (row stride 3 H D), as the ViT's flash_custom block
+    makes them; ``.transpose(1, 2)`` gives the flash block's ``[B, H, S, D]``
+    views of the same product."""
+    y = torch.randn((b, s, 3 * h * d), generator=g, device=device).to(torch.bfloat16)
+    return [t.reshape(b, s, h, d) for t in y.split(h * d, dim=-1)]
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_err(a, b) -> float:
+    """Relative Frobenius error of ``a`` against ``b``: catches a fault of one
+    key tile that a max-abs limit, loose against outputs of ~0.05, lets by."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+# limit on the relative Frobenius error of the attention kernels against
+# their plain versions (bf16 outputs and P: ~4e-3 measured on the H100)
+ATTN_REL_LIMIT = 1e-2
+
+
+def check_flash(torch, device):
+    """The flash kernel at the ViT's shape in both layouts (flash_custom's
+    [B, S, H, D] views, flash's [B, H, S, D] views) and causal at
+    CAUSAL_SHAPE, against the plain version; timed against the plain
+    version and ``scaled_dot_product_attention`` on the same views."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import flash_attention as FA
+
+    b, s, h, d = MC_BATCH, VIT_SEQ, VIT_HEADS, VIT_HEAD_DIM
+    scale = d ** -0.5
+    g = torch.Generator(device=device).manual_seed(2)
+    q, k, v = fused_bshd(torch, g, device, b, s, h, d)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    out = FA.flash_attention(q, k, v)
+    out_h = FA.builtin_flash_attention_bhsd(qh, kh, vh, d)
+    ref = FA._flash_attention_plain(q, k, v, False, scale)
+    torch.cuda.synchronize()
+    err = max(max_err(out, ref), max_err(out_h.transpose(1, 2), ref))
+    rel = max(rel_err(out, ref), rel_err(out_h.transpose(1, 2), ref))
+    exact = FA._flash_attention_plain(q.float(), k.float(), v.float(), False, scale)
+    err_k, err_p = max_err(out, exact), max_err(ref, exact)
+    log(f"[kernel] flash_attention [{b}, {s}, {h}, {d}]: max abs err {err:.3e}, relative "
+        f"(Frobenius) {rel:.3e} over both layouts (max |out| {float(exact.abs().max()):.3f}; "
+        f"vs f32 attention: kernel "
+        f"{err_k:.3e}, plain {err_p:.3e})")
+    del out, out_h, exact
+    torch.cuda.empty_cache()
+
+    qc, kc, vc = fused_bshd(torch, g, device, *CAUSAL_SHAPE)
+    out_c = FA.flash_attention(qc, kc, vc, causal=True)
+    ref_c = FA._flash_attention_plain(qc, kc, vc, True, scale)
+    err_c = max_err(out_c, ref_c)
+    rel_c = rel_err(out_c, ref_c)
+    # the first query sees only the first key
+    err_first = max_err(out_c[:, 0], vc[:, 0])
+    causal_ms = cuda_ms(torch, lambda: FA.flash_attention(qc, kc, vc, causal=True), iters=20)
+    causal_plain_ms = cuda_ms(torch, lambda: FA._flash_attention_plain(qc, kc, vc, True, scale),
+                              iters=5, warmup=1)
+    log(f"[kernel] flash_attention causal {list(CAUSAL_SHAPE)}: max abs err {err_c:.3e}, "
+        f"relative (Frobenius) {rel_c:.3e} (first row vs v[0]: {err_first:.3e}); "
+        f"kernel {causal_ms:.3f} ms, "
+        f"plain {causal_plain_ms:.3f} ms")
+    for name, e in (("flash_attention", err), ("flash_attention causal", err_c),
+                    ("flash_attention causal row 0", err_first)):
+        if not math.isfinite(e) or e > 2e-2:
+            fail(f"{name} disagrees with its plain version ({e:.3e})")
+    for name, e in (("flash_attention", rel), ("flash_attention causal", rel_c)):
+        if not e < ATTN_REL_LIMIT:
+            fail(f"{name} disagrees with its plain version (relative {e:.3e})")
+
+    ms = cuda_ms(torch, lambda: FA.flash_attention(q, k, v), iters=10)
+    ms_bhsd = cuda_ms(torch, lambda: FA.builtin_flash_attention_bhsd(qh, kh, vh, d), iters=10)
+    plain_ms = cuda_ms(torch, lambda: FA._flash_attention_plain(q, k, v, False, scale),
+                       iters=3, warmup=1)
+    library_ms = cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), iters=10)
+    ops = 4.0 * b * h * s * s * d
+    moved = 2.0 * 4 * b * s * h * d  # q, k, v, out
+    bms, by = bound_ms(moved, ops, PEAK_BF16_FLOPS)
+    log(f"[kernel] flash_attention: kernel {ms:.3f} ms on [B, S, H, D] views (flash_custom), "
+        f"{ms_bhsd:.3f} ms on [B, H, S, D] views (flash), plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    del q, k, v, qh, kh, vh, ref, qc, kc, vc, out_c, ref_c
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(err, err_c), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "ms_bhsd": ms_bhsd, "causal_ms": causal_ms}
+
+
+def check_cls_split_scaled(torch, device):
+    """The explicit-scale cls-split form on ``[B, H, 1025, D]`` tensors with
+    cls at index 0 (the patch operands are views one row in)."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import flash_attention as FA
+
+    b, h, s, d = MC_BATCH, VIT_HEADS, VIT_SEQ, VIT_HEAD_DIM
+    scale = d ** -0.5
+    g = torch.Generator(device=device).manual_seed(4)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    out = FA.cls_split_attention_scaled(q, k, v, d)
+    ref = FA._cls_split_attention_scaled_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    rel = rel_err(out, ref)
+    log(f"[kernel] cls_split_attention_scaled [{b}, {h}, {s}, {d}]: max abs err {err:.3e}, "
+        f"relative (Frobenius) {rel:.3e} (max |out| {float(ref.float().abs().max()):.3f})")
+    if not math.isfinite(err) or err > 2e-2 or not rel < ATTN_REL_LIMIT:
+        fail("cls_split_attention_scaled disagrees with its plain version")
+    parts = [t[:, :, 1:] for t in (q, k, v)] + [t[:, :, :1] for t in (k, v)]
+    scale_log2 = scale * FA.CLS_SPLIT_Q_PREMUL_LOG2E
+    ms = cuda_ms(torch, lambda: FA._launch_patch_rows(*parts, scale_log2), iters=10)
+    wrapper_ms = cuda_ms(torch, lambda: FA.cls_split_attention_scaled(q, k, v, d), iters=10)
+    # the wrapper's plain cls row, and within it the copies its reshapes make
+    # of K and V (the [:, :, 1:] slices are no [B, N, H*D] view)
+    qc, kp, vp, kc, vc = q[:, :, :1], parts[1], parts[2], parts[3], parts[4]
+    cls_row_ms = cuda_ms(torch, lambda: FA._cls_query_row(qc, kp, vp, kc, vc, scale_log2),
+                         iters=10)
+    kv_copy_ms = cuda_ms(
+        torch, lambda: [t.transpose(1, 2).reshape(b, s - 1, h * d) for t in (kp, vp)], iters=10)
+    plain_ms = cuda_ms(torch, lambda: FA._cls_split_attention_scaled_plain(q, k, v, scale),
+                       iters=3, warmup=1)
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                         iters=10)
+    n = s - 1
+    ops = 4.0 * b * h * n * s * d  # N patch rows over N + 1 keys (the kernel's work)
+    moved = 2.0 * (3 * b * h * s * d + b * h * n * d)  # q, k, v read, the patch rows written
+    bms, by = bound_ms(moved, ops, PEAK_BF16_FLOPS)
+    log(f"[kernel] cls_split_attention_scaled: kernel {ms:.3f} ms, wrapper with the plain cls "
+        f"row {wrapper_ms:.3f} ms (the cls row alone {cls_row_ms:.3f} ms, of which copying K "
+        f"and V {kv_copy_ms:.3f} ms), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+        f"{library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    del q, k, v, out, ref, parts, qc, kp, vp, kc, vc
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms, "wrapper_ms": wrapper_ms,
+            "cls_row_ms": cls_row_ms, "kv_copy_ms": kv_copy_ms}
+
+
+def check_noise(torch, device):
+    """The noise kernel at mc_batch copies of a 448 px image, sigma 0.5:
+    its values agree with the plain version's on the same seed words within
+    1e-5 (the math library's last ulp; other Philox words would give other
+    normals, off by O(sigma)), (out - x) / sigma has mean 0 and std 1 within
+    0.01, and sigma = 0 returns the clean tile bit for bit."""
+    from certifiedgpt_tpu_torch.ops import noise as N
+
+    n, sigma = MC_BATCH, 0.5
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(IMAGE_HWC, generator=g, device=device)
+    gen = torch.Generator(device=device)
+    out = N.noisy_tile(x, n, sigma, gen.manual_seed(7), use_kernel=True)
+    seed = N._seed_words(gen.manual_seed(7), device)
+    sig = torch.tensor(sigma, dtype=torch.float32, device=device)
+    ref = N._noisy_tile_kernel_plain(x, n, sig, seed)
+    err = max_err(out, ref)
+    unequal = int((out != ref).sum())
+    resid = (out - x) / sigma
+    mean, std = float(resid.mean()), float(resid.std())
+    zero_tile = N.noisy_tile(x, n, 0.0, gen, use_kernel=True)
+    clean = bool(torch.equal(zero_tile, x.expand_as(zero_tile)))
+    log(f"[kernel] noisy_tile kernel [{n}, {', '.join(map(str, IMAGE_HWC))}] sigma {sigma}: "
+        f"max abs err against the plain version {err:.3e} "
+        f"({unequal} of {out.numel()} values not bit-identical); noise mean {mean:.2e}, "
+        f"std {std:.5f}; sigma 0 returns the clean tile: {clean}")
+    if not math.isfinite(err) or err > 1e-5:
+        fail("the noise kernel disagrees with its plain version")
+    if abs(mean) > 0.01 or abs(std - 1.0) > 0.01 or not clean:
+        fail("the noise kernel's noise is not N(0, sigma^2) or sigma = 0 is not exact")
+    del out, ref, resid, zero_tile
+    torch.cuda.empty_cache()
+
+    xc = x.contiguous()
+    ms = cuda_ms(torch, lambda: N._launch_noise(xc, n, sig, seed), iters=20)
+    plain_ms = cuda_ms(torch, lambda: N._noisy_tile_kernel_plain(x, n, sig, seed),
+                       iters=3, warmup=1)
+    # the live path: torch.randn (Philox in PyTorch's own kernel) + add
+    library_ms = cuda_ms(torch, lambda: N.noisy_tile(x, n, sigma, gen), iters=20)
+    elems = n * x.numel()
+    moved = 4.0 * (x.numel() + elems)
+    bms, by = bound_ms(moved, NOISE_INT_OPS_PER_ELEM * elems, PEAK_INT32_OPS,
+                       (NOISE_F32_OPS_PER_ELEM * elems, PEAK_F32_FLOPS))
+    log(f"[kernel] noisy_tile kernel: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.randn + add {library_ms:.3f} ms, bound {bms:.3f} ms ({by}; bytes alone "
+        f"{moved / PEAK_BYTES_PER_S * 1e3:.3f} ms)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms}
+
+
 def phase_kernels(torch, device):
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
@@ -294,27 +542,78 @@ def phase_kernels(torch, device):
         torch, "gelu_quant_rows", Q.gelu_quant_rows, Q._gelu_quant_rows_plain,
         [(rows, VIT_MLP), (MC_BATCH, VIT_MLP)], GELU_QUANT_OPS_PER_ELEM, gelu_args,
     )
+    records["flash_attention"] = check_flash(torch, device)
+    records["cls_split_attention_scaled"] = check_cls_split_scaled(torch, device)
+    records["noisy_tile_kernel"] = check_noise(torch, device)
     return records
 
 
 KERNELS = [
-    # name, source, TPU kernel replaced, launches per chunk
+    # name, source, TPU kernel replaced, the path whose run gives its launches
     ("cls_split_attention", "certifiedgpt_tpu_torch/csrc/cls_split_attention.cu",
-     "certifiedgpt_tpu/ops/flash_attention.py:258", VIT_DEPTH),
+     "certifiedgpt_tpu/ops/flash_attention.py:258", "certify flash_cls"),
     ("ln_quant_rows", "certifiedgpt_tpu_torch/csrc/row_quant.cu",
-     "certifiedgpt_tpu/ops/quantization.py:208", 4 * VIT_DEPTH),
+     "certifiedgpt_tpu/ops/quantization.py:208", "certify flash_cls"),
     ("gelu_quant_rows", "certifiedgpt_tpu_torch/csrc/row_quant.cu",
-     "certifiedgpt_tpu/ops/quantization.py:136", 2 * VIT_DEPTH),
+     "certifiedgpt_tpu/ops/quantization.py:136", "certify flash_cls"),
+    ("flash_attention", "certifiedgpt_tpu_torch/csrc/flash_attention.cu",
+     "certifiedgpt_tpu/ops/flash_attention.py:39", "certify flash_custom"),
+    ("noisy_tile_kernel", "certifiedgpt_tpu_torch/csrc/noise.cu",
+     "certifiedgpt_tpu/ops/noise.py:58", "noisy_tile kernel mode"),
+    ("cls_split_attention_scaled", "certifiedgpt_tpu_torch/csrc/cls_split_attention.cu",
+     "scripts/bench_cls_split_attention.py:35", "cls_split_attention_scaled"),
 ]
+
+# launches per certify chunk of each kernel under each ViT attention form:
+# the split-stream tower runs the cls-split kernel once a layer and the two
+# row-quant kernels on both streams (LN at the qkv and fc1 inputs, GELU at
+# fc2); the flash block runs the flash kernel once a layer and the GELU
+# kernel at fc2 on its one stream, and quantizes its qkv and fc1 inputs in
+# plain PyTorch as the JAX package's block does
+PER_CHUNK = {
+    "flash_cls": {"cls_split_attention": VIT_DEPTH, "ln_quant_rows": 4 * VIT_DEPTH,
+                  "gelu_quant_rows": 2 * VIT_DEPTH, "flash_attention": 0},
+    "flash_custom": {"cls_split_attention": 0, "ln_quant_rows": 0,
+                     "gelu_quant_rows": VIT_DEPTH, "flash_attention": VIT_DEPTH},
+}
+PER_CHUNK["flash"] = PER_CHUNK["flash_custom"]
 
 
 def wrappers():
     """Each kernel's wrapper, which carries its launch counter."""
-    from certifiedgpt_tpu_torch.ops.flash_attention import cls_split_attention_parts
+    from certifiedgpt_tpu_torch.ops.flash_attention import (
+        cls_split_attention_parts,
+        cls_split_attention_scaled,
+        flash_attention,
+    )
+    from certifiedgpt_tpu_torch.ops.noise import noisy_tile
     from certifiedgpt_tpu_torch.ops.quantization import gelu_quant_rows, ln_quant_rows
 
     return {"cls_split_attention": cls_split_attention_parts,
-            "ln_quant_rows": ln_quant_rows, "gelu_quant_rows": gelu_quant_rows}
+            "ln_quant_rows": ln_quant_rows, "gelu_quant_rows": gelu_quant_rows,
+            "flash_attention": flash_attention, "noisy_tile_kernel": noisy_tile,
+            "cls_split_attention_scaled": cls_split_attention_scaled}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def check_counts(label, launches, per_chunk, chunks):
+    """Every kernel of the path launched ``per_chunk`` times a chunk, and
+    no other kernel at all."""
+    for name, n in launches.items():
+        want = per_chunk.get(name, 0) * chunks
+        if n != want:
+            fail(f"{label}: kernel {name} launched {n} times, expected {want} "
+                 f"({per_chunk.get(name, 0)} x {chunks} chunks)")
+        if per_chunk.get(name, 0) and n <= 0:
+            fail(f"{label}: kernel {name} was not launched")
 
 
 # ----------------------------------------------------------------------
@@ -325,68 +624,65 @@ def phase_main_path(torch, device):
 
     from certifiedgpt_tpu_torch.agents.certify import certify_item
     from certifiedgpt_tpu_torch.common.stages import StageClock
-    from certifiedgpt_tpu_torch.models.eva_vit import EvaViTConfig
-    from certifiedgpt_tpu_torch.models.llama import LlamaConfig
-    from certifiedgpt_tpu_torch.models.minigpt4 import MiniGPT4Config
-    from certifiedgpt_tpu_torch.models.model_zoo import build_synthetic_model
+    from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model
 
-    cfg = MiniGPT4Config(
-        vit=EvaViTConfig(attn_impl="flash_cls", act_quant=True),
-        llama=LlamaConfig(act_quant=True, kv_quant=True),
-    )
     t0 = time.perf_counter()
-    model = build_synthetic_model(cfg, device, seed=0)
+    model = MiniGPT4Model.from_config(CERTIFY_MODEL_BLOCK, device)
     torch.cuda.synchronize()
+    cfg = model.cfg
     log(
-        f"[main] built full-width model (ViT depth {cfg.vit.depth}, Q-Former "
-        f"{cfg.qformer.num_layers} layers, decoder {cfg.llama.num_layers}x"
-        f"{cfg.llama.hidden_size}) in {time.perf_counter() - t0:.1f} s, "
+        f"[main] built full-width model (ViT depth {cfg.vit.depth}, attn_impl "
+        f"{cfg.vit.attn_impl}, Q-Former {cfg.qformer.num_layers} layers, decoder "
+        f"{cfg.llama.num_layers}x{cfg.llama.hidden_size}) in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card"
     )
-    image = np.random.RandomState(0).randn(448, 448, 3).astype(np.float32)
+    image = np.random.RandomState(0).randn(*IMAGE_HWC).astype(np.float32)
 
     # warm-up chunk: allocator and cuBLAS heuristics, outside the counted run
     clock = StageClock(device)
     certify_item(model, image, QUESTION, GT_ANSWERS, TWO_CHUNK_RUN_CFG, index=0)
 
-    counted = wrappers()
-    for fn in counted.values():
-        fn.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     row = certify_item(model, image, QUESTION, GT_ANSWERS, RUN_CFG, index=0, clock=clock)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     chunks = clock.counts.get("noise", 0)
-    stages = {k: round(v, 4) for k, v in clock.seconds.items()}
-    stages["other_host"] = round(wall - sum(clock.seconds.values()), 4)
+    stages = stage_seconds(clock, wall)
     log(f"[main] certify row: {json.dumps(row)}")
     log(f"[main] wall {wall:.3f} s over {chunks} chunks of {MC_BATCH}; stage seconds {json.dumps(stages)}")
     log(f"[main] decode steps {clock.counts.get('decode_step', 0)}; peak memory {peak_gb:.2f} GB")
     log(f"[main] launches {json.dumps(launches)}")
-    for name, _, _, per_chunk in KERNELS:
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-        if launches[name] != per_chunk * chunks:
-            fail(f"kernel {name}: {launches[name]} launches, expected {per_chunk} x {chunks} chunks")
+    check_counts("certify flash_cls", launches, PER_CHUNK["flash_cls"], chunks)
+    check_row(row, RUN_CFG)
+    decode_costs(torch, model, device)
+    check_outputs(torch, model, device)
+    phase_profile(torch, model, image)
+    return model, image, launches, {"wall_seconds": wall, "stage_seconds": stages,
+                                    "chunks": chunks, "peak_gb": peak_gb, "row": row}
 
+
+def stage_seconds(clock, wall):
+    stages = {k: round(v, 4) for k, v in clock.seconds.items()}
+    stages["other_host"] = round(wall - sum(clock.seconds.values()), 4)
+    return stages
+
+
+def check_row(row, run_cfg):
     required = {"index", "question_id", "label", "answer", "radius", "correct",
                 "abstain", "seconds", "sigma", "n0", "n", "draws"}
     if set(row) != required:
         fail(f"certify row keys {sorted(row)} != {sorted(required)}")
     if not (isinstance(row["label"], int) and math.isfinite(row["radius"]) and row["radius"] >= 0):
         fail(f"malformed certify row {row}")
-    if row["abstain"] != (row["label"] == -1) or not 0 < row["draws"] <= 100 + 1000:
+    budget = run_cfg["certify_n0"] + run_cfg["certify_n"]
+    if row["abstain"] != (row["label"] == -1) or not 0 < row["draws"] <= budget:
         fail(f"inconsistent certify row {row}")
-    decode_costs(torch, model, device)
-    check_outputs(torch, model, device)
-    phase_profile(torch, model, image)
-    return launches, {"wall_seconds": wall, "stage_seconds": stages,
-                      "chunks": chunks, "peak_gb": peak_gb, "row": row}
 
 
 def decode_costs(torch, model, device):
@@ -512,6 +808,109 @@ def phase_profile(torch, model, image):
         log(f"[profile] {sec:8.4f} s {100 * sec / wall:6.2f} % {e.count:6d} calls  {e.key[:100]}")
 
 
+# ----------------------------------------------------------------------
+# phase 6: the flash attention forms of the ViT
+# ----------------------------------------------------------------------
+def phase_forms(torch, model, image, device):
+    """The main path's model under ``vit_attn_impl`` flash_custom and flash:
+    configs parsed from the certify model block with the form changed,
+    around the same parameter tensors. Their towers agree with the
+    flash_cls tower on 8 images; each form certifies the smoke image over
+    two chunks (after one warm-up certification), beside flash_cls, with
+    the launches counted. Returns the flash_custom run's launches."""
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.agents.certify import certify_item
+    from certifiedgpt_tpu_torch.common.stages import StageClock
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+    from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model, config_from_block
+
+    models = {"flash_cls": model}
+    for form in FLASH_FORMS:
+        cfg = config_from_block(dict(CERTIFY_MODEL_BLOCK, vit_attn_impl=form))
+        if cfg.vit.attn_impl != form:
+            fail(f"config_from_block gave attn_impl {cfg.vit.attn_impl!r} for {form!r}")
+        models[form] = MiniGPT4Model(cfg, model.params, model.tokenizer)
+
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.randn(8, *IMAGE_HWC).astype(np.float32)).to(device)
+    vit = model.params["vit"]
+    feats_cls = M.eva_vit_apply(vit, model.cfg.vit, images).float()
+    for form in FLASH_FORMS:
+        feats = M.eva_vit_apply(vit, models[form].cfg.vit, images).float()
+        rel = float((feats - feats_cls).norm() / feats_cls.norm())
+        log(f"[forms] ViT tokens under {form} {tuple(feats.shape)} vs flash_cls on 8 images: "
+            f"relative error {rel:.3e}")
+        if feats.shape != feats_cls.shape or not bool(torch.isfinite(feats).all()) \
+                or not rel < 5e-2:
+            fail(f"the {form} tower disagrees with the flash_cls tower")
+        del feats
+    del images, feats_cls
+    torch.cuda.empty_cache()
+
+    counted = {}
+    for form, form_model in models.items():
+        certify_item(form_model, image, QUESTION, GT_ANSWERS, TWO_CHUNK_RUN_CFG, index=0)
+        clock = StageClock(device)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = certify_item(form_model, image, QUESTION, GT_ANSWERS, TWO_CHUNK_RUN_CFG,
+                           index=0, clock=clock)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        chunks = clock.counts.get("noise", 0)
+        vit_per_chunk = clock.seconds.get("vit", 0.0) / max(chunks, 1)
+        log(f"[forms] certify under {form}: row {json.dumps(row)}")
+        log(f"[forms] certify under {form}: wall {wall:.4f} s over {chunks} chunks, ViT "
+            f"{vit_per_chunk:.4f} s per chunk; stage seconds "
+            f"{json.dumps(stage_seconds(clock, wall))}; launches {json.dumps(launches)}")
+        check_row(row, TWO_CHUNK_RUN_CFG)
+        check_counts(f"certify {form}", launches, PER_CHUNK[form], chunks)
+        counted[form] = launches
+    return counted["flash_custom"]
+
+
+# ----------------------------------------------------------------------
+# phase 7: the kernels' own entry points
+# ----------------------------------------------------------------------
+def phase_entries(torch, device):
+    """``noisy_tile``'s kernel mode and ``cls_split_attention_scaled``, which
+    no certify path calls (as in the JAX package), each driven once through
+    its entry at the main path's shapes, its launches counted."""
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.ops import flash_attention as FA
+    from certifiedgpt_tpu_torch.ops.noise import noisy_tile
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(*IMAGE_HWC).astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    g = torch.Generator(device=device).manual_seed(12)
+    d = VIT_HEAD_DIM
+    qkv = [torch.randn((MC_BATCH, VIT_HEADS, VIT_SEQ, d), generator=g, device=device)
+           .to(torch.bfloat16) for _ in range(3)]
+    torch.cuda.synchronize()
+    counted = {}
+    for name, run, shape in (
+        ("noisy_tile_kernel",
+         lambda: noisy_tile(x, MC_BATCH, RUN_CFG["noise_level"], gen, use_kernel=True),
+         (MC_BATCH,) + IMAGE_HWC),
+        ("cls_split_attention_scaled",
+         lambda: FA.cls_split_attention_scaled(*qkv, d), (MC_BATCH, VIT_HEADS, VIT_SEQ, d)),
+    ):
+        reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        log(f"[entry] {name}: output {tuple(out.shape)}; launches {json.dumps(launches)}")
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            fail(f"{name}: output {tuple(out.shape)} is not finite or not {shape}")
+        check_counts(name, launches, {name: 1}, 1)
+        counted[name] = launches[name]
+    return counted
+
+
 def main() -> int:
     try:
         import torch
@@ -527,18 +926,21 @@ def main() -> int:
     phase_build()
     with torch.no_grad():
         records = phase_kernels(torch, device)
-        launches, summary = phase_main_path(torch, device)
+        model, image, main_launches, summary = phase_main_path(torch, device)
+        flash_launches = phase_forms(torch, model, image, device)
+        entry_launches = phase_entries(torch, device)
     log(f"[main] summary {json.dumps(summary)}")
+    by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches}
     kernels = []
-    for name, source, replaces, _ in KERNELS:
+    for name, source, replaces, path in KERNELS:
         rec = records[name]
+        n = by_path[path][name] if path in by_path else entry_launches[name]
         lib_ms = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.3f} ms"
         log(f"[kernel] {name}: {rec['ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
             f"({rec['bound_by']}), plain {rec['plain_ms']:.3f} ms, library {lib_ms}; "
-            f"{launches[name]} launches on the main path, "
-            f"{launches[name] / summary['chunks']:.0f} per chunk")
+            f"{n} launches on its path ({path})")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name], **rec})
+                        "replaces": replaces, "launches": n, **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

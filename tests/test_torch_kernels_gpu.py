@@ -11,11 +11,15 @@ The unmarked tests check, on any device, the wrappers' argument checks and
 the build's failure when there is no ``nvcc``.
 """
 
+import ctypes
+import subprocess
+
 import pytest
 import torch
 
 from certifiedgpt_tpu_torch.ops import cuda_kernels
 from certifiedgpt_tpu_torch.ops import flash_attention as FA
+from certifiedgpt_tpu_torch.ops import noise as N
 from certifiedgpt_tpu_torch.ops import quantization as Q
 
 
@@ -56,6 +60,26 @@ def test_cls_split_operand_checks(case):
         FA._check_operands(*args)
     if case == "n_not_tile":
         FA._check_operands(*_qkv(b, 128, h, d, "cpu"))  # the good shape passes
+
+
+@pytest.mark.parametrize("case", ["float32", "d_too_wide", "d_not_8", "row_stride", "shapes"])
+def test_flash_operand_checks(case):
+    b, s, h, d = 2, 40, 2, 88
+    if case == "d_too_wide":
+        d = FA.KERNEL_HEAD_DIM + 8
+    elif case == "d_not_8":
+        d = 84
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    y = torch.zeros((b, s, 3, h, d), dtype=dtype)
+    q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
+    if case == "row_stride":
+        k = torch.zeros((b, h, s, d + 4), dtype=dtype)[..., :d]
+    elif case == "shapes":
+        v = v[:, :, :-1]
+    with pytest.raises((ValueError, TypeError)):
+        FA._check_rows("flash_attention", (("q", q), ("k", k), ("v", v)))
+    if case == "shapes":  # views of one fused product at dh = 88 pass
+        FA._check_rows("flash_attention", (("q", q), ("k", k), ("v", q)))
 
 
 def test_row_quant_checks():
@@ -125,3 +149,123 @@ def test_int8_matmul_on_gpu(cuda, rows):
     assert got.shape == (rows, 24) and torch.equal(got.double(), want)
     with pytest.raises(ValueError, match="column-major"):
         Q.int8_matmul(a, b.contiguous())
+
+
+def _bshd_views(b, s, h, d, device, generator):
+    """q, k, v as [B, S, H, D] views of one fused product [B, S, 3 * H * D]
+    (the flash_custom layout; row stride 3 H D)."""
+    y = torch.randn((b, s, 3 * h * d), generator=generator, device=device)
+    return [t.reshape(b, s, h, d) for t in y.to(torch.bfloat16).split(h * d, dim=-1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 1025, 16, 88), False),  # the ViT's sequence: a 1-token tail tile
+    ((4, 333, 16, 88), True),
+    ((2, 33, 4, 8), False),
+    ((2, 64, 4, 32), True),
+])
+def test_flash_kernel_matches_plain_on_gpu(cuda, shape, causal):
+    """bf16 outputs within atol 2e-2 of the plain version in both layouts,
+    causal or not, with ragged tails and narrow heads."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = _bshd_views(*shape, cuda, g)
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    ref = FA._flash_attention_plain(q, k, v, causal, shape[-1] ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    # [B, H, S, D] views of a fused [B, S, 3, H, D] product (the flash form)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if not causal:
+        outh = FA.builtin_flash_attention_bhsd(qh, kh, vh, shape[-1])
+        torch.testing.assert_close(outh.transpose(1, 2).float(), ref.float(), atol=2e-2, rtol=0)
+        torch.testing.assert_close(FA.builtin_flash_attention(q, k, v).float(), ref.float(),
+                                   atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_raises_on_bad_operands_on_gpu(cuda):
+    x = torch.zeros((1, 64, 2, 88), device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        FA.flash_attention(x, x, x)
+    y = torch.zeros((1, 64, 2, 104), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(y, y, y)
+
+
+@pytest.mark.gpu
+def test_cls_split_scaled_matches_plain_on_gpu(cuda):
+    """The explicit-scale form on [B, H, 1025, D] tensors (cls at index 0):
+    the patch views start 176 bytes into each (b, h) row block."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, 16, 1025, 88), generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    before = FA.cls_split_attention_scaled.launches
+    out = FA.cls_split_attention_scaled(q, k, v, 88)
+    assert FA.cls_split_attention_scaled.launches == before + 1
+    ref = FA._cls_split_attention_scaled_plain(q, k, v, 88 ** -0.5)
+    assert out.shape == ref.shape == (2, 16, 1025, 88)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hwc", [(448, 448, 3), (5, 3, 3)], ids=["448px", "odd"])
+def test_noise_kernel_matches_plain_on_gpu(cuda, hwc):
+    """Values within 1e-5 of the plain version on the same seed words (the
+    same Philox integers; the math library may differ in the last ulp),
+    sigma = 0 returns the clean tile bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(hwc, generator=g, device=cuda)
+    gen = torch.Generator(device=cuda)
+    before = N.noisy_tile.launches
+    out = N.noisy_tile(x, 8, 0.5, gen.manual_seed(5), use_kernel=True)
+    assert N.noisy_tile.launches == before + 1
+    seed = N._seed_words(gen.manual_seed(5), cuda)
+    ref = N._noisy_tile_kernel_plain(x, 8, torch.tensor(0.5, device=cuda), seed)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    zero = N.noisy_tile(x, 8, 0.0, gen, use_kernel=True)
+    assert torch.equal(zero, x.expand_as(zero))
+
+
+_CURAND_SOURCE = r"""
+#include <curand_kernel.h>
+__global__ void philox(const uint4* c, uint2 k, uint4* out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = curand_Philox4x32_10(c[i], k);
+}
+extern "C" int curand_philox(const void* c, unsigned k0, unsigned k1, void* out, int n) {
+  philox<<<(n + 127) / 128, 128>>>(static_cast<const uint4*>(c), make_uint2(k0, k1),
+                                   static_cast<uint4*>(out), n);
+  cudaDeviceSynchronize();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+@pytest.mark.gpu
+def test_philox_matches_curand_on_gpu(cuda, tmp_path):
+    """The plain generator gives the words of curand's device-side
+    Philox4x32-10 (curand_philox4x32_x.h), built here for the test only; the
+    noise kernel's values equal the plain version's on the same seed words
+    (test_noise_kernel_matches_plain_on_gpu), so it draws the same words."""
+    src = tmp_path / "curand_philox.cu"
+    src.write_text(_CURAND_SOURCE)
+    lib_path = tmp_path / "libcurand_philox.so"
+    subprocess.run([cuda_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)],
+                   check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.curand_philox.argtypes = (ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint,
+                                  ctypes.c_void_p, ctypes.c_int)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 4096
+    ctr = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 4), generator=g, device=cuda,
+                        dtype=torch.int32)
+    key = (0x9E3779B9, 0x12345678)
+    want = torch.empty_like(ctr)
+    assert lib.curand_philox(ctr.data_ptr(), *key, want.data_ptr(), n) == 0
+    words = [(ctr[:, i].long() & 0xFFFFFFFF) for i in range(4)]
+    plain = N.philox4x32_10(words, [torch.tensor(k, device=cuda) for k in key])
+    assert torch.equal(torch.stack(plain, dim=1), want.long() & 0xFFFFFFFF)

@@ -144,6 +144,66 @@ def test_certify_item_row_on_synthetic_model():
         certify_item(model, _images(1)[0], QUESTION, [], run, index=0)
 
 
+def _flat(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flat(value, prefix + (key,))
+        else:
+            yield "/".join(prefix + (key,)), value
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("block", [
+    {"model_size": "tiny"},
+    {"model_size": "tiny", "quantize_vit": True, "quantize_llama": True, "act_quant": True,
+     "kv_quant": True, "vit_attn_impl": "flash_custom", "image_size": 224, "init_seed": 3},
+    {"model_size": "tiny", "max_position_embeddings": 256, "remat": False},
+], ids=["float", "serving", "positions"])
+def test_from_config_matches_jax(block):
+    """The synthetic half of MiniGPT4Model.from_config on a plain mapping:
+    the config's fields and the parameter tree's keys, shapes and dtypes
+    equal the JAX package's on the same mapping (the values are other
+    seeded draws)."""
+    jmodel = JModel.from_config(block)
+    tmodel = MiniGPT4Model.from_config(block, device="cpu")
+    for part in ("vit", "qformer", "llama"):
+        tcfg, jcfg = getattr(tmodel.cfg, part), getattr(jmodel.cfg, part)
+        for field in dataclasses.fields(tcfg):
+            want = getattr(jcfg, field.name)
+            got = getattr(tcfg, field.name)
+            if field.name == "dtype":
+                want, got = np.dtype(want).name, _dtype_name(got)
+            assert got == want, (part, field.name)
+    assert (tmodel.cfg.max_txt_len, tmodel.cfg.max_context_len) == (
+        jmodel.cfg.max_txt_len, jmodel.cfg.max_context_len)
+    want = {k: (tuple(v.shape), np.dtype(v.dtype).name) for k, v in _flat(jmodel.params)}
+    got = {k: (tuple(v.shape), _dtype_name(v.dtype)) for k, v in _flat(tmodel.params)}
+    assert got == want
+
+
+def test_from_config_refuses_remat():
+    """remat is a training knob; the port has no training forward yet."""
+    with pytest.raises(NotImplementedError, match="remat"):
+        MiniGPT4Model.from_config({"model_size": "tiny", "remat": True,
+                                   "remat_policy": "dots"}, "cpu")
+
+
+def test_from_config_checkpoint_paths(tmp_path, caplog):
+    """An existing checkpoint path is refused (loading is not ported yet); a
+    missing one is logged and the random init kept."""
+    ckpt = tmp_path / "eva_vit_g.pth"
+    ckpt.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        MiniGPT4Model.from_config({"model_size": "tiny", "eva_vit_g_pth": str(ckpt)}, "cpu")
+    with caplog.at_level("WARNING"):
+        model = MiniGPT4Model.from_config(
+            {"model_size": "tiny", "llama_model": str(tmp_path / "missing")}, "cpu")
+    assert "not found" in caplog.text and model.device == torch.device("cpu")
+
+
 def test_params_from_jax_checks_widths(models):
     jmodel, _ = models
     _, ct = _serving_cfgs()

@@ -79,21 +79,34 @@ def test_patchify_matches_jax():
                                   np.asarray(JV.patchify(jnp.asarray(img), cfg_j)))
 
 
-@pytest.mark.parametrize("form", ["flash_cls_w8a8", "flash_cls_float", "xla_float"])
+FORMS = {  # form -> (EvaViTConfig overrides, int8 kernels with W8A8)
+    "flash_cls_w8a8": (dict(img_size=224, attn_impl="flash_cls", act_quant=True), True),
+    "flash_cls_float": (dict(img_size=224, attn_impl="flash_cls"), False),
+    "xla_float": (dict(img_size=56, attn_impl="xla"), False),
+    "flash_float": (dict(img_size=56, attn_impl="flash"), False),
+    "flash_w8a8": (dict(img_size=56, attn_impl="flash", act_quant=True), True),
+    "flash_custom_float": (dict(img_size=56, attn_impl="flash_custom"), False),
+    "flash_custom_w8a8": (dict(img_size=56, attn_impl="flash_custom", act_quant=True), True),
+    "flash_cls_4_patches": (dict(img_size=28, attn_impl="flash_cls"), False),
+}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
 def test_eva_vit_matches_jax(form):
     """flash_cls_w8a8: the serving tower (split stream, int8 kernels, W8A8
     activations with the fused LN/GELU row quant); flash_cls_float: the
     same split stream with float kernels; xla_float: the plain block over
-    the concatenated sequence. Float forms agree to 1e-5 (f32 summation
+    the concatenated sequence; flash_*: the block with q, k, v as
+    [B, H, S, dh] views of the fused qkv product into the flash kernel's
+    plain version; flash_custom_*: the block with [B, S, H, dh] views into
+    it; flash_cls_4_patches: flash_cls with a patch count that is not a
+    multiple of 128, which takes the flash block. 16 and 4 patches give
+    sequences of 17 and 5 tokens. Float forms agree to 1e-5 (f32 summation
     order). W8A8 to 5e-3: where the two f32 LayerNorms differ in the last
     ulp an int8 activation can round the other way, one quantization step
     (1/127 of its row's absmax), and attention spreads that to later tokens
     (measured 9e-4 here, 4e-7 with the same weights unquantized)."""
-    quantized = form == "flash_cls_w8a8"
-    if form.startswith("flash_cls"):
-        kw = dict(img_size=224, attn_impl="flash_cls", act_quant=quantized)
-    else:
-        kw = dict(img_size=56, attn_impl="xla")
+    kw, quantized = FORMS[form]
     cfg_j = JV.EvaViTConfig.tiny(**kw)
     cfg_t = TV.EvaViTConfig.tiny(**kw)
     params = JV.init_eva_vit(jax.random.PRNGKey(0), cfg_j)
@@ -108,10 +121,18 @@ def test_eva_vit_matches_jax(form):
     assert rel_err(got, want) < (5e-3 if quantized else 1e-5)
 
 
-@pytest.mark.parametrize("attn_impl", ["flash", "flash_cls"])  # flash_cls: 4 patches
+@pytest.mark.parametrize("attn_impl", ["flash", "flash_cls"])
 def test_eva_vit_rejects_unported_attention(attn_impl):
-    cfg = TV.EvaViTConfig.tiny(attn_impl=attn_impl)
+    """A string that names no attention form of the JAX package (a typo of
+    ``attn_impl``) raises ValueError, as there, instead of falling back to
+    another path."""
+    typo = {"flash": "Flash", "flash_cls": "flash-cls"}[attn_impl]
+    cfg = TV.EvaViTConfig.tiny(attn_impl=typo)
     params = to_torch(jax.tree.map(np.asarray, JV.init_eva_vit(
         jax.random.PRNGKey(0), JV.EvaViTConfig.tiny())))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown attn_impl"):
         TV.eva_vit_apply(params, cfg, torch.zeros(1, 28, 28, 3))
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        JV.eva_vit_apply(jax.tree.map(jnp.asarray, JV.init_eva_vit(
+            jax.random.PRNGKey(0), JV.EvaViTConfig.tiny())), JV.EvaViTConfig.tiny(
+                attn_impl=typo), jnp.zeros((1, 28, 28, 3)))
