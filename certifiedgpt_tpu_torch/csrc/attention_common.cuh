@@ -1,7 +1,10 @@
 // Building blocks shared by the attention kernels of this directory
-// (cls_split_attention.cu, flash_attention.cu): shared-memory tile loads with
-// cp.async, ldmatrix fragments, mma.sync m16n8k16 bf16 with fp32
-// accumulation, and the quad reductions of the mma C layout.
+// (cls_split_attention.cu, flash_attention.cu): a ring of K/V stages in
+// shared memory filled by cp.async (one commit group per stage, copies of
+// the next two tiles in flight while one is computed), ldmatrix fragments,
+// mma.sync m16n8k16 bf16 with fp32 accumulation, the quad reductions of the
+// mma C layout and the online softmax with the score scale folded into the
+// exponent.
 //
 // Tiles hold rows of kDp = 96 bf16 values (the head dim padded to the next
 // multiple of the mma k-step 16 above dh = 88), each row strided by
@@ -15,15 +18,20 @@
 
 namespace cgpt_attn {
 
-constexpr int kBlockM = 64;  // queries per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per iteration
-constexpr int kDp = 96;      // head dim padded in shared memory
+constexpr int kBlockM = 128;  // queries per block, 16 per warp
+constexpr int kBlockN = 64;   // keys per tile
+constexpr int kDp = 96;       // head dim padded in shared memory
 constexpr int kStride = kDp + 8;
-constexpr int kWarps = 4;
+constexpr int kWarps = kBlockM / 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kKSteps = kDp / 16;   // mma k-steps over the head dim
-constexpr int kDTiles = kDp / 8;    // n-tiles of the output (head dim)
+constexpr int kStages = 3;            // K/V tiles in the ring
+constexpr int kKSteps = kDp / 16;     // mma k-steps over the head dim
+constexpr int kDTiles = kDp / 8;      // n-tiles of the output (head dim)
 constexpr int kNTiles = kBlockN / 8;  // n-tiles of the scores (keys)
+constexpr int kSlots = kDp / 8;       // 16-byte chunks of a padded row
+constexpr int kTileElems = kBlockN * kStride;
+constexpr int kStageElems = 2 * kTileElems;  // a stage: the K tile, then the V tile
+constexpr int kRingBytes = (kBlockM * kStride + kStages * kStageElems) * 2;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -33,8 +41,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's commit groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -64,22 +78,48 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Asynchronously copies `rows` rows of D bf16 values into a tile. kRagged
-// (a sequence tail): only the first `valid` rows are copied and the rest are
-// zero-filled, so that masked keys contribute 0 * 0 and never a stale or
-// undefined value; without it the compare is compiled out.
-template <bool kRagged>
+// 2^x on the special function unit (one instruction; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Asynchronously copies kRows rows of D bf16 values into a tile, every
+// thread of the block taking the same share. kRagged (a sequence tail): only
+// the first `valid` rows are copied and the rest are zero-filled, so that
+// masked keys contribute 0 * 0 and never a stale or undefined value; without
+// it the compare is compiled out. The padding [D, kDp) is never written.
+template <int kRows, bool kRagged>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g,
-                                          long long row_stride, int rows, int valid, int D) {
-  const int chunks = D >> 3;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * chunks; c += kThreads) {
-    const int r = c / chunks, cc = c - r * chunks;
-    __nv_bfloat16* dst = smem + r * kStride + cc * 8;
-    if (!kRagged || r < valid) {
-      cp_async16(dst, g + r * row_stride + cc * 8);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+                                          long long row_stride, int valid, int D) {
+  static_assert(kRows * kSlots % kThreads == 0, "an equal share for every thread");
+#pragma unroll
+  for (int i = 0; i < kRows * kSlots / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / kSlots, col = (c - r * kSlots) * 8;
+    if (col < D) {
+      __nv_bfloat16* dst = smem + r * kStride + col;
+      if (!kRagged || r < valid) {
+        cp_async16(dst, g + r * row_stride + col);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
+  }
+}
+
+// One stage of the ring: the K tile and the V tile at key `kt`; `valid` keys
+// of the tile exist (a tile past the end of the sequence is ragged).
+__device__ __forceinline__ void load_kv_stage(__nv_bfloat16* stage, const __nv_bfloat16* kg,
+                                              long long ks, const __nv_bfloat16* vg,
+                                              long long vs, int kt, int valid, int D) {
+  if (valid >= kBlockN) {
+    load_tile<kBlockN, false>(stage, kg + kt * ks, ks, kBlockN, D);
+    load_tile<kBlockN, false>(stage + kTileElems, vg + kt * vs, vs, kBlockN, D);
+  } else {
+    load_tile<kBlockN, true>(stage, kg + kt * ks, ks, valid, D);
+    load_tile<kBlockN, true>(stage + kTileElems, vg + kt * vs, vs, valid, D);
   }
 }
 
@@ -94,33 +134,28 @@ __device__ __forceinline__ void zero_head_padding(__nv_bfloat16* smem, int rows,
   }
 }
 
-// This warp's 16 query rows of a [kBlockM, kStride] tile as mma A fragments,
-// one per k-step.
-__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[kKSteps][4],
-                                                 const __nv_bfloat16* sQ, int warp, int lane) {
-  const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int c = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) ldmatrix_x4(qf[kk], sQ + r * kStride + kk * 16 + c);
-}
-
-// s = Q K^T for the warp's 16 rows against a [kBlockN, kStride] key tile.
-__device__ __forceinline__ void qk_scores(float (&s)[kNTiles][4],
-                                          const uint32_t (&qf)[kKSteps][4],
-                                          const __nv_bfloat16* sK, int lane) {
+// s = Q K^T for the warp's 16 rows of the [kBlockM, kStride] query tile
+// against a [kBlockN, kStride] key tile. The query fragments are read again
+// for every key tile (6 ldmatrix beside the 48 of the keys) so that they hold
+// no registers across the loop.
+__device__ __forceinline__ void qk_scores(float (&s)[kNTiles][4], const __nv_bfloat16* sQ,
+                                          const __nv_bfloat16* sK, int warp, int lane) {
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  const int mi = lane >> 3;
+  const __nv_bfloat16* qrow =
+      sQ + (warp * 16 + (lane & 7) + (mi & 1) * 8) * kStride + (mi >> 1) * 8;
+  const __nv_bfloat16* krow = sK + ((lane & 7) + (mi >> 1) * 8) * kStride + (mi & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < kKSteps; ++kk) {
+    uint32_t qf[4];
+    ldmatrix_x4(qf, qrow + kk * 16);
 #pragma unroll
     for (int np = 0; np < kNTiles / 2; ++np) {
-      const int mi = lane >> 3;
-      const int key = np * 16 + (lane & 7) + (mi >> 1) * 8;
-      const int d = kk * 16 + (mi & 1) * 8;
       uint32_t kf[4];
-      ldmatrix_x4(kf, sK + key * kStride + d);
-      mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-      mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      ldmatrix_x4(kf, krow + np * 16 * kStride + kk * 16);
+      mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+      mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
     }
   }
 }
@@ -130,6 +165,8 @@ __device__ __forceinline__ void qk_scores(float (&s)[kNTiles][4],
 __device__ __forceinline__ void pv_accumulate(float (&acc)[kDTiles][4],
                                               const float (&s)[kNTiles][4],
                                               const __nv_bfloat16* sV, int lane) {
+  const int mi = lane >> 3;
+  const __nv_bfloat16* vrow = sV + ((lane & 7) + (mi & 1) * 8) * kStride + (mi >> 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < kBlockN / 16; ++kk) {
     const uint32_t pf[4] = {
@@ -138,11 +175,8 @@ __device__ __forceinline__ void pv_accumulate(float (&acc)[kDTiles][4],
         pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
     for (int dp = 0; dp < kDTiles / 2; ++dp) {
-      const int mi = lane >> 3;
-      const int key = kk * 16 + (lane & 7) + (mi & 1) * 8;
-      const int d = dp * 16 + (mi >> 1) * 8;
       uint32_t vf[4];
-      ldmatrix_x4_trans(vf, sV + key * kStride + d);
+      ldmatrix_x4_trans(vf, vrow + kk * 16 * kStride + dp * 16);
       mma_bf16(acc[2 * dp], pf, vf[0], vf[1]);
       mma_bf16(acc[2 * dp + 1], pf, vf[2], vf[3]);
     }
@@ -159,13 +193,22 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// One online-softmax step (log2 domain) for the thread's rows r0 and r0 + 8:
-// raises the running maxima to the tile's, rescales the partial row sums and
-// the accumulator, and turns the scores into exp2 weights added to l.
+// One online-softmax step (log2 domain) for the thread's rows r0 and r0 + 8
+// on raw scores s. The running maxima m0, m1 live in the scaled domain: with
+// kScaled the weights are exp2(s * c - m), one fused multiply-add before the
+// exponential (c > 0, so the maximum of the scaled scores is c times the raw
+// maximum); without it c is 1 and no multiply is made. Raises the maxima to
+// the tile's, rescales the partial row sums and the accumulator, and turns
+// the scores into weights added to l. kGuard: a row whose every score so far
+// is masked to -inf keeps weights of 0 (its maximum is taken as 0 so that no
+// inf - inf arises); rows seeded with a finite maximum need no guard.
+template <bool kScaled, bool kGuard>
 __device__ __forceinline__ void online_softmax_step(float (&s)[kNTiles][4],
-                                                    float (&acc)[kDTiles][4], float& m0,
-                                                    float& m1, float& l0, float& l1) {
-  float mx0 = m0, mx1 = m1;
+                                                    float (&acc)[kDTiles][4], float c,
+                                                    float& m0, float& m1, float& l0,
+                                                    float& l1) {
+  const float neg_inf = __uint_as_float(0xff800000u);
+  float mx0 = neg_inf, mx1 = neg_inf;
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
     mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
@@ -173,17 +216,32 @@ __device__ __forceinline__ void online_softmax_step(float (&s)[kNTiles][4],
   }
   mx0 = quad_max(mx0);
   mx1 = quad_max(mx1);
-  const float corr0 = exp2f(m0 - mx0), corr1 = exp2f(m1 - mx1);
+  if (kScaled) {
+    mx0 *= c;
+    mx1 *= c;
+  }
+  mx0 = fmaxf(mx0, m0);
+  mx1 = fmaxf(mx1, m1);
+  const float u0 = kGuard && mx0 == neg_inf ? 0.f : mx0;
+  const float u1 = kGuard && mx1 == neg_inf ? 0.f : mx1;
+  const float corr0 = fast_exp2(m0 - u0), corr1 = fast_exp2(m1 - u1);
   m0 = mx0;
   m1 = mx1;
   l0 *= corr0;
   l1 *= corr1;
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
-    s[j][0] = exp2f(s[j][0] - m0);
-    s[j][1] = exp2f(s[j][1] - m0);
-    s[j][2] = exp2f(s[j][2] - m1);
-    s[j][3] = exp2f(s[j][3] - m1);
+    if (kScaled) {
+      s[j][0] = fast_exp2(fmaf(s[j][0], c, -u0));
+      s[j][1] = fast_exp2(fmaf(s[j][1], c, -u0));
+      s[j][2] = fast_exp2(fmaf(s[j][2], c, -u1));
+      s[j][3] = fast_exp2(fmaf(s[j][3], c, -u1));
+    } else {
+      s[j][0] = fast_exp2(s[j][0] - u0);
+      s[j][1] = fast_exp2(s[j][1] - u0);
+      s[j][2] = fast_exp2(s[j][2] - u1);
+      s[j][3] = fast_exp2(s[j][3] - u1);
+    }
     l0 += s[j][0] + s[j][1];
     l1 += s[j][2] + s[j][3];
   }

@@ -45,8 +45,9 @@ _SIGNATURES = {
     "cgpt_gelu_quant": (_P, _P, _P, _I64, _I32, _P),
     "cgpt_cls_split_attention": (
         _P, _P, _P, _I64, _I64, _I64,  # q, k, v and their strides
-        _P, _P, _I64, _I64,  # kc, vc and their strides
+        _P, _P, _P, _I64, _I64,  # qc, kc, vc and their strides
         _P, _I64, _I64, _I64,  # out and its strides
+        _P, _I64, _I64,  # out_c and its strides
         _I32, _I32, _I32, _I32,  # B, H, N, D
         _F32,  # scale_log2
         _P,  # stream

@@ -107,6 +107,8 @@ def _launch_flash(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     """The flash kernel on ``[B, H, S, D]`` views; returns a ``[B, H, S, D]``
     view of a fresh ``[B, S, H, D]`` buffer."""
     _check_rows("flash_attention", (("q", q), ("k", k), ("v", v)))
+    if not scale > 0:
+        raise ValueError(f"flash_attention: the softmax scale must be positive, got {scale}")
     b, h, s, d = q.shape
     out = _bhsd(torch.empty((b, s, h, d), dtype=q.dtype, device=q.device))
     lib = cuda_kernels.build().lib
@@ -197,21 +199,22 @@ def _bmm_f32(a, b):
 
 
 def _cls_query_row(qc, kp, vp, kc, vc, scale_log2: float = 1.0):
-    """The single cls query over [cls + N] keys (log2 domain, the scores
-    multiplied by ``scale_log2``), as the CUDA path computes it: the JAX
-    package's plain-XLA cls row (:371-390), with bf16 operands, f32
-    accumulation and f32 scores as in its ``preferred_element_type=f32``
-    einsums.
+    """The plain version of the cls row that the cls-split kernel computes:
+    the single cls query over [cls + N] keys (log2 domain, the scores
+    multiplied by ``scale_log2``), as the JAX package's plain-XLA cls row
+    (:371-390), with bf16 operands, f32 accumulation and f32 scores as in
+    its ``preferred_element_type=f32`` einsums, the weights rounded to the
+    operands' type before P.V. No wrapper calls it: tests and
+    ``chip_smoke.py`` hold the kernel's row against it, and
+    ``_cls_query_row.calls`` counts its calls so that a run can show that.
 
     Both products are batched over B with all heads at once, and K and V
     are never upcast: the scores come from K against a block-diagonal
     ``[H*D, H]`` matrix of the cls queries, and P.V keeps the diagonal
-    ``[D]`` blocks of ``[H, H*D]``. The off-diagonal work is H times the
-    needed, a few GFLOP at the main path's shapes. K and V are read in
-    place only when ``[B, N, H*D]`` is a view of them, as for the main
-    path's ``[B, N, H, D]``-strided slices of the fused qkv output; other
-    layouts (``cls_split_attention_scaled``'s ``[:, :, 1:]`` slices of
-    ``[B, H, 1025, D]`` tensors) are copied by the reshapes below."""
+    ``[D]`` blocks of ``[H, H*D]``. K and V are read in place only when
+    ``[B, N, H*D]`` is a view of them; other layouts are copied by the
+    reshapes below."""
+    _cls_query_row.calls += 1
     b, h, n, d = kp.shape
     k2 = kp.transpose(1, 2).reshape(b, n, h * d)
     v2 = vp.transpose(1, 2).reshape(b, n, h * d)
@@ -232,6 +235,9 @@ def _cls_query_row(qc, kp, vp, kc, vc, scale_log2: float = 1.0):
     return out[:, :, None].to(qc.dtype)
 
 
+_cls_query_row.calls = 0
+
+
 def _check_operands(qp, kp, vp, qc, kc, vc):
     name = "cls_split_attention_parts"
     _check_rows(name, (("qp", qp), ("kp", kp), ("vp", vp)))
@@ -243,34 +249,31 @@ def _check_operands(qp, kp, vp, qc, kc, vc):
     b, h, n, d = qp.shape
     if n % KERNEL_TILE:
         raise ValueError(f"{name}: needs N % {KERNEL_TILE} == 0, got N={n}")
-    for arg, t in (("kc", kc), ("vc", vc)):
+    for arg, t in (("qc", qc), ("kc", kc), ("vc", vc)):
         if t.dtype != torch.bfloat16 or t.shape != (b, h, 1, d) or t.stride(3) != 1:
             raise ValueError(
                 f"{name}: {arg} must be bf16 [B, H, 1, D] with contiguous rows, "
                 f"got {t.dtype} {tuple(t.shape)}"
             )
-    if kc.stride() != vc.stride():
-        raise ValueError(f"{name}: kc and vc need one stride")
+    if kc.stride() != vc.stride() or qc.stride() != kc.stride():
+        raise ValueError(f"{name}: qc, kc and vc need one stride")
 
 
-def _launch_patch_rows(qp, kp, vp, kc, vc, scale_log2: float = 1.0,
-                       out_p: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The cls-split CUDA kernel on checked operands: the N patch rows only,
-    written into ``out_p`` (by default a ``[B, H, N, D]`` view of a fresh
-    ``[B, N, H, D]`` buffer)."""
+def _launch_cls_split(qp, kp, vp, qc, kc, vc, out_c, out_p, scale_log2: float = 1.0):
+    """One launch of the cls-split CUDA kernel on checked operands: the N
+    patch rows into ``out_p`` (``[B, H, N, D]``, any (b, h, n) strides) and
+    the cls row into ``out_c`` (``[B, H, 1, D]``)."""
     b, h, n, d = qp.shape
-    if out_p is None:
-        out_p = _bhsd(torch.empty((b, n, h, d), dtype=qp.dtype, device=qp.device))
     lib = cuda_kernels.build().lib
     code = lib.cgpt_cls_split_attention(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         qp.stride(0), qp.stride(1), qp.stride(2),
-        kc.data_ptr(), vc.data_ptr(), kc.stride(0), kc.stride(1),
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), kc.stride(0), kc.stride(1),
         out_p.data_ptr(), out_p.stride(0), out_p.stride(1), out_p.stride(2),
+        out_c.data_ptr(), out_c.stride(0), out_c.stride(1),
         b, h, n, d, float(scale_log2), cuda_kernels.stream_of(qp),
     )
     cuda_kernels.check(code, "cls_split_attention")
-    return out_p
 
 
 def cls_split_attention_parts(
@@ -285,15 +288,18 @@ def cls_split_attention_parts(
     ``(out_cls [B, H, 1, D], out_patches [B, H, N, D])``.
 
     CPU tensors take the plain version (the JAX package's fallback). CUDA
-    tensors launch the cls-split kernel for the patch rows, which writes
-    ``out_patches`` as a view of a ``[B, N, H, D]`` buffer, so
+    tensors make one launch of the cls-split kernel, which computes the
+    patch rows and the cls row; it writes ``out_patches`` as a view of a
+    contiguous ``[B, N, H, D]`` buffer, so
     ``out_patches.transpose(1, 2).reshape(B, N, H * D)`` is free."""
     if _device_kind(qp) == "cpu":
         return _cls_split_attention_plain(qp, kp, vp, qc, kc, vc)
     _check_operands(qp, kp, vp, qc, kc, vc)
-    out_p = _launch_patch_rows(qp, kp, vp, kc, vc)
+    b, h, n, d = qp.shape
+    out_p = _bhsd(torch.empty((b, n, h, d), dtype=qp.dtype, device=qp.device))
+    out_c = _bhsd(torch.empty((b, 1, h, d), dtype=qp.dtype, device=qp.device))
+    _launch_cls_split(qp, kp, vp, qc, kc, vc, out_c, out_p)
     cls_split_attention_parts.launches += 1
-    out_c = _cls_query_row(qc, kp, vp, kc, vc)
     return out_c, out_p
 
 
@@ -328,10 +334,10 @@ def cls_split_attention_scaled(
     runs ``exp``.
 
     CPU tensors take ``_cls_split_attention_scaled_plain``. CUDA tensors
-    launch the cls-split kernel with ``scale_log2 = scale * log2(e)`` on the
-    ``[:, :, 1:]`` patch views (no copy) and compute the cls row in plain
-    torch with the same scale; both are written into one ``[B, 1 + N, H, D]``
-    buffer, so no concatenation copy is made."""
+    make one launch of the cls-split kernel with
+    ``scale_log2 = scale * log2(e)`` on the ``[:, :, 1:]`` patch views and
+    the ``[:, :, :1]`` cls views (no copy); it writes all ``1 + N`` rows into
+    one ``[B, 1 + N, H, D]`` buffer, so no concatenation copy is made."""
     scale = true_head_dim ** -0.5
     if _device_kind(q) == "cpu":
         return _cls_split_attention_scaled_plain(q, k, v, scale)
@@ -339,11 +345,10 @@ def cls_split_attention_scaled(
     qp, kp, vp = (t[:, :, 1:] for t in (q, k, v))
     qc, kc, vc = (t[:, :, :1] for t in (q, k, v))
     _check_operands(qp, kp, vp, qc, kc, vc)
-    scale_log2 = scale * CLS_SPLIT_Q_PREMUL_LOG2E
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    _launch_patch_rows(qp, kp, vp, kc, vc, scale_log2, out_p=_bhsd(out[:, 1:]))
+    _launch_cls_split(qp, kp, vp, qc, kc, vc, _bhsd(out[:, :1]), _bhsd(out[:, 1:]),
+                      scale * CLS_SPLIT_Q_PREMUL_LOG2E)
     cls_split_attention_scaled.launches += 1
-    out[:, :1] = _bhsd(_cls_query_row(qc, kp, vp, kc, vc, scale_log2))
     return _bhsd(out)
 
 

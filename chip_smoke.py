@@ -257,6 +257,21 @@ def check_row_quant(torch, name, kernel, plain, shapes, ops_per_elem, make_args)
     return record
 
 
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_err(a, b) -> float:
+    """Relative Frobenius error of ``a`` against ``b``: catches a fault of one
+    key tile that a max-abs limit, loose against outputs of ~0.05, lets by."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+# limit on the relative Frobenius error of the attention kernels against
+# their plain versions (bf16 outputs and P: ~4e-3 measured on the H100)
+ATTN_REL_LIMIT = 1e-2
+
+
 def check_cls_split(torch, device):
     import torch.nn.functional as F
 
@@ -279,27 +294,27 @@ def check_cls_split(torch, device):
     args = (qp, kp, vp, qc, kc, vc)
     out_c, out_p = FA.cls_split_attention_parts(*args)
     ref_c, ref_p = FA._cls_split_attention_plain(*args)
+    row = FA._cls_query_row(qc, kp, vp, kc, vc)  # the plain version of the kernel's cls row
     torch.cuda.synchronize()
-    err = max(
-        float((out_p.float() - ref_p.float()).abs().max()),
-        float((out_c.float() - ref_c.float()).abs().max()),
-    )
+    err_c = max(max_err(out_c, ref_c), max_err(out_c, row))
+    err = max(max_err(out_p, ref_p), err_c)
+    rel = max(rel_err(out_p, ref_p), rel_err(out_c, ref_c), rel_err(out_c, row))
     # both against f32 attention on the same (bf16) inputs, for scale
     ex_c, ex_p = FA._cls_split_attention_plain(*(a.float() for a in args))
     err_k = float((out_p.float() - ex_p).abs().max())
     err_p = float((ref_p.float() - ex_p).abs().max())
     log(
         f"[kernel] cls_split_attention [{b}, {h}, {n}, {d}]: max abs err {err:.3e} "
+        f"(the cls row {err_c:.3e}), relative (Frobenius) {rel:.3e} "
         f"(max |out| {float(ex_p.abs().max()):.3f}; vs f32 attention: kernel "
         f"{err_k:.3e}, plain {err_p:.3e})"
     )
-    del ex_c, ex_p
-    if not math.isfinite(err) or err > 2e-2:
+    del ex_c, ex_p, row
+    if not math.isfinite(err) or err > 2e-2 or not rel < ATTN_REL_LIMIT:
         fail("cls_split_attention disagrees with its plain version")
-    # ms: the kernel alone (the N patch rows); the wrapper adds the plain
-    # torch cls query row. plain_ms and library_ms compute all N + 1 rows.
-    ms = cuda_ms(torch, lambda: FA._launch_patch_rows(qp, kp, vp, kc, vc), iters=10)
-    wrapper_ms = cuda_ms(torch, lambda: FA.cls_split_attention_parts(*args), iters=10)
+    # ms: the wrapper's one launch (N patch rows and the cls row); plain_ms and
+    # library_ms compute the same N + 1 rows
+    ms = cuda_ms(torch, lambda: FA.cls_split_attention_parts(*args), iters=10)
     plain_ms = cuda_ms(torch, lambda: FA._cls_split_attention_plain(*args), iters=3, warmup=1)
     q = torch.cat([qc, qp], dim=2)
     k = torch.cat([kc, kp], dim=2)
@@ -309,17 +324,18 @@ def check_cls_split(torch, device):
         lambda: F.scaled_dot_product_attention(q, k, v, scale=math.log(2.0)),
         iters=10,
     )
-    ops = 4.0 * b * h * n * (n + 1) * d  # N query rows over N + 1 keys
-    moved = 2.0 * (3 * b * h * n * d + 2 * b * h * d + b * h * n * d)  # q, k, v, kc, vc, out
+    ops = 4.0 * b * h * (n + 1) * (n + 1) * d  # N + 1 query rows over N + 1 keys
+    moved = 2.0 * 4 * b * h * (n + 1) * d  # q, k, v with their cls rows, out
     bms, by = bound_ms(moved, ops, PEAK_BF16_FLOPS)
-    log(f"[kernel] cls_split_attention: kernel {ms:.3f} ms, wrapper with the plain cls "
-        f"row {wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    tflops = ops / ms / 1e9
+    log(f"[kernel] cls_split_attention: one launch with the cls row {ms:.3f} ms "
+        f"({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
         f"scaled_dot_product_attention {library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
     del args, out_c, out_p, ref_c, ref_p, q, k, v
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "wrapper_ms": wrapper_ms}
+            "tflops": tflops}
 
 
 def fused_bshd(torch, g, device, b, s, h, d):
@@ -329,21 +345,6 @@ def fused_bshd(torch, g, device, b, s, h, d):
     views of the same product."""
     y = torch.randn((b, s, 3 * h * d), generator=g, device=device).to(torch.bfloat16)
     return [t.reshape(b, s, h, d) for t in y.split(h * d, dim=-1)]
-
-
-def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
-
-
-def rel_err(a, b) -> float:
-    """Relative Frobenius error of ``a`` against ``b``: catches a fault of one
-    key tile that a max-abs limit, loose against outputs of ~0.05, lets by."""
-    return float((a.float() - b.float()).norm() / b.float().norm())
-
-
-# limit on the relative Frobenius error of the attention kernels against
-# their plain versions (bf16 outputs and P: ~4e-3 measured on the H100)
-ATTN_REL_LIMIT = 1e-2
 
 
 def check_flash(torch, device):
@@ -406,14 +407,16 @@ def check_flash(torch, device):
     ops = 4.0 * b * h * s * s * d
     moved = 2.0 * 4 * b * s * h * d  # q, k, v, out
     bms, by = bound_ms(moved, ops, PEAK_BF16_FLOPS)
-    log(f"[kernel] flash_attention: kernel {ms:.3f} ms on [B, S, H, D] views (flash_custom), "
+    tflops = ops / ms / 1e9
+    log(f"[kernel] flash_attention: kernel {ms:.3f} ms on [B, S, H, D] views (flash_custom, "
+        f"{tflops:.1f} TFLOP/s), "
         f"{ms_bhsd:.3f} ms on [B, H, S, D] views (flash), plain {plain_ms:.3f} ms, "
         f"scaled_dot_product_attention {library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
     del q, k, v, qh, kh, vh, ref, qc, kc, vc, out_c, ref_c
     torch.cuda.empty_cache()
     return {"max_abs_err": max(err, err_c), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "ms_bhsd": ms_bhsd, "causal_ms": causal_ms}
+            "ms_bhsd": ms_bhsd, "causal_ms": causal_ms, "tflops": tflops}
 
 
 def check_cls_split_scaled(torch, device):
@@ -430,41 +433,36 @@ def check_cls_split_scaled(torch, device):
                for _ in range(3))
     out = FA.cls_split_attention_scaled(q, k, v, d)
     ref = FA._cls_split_attention_scaled_plain(q, k, v, scale)
+    scale_log2 = scale * FA.CLS_SPLIT_Q_PREMUL_LOG2E
+    row = FA._cls_query_row(q[:, :, :1], k[:, :, 1:], v[:, :, 1:], k[:, :, :1], v[:, :, :1],
+                            scale_log2)
     torch.cuda.synchronize()
-    err = max_err(out, ref)
-    rel = rel_err(out, ref)
-    log(f"[kernel] cls_split_attention_scaled [{b}, {h}, {s}, {d}]: max abs err {err:.3e}, "
-        f"relative (Frobenius) {rel:.3e} (max |out| {float(ref.float().abs().max()):.3f})")
+    err_c = max(max_err(out[:, :, :1], ref[:, :, :1]), max_err(out[:, :, :1], row))
+    err = max(max_err(out, ref), err_c)
+    rel = max(rel_err(out, ref), rel_err(out[:, :, :1], ref[:, :, :1]),
+              rel_err(out[:, :, :1], row))
+    log(f"[kernel] cls_split_attention_scaled [{b}, {h}, {s}, {d}]: max abs err {err:.3e} "
+        f"(the cls row {err_c:.3e}), relative (Frobenius) {rel:.3e} "
+        f"(max |out| {float(ref.float().abs().max()):.3f})")
     if not math.isfinite(err) or err > 2e-2 or not rel < ATTN_REL_LIMIT:
         fail("cls_split_attention_scaled disagrees with its plain version")
-    parts = [t[:, :, 1:] for t in (q, k, v)] + [t[:, :, :1] for t in (k, v)]
-    scale_log2 = scale * FA.CLS_SPLIT_Q_PREMUL_LOG2E
-    ms = cuda_ms(torch, lambda: FA._launch_patch_rows(*parts, scale_log2), iters=10)
-    wrapper_ms = cuda_ms(torch, lambda: FA.cls_split_attention_scaled(q, k, v, d), iters=10)
-    # the wrapper's plain cls row, and within it the copies its reshapes make
-    # of K and V (the [:, :, 1:] slices are no [B, N, H*D] view)
-    qc, kp, vp, kc, vc = q[:, :, :1], parts[1], parts[2], parts[3], parts[4]
-    cls_row_ms = cuda_ms(torch, lambda: FA._cls_query_row(qc, kp, vp, kc, vc, scale_log2),
-                         iters=10)
-    kv_copy_ms = cuda_ms(
-        torch, lambda: [t.transpose(1, 2).reshape(b, s - 1, h * d) for t in (kp, vp)], iters=10)
+    # ms: the wrapper's one launch, all 1 + N rows
+    ms = cuda_ms(torch, lambda: FA.cls_split_attention_scaled(q, k, v, d), iters=10)
     plain_ms = cuda_ms(torch, lambda: FA._cls_split_attention_scaled_plain(q, k, v, scale),
                        iters=3, warmup=1)
     library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                          iters=10)
-    n = s - 1
-    ops = 4.0 * b * h * n * s * d  # N patch rows over N + 1 keys (the kernel's work)
-    moved = 2.0 * (3 * b * h * s * d + b * h * n * d)  # q, k, v read, the patch rows written
+    ops = 4.0 * b * h * s * s * d  # N + 1 query rows over N + 1 keys
+    moved = 2.0 * 4 * b * h * s * d  # q, k, v, out
     bms, by = bound_ms(moved, ops, PEAK_BF16_FLOPS)
-    log(f"[kernel] cls_split_attention_scaled: kernel {ms:.3f} ms, wrapper with the plain cls "
-        f"row {wrapper_ms:.3f} ms (the cls row alone {cls_row_ms:.3f} ms, of which copying K "
-        f"and V {kv_copy_ms:.3f} ms), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+    tflops = ops / ms / 1e9
+    log(f"[kernel] cls_split_attention_scaled: one launch with the cls row {ms:.3f} ms "
+        f"({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
         f"{library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
-    del q, k, v, out, ref, parts, qc, kp, vp, kc, vc
+    del q, k, v, out, ref, row
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": library_ms, "wrapper_ms": wrapper_ms,
-            "cls_row_ms": cls_row_ms, "kv_copy_ms": kv_copy_ms}
+            "bound_by": by, "library_ms": library_ms, "tflops": tflops}
 
 
 def check_noise(torch, device):
@@ -596,8 +594,11 @@ def wrappers():
 
 
 def reset_counts():
+    from certifiedgpt_tpu_torch.ops.flash_attention import _cls_query_row
+
     for fn in wrappers().values():
         fn.launches = 0
+    _cls_query_row.calls = 0
 
 
 def read_counts():
@@ -606,7 +607,12 @@ def read_counts():
 
 def check_counts(label, launches, per_chunk, chunks):
     """Every kernel of the path launched ``per_chunk`` times a chunk, and
-    no other kernel at all."""
+    no other kernel at all; the plain cls query row (the cls-split kernel
+    computes that row itself) was never called."""
+    from certifiedgpt_tpu_torch.ops.flash_attention import _cls_query_row
+
+    if _cls_query_row.calls:
+        fail(f"{label}: the plain cls query row ran {_cls_query_row.calls} times")
     for name, n in launches.items():
         want = per_chunk.get(name, 0) * chunks
         if n != want:
@@ -926,6 +932,9 @@ def main() -> int:
     phase_build()
     with torch.no_grad():
         records = phase_kernels(torch, device)
+        if sys.argv[1:] == ["--kernels"]:  # phases 1-3 only, for work on a kernel
+            print(json.dumps({"kernel_phase": records}), flush=True)
+            return 0
         model, image, main_launches, summary = phase_main_path(torch, device)
         flash_launches = phase_forms(torch, model, image, device)
         entry_launches = phase_entries(torch, device)

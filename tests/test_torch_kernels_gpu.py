@@ -122,19 +122,34 @@ def test_row_quant_kernels_match_plain_on_gpu(cuda, rows):
         torch.testing.assert_close(ks, ps, rtol=1e-2, atol=0)
 
 
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 4])
-def test_cls_split_kernel_matches_plain_on_gpu(cuda, b):
-    """bf16 outputs within atol 2e-2 of the plain version, at the served
-    head dim (88)."""
+@pytest.mark.parametrize("b,n,d", [(1, 256, 88), (4, 256, 88), (2, 64, 88), (2, 192, 88),
+                                   (1, 1024, 88), (2, 2112, 88), (2, 128, 8), (2, 192, 96)])
+def test_cls_split_kernel_matches_plain_on_gpu(cuda, b, n, d):
+    """bf16 outputs within atol 2e-2 (1e-2 relative, Frobenius) of the plain
+    version, patch rows and the cls row of the one launch: at the served head
+    dim (88) and at the narrowest and widest, with a half-filled 128-query
+    block (N = 64, 192), and with more keys than one chunk of the cls row
+    (N = 2112). The cls row is also held against its own plain version."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    views = _qkv(b, 256, 16, 88, cuda, generator=g)
+    views = _qkv(b, n, 16, d, cuda, generator=g)
     before = FA.cls_split_attention_parts.launches
+    rows_before = FA._cls_query_row.calls
     out_c, out_p = FA.cls_split_attention_parts(*views)
     assert FA.cls_split_attention_parts.launches == before + 1
+    assert FA._cls_query_row.calls == rows_before  # no plain cls row on the CUDA path
+    assert out_p.transpose(1, 2).is_contiguous() and out_c.shape == (b, 16, 1, d)
     ref_c, ref_p = FA._cls_split_attention_plain(*views)
     torch.testing.assert_close(out_p.float(), ref_p.float(), atol=2e-2, rtol=0)
     torch.testing.assert_close(out_c.float(), ref_c.float(), atol=2e-2, rtol=0)
+    qp, kp, vp, qc, kc, vc = views
+    row = FA._cls_query_row(qc, kp, vp, kc, vc)
+    torch.testing.assert_close(out_c.float(), row.float(), atol=2e-2, rtol=0)
+    assert _rel(out_p, ref_p) < 1e-2 and _rel(out_c, ref_c) < 1e-2 and _rel(out_c, row) < 1e-2
 
 
 @pytest.mark.gpu
@@ -159,15 +174,20 @@ def _bshd_views(b, s, h, d, device, generator):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,causal", [
-    ((2, 1025, 16, 88), False),  # the ViT's sequence: a 1-token tail tile
-    ((4, 333, 16, 88), True),
-    ((2, 33, 4, 8), False),
-    ((2, 64, 4, 32), True),
-])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", [
+    (2, 1025, 16, 88),  # the ViT's sequence: a 1-token tail tile
+    (4, 333, 16, 88),
+    (2, 33, 4, 8),
+    (2, 64, 4, 32),
+    (2, 1, 4, 88), (2, 63, 4, 88), (2, 65, 4, 88), (2, 128, 4, 88), (2, 129, 4, 88),
+    (1, 300, 2, 96),
+], ids=lambda s: "x".join(map(str, s)))
 def test_flash_kernel_matches_plain_on_gpu(cuda, shape, causal):
-    """bf16 outputs within atol 2e-2 of the plain version in both layouts,
-    causal or not, with ragged tails and narrow heads."""
+    """bf16 outputs within atol 2e-2 (1e-2 relative, Frobenius) of the plain
+    version in both layouts, causal or not, with ragged tails around the
+    64-key tile and the 128-query block and narrow heads; an explicit scale
+    is folded into the exponent."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = _bshd_views(*shape, cuda, g)
     before = FA.flash_attention.launches
@@ -176,6 +196,13 @@ def test_flash_kernel_matches_plain_on_gpu(cuda, shape, causal):
     assert out.shape == q.shape and out.is_contiguous()
     ref = FA._flash_attention_plain(q, k, v, causal, shape[-1] ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    assert _rel(out, ref) < 1e-2
+    if causal:  # the first query sees only the first key
+        torch.testing.assert_close(out[:, 0], v[:, 0])
+    out_s = FA.flash_attention(q, k, v, causal=causal, scale=0.2)
+    ref_s = FA._flash_attention_plain(q, k, v, causal, 0.2)
+    torch.testing.assert_close(out_s.float(), ref_s.float(), atol=2e-2, rtol=0)
+    assert _rel(out_s, ref_s) < 1e-2
     # [B, H, S, D] views of a fused [B, S, 3, H, D] product (the flash form)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     if not causal:
@@ -183,6 +210,10 @@ def test_flash_kernel_matches_plain_on_gpu(cuda, shape, causal):
         torch.testing.assert_close(outh.transpose(1, 2).float(), ref.float(), atol=2e-2, rtol=0)
         torch.testing.assert_close(FA.builtin_flash_attention(q, k, v).float(), ref.float(),
                                    atol=2e-2, rtol=0)
+        # contiguous [B, H, S, D] operands of their own (other strides)
+        outc = FA.builtin_flash_attention_bhsd(qh.contiguous(), kh.contiguous(),
+                                               vh.contiguous(), shape[-1])
+        torch.testing.assert_close(outc.transpose(1, 2).float(), ref.float(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.gpu
@@ -193,21 +224,41 @@ def test_flash_kernel_raises_on_bad_operands_on_gpu(cuda):
     y = torch.zeros((1, 64, 2, 104), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(y, y, y)
+    z = torch.zeros((1, 64, 2, 88), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="positive"):
+        FA.flash_attention(z, z, z, scale=0.0)
+    for case in ("n_not_tile", "d_too_wide", "float32", "mixed_strides"):
+        n, d = (100 if case == "n_not_tile" else 128), (104 if case == "d_too_wide" else 88)
+        args = list(_qkv(2, n, 2, d, cuda, dtype=torch.float32 if case == "float32"
+                         else torch.bfloat16))
+        if case == "mixed_strides":
+            args[1] = args[1].contiguous()
+        with pytest.raises((ValueError, TypeError)):
+            FA.cls_split_attention_parts(*args)
 
 
 @pytest.mark.gpu
-def test_cls_split_scaled_matches_plain_on_gpu(cuda):
-    """The explicit-scale form on [B, H, 1025, D] tensors (cls at index 0):
-    the patch views start 176 bytes into each (b, h) row block."""
+@pytest.mark.parametrize("n", [1024, 64, 192])
+def test_cls_split_scaled_matches_plain_on_gpu(cuda, n):
+    """The explicit-scale form on [B, H, 1 + N, D] tensors (cls at index 0):
+    the patch views start 176 bytes into each (b, h) row block. All 1 + N
+    rows come from one launch; the cls row is also held against its own
+    plain version."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn((2, 16, 1025, 88), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (torch.randn((2, 16, 1 + n, 88), generator=g, device=cuda).to(torch.bfloat16)
                for _ in range(3))
     before = FA.cls_split_attention_scaled.launches
+    rows_before = FA._cls_query_row.calls
     out = FA.cls_split_attention_scaled(q, k, v, 88)
     assert FA.cls_split_attention_scaled.launches == before + 1
+    assert FA._cls_query_row.calls == rows_before
     ref = FA._cls_split_attention_scaled_plain(q, k, v, 88 ** -0.5)
-    assert out.shape == ref.shape == (2, 16, 1025, 88)
+    assert out.shape == ref.shape == (2, 16, 1 + n, 88)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    assert _rel(out, ref) < 1e-2 and _rel(out[:, :, :1], ref[:, :, :1]) < 1e-2
+    row = FA._cls_query_row(q[:, :, :1], k[:, :, 1:], v[:, :, 1:], k[:, :, :1], v[:, :, :1],
+                            88 ** -0.5 * FA.CLS_SPLIT_Q_PREMUL_LOG2E)
+    torch.testing.assert_close(out[:, :, :1].float(), row.float(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.gpu
