@@ -40,272 +40,6 @@
 
 #include "attention_common.cuh"
 
-namespace {
-
-using namespace cgpt_attn;
-
-struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* qc;
-  const __nv_bfloat16* kc;
-  const __nv_bfloat16* vc;
-  __nv_bfloat16* out;
-  __nv_bfloat16* out_c;
-  long long sb, sh, sn;  // q/k/v strides
-  long long cb, ch;      // qc/kc/vc strides
-  long long ob, oh, on;  // out strides
-  long long ocb, och;    // out_c strides
-  int N, D;
-  float scale_log2;  // multiplies every score (kScaled only)
-};
-
-constexpr int kSmemBytes = kRingBytes + 2 * kDp * 4;
-
-// The cls query row: keys of a chunk scored at once, one key per thread and
-// pass, and the P.V partial sums of kClsSlices key slices for each of the
-// kSlots 8-wide column groups.
-constexpr int kClsChunk = 1024;
-constexpr int kClsSlices = kThreads / kSlots;
-static_assert(kClsChunk * 4 + kClsSlices * kDp * 4 + 2 * kDp * 4 + 2 * kWarps * 4 <= kRingBytes,
-              "the cls row's scratch fits the ring's shared memory");
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The single cls query of one (b, h) over the N patch keys and the cls key,
-// on the CUDA cores: 2 * (N + 1) * D multiply-adds, nothing beside the
-// patch rows' 2 * N * (N + 1) * D. bf16 operands, f32 scores and sums; the
-// weights are rounded to bf16 before P.V while l sums them unrounded, as in
-// the patch rows. The same online softmax, seeded with the cls key
-// (m = s_cc, l = 1, acc = v_c), runs over chunks of kClsChunk keys.
-template <bool kScaled>
-__device__ void cls_query_row(const Params& p, float* scratch, long long bh, long long cbh,
-                              __nv_bfloat16* out_c) {
-  float* sS = scratch;                     // [kClsChunk] scores, then weights
-  float* sPart = sS + kClsChunk;           // [kClsSlices][kDp] P.V partial sums
-  float* sQc = sPart + kClsSlices * kDp;   // [kDp] the cls query
-  float* sAcc = sQc + kDp;                 // [kDp] the running output row
-  float* sRed = sAcc + kDp;                // [2][kWarps] block reductions
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int chunks = p.D >> 3;
-
-  float part = 0.f;  // this thread's share of q_c . k_c
-  if (tid < kDp) {
-    const bool in = tid < p.D;
-    const float qv = in ? __bfloat162float(p.qc[cbh + tid]) : 0.f;
-    sQc[tid] = qv;
-    sAcc[tid] = in ? __bfloat162float(p.vc[cbh + tid]) : 0.f;
-    part = in ? qv * __bfloat162float(p.kc[cbh + tid]) : 0.f;
-  }
-  part = warp_sum(part);
-  if (lane == 0) sRed[warp] = part;
-  __syncthreads();
-  float m_run = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) m_run += sRed[w];
-  if (kScaled) m_run *= p.scale_log2;
-  float l_run = 1.f;
-
-  const __nv_bfloat16* kg = p.k + bh;
-  const __nv_bfloat16* vg = p.v + bh;
-  for (int c0 = 0; c0 < p.N; c0 += kClsChunk) {
-    const int cn = min(kClsChunk, p.N - c0);
-    __syncthreads();  // the previous chunk's weights and sums are consumed
-    // scores: a key per thread
-    float mx = __uint_as_float(0xff800000u);
-    for (int j = tid; j < cn; j += kThreads) {
-      const __nv_bfloat16* row = kg + (c0 + j) * p.sn;
-      float dot = 0.f;
-      for (int cc = 0; cc < chunks; ++cc) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(row + cc * 8);
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h2[e]);
-          dot = fmaf(f.x, sQc[cc * 8 + 2 * e], dot);
-          dot = fmaf(f.y, sQc[cc * 8 + 2 * e + 1], dot);
-        }
-      }
-      if (kScaled) dot *= p.scale_log2;
-      sS[j] = dot;
-      mx = fmaxf(mx, dot);
-    }
-    mx = warp_max(mx);
-    if (lane == 0) sRed[warp] = mx;
-    __syncthreads();
-    float m_new = m_run;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, sRed[w]);
-    // weights: summed unrounded, stored rounded to bf16
-    float lsum = 0.f;
-    for (int j = tid; j < cn; j += kThreads) {
-      const float w = fast_exp2(sS[j] - m_new);
-      lsum += w;
-      sS[j] = __bfloat162float(__float2bfloat16(w));
-    }
-    lsum = warp_sum(lsum);
-    if (lane == 0) sRed[kWarps + warp] = lsum;
-    __syncthreads();
-    // P.V: thread (slice, column group) sums its keys for 8 columns
-    const int slice = tid / kSlots, cc = tid - slice * kSlots;
-    if (slice < kClsSlices && cc < chunks) {
-      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int j = slice; j < cn; j += kClsSlices) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(vg + (c0 + j) * p.sn + cc * 8);
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float w = sS[j];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h2[e]);
-          a[2 * e] = fmaf(w, f.x, a[2 * e]);
-          a[2 * e + 1] = fmaf(w, f.y, a[2 * e + 1]);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sPart[slice * kDp + cc * 8 + e] = a[e];
-    }
-    __syncthreads();
-    const float corr = fast_exp2(m_run - m_new);
-    float ladd = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) ladd += sRed[kWarps + w];
-    l_run = l_run * corr + ladd;
-    m_run = m_new;
-    if (tid < p.D) {
-      float sum = 0.f;
-      for (int sl = 0; sl < kClsSlices; ++sl) sum += sPart[sl * kDp + tid];
-      sAcc[tid] = sAcc[tid] * corr + sum;
-    }
-  }
-  if (tid < p.D) out_c[tid] = __float2bfloat16(sAcc[tid] / l_run);
-}
-
-// kScaled: every score is multiplied by p.scale_log2 (the explicit-scale
-// form, folded into the exponent's multiply-add); the pre-scaled form has no
-// such multiply. Blocks 0 .. ceil(N / kBlockM) - 1 of a (b, h) take 128 patch
-// queries each; the block after them takes the cls query.
-template <bool kScaled>
-__global__ void __launch_bounds__(kThreads, 2) cls_split_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sKV = sQ + kBlockM * kStride;
-  float* sKc = reinterpret_cast<float*>(sKV + kStages * kStageElems);
-  float* sVc = sKc + kDp;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long bh = static_cast<long long>(b) * p.sb + static_cast<long long>(h) * p.sh;
-  const long long cbh = static_cast<long long>(b) * p.cb + static_cast<long long>(h) * p.ch;
-  const int q0 = blockIdx.x * kBlockM;
-  if (q0 >= p.N) {
-    cls_query_row<kScaled>(p, reinterpret_cast<float*>(smem_raw), bh, cbh,
-                           p.out_c + static_cast<long long>(b) * p.ocb +
-                               static_cast<long long>(h) * p.och);
-    return;
-  }
-  const __nv_bfloat16* kg = p.k + bh;
-  const __nv_bfloat16* vg = p.v + bh;
-  const int tiles = p.N / kBlockN;
-
-  zero_head_padding(sQ, kBlockM + kStages * 2 * kBlockN, p.D);
-  for (int i = tid; i < kDp; i += kThreads) {
-    sKc[i] = i < p.D ? __bfloat162float(p.kc[cbh + i]) : 0.f;
-    sVc[i] = i < p.D ? __bfloat162float(p.vc[cbh + i]) : 0.f;
-  }
-  // Groups 0, 1, 2: Q (a last tile of 64 queries is zero-filled past N), the
-  // first K/V tile, the second.
-  load_tile<kBlockM, true>(sQ, p.q + bh + q0 * p.sn, p.sn, p.N - q0, p.D);
-  cp_async_commit();
-  load_kv_stage(sKV, kg, p.sn, vg, p.sn, 0, kBlockN, p.D);
-  cp_async_commit();
-  if (tiles > 1) load_kv_stage(sKV + kStageElems, kg, p.sn, vg, p.sn, kBlockN, kBlockN, p.D);
-  cp_async_commit();
-  cp_async_wait<2>();
-  __syncthreads();
-
-  // The thread owns rows r0 and r0 + 8 of the warp's slice (mma C layout).
-  const int r0 = warp * 16 + (lane >> 2);
-  const bool active = q0 + warp * 16 < p.N;  // N % 64 == 0: all 16 rows or none
-  float sc0 = 0.f, sc1 = 0.f;  // cls scores, log2 domain
-  for (int d = lane & 3; d < kDp; d += 4) {
-    sc0 += __bfloat162float(sQ[r0 * kStride + d]) * sKc[d];
-    sc1 += __bfloat162float(sQ[(r0 + 8) * kStride + d]) * sKc[d];
-  }
-  sc0 = quad_sum(sc0);
-  sc1 = quad_sum(sc1);
-  if (kScaled) {
-    sc0 *= p.scale_log2;
-    sc1 *= p.scale_log2;
-  }
-
-  // Online softmax seeded with the cls key: m = s_c, l = 1, acc = v_c. The
-  // row sum l is kept as per-thread partials (the quad adds up at the end),
-  // so only one thread of each quad starts it at 1.
-  float m0 = sc0, m1 = sc1;
-  float l0 = (lane & 3) == 0 ? 1.f : 0.f, l1 = l0;
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt) {
-    const int c = nt * 8 + (lane & 3) * 2;
-    acc[nt][0] = sVc[c];
-    acc[nt][1] = sVc[c + 1];
-    acc[nt][2] = sVc[c];
-    acc[nt][3] = sVc[c + 1];
-  }
-
-  int stage = 0;
-  for (int t = 0; t < tiles; ++t) {
-    // Tile t has landed (only tile t + 1 may still be in flight), and every
-    // warp is done with tile t - 1, whose stage tile t + 2 now takes.
-    cp_async_wait<1>();
-    __syncthreads();
-    if (t + 2 < tiles) {
-      const int next = stage >= 1 ? stage - 1 : kStages - 1;  // (t + 2) % kStages
-      load_kv_stage(sKV + next * kStageElems, kg, p.sn, vg, p.sn, (t + 2) * kBlockN, kBlockN,
-                    p.D);
-    }
-    cp_async_commit();
-    if (active) {
-      const __nv_bfloat16* sK = sKV + stage * kStageElems;
-      float s[kNTiles][4];
-      qk_scores(s, sQ, sK, warp, lane);
-      online_softmax_step<kScaled, false>(s, acc, p.scale_log2, m0, m1, l0, l1);
-      pv_accumulate(acc, s, sK + kTileElems, lane);
-    }
-    stage = stage + 1 == kStages ? 0 : stage + 1;
-  }
-
-  if (!active) return;
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  __nv_bfloat16* og = p.out + static_cast<long long>(b) * p.ob + static_cast<long long>(h) * p.oh;
-  const long long row0 = q0 + r0;
-#pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt) {
-    const int c = nt * 8 + (lane & 3) * 2;
-    if (c < p.D) {
-      *reinterpret_cast<__nv_bfloat162*>(og + row0 * p.on + c) =
-          __floats2bfloat162_rn(acc[nt][0] / l0, acc[nt][1] / l0);
-      *reinterpret_cast<__nv_bfloat162*>(og + (row0 + 8) * p.on + c) =
-          __floats2bfloat162_rn(acc[nt][2] / l1, acc[nt][3] / l1);
-    }
-  }
-}
-
-}  // namespace
-
 extern "C" int cgpt_cls_split_attention(const void* q, const void* k, const void* v,
                                         long long sb, long long sh, long long sn,
                                         const void* qc, const void* kc, const void* vc,
@@ -313,37 +47,34 @@ extern "C" int cgpt_cls_split_attention(const void* q, const void* k, const void
                                         long long oh, long long on, void* out_c,
                                         long long ocb, long long och, int B, int H, int N,
                                         int D, float scale_log2, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || N % kBlockN != 0 || D <= 0 || D % 8 != 0 || D > kDp ||
-      B > 65535 || H > 65535 || !(scale_log2 > 0.f))
+  using namespace cgpt_attn;
+  if (B <= 0 || H <= 0 || N <= 0 || N % 64 != 0 || D <= 0 || D % 8 != 0 || D > kDp ||
+      !(scale_log2 > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+  Params p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.qb = p.kb = p.vb = sb;
+  p.qh = p.kh = p.vh = sh;
+  p.qs = p.ks = p.vs = sn;
+  p.ob = ob;
+  p.oh = oh;
+  p.os = on;
   p.qc = static_cast<const __nv_bfloat16*>(qc);
   p.kc = static_cast<const __nv_bfloat16*>(kc);
   p.vc = static_cast<const __nv_bfloat16*>(vc);
-  p.out = static_cast<__nv_bfloat16*>(out);
   p.out_c = static_cast<__nv_bfloat16*>(out_c);
-  p.sb = sb;
-  p.sh = sh;
-  p.sn = sn;
   p.cb = cb;
   p.ch = ch;
-  p.ob = ob;
-  p.oh = oh;
-  p.on = on;
   p.ocb = ocb;
   p.och = och;
-  p.N = N;
+  p.B = B;
+  p.H = H;
+  p.S = N;
   p.D = D;
   p.scale_log2 = scale_log2;
-  // the patch-query blocks of a (b, h), then one block for its cls query
-  const dim3 grid((N + kBlockM - 1) / kBlockM + 1, H, B);
-  const auto kernel = scale_log2 == 1.f ? cls_split_kernel<false> : cls_split_kernel<true>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.causal = 0;
+  return static_cast<int>(launch_attention<true>(p, static_cast<cudaStream_t>(stream)));
 }

@@ -41,124 +41,16 @@
 
 #include "attention_common.cuh"
 
-namespace {
-
-using namespace cgpt_attn;
-
-struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* out;
-  long long qb, qh, qs;  // element strides over (b, h, s)
-  long long kb, kh, ks;
-  long long vb, vh, vs;
-  long long ob, oh, os;
-  int S, D;
-  float scale_log2;
-  int causal;
-};
-
-__global__ void __launch_bounds__(kThreads, 2) flash_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sKV = sQ + kBlockM * kStride;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kBlockM, h = blockIdx.y, b = blockIdx.z;
-  const long long b64 = b, h64 = h;
-  const __nv_bfloat16* kg = p.k + b64 * p.kb + h64 * p.kh;
-  const __nv_bfloat16* vg = p.v + b64 * p.vb + h64 * p.vh;
-  const int k_end = p.causal ? min(p.S, q0 + kBlockM) : p.S;
-  const int tiles = (k_end + kBlockN - 1) / kBlockN;
-
-  zero_head_padding(sQ, kBlockM + kStages * 2 * kBlockN, p.D);
-  // Group 0: Q and the first K/V tile; group 1: the second tile.
-  load_tile<kBlockM, true>(sQ, p.q + b64 * p.qb + h64 * p.qh + q0 * p.qs, p.qs, p.S - q0, p.D);
-  load_kv_stage(sKV, kg, p.ks, vg, p.vs, 0, p.S, p.D);
-  cp_async_commit();
-  if (tiles > 1) load_kv_stage(sKV + kStageElems, kg, p.ks, vg, p.vs, kBlockN, p.S - kBlockN, p.D);
-  cp_async_commit();
-
-  // The thread owns rows r0 and r0 + 8 of the warp's slice (mma C layout);
-  // l is kept as per-thread partials that the quad adds up at the end.
-  const int wrow0 = q0 + warp * 16;  // the warp's first query
-  const int qrow0 = wrow0 + (lane >> 2), qrow1 = qrow0 + 8;
-  const float neg_inf = __uint_as_float(0xff800000u);
-  float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f;
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  int stage = 0;
-  for (int t = 0; t < tiles; ++t) {
-    const int kt = t * kBlockN;
-    // Tile t has landed (only tile t + 1 may still be in flight), and every
-    // warp is done with tile t - 1, whose stage tile t + 2 now takes.
-    cp_async_wait<1>();
-    __syncthreads();
-    if (t + 2 < tiles) {
-      const int next = stage >= 1 ? stage - 1 : kStages - 1;  // (t + 2) % kStages
-      load_kv_stage(sKV + next * kStageElems, kg, p.ks, vg, p.vs, kt + 2 * kBlockN,
-                    p.S - kt - 2 * kBlockN, p.D);
-    }
-    cp_async_commit();
-
-    // A warp whose queries all lie past S, or (causal) before this tile's
-    // first key, has nothing to add.
-    if (wrow0 < p.S && !(p.causal && kt > wrow0 + 15)) {
-      const __nv_bfloat16* sK = sKV + stage * kStageElems;
-      float s[kNTiles][4];
-      qk_scores(s, sQ, sK, warp, lane);
-      const bool tail = kt + kBlockN > p.S;
-      const bool diagonal = p.causal && kt + kBlockN - 1 > wrow0;
-      if (tail || diagonal) {
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kt + j * 8 + (lane & 3) * 2 + (e & 1);
-            const int qrow = e < 2 ? qrow0 : qrow1;
-            if (key >= p.S || (p.causal && key > qrow)) s[j][e] = neg_inf;
-          }
-        }
-      }
-      online_softmax_step<true, true>(s, acc, p.scale_log2, m0, m1, l0, l1);
-      pv_accumulate(acc, s, sK + kTileElems, lane);
-    }
-    stage = stage + 1 == kStages ? 0 : stage + 1;
-  }
-
-  l0 = fmaxf(quad_sum(l0), 1e-30f);
-  l1 = fmaxf(quad_sum(l1), 1e-30f);
-  __nv_bfloat16* og = p.out + b64 * p.ob + h64 * p.oh;
-#pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt) {
-    const int c = nt * 8 + (lane & 3) * 2;
-    if (c < p.D) {
-      if (qrow0 < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(og + static_cast<long long>(qrow0) * p.os + c) =
-            __floats2bfloat162_rn(acc[nt][0] / l0, acc[nt][1] / l0);
-      if (qrow1 < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(og + static_cast<long long>(qrow1) * p.os + c) =
-            __floats2bfloat162_rn(acc[nt][2] / l1, acc[nt][3] / l1);
-    }
-  }
-}
-
-}  // namespace
-
 extern "C" int cgpt_flash_attention(const void* q, long long qb, long long qh, long long qs,
                                     const void* k, long long kb, long long kh, long long ks,
                                     const void* v, long long vb, long long vh, long long vs,
                                     void* out, long long ob, long long oh, long long os, int B,
                                     int H, int S, int D, float scale_log2, int causal,
                                     void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D % 8 != 0 || D > kDp || B > 65535 ||
-      H > 65535 ||
-      !(scale_log2 > 0.f))
+  using namespace cgpt_attn;
+  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D % 8 != 0 || D > kDp || !(scale_log2 > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+  Params p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
@@ -175,14 +67,11 @@ extern "C" int cgpt_flash_attention(const void* q, long long qb, long long qh, l
   p.ob = ob;
   p.oh = oh;
   p.os = os;
+  p.B = B;
+  p.H = H;
   p.S = S;
   p.D = D;
   p.scale_log2 = scale_log2;
   p.causal = causal;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_kernel<<<grid, kThreads, kRingBytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_attention<false>(p, static_cast<cudaStream_t>(stream)));
 }

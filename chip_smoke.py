@@ -214,7 +214,7 @@ def phase_build():
         f"(nvcc {build.seconds:.2f} s)"
     )
     for line in build.log.splitlines():
-        if line.startswith("==") or "Used" in line or "spill" in line:
+        if line.startswith("==") or any(w in line for w in ("Used", "spill", "arning", "wgmma")):
             log(f"[build] {line.strip()}")
 
 
