@@ -2,38 +2,49 @@
 // matrix multiply: cls_split_attention.cu and flash_attention.cu instantiate
 // it and hold the C entry points.
 //
-// Work: one item is 128 queries of one (b, h). A block of 12 warps stays on
-// its SM and walks over items (blockIdx.x, then every gridDim.x-th), so that
-// one item's epilogue and the next item's first loads overlap. Warps 8-11
-// are the producer: they copy Q and the K/V tiles of 128 keys into shared
-// memory with cp.async, each copy completing on an mbarrier, and give most
-// of their registers away (setmaxnreg). Warps 0-7 are two consumer
-// warpgroups of 64 queries each. Two K buffers and two V buffers form the
-// ring; full/empty mbarrier pairs hand a buffer to the consumers and back,
-// so the two warpgroups are never held to one pace: one runs its softmax
-// while the other's products are on the tensor cores.
+// What bounds it on an H100: by the count of operations it is the tensor
+// cores (about S / 2 FLOP per byte of q, k, v and out), but at a head dim of
+// 88 three things weigh about the same and have to overlap: the products,
+// the exp2 of the softmax (one per 368 FLOP, on the 16-lane special function
+// unit) and the K/V tiles that every query tile of a (b, h) reads again
+// through the L2 cache. The design answers each in turn.
+//
+// Work: one item is 256 queries of one (b, h), so K and V of a (b, h) pass
+// through L2 four times at 1024 tokens, not sixteen. A block of 12 warps
+// stays on its SM and walks over items (blockIdx.x, then every
+// gridDim.x-th), so that one item's stores and the next item's first copies
+// overlap. Warps 8-11 are the producer: they copy Q and the K/V tiles of 64
+// keys into shared memory with cp.async, each copy completing on an
+// mbarrier, and give most of their registers away (setmaxnreg). Warps 0-7
+// are two consumer warpgroups of 128 queries each. Three K buffers and three
+// V buffers form the ring; full/empty mbarrier pairs hand a buffer to the
+// consumers and back, so copies run up to three tiles ahead and the two
+// warpgroups are not held to one pace.
 //
 // Every tile is kept in the 128-byte-swizzled layout that wgmma's
 // shared-memory descriptors read: rows of 64 bf16 (128 bytes), the 16-byte
 // chunk c of row r stored at chunk c ^ (r % 8). A head dim of up to 96 is
 // two such column boxes (columns 0-63, 64-127) of which only the first 96
-// columns are ever read; columns [D, 96) are zeroed once. Key rows past the
-// end of the sequence are zero-filled by the copy itself (a cp.async of
-// source size 0).
+// columns are ever read; columns [D, 96) are zeroed once. Rows past the end
+// of the sequence are zero-filled by the copy itself (a cp.async of source
+// size 0).
 //
-// S = Q K^T is wgmma m64n128k16 over six depth steps, Q and K both read
-// from shared memory (K-major). The weights P stay in registers as the A
-// operand of O += P V (m64n88k16, or n96 for a head dim of 96), with V read
-// as the MN-major B operand, i.e. transposed by its descriptor. Inside a
-// warpgroup the products run asynchronously: S of tile t + 1 and P V of tile
-// t are issued together, and the softmax of tile t + 1 (exp2 on the special
-// function unit, the score scale folded into one fused multiply-add) runs
-// while P V of tile t is still on the tensor cores.
+// A consumer warpgroup owns two row blocks of 64 queries, A and B. S = Q K^T
+// of a block and a key tile is wgmma m64n64k16 over six depth steps, Q and K
+// both read from shared memory (K-major). The weights P stay in registers as
+// the A operand of O += P V (m64n88k16, or n96 for a head dim of 96), with V
+// read as the MN-major B operand, i.e. transposed by its descriptor. For key
+// tile t the warpgroup starts S_A(t + 1), O_A += P_A V(t), S_B(t + 1),
+// O_B += P_B V(t) as four asynchronous groups and takes them up in that
+// order, so the softmax of one block (exp2 on the special function unit, the
+// score scale folded into one fused multiply-add) runs while the other
+// block's products are on the tensor cores.
 //
-// With kCls the keys and queries are the N patch tokens and one more key,
-// the cls token, seeds every row's online softmax (m = s_c, l = 1, o = v_c);
-// the single cls query row of each (b, h) is one more, small work item that
-// the consumer warps compute on the CUDA cores.
+// With kCls the keys and queries are the N patch tokens, and one more key,
+// the cls token, seeds every row's online softmax (m = s_c, l = 1, o = v_c).
+// The single cls query row of each (b, h) is computed in the same launch by
+// the producer warpgroup on the CUDA cores, once its copies are under way and
+// while the consumers finish their last items.
 
 #pragma once
 
@@ -46,7 +57,6 @@ namespace cgpt_attn {
 constexpr int kBlockM = 256;  // queries per work item: 2 warpgroups x 2 row blocks of 64
 constexpr int kBlockN = 64;   // keys per tile
 constexpr int kDp = 96;       // head dim as the depth of Q K^T (zero-padded)
-constexpr int kRowBlocks = 2;  // 64-query row blocks of a consumer warpgroup
 constexpr int kConsumerWarps = 8;
 constexpr int kConsumerThreads = kConsumerWarps * 32;
 constexpr int kProducerThreads = 128;
@@ -76,7 +86,7 @@ constexpr int kQFull = 0, kQEmpty = 1, kKFull = 2, kKEmpty = kKFull + kStages,
 static_assert(8 * (kVEmpty + kStages) <= 128, "the barriers' room");
 
 // The cls query rows (kCls), computed by the producer warpgroup once its
-// copies are issued: keys of a chunk scored at once, one key per thread and
+// copies are under way: keys of a chunk scored at once, one key per thread and
 // pass, and the P.V partial sums of kClsSlices key slices for each of the
 // kSlots 8-wide column groups.
 constexpr int kClsChunk = 1024;
@@ -134,7 +144,7 @@ __device__ __forceinline__ void mbarrier_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// Arrives on the barrier once all cp.async copies that this thread has issued
+// Arrives on the barrier once all cp.async copies that this thread has started
 // so far have landed (the arrival is one of those the barrier was set up to
 // expect).
 __device__ __forceinline__ void mbarrier_arrive_on_copies(uint32_t bar) {
@@ -664,7 +674,7 @@ struct RowState {
 // The consumer warps: the attention of every item. A warpgroup owns 128
 // queries as two row blocks of 64, A and B, and keeps the tensor cores fed
 // with one block's products while it runs the other's softmax: for key tile
-// t it issues S_A(t + 1), O_A += P_A V(t), S_B(t + 1), O_B += P_B V(t) as
+// t it starts S_A(t + 1), O_A += P_A V(t), S_B(t + 1), O_B += P_B V(t) as
 // four groups, then takes them up in that order.
 template <int kOutN, bool kScaled, bool kCls>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, int items,
@@ -728,7 +738,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
 
     // S = Q K^T of one key tile: depth steps 0-3 in the first column box,
     // 4-5 in the second, 32 bytes apart along the row.
-    auto issue_scores = [&](float (&s)[kSRegs], uint64_t desc_q, int buf) {
+    auto start_scores = [&](float (&s)[kSRegs], uint64_t desc_q, int buf) {
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
         wgmma_m64n64k16_ss(
@@ -739,7 +749,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
       wgmma_commit();
     };
     // O += P V: 16 keys a step, 16 * 128 bytes apart in the V tile
-    auto issue_output = [&](float (&o)[kOutN / 2], const uint32_t (&w)[kSRegs / 2], int buf) {
+    auto start_output = [&](float (&o)[kOutN / 2], const uint32_t (&w)[kSRegs / 2], int buf) {
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         wgmma_pv<kOutN>(o, w[4 * kk], w[4 * kk + 1], w[4 * kk + 2], w[4 * kk + 3],
@@ -843,8 +853,8 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
     // the scores of tile 0
     await(kKFull + kr.buf, kr.parity);
     wgmma_fence();
-    issue_scores(sa, desc_qa, kr.buf);
-    issue_scores(sb, desc_qb, kr.buf);
+    start_scores(sa, desc_qa, kr.buf);
+    start_scores(sb, desc_qb, kr.buf);
     wgmma_wait<1>();
     fence_registers(sa);
     softmax(sa, xa, ra, 0);
@@ -863,10 +873,10 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
       rescale_output(oa, xa);
       rescale_output(ob, xb);
       wgmma_fence();
-      issue_scores(sa, desc_qa, kr.buf);
-      issue_output(oa, wa, vr.buf);
-      issue_scores(sb, desc_qb, kr.buf);
-      issue_output(ob, wb, vr.buf);
+      start_scores(sa, desc_qa, kr.buf);
+      start_output(oa, wa, vr.buf);
+      start_scores(sb, desc_qb, kr.buf);
+      start_output(ob, wb, vr.buf);
       wgmma_wait<3>();  // S_A of tile t + 1
       fence_registers(sa);
       softmax(sa, xa, ra, t + 1);
@@ -890,8 +900,8 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
     rescale_output(oa, xa);
     rescale_output(ob, xb);
     wgmma_fence();
-    issue_output(oa, wa, vr.buf);
-    issue_output(ob, wb, vr.buf);
+    start_output(oa, wa, vr.buf);
+    start_output(ob, wb, vr.buf);
     wgmma_wait<1>();
     fence_registers(oa);
     store(oa, xa, ra);

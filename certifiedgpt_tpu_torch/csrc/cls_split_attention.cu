@@ -9,34 +9,35 @@
 //   the experiment before it, which takes raw q, multiplies every score by an
 //   explicit softmax scale and runs exp. exp(x * scale - m) equals
 //   exp2((x * scale - m) * log2(e)), so that form passes
-//   scale_log2 = scale * log2(e): the scores are multiplied by it in f32 and
-//   the same exp2 softmax follows (the maximum is taken in the same scaled
-//   domain). scale_log2 = 1 (the pre-scaled form) launches an instance of
-//   the kernel that has no such multiply.
+//   scale_log2 = scale * log2(e): the running maximum is kept in that scaled
+//   domain and every weight is exp2(fma(x, scale_log2, -m)), one fused
+//   multiply-add. scale_log2 = 1 (the pre-scaled form) launches an instance
+//   of the kernel that has no multiply.
 // For each (b, h) the kernel computes non-causal attention of the N patch
 // queries over the N patch keys plus the single cls key, merged into each
-// row's softmax. The cls query row stays plain torch (as in the JAX package).
+// row's softmax as its seed, and, in the same launch, the cls query row over
+// the same N + 1 keys (the JAX package computes that row in plain XLA).
 //
-// Bound on the H100: operations. 4*B*H*N^2*dh bf16 tensor-core FLOPs against
-// 4*B*H*N*dh*2 bytes moved, i.e. about N/2 = 512 FLOP per byte, above the
-// card's ~295. Design: the TPU kernel keeps all N keys of a (b, h) resident;
-// K plus V at N = 1024 does not fit a block's shared memory, so one block of
-// 4 warps takes 64 queries (16 per warp) and loops over K/V tiles of 64 keys
-// with an online softmax, seeded from the cls term (m = s_c, l = 1,
-// acc = v_c). Products are mma.sync m16n8k16 bf16 with fp32 accumulation;
-// fragments come from shared memory through ldmatrix (V transposed).
+// Bound on the H100: operations. 4*B*H*(N+1)^2*dh bf16 tensor-core FLOPs
+// against 4*B*H*(N+1)*dh*2 bytes moved, i.e. about N/2 = 512 FLOP per byte,
+// above the card's ~295. What the kernel (attention_common.cuh) does about
+// it: wgmma from swizzled shared memory, 256 queries a work item so that K
+// and V pass through L2 four times, a producer warpgroup that keeps a ring
+// of K/V tiles full, and in each consumer warpgroup one row block's softmax
+// under the other's products. The TPU kernel keeps all N keys of a (b, h)
+// resident; here they stream through 64-key tiles with an online softmax.
 //
 // Head padding: the TPU pads dh = 88 to its 128-lane width in device memory,
 // which costs 45 % more bytes and FLOPs. Here operands stay at dh in device
-// memory; the kernel zero-pads to kDp = 96 (the next multiple of the mma
-// k-step 16 above dh = 88, the one head dim served) inside shared memory only.
-// The padded lanes add nothing to q.k, and the padded output lanes are never
-// stored. Narrower head dims (multiples of 8) are padded the same way.
+// memory; Q K^T runs over a depth of 96 (the next multiple of the wgmma depth
+// step 16, zero-padded in shared memory only) and P V over a width of 88.
+// Narrower head dims (multiples of 8) are padded the same way; 96 takes an
+// instance with a P V width of 96.
 //
 // Operands are strided views [B, H, N, D] (element strides sb, sh, sn, 1) so
 // that q, k and v can be read straight out of the fused qkv matmul output;
 // rows must be 16-byte aligned (strides and D multiples of 8). N must be a
-// multiple of 64. A simple kernel: no cp.async double buffering, no wgmma/TMA.
+// multiple of 64; a last work item of fewer than 256 queries is masked.
 
 #include "attention_common.cuh"
 

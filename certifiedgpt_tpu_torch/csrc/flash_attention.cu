@@ -11,33 +11,34 @@
 // Bound on the H100: operations at the ViT's shapes. 4*B*H*S^2*dh bf16
 // tensor-core FLOPs (half of it, about, when causal) against 4*B*H*S*dh*2
 // bytes moved, i.e. about S/2 = 512 FLOP per byte at S = 1025, above the
-// card's ~295. Design: as the TPU kernel's grid (bh, q tile, k tile) with the
-// k loop sequential, one block of 4 warps takes 64 queries (16 per warp) of
-// one (b, h) and loops over K/V tiles of 64 keys in shared memory with the
-// online softmax (m = -inf, l = 0, acc = 0); a causal block stops at the
-// tile that holds its last query. Products are mma.sync m16n8k16 bf16 with
-// fp32 accumulation, fragments through ldmatrix (V transposed). The scores
-// are multiplied by scale * log2(e) in f32 and the softmax runs on exp2
-// (exp(x * scale - m) = exp2((x * scale - m) * log2(e))).
+// card's ~295. What the kernel (attention_common.cuh) does about it: wgmma
+// from swizzled shared memory, 256 queries a work item so that K and V pass
+// through L2 a quarter as often as with 64, a producer warpgroup that keeps
+// a ring of 64-key K/V tiles full, and in each consumer warpgroup one row
+// block's softmax under the other's products. As the TPU kernel's grid
+// (bh, q tile, k tile) with the k loop sequential, an item loops over key
+// tiles with the online softmax (m = -inf, l = 0, o = 0); a causal item stops
+// at the tile that holds its last query. The scores are multiplied by
+// scale * log2(e) inside the exponent's fused multiply-add and the softmax
+// runs on exp2 (exp(x * scale - m) = exp2((x * scale - m) * log2(e))).
 //
 // Precision: the TPU kernel keeps P in f32 for P.V. The tensor cores take P
 // rounded to bf16 (relative error 2^-9 on each weight, while l sums the
 // unrounded weights), so outputs differ from f32 attention by up to about
 // 1e-3 of the value scale, within the bf16 rounding of the output itself.
 //
-// Masks, as in the TPU kernel: a key at or past S, and a key after the query
-// when causal, scores -1e30 (exp2 of it less the row maximum is 0); the
-// output divides by max(l, 1e-30), so a fully masked row is finite. Key rows
-// at or past S are zero-filled in shared memory, and query rows at or past S
-// are never stored.
+// Masks: a key at or past S, and a key after the query when causal, scores
+// -inf (its weight is 0); a row whose every score so far is masked takes 0
+// as its maximum, and the output divides by max(l, 1e-30), so a fully masked
+// row is finite (zeros). Rows at or past S are zero-filled in shared memory,
+// and query rows at or past S are never stored.
 //
 // Layouts: q, k, v and out are strided views [B, H, S, D] with element
 // strides (b, h, s) each of their own and 1 along D, so that the ViT's
 // [B, S, H, D] views of one fused qkv product (flash_custom) and its
 // [B, H, S, D] views (flash) are both read without a copy, and the output can
 // be a [B, S, H, D] buffer. Rows must be 16-byte aligned (strides and D
-// multiples of 8); D is padded to kDp = 96 in shared memory only. A simple
-// kernel: no cp.async double buffering, no wgmma/TMA.
+// multiples of 8); D up to 96 is padded in shared memory only.
 
 #include "attention_common.cuh"
 

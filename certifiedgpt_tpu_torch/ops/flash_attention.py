@@ -2,7 +2,10 @@
 
 Port of ``certifiedgpt_tpu/ops/flash_attention.py`` and of the explicit-scale
 cls-split experiment ``scripts/bench_cls_split_attention.py``. Three Pallas
-TPU kernels become two CUDA kernels:
+TPU kernels become instances of one CUDA kernel template
+(``csrc/attention_common.cuh``: a persistent, warp-specialized ``wgmma``
+kernel with a producer warpgroup that fills a ring of K/V tiles in swizzled
+shared memory):
 
 - ``_flash_kernel`` (:39) -> ``csrc/flash_attention.cu``, behind
   ``flash_attention`` (``[B, S, H, D]``, causal optional) and behind the two
@@ -12,17 +15,20 @@ TPU kernels become two CUDA kernels:
 - ``_cls_split_kernel`` (:258) -> ``csrc/cls_split_attention.cu``, behind
   ``cls_split_attention_parts`` (and its concatenated form
   ``cls_split_attention``): the patch block (N = 1024 at 448 px) attends over
-  the N patch keys plus the single cls key, which enters each row's softmax
-  as a rank-1 term; the single cls query row is plain torch;
+  the N patch keys plus the single cls key, which seeds each row's online
+  softmax; the single cls query row is computed in the same launch (the JAX
+  package computes it in plain XLA);
 - ``_cls_kernel`` (``scripts/bench_cls_split_attention.py:35``) -> the same
   CUDA kernel with a runtime score scale, behind
   ``cls_split_attention_scaled``.
 
 Each wrapper dispatches on the tensor's device: CPU tensors take the plain
-PyTorch version beside it (the JAX package's off-TPU path), CUDA tensors
-launch the kernel or raise. ``flash_attention.launches``,
+PyTorch version beside it (the JAX package's off-TPU path), CUDA tensors make
+one launch of the kernel or raise. ``flash_attention.launches``,
 ``cls_split_attention_parts.launches`` and
-``cls_split_attention_scaled.launches`` count the launches.
+``cls_split_attention_scaled.launches`` count the launches;
+``_cls_query_row`` is the plain version of the kernel's cls row and no
+wrapper calls it.
 
 PRE-SCALING CONTRACT of the cls-split parts (as in the JAX package): the q
 operands carry ``head_dim**-0.5 * log2(e)`` (``CLS_SPLIT_Q_PREMUL_LOG2E``)
@@ -31,8 +37,9 @@ cancels in the normalization.
 
 Head padding: the TPU pads dh = 88 to 128 lanes in device memory. The port
 does not: operands are strided views at the true head dim (views of the qkv
-matmul output are taken as they are), and the kernels pad to 96 (a multiple
-of the MMA k-step 16) in shared memory only (see the sources' notes).
+matmul output are taken as they are), and the kernel pads the depth of
+Q K^T to 96 (a multiple of the MMA depth step 16) in shared memory only (see
+the sources' notes).
 """
 
 from __future__ import annotations
@@ -48,10 +55,10 @@ from certifiedgpt_tpu_torch.ops.attention import multi_head_attention
 #: factor producers fold into q so the kernel can exp2 without rescaling
 CLS_SPLIT_Q_PREMUL_LOG2E = float(math.log2(math.e))
 
-#: query and key tile of the cls-split CUDA kernel; N must be a multiple of it
+#: key tile of the CUDA kernel; the cls-split N must be a multiple of it
 KERNEL_TILE = 64
 
-#: head dim the CUDA kernels pad to in shared memory (dh = 88 of EVA ViT-g);
+#: head dim the CUDA kernel pads to in shared memory (dh = 88 of EVA ViT-g);
 #: narrower multiples of 8 are zero-padded, wider ones are refused
 KERNEL_HEAD_DIM = 96
 
@@ -191,10 +198,13 @@ def _cls_split_attention_plain(qp, kp, vp, qc, kc, vc):
 
 
 def _bmm_f32(a, b):
-    """``a @ b`` batched, accumulated and returned in f32; bf16 operands
-    stay bf16 (``out_dtype`` is a CUDA-only overload)."""
+    """``a @ b`` batched, accumulated and returned in f32. On CUDA bf16
+    operands stay bf16 (``out_dtype`` is a CUDA-only overload); on the CPU
+    they are upcast, which gives the same products and sums."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
+    if a.device.type == "cpu":
+        return torch.bmm(a.float(), b.float())
     return torch.bmm(a, b, out_dtype=torch.float32)
 
 

@@ -10,12 +10,15 @@ Phases, each of which exits non-zero on any failure:
 1. Device: requires CUDA, prints the card's name and power limit, and turns
    TF32 off for float32 matmuls and convolutions.
 2. Build: compiles the CUDA kernels from ``certifiedgpt_tpu_torch/csrc/``
-   (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary.
+   (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary
+   (registers, spills, shared memory, performance warnings).
 3. Kernels: calls each of the six kernels' wrappers at the main path's
    shapes, holds the result against its plain PyTorch version on the same
    card, and times the kernel, the plain version and, where one PyTorch call
-   computes the same function, that call (CUDA events): the cls-split,
-   LN + row-quant and GELU + row-quant kernels; the flash kernel at
+   computes the same function, that call (CUDA events): the cls-split kernel
+   (one launch: the patch rows and the cls row, the latter also against its
+   own plain version), the LN + row-quant and GELU + row-quant kernels; the
+   flash kernel at
    [96, 1025, 16, 88] in both layouts and causal at [4, 333, 16, 88]; the
    explicit-scale cls-split form at [96, 16, 1025, 88]; the noise kernel at
    96 copies of a 448x448x3 image. Tolerances: int8 codes equal except +-1
@@ -34,7 +37,9 @@ Phases, each of which exits non-zero on any failure:
    certification of a single chunk each way. The kernels' launch counters
    are reset just before and read just after; each kernel of the path must
    have launched its launches per chunk times the chunks run, every other
-   kernel never. Prints per-stage seconds, peak device memory and the
+   kernel never, and the plain cls query row not once (the cls-split kernel
+   computes that row in its one launch). Prints per-stage seconds, peak
+   device memory and the
    certify row, and checks the row. Then times one decode step against
    converting the int8 decoder weights to bf16, and checks the outputs: the
    ViT through the kernels against the ViT through their plain versions on
@@ -54,8 +59,12 @@ Phases, each of which exits non-zero on any failure:
    ``cls_split_attention_scaled``, which no certify path calls, each driven
    once through its entry point at the shapes above, launches counted.
 
-Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers, and
-as its last line ``{"ok": true, "device": {...}}``.
+Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
+attention kernels' achieved TFLOP/s among them), and as its last line
+``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
+kernel) and prints the kernel records instead of the two closing lines.
 """
 
 from __future__ import annotations
@@ -139,7 +148,7 @@ GT_ANSWERS = ["cat", "cat", "cat", "dog", "cat", "cat", "kitten", "cat", "cat", 
 
 # kernel-name substrings of each profile group, first match wins
 PROFILE_GROUPS = (
-    ("cls-split kernel", ("cls_split_kernel",)),
+    ("attention kernel", ("attention_kernel",)),
     ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel")),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
     ("reductions", ("reduce_kernel",)),
@@ -257,21 +266,6 @@ def check_row_quant(torch, name, kernel, plain, shapes, ops_per_elem, make_args)
     return record
 
 
-def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
-
-
-def rel_err(a, b) -> float:
-    """Relative Frobenius error of ``a`` against ``b``: catches a fault of one
-    key tile that a max-abs limit, loose against outputs of ~0.05, lets by."""
-    return float((a.float() - b.float()).norm() / b.float().norm())
-
-
-# limit on the relative Frobenius error of the attention kernels against
-# their plain versions (bf16 outputs and P: ~4e-3 measured on the H100)
-ATTN_REL_LIMIT = 1e-2
-
-
 def check_cls_split(torch, device):
     import torch.nn.functional as F
 
@@ -345,6 +339,21 @@ def fused_bshd(torch, g, device, b, s, h, d):
     views of the same product."""
     y = torch.randn((b, s, 3 * h * d), generator=g, device=device).to(torch.bfloat16)
     return [t.reshape(b, s, h, d) for t in y.split(h * d, dim=-1)]
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_err(a, b) -> float:
+    """Relative Frobenius error of ``a`` against ``b``: catches a fault of one
+    key tile that a max-abs limit, loose against outputs of ~0.05, lets by."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+# limit on the relative Frobenius error of the attention kernels against
+# their plain versions (bf16 outputs and P: ~4e-3 measured on the H100)
+ATTN_REL_LIMIT = 1e-2
 
 
 def check_flash(torch, device):
