@@ -41,7 +41,7 @@ _F32 = ctypes.c_float
 
 # C entry point -> argument types (all return an int cudaError_t code)
 _SIGNATURES = {
-    "cgpt_ln_quant": (_P, _P, _P, _P, _P, _I64, _I32, _F32, _P),
+    "cgpt_ln_quant": (_P, _P, _I32, _P, _I32, _P, _P, _I64, _I32, _F32, _P),  # x, gamma, is f32, beta, is f32, q, s, M, K, eps
     "cgpt_gelu_quant": (_P, _P, _P, _I64, _I32, _P),
     "cgpt_cls_split_attention": (
         _P, _P, _P, _I64, _I64, _I64,  # q, k, v and their strides

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from certifiedgpt_tpu_torch.ops import cuda_kernels
 
-#: widest row the row-quant kernels take (csrc/row_quant.cu kMaxChunks)
+#: widest row the row-quant kernels take (csrc/row_quant.cu kMaxRowWidth)
 MAX_ROW_WIDTH = 8192
 
 #: fewest rows ``torch._int_mm`` takes on CUDA (M > 16, a multiple of 8)
@@ -122,24 +122,89 @@ def w8a8_gelu_matmul(
 # ----------------------------------------------------------------------
 # fused row-quant kernels: plain versions and wrappers
 # ----------------------------------------------------------------------
+# Abramowitz-Stegun 7.1.26 erf, as the TPU kernel computes it
+# (certifiedgpt_tpu/ops/quantization.py::_erf_approx)
+_AS_P = 0.3275911
+_AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+
+#: lanes of a warp and values of a piece in the LayerNorm kernel's sums
+_LANES, _LN_PIECE = 32, 4
+
+
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded as one IEEE division on every device (on CUDA,
+    PyTorch divides by a Python number as a product with its reciprocal)."""
+    return a / torch.full_like(a, b)
+
+
+def _quantize_bf16_rows(h: torch.Tensor):
+    """``quantize_rows`` of f32 rows ``h`` (already rounded through the
+    activation dtype), the scale's division by 127 an IEEE division, as in
+    the kernels."""
+    amax = h.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    xs = _div(amax, 127.0)
+    return torch.round(h / xs).clamp(-127, 127).to(torch.int8), xs
+
+
 def _gelu_quant_rows_plain(x: torch.Tensor):
     """``quantize_rows(gelu(x))``: exact-erf GELU in f32, rounded to x's
-    dtype, then the per-row int8 quantization."""
-    return quantize_rows(F.gelu(x.float()).to(x.dtype))
+    dtype, then the per-row int8 quantization (the JAX package's chain off
+    the TPU)."""
+    return _quantize_bf16_rows(F.gelu(x.float()).to(x.dtype).float())
+
+
+def _gelu_quant_rows_as_plain(x: torch.Tensor):
+    """The GELU kernel's function in plain PyTorch: ``0.5 x (1 + erf(x /
+    sqrt 2))`` with the TPU kernel's A-S erf, each step rounded in f32,
+    rounded to x's dtype, then the per-row int8 quantization."""
+    x32 = x.float()
+    z = x32 * 2.0 ** -0.5
+    az = z.abs()
+    t = 1.0 / (1.0 + _AS_P * az)
+    a1, a2, a3, a4, a5 = _AS_A
+    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+    erf = torch.sign(z) * (1.0 - poly * torch.exp(-az * az))
+    return _quantize_bf16_rows((0.5 * x32 * (1.0 + erf)).to(x.dtype).float())
+
+
+def _row_sums(v: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``v [M, K]`` (f32) in the LayerNorm kernel's order: lane
+    ``l`` takes the pieces of ``_LN_PIECE`` values ``l, l + 32, ...`` and
+    keeps one sum per position in a piece, added in piece order; a lane's
+    four sums are added pairwise, then the lanes by a butterfly."""
+    m, k = v.shape
+    width = _LANES * _LN_PIECE
+    v = F.pad(v, (0, -k % width)).reshape(m, -1, _LANES, _LN_PIECE)
+    acc = torch.zeros_like(v[:, 0])
+    for i in range(v.shape[1]):
+        acc = acc + v[:, i]
+    s = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    lane = torch.arange(_LANES, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lane ^ o]
+    return s[:, :1]
 
 
 def _ln_quant_rows_plain(x, scale, bias, eps):
-    """``quantize_rows(layer_norm(x))``: f32 LayerNorm with affine,
-    rounded to x's dtype (the JAX package's ``_ln_chain_xla``)."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    normed = (x32 - mean) * torch.rsqrt(var + eps)
-    out = normed * scale.float() + bias.float()
-    return quantize_rows(out.to(x.dtype))
+    """``quantize_rows(layer_norm(x))``: f32 LayerNorm with affine, rounded
+    to x's dtype (the JAX package's ``_ln_chain_xla``). The mean and the
+    variance are summed in the kernel's order and ``1 / sqrt(var + eps)``
+    is rounded once, so on the card the kernel gives the same bits."""
+    x32 = x.float().reshape(-1, x.shape[-1])
+    k = x32.shape[-1]
+    mean = _div(_row_sums(x32), k)
+    d = x32 - mean
+    var = _div(_row_sums(d * d), k)
+    rs = 1.0 / torch.sqrt(var + eps)
+    out = (d * rs) * scale.float() + bias.float()
+    xq, xs = _quantize_bf16_rows(out.to(x.dtype).float())
+    return xq.reshape(x.shape), xs.reshape(*x.shape[:-1], 1)
 
 
 def _check_rows(x: torch.Tensor, name: str) -> Tuple[int, int]:
+    """Rows the kernels take: bf16, a width that is a multiple of 8 up to
+    ``MAX_ROW_WIDTH``, the first row on a 16-byte boundary (the bulk copies'
+    alignment; the width then keeps every row there)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
     k = x.shape[-1]
@@ -148,7 +213,26 @@ def _check_rows(x: torch.Tensor, name: str) -> Tuple[int, int]:
             f"{name}: row width {k} must be a multiple of 8 and at most "
             f"{MAX_ROW_WIDTH}"
         )
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the rows must start on a 16-byte boundary")
     return x.numel() // k, k
+
+
+def _check_ln_params(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor):
+    """gamma and beta as the kernel reads them: ``[K]`` on x's device, each
+    bf16 or f32, contiguous. Returns them with their ``is f32`` flags."""
+    k = x.shape[-1]
+    out = []
+    for name, p in (("scale", scale), ("bias", bias)):
+        if p.shape != (k,):
+            raise ValueError(f"ln_quant_rows: {name} must be [{k}], got {tuple(p.shape)}")
+        if p.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"ln_quant_rows: {name} must be bf16 or f32, got {p.dtype}")
+        if p.device != x.device:
+            raise ValueError(f"ln_quant_rows: {name} is on {p.device}, x on {x.device}")
+        p = p.contiguous()
+        out += [p, int(p.dtype == torch.float32)]
+    return out
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -158,20 +242,28 @@ def _device_kind(x: torch.Tensor) -> str:
     return kind
 
 
+def _row_outputs(x: torch.Tensor):
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    xs = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    return xq, xs
+
+
 def gelu_quant_rows(x: torch.Tensor):
     """``quantize_rows(gelu(x))`` in one pass over device memory.
 
     Replaces ``_gelu_quant_kernel`` (certifiedgpt_tpu/ops/quantization.py
-    :136). CPU tensors take ``_gelu_quant_rows_plain``; bf16 CUDA tensors
-    launch ``gelu_quant_kernel`` (csrc/row_quant.cu)."""
+    :136). CPU tensors take ``_gelu_quant_rows_plain`` (the exact erf, as
+    the JAX package computes off the TPU); bf16 CUDA tensors launch
+    ``gelu_quant_kernel`` (csrc/row_quant.cu), whose function is
+    ``_gelu_quant_rows_as_plain`` (the TPU kernel's A-S erf)."""
     if _device_kind(x) == "cpu":
         return _gelu_quant_rows_plain(x)
-    m, k = _check_rows(x, "gelu_quant_rows")
     x2 = x.contiguous()
-    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    xs = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    lib = cuda_kernels.build().lib
-    code = lib.cgpt_gelu_quant(
+    m, k = _check_rows(x2, "gelu_quant_rows")
+    xq, xs = _row_outputs(x)
+    if m == 0:
+        return xq, xs
+    code = cuda_kernels.build().lib.cgpt_gelu_quant(
         x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k,
         cuda_kernels.stream_of(x),
     )
@@ -190,24 +282,19 @@ def ln_quant_rows(
 
     Replaces ``_ln_quant_kernel`` (certifiedgpt_tpu/ops/quantization.py
     :208). CPU tensors take ``_ln_quant_rows_plain``; bf16 CUDA tensors
-    launch ``ln_quant_kernel`` (csrc/row_quant.cu), for any row count."""
+    launch ``ln_quant_kernel`` (csrc/row_quant.cu), for any row count, with
+    gamma and beta read in their own dtype (bf16 or f32)."""
     if _device_kind(x) == "cpu":
         return _ln_quant_rows_plain(x, scale, bias, eps)
-    m, k = _check_rows(x, "ln_quant_rows")
-    if scale.shape != (k,) or bias.shape != (k,):
-        raise ValueError(
-            f"ln_quant_rows: affine params must be [{k}], got "
-            f"{tuple(scale.shape)} and {tuple(bias.shape)}"
-        )
     x2 = x.contiguous()
-    gamma = scale.float().contiguous()
-    beta = bias.float().contiguous()
-    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    xs = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    lib = cuda_kernels.build().lib
-    code = lib.cgpt_ln_quant(
-        x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), xq.data_ptr(),
-        xs.data_ptr(), m, k, float(eps), cuda_kernels.stream_of(x),
+    m, k = _check_rows(x2, "ln_quant_rows")
+    gamma, gamma_f32, beta, beta_f32 = _check_ln_params(scale, bias, x)
+    xq, xs = _row_outputs(x)
+    if m == 0:
+        return xq, xs
+    code = cuda_kernels.build().lib.cgpt_ln_quant(
+        x2.data_ptr(), gamma.data_ptr(), gamma_f32, beta.data_ptr(), beta_f32,
+        xq.data_ptr(), xs.data_ptr(), m, k, float(eps), cuda_kernels.stream_of(x),
     )
     ln_quant_rows.launches += 1
     cuda_kernels.check(code, "ln_quant_rows")

@@ -17,12 +17,17 @@ Phases, each of which exits non-zero on any failure:
    card, and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (CUDA events): the cls-split kernel
    (one launch: the patch rows and the cls row, the latter also against its
-   own plain version), the LN + row-quant and GELU + row-quant kernels; the
-   flash kernel at
+   own plain version); the LN + row-quant and GELU + row-quant kernels at
+   the patch and cls streams' row counts (98304 and 96) and at 1 and 4097
+   rows, each input with a row of zeros, timed on N(0, 1) and N(0, 3^2)
+   rows; the flash kernel at
    [96, 1025, 16, 88] in both layouts and causal at [4, 333, 16, 88]; the
    explicit-scale cls-split form at [96, 16, 1025, 88]; the noise kernel at
-   96 copies of a 448x448x3 image. Tolerances: int8 codes equal except +-1
-   on at most 0.1 % of elements and row scales within rtol 1e-2; attention
+   96 copies of a 448x448x3 image. Tolerances: int8 codes one step apart on
+   at most 1e-4 of the elements and row scales within 1e-6 relative against
+   the plain versions that repeat the kernels' arithmetic (the LayerNorm's;
+   the GELU's with the A-S erf), one step on 1e-3 and 1e-2 against the
+   exact-erf GELU; attention
    within atol 2e-2 (bf16) and 1e-2 relative (Frobenius); noise: values
    within 1e-5 of the plain version on the same seed words, moments of
    (out - x) / sigma within 0.01 of 0 and 1, sigma = 0 exact.
@@ -47,7 +52,8 @@ Phases, each of which exits non-zero on any failure:
    projected image tokens, greedy tokens in range.
 5. Profile: the warm-up's certification (one chunk each way) once more
    without and once under ``torch.profiler``; prints the device time summed
-   by kernel group and the top kernels against the call's wall time.
+   by kernel group and the top kernels against the call's wall time, and the
+   row-quant kernels' device time per call at the patch and the cls rows.
 6. Attention forms: the same parameters under ``vit_attn_impl`` flash_custom
    and flash (configs parsed from the model block with the form changed).
    Their ViT tokens on 8 images agree with the flash_cls tower's within
@@ -85,8 +91,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS = PEAK_F32_FLOPS / 4
 
 # f32 operations per element counted for the row-quant bounds (LayerNorm:
-# two reductions, centre, scale, affine, round, absmax, divide, rint, clip;
-# GELU: ~15 for erf plus the same quantization tail)
+# two reductions, centre, scale, affine, round, absmax, scale, rint, pack;
+# GELU: ~15 for the A-S erf plus the same quantization tail)
 LN_QUANT_OPS_PER_ELEM = 12
 GELU_QUANT_OPS_PER_ELEM = 25
 # the noise kernel per element: half a Philox4x32-10 call (ten rounds of two
@@ -230,38 +236,59 @@ def phase_build():
 # ----------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
-def check_row_quant(torch, name, kernel, plain, shapes, ops_per_elem, make_args):
-    """Compare an int8 row-quant kernel with its plain version at each
-    shape; time the first (the patch stream's) shape."""
-    record = None
+def compare_codes(torch, a, b):
+    """(elements off by one step, their share, the largest step, the largest
+    relative scale difference, the largest dequantized difference) of two
+    row quantizations (codes, scales)."""
+    (qa, sa), (qb, sb) = a, b
+    dq = (qa.int() - qb.int()).abs()
+    off = int((dq > 0).sum())
+    rel = float(((sa - sb).abs() / sb.abs()).max())
+    err = float((qa.float() * sa - qb.float() * sb).abs().max())
+    return off, off / max(dq.numel(), 1), int(dq.max()), rel, err
+
+
+def check_row_quant(torch, name, kernel, plains, shapes, ops_per_elem, make_args):
+    """Compare an int8 row-quant kernel with its plain versions at each shape
+    (row counts of the main path, 1 and 4097; one row of zeros in each input
+    of more than one row) on N(0, 3^2) inputs, each plain version with its
+    limits ``(plain, max step, max share off, max scale rel)``; time the
+    first (the patch stream's) shape on N(0, 1) and N(0, 3^2) inputs, and
+    the second (the cls stream's). ``ms`` is the N(0, 1) time: the main
+    path's activations are of that size."""
+    record = {}
     for m, k in shapes:
-        args = make_args(m, k)
-        xq_k, xs_k = kernel(*args)
-        xq_p, xs_p = plain(*args)
+        args = make_args(m, k, 3.0)
+        if m > 1:
+            args[0][m // 2].zero_()
+        out = kernel(*args)
         torch.cuda.synchronize()
-        dq = (xq_k.int() - xq_p.int()).abs()
-        off = int((dq > 0).sum())
-        worst = int(dq.max())
-        frac = off / dq.numel()
-        rel = float(((xs_k - xs_p).abs() / xs_p.abs()).max())
-        err = float((xq_k.float() * xs_k - xq_p.float() * xs_p).abs().max())
-        log(
-            f"[kernel] {name} [{m}, {k}]: int8 off-by-one {off}/{dq.numel()} "
-            f"({frac:.2e}), max code diff {worst}, scale rel err {rel:.2e}, "
-            f"max |dequant diff| {err:.3e}"
-        )
-        if worst > 1 or frac > 1e-3 or rel > 1e-2:
-            fail(f"{name} disagrees with its plain version at [{m}, {k}]")
-        if record is None:
-            ms = cuda_ms(torch, lambda: kernel(*args), iters=20)
-            plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5, warmup=1)
+        for plain, step, share, srel in plains:
+            off, frac, worst, rel, err = compare_codes(torch, out, plain(*args))
+            log(f"[kernel] {name} [{m}, {k}] vs {plain.__name__}: int8 off-by-one {off}/{m * k} "
+                f"({frac:.2e}), max code diff {worst}, scale rel err {rel:.2e}, "
+                f"max |dequant diff| {err:.3e}")
+            if worst > step or frac > share or not rel <= srel:
+                fail(f"{name} disagrees with {plain.__name__} at [{m}, {k}]")
+            record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+        if (m, k) == shapes[0]:
+            for std in (1.0, 3.0):
+                a = args if std == 3.0 else make_args(m, k, std)
+                record[f"ms_std{std:g}"] = cuda_ms(torch, lambda: kernel(*a), iters=20)
+            record["ms"] = record["ms_std1"]
+            record["plain_ms"] = cuda_ms(torch, lambda: plains[0][0](*args), iters=5, warmup=1)
             x = args[0]
             moved = x.numel() * x.element_size() + m * k + 4 * m
-            moved += sum(a.numel() * 4 for a in args[1:3] if hasattr(a, "numel"))
+            moved += sum(a.numel() * a.element_size() for a in args[1:3] if hasattr(a, "numel"))
             bms, by = bound_ms(moved, ops_per_elem * m * k, PEAK_F32_FLOPS)
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bms, "bound_by": by, "library_ms": None}
-        del args, xq_k, xs_k, xq_p, xs_p
+            record.update(bound_ms=bms, bound_by=by, library_ms=None)
+            log(f"[kernel] {name} [{m}, {k}]: {record['ms_std1']:.4f} ms on N(0,1), "
+                f"{record['ms_std3']:.4f} ms on N(0,3^2), plain {record['plain_ms']:.3f} ms, "
+                f"bound {bms:.4f} ms ({by})")
+        elif (m, k) == shapes[1]:
+            record["ms_cls"] = cuda_ms(torch, lambda: kernel(*args), iters=20)
+            log(f"[kernel] {name} [{m}, {k}]: {record['ms_cls']:.4f} ms")
+        del args, out
         torch.cuda.empty_cache()
     return record
 
@@ -524,30 +551,46 @@ def check_noise(torch, device):
             "bound_by": by, "library_ms": library_ms}
 
 
+# limits of the row-quant kernels against their plain versions: (largest
+# code step, share of elements off, scale relative difference). The kernels
+# repeat the plain versions' roundings (the LayerNorm's sums in its order, the
+# GELU's A-S erf), so only the approximate reciprocal and exponential of the
+# erf move a bf16 rounding, rarely; against the exact erf, one bf16 step
+# anywhere in a row may move its scale.
+ROW_QUANT_TIGHT = (1, 1e-4, 1e-6)
+ROW_QUANT_EXACT_ERF = (1, 1e-3, 1e-2)
+
+
 def phase_kernels(torch, device):
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
     g = torch.Generator(device=device).manual_seed(0)
     rows = MC_BATCH * VIT_TOKENS
+    row_counts = (rows, MC_BATCH, 1, 4097)  # patch and cls streams first
 
-    def ln_args(m, k):
-        x = (torch.randn((m, k), generator=g, device=device) * 3.0).to(torch.bfloat16)
+    def normal(shape, std):
+        return (torch.randn(shape, generator=g, device=device) * std).to(torch.bfloat16)
+
+    def ln_args(m, k, std):
         scale = (1.0 + 0.1 * torch.randn(k, generator=g, device=device)).to(torch.bfloat16)
         bias = (0.1 * torch.randn(k, generator=g, device=device)).to(torch.bfloat16)
-        return x, scale, bias, 1e-6
+        return [normal((m, k), std), scale, bias, 1e-6]
 
-    def gelu_args(m, k):
-        return ((torch.randn((m, k), generator=g, device=device) * 3.0).to(torch.bfloat16),)
+    def gelu_args(m, k, std):
+        return [normal((m, k), std)]
 
     records = {}
     records["cls_split_attention"] = check_cls_split(torch, device)
     records["ln_quant_rows"] = check_row_quant(
-        torch, "ln_quant_rows", Q.ln_quant_rows, Q._ln_quant_rows_plain,
-        [(rows, VIT_WIDTH), (MC_BATCH, VIT_WIDTH)], LN_QUANT_OPS_PER_ELEM, ln_args,
+        torch, "ln_quant_rows", Q.ln_quant_rows,
+        [(Q._ln_quant_rows_plain, *ROW_QUANT_TIGHT)],
+        [(m, VIT_WIDTH) for m in row_counts], LN_QUANT_OPS_PER_ELEM, ln_args,
     )
     records["gelu_quant_rows"] = check_row_quant(
-        torch, "gelu_quant_rows", Q.gelu_quant_rows, Q._gelu_quant_rows_plain,
-        [(rows, VIT_MLP), (MC_BATCH, VIT_MLP)], GELU_QUANT_OPS_PER_ELEM, gelu_args,
+        torch, "gelu_quant_rows", Q.gelu_quant_rows,
+        [(Q._gelu_quant_rows_as_plain, *ROW_QUANT_TIGHT),
+         (Q._gelu_quant_rows_plain, *ROW_QUANT_EXACT_ERF)],
+        [(m, VIT_MLP) for m in row_counts], GELU_QUANT_OPS_PER_ELEM, gelu_args,
     )
     records["flash_attention"] = check_flash(torch, device)
     records["cls_split_attention_scaled"] = check_cls_split_scaled(torch, device)
@@ -821,6 +864,19 @@ def phase_profile(torch, model, image):
     for e in kernels[:12]:
         sec = e.self_device_time_total / 1e6
         log(f"[profile] {sec:8.4f} s {100 * sec / wall:6.2f} % {e.count:6d} calls  {e.key[:100]}")
+    # per-call device time of the row-quant kernels by shape: the split-stream
+    # tower calls each of them on the patch rows and then on the cls rows
+    for name in ("ln_quant_kernel", "gelu_quant_kernel"):
+        calls = sorted((e for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and name in e.name),
+                       key=lambda e: e.time_range.start)
+        patch = [e.time_range.elapsed_us() / 1e3 for e in calls[0::2]]
+        cls = [e.time_range.elapsed_us() / 1e3 for e in calls[1::2]]
+        if not cls or len(patch) != len(cls):
+            fail(f"the profile holds {len(calls)} calls of {name}, not pairs")
+        log(f"[profile] {name}: {len(patch)} calls at [{MC_BATCH * VIT_TOKENS}, K] "
+            f"{sum(patch) / len(patch):.4f} ms each (min {min(patch):.4f}), {len(cls)} calls at "
+            f"[{MC_BATCH}, K] {sum(cls) / len(cls):.4f} ms each (max {max(cls):.4f})")
 
 
 # ----------------------------------------------------------------------

@@ -6,8 +6,9 @@ Times ``ln_quant_rows`` at [98304, 1408] and ``gelu_quant_rows`` at
 N(0, 1) and N(0, 3^2) inputs, first as built from
 ``certifiedgpt_tpu_torch/csrc/row_quant.cu`` and then with one part of the
 kernels compiled out: the transform (the LayerNorm arithmetic, or the GELU),
-the row reductions, the division and rounding, the stores, or all but the
-loads. A variant computes wrong values; only its time means anything.
+the LayerNorm's mean and variance passes, the warp reductions, the division
+and rounding, the stores, or all but the bulk copies of the rows. A variant
+computes wrong values; only its time means anything.
 
 Each variant is a copy of ``row_quant.cu`` with its edits applied, built by
 ``nvcc`` into a library of its own; all builds run in parallel, then every
@@ -38,44 +39,43 @@ PEAK_BYTES_PER_S = 3.35e12
 ROWS = 96 * 1024
 LN_WIDTH, GELU_WIDTH = 1408, 6144
 
-# Edits of the kernels that csrc/row_quant.cu holds (one 256-thread block per
-# row, three block reductions). A stored value is replaced by a compare
-# against the row width K, which the compiler cannot resolve, so the work
-# that feeds it stays.
-_LN_AFFINE = (
-    r"const float h = __fmul_rn\(__fsub_rn\(v\[c \* 8 \+ j\], mean\), rs\);\s*"
-    r"v\[c \* 8 \+ j\] = round_bf16\(__fadd_rn\(__fmul_rn\(h, gamma\[i \+ j\]\), beta\[i \+ j\]\)\);"
-)
+# Edits of the kernels that csrc/row_quant.cu holds (persistent blocks, one
+# warp a row, rows brought into shared memory by bulk copies). A stored value
+# is replaced by a compare that the compiler cannot resolve, so the work that
+# feeds it stays.
 _NO_TRANSFORM = [
-    # LayerNorm: the statistics stay (they are reductions), the per-element
-    # centre, scale and affine go
-    (r"(const float rs = rsqrtf\(var \+ eps\);)",
-     r"\1 const float keep = __fmul_rn(__fadd_rn(mean, rs), 0.f);"),
-    (_LN_AFFINE, "v[c * 8 + j] = round_bf16(__fadd_rn(v[c * 8 + j], keep));"),
-    (r"v\[j\] = round_bf16\(0\.5f \* t \* \(1\.f \+ erff\(t \* 0\.70710678118654752f\)\)\);",
-     "v[j] = round_bf16(t);"),
+    (r"(float ln_affine\(float x, float mean, float rs, float g, float b\) \{)", r"\1 return x;"),
+    (r"(float gelu_as\(float x\) \{)", r"\1 return x;"),
 ]
-_NO_REDUCTIONS = [(r"(float block_reduce\(float v, float\* red\) \{)", r"\1 return v;")]
-_NO_DIVISION = [(r"const float r = fminf\(fmaxf\(rintf\(h / xs\), -127\.f\), 127\.f\);",
-                 "const float r = h;")]
+_NO_STATISTICS = [  # the LayerNorm's mean and variance passes
+    (r"const float (mean|var) = __fdiv_rn\(warp_sum\([^;]*\), k\);", r"const float \1 = k;"),
+]
+_NO_SHUFFLES = [
+    (r"(float warp_sum\(float v\) \{)", r"\1 return v;"),
+    (r"(float warp_max\(float v\) \{)", r"\1 return v;"),
+]
+_NO_DIVISION = [(r"(uint32_t code_fast\(float h, float inv, bool& near\) \{)",
+                 r"\1 return __float_as_uint(h);")]
 _NO_STORES = [
-    (r"\*reinterpret_cast<char4\*>\(qr \+ i\) = lo;\s*\*reinterpret_cast<char4\*>\(qr \+ i \+ 4\) = hi;",
-     "if ((*reinterpret_cast<int*>(&lo) ^ *reinterpret_cast<int*>(&hi)) == K) qr[0] = 1;"),
-    (r"if \(threadIdx\.x == 0\) \*s_out = xs;", "if (threadIdx.x == 0 && xs == K) *s_out = xs;"),
+    (r"(\*reinterpret_cast<uint(32_t|2)\*>\(dst\) = )", r"if (v[0] == 0x12345678u) \1"),
+    (r"if \(team\.tid == 0\) \*srow = xs;", "if (team.tid == 0 && xs == 3.f) *srow = xs;"),
 ]
-_LOADS_ONLY = [
-    (r"(load_row\(x \+ row \* K, K, v\);)",
-     r"\1 { int acc = 0; for (int j = 0; j < kMaxChunks * 8; ++j) acc ^= __float_as_int(v[j]);"
-     r" if (acc == K) q[row] = 1; return; }"),
-]
+_LOADS_ONLY = [(r"(ln|gelu)_row\(buf, [^;]*\);", "")]  # the copies and waits stay
 VARIANTS = {
     "whole": [],
     "no_transform": _NO_TRANSFORM,
-    "no_reductions": _NO_REDUCTIONS,
+    "no_statistics": _NO_STATISTICS,
+    "no_shuffles": _NO_SHUFFLES,
     "no_division": _NO_DIVISION,
     "no_stores": _NO_STORES,
     "loads_only": _LOADS_ONLY,
+    # the design's alternatives: a deeper LayerNorm ring, GELU rows of one warp
+    "ln_ring4": [(r"kLnStages = 2;", "kLnStages = 4;")],
+    "gelu_warp_rows": [(r"kGeluTeamWarps = 4;", "kGeluTeamWarps = 1;")],
 }
+# variants that change one kernel only
+ONLY = {"no_statistics": "ln_quant_rows", "ln_ring4": "ln_quant_rows",
+        "gelu_warp_rows": "gelu_quant_rows"}
 
 
 def card() -> str:
@@ -176,6 +176,8 @@ def main() -> int:
                     times.setdefault((name, kernel, std), []).append(cuda_ms(torch, call))
     for name in names:
         for kernel in ("ln_quant_rows", "gelu_quant_rows"):
+            if ONLY.get(name, kernel) != kernel:
+                continue
             parts = []
             for _k, std, _c, moved in (c for c in cases if c[0] == kernel):
                 ms = min(times[(name, kernel, std)])

@@ -101,25 +101,84 @@ def test_build_raises_without_nvcc(monkeypatch):
     assert a == cuda_kernels._digest(cuda_kernels._sources()) and len(a) == 16
 
 
+def _assert_codes_close(got, want, share, scale_rtol):
+    """Codes at most one step apart on at most ``share`` of the elements;
+    scales within ``scale_rtol``."""
+    (kq, ks), (pq, ps) = got, want
+    diff = (kq.int() - pq.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= share
+    torch.testing.assert_close(ks, ps, rtol=scale_rtol, atol=0)
+
+
+# A GELU row whose values come out of the GELU unchanged (x >= 6 rounds
+# Phi(x) to 1): its absmax 127 gives the scale 1, so the halves are exact ties
+_TIES = [127.0, 63.5, 6.5, 7.5, 8.5, 9.5, 10.5, 125.5, 126.5, 64.5, 6.0, 100.0, 120.5, 11.5,
+         12.5, 13.5]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [96, 4096])
-def test_row_quant_kernels_match_plain_on_gpu(cuda, rows):
-    """int8 codes equal except +-1 on at most 0.1 %; scales rtol 1e-2."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = (torch.randn((rows, 1408), generator=g, device=cuda) * 3).to(torch.bfloat16)
-    scale = 1 + 0.1 * torch.randn(1408, generator=g, device=cuda)
-    bias = 0.1 * torch.randn(1408, generator=g, device=cuda)
-    for kern, plain, args in (
-        (Q.ln_quant_rows, Q._ln_quant_rows_plain, (x, scale, bias, 1e-6)),
-        (Q.gelu_quant_rows, Q._gelu_quant_rows_plain, (x,)),
-    ):
-        n = kern.launches
-        kq, ks = kern(*args)
-        pq, ps = plain(*args)
-        assert kern.launches == n + 1
-        diff = (kq.int() - pq.int()).abs()
-        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
-        torch.testing.assert_close(ks, ps, rtol=1e-2, atol=0)
+@pytest.mark.parametrize("param_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows", [1, 96, 4097])
+@pytest.mark.parametrize("k", [8, 1408, 6144, 8192])
+def test_row_quant_kernels_match_plain_on_gpu(cuda, k, rows, param_dtype):
+    """Both kernels at the served widths (1408, 6144), the narrowest and the
+    widest, over row counts that leave teams and blocks idle, on N(0, 3^2)
+    rows with a row of zeros and a row of exact ties: against the plain
+    versions that repeat their arithmetic (the LayerNorm's, the A-S GELU's)
+    codes one step apart on at most 1e-4 of the elements and scales within
+    1e-6; against the exact-erf GELU one step on 1e-3, scales 1e-2. The
+    LayerNorm reads gamma and beta as bf16 or f32."""
+    g = torch.Generator(device=cuda).manual_seed(k + rows)
+    x = (torch.randn((rows, k), generator=g, device=cuda) * 3).to(torch.bfloat16)
+    if rows > 1:
+        x[rows // 2] = 0
+        ties = torch.tensor(_TIES[:k], device=cuda)
+        x[0, :ties.numel()] = ties.to(torch.bfloat16)
+        x[0, ties.numel():] = 0
+    scale = (1 + 0.1 * torch.randn(k, generator=g, device=cuda)).to(param_dtype)
+    bias = (0.1 * torch.randn(k, generator=g, device=cuda)).to(param_dtype)
+    n = (Q.ln_quant_rows.launches, Q.gelu_quant_rows.launches)
+    ln = Q.ln_quant_rows(x, scale, bias, 1e-6)
+    gelu = Q.gelu_quant_rows(x)
+    assert (Q.ln_quant_rows.launches, Q.gelu_quant_rows.launches) == (n[0] + 1, n[1] + 1)
+    _assert_codes_close(ln, Q._ln_quant_rows_plain(x, scale, bias, 1e-6), 1e-4, 1e-6)
+    _assert_codes_close(gelu, Q._gelu_quant_rows_as_plain(x), 1e-4, 1e-6)
+    _assert_codes_close(gelu, Q._gelu_quant_rows_plain(x), 1e-3, 1e-2)
+    if rows > 1:
+        assert not gelu[0][rows // 2].any()
+        want = torch.round(ties.float()).to(torch.int8)  # half to even
+        assert float(gelu[1][0]) == 1.0 and torch.equal(gelu[0][0, :ties.numel()], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [16, 1408])
+def test_ln_quant_kernel_rounds_ties_to_even_on_gpu(cuda, k):
+    """gamma = 0 makes the LayerNorm's output beta exactly: beta with the
+    absmax 127 gives the scale 1 and codes rint(beta), half to even."""
+    x = torch.randn((5, k), device=cuda).to(torch.bfloat16)
+    beta = torch.tensor((_TIES + [-0.5, -1.5, -2.5, 0.5, 1.5, 2.5]) * k, device=cuda)[:k]
+    q, s = Q.ln_quant_rows(x, torch.zeros(k, device=cuda), beta, 1e-6)
+    assert torch.equal(s, torch.ones_like(s))
+    assert torch.equal(q, torch.round(beta).to(torch.int8).expand(5, k))
+
+
+@pytest.mark.gpu
+def test_row_quant_kernels_refuse_bad_operands_on_gpu(cuda):
+    """A CUDA tensor launches the kernel or raises: a view off the 16-byte
+    boundary, f16 LayerNorm parameters and params on another device raise
+    before any launch; zero rows launch nothing."""
+    x = torch.zeros(4 * 16 + 8, dtype=torch.bfloat16, device=cuda)
+    n = (Q.ln_quant_rows.launches, Q.gelu_quant_rows.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        Q.gelu_quant_rows(x[1:65].view(4, 16))
+    ok = x[8:72].view(4, 16)
+    with pytest.raises(TypeError):
+        Q.ln_quant_rows(ok, torch.ones(16, device=cuda).half(), torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError):
+        Q.ln_quant_rows(ok, torch.ones(16), torch.zeros(16))
+    q, s = Q.gelu_quant_rows(ok[:0])
+    assert q.shape == (0, 16) and s.shape == (0, 1)
+    assert (Q.ln_quant_rows.launches, Q.gelu_quant_rows.launches) == n
 
 
 def _rel(a, b):
