@@ -54,7 +54,8 @@ def certify_item(model, image: np.ndarray, question: str, gt_answers: List[str],
     """Certify one item with the knobs of a certify config's ``run`` block
     (``noise_level``, ``certify_n0``, ``certify_n``, ``certify_alpha``,
     ``mc_batch``, ``max_new_tokens``, ``seq_len``, ``early_exit``,
-    ``early_abstain``, ``early_stop_radius``, ``seed``, ``conv_template``)
+    ``early_abstain``, ``early_stop_radius``, ``seed``, ``conv_template``,
+    ``noise_dist``)
     and return the per-image row of ``certify_results.jsonl``."""
     sigma = float(run_cfg.get("noise_level", 0.5))
     n0 = int(run_cfg.get("certify_n0", 100))
@@ -77,6 +78,7 @@ def certify_item(model, image: np.ndarray, question: str, gt_answers: List[str],
         seq_len=int(run_cfg.get("seq_len", 64)),
         early_exit=bool(run_cfg.get("early_exit", False)),
         clock=clock,
+        noise_dist=str(run_cfg.get("noise_dist", "gaussian")),
     )
     smooth = Smooth(sample_fn, vocab.num_classes, sigma)
     t0 = time.time()

@@ -8,8 +8,9 @@ bridge, fixed before any sampling so Cohen's guarantee holds:
    candidate answers + one catch-all OTHER class), normalized with the
    official VQA pipeline.
 2. ``make_noisy_generate_fn``: tile the clean image to a Monte-Carlo batch,
-   add Gaussian noise on the device, run encode -> greedy decode, return
-   token ids.
+   add noise on the device (Gaussian, or under ``noise_dist="uniform"`` the
+   reference's one-sided train noise ``x + sigma * U[0, 1)``), run encode ->
+   greedy decode, return token ids.
 3. ``make_sample_fn``: the ``sample_fn(x, num, seed, should_stop=None)``
    of ``Smooth``. Each chunk's noise comes from a generator seeded by
    (seed, chunk index) alone, so a run stopped early sees exactly the first
@@ -113,11 +114,27 @@ def chunk_seed(seed: int, chunk: int) -> int:
     return h ^ (h >> 31)
 
 
+def noisy_images(image: torch.Tensor, mc_batch: int, sigma: float,
+                 generator: torch.Generator, noise_dist: str = "gaussian") -> torch.Tensor:
+    """``mc_batch`` noisy copies of the clean image, as the JAX package's
+    noise step draws them (``certifiedgpt_tpu/smoothing/classifier.py``
+    ``noise_fn``): ``"uniform"`` adds ``sigma * U[0, 1)`` to every copy (the
+    reference's bug-compatible train noise; always drawn, so sigma = 0
+    multiplies the draw away), any other value ``noisy_tile``'s Gaussian."""
+    if noise_dist != "uniform":
+        return noisy_tile(image, mc_batch, sigma, generator)
+    tiled = image.float().unsqueeze(0).expand((mc_batch,) + tuple(image.shape))
+    return tiled + sigma * torch.rand(tiled.shape, generator=generator, device=image.device,
+                                      dtype=torch.float32)
+
+
 def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: int,
-                           seq_len: int = 64, early_exit: bool = False):
+                           seq_len: int = 64, early_exit: bool = False,
+                           noise_dist: str = "gaussian"):
     """Returns ``fn(image_hwc, input_ids, attention_mask, img_pos, generator,
     clock=None) -> token ids [mc_batch, T]`` for a one-row ``[1, S]``
-    prompt, which is tiled (as a view) to the Monte-Carlo batch."""
+    prompt, which is tiled (as a view) to the Monte-Carlo batch; the noise
+    follows ``noise_dist`` (``noisy_images``)."""
     cfg = model.cfg
     eos = model.tokenizer.eos_token_id
     pad = model.tokenizer.pad_token_id
@@ -130,7 +147,7 @@ def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: i
                 "rebuild the prompt with the gen's BatchSpec"
             )
         with stage(clock, "noise"):
-            images = noisy_tile(image, mc_batch, sigma, generator)
+            images = noisy_images(image, mc_batch, sigma, generator, noise_dist)
         batch = {"image": images, "input_ids": input_ids.expand(mc_batch, -1),
                  "attention_mask": attention_mask.expand(mc_batch, -1),
                  "img_pos": img_pos.expand(mc_batch)}
@@ -143,7 +160,7 @@ def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: i
 def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: float,
                    mc_batch: int = 32, max_new_tokens: int = 10, seq_len: int = 64,
                    early_exit: bool = False, clock: Optional[StageClock] = None,
-                   ) -> Callable[..., np.ndarray]:
+                   noise_dist: str = "gaussian") -> Callable[..., np.ndarray]:
     """Bind (model, question prompt, vocab, sigma) into the
     ``sample_fn(x, num, seed, should_stop=None) -> labels`` interface of
     ``Smooth``. ``should_stop(labels_so_far)`` is polled after each chunk;
@@ -159,7 +176,8 @@ def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: floa
         for k in ("input_ids", "attention_mask", "img_pos")
     )
     gen = make_noisy_generate_fn(model, sigma, mc_batch, max_new_tokens,
-                                 seq_len=seq_len, early_exit=early_exit)
+                                 seq_len=seq_len, early_exit=early_exit,
+                                 noise_dist=noise_dist)
     tokenizer = model.tokenizer
 
     def sample_fn(x: np.ndarray, num: int, seed: int, should_stop=None) -> np.ndarray:

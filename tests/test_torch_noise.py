@@ -1,17 +1,24 @@
-"""Port: Monte-Carlo noise (certifiedgpt_tpu_torch/ops/noise.py) and the
-certify seeds. The generators differ from JAX's threefry and the TPU's
-hardware bits, so the noise is held to its statistics, and the kernel mode's
-Philox4x32-10 to Random123's published known answers; the seeds are held to
-the JAX package's bit for bit."""
+"""Port: Monte-Carlo noise (certifiedgpt_tpu_torch/ops/noise.py, the
+``noise_dist`` modes of smoothing/classifier.py) and the certify seeds. The
+generators differ from JAX's threefry and the TPU's hardware bits, so the
+noise is held to its statistics, and the kernel mode's Philox4x32-10 to
+Random123's published known answers; the seeds are held to the JAX
+package's bit for bit."""
 
+import types
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from certifiedgpt_tpu.agents.certify import certify_seed as j_certify_seed
-from certifiedgpt_tpu_torch.agents.certify import certify_seed
+from certifiedgpt_tpu_torch.agents.certify import certify_item, certify_seed
+from certifiedgpt_tpu_torch.data.text import ByteTokenizer
 from certifiedgpt_tpu_torch.ops import noise as TN
 from certifiedgpt_tpu_torch.ops.noise import noisy_tile
+from certifiedgpt_tpu_torch.smoothing import classifier as TC
 from certifiedgpt_tpu_torch.smoothing.classifier import chunk_seed
 
 
@@ -113,3 +120,68 @@ def test_chunk_seed_depends_on_seed_and_chunk_only():
     assert len(seeds) == 150
     assert all(0 <= s < 1 << 64 for s in seeds)
     assert chunk_seed(9, 3) == chunk_seed(9, 3)
+
+
+def _assert_one_sided_uniform(resid):
+    """Residuals ``(out - x) / sigma`` of the uniform mode: all in [0, 1),
+    mean 1/2 and variance 1/12."""
+    assert resid.min() >= 0.0 and resid.max() < 1.0
+    assert abs(resid.mean() - 0.5) < 0.01
+    assert abs(resid.var() - 1.0 / 12.0) < 0.005
+
+
+@pytest.mark.parametrize("sigma", [0.25, 0.5, 2.0])
+def test_uniform_noise_dist_matches_the_jax_contract(sigma):
+    """``noise_dist="uniform"``: ``x + sigma * U[0, 1)`` on the tiled image,
+    in the port and as the JAX package's noise step computes it
+    (``x + sigma * jax.random.uniform(key, shape)``) on the same numpy
+    image; the two streams differ, the contract is the same."""
+    x = np.random.RandomState(5).randn(16, 16, 3).astype(np.float32)
+    out = TC.noisy_images(torch.from_numpy(x), 64, sigma, _gen(9), "uniform")
+    assert out.shape == (64, 16, 16, 3) and out.dtype == torch.float32
+    _assert_one_sided_uniform(((out - torch.from_numpy(x)[None]) / sigma).double().numpy())
+    tiled = jnp.broadcast_to(jnp.asarray(x)[None], (64,) + x.shape)
+    j_out = tiled + jnp.float32(sigma) * jax.random.uniform(jax.random.PRNGKey(9), tiled.shape,
+                                                            tiled.dtype)
+    _assert_one_sided_uniform((np.asarray(j_out, np.float64) - x[None]) / sigma)
+
+
+def test_uniform_noise_dist_sigma_zero_is_the_clean_tile():
+    x = torch.from_numpy(np.random.RandomState(6).randn(8, 8, 3).astype(np.float32))
+    want = np.broadcast_to(x.numpy()[None], (4, 8, 8, 3))
+    np.testing.assert_array_equal(TC.noisy_images(x, 4, 0.0, _gen(1), "uniform").numpy(), want)
+
+
+def _stub_model():
+    """What ``make_sample_fn`` reads of a model when generation is stubbed."""
+    cfg = types.SimpleNamespace(vit=types.SimpleNamespace(img_size=8), num_img_tokens=4)
+    return types.SimpleNamespace(device=torch.device("cpu"), cfg=cfg, params=None,
+                                 tokenizer=ByteTokenizer())
+
+
+@pytest.mark.parametrize("noise_dist", ["uniform", "gaussian", "laplace", None])
+def test_certify_item_draws_the_run_blocks_noise_dist(monkeypatch, noise_dist):
+    """``certify_item`` reads ``noise_dist`` from the run block as the JAX
+    package's ``CertifyAgent`` does: ``uniform`` draws one-sided uniform
+    noise, any other value (or none) the Gaussian. The noisy images are
+    captured where the generate step receives them."""
+    seen = []
+
+    def fake_generate(params, cfg, batch, max_new_tokens, eos, pad, **kw):
+        seen.append(batch["image"].clone())
+        return torch.full((batch["image"].shape[0], max_new_tokens), eos, dtype=torch.long)
+
+    monkeypatch.setattr(TC, "generate_greedy", fake_generate)
+    image = np.random.RandomState(7).randn(8, 8, 3).astype(np.float32)
+    run = dict(noise_level=0.5, certify_n0=16, certify_n=48, mc_batch=16, max_new_tokens=2,
+               seq_len=32, seed=3)
+    if noise_dist is not None:
+        run["noise_dist"] = noise_dist
+    row = certify_item(_stub_model(), image, "<Img><ImageHere></Img> what?", ["cat"], run,
+                       index=0)
+    assert row["draws"] == 64 and len(seen) == 4
+    resid = ((torch.cat(seen) - torch.from_numpy(image)[None]) / 0.5).double().numpy()
+    if noise_dist == "uniform":
+        _assert_one_sided_uniform(resid)
+    else:
+        assert resid.min() < -1.0 and abs(resid.mean()) < 0.05 and abs(resid.std() - 1.0) < 0.05
