@@ -168,27 +168,26 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found: SASS counts need the CUDA toolkit")
 
 
-# SASS opcode -> class, by the opcode's first word; the first prefix that
-# matches wins, anything else is "other" (moves, conversions, special registers)
-_SASS_CLASSES = (
-    ("mufu", ("MUFU",)),
-    ("memory", ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LDL", "STL", "LD", "ST",
-                "ATOM", "RED", "LDGSTS", "UBLKCP", "SYNCS")),
-    ("control", ("BRA", "EXIT", "BSSY", "BSYNC", "CALL", "RET", "NOP", "BAR", "WARPSYNC",
-                 "YIELD", "BPT")),
-    ("f32", ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FRND", "FCHK", "FSET")),
-    ("uniform", ("UIADD", "UIMAD", "ULOP", "USHF", "UMOV", "ULEA", "USEL", "UISETP", "UPRMT",
-                 "S2UR", "R2UR", "UFLO", "UPOPC", "UBMSK", "USGXT")),
-    ("integer", ("IMAD", "IADD", "ISETP", "IABS", "IMNMX", "VIMNMX", "LOP", "SHF", "LEA",
-                 "PRMT", "SEL", "POPC", "FLO", "BMSK", "SGXT", "IDP", "ISCADD", "VIADD")),
-)
+# SASS opcode (its first word) -> class; anything else is "other" (moves,
+# conversions, special registers, predicate logic)
+_SASS_CLASSES = {
+    "mufu": ("MUFU",),
+    "memory": ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LDL", "STL", "LD", "ST", "ATOM",
+               "ATOMS", "ATOMG", "RED", "LDGSTS", "LDSM", "STSM", "UBLKCP", "SYNCS"),
+    "control": ("BRA", "EXIT", "BSSY", "BSYNC", "CALL", "RET", "NOP", "BAR", "WARPSYNC",
+                "YIELD", "BPT"),
+    "f32": ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FRND", "FCHK", "FSET"),
+    "uniform": ("UIADD3", "UIMAD", "ULOP3", "USHF", "UMOV", "ULEA", "USEL", "UISETP", "UPRMT",
+                "S2UR", "R2UR", "UFLO", "UPOPC", "UBMSK", "USGXT", "UPLOP3"),
+    "integer": ("IMAD", "IADD3", "IADD", "ISETP", "IABS", "IMNMX", "VIMNMX", "LOP3", "LOP",
+                "SHF", "LEA", "PRMT", "SEL", "POPC", "FLO", "BMSK", "SGXT", "IDP", "ISCADD",
+                "VIADD", "IMUL", "BREV"),
+}
 
 
 def _sass_class(opcode: str) -> str:
-    for name, prefixes in _SASS_CLASSES:
-        if opcode in prefixes or any(opcode.startswith(p + ".") for p in prefixes):
-            return name
-    return "other"
+    base = opcode.split(".")[0]
+    return next((name for name, ops in _SASS_CLASSES.items() if base in ops), "other")
 
 
 def parse_sass(text: str, function: str):

@@ -75,7 +75,12 @@ def _noisy_tile_kernel_plain(x: torch.Tensor, n: int, sigma: torch.Tensor,
     """The noise kernel's function in torch: ``seed`` two uint32 words (an
     int32 tensor), ``sigma`` an f32 scalar tensor; element e of image i takes
     words (2 (e % 2), 2 (e % 2) + 1) of Philox4x32-10 at counter
-    (i, e // 2, 0, 0)."""
+    (i, e // 2, 0, 0). The integers are the kernel's bit for bit; the
+    transform here is exact (``torch.log``, ``sqrt``, ``cos``), while the
+    kernel takes approximations for its arguments' domains (``lg2.approx``
+    with a series near u1 = 1, ``sqrt.approx``, ``cos.approx``): its largest
+    ``|g_kernel - g_plain|`` over the 57.8 M normals of the main path's
+    shape, 96 x [448, 448, 3], is 3.3e-6 (``chip_smoke.py`` on an H100)."""
     shape = x.shape
     xf = x.float().reshape(-1)
     elems = xf.numel()

@@ -29,8 +29,10 @@ Phases, each of which exits non-zero on any failure:
    the GELU's with the A-S erf), one step on 1e-3 and 1e-2 against the
    exact-erf GELU; attention
    within atol 2e-2 (bf16) and 1e-2 relative (Frobenius); noise: values
-   within 1e-5 of the plain version on the same seed words, moments of
-   (out - x) / sigma within 0.01 of 0 and 1, sigma = 0 exact.
+   within 1e-5 of the plain version on the same seed words at the main
+   shape and at odd sizes down to one element, moments of (out - x) / sigma
+   within 0.01 of 0 and 1, sigma = 0 exact; the noise kernel's SASS
+   instructions an element and their time at the issue rate are printed.
 4. Main path: builds MiniGPT-4 at full width (EVA ViT-g/14 at 448 px with 39
    layers, the 12-layer Q-Former, a 32-layer 4096-wide Vicuna-7B-shaped
    decoder) through ``MiniGPT4Model.from_config`` from the model block of
@@ -95,14 +97,29 @@ PEAK_INT32_OPS = PEAK_F32_FLOPS / 4
 # GELU: ~15 for the A-S erf plus the same quantization tail)
 LN_QUANT_OPS_PER_ELEM = 12
 GELU_QUANT_OPS_PER_ELEM = 25
-# the noise kernel per element: half a Philox4x32-10 call (ten rounds of two
-# low and two high 32-bit multiply words and two three-input xors, one
-# instruction each; the key schedule is the same for every counter of a
-# launch, so the function needs it once, not per element) and two uniforms
-# (shift, or; the subtract is f32) in integers; logf (~15), cosf (~25 with
-# its range reduction), sqrtf (~6) and five multiplies and adds in f32
-NOISE_INT_OPS_PER_ELEM = 10 * 6 / 2 + 2 * 2
-NOISE_F32_OPS_PER_ELEM = 51
+# special-function units (log2, sqrt, cos): 16 an SM, one result a clock
+# each, against the 128 FP32 lanes that the f32 peak counts at two FLOPs
+PEAK_MUFU_OPS = PEAK_F32_FLOPS / 16
+
+# the noise kernel per element. Integers: the counter is (image, pair, 0, 0),
+# so Philox's rounds 1-2 and one product of round 3 depend on the image or
+# the pair alone, once per launch each; a (pair, image) needs round 2's xor,
+# round 3's product and two xors, and two products and two three-input xors
+# in each of rounds 4-10, where one IMAD.WIDE.U32 gives both words of a
+# product: 32 a pair of elements; each uniform is one shift-and-or (LEA.HI).
+# (Counted before as 34: all ten rounds for every pair, a product as two.)
+# f32: 1 - f1, the series near 1 (3), 2 - f1 and the log's scale, the select
+# (2), f2 - 3/2 and its two scalings, r * c and x + sigma * g; special
+# functions: lg2, sqrt and cos on their units
+NOISE_INT_OPS_PER_ELEM = (1 + 3 + 7 * 4) / 2 + 2
+NOISE_F32_OPS_PER_ELEM = 13
+NOISE_MUFU_OPS_PER_ELEM = 3
+# the noise kernel's instance for whole 16-byte quads (the main path's), and
+# the elements one trip of its image loop writes
+NOISE_SASS_FUNCTION = "noise_kernelILb1E"
+NOISE_ELEMS_PER_TRIP = 8
+# odd image sizes (elements) and copies, down to one element
+NOISE_ODD_CASES = (((1,), 1), ((7,), 3), ((3, 3, 1), 3), ((5, 3, 3), 96), ((4097,), 96))
 
 # main-path shapes at mc_batch 96 (EVA ViT-g/14 at 448 px)
 MC_BATCH = 96
@@ -501,21 +518,43 @@ def check_cls_split_scaled(torch, device):
             "bound_by": by, "library_ms": library_ms, "tflops": tflops}
 
 
+def sm_clock_mhz() -> float:
+    """The SM clock ``nvidia-smi`` reads now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def check_noise(torch, device):
-    """The noise kernel at mc_batch copies of a 448 px image, sigma 0.5:
-    its values agree with the plain version's on the same seed words within
-    1e-5 (the math library's last ulp; other Philox words would give other
-    normals, off by O(sigma)), (out - x) / sigma has mean 0 and std 1 within
-    0.01, and sigma = 0 returns the clean tile bit for bit."""
+    """The noise kernel at mc_batch copies of a 448 px image, sigma 0.5, and
+    at odd sizes down to one element: its values agree with the plain
+    version's on the same seed words within 1e-5 (the plain version's exact
+    log, sqrt and cos against the kernel's domain-limited ones; other Philox
+    words would give other normals, off by O(sigma)), (out - x) / sigma has
+    mean 0 and std 1 within 0.01, and sigma = 0 returns the clean tile bit
+    for bit. Also prints the kernel's SASS instructions an element (one trip
+    of its image loop) and the time they take at 128 a clock an SM: the
+    issue rate, beside the bound but not one."""
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
     from certifiedgpt_tpu_torch.ops import noise as N
 
     n, sigma = MC_BATCH, 0.5
     g = torch.Generator(device=device).manual_seed(3)
-    x = torch.randn(IMAGE_HWC, generator=g, device=device)
+    sig = torch.tensor(sigma, dtype=torch.float32, device=device)
     gen = torch.Generator(device=device)
+    odd_err = 0.0
+    for shape, copies in NOISE_ODD_CASES:
+        xs = torch.randn(shape, generator=g, device=device)
+        out = N.noisy_tile(xs, copies, sigma, gen.manual_seed(8), use_kernel=True)
+        ref = N._noisy_tile_kernel_plain(xs, copies, sig, N._seed_words(gen.manual_seed(8), device))
+        e = max_err(out, ref)
+        if out.shape != ref.shape or not math.isfinite(e) or e > 1e-5:
+            fail(f"the noise kernel disagrees with its plain version at {copies} x {list(shape)} "
+                 f"({e:.3e})")
+        odd_err = max(odd_err, e)
+    x = torch.randn(IMAGE_HWC, generator=g, device=device)
     out = N.noisy_tile(x, n, sigma, gen.manual_seed(7), use_kernel=True)
     seed = N._seed_words(gen.manual_seed(7), device)
-    sig = torch.tensor(sigma, dtype=torch.float32, device=device)
     ref = N._noisy_tile_kernel_plain(x, n, sig, seed)
     err = max_err(out, ref)
     unequal = int((out != ref).sum())
@@ -524,9 +563,11 @@ def check_noise(torch, device):
     zero_tile = N.noisy_tile(x, n, 0.0, gen, use_kernel=True)
     clean = bool(torch.equal(zero_tile, x.expand_as(zero_tile)))
     log(f"[kernel] noisy_tile kernel [{n}, {', '.join(map(str, IMAGE_HWC))}] sigma {sigma}: "
-        f"max abs err against the plain version {err:.3e} "
-        f"({unequal} of {out.numel()} values not bit-identical); noise mean {mean:.2e}, "
-        f"std {std:.5f}; sigma 0 returns the clean tile: {clean}")
+        f"max abs err against the plain version {err:.3e}, so max |g - g_plain| "
+        f"{err / sigma:.3e} ({unequal} of {out.numel()} values not bit-identical); odd sizes "
+        f"{', '.join(f'{c} x {list(s)}' for s, c in NOISE_ODD_CASES)}: max abs err "
+        f"{odd_err:.3e}; noise mean {mean:.2e}, std {std:.5f}; sigma 0 returns the clean "
+        f"tile: {clean}")
     if not math.isfinite(err) or err > 1e-5:
         fail("the noise kernel disagrees with its plain version")
     if abs(mean) > 0.01 or abs(std - 1.0) > 0.01 or not clean:
@@ -536,6 +577,7 @@ def check_noise(torch, device):
 
     xc = x.contiguous()
     ms = cuda_ms(torch, lambda: N._launch_noise(xc, n, sig, seed), iters=20)
+    clock = sm_clock_mhz()
     plain_ms = cuda_ms(torch, lambda: N._noisy_tile_kernel_plain(x, n, sig, seed),
                        iters=3, warmup=1)
     # the live path: torch.randn (Philox in PyTorch's own kernel) + add
@@ -543,12 +585,25 @@ def check_noise(torch, device):
     elems = n * x.numel()
     moved = 4.0 * (x.numel() + elems)
     bms, by = bound_ms(moved, NOISE_INT_OPS_PER_ELEM * elems, PEAK_INT32_OPS,
-                       (NOISE_F32_OPS_PER_ELEM * elems, PEAK_F32_FLOPS))
-    log(f"[kernel] noisy_tile kernel: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.randn + add {library_ms:.3f} ms, bound {bms:.3f} ms ({by}; bytes alone "
-        f"{moved / PEAK_BYTES_PER_S * 1e3:.3f} ms)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": library_ms}
+                       (NOISE_F32_OPS_PER_ELEM * elems, PEAK_F32_FLOPS),
+                       (NOISE_MUFU_OPS_PER_ELEM * elems, PEAK_MUFU_OPS))
+    sass = cuda_kernels.sass_of(cuda_kernels.build().path, NOISE_SASS_FUNCTION)
+    if not sass["loop"]:
+        fail("no image loop found in the noise kernel's SASS")
+    per_elem = sass["loop"]["all"] / NOISE_ELEMS_PER_TRIP
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    issue_ms = per_elem * elems / (128 * sms * clock * 1e6) * 1e3
+    log(f"[kernel] noisy_tile kernel: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.randn + add {library_ms:.3f} ms, bound {bms:.4f} ms ({by}; bytes alone "
+        f"{moved / PEAK_BYTES_PER_S * 1e3:.4f} ms, integers "
+        f"{NOISE_INT_OPS_PER_ELEM * elems / PEAK_INT32_OPS * 1e3:.4f} ms, special functions "
+        f"{NOISE_MUFU_OPS_PER_ELEM * elems / PEAK_MUFU_OPS * 1e3:.4f} ms); SASS "
+        f"{per_elem:.2f} instructions an element (one trip of the image loop: "
+        f"{json.dumps(sass['loop'])}), issue rate {issue_ms:.4f} ms at {clock:.0f} MHz "
+        f"on {sms} SMs (not a bound)")
+    return {"max_abs_err": max(err, odd_err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms, "max_abs_g_err": err / sigma,
+            "sass_per_elem": per_elem, "issue_ms": issue_ms}
 
 
 # limits of the row-quant kernels against their plain versions: (largest

@@ -4,9 +4,10 @@
 Times the noise kernel (``certifiedgpt_tpu_torch/csrc/noise.cu``) at the
 main path's shape, 96 noisy copies of a 448x448x3 f32 image at sigma 0.5,
 first as built from the source and then with one part compiled out: the
-Philox rounds (the counter is fed through), the key schedule, the transform
-(log, sqrt, cos), the stores, or all but the loads and stores. A variant
-computes wrong values; only its time means anything.
+Philox rounds (the per-pair and per-image words are fed through), the
+transform (log, sqrt, cos), the stores, or all but the loads and stores; and
+the design's alternatives. A variant computes wrong values; only its time
+means anything.
 
 Each variant is a copy of ``noise.cu`` with its edits applied, built by
 ``nvcc`` into a library of its own; all builds run in parallel, then every
@@ -18,9 +19,10 @@ turns, so that their times compare on one card:
 
 Prints one line per variant with the card's name and power limit, the
 kernel's time, its share of the byte bound (3.35 TB/s), ptxas' registers and
-the variant's SASS instructions by class (``cuobjdump -sass``): for a
-kernel with a loop, one trip of its innermost loop; otherwise the
-fall-through path from the entry to its exit.
+the variant's SASS instructions by class (``cuobjdump -sass``): one trip of
+the image loop (eight elements of one image), an element's share of it and
+the time those take at 128 instructions a clock an SM (the issue rate, at
+the SM clock ``nvidia-smi`` reads after the timing; not a bound).
 """
 
 from __future__ import annotations
@@ -39,30 +41,43 @@ sys.path.insert(0, str(ROOT))
 PEAK_BYTES_PER_S = 3.35e12
 N_IMAGES, IMAGE_HWC, SIGMA = 96, (448, 448, 3), 0.5
 
-# Edits of the kernel that csrc/noise.cu holds (one thread a pair of
-# elements of one image). A stored value is replaced by a compare that the
-# compiler cannot resolve, so the work that feeds it stays.
-_NO_PHILOX = [(r"(uint4 philox4x32_10\(uint4 c, uint2 k\) \{)",
-               r"\1 return make_uint4(c.x ^ k.x, c.y ^ k.y, c.x ^ c.y ^ k.y, c.y ^ k.x ^ 0x5BD1E995u);")]
-_NO_KEY_SCHEDULE = [(r"k\.x \+= 0x9E3779B9u;\s*k\.y \+= 0xBB67AE85u;", "")]
-_NO_TRANSFORM = [(r"(float gaussian\(uint32_t bits1, uint32_t bits2\) \{)",
-                  r"\1 return __fsub_rn(uniform_from_bits(bits1), uniform_from_bits(bits2));")]
-_NO_STORES = [
-    (r"o\[e\] = (__fadd_rn\(x\[e\], [^;]*\));", r"{ const float v_ = \1; if (v_ == 12345.f) o[e] = v_; }"),
-    (r"o\[e \+ 1\] = ([^;]*);", r"{ const float v_ = \1; if (v_ == 12345.f) o[e + 1] = v_; }"),
-]
-_LOADS_STORES_ONLY = [(r"gaussian\(r\.[xz], r\.[yw]\)", "1.0f")]
+# Edits of the kernel that csrc/noise.cu holds (a thread owns four pairs and
+# walks through the images of its block). A stored value is replaced by a
+# compare that the compiler cannot resolve, so the work that feeds it stays.
+_NO_PHILOX = [(r"(uint4 philox_rest\([\s\S]*?\[7\]\) \{)",
+               r"\1 return make_uint4(hi_a ^ w.x ^ k0[0], lo_a ^ w.y, hi_a ^ w.z ^ k1[0], lo_a ^ w.w);")]
+_NO_TRANSFORM = [(r"(float minus_gaussian\(uint32_t bits1, uint32_t bits2\) \{)",
+                  r"\1 return __uint_as_float((bits1 >> 9) | 0x3F800000u) - "
+                  r"__uint_as_float((bits2 >> 9) | 0x3F800000u);")]
+_NO_STORES = [(r"(__stcs\(reinterpret_cast<float4\*>)",
+               r"if (v[0] + v[1] + v[2] + v[3] == 12345.f) \1")]
+_LOADS_STORES_ONLY = [(r"minus_gaussian\(c\.[xz], c\.[yw]\)", "1.0f")]
+_PLAIN_STORES = [(r"__stcs\(reinterpret_cast<float4\*>\(o \+ e\), (make_float4\([^;]*\))\);",
+                  r"*reinterpret_cast<float4*>(o + e) = \1;")]
+# the first design's full-precision library functions in the transform
+_EXACT_MATH = [(r"const float r = sqrt_approx\([^;]*;\s*return r \* cos_approx\([^;]*;",
+                "return -sqrtf(-2.0f * logf(2.0f - f1)) * cosf(kTwoPi * (2.0f - f2));")]
 VARIANTS = {
     "whole": [],
     "no_philox": _NO_PHILOX,
-    "no_key_schedule": _NO_KEY_SCHEDULE,
     "no_transform": _NO_TRANSFORM,
     "no_stores": _NO_STORES,
     "loads_stores_only": _LOADS_STORES_ONLY,
-    # a design alternative: the library's fast log and cos in place of the
-    # full-precision ones
-    "fast_log_cos": [(r"\blogf\(", "__logf("), (r"\bcosf\(", "__cosf(")],
+    # the design's alternatives: the transform's library functions, fewer or
+    # more images a thread, a register cap of four blocks an SM, the element
+    # path (odd image sizes) at this size, stores without the streaming hint
+    "exact_math": _EXACT_MATH,
+    "images4": [(r"kImagesPerBlock = 8;", "kImagesPerBlock = 4;")],
+    "images16": [(r"kImagesPerBlock = 8;", "kImagesPerBlock = 16;")],
+    "min_blocks4": [(r"__launch_bounds__\(kThreads\)", "__launch_bounds__(kThreads, 4)")],
+    "element_path": [(r"const bool vec = ", "const bool vec = false && ")],
+    "plain_stores": _PLAIN_STORES,
+    "loads_plain_stores_only": _LOADS_STORES_ONLY + _PLAIN_STORES,
+    "images12": [(r"kImagesPerBlock = 8;", "kImagesPerBlock = 12;")],
 }
+# the kernel instance of whole quads (the main path's) and the elements one
+# trip of its image loop writes
+SASS_FUNCTION, ELEMS_PER_TRIP = "noise_kernelILb1E", 8
 
 
 # the package's library defines this entry in row_quant.cu; a variant's
@@ -136,7 +151,7 @@ def build_variants(names, tmp: Path):
         lib.cgpt_error_string.argtypes = (ctypes.c_int,)
         lib.cgpt_error_string.restype = ctypes.c_char_p
         regs = [line.split("ptxas info    : ")[-1] for line in out.splitlines() if "Used" in line]
-        built[name] = (lib, regs, cuda_kernels.sass_of(path, "noise_kernel"))
+        built[name] = (lib, regs, cuda_kernels.sass_of(path, SASS_FUNCTION))
     return built
 
 
@@ -170,15 +185,25 @@ def main() -> int:
                 times.setdefault(name, []).append(
                     cuda_ms(torch, lambda: N._launch_noise(x, N_IMAGES, sig, seed)))
         clock = sm_clock_mhz()
+        # a yardstick of the card's write rate: PyTorch filling a tensor of
+        # the output's size (writes only)
+        out = torch.empty((N_IMAGES,) + IMAGE_HWC, device=dev)
+        fill_ms = min(cuda_ms(torch, lambda: out.fill_(SIGMA)) for _ in range(2))
+    print(f"fill_ of the output's {4 * elems / 1e6:.1f} MB: {fill_ms:.4f} ms "
+          f"({100 * 4 * elems / PEAK_BYTES_PER_S * 1e3 / fill_ms:.0f} % of its byte bound) "
+          f"({smi})", flush=True)
     for name in names:
         ms = min(times[name])
         _, regs, sass = built[name]
-        part = "loop" if sass["loop"] else "path"
+        trip = sass["loop"] or {"all": float("nan")}
+        per_elem = trip["all"] / ELEMS_PER_TRIP
+        issue = per_elem * elems / (128 * 132 * clock * 1e6) * 1e3
         print(f"{name}: {ms:.4f} ms ({100 * bound / ms:.0f} % of the byte bound {bound:.4f} ms; "
               f"rounds {', '.join(f'{t:.4f}' for t in times[name])}) "
               f"[ptxas: {'; '.join(r for r in regs if r)}] "
-              f"[SASS {part}: {json.dumps(sass[part])}; whole kernel {sass['total']['all']}] "
-              f"({smi}; SM clock {clock:.0f} MHz)", flush=True)
+              f"[SASS: {per_elem:.2f} an element, issue {issue:.4f} ms; one trip "
+              f"{json.dumps(trip)}; common path {json.dumps(sass['path'])}; whole kernel "
+              f"{sass['total']['all']}] ({smi}; SM clock {clock:.0f} MHz)", flush=True)
     return 0
 
 

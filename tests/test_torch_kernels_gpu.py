@@ -101,6 +101,46 @@ def test_build_raises_without_nvcc(monkeypatch):
     assert a == cuda_kernels._digest(cuda_kernels._sources()) and len(a) == 16
 
 
+# cuobjdump -sass of a small kernel: a guarded entry, an image loop, a rare
+# block jumped over, and an out-of-line slow path that jumps back
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_112noise_kernelILb1EEEvPKf
+        /*0000*/                   S2R R0, SR_TID.X ;                 /* 0x0000000000007919 */
+        /*0010*/               @P0 EXIT ;
+        /*0020*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0030*/                   LDS.128 R8, [UR6] ;
+        /*0040*/                   IMAD.WIDE.U32 R12, R8, -0x326172a9, RZ ;
+        /*0050*/                   LOP3.LUT R12, R13, UR5, R12, 0x96, !PT ;
+        /*0060*/                   MUFU.LG2 R14, R12 ;
+        /*0070*/                   FFMA R15, R14, R4, R5 ;
+        /*0080*/              @!P1 BRA 0xa0 ;
+        /*0090*/                   FMUL R15, R15, 2 ;
+        /*00a0*/                   STG.E.128 desc[UR4][R2.64], R12 ;
+        /*00b0*/                   UIADD3 UR4, UR4, 0x1, URZ ;
+        /*00c0*/               @P2 BRA 0x30 ;
+        /*00d0*/                   EXIT ;
+        /*00e0*/                   MOV R1, R2 ;
+        /*00f0*/                   BRA 0x40 ;
+        /*0100*/                   BRA 0x100;
+\t\tFunction : _ZN12_GLOBAL__N_112noise_kernelILb0EEEvPKf
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_profile_counts_one_loop_trip_and_the_common_path():
+    insts = cuda_kernels.parse_sass(_SASS, "noise_kernelILb1E")
+    assert len(insts) == 17 and insts[1] == (0x10, True, "EXIT", "")
+    prof = cuda_kernels.sass_profile(insts)
+    assert prof["total"]["all"] == 17
+    # the loop 0x30-0xc0; the block 0xe0-0xf0 jumps back over an EXIT
+    assert prof["loop"] == {"all": 10, "memory": 2, "integer": 2, "mufu": 1, "f32": 2,
+                            "control": 2, "uniform": 1}
+    # forward branches taken, the back edge not: 0x00-0x80, 0xa0-0xd0
+    assert prof["path"]["all"] == 13 and prof["path"]["other"] == 1
+    assert cuda_kernels.sass_profile(cuda_kernels.parse_sass(_SASS, "ILb0E"))["loop"] is None
+
+
 def _assert_codes_close(got, want, share, scale_rtol):
     """Codes at most one step apart on at most ``share`` of the elements;
     scales within ``scale_rtol``."""
@@ -321,22 +361,46 @@ def test_cls_split_scaled_matches_plain_on_gpu(cuda, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hwc", [(448, 448, 3), (5, 3, 3)], ids=["448px", "odd"])
-def test_noise_kernel_matches_plain_on_gpu(cuda, hwc):
-    """Values within 1e-5 of the plain version on the same seed words (the
-    same Philox integers; the math library may differ in the last ulp),
-    sigma = 0 returns the clean tile bit for bit."""
+@pytest.mark.parametrize("sigma", [0.5, 3.0])
+@pytest.mark.parametrize("n", [1, 3, 96])
+@pytest.mark.parametrize("hwc", [(448, 448, 3), (1,), (7,), (8,), (9,), (4097,), (5, 3, 3)],
+                         ids=["448px", "1", "7", "8", "9", "4097", "odd45"])
+def test_noise_kernel_matches_plain_on_gpu(cuda, hwc, n, sigma):
+    """Values within 1e-5 of the plain version at sigma 0.5, scaled with
+    sigma, on the same seed words (the same Philox integers; the kernel's
+    log, sqrt and cos are approximations for their arguments' domains, the
+    plain version's exact), one launch a call, and sigma = 0 returns the
+    clean tile bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(hwc, generator=g, device=cuda)
     gen = torch.Generator(device=cuda)
     before = N.noisy_tile.launches
-    out = N.noisy_tile(x, 8, 0.5, gen.manual_seed(5), use_kernel=True)
+    out = N.noisy_tile(x, n, sigma, gen.manual_seed(5), use_kernel=True)
     assert N.noisy_tile.launches == before + 1
     seed = N._seed_words(gen.manual_seed(5), cuda)
-    ref = N._noisy_tile_kernel_plain(x, 8, torch.tensor(0.5, device=cuda), seed)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
-    zero = N.noisy_tile(x, 8, 0.0, gen, use_kernel=True)
+    ref = N._noisy_tile_kernel_plain(x, n, torch.tensor(sigma, device=cuda), seed)
+    assert out.shape == ref.shape == (n, *hwc)
+    torch.testing.assert_close(out, ref, atol=1e-5 * sigma / 0.5, rtol=0)
+    zero = N.noisy_tile(x, n, 0.0, gen, use_kernel=True)
+    assert N.noisy_tile.launches == before + 2
     assert torch.equal(zero, x.expand_as(zero))
+
+
+@pytest.mark.gpu
+def test_noise_kernel_takes_a_non_contiguous_image(cuda):
+    """A strided image is made contiguous first: the same values as the
+    kernel on its contiguous copy, and as the plain version, on the same
+    seed words."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((16, 10, 3), generator=g, device=cuda)[:, ::2]
+    assert not x.is_contiguous()
+    gen = torch.Generator(device=cuda)
+    out = N.noisy_tile(x, 3, 0.5, gen.manual_seed(2), use_kernel=True)
+    want = N.noisy_tile(x.contiguous(), 3, 0.5, gen.manual_seed(2), use_kernel=True)
+    assert torch.equal(out, want)
+    ref = N._noisy_tile_kernel_plain(x, 3, torch.tensor(0.5, device=cuda),
+                                     N._seed_words(gen.manual_seed(2), cuda))
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
 _CURAND_SOURCE = r"""
