@@ -22,27 +22,33 @@
 // sigma are read from device memory, so a sweep shares one build and the
 // caller never waits for the device; any image size is taken.
 //
-// What bounds it on the H100, measured (scripts/bench_torch_noise.py): the
-// first design (one thread a pair of one image, the library's logf/cosf/sqrtf)
-// issued ~120 SASS instructions an element and ran at the issue rate, 2.2x
-// the time of its bytes. The design cuts the instructions an element:
+// What bounds it on the H100, measured (scripts/bench_torch_noise.py at
+// 96 x 448 x 448 x 3): the first design (one thread a pair of one image, the
+// library's logf/cosf/sqrtf, plain 4-byte stores) issued ~120 SASS
+// instructions an element and took 0.255 ms, 3.7x the 0.070 ms its bytes
+// need; its loads and stores alone took 0.133 ms. This design cuts the
+// instructions to ~35 an element and lets the stores stream:
 // - Rounds 1-3 of Philox mostly depend on the image or the pair alone: the
 //   counter's words 2 and 3 are 0, so round 1 multiplies nothing of the pair,
 //   round 2 one word of the pair and one of the image, round 3 one of each
 //   again. A block computes each image's words once (shared memory), a thread
 //   each pair's once; a (pair, image) then takes one wide multiply in round
 //   3 and two in each of rounds 4-10 (IMAD.WIDE.U32: both words at once),
-//   with the round keys in registers.
+//   with the round keys in (uniform) registers.
 // - A thread owns four pairs, two 16-byte quads that lie 32 quads apart, so
 //   a warp's loads and stores are 512 contiguous bytes each; it loads x once
 //   and walks through kImagesPerBlock images, writing each with two 16-byte
-//   stores.
+//   streaming stores.
 // - -2 log u1 is lg2.approx of u1 (absolute error ~2^-22, so relative error
 //   < 2e-4 where u1 <= 1 - 2^-10), and near 1, where that error would
 //   dominate, the series 2t + t^2 + 2t^3/3 in t = 1 - u1 (exact; relative
 //   error < t^3 / 4 < 3e-10); sqrt.approx; cos(2 pi u2) = -cos(2 pi w) with
 //   w = f2 - 3/2 in [-1/2, 1/2) exact, on cos.approx. No special cases:
 //   u1 lies in [2^-23, 1], so the log is finite and >= 0 after the sign.
+// Now the stores alone take 0.075 ms (93 % of the byte rate), and so does the
+// kernel without its Philox rounds or without its transform; the whole takes
+// ~0.099 ms, 70 % of the byte bound: the instructions (0.060 ms at the issue
+// rate) do not hide entirely under the stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

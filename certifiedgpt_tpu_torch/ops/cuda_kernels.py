@@ -78,17 +78,20 @@ class Build:
     log: str
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _toolkit(tool: str, purpose: str) -> str:
+    """A CUDA toolkit program, on the PATH or in /usr/local/cuda/bin."""
+    found = shutil.which(tool)
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = f"/usr/local/cuda/bin/{tool}"
     if os.path.exists(default):
         return default
-    raise RuntimeError(
-        "nvcc not found: the CUDA kernels of certifiedgpt_tpu_torch are "
-        "built with the CUDA toolkit (sm_90a) at first use"
-    )
+    raise RuntimeError(f"{tool} not found: {purpose}")
+
+
+def _nvcc() -> str:
+    return _toolkit("nvcc", "the CUDA kernels of certifiedgpt_tpu_torch are built with "
+                    "the CUDA toolkit (sm_90a) at first use")
 
 
 def _sources():
@@ -156,16 +159,6 @@ def build() -> Build:
     lib.cgpt_error_string.argtypes = (ctypes.c_int,)
     lib.cgpt_error_string.restype = ctypes.c_char_p
     return Build(lib, target, seconds, log)
-
-
-def _cuobjdump() -> str:
-    found = shutil.which("cuobjdump")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/cuobjdump"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("cuobjdump not found: SASS counts need the CUDA toolkit")
 
 
 # SASS opcode (its first word) -> class; anything else is "other" (moves,
@@ -262,7 +255,8 @@ def sass_profile(insts):
 
 def sass_of(lib_path, function: str):
     """``sass_profile`` of ``function`` in a built library (``cuobjdump``)."""
-    out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
+    cuobjdump = _toolkit("cuobjdump", "SASS counts need the CUDA toolkit")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
                          text=True, check=True).stdout
     insts = parse_sass(out, function)
     if not insts:

@@ -114,10 +114,6 @@ PEAK_MUFU_OPS = PEAK_F32_FLOPS / 16
 NOISE_INT_OPS_PER_ELEM = (1 + 3 + 7 * 4) / 2 + 2
 NOISE_F32_OPS_PER_ELEM = 13
 NOISE_MUFU_OPS_PER_ELEM = 3
-# the noise kernel's instance for whole 16-byte quads (the main path's), and
-# the elements one trip of its image loop writes
-NOISE_SASS_FUNCTION = "noise_kernelILb1E"
-NOISE_ELEMS_PER_TRIP = 8
 # odd image sizes (elements) and copies, down to one element
 NOISE_ODD_CASES = (((1,), 1), ((7,), 3), ((3, 3, 1), 3), ((5, 3, 3), 96), ((4097,), 96))
 
@@ -587,10 +583,10 @@ def check_noise(torch, device):
     bms, by = bound_ms(moved, NOISE_INT_OPS_PER_ELEM * elems, PEAK_INT32_OPS,
                        (NOISE_F32_OPS_PER_ELEM * elems, PEAK_F32_FLOPS),
                        (NOISE_MUFU_OPS_PER_ELEM * elems, PEAK_MUFU_OPS))
-    sass = cuda_kernels.sass_of(cuda_kernels.build().path, NOISE_SASS_FUNCTION)
+    sass = cuda_kernels.sass_of(cuda_kernels.build().path, N.KERNEL_SASS_NAME)
     if not sass["loop"]:
         fail("no image loop found in the noise kernel's SASS")
-    per_elem = sass["loop"]["all"] / NOISE_ELEMS_PER_TRIP
+    per_elem = sass["loop"]["all"] / N.KERNEL_ELEMS_PER_TRIP
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     issue_ms = per_elem * elems / (128 * sms * clock * 1e6) * 1e3
     log(f"[kernel] noisy_tile kernel: {ms:.4f} ms, plain {plain_ms:.3f} ms, "

@@ -63,21 +63,18 @@ VARIANTS = {
     "no_transform": _NO_TRANSFORM,
     "no_stores": _NO_STORES,
     "loads_stores_only": _LOADS_STORES_ONLY,
-    # the design's alternatives: the transform's library functions, fewer or
-    # more images a thread, a register cap of four blocks an SM, the element
-    # path (odd image sizes) at this size, stores without the streaming hint
+    # the design's alternatives: the transform's library functions, the
+    # element path (odd image sizes) at this size, stores without the
+    # streaming hint, 4 or 12 images a block, two trips of the image loop
+    # interleaved
     "exact_math": _EXACT_MATH,
     "images4": [(r"kImagesPerBlock = 8;", "kImagesPerBlock = 4;")],
-    "images16": [(r"kImagesPerBlock = 8;", "kImagesPerBlock = 16;")],
-    "min_blocks4": [(r"__launch_bounds__\(kThreads\)", "__launch_bounds__(kThreads, 4)")],
     "element_path": [(r"const bool vec = ", "const bool vec = false && ")],
     "plain_stores": _PLAIN_STORES,
     "loads_plain_stores_only": _LOADS_STORES_ONLY + _PLAIN_STORES,
     "images12": [(r"kImagesPerBlock = 8;", "kImagesPerBlock = 12;")],
+    "unroll2": [(r"#pragma unroll 1\n", "#pragma unroll 2\n")],
 }
-# the kernel instance of whole quads (the main path's) and the elements one
-# trip of its image loop writes
-SASS_FUNCTION, ELEMS_PER_TRIP = "noise_kernelILb1E", 8
 
 
 # the package's library defines this entry in row_quant.cu; a variant's
@@ -125,6 +122,7 @@ def build_variants(names, tmp: Path):
     """Edit and compile ``noise.cu`` once per variant, all in parallel;
     returns {name: (library, ptxas register lines, SASS profile)}."""
     from certifiedgpt_tpu_torch.ops import cuda_kernels
+    from certifiedgpt_tpu_torch.ops import noise as N
 
     source = (cuda_kernels.CSRC / "noise.cu").read_text()
     procs = {}
@@ -151,7 +149,7 @@ def build_variants(names, tmp: Path):
         lib.cgpt_error_string.argtypes = (ctypes.c_int,)
         lib.cgpt_error_string.restype = ctypes.c_char_p
         regs = [line.split("ptxas info    : ")[-1] for line in out.splitlines() if "Used" in line]
-        built[name] = (lib, regs, cuda_kernels.sass_of(path, SASS_FUNCTION))
+        built[name] = (lib, regs, cuda_kernels.sass_of(path, N.KERNEL_SASS_NAME))
     return built
 
 
@@ -196,7 +194,7 @@ def main() -> int:
         ms = min(times[name])
         _, regs, sass = built[name]
         trip = sass["loop"] or {"all": float("nan")}
-        per_elem = trip["all"] / ELEMS_PER_TRIP
+        per_elem = trip["all"] / N.KERNEL_ELEMS_PER_TRIP
         issue = per_elem * elems / (128 * 132 * clock * 1e6) * 1e3
         print(f"{name}: {ms:.4f} ms ({100 * bound / ms:.0f} % of the byte bound {bound:.4f} ms; "
               f"rounds {', '.join(f'{t:.4f}' for t in times[name])}) "
