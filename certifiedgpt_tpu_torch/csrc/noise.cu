@@ -23,11 +23,11 @@
 // caller never waits for the device; any image size is taken.
 //
 // What bounds it on the H100, measured (scripts/bench_torch_noise.py at
-// 96 x 448 x 448 x 3): the first design (one thread a pair of one image, the
-// library's logf/cosf/sqrtf, plain 4-byte stores) issued ~120 SASS
-// instructions an element and took 0.255 ms, 3.7x the 0.070 ms its bytes
-// need; its loads and stores alone took 0.133 ms. This design cuts the
-// instructions to ~35 an element and lets the stores stream:
+// 96 x 448 x 448 x 3): the output's bytes, 0.070 ms at the card's rate, and
+// the instructions that must hide under them. Computed plainly (a thread a
+// pair of one image, the whole key schedule and all ten rounds per pair, the
+// library's logf/cosf/sqrtf) an element takes ~120 SASS instructions and the
+// kernel is bound by issue. This design takes ~35 and lets the stores stream:
 // - Rounds 1-3 of Philox mostly depend on the image or the pair alone: the
 //   counter's words 2 and 3 are 0, so round 1 multiplies nothing of the pair,
 //   round 2 one word of the pair and one of the image, round 3 one of each
@@ -45,7 +45,7 @@
 //   error < t^3 / 4 < 3e-10); sqrt.approx; cos(2 pi u2) = -cos(2 pi w) with
 //   w = f2 - 3/2 in [-1/2, 1/2) exact, on cos.approx. No special cases:
 //   u1 lies in [2^-23, 1], so the log is finite and >= 0 after the sign.
-// Now the stores alone take 0.075 ms (93 % of the byte rate), and so does the
+// The stores alone take 0.075 ms (93 % of the byte rate), and so does the
 // kernel without its Philox rounds or without its transform; the whole takes
 // ~0.099 ms, 70 % of the byte bound: the instructions (0.060 ms at the issue
 // rate) do not hide entirely under the stores.

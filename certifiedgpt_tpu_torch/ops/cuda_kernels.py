@@ -19,7 +19,6 @@ import dataclasses
 import functools
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -78,20 +77,17 @@ class Build:
     log: str
 
 
-def _toolkit(tool: str, purpose: str) -> str:
-    """A CUDA toolkit program, on the PATH or in /usr/local/cuda/bin."""
-    found = shutil.which(tool)
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
     if found:
         return found
-    default = f"/usr/local/cuda/bin/{tool}"
+    default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError(f"{tool} not found: {purpose}")
-
-
-def _nvcc() -> str:
-    return _toolkit("nvcc", "the CUDA kernels of certifiedgpt_tpu_torch are built with "
-                    "the CUDA toolkit (sm_90a) at first use")
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of certifiedgpt_tpu_torch are "
+        "built with the CUDA toolkit (sm_90a) at first use"
+    )
 
 
 def _sources():
@@ -159,109 +155,6 @@ def build() -> Build:
     lib.cgpt_error_string.argtypes = (ctypes.c_int,)
     lib.cgpt_error_string.restype = ctypes.c_char_p
     return Build(lib, target, seconds, log)
-
-
-# SASS opcode (its first word) -> class; anything else is "other" (moves,
-# conversions, special registers, predicate logic)
-_SASS_CLASSES = {
-    "mufu": ("MUFU",),
-    "memory": ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LDL", "STL", "LD", "ST", "ATOM",
-               "ATOMS", "ATOMG", "RED", "LDGSTS", "LDSM", "STSM", "UBLKCP", "SYNCS"),
-    "control": ("BRA", "EXIT", "BSSY", "BSYNC", "CALL", "RET", "NOP", "BAR", "WARPSYNC",
-                "YIELD", "BPT"),
-    "f32": ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FRND", "FCHK", "FSET"),
-    "uniform": ("UIADD3", "UIMAD", "ULOP3", "USHF", "UMOV", "ULEA", "USEL", "UISETP", "UPRMT",
-                "S2UR", "R2UR", "UFLO", "UPOPC", "UBMSK", "USGXT", "UPLOP3"),
-    "integer": ("IMAD", "IADD3", "IADD", "ISETP", "IABS", "IMNMX", "VIMNMX", "LOP3", "LOP",
-                "SHF", "LEA", "PRMT", "SEL", "POPC", "FLO", "BMSK", "SGXT", "IDP", "ISCADD",
-                "VIADD", "IMUL", "BREV"),
-}
-
-
-def _sass_class(opcode: str) -> str:
-    base = opcode.split(".")[0]
-    return next((name for name, ops in _SASS_CLASSES.items() if base in ops), "other")
-
-
-def parse_sass(text: str, function: str):
-    """Instructions of the first function in ``cuobjdump -sass`` output whose
-    name contains ``function``: a list of (address, predicated, opcode,
-    operands)."""
-    insts, inside = [], False
-    for line in text.splitlines():
-        if "Function :" in line:
-            if inside:
-                break
-            inside = function in line
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)\s*([^;]*);", line)
-        if inside and m:
-            insts.append((int(m.group(1), 16), bool(m.group(2)), m.group(3), m.group(4)))
-    return insts
-
-
-def _branch_target(op: str, args: str):
-    """The address a ``BRA`` jumps to, or None for any other instruction."""
-    if not op.startswith("BRA"):
-        return None
-    try:
-        return int(args.split()[-1].strip("`()"), 16)
-    except (ValueError, IndexError):
-        return None
-
-
-def _count_classes(insts):
-    out = {"all": len(insts)}
-    for _, _, op, _ in insts:
-        c = _sass_class(op)
-        out[c] = out.get(c, 0) + 1
-    return out
-
-
-def sass_profile(insts):
-    """Static SASS of one kernel, counted by class: ``total`` (every
-    instruction); ``loop``, the body of the innermost backward branch, which
-    is what one trip issues (a span holding an unpredicated EXIT is an
-    out-of-line block jumping back, not a loop; None without a loop); and
-    ``path``, the path from the entry to the first unpredicated EXIT that
-    takes every forward branch and no predicated backward one: the common
-    path of a kernel whose rare cases (a slow path of the math library, a
-    guard) are jumped over, run once (a loop's trip counted once)."""
-    addr = {a: i for i, (a, _, _, _) in enumerate(insts)}
-    loops = []
-    for i, (_, _, op, args) in enumerate(insts):
-        lo = addr.get(_branch_target(op, args))
-        if lo is not None and lo < i and not any(
-                o == "EXIT" and not p for _, p, o, _ in insts[lo:i]):
-            loops.append((i - lo, lo, i))
-    loop = None
-    if loops:
-        _, lo, hi = min(loops)
-        loop = _count_classes(insts[lo:hi + 1])
-    path, i, seen = [], 0, set()
-    while i < len(insts) and i not in seen:
-        seen.add(i)
-        _, pred, op, args = insts[i]
-        path.append(insts[i])
-        if op == "EXIT" and not pred:
-            break
-        target = addr.get(_branch_target(op, args))
-        if target is not None and (target > i or not pred):
-            i = target
-            continue
-        i += 1
-    return {"total": _count_classes(insts), "loop": loop, "path": _count_classes(path)}
-
-
-def sass_of(lib_path, function: str):
-    """``sass_profile`` of ``function`` in a built library (``cuobjdump``)."""
-    cuobjdump = _toolkit("cuobjdump", "SASS counts need the CUDA toolkit")
-    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
-                         text=True, check=True).stdout
-    insts = parse_sass(out, function)
-    if not insts:
-        raise RuntimeError(f"no SASS for a function named like {function!r} in {lib_path}")
-    return sass_profile(insts)
 
 
 def check(code: int, kernel: str) -> None:

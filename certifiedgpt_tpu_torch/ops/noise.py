@@ -25,11 +25,6 @@ import torch
 from certifiedgpt_tpu_torch.ops import cuda_kernels
 
 _MASK32 = 0xFFFFFFFF
-# the kernel's instance for whole 16-byte quads (every image size that is a
-# multiple of 4), and the elements one trip of its image loop writes: what
-# its SASS is counted by
-KERNEL_SASS_NAME = "noise_kernelILb1E"
-KERNEL_ELEMS_PER_TRIP = 8
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _TWO_PI = 6.283185307179586

@@ -114,27 +114,17 @@ def chunk_seed(seed: int, chunk: int) -> int:
     return h ^ (h >> 31)
 
 
-def noisy_images(image: torch.Tensor, mc_batch: int, sigma: float,
-                 generator: torch.Generator, noise_dist: str = "gaussian") -> torch.Tensor:
-    """``mc_batch`` noisy copies of the clean image, as the JAX package's
-    noise step draws them (``certifiedgpt_tpu/smoothing/classifier.py``
-    ``noise_fn``): ``"uniform"`` adds ``sigma * U[0, 1)`` to every copy (the
-    reference's bug-compatible train noise; always drawn, so sigma = 0
-    multiplies the draw away), any other value ``noisy_tile``'s Gaussian."""
-    if noise_dist != "uniform":
-        return noisy_tile(image, mc_batch, sigma, generator)
-    tiled = image.float().unsqueeze(0).expand((mc_batch,) + tuple(image.shape))
-    return tiled + sigma * torch.rand(tiled.shape, generator=generator, device=image.device,
-                                      dtype=torch.float32)
-
-
 def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: int,
                            seq_len: int = 64, early_exit: bool = False,
                            noise_dist: str = "gaussian"):
     """Returns ``fn(image_hwc, input_ids, attention_mask, img_pos, generator,
     clock=None) -> token ids [mc_batch, T]`` for a one-row ``[1, S]``
-    prompt, which is tiled (as a view) to the Monte-Carlo batch; the noise
-    follows ``noise_dist`` (``noisy_images``)."""
+    prompt, which is tiled (as a view) to the Monte-Carlo batch. The noise
+    is drawn as the JAX package's noise step draws it
+    (``certifiedgpt_tpu/smoothing/classifier.py`` ``noise_fn``):
+    ``noise_dist="uniform"`` adds ``sigma * U[0, 1)`` to every copy (the
+    reference's bug-compatible train noise; always drawn, so sigma = 0
+    multiplies the draw away), any other value ``noisy_tile``'s Gaussian."""
     cfg = model.cfg
     eos = model.tokenizer.eos_token_id
     pad = model.tokenizer.pad_token_id
@@ -147,7 +137,12 @@ def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: i
                 "rebuild the prompt with the gen's BatchSpec"
             )
         with stage(clock, "noise"):
-            images = noisy_images(image, mc_batch, sigma, generator, noise_dist)
+            if noise_dist == "uniform":
+                tiled = noisy_tile(image, mc_batch, 0.0, generator)  # the clean tile, no draw
+                images = tiled + sigma * torch.rand(tiled.shape, generator=generator,
+                                                    device=image.device, dtype=torch.float32)
+            else:
+                images = noisy_tile(image, mc_batch, sigma, generator)
         batch = {"image": images, "input_ids": input_ids.expand(mc_batch, -1),
                  "attention_mask": attention_mask.expand(mc_batch, -1),
                  "img_pos": img_pos.expand(mc_batch)}

@@ -107,7 +107,6 @@ PEAK_MUFU_OPS = PEAK_F32_FLOPS / 16
 # round 3's product and two xors, and two products and two three-input xors
 # in each of rounds 4-10, where one IMAD.WIDE.U32 gives both words of a
 # product: 32 a pair of elements; each uniform is one shift-and-or (LEA.HI).
-# (Counted before as 34: all ten rounds for every pair, a product as two.)
 # f32: 1 - f1, the series near 1 (3), 2 - f1 and the log's scale, the select
 # (2), f2 - 3/2 and its two scalings, r * c and x + sigma * g; special
 # functions: lg2, sqrt and cos on their units
@@ -514,13 +513,6 @@ def check_cls_split_scaled(torch, device):
             "bound_by": by, "library_ms": library_ms, "tflops": tflops}
 
 
-def sm_clock_mhz() -> float:
-    """The SM clock ``nvidia-smi`` reads now."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60).stdout
-    return float(out.strip().splitlines()[0])
-
-
 def check_noise(torch, device):
     """The noise kernel at mc_batch copies of a 448 px image, sigma 0.5, and
     at odd sizes down to one element: its values agree with the plain
@@ -529,8 +521,9 @@ def check_noise(torch, device):
     words would give other normals, off by O(sigma)), (out - x) / sigma has
     mean 0 and std 1 within 0.01, and sigma = 0 returns the clean tile bit
     for bit. Also prints the kernel's SASS instructions an element (one trip
-    of its image loop) and the time they take at 128 a clock an SM: the
-    issue rate, beside the bound but not one."""
+    of its image loop) and the time they take at 128 a clock an SM at the
+    card's highest SM clock: the issue rate, beside the bound but not one."""
+    import sass_count
     from certifiedgpt_tpu_torch.ops import cuda_kernels
     from certifiedgpt_tpu_torch.ops import noise as N
 
@@ -573,7 +566,6 @@ def check_noise(torch, device):
 
     xc = x.contiguous()
     ms = cuda_ms(torch, lambda: N._launch_noise(xc, n, sig, seed), iters=20)
-    clock = sm_clock_mhz()
     plain_ms = cuda_ms(torch, lambda: N._noisy_tile_kernel_plain(x, n, sig, seed),
                        iters=3, warmup=1)
     # the live path: torch.randn (Philox in PyTorch's own kernel) + add
@@ -583,23 +575,21 @@ def check_noise(torch, device):
     bms, by = bound_ms(moved, NOISE_INT_OPS_PER_ELEM * elems, PEAK_INT32_OPS,
                        (NOISE_F32_OPS_PER_ELEM * elems, PEAK_F32_FLOPS),
                        (NOISE_MUFU_OPS_PER_ELEM * elems, PEAK_MUFU_OPS))
-    sass = cuda_kernels.sass_of(cuda_kernels.build().path, N.KERNEL_SASS_NAME)
-    if not sass["loop"]:
-        fail("no image loop found in the noise kernel's SASS")
-    per_elem = sass["loop"]["all"] / N.KERNEL_ELEMS_PER_TRIP
+    trip, per_elem = sass_count.noise_trip(cuda_kernels.build().path)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    issue_ms = per_elem * elems / (128 * sms * clock * 1e6) * 1e3
+    clock = sass_count.max_sm_clock_mhz()
+    issue_ms = sass_count.issue_ms(per_elem, elems, sms, clock)
     log(f"[kernel] noisy_tile kernel: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"torch.randn + add {library_ms:.3f} ms, bound {bms:.4f} ms ({by}; bytes alone "
         f"{moved / PEAK_BYTES_PER_S * 1e3:.4f} ms, integers "
         f"{NOISE_INT_OPS_PER_ELEM * elems / PEAK_INT32_OPS * 1e3:.4f} ms, special functions "
         f"{NOISE_MUFU_OPS_PER_ELEM * elems / PEAK_MUFU_OPS * 1e3:.4f} ms); SASS "
         f"{per_elem:.2f} instructions an element (one trip of the image loop: "
-        f"{json.dumps(sass['loop'])}), issue rate {issue_ms:.4f} ms at {clock:.0f} MHz "
-        f"on {sms} SMs (not a bound)")
+        f"{json.dumps(trip)}), issue rate {issue_ms:.4f} ms at the highest SM clock "
+        f"{clock:.0f} MHz on {sms} SMs (not a bound)")
     return {"max_abs_err": max(err, odd_err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms, "max_abs_g_err": err / sigma,
-            "sass_per_elem": per_elem, "issue_ms": issue_ms}
+            "sass_per_elem": per_elem}
 
 
 # limits of the row-quant kernels against their plain versions: (largest

@@ -19,10 +19,10 @@ turns, so that their times compare on one card:
 
 Prints one line per variant with the card's name and power limit, the
 kernel's time, its share of the byte bound (3.35 TB/s), ptxas' registers and
-the variant's SASS instructions by class (``cuobjdump -sass``): one trip of
+the variant's SASS instructions by class (``sass_count.py``): one trip of
 the image loop (eight elements of one image), an element's share of it and
 the time those take at 128 instructions a clock an SM (the issue rate, at
-the SM clock ``nvidia-smi`` reads after the timing; not a bound).
+the card's highest SM clock as ``nvidia-smi`` reads it; not a bound).
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+import sass_count  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12
 N_IMAGES, IMAGE_HWC, SIGMA = 96, (448, 448, 3), 0.5
@@ -54,7 +56,7 @@ _NO_STORES = [(r"(__stcs\(reinterpret_cast<float4\*>)",
 _LOADS_STORES_ONLY = [(r"minus_gaussian\(c\.[xz], c\.[yw]\)", "1.0f")]
 _PLAIN_STORES = [(r"__stcs\(reinterpret_cast<float4\*>\(o \+ e\), (make_float4\([^;]*\))\);",
                   r"*reinterpret_cast<float4*>(o + e) = \1;")]
-# the first design's full-precision library functions in the transform
+# the transform on the library's full-precision functions
 _EXACT_MATH = [(r"const float r = sqrt_approx\([^;]*;\s*return r \* cos_approx\([^;]*;",
                 "return -sqrtf(-2.0f * logf(2.0f - f1)) * cosf(kTwoPi * (2.0f - f2));")]
 VARIANTS = {
@@ -91,12 +93,6 @@ def card() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def sm_clock_mhz() -> float:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True).stdout.strip()
-    return float(out.splitlines()[0])
-
-
 def cuda_ms(torch, fn, iters=50, warmup=5):
     for _ in range(warmup):
         fn()
@@ -120,9 +116,9 @@ class _Build:
 
 def build_variants(names, tmp: Path):
     """Edit and compile ``noise.cu`` once per variant, all in parallel;
-    returns {name: (library, ptxas register lines, SASS profile)}."""
+    returns {name: (library, ptxas register lines, (one trip of the image
+    loop by class, SASS instructions an element))}."""
     from certifiedgpt_tpu_torch.ops import cuda_kernels
-    from certifiedgpt_tpu_torch.ops import noise as N
 
     source = (cuda_kernels.CSRC / "noise.cu").read_text()
     procs = {}
@@ -149,7 +145,7 @@ def build_variants(names, tmp: Path):
         lib.cgpt_error_string.argtypes = (ctypes.c_int,)
         lib.cgpt_error_string.restype = ctypes.c_char_p
         regs = [line.split("ptxas info    : ")[-1] for line in out.splitlines() if "Used" in line]
-        built[name] = (lib, regs, cuda_kernels.sass_of(path, N.KERNEL_SASS_NAME))
+        built[name] = (lib, regs, sass_count.noise_trip(path))
     return built
 
 
@@ -172,6 +168,8 @@ def main() -> int:
     sig = torch.tensor(SIGMA, dtype=torch.float32, device=dev)
     seed = torch.tensor([12345, 67890], dtype=torch.int32, device=dev)
     elems = N_IMAGES * x.numel()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sass_count.max_sm_clock_mhz()
     moved = 4.0 * (x.numel() + elems)
     bound = moved / PEAK_BYTES_PER_S * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -182,7 +180,6 @@ def main() -> int:
                 cuda_kernels.build = lambda lib=built[name][0]: _Build(lib)
                 times.setdefault(name, []).append(
                     cuda_ms(torch, lambda: N._launch_noise(x, N_IMAGES, sig, seed)))
-        clock = sm_clock_mhz()
         # a yardstick of the card's write rate: PyTorch filling a tensor of
         # the output's size (writes only)
         out = torch.empty((N_IMAGES,) + IMAGE_HWC, device=dev)
@@ -192,16 +189,14 @@ def main() -> int:
           f"({smi})", flush=True)
     for name in names:
         ms = min(times[name])
-        _, regs, sass = built[name]
-        trip = sass["loop"] or {"all": float("nan")}
-        per_elem = trip["all"] / N.KERNEL_ELEMS_PER_TRIP
-        issue = per_elem * elems / (128 * 132 * clock * 1e6) * 1e3
+        _, regs, (trip, per_elem) = built[name]
+        issue = sass_count.issue_ms(per_elem, elems, sms, clock)
         print(f"{name}: {ms:.4f} ms ({100 * bound / ms:.0f} % of the byte bound {bound:.4f} ms; "
               f"rounds {', '.join(f'{t:.4f}' for t in times[name])}) "
               f"[ptxas: {'; '.join(r for r in regs if r)}] "
               f"[SASS: {per_elem:.2f} an element, issue {issue:.4f} ms; one trip "
-              f"{json.dumps(trip)}; common path {json.dumps(sass['path'])}; whole kernel "
-              f"{sass['total']['all']}] ({smi}; SM clock {clock:.0f} MHz)", flush=True)
+              f"{json.dumps(trip)}] ({smi}; highest SM clock {clock:.0f} MHz, {sms} SMs)",
+              flush=True)
     return 0
 
 

@@ -7,8 +7,8 @@ This file imports neither JAX nor the JAX package, so on the GPU machine
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
-The unmarked tests check, on any device, the wrappers' argument checks and
-the build's failure when there is no ``nvcc``.
+The unmarked tests check, on any device, the wrappers' argument checks, the
+build's failure when there is no ``nvcc`` and ``sass_count.py``'s loop count.
 """
 
 import ctypes
@@ -17,6 +17,7 @@ import subprocess
 import pytest
 import torch
 
+import sass_count
 from certifiedgpt_tpu_torch.ops import cuda_kernels
 from certifiedgpt_tpu_torch.ops import flash_attention as FA
 from certifiedgpt_tpu_torch.ops import noise as N
@@ -101,7 +102,7 @@ def test_build_raises_without_nvcc(monkeypatch):
     assert a == cuda_kernels._digest(cuda_kernels._sources()) and len(a) == 16
 
 
-# cuobjdump -sass of a small kernel: a guarded entry, an image loop, a rare
+# cuobjdump -sass of a small kernel: a guarded entry, an image loop with a
 # block jumped over, and an out-of-line slow path that jumps back
 _SASS = """
 \tcode for sm_90a
@@ -128,17 +129,16 @@ _SASS = """
 """
 
 
-def test_sass_profile_counts_one_loop_trip_and_the_common_path():
-    insts = cuda_kernels.parse_sass(_SASS, "noise_kernelILb1E")
+def test_sass_count_counts_one_trip_of_the_innermost_loop():
+    insts = sass_count.parse(_SASS, sass_count.NOISE_KERNEL)
     assert len(insts) == 17 and insts[1] == (0x10, True, "EXIT", "")
-    prof = cuda_kernels.sass_profile(insts)
-    assert prof["total"]["all"] == 17
     # the loop 0x30-0xc0; the block 0xe0-0xf0 jumps back over an EXIT
-    assert prof["loop"] == {"all": 10, "memory": 2, "integer": 2, "mufu": 1, "f32": 2,
-                            "control": 2, "uniform": 1}
-    # forward branches taken, the back edge not: 0x00-0x80, 0xa0-0xd0
-    assert prof["path"]["all"] == 13 and prof["path"]["other"] == 1
-    assert cuda_kernels.sass_profile(cuda_kernels.parse_sass(_SASS, "ILb0E"))["loop"] is None
+    assert sass_count.loop_trip(insts) == {"all": 10, "memory": 2, "integer": 2, "mufu": 1,
+                                           "f32": 2, "control": 2, "uniform": 1}
+    assert sass_count.loop_trip(sass_count.parse(_SASS, "ILb0E")) is None
+    # 10 instructions an element of 57.8 M at 128 a clock on 132 SMs at 1980 MHz
+    assert sass_count.issue_ms(10, 96 * 448 * 448 * 3, 132, 1980.0) == pytest.approx(
+        10 * 96 * 448 * 448 * 3 / (128 * 132 * 1980e6) * 1e3)
 
 
 def _assert_codes_close(got, want, share, scale_rtol):

@@ -130,14 +130,31 @@ def _assert_one_sided_uniform(resid):
     assert abs(resid.var() - 1.0 / 12.0) < 0.005
 
 
+def _noisy_batch(monkeypatch, image, mc_batch, sigma, generator, noise_dist):
+    """The noisy images that ``make_noisy_generate_fn``'s noise step hands to
+    generation (stubbed) for one chunk."""
+    seen = []
+
+    def fake_generate(params, cfg, batch, max_new_tokens, eos, pad, **kw):
+        seen.append(batch["image"])
+        return torch.zeros((mc_batch, max_new_tokens), dtype=torch.long)
+
+    monkeypatch.setattr(TC, "generate_greedy", fake_generate)
+    fn = TC.make_noisy_generate_fn(_stub_model(), sigma, mc_batch, 1, seq_len=4,
+                                   noise_dist=noise_dist)
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    fn(image, ids, torch.ones_like(ids), torch.zeros(1, dtype=torch.long), generator)
+    return seen[0]
+
+
 @pytest.mark.parametrize("sigma", [0.25, 0.5, 2.0])
-def test_uniform_noise_dist_matches_the_jax_contract(sigma):
+def test_uniform_noise_dist_matches_the_jax_contract(monkeypatch, sigma):
     """``noise_dist="uniform"``: ``x + sigma * U[0, 1)`` on the tiled image,
     in the port and as the JAX package's noise step computes it
     (``x + sigma * jax.random.uniform(key, shape)``) on the same numpy
     image; the two streams differ, the contract is the same."""
     x = np.random.RandomState(5).randn(16, 16, 3).astype(np.float32)
-    out = TC.noisy_images(torch.from_numpy(x), 64, sigma, _gen(9), "uniform")
+    out = _noisy_batch(monkeypatch, torch.from_numpy(x), 64, sigma, _gen(9), "uniform")
     assert out.shape == (64, 16, 16, 3) and out.dtype == torch.float32
     _assert_one_sided_uniform(((out - torch.from_numpy(x)[None]) / sigma).double().numpy())
     tiled = jnp.broadcast_to(jnp.asarray(x)[None], (64,) + x.shape)
@@ -146,10 +163,11 @@ def test_uniform_noise_dist_matches_the_jax_contract(sigma):
     _assert_one_sided_uniform((np.asarray(j_out, np.float64) - x[None]) / sigma)
 
 
-def test_uniform_noise_dist_sigma_zero_is_the_clean_tile():
+def test_uniform_noise_dist_sigma_zero_is_the_clean_tile(monkeypatch):
     x = torch.from_numpy(np.random.RandomState(6).randn(8, 8, 3).astype(np.float32))
     want = np.broadcast_to(x.numpy()[None], (4, 8, 8, 3))
-    np.testing.assert_array_equal(TC.noisy_images(x, 4, 0.0, _gen(1), "uniform").numpy(), want)
+    out = _noisy_batch(monkeypatch, x, 4, 0.0, _gen(1), "uniform")
+    np.testing.assert_array_equal(out.numpy(), want)
 
 
 def _stub_model():
