@@ -1,21 +1,39 @@
-"""Certification of one (image, question) item.
+"""Certify and predict agents, and certification of one item.
 
-Port of the per-image step of ``certifiedgpt_tpu/agents/certify.py``
-(``CertifyAgent._run_single``, :424-471): fix the label set from the
-question's candidate answers, build the smoothed classifier (noisy greedy
-generate -> normalize -> label), run ``Smooth.certify`` and report the row
-the agent writes to ``certify_results.jsonl``. The YAML launcher, the
-dataset loop, the sigma sweep and the continuous scheduler wait for later
-slices.
+Port of ``certifiedgpt_tpu/agents/certify.py`` (the serial loops). For each
+(image, question) of the certification subset:
+
+    vocab   <- fixed label set (the question's candidate answers, or the
+               dataset's top answers under ``vocab_mode: global``)
+    g       <- Smooth(noisy generate -> normalize -> label, sigma)
+    (c, R)  <- g.certify(x, n0, n, alpha)     (``certify`` mode)
+    c       <- g.predict(x, n, alpha)         (``smoothing_predict`` mode)
+    correct <- c maps to an answer the humans gave (VQA consensus > 0)
+
+Per-image rows stream to ``certify_results.jsonl`` / ``predict_results.jsonl``
+in the output dir, the summary goes to ``certify_summary.json`` /
+``predict_summary.json``; a ``run.sigma_grid`` sweep writes each sigma's
+files under ``sigma_<s>/`` and all summaries to ``certify_sweep.json``.
+``certify_item`` certifies one item outside the agents (the chip script's
+entry) and builds its row as the agents do (``certify_row``).
+
+Not ported yet: the continuous scheduler (``run.continuous``) and the
+asynchronous look-ahead (``run.dispatch_window``), ROADMAP.md modules
+item 10; the profiler (``run.enable_profile``), item 16.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 
+from certifiedgpt_tpu_torch.agents.base import BaseAgent
+from certifiedgpt_tpu_torch.common.registry import registry
 from certifiedgpt_tpu_torch.common.stages import StageClock
 from certifiedgpt_tpu_torch.models.conversation import wrap_instruction
 from certifiedgpt_tpu_torch.smoothing.classifier import AnswerVocabulary, make_sample_fn
@@ -48,58 +66,331 @@ def label_correct(label: int, vocab: AnswerVocabulary, gt_answers: List[str]) ->
     return is_correct(vocab.text_of(label), gt_answers)
 
 
-def certify_item(model, image: np.ndarray, question: str, gt_answers: List[str],
-                 run_cfg: Dict[str, Any], index: int, question_id: int = 0,
-                 clock: Optional[StageClock] = None) -> Dict[str, Any]:
-    """Certify one item with the knobs of a certify config's ``run`` block
-    (``noise_level``, ``certify_n0``, ``certify_n``, ``certify_alpha``,
-    ``mc_batch``, ``max_new_tokens``, ``seq_len``, ``early_exit``,
-    ``early_abstain``, ``early_stop_radius``, ``seed``, ``conv_template``,
-    ``noise_dist``)
-    and return the per-image row of ``certify_results.jsonl``."""
-    sigma = float(run_cfg.get("noise_level", 0.5))
-    n0 = int(run_cfg.get("certify_n0", 100))
-    n = int(run_cfg.get("certify_n", 1000))
-    alpha = float(run_cfg.get("certify_alpha", 0.001))
-    esr = run_cfg.get("early_stop_radius")
-    if not gt_answers:
-        raise ValueError(
-            "certification needs ground-truth candidate answers to fix the "
-            "label set (Cohen's guarantee)"
+@dataclasses.dataclass(frozen=True)
+class SmoothingKnobs:
+    """The knobs of a certify or predict config's ``run`` block, with the
+    JAX agents' defaults."""
+
+    sigma: float = 0.5            # noise_level
+    n0: int = 100                 # certify_n0
+    n: int = 1000                 # certify_n
+    predict_n: int = 100
+    alpha: float = 0.001          # certify_alpha
+    mc_batch: int = 32
+    max_new_tokens: int = 10
+    seq_len: int = 64
+    early_exit: bool = False
+    early_abstain: bool = False
+    early_stop_radius: Optional[float] = None
+    seed: int = 42
+    conv_template: Optional[str] = None
+    noise_dist: str = "gaussian"
+
+    @classmethod
+    def from_run(cls, run: Mapping[str, Any]) -> "SmoothingKnobs":
+        esr = run.get("early_stop_radius")
+        return cls(
+            sigma=float(run.get("noise_level", 0.5)),
+            n0=int(run.get("certify_n0", 100)),
+            n=int(run.get("certify_n", 1000)),
+            predict_n=int(run.get("predict_n", 100)),
+            alpha=float(run.get("certify_alpha", 0.001)),
+            mc_batch=int(run.get("mc_batch", 32)),
+            max_new_tokens=int(run.get("max_new_tokens", 10)),
+            seq_len=int(run.get("seq_len", 64)),
+            early_exit=bool(run.get("early_exit", False)),
+            early_abstain=bool(run.get("early_abstain", False)),
+            early_stop_radius=float(esr) if esr is not None else None,
+            seed=int(run.get("seed", 42)),
+            conv_template=run.get("conv_template"),
+            noise_dist=str(run.get("noise_dist", "gaussian")),
         )
-    vocab = AnswerVocabulary(gt_answers)
+
+
+def make_smooth(model, knobs: SmoothingKnobs, instruction: str, vocab: AnswerVocabulary,
+                clock: Optional[StageClock] = None) -> Smooth:
+    """``Smooth`` over noisy greedy generation of ``model`` on the wrapped
+    ``instruction``, labelled by ``vocab``."""
     sample_fn = make_sample_fn(
         model,
-        wrap_instruction(question, run_cfg.get("conv_template")),
+        wrap_instruction(instruction, knobs.conv_template),
         vocab,
-        sigma,
-        mc_batch=int(run_cfg.get("mc_batch", 32)),
-        max_new_tokens=int(run_cfg.get("max_new_tokens", 10)),
-        seq_len=int(run_cfg.get("seq_len", 64)),
-        early_exit=bool(run_cfg.get("early_exit", False)),
+        knobs.sigma,
+        mc_batch=knobs.mc_batch,
+        max_new_tokens=knobs.max_new_tokens,
+        seq_len=knobs.seq_len,
+        early_exit=knobs.early_exit,
         clock=clock,
-        noise_dist=str(run_cfg.get("noise_dist", "gaussian")),
+        noise_dist=knobs.noise_dist,
     )
-    smooth = Smooth(sample_fn, vocab.num_classes, sigma)
+    return Smooth(sample_fn, vocab.num_classes, knobs.sigma)
+
+
+def _answer(label: int, vocab: AnswerVocabulary) -> str:
+    return vocab.text_of(label) if label != ABSTAIN else "<abstain>"
+
+
+def certify_row(smooth: Smooth, vocab: AnswerVocabulary, knobs: SmoothingKnobs,
+                image: np.ndarray, gt_answers: List[str], index: int,
+                question_id: int) -> Dict[str, Any]:
+    """Certify one image and return its row of ``certify_results.jsonl``."""
     t0 = time.time()
     label, radius = smooth.certify(
-        image, n0, n, alpha,
-        seed=certify_seed(int(run_cfg.get("seed", 42)), index, sigma),
-        early_abstain=bool(run_cfg.get("early_abstain", False)),
-        early_stop_radius=float(esr) if esr is not None else None,
+        image, knobs.n0, knobs.n, knobs.alpha,
+        seed=certify_seed(knobs.seed, index, knobs.sigma),
+        early_abstain=knobs.early_abstain,
+        early_stop_radius=knobs.early_stop_radius,
     )
     dt = time.time() - t0
     return {
         "index": index,
         "question_id": int(question_id),
         "label": int(label),
-        "answer": vocab.text_of(label) if label != ABSTAIN else "<abstain>",
+        "answer": _answer(label, vocab),
         "radius": float(radius),
         "correct": bool(label_correct(label, vocab, gt_answers)),
         "abstain": label == ABSTAIN,
         "seconds": round(dt, 3),
-        "sigma": sigma,
-        "n0": n0,
-        "n": n,
+        "sigma": knobs.sigma,
+        "n0": knobs.n0,
+        "n": knobs.n,
+        # draws labeled (< n0 + n when early stopping fired)
         "draws": int(smooth.last_draws),
     }
+
+
+def predict_row(smooth: Smooth, vocab: AnswerVocabulary, knobs: SmoothingKnobs,
+                image: np.ndarray, gt_answers: List[str], index: int,
+                question_id: int) -> Dict[str, Any]:
+    """Predict one image (``early_abstain`` turns on the exact
+    completion-certain stopping) and return its row of
+    ``predict_results.jsonl``."""
+    t0 = time.time()
+    label = smooth.predict(
+        image, knobs.predict_n, knobs.alpha,
+        seed=certify_seed(knobs.seed, index, knobs.sigma),
+        early_stop=knobs.early_abstain,
+    )
+    dt = time.time() - t0
+    return {
+        "index": index,
+        "question_id": int(question_id),
+        "label": int(label),
+        "answer": _answer(label, vocab),
+        "correct": bool(label_correct(label, vocab, gt_answers)),
+        "abstain": label == ABSTAIN,
+        "seconds": round(dt, 3),
+        "sigma": knobs.sigma,
+        "n": knobs.predict_n,
+        # draws labeled (< n when early stopping fired)
+        "draws": int(smooth.last_draws),
+    }
+
+
+def certify_item(model, image: np.ndarray, question: str, gt_answers: List[str],
+                 run_cfg: Mapping[str, Any], index: int, question_id: int = 0,
+                 clock: Optional[StageClock] = None) -> Dict[str, Any]:
+    """Certify one item with the knobs of a certify config's ``run`` block
+    (``SmoothingKnobs.from_run``) against its candidate answers, and return
+    the row ``CertifyAgent`` writes for it."""
+    if not gt_answers:
+        raise ValueError(
+            "certification needs ground-truth candidate answers to fix the "
+            "label set (Cohen's guarantee)"
+        )
+    knobs = SmoothingKnobs.from_run(run_cfg)
+    vocab = AnswerVocabulary(gt_answers)
+    smooth = make_smooth(model, knobs, question, vocab, clock)
+    return certify_row(smooth, vocab, knobs, image, gt_answers, index, question_id)
+
+
+class SmoothedVQAAgentBase(BaseAgent):
+    """Shared plumbing for certify / smoothing_predict: the run block's
+    knobs, the finetuned projection (``model.vqa_finetuned``), the dataset,
+    the label set and the serial loop over the dataset."""
+
+    def __init__(self, config, device="cuda"):
+        run = config.run
+        if run.get("continuous", False):
+            raise NotImplementedError(
+                "run.continuous: the continuous-batching scheduler is not ported yet "
+                "(ROADMAP.md, modules item 10); a serial run would draw another "
+                "random stream and write another row schema"
+            )
+        if run.get("enable_profile", False):
+            raise NotImplementedError(
+                "run.enable_profile: common/profiling.py is not ported yet "
+                "(ROADMAP.md, modules item 16)"
+            )
+        super().__init__(config, device)
+        self.knobs = SmoothingKnobs.from_run(run)
+        self.max_images = run.get("max_images")
+        self.logger.info(
+            "run.dispatch_window = %s is not honoured yet: chunks run one at a time "
+            "(ROADMAP.md, modules item 10); the labels are the same",
+            run.get("dispatch_window", 4),
+        )
+        finetuned = self.load_finetuned({"llama_proj": self.model.params["llama_proj"]})
+        if finetuned is not None:
+            self.model.set_llama_proj(finetuned["llama_proj"])
+
+    def eval_dataset(self):
+        names = list(self.config.datasets.keys())
+        for pos, name in enumerate(names):
+            builder_cls = registry.get_builder_class(name)
+            datasets = builder_cls(self.config.datasets.get(name) or {}).build_datasets()
+            for split in ("val", "test", "train"):
+                if split in datasets:
+                    if pos + 1 < len(names):
+                        self.logger.warning(
+                            "certify uses only '%s'; ignoring configured "
+                            "datasets %s (run them as separate configs)",
+                            name, names[pos + 1:],
+                        )
+                    return datasets[split]
+        raise RuntimeError("No dataset configured for certification")
+
+    def build_vocab(self, item, dataset=None) -> AnswerVocabulary:
+        """Label-set construction (``run.vocab_mode``):
+        - ``per_question`` (default): the item's candidate answers + OTHER
+        - ``global``: top-``vocab_top_k`` answers over the whole dataset's
+          annotations (standard VQA-classifier vocabulary), built once.
+        Both are fixed before sampling, as Cohen's guarantee requires.
+        """
+        mode = str(self.run_cfg.get("vocab_mode", "per_question"))
+        if mode == "global":
+            if not hasattr(self, "_global_vocab"):
+                if dataset is None or not getattr(dataset, "annotations", None):
+                    raise RuntimeError(
+                        "vocab_mode=global needs a dataset with annotations"
+                    )
+                self._global_vocab = AnswerVocabulary.from_annotations(
+                    dataset.annotations,
+                    top_k=int(self.run_cfg.get("vocab_top_k", 3000)),
+                )
+                self.logger.info(
+                    "global answer vocabulary: %d classes",
+                    self._global_vocab.num_classes,
+                )
+            return self._global_vocab
+        if not item.get("gt_answers"):
+            raise RuntimeError(
+                "Certification needs ground-truth candidate answers to fix "
+                "the label set (Cohen's guarantee); configure the "
+                "'evalvqav2' dataset, not a train/test split"
+            )
+        return AnswerVocabulary(item["gt_answers"])
+
+    def smoothed_classifier(self, item, dataset=None):
+        vocab = self.build_vocab(item, dataset)
+        return make_smooth(self.model, self.knobs, item["instruction_input"], vocab), vocab
+
+    def serial_run(self, dataset, mode: str,
+                   make_row: Callable[..., Dict[str, Any]]) -> Dict[str, Any]:
+        """Row by row over the first ``max_images`` items: each row streams
+        to ``{mode}_results.jsonl``, the agent's ``summarize`` of all rows
+        goes to ``{mode}_summary.json``."""
+        limit = int(self.max_images) if self.max_images else len(dataset)
+        rows: List[Dict[str, Any]] = []
+        with open(os.path.join(self.output_dir, f"{mode}_results.jsonl"), "w") as sink:
+            for idx in range(min(limit, len(dataset))):
+                item = dataset[idx]
+                smooth, vocab = self.smoothed_classifier(item, dataset)
+                row = make_row(smooth, vocab, self.knobs, item["image"], item["gt_answers"],
+                               idx, item["question_id"])
+                rows.append(row)
+                sink.write(json.dumps(row) + "\n")
+                sink.flush()
+                self.logger.info(
+                    "%s[%d] qid=%s label=%s radius=%s correct=%s (%.2fs)",
+                    mode, idx, row["question_id"], row["answer"], row.get("radius", "-"),
+                    row["correct"], row["seconds"],
+                )
+        summary = self.summarize(rows)
+        with open(os.path.join(self.output_dir, f"{mode}_summary.json"), "w") as handle:
+            json.dump(summary, handle, indent=2)
+        self.logger.info("%s summary: %s", mode, summary)
+        return summary
+
+
+@registry.register_agent("image_text_certify")
+class CertifyAgent(SmoothedVQAAgentBase):
+    def __init__(self, config, device="cuda"):
+        super().__init__(config, device)
+        self.radius_grid = [
+            float(r) for r in self.run_cfg.get("radius_grid", [0.5, 1.0, 2.0, 3.0])
+        ]
+
+    def run(self) -> Dict[str, Any]:
+        # the dataset is the same for every sigma of a sweep: built once
+        dataset = self.eval_dataset()
+        sigma_grid = self.run_cfg.get("sigma_grid")
+        if not sigma_grid:
+            return self._run_single(dataset)
+        sweep = {}
+        base_out, base_knobs = self.output_dir, self.knobs
+        try:
+            for sigma in [float(s) for s in sigma_grid]:
+                self.knobs = dataclasses.replace(base_knobs, sigma=sigma)
+                self.output_dir = os.path.join(base_out, f"sigma_{sigma}")
+                os.makedirs(self.output_dir, exist_ok=True)
+                sweep[str(sigma)] = self._run_single(dataset)
+        finally:
+            self.output_dir, self.knobs = base_out, base_knobs
+        with open(os.path.join(base_out, "certify_sweep.json"), "w") as handle:
+            json.dump(sweep, handle, indent=2)
+        self.logger.info("sigma sweep complete: %s", list(sweep))
+        return {"sweep": sweep}
+
+    def _run_single(self, dataset) -> Dict[str, Any]:
+        return self.serial_run(dataset, "certify", certify_row)
+
+    def summarize(self, rows: List[Dict[str, Any]]) -> Dict[str, Any]:
+        total = len(rows)
+        if total == 0:
+            return {"total": 0}
+        k = self.knobs
+        return {
+            "total": total,
+            "sigma": k.sigma,
+            "n0": k.n0,
+            "n": k.n,
+            "alpha": k.alpha,
+            "abstention_rate": sum(1 for r in rows if r["abstain"]) / total,
+            "standard_accuracy": sum(1 for r in rows if r["correct"]) / total,
+            "certified_accuracy_at_radius": {
+                str(radius): sum(1 for r in rows if r["correct"] and r["radius"] >= radius)
+                / total
+                for radius in self.radius_grid
+            },
+            # < n0 + n when early_abstain / early_stop_radius fired
+            "mean_draws_per_image": float(np.mean([r["draws"] for r in rows])),
+            "mean_seconds_per_image": float(np.mean([r["seconds"] for r in rows])),
+        }
+
+
+@registry.register_agent("image_text_predict")
+class PredictAgent(SmoothedVQAAgentBase):
+    """``smoothing_predict`` mode: ``Smooth.predict`` over the subset."""
+
+    def run(self) -> Dict[str, Any]:
+        return self.serial_run(self.eval_dataset(), "predict", predict_row)
+
+    def summarize(self, rows: List[Dict[str, Any]]) -> Dict[str, Any]:
+        total = len(rows)
+        k = self.knobs
+        return {
+            "total": total,
+            "sigma": k.sigma,
+            "n": k.predict_n,
+            "alpha": k.alpha,
+            "accuracy": sum(1 for r in rows if r["correct"]) / max(total, 1),
+            "abstention_rate": sum(1 for r in rows if r["abstain"]) / max(total, 1),
+            "mean_seconds_per_image": float(
+                np.mean([r["seconds"] for r in rows]) if rows else 0.0
+            ),
+            # < n when run.early_abstain's completion-certain rule fired
+            "mean_draws_per_image": float(
+                np.mean([r["draws"] for r in rows]) if rows else float(k.predict_n)
+            ),
+        }

@@ -10,8 +10,9 @@ stack of the ViT and the decoder at the serving int8 layout or in its float
 dtype, module by module so that the peak stays about one float layer stack
 above the final footprint: the counterpart of the JAX
 ``bench.py::build_full_int8_params`` and of ``init_minigpt4`` followed by
-``quantize_eva_vit``/``quantize_llama``. Loading real checkpoints waits for a
-later slice (ROADMAP.md, modules item 10).
+``quantize_eva_vit``/``quantize_llama``. ``MiniGPT4Model`` is registered as
+``minigpt4`` in the port's registry, which the agents build from. Loading
+real checkpoints waits for a later slice (ROADMAP.md, modules item 12).
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from typing import Any, Dict, Mapping
 
 import torch
 
+from certifiedgpt_tpu_torch.common.registry import registry
 from certifiedgpt_tpu_torch.data.text import ByteTokenizer
+from certifiedgpt_tpu_torch.models import layers as L
 from certifiedgpt_tpu_torch.models.eva_vit import EvaViTConfig
 from certifiedgpt_tpu_torch.models.llama import LlamaConfig
 from certifiedgpt_tpu_torch.models.minigpt4 import MiniGPT4, MiniGPT4Config
@@ -53,7 +56,7 @@ def config_from_block(model_cfg: Mapping[str, Any]) -> MiniGPT4Config:
     if model_cfg.get("remat"):
         raise NotImplementedError(
             "model.remat: rematerialization belongs to the training forward, which "
-            "is not ported yet (ROADMAP.md, modules item 12)"
+            "is not ported yet (ROADMAP.md, modules item 14)"
         )
     if model_cfg.get("model_size", "full") == "tiny":
         cfg = MiniGPT4Config.tiny()
@@ -82,10 +85,29 @@ def config_from_block(model_cfg: Mapping[str, Any]) -> MiniGPT4Config:
     return cfg
 
 
+def load_prompt_pool(prompt_path, prompt_template="{}"):
+    """Load the alignment prompt pool: keep only lines containing
+    ``<ImageHere>`` and wrap each in the template. Returns [] when no path
+    is configured or the file is missing."""
+    if not prompt_path:
+        return []
+    path = str(prompt_path)
+    if not os.path.exists(path):
+        logger.warning("prompt_path %s not found; no prompt pool", path)
+        return []
+    with open(path, "r") as handle:
+        raw = [line.strip() for line in handle if "<ImageHere>" in line]
+    template = str(prompt_template or "{}")
+    return [template.format(p) for p in raw]
+
+
+@registry.register_model("minigpt4")
 class MiniGPT4Model:
     """Holds the config, the model (one module per tower, parameters in the
     JAX layout) and the tokenizer. ``params`` is the parameter dict the
-    ``models.minigpt4`` functions take."""
+    ``models.minigpt4`` functions take, rebuilt from the modules on every
+    access: assigning into it changes nothing, so weights are replaced on
+    the modules (``set_llama_proj``)."""
 
     def __init__(self, cfg: MiniGPT4Config, params: Dict[str, Any], tokenizer):
         self.cfg = cfg
@@ -100,6 +122,11 @@ class MiniGPT4Model:
     def device(self) -> torch.device:
         return self.module.llama.params.embed_tokens.embedding.device
 
+    def set_llama_proj(self, tree: Mapping[str, torch.Tensor]) -> None:
+        """Replace the projection's weights (``{"kernel", "bias"}``, e.g. a
+        finetuned ``llama_proj``) on the module the forward reads."""
+        self.module.llama_proj = L.ParamTree(tree)
+
     @classmethod
     def from_config(cls, model_cfg: Mapping[str, Any], device="cuda") -> "MiniGPT4Model":
         """The model of a config's model block (a plain mapping, e.g. the
@@ -108,7 +135,7 @@ class MiniGPT4Model:
         ``quantize_vit``, int8 decoder layer kernels with ``quantize_llama``,
         float kernels otherwise; the byte-level tokenizer. A checkpoint path
         that exists raises ``NotImplementedError`` (loading waits for
-        ROADMAP.md modules item 10); a configured path that does not exist is
+        ROADMAP.md modules item 12); a configured path that does not exist is
         logged and the random init kept, as in the JAX package."""
         for key in CHECKPOINT_KEYS:
             path = model_cfg.get(key)
@@ -117,7 +144,7 @@ class MiniGPT4Model:
             if os.path.exists(str(path)):
                 raise NotImplementedError(
                     f"model.{key} = {path}: loading checkpoints is not ported yet "
-                    "(ROADMAP.md, modules item 10: checkpoint loaders)"
+                    "(ROADMAP.md, modules item 12: checkpoint loaders)"
                 )
             logger.warning("%s path %s not found; using random init", key, path)
         cfg = config_from_block(model_cfg)

@@ -5,7 +5,8 @@ Port of ``certifiedgpt_tpu/smoothing/classifier.py`` (single device).
 bridge, fixed before any sampling so Cohen's guarantee holds:
 
 1. ``AnswerVocabulary``: a fixed label set per question (normalized
-   candidate answers + one catch-all OTHER class), normalized with the
+   candidate answers + one catch-all OTHER class), or the top answers of a
+   whole annotation set (``from_annotations``), normalized with the
    official VQA pipeline.
 2. ``make_noisy_generate_fn``: tile the clean image to a Monte-Carlo batch,
    add noise on the device (Gaussian, or under ``noise_dist="uniform"`` the
@@ -25,6 +26,7 @@ noisy images are in flight at a time.
 from __future__ import annotations
 
 import logging
+from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -55,6 +57,20 @@ class AnswerVocabulary:
                 seen[norm] = len(seen)
         self.index = seen
         self.labels: List[str] = list(seen.keys())
+
+    @classmethod
+    def from_annotations(cls, annotations: Sequence[dict],
+                         top_k: int = 3000) -> "AnswerVocabulary":
+        """Global label set (``run.vocab_mode: global``): the top-K most
+        frequent normalized answers over a whole annotation set, fixed
+        before any sampling as Cohen's guarantee requires."""
+        counts: Counter = Counter()
+        for ann in annotations:
+            for a in ann.get("answers", []):
+                norm = normalize_answer(a.get("answer", ""))
+                if norm:
+                    counts[norm] += 1
+        return cls([t for t, _ in counts.most_common(top_k)])
 
     @property
     def other_label(self) -> int:

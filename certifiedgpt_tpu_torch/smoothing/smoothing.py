@@ -56,6 +56,16 @@ def clopper_pearson_lower(k: int, n: int, alpha: float) -> float:
     return float(beta_dist.ppf(alpha, k, n - k + 1))
 
 
+def clopper_pearson_upper(k: int, n: int, alpha: float) -> float:
+    """One-sided upper confidence bound for a binomial proportion (the
+    Beta quantile at 1 - alpha)."""
+    if n == 0:
+        return 1.0
+    if k == n:
+        return 1.0
+    return float(beta_dist.ppf(1.0 - alpha, k + 1, n - k))
+
+
 def binom_p_value(k: int, n: int, p: float = 0.5) -> float:
     """Two-sided exact binomial test (scipy.binomtest; the reference's
     deprecated ``scipy.stats.binom_test`` computed the same value)."""
@@ -99,6 +109,14 @@ def min_count_for_lower_bound(p: float, n: int, alpha: float) -> int:
         else:
             lo = mid + 1
     return lo
+
+
+def certified_radius_two_class(
+    sigma: float, p_a_lower: float, p_b_upper: float
+) -> float:
+    """The README's two-class form R = sigma/2 (Phi^-1(pA) - Phi^-1(pB))
+    (ref ``README.md:54``), provided for analysis parity."""
+    return float(0.5 * sigma * (norm.ppf(p_a_lower) - norm.ppf(p_b_upper)))
 
 
 def certify_from_counts(

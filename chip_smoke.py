@@ -66,6 +66,22 @@ Phases, each of which exits non-zero on any failure:
 7. Entries: the noise kernel mode of ``noisy_tile`` and
    ``cls_split_attention_scaled``, which no certify path calls, each driven
    once through its entry point at the shapes above, launches counted.
+8. Launcher: ``certifiedgpt_tpu_torch.launch.main`` runs ``certify`` on
+   ``configs/certify_configs/vqav2_certify_noise_0.5.yaml`` and
+   ``smoothing_predict`` on ``vqav2_predict_noise_0.5.yaml``, both
+   unchanged (full width, seeded synthetic weights), over a written
+   VQAv2-shaped set of two 640x480 JPEGs, with ``vqa_finetuned`` pointing at
+   a written ``llama_proj`` checkpoint in the JAX package's ``.npz`` format
+   (the environment variables the YAMLs read point at these files; the
+   checkpoint paths of the model block at paths that do not exist). Checks
+   the rows and summaries against the JAX package's keys, that every
+   ``encode_img`` call read the checkpoint's projection bit for bit, and
+   that each path kernel launched its launches per chunk (as in phase 4)
+   times the chunks the rows ran; prints the model build seconds, the
+   seconds per image, the peak memory and the card's name and power limit,
+   and the agents' per-stage seconds a chunk beside phase 4's, with the
+   card's SM clock, power draw and temperature (``nvidia-smi`` each second)
+   during phase 4's certification and each launcher run.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them), and as its last line
@@ -77,8 +93,10 @@ kernel) and prints the kernel records instead of the two closing lines.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -195,6 +213,44 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class CardSampler:
+    """``nvidia-smi``'s SM clock, power draw and temperature about once a
+    second while the ``with`` block runs, from a thread that the block's end
+    stops and joins."""
+
+    QUERY = "--query-gpu=clocks.sm,power.draw,temperature.gpu"
+
+    def __enter__(self):
+        import threading
+
+        self.samples = []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def _sample(self):
+        while not self.stop.wait(1.0):
+            out = subprocess.run(["nvidia-smi", self.QUERY, "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=30).stdout
+            try:
+                self.samples.append([float(v) for v in out.splitlines()[0].split(",")])
+            except (IndexError, ValueError):
+                pass  # a read the card did not answer: no sample
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=60)
+
+    def summary(self) -> str:
+        if not self.samples:
+            return "no nvidia-smi samples"
+        clock, power, temp = zip(*self.samples)
+        return (f"SM clock mean {sum(clock) / len(clock):.0f} MHz (min {min(clock):.0f}), "
+                f"power draw mean {sum(power) / len(power):.1f} W, temperature max "
+                f"{max(temp):.0f} C over {len(clock)} samples")
 
 
 def bound_ms(bytes_moved: float, ops: float, peak_ops: float, *more_ops):
@@ -744,10 +800,11 @@ def phase_main_path(torch, device):
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    row = certify_item(model, image, QUESTION, GT_ANSWERS, RUN_CFG, index=0, clock=clock)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with CardSampler() as card_state:
+        t0 = time.perf_counter()
+        row = certify_item(model, image, QUESTION, GT_ANSWERS, RUN_CFG, index=0, clock=clock)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -755,7 +812,8 @@ def phase_main_path(torch, device):
     stages = stage_seconds(clock, wall)
     log(f"[main] certify row: {json.dumps(row)}")
     log(f"[main] wall {wall:.3f} s over {chunks} chunks of {MC_BATCH}; stage seconds {json.dumps(stages)}")
-    log(f"[main] decode steps {clock.counts.get('decode_step', 0)}; peak memory {peak_gb:.2f} GB")
+    log(f"[main] decode steps {clock.counts.get('decode_step', 0)}; peak memory {peak_gb:.2f} GB; "
+        f"card during the run: {card_state.summary()}")
     log(f"[main] launches {json.dumps(launches)}")
     check_counts("certify flash_cls", launches, PER_CHUNK["flash_cls"], chunks)
     check_row(row, RUN_CFG)
@@ -1023,6 +1081,199 @@ def phase_entries(torch, device):
     return counted
 
 
+# ----------------------------------------------------------------------
+# phase 8: the launcher on the shipped certify and predict configs
+# ----------------------------------------------------------------------
+LAUNCH_RUNS = (  # mode, shipped config (run unchanged), results file
+    ("certify", "configs/certify_configs/vqav2_certify_noise_0.5.yaml", "certify"),
+    ("smoothing_predict", "configs/certify_configs/vqav2_predict_noise_0.5.yaml", "predict"),
+)
+LAUNCH_IMAGES = 2  # the dataset's size caps the configs' max_images
+LAUNCH_ROW_KEYS = {
+    "certify": {"index", "question_id", "label", "answer", "radius", "correct", "abstain",
+                "seconds", "sigma", "n0", "n", "draws"},
+    "predict": {"index", "question_id", "label", "answer", "correct", "abstain", "seconds",
+                "sigma", "n", "draws"},
+}
+LAUNCH_SUMMARY_KEYS = {
+    "certify": {"total", "sigma", "n0", "n", "alpha", "abstention_rate", "standard_accuracy",
+                "certified_accuracy_at_radius", "mean_draws_per_image",
+                "mean_seconds_per_image"},
+    "predict": {"total", "sigma", "n", "alpha", "accuracy", "abstention_rate",
+                "mean_seconds_per_image", "mean_draws_per_image"},
+}
+# model-block paths of the shipped configs, pointed where nothing exists so
+# that the model is built from its seed
+CHECKPOINT_ENV = ("VICUNA_7B", "EVA_VIT_G", "QFORMER_CKPT", "MINIGPT4_STAGE2")
+
+
+def write_vqa_set(root, n: int) -> None:
+    """``n`` seeded 640x480 RGB JPEGs named as COCO val2014 images, and
+    VQAv2-shaped question and annotation JSONs with 10 answers each."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    (root / "images").mkdir()
+    questions, annotations = [], []
+    for i in range(n):
+        image_id = 9000 + i
+        Image.fromarray(rng.randint(0, 255, (480, 640, 3), dtype=np.uint8)).save(
+            root / "images" / f"COCO_val2014_{image_id:012d}.jpg")
+        questions.append({"question_id": i + 1, "image_id": image_id,
+                          "question": "what animal is this?"})
+        annotations.append({
+            "question_id": i + 1, "image_id": image_id, "question_type": "what",
+            "answer_type": "other",
+            "answers": [{"answer": a, "answer_confidence": "yes", "answer_id": j + 1}
+                        for j, a in enumerate(GT_ANSWERS)],
+        })
+    (root / "questions.json").write_text(json.dumps({"questions": questions}))
+    (root / "annotations.json").write_text(json.dumps({"annotations": annotations}))
+
+
+def write_finetuned(path, d_in: int, d_out: int):
+    """A ``llama_proj`` checkpoint in the JAX package's ``.npz`` format
+    (``model:`` + the parameter path, and an empty meta sidecar), seeded
+    values unlike the synthetic init (whose bias is zero)."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    arrays = {"model:llama_proj/kernel": (rng.randn(d_in, d_out) / math.sqrt(d_in))
+              .astype(np.float32),
+              "model:llama_proj/bias": (0.1 * rng.randn(d_out)).astype(np.float32)}
+    np.savez(path, **arrays)
+    with open(f"{path}.meta.json", "w") as handle:
+        json.dump({}, handle)
+    return arrays
+
+
+def chunks_of_row(row, n0: int, mc_batch: int) -> int:
+    """Chunks of ``mc_batch`` draws a row's certification or prediction
+    dispatched: each draw pass (certify's selection ``n0`` and estimation,
+    or predict's one pass) runs whole chunks, and an early stop ends a pass
+    after the chunk that fired it."""
+    return -(-n0 // mc_batch) + -(-(row["draws"] - n0) // mc_batch)
+
+
+def phase_launcher(torch, card, d_in: int, d_out: int, main_summary):
+    """``certifiedgpt_tpu_torch.launch.main`` on the shipped certify and
+    predict YAMLs, unchanged (full width; the synthetic dataset of
+    ``LAUNCH_IMAGES`` images caps ``max_images``), with ``vqa_finetuned``
+    pointing at a written projection checkpoint. Checks the rows and
+    summaries against the JAX package's schema, that ``encode_img`` read
+    exactly the checkpoint's projection, and that each path kernel launched
+    its launches per chunk times the chunks the rows ran. Returns each run's
+    launches."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        return launcher_runs(torch, card, Path(tmp), d_in, d_out, main_summary)
+
+
+def launcher_runs(torch, card, root, d_in: int, d_out: int, main_summary):
+    """``phase_launcher``'s runs, with their files under ``root``."""
+    import re
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch import launch
+    from certifiedgpt_tpu_torch.agents import certify as A
+    from certifiedgpt_tpu_torch.common.config import Config
+    from certifiedgpt_tpu_torch.common.stages import StageClock
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    write_vqa_set(root, LAUNCH_IMAGES)
+    ckpt = root / "vqav2_finetuned.npz"
+    proj = write_finetuned(ckpt, d_in, d_out)
+    env = {"VQAV2_IMAGES": str(root / "images"),
+           "VQAV2_VAL_QUESTIONS": str(root / "questions.json"),
+           "VQAV2_VAL_ANNOTATIONS": str(root / "annotations.json"),
+           "VQA_FINETUNED": str(ckpt),
+           **{name: str(root / "absent" / name.lower()) for name in CHECKPOINT_ENV}}
+    encode_img, make_sample_fn = M.encode_img, A.make_sample_fn
+    seen = []
+
+    def spy(params, cfg, images, clock=None):
+        seen.append(params["llama_proj"])
+        return encode_img(params, cfg, images, clock)
+
+    counted = {}
+    for mode, path, kind in LAUNCH_RUNS:
+        out = root / f"out_{kind}"
+        knobs = A.SmoothingKnobs.from_run(Config(path).run)
+        seen.clear()
+        # per-stage seconds of the agents' draws, as phase 4's (synchronizing)
+        clock = StageClock("cuda")
+        with mock.patch.dict(os.environ, dict(env, OUTPUT_DIR=str(out))), \
+                mock.patch.object(M, "encode_img", spy), \
+                mock.patch.object(A, "make_sample_fn",
+                                  lambda *a, **k: make_sample_fn(*a, **dict(k, clock=clock))), \
+                CardSampler() as card_state:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = launch.main([mode, "--config-path", path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [json.loads(line) for line in (out / f"{kind}_results.jsonl").read_text().splitlines()]
+        on_disk = json.loads((out / f"{kind}_summary.json").read_text())
+        log(f"[launch] {mode} {path}: rows {json.dumps(rows)}")
+        log(f"[launch] {mode}: summary {json.dumps(summary)}; launches {json.dumps(launches)}")
+        if len(rows) != LAUNCH_IMAGES or any(set(r) != LAUNCH_ROW_KEYS[kind] for r in rows):
+            fail(f"{mode}: rows {rows} are not {LAUNCH_IMAGES} rows with the JAX package's keys")
+        if summary != on_disk or set(summary) != LAUNCH_SUMMARY_KEYS[kind] \
+                or summary["total"] != LAUNCH_IMAGES:
+            fail(f"{mode}: summary {summary} does not have the JAX package's keys")
+        n0 = knobs.n0 if kind == "certify" else 0
+        budget = n0 + (knobs.n if kind == "certify" else knobs.predict_n)
+        for row in rows:
+            if row["sigma"] != knobs.sigma or row["abstain"] != (row["label"] == -1) \
+                    or not 0 < row["draws"] <= budget \
+                    or not math.isfinite(row.get("radius", 0.0)) or row.get("radius", 0.0) < 0:
+                fail(f"{mode}: malformed row {row}")
+        # the projection encode_img read is the checkpoint's, on every chunk
+        ptrs = {(p["kernel"].data_ptr(), p["bias"].data_ptr()) for p in seen}
+        if len(ptrs) != 1:
+            fail(f"{mode}: encode_img read {len(ptrs)} different projections")
+        for key in ("kernel", "bias"):
+            want = torch.from_numpy(proj[f"model:llama_proj/{key}"]).to(seen[0][key].device)
+            if seen[0][key].dtype != torch.float32 or not torch.equal(seen[0][key], want):
+                fail(f"{mode}: the llama_proj {key} encode_img read is not the checkpoint's")
+        chunks = sum(chunks_of_row(r, n0, knobs.mc_batch) for r in rows)
+        if len(seen) != chunks or clock.counts["noise"] != chunks:
+            fail(f"{mode}: {len(seen)} encode_img calls and {clock.counts['noise']} noise "
+                 f"steps for {chunks} chunks")
+        check_counts(f"launch {mode}", launches, PER_CHUNK["flash_cls"], chunks)
+        log_text = (out / "certified.log").read_text()
+        build = re.search(r"built model minigpt4 on cuda in ([0-9.]+) s", log_text)
+        if build is None:
+            fail(f"{mode}: certified.log has no model build line")
+        build_s = float(build.group(1))
+        row_s = sum(r["seconds"] for r in rows)
+        line = (f"[launch] {mode}: model build {build_s:.3f} s; CLI wall {wall:.3f} s, of which "
+                f"rows {row_s:.3f} s and other agent time {wall - build_s - row_s:.3f} s; "
+                f"{row_s / len(rows):.3f} s per {'certified' if kind == 'certify' else 'predicted'} "
+                f"image over {chunks} chunks ({row_s / chunks:.4f} s a chunk")
+        if kind == "certify":
+            per_chunk = main_summary["wall_seconds"] / main_summary["chunks"]
+            line += f"; certify_item in phase 4: {per_chunk:.4f} s a chunk"
+        log(f"{line}); peak memory {peak_gb:.2f} GB; {card}")
+        stages = {k: round(v / chunks, 4) for k, v in clock.seconds.items()}
+        phase4 = {k: round(v / main_summary["chunks"], 4)
+                  for k, v in main_summary["stage_seconds"].items() if k in stages}
+        log(f"[launch] {mode}: stage seconds a chunk {json.dumps(stages)} (phase 4: "
+            f"{json.dumps(phase4)}); decode steps {clock.counts['decode_step']} over {chunks} "
+            f"chunks; card during the run: {card_state.summary()}")
+        counted[mode] = launches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counted
+
+
 def main() -> int:
     try:
         import torch
@@ -1033,7 +1284,7 @@ def main() -> int:
     except ImportError as exc:
         fail(f"certifiedgpt_tpu_torch is not importable ({exc}); run from the repository root")
 
-    phase_device(torch)
+    card = phase_device(torch)
     device = torch.device("cuda", 0)
     phase_build()
     with torch.no_grad():
@@ -1044,6 +1295,11 @@ def main() -> int:
         model, image, main_launches, summary = phase_main_path(torch, device)
         flash_launches = phase_forms(torch, model, image, device)
         entry_launches = phase_entries(torch, device)
+        widths = (model.cfg.qformer.hidden_size, model.cfg.llama.hidden_size)
+        del model, image
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_launches = phase_launcher(torch, card, *widths, summary)
     log(f"[main] summary {json.dumps(summary)}")
     by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches}
     kernels = []
@@ -1053,9 +1309,12 @@ def main() -> int:
         lib_ms = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.3f} ms"
         log(f"[kernel] {name}: {rec['ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
             f"({rec['bound_by']}), plain {rec['plain_ms']:.3f} ms, library {lib_ms}; "
-            f"{n} launches on its path ({path})")
+            f"{n} launches on its path ({path}); through the launcher "
+            f"{json.dumps({m: c[name] for m, c in cli_launches.items()})}")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": n, **rec})
+                        "replaces": replaces, "launches": n,
+                        "cli_launches": {m: c[name] for m, c in cli_launches.items()},
+                        **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
