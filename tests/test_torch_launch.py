@@ -342,7 +342,7 @@ def test_load_checkpoint_reads_the_jax_format(tmp_path):
                                   want["llama_proj"]["kernel"])
     assert got["llama_proj"]["bias"].dtype == torch.bfloat16
     assert torch.equal(got["llama_proj"]["bias"],
-                       torch.from_numpy(want["llama_proj"]["bias"]).to(torch.bfloat16))
+                       torch.tensor(want["llama_proj"]["bias"]).to(torch.bfloat16))
     with pytest.raises(ValueError, match="Shape mismatch"):
         load_checkpoint(str(path), {"llama_proj": {"kernel": torch.zeros(2, 2),
                                                    "bias": template["llama_proj"]["bias"]}})
@@ -362,9 +362,10 @@ def test_vqa_finetuned_replaces_the_projection(vqa, port_on_jax_weights, tmp_pat
     os.makedirs(tmp_path / "tmp")
     path = tmp_path / "finetuned.npz"
     want = _write_finetuned(path)
-    cfg = vqa("image_text_certify", f"finetuned-{use_cache}", use_cache=use_cache)
+    cfg = vqa("image_text_certify", f"finetuned-{use_cache}")
     cfg["model"]["vqa_finetuned"] = str(path)
     j_agent = j_setup_agent(JConfig(cfg))
+    cfg["run"]["use_cache"] = use_cache
     agent = setup_agent(Config(cfg), device="cpu")
     proj = agent.model.params["llama_proj"]
     for key in ("kernel", "bias"):
