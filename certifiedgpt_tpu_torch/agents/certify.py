@@ -17,9 +17,16 @@ files under ``sigma_<s>/`` and all summaries to ``certify_sweep.json``.
 ``certify_item`` certifies one item outside the agents (the chip script's
 entry) and builds its row as the agents do (``certify_row``).
 
-Not ported yet: the continuous scheduler (``run.continuous``) and the
-asynchronous look-ahead (``run.dispatch_window``), ROADMAP.md modules
-item 10; the profiler (``run.enable_profile``), item 16.
+``run.dispatch_window`` chunks stay in flight while the host decodes
+(``smoothing/classifier.py``). Under ``run.continuous`` both agents run the
+continuous-batching scheduler (``smoothing/continuous.py``) over
+``run.active_images`` slots: draws of several questions share every chunk,
+rows land out of order and carry ``elapsed_seconds`` (wall clock since the
+run began) instead of ``seconds``, and the summary adds ``continuous``,
+``images_per_hour`` and ``mean_seconds_per_image`` = wall / images.
+
+Not ported yet: the profiler (``run.enable_profile``), ROADMAP.md modules
+item 16.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from certifiedgpt_tpu_torch.common.registry import registry
 from certifiedgpt_tpu_torch.common.stages import StageClock
 from certifiedgpt_tpu_torch.models.conversation import wrap_instruction
 from certifiedgpt_tpu_torch.smoothing.classifier import AnswerVocabulary, make_sample_fn
+from certifiedgpt_tpu_torch.smoothing.continuous import ContinuousCertifier, LazySlice
 from certifiedgpt_tpu_torch.smoothing.smoothing import ABSTAIN, Smooth
 from certifiedgpt_tpu_torch.vqa_tools.vqa_eval import VQAEval
 
@@ -85,6 +93,9 @@ class SmoothingKnobs:
     seed: int = 42
     conv_template: Optional[str] = None
     noise_dist: str = "gaussian"
+    dispatch_window: int = 4      # chunks in flight
+    continuous: bool = False      # the continuous-batching scheduler
+    active_images: int = 8        # its image slots
 
     @classmethod
     def from_run(cls, run: Mapping[str, Any]) -> "SmoothingKnobs":
@@ -104,6 +115,9 @@ class SmoothingKnobs:
             seed=int(run.get("seed", 42)),
             conv_template=run.get("conv_template"),
             noise_dist=str(run.get("noise_dist", "gaussian")),
+            dispatch_window=int(run.get("dispatch_window", 4)),
+            continuous=bool(run.get("continuous", False)),
+            active_images=int(run.get("active_images", 8)),
         )
 
 
@@ -122,6 +136,7 @@ def make_smooth(model, knobs: SmoothingKnobs, instruction: str, vocab: AnswerVoc
         early_exit=knobs.early_exit,
         clock=clock,
         noise_dist=knobs.noise_dist,
+        window=knobs.dispatch_window,
     )
     return Smooth(sample_fn, vocab.num_classes, knobs.sigma)
 
@@ -207,16 +222,10 @@ def certify_item(model, image: np.ndarray, question: str, gt_answers: List[str],
 class SmoothedVQAAgentBase(BaseAgent):
     """Shared plumbing for certify / smoothing_predict: the run block's
     knobs, the finetuned projection (``model.vqa_finetuned``), the dataset,
-    the label set and the serial loop over the dataset."""
+    the label set, and the serial and continuous loops over the dataset."""
 
     def __init__(self, config, device="cuda"):
         run = config.run
-        if run.get("continuous", False):
-            raise NotImplementedError(
-                "run.continuous: the continuous-batching scheduler is not ported yet "
-                "(ROADMAP.md, modules item 10); a serial run would draw another "
-                "random stream and write another row schema"
-            )
         if run.get("enable_profile", False):
             raise NotImplementedError(
                 "run.enable_profile: common/profiling.py is not ported yet "
@@ -225,11 +234,6 @@ class SmoothedVQAAgentBase(BaseAgent):
         super().__init__(config, device)
         self.knobs = SmoothingKnobs.from_run(run)
         self.max_images = run.get("max_images")
-        self.logger.info(
-            "run.dispatch_window = %s is not honoured yet: chunks run one at a time "
-            "(ROADMAP.md, modules item 10); the labels are the same",
-            run.get("dispatch_window", 4),
-        )
         finetuned = self.load_finetuned({"llama_proj": self.model.params["llama_proj"]})
         if finetuned is not None:
             self.model.set_llama_proj(finetuned["llama_proj"])
@@ -285,15 +289,19 @@ class SmoothedVQAAgentBase(BaseAgent):
         vocab = self.build_vocab(item, dataset)
         return make_smooth(self.model, self.knobs, item["instruction_input"], vocab), vocab
 
+    def limit(self, dataset) -> int:
+        """Items to run: the first ``max_images`` of the dataset."""
+        limit = int(self.max_images) if self.max_images else len(dataset)
+        return min(limit, len(dataset))
+
     def serial_run(self, dataset, mode: str,
                    make_row: Callable[..., Dict[str, Any]]) -> Dict[str, Any]:
         """Row by row over the first ``max_images`` items: each row streams
         to ``{mode}_results.jsonl``, the agent's ``summarize`` of all rows
         goes to ``{mode}_summary.json``."""
-        limit = int(self.max_images) if self.max_images else len(dataset)
         rows: List[Dict[str, Any]] = []
         with open(os.path.join(self.output_dir, f"{mode}_results.jsonl"), "w") as sink:
-            for idx in range(min(limit, len(dataset))):
+            for idx in range(self.limit(dataset)):
                 item = dataset[idx]
                 smooth, vocab = self.smoothed_classifier(item, dataset)
                 row = make_row(smooth, vocab, self.knobs, item["image"], item["gt_answers"],
@@ -311,6 +319,87 @@ class SmoothedVQAAgentBase(BaseAgent):
             json.dump(summary, handle, indent=2)
         self.logger.info("%s summary: %s", mode, summary)
         return summary
+
+    def make_continuous(self, n0: int, n: int, mode: str = "certify") -> ContinuousCertifier:
+        """The continuous-batching scheduler for certify (``mode="certify"``)
+        or predict (``mode="predict"``, n0 = 0) with the run block's knobs:
+        ``active_images`` slots, ``dispatch_window`` chunks in flight, and
+        the exact early stopping of ``early_abstain`` (and, for certify,
+        ``early_stop_radius``)."""
+        k = self.knobs
+        return ContinuousCertifier(
+            self.model, sigma=k.sigma, n0=n0, n=n, alpha=k.alpha, mc_batch=k.mc_batch,
+            max_new_tokens=k.max_new_tokens, seq_len=k.seq_len, num_slots=k.active_images,
+            noise_dist=k.noise_dist, early_exit=k.early_exit, window=k.dispatch_window,
+            mode=mode, early_abstain=k.early_abstain,
+            early_stop_radius=k.early_stop_radius if mode == "certify" else None,
+        )
+
+    def _continuous_run(self, dataset, mode: str, n0: int, n: int) -> Dict[str, Any]:
+        """The continuous loop of both agents (``run.continuous``): rows in
+        the order their results land, each with ``elapsed_seconds``, the
+        cumulative wall clock when it was finalized (images overlap, so a
+        per-image duration does not exist); the summary's
+        ``mean_seconds_per_image`` is wall / images. The random stream
+        differs from the serial mode's, so the two agree draw for draw only
+        at sigma 0."""
+        k = self.knobs
+        scheduler = self.make_continuous(n0, n, mode=mode)
+        rows: List[Dict[str, Any]] = []
+        t0 = time.time()
+        with open(os.path.join(self.output_dir, f"{mode}_results.jsonl"), "w") as sink:
+            def on_result(res, job):
+                label = res["label"]
+                row = {
+                    "index": res["index"],
+                    "question_id": int(job.item["question_id"]),
+                    "label": int(label),
+                    "answer": _answer(label, job.vocab),
+                    "correct": bool(label_correct(label, job.vocab, job.item["gt_answers"])),
+                    "abstain": label == ABSTAIN,
+                    "elapsed_seconds": round(time.time() - t0, 3),
+                    "sigma": k.sigma,
+                    "n": n,
+                    # draws decoded for this image (< n0 + n when early
+                    # stopping fired; other images' draws took the rest)
+                    "draws": int(job.decoded),
+                }
+                if mode == "certify":
+                    row["radius"] = float(res["radius"])
+                    row["n0"] = n0
+                rows.append(row)
+                sink.write(json.dumps(row) + "\n")
+                sink.flush()
+                self.logger.info(
+                    "%s[%d] qid=%s label=%s radius=%s correct=%s (%.1fs elapsed)",
+                    mode, row["index"], row["question_id"], row["answer"],
+                    row.get("radius", "-"), row["correct"], row["elapsed_seconds"],
+                )
+
+            scheduler.run(
+                LazySlice(dataset, self.limit(dataset)),
+                lambda text: wrap_instruction(text, k.conv_template),
+                lambda item: self.build_vocab(item, dataset),
+                seed=certify_seed(k.seed, 0, k.sigma),
+                on_result=on_result,
+            )
+        elapsed = time.time() - t0
+        rows.sort(key=lambda r: r["index"])
+        summary = self.summarize(rows)
+        summary["mean_seconds_per_image"] = elapsed / max(len(rows), 1)
+        summary["continuous"] = True
+        summary["images_per_hour"] = 3600.0 / max(summary["mean_seconds_per_image"], 1e-9)
+        with open(os.path.join(self.output_dir, f"{mode}_summary.json"), "w") as handle:
+            json.dump(summary, handle, indent=2)
+        self.logger.info("%s summary: %s", mode, summary)
+        return summary
+
+
+def _mean_of(rows: List[Dict[str, Any]], key: str, default: float) -> float:
+    """Mean of ``key`` over the rows that have it (a continuous row has no
+    ``seconds``), else ``default``."""
+    values = [r[key] for r in rows if key in r]
+    return float(np.mean(values)) if values else float(default)
 
 
 @registry.register_agent("image_text_certify")
@@ -343,7 +432,12 @@ class CertifyAgent(SmoothedVQAAgentBase):
         return {"sweep": sweep}
 
     def _run_single(self, dataset) -> Dict[str, Any]:
+        if self.knobs.continuous:
+            return self._run_continuous(dataset)
         return self.serial_run(dataset, "certify", certify_row)
+
+    def _run_continuous(self, dataset) -> Dict[str, Any]:
+        return self._continuous_run(dataset, "certify", self.knobs.n0, self.knobs.n)
 
     def summarize(self, rows: List[Dict[str, Any]]) -> Dict[str, Any]:
         total = len(rows)
@@ -365,7 +459,8 @@ class CertifyAgent(SmoothedVQAAgentBase):
             },
             # < n0 + n when early_abstain / early_stop_radius fired
             "mean_draws_per_image": float(np.mean([r["draws"] for r in rows])),
-            "mean_seconds_per_image": float(np.mean([r["seconds"] for r in rows])),
+            # continuous rows have no seconds: _continuous_run sets wall / images
+            "mean_seconds_per_image": _mean_of(rows, "seconds", 0.0),
         }
 
 
@@ -374,7 +469,13 @@ class PredictAgent(SmoothedVQAAgentBase):
     """``smoothing_predict`` mode: ``Smooth.predict`` over the subset."""
 
     def run(self) -> Dict[str, Any]:
-        return self.serial_run(self.eval_dataset(), "predict", predict_row)
+        dataset = self.eval_dataset()
+        if self.knobs.continuous:
+            return self._run_continuous(dataset)
+        return self.serial_run(dataset, "predict", predict_row)
+
+    def _run_continuous(self, dataset) -> Dict[str, Any]:
+        return self._continuous_run(dataset, "predict", 0, self.knobs.predict_n)
 
     def summarize(self, rows: List[Dict[str, Any]]) -> Dict[str, Any]:
         total = len(rows)
@@ -386,11 +487,8 @@ class PredictAgent(SmoothedVQAAgentBase):
             "alpha": k.alpha,
             "accuracy": sum(1 for r in rows if r["correct"]) / max(total, 1),
             "abstention_rate": sum(1 for r in rows if r["abstain"]) / max(total, 1),
-            "mean_seconds_per_image": float(
-                np.mean([r["seconds"] for r in rows]) if rows else 0.0
-            ),
+            # continuous rows have no seconds: _continuous_run sets wall / images
+            "mean_seconds_per_image": _mean_of(rows, "seconds", 0.0),
             # < n when run.early_abstain's completion-certain rule fired
-            "mean_draws_per_image": float(
-                np.mean([r["draws"] for r in rows]) if rows else float(k.predict_n)
-            ),
+            "mean_draws_per_image": _mean_of(rows, "draws", k.predict_n),
         }

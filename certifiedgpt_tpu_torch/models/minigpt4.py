@@ -7,6 +7,13 @@ token sits at slot S-1 and decoding proceeds from one cache offset.
 Sampling, beam search, candidate ranking and the training loss wait for
 later slices.
 
+``early_exit`` never waits for the device: the JAX package ends its decode
+loop on the device (``lax.while_loop``); here each step queues a copy of
+"every row is done" into pinned host memory with an event behind it, and
+the host stops launching steps once a copy whose event has completed reads
+true. An exit seen late is exact: a step after every row is done writes
+``pad`` where the output already holds ``pad``.
+
 The parameter tree is ``{"vit", "ln_vision", "qformer", "llama_proj",
 "llama"}`` as in the JAX package.
 """
@@ -86,6 +93,40 @@ def assemble_embeds(params: Dict[str, Any], cfg: MiniGPT4Config,
     return text
 
 
+class _DoneFlags:
+    """Whether every row is done after each decode step, on its way to the
+    host.
+
+    ``record`` queues ``done.all()`` into one slot of a host buffer (pinned
+    on the card, copied with ``non_blocking``) and records an event behind
+    the copy; ``seen_all_done`` reads only the slots whose events have
+    completed (``Event.query``, which does not wait). On the CPU the copy
+    is done when ``record`` returns."""
+
+    def __init__(self, steps: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host = torch.zeros((steps,), dtype=torch.bool, pin_memory=self.cuda)
+        self.events = []
+        self.read = 0  # slots read so far, all false
+
+    def record(self, done: torch.Tensor) -> None:
+        self.host[len(self.events)].copy_(done.all(), non_blocking=True)
+        event = torch.cuda.Event() if self.cuda else None
+        if event is not None:
+            event.record()
+        self.events.append(event)
+
+    def seen_all_done(self) -> bool:
+        while self.read < len(self.events):
+            event = self.events[self.read]
+            if event is not None and not event.query():
+                return False
+            if bool(self.host[self.read]):
+                return True
+            self.read += 1
+        return False
+
+
 def generate(
     params: Dict[str, Any],
     cfg: MiniGPT4Config,
@@ -101,8 +142,10 @@ def generate(
     image [B, H, W, C], input_ids [B, S], attention_mask [B, S], img_pos [B].
 
     Returns [B, max_new_tokens] token ids, ``pad_token_id`` after a row's
-    EOS. ``early_exit`` stops once every row has emitted EOS (one host
-    sync per step); the output is identical to the full loop's."""
+    EOS. ``early_exit`` stops launching decode steps once the host sees,
+    without waiting, that every row has emitted EOS (``_DoneFlags``); the
+    output is identical to the full loop's. ``generate.decode_steps``
+    counts the decode steps launched."""
     img_embeds = encode_img(params, cfg, batch["image"], clock)
     with stage(clock, "prefill"):
         embeds = assemble_embeds(params, cfg, batch["input_ids"], img_embeds, batch["img_pos"])
@@ -127,13 +170,17 @@ def generate(
         out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
         positions = prompt_len.long()
         done = torch.zeros((b,), dtype=torch.bool, device=device)
+        flags = _DoneFlags(max_new_tokens, device) if early_exit else None
         for t in range(max_new_tokens):
-            if early_exit and bool(done.all()):
+            if flags is not None and flags.seen_all_done():
                 break
             out[:, t] = torch.where(done, pad_token_id, token)
             done = done | (token == eos_token_id)
             if t == max_new_tokens - 1:
                 break  # the next token would fall outside the output
+            if flags is not None:
+                flags.record(done)
+            generate.decode_steps += 1
             if clock is not None:
                 clock.count("decode_step")
             tok_embed = embed_tokens(params["llama"], token[:, None])
@@ -143,6 +190,9 @@ def generate(
             token = torch.where(done, eos_token_id, new_token)
             positions = positions + 1
         return out
+
+
+generate.decode_steps = 0
 
 
 def generate_greedy(params, cfg, batch, max_new_tokens, eos_token_id, pad_token_id=0,

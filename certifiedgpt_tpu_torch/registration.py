@@ -11,3 +11,4 @@ import certifiedgpt_tpu_torch.data.processors  # noqa: F401
 import certifiedgpt_tpu_torch.data.builders  # noqa: F401
 import certifiedgpt_tpu_torch.models.model_zoo  # noqa: F401
 import certifiedgpt_tpu_torch.agents.certify  # noqa: F401
+import certifiedgpt_tpu_torch.agents.eval  # noqa: F401

@@ -18,21 +18,25 @@ bridge, fixed before any sampling so Cohen's guarantee holds:
    draws of the full run. The host decodes the tokens and maps them to
    labels.
 
-Chunks run one after another: the JAX package's bounded asynchronous
-look-ahead (``dispatch_window``) has no counterpart yet, so one chunk's
-noisy images are in flight at a time.
+Look-ahead (``window``, the run block's ``dispatch_window``): dispatching
+a chunk launches all of its kernels on the current stream and queues its
+tokens' copy into pinned host memory behind them (``data.loader.HostCopy``),
+with no host sync. Up to ``window`` chunks are in flight; the host waits
+only for the oldest one's tokens, dispatches the next chunk, then decodes
+labels while the card runs, as the JAX package's loop does.
 """
 
 from __future__ import annotations
 
 import logging
-from collections import Counter
+from collections import Counter, deque
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from certifiedgpt_tpu_torch.common.stages import StageClock, stage
+from certifiedgpt_tpu_torch.data.loader import HostCopy, upload
 from certifiedgpt_tpu_torch.data.text import (
     BatchSpec,
     build_gen_batch,
@@ -171,20 +175,25 @@ def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: i
 def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: float,
                    mc_batch: int = 32, max_new_tokens: int = 10, seq_len: int = 64,
                    early_exit: bool = False, clock: Optional[StageClock] = None,
-                   noise_dist: str = "gaussian") -> Callable[..., np.ndarray]:
+                   noise_dist: str = "gaussian", window: int = 4) -> Callable[..., np.ndarray]:
     """Bind (model, question prompt, vocab, sigma) into the
     ``sample_fn(x, num, seed, should_stop=None) -> labels`` interface of
-    ``Smooth``. ``should_stop(labels_so_far)`` is polled after each chunk;
-    when it fires, the labels drawn so far are returned (a prefix of the
-    full-budget stream)."""
+    ``Smooth``, with up to ``window`` chunks in flight. ``should_stop(
+    labels_so_far)`` is polled after each chunk's labels land; when it
+    fires, the labels drawn so far are returned (a prefix of the
+    full-budget stream) and the chunks still in flight are abandoned (their
+    device work is sunk: the window bounds that waste). A ``clock``
+    synchronizes at every stage, so it serializes the chunks whatever the
+    window."""
+    if int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     device = model.device
-    check_dispatch_window_hbm(1, mc_batch, model.cfg.vit.img_size, device,
+    check_dispatch_window_hbm(window, mc_batch, model.cfg.vit.img_size, device,
                               logger=logging.getLogger(__name__))
     spec = BatchSpec(seq_len=seq_len, num_img_tokens=model.cfg.num_img_tokens)
     prompt = build_gen_batch(model.tokenizer, [instruction], spec)
     p_ids, p_am, p_pos = (
-        torch.as_tensor(prompt[k], device=device).long()
-        for k in ("input_ids", "attention_mask", "img_pos")
+        upload(prompt[k], device).long() for k in ("input_ids", "attention_mask", "img_pos")
     )
     gen = make_noisy_generate_fn(model, sigma, mc_batch, max_new_tokens,
                                  seq_len=seq_len, early_exit=early_exit,
@@ -192,15 +201,25 @@ def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: floa
     tokenizer = model.tokenizer
 
     def sample_fn(x: np.ndarray, num: int, seed: int, should_stop=None) -> np.ndarray:
-        image = torch.as_tensor(np.asarray(x, np.float32), device=device)
+        image = upload(np.asarray(x, np.float32), device)
         labels = np.empty((num,), np.int64)
         n_chunks = (num + mc_batch - 1) // mc_batch
-        done = 0
-        for chunk in range(n_chunks):
+        pending: deque = deque()
+
+        def dispatch(chunk: int) -> None:
             generator = torch.Generator(device=device)
             generator.manual_seed(chunk_seed(seed, chunk))
-            tokens = gen(image, p_ids, p_am, p_pos, generator, clock=clock)
-            tokens = tokens.cpu().numpy()
+            pending.append(HostCopy(gen(image, p_ids, p_am, p_pos, generator, clock=clock)))
+
+        for chunk in range(min(window, n_chunks)):
+            dispatch(chunk)
+        next_chunk = min(window, n_chunks)
+        done = 0
+        while pending:
+            tokens = pending.popleft().numpy()  # waits for the oldest chunk only
+            if next_chunk < n_chunks:
+                dispatch(next_chunk)
+                next_chunk += 1
             with stage(clock, "host_labels"):
                 take = min(mc_batch, num - done)
                 for i in range(take):

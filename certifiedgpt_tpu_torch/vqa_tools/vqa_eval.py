@@ -14,7 +14,7 @@ used by smoothed certification (SURVEY.md §2.4 note b).
 from __future__ import annotations
 
 import re
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CONTRACTIONS = {
     "aint": "ain't", "arent": "aren't", "cant": "can't", "couldve": "could've",
@@ -106,9 +106,21 @@ def normalize_answer(answer: str) -> str:
 
 
 class VQAEval:
-    """The official consensus accuracy (the scorer's dataset-level
-    ``evaluate`` waits for the eval slice)."""
+    """Consensus accuracy over (prediction, 10-human-answers) pairs.
 
+    ``n`` controls reported rounding precision (the reference uses n=2).
+    """
+
+    def __init__(self, vqa=None, vqa_res=None, n: int = 2):
+        self.n = n
+        self.vqa = vqa
+        self.vqa_res = vqa_res
+        self.accuracy: Dict[str, object] = {}
+        self.eval_qa: Dict[int, float] = {}
+        self.eval_ques_type: Dict[str, Dict[int, float]] = {}
+        self.eval_ans_type: Dict[str, Dict[int, float]] = {}
+
+    # ------------------------------------------------------------------
     @staticmethod
     def answer_accuracy(prediction: str, gt_answers: Sequence[str]) -> float:
         """min(1, matches/3) averaged leave-one-out over the human answers.
@@ -130,3 +142,40 @@ class VQAEval:
             matching = sum(1 for o in others if o == pred)
             accs.append(min(1.0, matching / 3.0))
         return float(sum(accs) / len(accs))
+
+    # ------------------------------------------------------------------
+    def evaluate(self, ques_ids: Optional[Sequence[int]] = None) -> Dict[str, object]:
+        """Score ``vqa_res`` predictions against ``vqa`` ground truth
+        (same call surface as the official scorer)."""
+        if self.vqa is None or self.vqa_res is None:
+            raise ValueError("VQAEval.evaluate needs the ground truth and the results")
+        if ques_ids is None:
+            ques_ids = list(self.vqa.get_ques_ids())
+        per_type: Dict[str, List[float]] = {}
+        per_ans_type: Dict[str, List[float]] = {}
+        all_acc: List[float] = []
+
+        for qid in ques_ids:
+            gt = self.vqa.load_qa(qid)
+            res = self.vqa_res.load_qa(qid)
+            gt_answers = [a["answer"] for a in gt["answers"]]
+            acc = self.answer_accuracy(res["answer"], gt_answers)
+            self.eval_qa[qid] = round(100.0 * acc, self.n)
+            all_acc.append(acc)
+            q_type = gt.get("question_type", "unknown")
+            a_type = gt.get("answer_type", "unknown")
+            per_type.setdefault(q_type, []).append(acc)
+            per_ans_type.setdefault(a_type, []).append(acc)
+            self.eval_ques_type.setdefault(q_type, {})[qid] = round(100.0 * acc, self.n)
+            self.eval_ans_type.setdefault(a_type, {})[qid] = round(100.0 * acc, self.n)
+
+        self.accuracy = {
+            "overall": round(100.0 * sum(all_acc) / max(len(all_acc), 1), self.n),
+            "perQuestionType": {
+                k: round(100.0 * sum(v) / len(v), self.n) for k, v in per_type.items()
+            },
+            "perAnswerType": {
+                k: round(100.0 * sum(v) / len(v), self.n) for k, v in per_ans_type.items()
+            },
+        }
+        return self.accuracy

@@ -19,7 +19,8 @@ Phases, each of which exits non-zero on any failure:
    (one launch: the patch rows and the cls row, the latter also against its
    own plain version); the LN + row-quant and GELU + row-quant kernels at
    the patch and cls streams' row counts (98304 and 96) and at 1 and 4097
-   rows, each input with a row of zeros, timed on N(0, 1) and N(0, 3^2)
+   rows and at the eval batch's patch and cls streams (8192 and 8 rows),
+   each input with a row of zeros, timed on N(0, 1) and N(0, 3^2)
    rows; the flash kernel at
    [96, 1025, 16, 88] in both layouts and causal at [4, 333, 16, 88]; the
    explicit-scale cls-split form at [96, 16, 1025, 88]; the noise kernel at
@@ -40,7 +41,8 @@ Phases, each of which exits non-zero on any failure:
    decoder kernels, W8A8 activations, int8 KV cache, cls-split attention)
    with seeded synthetic weights, and certifies one seeded synthetic
    448x448 image with n0 = 100, n = 1000, sigma = 0.5, mc_batch = 96, early
-   exit, through ``agents.certify.certify_item``, after one warm-up
+   exit, through ``agents.certify.certify_item`` with one chunk in flight
+   (its per-stage clock synchronizes at every stage), after one warm-up
    certification of a single chunk each way. The kernels' launch counters
    are reset just before and read just after; each kernel of the path must
    have launched its launches per chunk times the chunks run, every other
@@ -66,10 +68,21 @@ Phases, each of which exits non-zero on any failure:
 7. Entries: the noise kernel mode of ``noisy_tile`` and
    ``cls_split_attention_scaled``, which no certify path calls, each driven
    once through its entry point at the shapes above, launches counted.
+9.1-9.2. Look-ahead and early exit, on phase 4's model (run before phase
+   8, which builds its own): ``certify_item`` with no clock at (window,
+   early exit) (1, off), (4, off), (1, on), (4, on), (1, off) over four
+   chunks (n0 = 96, n = 288, the shipped knobs otherwise), printing the
+   wall and the decode steps launched a chunk and the peak memory; every
+   draw's label and every row must be identical across the runs, and
+   window 4's peak within phase 4's plus three noisy-image buffers. Then
+   one chunk of the serial and one of the mixed pipeline dispatched, from
+   the noise draw to the event behind the tokens' copy, under
+   ``torch.cuda.set_sync_debug_mode("error")``: a host sync fails.
 8. Launcher: ``certifiedgpt_tpu_torch.launch.main`` runs ``certify`` on
    ``configs/certify_configs/vqav2_certify_noise_0.5.yaml`` and
    ``smoothing_predict`` on ``vqav2_predict_noise_0.5.yaml``, both
-   unchanged (full width, seeded synthetic weights), over a written
+   unchanged (full width, seeded synthetic weights, ``dispatch_window``
+   4 by default), over a written
    VQAv2-shaped set of two 640x480 JPEGs, with ``vqa_finetuned`` pointing at
    a written ``llama_proj`` checkpoint in the JAX package's ``.npz`` format
    (the environment variables the YAMLs read point at these files; the
@@ -77,14 +90,29 @@ Phases, each of which exits non-zero on any failure:
    the rows and summaries against the JAX package's keys, that every
    ``encode_img`` call read the checkpoint's projection bit for bit, and
    that each path kernel launched its launches per chunk (as in phase 4)
-   times the chunks the rows ran; prints the model build seconds, the
-   seconds per image, the peak memory and the card's name and power limit,
-   and the agents' per-stage seconds a chunk beside phase 4's, with the
-   card's SM clock, power draw and temperature (``nvidia-smi`` each second)
-   during phase 4's certification and each launcher run.
+   times the chunks dispatched (an early stop leaves up to the window's
+   chunks in flight); prints the model build seconds, the seconds per
+   image, the decode steps launched, the peak memory and the card's name
+   and power limit, with the card's SM clock, power draw and temperature
+   (``nvidia-smi`` each second) during phase 4's certification and each
+   launcher run.
+9.3. Continuous: ``launch.main`` runs ``certify`` on
+   ``vqav2_certify_continuous.yaml`` unchanged (8 image slots, window 4)
+   over 3 written images: 3 rows with the JAX package's continuous keys,
+   each OTHER at phase 8's radius after all 1100 draws, a summary with
+   ``continuous`` and ``images_per_hour``, ceil(3 x 1100 / 96) = 35 chunks
+   dispatched with the path's launches each; prints seconds per image
+   beside phase 8's serial figure, and the peak memory.
+10. Eval: ``launch.main`` runs ``eval`` on
+   ``configs/eval_configs/vqav2_eval_noise_0.5.yaml`` unchanged (batch 8,
+   seq_len 320, early exit, window 2) over 10 written questions, two
+   batches (the second padded from 2 rows): ``eval_results.json`` has the
+   JAX package's summary keys and 10 predictions, each batch ran the
+   path's launches; prints samples per second and the peak memory.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
-attention kernels' achieved TFLOP/s among them), and as its last line
+attention kernels' achieved TFLOP/s among them; ``cli_launches``: the
+launches in each run of phases 8-10), and as its last line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
@@ -136,6 +164,8 @@ NOISE_ODD_CASES = (((1,), 1), ((7,), 3), ((3, 3, 1), 3), ((5, 3, 3), 96), ((4097
 
 # main-path shapes at mc_batch 96 (EVA ViT-g/14 at 448 px)
 MC_BATCH = 96
+# batch_size of configs/eval_configs/vqav2_eval_noise_0.5.yaml
+EVAL_BATCH = 8
 VIT_TOKENS = 1024
 VIT_SEQ = VIT_TOKENS + 1
 VIT_WIDTH = 1408
@@ -176,9 +206,18 @@ RUN_CFG = {  # run block of configs/certify_configs/vqav2_certify_noise_0.5.yaml
     "seq_len": 96,
     "seed": 42,
 }
+# phase 4 reads per-stage seconds with a clock that synchronizes the card at
+# every stage: one chunk in flight
+CLOCKED_RUN_CFG = dict(RUN_CFG, dispatch_window=1)
 # one chunk for selection and one for estimation: warm-up and profile
 TWO_CHUNK_RUN_CFG = dict(RUN_CFG, certify_n0=MC_BATCH, certify_n=MC_BATCH,
                          early_abstain=False, early_stop_radius=None)
+# phase 9.1: the shipped knobs with a budget of four chunks (one selection,
+# three estimation: at n = 288 no early stop can fire on these draws)
+LOOKAHEAD_RUN_CFG = dict(RUN_CFG, certify_n0=MC_BATCH, certify_n=3 * MC_BATCH)
+# (dispatch_window, early_exit) of phase 9.1's runs, in their order; the
+# last repeats the first to show drift
+LOOKAHEAD_RUNS = ((1, False), (4, False), (1, True), (4, True), (1, False))
 QUESTION = "<Img><ImageHere></Img> [vqa] Based on the image, what animal is this?"
 GT_ANSWERS = ["cat", "cat", "cat", "dog", "cat", "cat", "kitten", "cat", "cat", "cat"]
 
@@ -663,7 +702,8 @@ def phase_kernels(torch, device):
 
     g = torch.Generator(device=device).manual_seed(0)
     rows = MC_BATCH * VIT_TOKENS
-    row_counts = (rows, MC_BATCH, 1, 4097)  # patch and cls streams first
+    # patch and cls streams first, then odd counts and eval's two streams
+    row_counts = (rows, MC_BATCH, 1, 4097, EVAL_BATCH * VIT_TOKENS, EVAL_BATCH)
 
     def normal(shape, std):
         return (torch.randn(shape, generator=g, device=device) * std).to(torch.bfloat16)
@@ -802,7 +842,8 @@ def phase_main_path(torch, device):
     torch.cuda.synchronize()
     with CardSampler() as card_state:
         t0 = time.perf_counter()
-        row = certify_item(model, image, QUESTION, GT_ANSWERS, RUN_CFG, index=0, clock=clock)
+        row = certify_item(model, image, QUESTION, GT_ANSWERS, CLOCKED_RUN_CFG, index=0,
+                           clock=clock)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_counts()
@@ -816,7 +857,7 @@ def phase_main_path(torch, device):
         f"card during the run: {card_state.summary()}")
     log(f"[main] launches {json.dumps(launches)}")
     check_counts("certify flash_cls", launches, PER_CHUNK["flash_cls"], chunks)
-    check_row(row, RUN_CFG)
+    check_row(row, CLOCKED_RUN_CFG)
     decode_costs(torch, model, device)
     check_outputs(torch, model, device)
     phase_profile(torch, model, image)
@@ -845,7 +886,11 @@ def check_row(row, run_cfg):
 def decode_costs(torch, model, device):
     """What the plain decode path costs per step: the time to convert every
     int8 decoder kernel to bf16 (the weight-only matmuls do this each step)
-    against one whole decode step at the certify batch."""
+    against one whole decode step at the certify batch; and whether the
+    host or the card sets a step's pace: the host's seconds to launch one
+    step (from an idle card, not waiting for it), and the same step
+    replayed from a CUDA graph (the card's time without the host's
+    launches)."""
     from certifiedgpt_tpu_torch.models.llama import init_kv_cache, llama_apply
 
     params = model.params["llama"]
@@ -874,6 +919,28 @@ def decode_costs(torch, model, device):
         f"[main] decode step {step_ms:.2f} ms at batch {MC_BATCH}; converting the "
         f"{wbytes / 1e9:.2f} G int8 decoder weights to bf16 alone takes {conv_ms:.2f} ms "
         f"(bound for reading them once as int8: {wbytes / PEAK_BYTES_PER_S * 1e3:.2f} ms)"
+    )
+    host_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # capture wants its warm-up off the default stream
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        step()
+    graph_ms = cuda_ms(torch, graph.replay, iters=5, warmup=1)
+    del graph
+    log(
+        f"[main] decode step: the host launches it in {min(host_ms):.2f} ms (of 3: "
+        f"{', '.join(f'{t:.2f}' for t in host_ms)}), the card runs it from a CUDA graph in "
+        f"{graph_ms:.2f} ms, eager {step_ms:.2f} ms"
     )
 
 
@@ -1082,18 +1149,159 @@ def phase_entries(torch, device):
 
 
 # ----------------------------------------------------------------------
-# phase 8: the launcher on the shipped certify and predict configs
+# phase 9.1 and 9.2: the look-ahead window and the early exit
+# ----------------------------------------------------------------------
+def phase_lookahead(torch, model, image, card, main_summary):
+    """9.1: ``certify_item`` on phase 4's model and image with no clock, at
+    (dispatch_window, early_exit) in ``LOOKAHEAD_RUNS``' order, one
+    process: wall and decode steps launched per chunk, peak memory; the
+    labels of every draw and the rows must be identical across the runs,
+    and window 4's peak within phase 4's plus three noisy-image buffers.
+    9.2: one chunk of the serial and one of the mixed pipeline dispatched,
+    from the noise draw to the tokens' event, under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns the 9.1 table."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.agents import certify as A
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    make_sample_fn = A.make_sample_fn
+    drawn = []
+
+    def recording(*args, **kwargs):
+        fn = make_sample_fn(*args, **kwargs)
+
+        def sample_fn(*a, **k):
+            labels = fn(*a, **k)
+            drawn[-1].append(labels.tolist())
+            return labels
+
+        return sample_fn
+
+    chunks = -(-LOOKAHEAD_RUN_CFG["certify_n0"] // MC_BATCH) \
+        - (-LOOKAHEAD_RUN_CFG["certify_n"] // MC_BATCH)
+    # phase 4's peak and three more chunks' noisy images, [96, 448, 448, 3] f32
+    limit = main_summary["peak_gb"] + 3 * MC_BATCH * math.prod(IMAGE_HWC) * 4 / 1e9
+    table, first = [], None
+    with mock.patch.object(A, "make_sample_fn", recording):
+        for window, early in LOOKAHEAD_RUNS:
+            run_cfg = dict(LOOKAHEAD_RUN_CFG, dispatch_window=window, early_exit=early)
+            drawn.append([])
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            M.generate.decode_steps = 0
+            t0 = time.perf_counter()
+            row = A.certify_item(model, image, QUESTION, GT_ANSWERS, run_cfg, index=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            steps = M.generate.decode_steps / chunks
+            entry = {"window": window, "early_exit": early, "s_per_chunk": wall / chunks,
+                     "decode_steps_per_chunk": steps, "peak_gb": peak}
+            table.append(entry)
+            log(f"[lookahead] window {window}, early_exit {early}: {wall / chunks:.4f} s a chunk "
+                f"over {chunks} chunks, {steps:g} decode steps launched a chunk, peak memory "
+                f"{peak:.2f} GB; {card}")
+            check_row(row, run_cfg)
+            key = ({k: v for k, v in row.items() if k != "seconds"}, drawn[-1])
+            if first is None:
+                first = key
+            elif key != first:
+                fail(f"window {window}, early_exit {early}: labels or row differ from the "
+                     f"first run's ({json.dumps(key[0])} vs {json.dumps(first[0])})")
+            if window > 1 and peak > limit:
+                fail(f"window {window}: peak memory {peak:.2f} GB over phase 4's "
+                     f"{main_summary['peak_gb']:.2f} GB plus three noisy-image buffers")
+    if sum(len(labels) for labels in first[1]) != LOOKAHEAD_RUN_CFG["certify_n0"] + \
+            LOOKAHEAD_RUN_CFG["certify_n"]:
+        fail(f"phase 9.1 drew {[len(x) for x in first[1]]} labels, not the whole budget")
+    log(f"[lookahead] table {json.dumps(table)}")
+    check_no_sync(torch, model, image, card)
+    return table
+
+
+def check_no_sync(torch, model, image, card):
+    """Phase 9.2: dispatching a chunk, from the noise draw to the event
+    behind its tokens' copy, never makes PyTorch wait for the card: the
+    serial pipeline (``make_noisy_generate_fn``, early exit on) and the
+    mixed one (``make_mixed_generate_fn``, with the uploads of its banks and
+    row slots) under ``set_sync_debug_mode("error")``."""
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.data.loader import HostCopy, upload
+    from certifiedgpt_tpu_torch.data.text import BatchSpec, build_gen_batch
+    from certifiedgpt_tpu_torch.smoothing.classifier import chunk_seed, make_noisy_generate_fn
+    from certifiedgpt_tpu_torch.smoothing.continuous import make_mixed_generate_fn
+
+    device = model.device
+    seq_len, steps, sigma = RUN_CFG["seq_len"], RUN_CFG["max_new_tokens"], RUN_CFG["noise_level"]
+    prompt = build_gen_batch(model.tokenizer, [QUESTION],
+                             BatchSpec(seq_len=seq_len, num_img_tokens=model.cfg.num_img_tokens))
+    serial = make_noisy_generate_fn(model, sigma, MC_BATCH, steps, seq_len=seq_len,
+                                    early_exit=True)
+    slots = 8
+    mixed = make_mixed_generate_fn(model, MC_BATCH, steps, slots, seq_len=seq_len,
+                                   early_exit=True)
+    x = upload(image, device)
+    p_ids, p_am, p_pos = (upload(prompt[k], device).long()
+                          for k in ("input_ids", "attention_mask", "img_pos"))
+    bank = x.unsqueeze(0).repeat(slots, 1, 1, 1)
+    banks = [np.repeat(prompt[k].astype(np.int64), slots, 0)
+             for k in ("input_ids", "attention_mask", "img_pos")]
+    rows = np.arange(MC_BATCH, dtype=np.int64) % slots
+
+    def dispatch_serial():
+        g = torch.Generator(device=device)
+        g.manual_seed(chunk_seed(42, 0))
+        return HostCopy(serial(x, p_ids, p_am, p_pos, g))
+
+    def dispatch_mixed():
+        g = torch.Generator(device=device)
+        g.manual_seed(chunk_seed(42, 0))
+        return HostCopy(mixed(bank, *(upload(b, device) for b in banks), upload(rows, device),
+                              g, sigma))
+
+    for name, dispatch in (("serial", dispatch_serial), ("mixed", dispatch_mixed)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = dispatch()
+        except RuntimeError as exc:
+            fail(f"phase 9.2: dispatching a {name} chunk made the host wait for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        queued = time.perf_counter() - t0
+        tokens = pending.numpy()
+        wall = time.perf_counter() - t0
+        if tokens.shape != (MC_BATCH, steps) or tokens.min() < 0 \
+                or tokens.max() >= model.cfg.llama.vocab_size:
+            fail(f"phase 9.2: the {name} chunk's tokens are malformed: {tokens.shape}")
+        log(f"[nosync] a {name} chunk dispatched without a sync (set_sync_debug_mode "
+            f"'error'): queued in {queued:.4f} s, tokens on the host after {wall:.4f} s; {card}")
+
+
+# ----------------------------------------------------------------------
+# phases 8, 9.3 and 10: the launcher on shipped configs
 # ----------------------------------------------------------------------
 LAUNCH_RUNS = (  # mode, shipped config (run unchanged), results file
     ("certify", "configs/certify_configs/vqav2_certify_noise_0.5.yaml", "certify"),
     ("smoothing_predict", "configs/certify_configs/vqav2_predict_noise_0.5.yaml", "predict"),
 )
-LAUNCH_IMAGES = 2  # the dataset's size caps the configs' max_images
+CONTINUOUS_CONFIG = "configs/certify_configs/vqav2_certify_continuous.yaml"
+EVAL_CONFIG = "configs/eval_configs/vqav2_eval_noise_0.5.yaml"
+# the dataset's size caps the configs' max_images
+LAUNCH_IMAGES = 2
+CONTINUOUS_IMAGES = 3  # fewer than the 8 slots: every chunk mixes images
+EVAL_QUESTIONS = 10  # two batches of 8, the second padded from 2 rows
 LAUNCH_ROW_KEYS = {
     "certify": {"index", "question_id", "label", "answer", "radius", "correct", "abstain",
                 "seconds", "sigma", "n0", "n", "draws"},
     "predict": {"index", "question_id", "label", "answer", "correct", "abstain", "seconds",
                 "sigma", "n", "draws"},
+    "continuous": {"index", "question_id", "label", "answer", "radius", "correct", "abstain",
+                   "elapsed_seconds", "sigma", "n0", "n", "draws"},
 }
 LAUNCH_SUMMARY_KEYS = {
     "certify": {"total", "sigma", "n0", "n", "alpha", "abstention_rate", "standard_accuracy",
@@ -1102,6 +1310,10 @@ LAUNCH_SUMMARY_KEYS = {
     "predict": {"total", "sigma", "n", "alpha", "accuracy", "abstention_rate",
                 "mean_seconds_per_image", "mean_draws_per_image"},
 }
+LAUNCH_SUMMARY_KEYS["continuous"] = LAUNCH_SUMMARY_KEYS["certify"] | {"continuous",
+                                                                      "images_per_hour"}
+EVAL_SUMMARY_KEYS = {"overall_accuracy", "per_answer_type", "per_question_type", "exact_match",
+                     "token_f1", "answer_bias", "num_questions", "noise_level"}
 # model-block paths of the shipped configs, pointed where nothing exists so
 # that the model is built from its seed
 CHECKPOINT_ENV = ("VICUNA_7B", "EVA_VIT_G", "QFORMER_CKPT", "MINIGPT4_STAGE2")
@@ -1148,42 +1360,11 @@ def write_finetuned(path, d_in: int, d_out: int):
     return arrays
 
 
-def chunks_of_row(row, n0: int, mc_batch: int) -> int:
-    """Chunks of ``mc_batch`` draws a row's certification or prediction
-    dispatched: each draw pass (certify's selection ``n0`` and estimation,
-    or predict's one pass) runs whole chunks, and an early stop ends a pass
-    after the chunk that fired it."""
-    return -(-n0 // mc_batch) + -(-(row["draws"] - n0) // mc_batch)
-
-
-def phase_launcher(torch, card, d_in: int, d_out: int, main_summary):
-    """``certifiedgpt_tpu_torch.launch.main`` on the shipped certify and
-    predict YAMLs, unchanged (full width; the synthetic dataset of
-    ``LAUNCH_IMAGES`` images caps ``max_images``), with ``vqa_finetuned``
-    pointing at a written projection checkpoint. Checks the rows and
-    summaries against the JAX package's schema, that ``encode_img`` read
-    exactly the checkpoint's projection, and that each path kernel launched
-    its launches per chunk times the chunks the rows ran. Returns each run's
-    launches."""
-    import tempfile
-    from pathlib import Path
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
-        return launcher_runs(torch, card, Path(tmp), d_in, d_out, main_summary)
-
-
-def launcher_runs(torch, card, root, d_in: int, d_out: int, main_summary):
-    """``phase_launcher``'s runs, with their files under ``root``."""
-    import re
-    from unittest import mock
-
-    from certifiedgpt_tpu_torch import launch
-    from certifiedgpt_tpu_torch.agents import certify as A
-    from certifiedgpt_tpu_torch.common.config import Config
-    from certifiedgpt_tpu_torch.common.stages import StageClock
-    from certifiedgpt_tpu_torch.models import minigpt4 as M
-
-    write_vqa_set(root, LAUNCH_IMAGES)
+def launch_files(root, n: int, d_in: int, d_out: int):
+    """A written set of ``n`` images and a ``llama_proj`` checkpoint under
+    ``root``; returns the environment the shipped YAMLs read (checkpoint
+    paths of the model block where nothing exists) and the checkpoint."""
+    write_vqa_set(root, n)
     ckpt = root / "vqav2_finetuned.npz"
     proj = write_finetuned(ckpt, d_in, d_out)
     env = {"VQAV2_IMAGES": str(root / "images"),
@@ -1191,87 +1372,252 @@ def launcher_runs(torch, card, root, d_in: int, d_out: int, main_summary):
            "VQAV2_VAL_ANNOTATIONS": str(root / "annotations.json"),
            "VQA_FINETUNED": str(ckpt),
            **{name: str(root / "absent" / name.lower()) for name in CHECKPOINT_ENV}}
-    encode_img, make_sample_fn = M.encode_img, A.make_sample_fn
+    return env, proj
+
+
+def run_launch(torch, argv, env, out):
+    """``launch.main(argv)`` with ``env`` (and ``OUTPUT_DIR=out``) set and
+    ``encode_img`` spied on, the launch counters reset just before and read
+    just after. Returns the summary, the CLI wall, the launches, the
+    projection each ``encode_img`` call read (one call a chunk or a batch),
+    the decode steps launched, the peak memory, the model build seconds
+    (``certified.log``) and the card's state during the run."""
+    import re
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch import launch
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    encode_img = M.encode_img
     seen = []
 
     def spy(params, cfg, images, clock=None):
         seen.append(params["llama_proj"])
         return encode_img(params, cfg, images, clock)
 
-    counted = {}
-    for mode, path, kind in LAUNCH_RUNS:
-        out = root / f"out_{kind}"
-        knobs = A.SmoothingKnobs.from_run(Config(path).run)
-        seen.clear()
-        # per-stage seconds of the agents' draws, as phase 4's (synchronizing)
-        clock = StageClock("cuda")
-        with mock.patch.dict(os.environ, dict(env, OUTPUT_DIR=str(out))), \
-                mock.patch.object(M, "encode_img", spy), \
-                mock.patch.object(A, "make_sample_fn",
-                                  lambda *a, **k: make_sample_fn(*a, **dict(k, clock=clock))), \
-                CardSampler() as card_state:
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            summary = launch.main([mode, "--config-path", path])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = read_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        rows = [json.loads(line) for line in (out / f"{kind}_results.jsonl").read_text().splitlines()]
-        on_disk = json.loads((out / f"{kind}_summary.json").read_text())
-        log(f"[launch] {mode} {path}: rows {json.dumps(rows)}")
-        log(f"[launch] {mode}: summary {json.dumps(summary)}; launches {json.dumps(launches)}")
-        if len(rows) != LAUNCH_IMAGES or any(set(r) != LAUNCH_ROW_KEYS[kind] for r in rows):
-            fail(f"{mode}: rows {rows} are not {LAUNCH_IMAGES} rows with the JAX package's keys")
-        if summary != on_disk or set(summary) != LAUNCH_SUMMARY_KEYS[kind] \
-                or summary["total"] != LAUNCH_IMAGES:
-            fail(f"{mode}: summary {summary} does not have the JAX package's keys")
-        n0 = knobs.n0 if kind == "certify" else 0
-        budget = n0 + (knobs.n if kind == "certify" else knobs.predict_n)
-        for row in rows:
-            if row["sigma"] != knobs.sigma or row["abstain"] != (row["label"] == -1) \
-                    or not 0 < row["draws"] <= budget \
-                    or not math.isfinite(row.get("radius", 0.0)) or row.get("radius", 0.0) < 0:
-                fail(f"{mode}: malformed row {row}")
-        # the projection encode_img read is the checkpoint's, on every chunk
-        ptrs = {(p["kernel"].data_ptr(), p["bias"].data_ptr()) for p in seen}
-        if len(ptrs) != 1:
-            fail(f"{mode}: encode_img read {len(ptrs)} different projections")
-        for key in ("kernel", "bias"):
-            want = torch.from_numpy(proj[f"model:llama_proj/{key}"]).to(seen[0][key].device)
-            if seen[0][key].dtype != torch.float32 or not torch.equal(seen[0][key], want):
-                fail(f"{mode}: the llama_proj {key} encode_img read is not the checkpoint's")
-        chunks = sum(chunks_of_row(r, n0, knobs.mc_batch) for r in rows)
-        if len(seen) != chunks or clock.counts["noise"] != chunks:
-            fail(f"{mode}: {len(seen)} encode_img calls and {clock.counts['noise']} noise "
-                 f"steps for {chunks} chunks")
-        check_counts(f"launch {mode}", launches, PER_CHUNK["flash_cls"], chunks)
-        log_text = (out / "certified.log").read_text()
-        build = re.search(r"built model minigpt4 on cuda in ([0-9.]+) s", log_text)
-        if build is None:
-            fail(f"{mode}: certified.log has no model build line")
-        build_s = float(build.group(1))
-        row_s = sum(r["seconds"] for r in rows)
-        line = (f"[launch] {mode}: model build {build_s:.3f} s; CLI wall {wall:.3f} s, of which "
-                f"rows {row_s:.3f} s and other agent time {wall - build_s - row_s:.3f} s; "
-                f"{row_s / len(rows):.3f} s per {'certified' if kind == 'certify' else 'predicted'} "
-                f"image over {chunks} chunks ({row_s / chunks:.4f} s a chunk")
-        if kind == "certify":
-            per_chunk = main_summary["wall_seconds"] / main_summary["chunks"]
-            line += f"; certify_item in phase 4: {per_chunk:.4f} s a chunk"
-        log(f"{line}); peak memory {peak_gb:.2f} GB; {card}")
-        stages = {k: round(v / chunks, 4) for k, v in clock.seconds.items()}
-        phase4 = {k: round(v / main_summary["chunks"], 4)
-                  for k, v in main_summary["stage_seconds"].items() if k in stages}
-        log(f"[launch] {mode}: stage seconds a chunk {json.dumps(stages)} (phase 4: "
-            f"{json.dumps(phase4)}); decode steps {clock.counts['decode_step']} over {chunks} "
-            f"chunks; card during the run: {card_state.summary()}")
-        counted[mode] = launches
-        gc.collect()
-        torch.cuda.empty_cache()
-    return counted
+    with mock.patch.dict(os.environ, dict(env, OUTPUT_DIR=str(out))), \
+            mock.patch.object(M, "encode_img", spy), CardSampler() as card_state:
+        reset_counts()
+        M.generate.decode_steps = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = launch.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    build = re.search(r"built model minigpt4 on \w+ in ([0-9.]+) s",
+                      (out / "certified.log").read_text())
+    if build is None:
+        fail(f"{argv[0]}: certified.log has no model build line")
+    return {"summary": summary, "wall": wall, "launches": launches, "seen": seen,
+            "decode_steps": M.generate.decode_steps,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "build_s": float(build.group(1)), "card_state": card_state.summary()}
+
+
+def check_projection(label, seen, proj, calls):
+    """``encode_img`` ran ``calls`` times and read exactly the checkpoint's
+    projection every time."""
+    import torch
+
+    if len(seen) != calls:
+        fail(f"{label}: {len(seen)} encode_img calls for {calls} chunks or batches")
+    ptrs = {(p["kernel"].data_ptr(), p["bias"].data_ptr()) for p in seen}
+    if len(ptrs) != 1:
+        fail(f"{label}: encode_img read {len(ptrs)} different projections")
+    for key in ("kernel", "bias"):
+        want = torch.from_numpy(proj[f"model:llama_proj/{key}"]).to(seen[0][key].device)
+        if seen[0][key].dtype != torch.float32 or not torch.equal(seen[0][key], want):
+            fail(f"{label}: the llama_proj {key} encode_img read is not the checkpoint's")
+
+
+def read_rows(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def dispatched_chunks(row, n0: int, n: int, mc_batch: int, window: int) -> int:
+    """Chunks of ``mc_batch`` draws a serial row's certification or
+    prediction dispatched: certify's selection pass (``n0``) runs whole;
+    the estimation pass (or predict's one pass) reads chunks until an early
+    stop, which keeps up to ``window`` chunks dispatched past the last one
+    read (abandoned in flight), never more than the pass has."""
+    used = -(-(row["draws"] - n0) // mc_batch)
+    return -(-n0 // mc_batch) + min(-(-n // mc_batch), used + window)
+
+
+def check_certify_rows(label, rows, kind, count, budget, sigma):
+    if len(rows) != count or any(set(r) != LAUNCH_ROW_KEYS[kind] for r in rows):
+        fail(f"{label}: rows {rows} are not {count} rows with the JAX package's keys")
+    for row in rows:
+        if row["sigma"] != sigma or row["abstain"] != (row["label"] == -1) \
+                or not 0 < row["draws"] <= budget \
+                or not math.isfinite(row.get("radius", 0.0)) or row.get("radius", 0.0) < 0:
+            fail(f"{label}: malformed row {row}")
+
+
+# ----------------------------------------------------------------------
+# phase 8: the launcher on the shipped certify and predict configs
+# ----------------------------------------------------------------------
+def phase_launcher(torch, card, d_in: int, d_out: int, main_summary):
+    """``certifiedgpt_tpu_torch.launch.main`` on the shipped certify and
+    predict YAMLs, unchanged (full width; the synthetic dataset of
+    ``LAUNCH_IMAGES`` images caps ``max_images``; ``dispatch_window`` 4 by
+    default), with ``vqa_finetuned`` pointing at a written projection
+    checkpoint. Checks the rows and summaries against the JAX package's
+    schema, that ``encode_img`` read exactly the checkpoint's projection,
+    and that each path kernel launched its launches per chunk times the
+    chunks dispatched. Returns each run's launches and rows."""
+    import tempfile
+    from pathlib import Path
+
+    from certifiedgpt_tpu_torch.agents import certify as A
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    counted, rows_of = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        root = Path(tmp)
+        env, proj = launch_files(root, LAUNCH_IMAGES, d_in, d_out)
+        for mode, path, kind in LAUNCH_RUNS:
+            out = root / f"out_{kind}"
+            knobs = A.SmoothingKnobs.from_run(Config(path).run)
+            res = run_launch(torch, [mode, "--config-path", path], env, out)
+            summary = res["summary"]
+            rows = read_rows(out / f"{kind}_results.jsonl")
+            on_disk = json.loads((out / f"{kind}_summary.json").read_text())
+            log(f"[launch] {mode} {path}: rows {json.dumps(rows)}")
+            log(f"[launch] {mode}: summary {json.dumps(summary)}; launches "
+                f"{json.dumps(res['launches'])}")
+            n0 = knobs.n0 if kind == "certify" else 0
+            n = knobs.n if kind == "certify" else knobs.predict_n
+            check_certify_rows(mode, rows, kind, LAUNCH_IMAGES, n0 + n, knobs.sigma)
+            if summary != on_disk or set(summary) != LAUNCH_SUMMARY_KEYS[kind] \
+                    or summary["total"] != LAUNCH_IMAGES:
+                fail(f"{mode}: summary {summary} does not have the JAX package's keys")
+            chunks = sum(dispatched_chunks(r, n0, n, knobs.mc_batch, knobs.dispatch_window)
+                         for r in rows)
+            check_projection(mode, res["seen"], proj, chunks)
+            check_counts(f"launch {mode}", res["launches"], PER_CHUNK["flash_cls"], chunks)
+            row_s = sum(r["seconds"] for r in rows)
+            line = (f"[launch] {mode}: dispatch_window {knobs.dispatch_window}; model build "
+                    f"{res['build_s']:.3f} s; CLI wall {res['wall']:.3f} s, of which rows "
+                    f"{row_s:.3f} s and other agent time {res['wall'] - res['build_s'] - row_s:.3f} s; "
+                    f"{row_s / len(rows):.3f} s per "
+                    f"{'certified' if kind == 'certify' else 'predicted'} image over {chunks} "
+                    f"chunks dispatched ({row_s / chunks:.4f} s a chunk")
+            if kind == "certify":
+                per_chunk = main_summary["wall_seconds"] / main_summary["chunks"]
+                line += f"; certify_item in phase 4, window 1 and a clock: {per_chunk:.4f} s a chunk"
+            log(f"{line}); {res['decode_steps']} decode steps launched; peak memory "
+                f"{res['peak_gb']:.2f} GB; {card}; card during the run: {res['card_state']}")
+            counted[mode] = res["launches"]
+            rows_of[kind] = rows
+            gc.collect()
+            torch.cuda.empty_cache()
+    return counted, rows_of
+
+
+# ----------------------------------------------------------------------
+# phase 9.3: the continuous scheduler on the shipped continuous config
+# ----------------------------------------------------------------------
+def phase_continuous(torch, card, d_in: int, d_out: int, serial_rows):
+    """``launch.main`` on ``vqav2_certify_continuous.yaml`` unchanged
+    (``active_images`` 8, ``dispatch_window`` 4) over ``CONTINUOUS_IMAGES``
+    written images: every chunk mixes images. The rows have the JAX
+    package's continuous keys, each certifies OTHER at the radius of phase
+    8's serial rows after all its draws; the chunks dispatched are
+    ceil(images x (n0 + n) / mc_batch), each with the path's launches.
+    Returns the launches."""
+    import tempfile
+    from pathlib import Path
+
+    from certifiedgpt_tpu_torch.agents import certify as A
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    knobs = A.SmoothingKnobs.from_run(Config(CONTINUOUS_CONFIG).run)
+    if not knobs.continuous:
+        fail(f"{CONTINUOUS_CONFIG} does not set run.continuous")
+    budget = knobs.n0 + knobs.n
+    chunks = -(-CONTINUOUS_IMAGES * budget // knobs.mc_batch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_continuous_") as tmp:
+        root = Path(tmp)
+        env, proj = launch_files(root, CONTINUOUS_IMAGES, d_in, d_out)
+        out = root / "out_continuous"
+        res = run_launch(torch, ["certify", "--config-path", CONTINUOUS_CONFIG], env, out)
+        summary = res["summary"]
+        rows = read_rows(out / "certify_results.jsonl")
+        on_disk = json.loads((out / "certify_summary.json").read_text())
+    log(f"[continuous] {CONTINUOUS_CONFIG}: rows {json.dumps(rows)}")
+    log(f"[continuous] summary {json.dumps(summary)}; launches {json.dumps(res['launches'])}")
+    check_certify_rows("continuous", rows, "continuous", CONTINUOUS_IMAGES, budget, knobs.sigma)
+    if summary != on_disk or set(summary) != LAUNCH_SUMMARY_KEYS["continuous"] \
+            or summary["continuous"] is not True or summary["total"] != CONTINUOUS_IMAGES:
+        fail(f"continuous: summary {summary} does not have the JAX package's keys")
+    radius = serial_rows["certify"][0]["radius"]
+    for row in rows:
+        if row["answer"] != "<other>" or row["radius"] != radius or row["draws"] != budget:
+            fail(f"continuous: row {row} is not OTHER at radius {radius} after {budget} draws")
+    check_projection("continuous", res["seen"], proj, chunks)
+    check_counts("launch continuous", res["launches"], PER_CHUNK["flash_cls"], chunks)
+    per_image = summary["mean_seconds_per_image"]
+    serial = sum(r["seconds"] for r in serial_rows["certify"]) / len(serial_rows["certify"])
+    log(f"[continuous] {chunks} chunks dispatched for {CONTINUOUS_IMAGES} images "
+        f"(serial: {CONTINUOUS_IMAGES * (-(-knobs.n0 // knobs.mc_batch) - (-knobs.n // knobs.mc_batch))}); "
+        f"{per_image:.3f} s per certified image (wall / images, the agent's), "
+        f"{summary['images_per_hour']:.1f} images an hour, against {serial:.3f} s per image "
+        f"serially in phase 8; {per_image * CONTINUOUS_IMAGES / chunks:.4f} s a chunk; "
+        f"model build {res['build_s']:.3f} s, CLI wall {res['wall']:.3f} s; "
+        f"{res['decode_steps']} decode steps launched; peak memory {res['peak_gb']:.2f} GB; "
+        f"{card}; card during the run: {res['card_state']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res["launches"]
+
+
+# ----------------------------------------------------------------------
+# phase 10: the eval agent on a shipped eval config
+# ----------------------------------------------------------------------
+def phase_eval(torch, card, d_in: int, d_out: int):
+    """``launch.main`` in ``eval`` mode on ``vqav2_eval_noise_0.5.yaml``
+    unchanged (batch 8, seq_len 320, early exit, ``dispatch_window`` 2 by
+    default) over ``EVAL_QUESTIONS`` written questions: two batches, the
+    second padded from 2 rows to 8. ``eval_results.json`` has the JAX
+    package's summary keys and a prediction for every question; each batch
+    ran the path's launches. Returns the launches."""
+    import tempfile
+    from pathlib import Path
+
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    run = Config(EVAL_CONFIG).run
+    batch = int(run.get("batch_size"))
+    batches = -(-EVAL_QUESTIONS // batch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        root = Path(tmp)
+        env, proj = launch_files(root, EVAL_QUESTIONS, d_in, d_out)
+        out = root / "out_eval"
+        res = run_launch(torch, ["eval", "--config-path", EVAL_CONFIG], env, out)
+        saved = json.loads((out / "eval_results.json").read_text())
+    summary = res["summary"]
+    log(f"[eval] {EVAL_CONFIG}: summary {json.dumps(summary)}; first predictions "
+        f"{json.dumps(saved['predictions'][:3])}; launches {json.dumps(res['launches'])}")
+    if saved["summary"] != summary or set(summary) != EVAL_SUMMARY_KEYS \
+            or summary["num_questions"] != EVAL_QUESTIONS:
+        fail(f"eval: summary {summary} does not have the JAX package's keys")
+    if sorted(p["question_id"] for p in saved["predictions"]) != list(range(1, EVAL_QUESTIONS + 1)):
+        fail(f"eval: predictions {saved['predictions']} do not cover the questions")
+    check_projection("eval", res["seen"], proj, batches)
+    check_counts("launch eval", res["launches"], PER_CHUNK["flash_cls"], batches)
+    agent_s = res["wall"] - res["build_s"]
+    log(f"[eval] {EVAL_QUESTIONS} questions in {batches} batches of {batch}: "
+        f"{EVAL_QUESTIONS / agent_s:.3f} samples per second over the agent's run "
+        f"({agent_s:.3f} s: dataset, JPEG decode, generate, scoring), "
+        f"{EVAL_QUESTIONS / res['wall']:.3f} over the CLI wall ({res['wall']:.3f} s, model "
+        f"build {res['build_s']:.3f} s); {res['decode_steps']} decode steps launched; peak "
+        f"memory {res['peak_gb']:.2f} GB; {card}; card during the run: {res['card_state']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res["launches"]
 
 
 def main() -> int:
@@ -1295,11 +1641,17 @@ def main() -> int:
         model, image, main_launches, summary = phase_main_path(torch, device)
         flash_launches = phase_forms(torch, model, image, device)
         entry_launches = phase_entries(torch, device)
+        # 9.1 and 9.2 run on phase 4's model, before the launcher phases
+        # build their own
+        lookahead = phase_lookahead(torch, model, image, card, summary)
         widths = (model.cfg.qformer.hidden_size, model.cfg.llama.hidden_size)
         del model, image
         gc.collect()
         torch.cuda.empty_cache()
-        cli_launches = phase_launcher(torch, card, *widths, summary)
+        cli_launches, serial_rows = phase_launcher(torch, card, *widths, summary)
+        cli_launches["certify continuous"] = phase_continuous(torch, card, *widths, serial_rows)
+        cli_launches["eval"] = phase_eval(torch, card, *widths)
+    summary["lookahead"] = lookahead
     log(f"[main] summary {json.dumps(summary)}")
     by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches}
     kernels = []

@@ -97,11 +97,15 @@ bad = [m for m in sys.modules
        if m == "certifiedgpt_tpu" or m.startswith("certifiedgpt_tpu.")]
 assert not bad, bad
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
-print(len(names))
+print(" ".join(names))
 """
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    names = set(proc.stdout.split())
+    assert len(names) >= 20
+    assert {f"certifiedgpt_tpu_torch.{m}" for m in (
+        "smoothing.continuous", "agents.eval", "agents.finetune", "data.loader",
+        "vqa_tools.vqa")} <= names

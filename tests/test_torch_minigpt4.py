@@ -191,9 +191,14 @@ def test_from_config_refuses_remat():
                                    "remat_policy": "dots"}, "cpu")
 
 
-def test_from_config_checkpoint_paths(tmp_path, caplog):
+def test_from_config_checkpoint_paths(tmp_path, caplog, monkeypatch):
     """An existing checkpoint path is refused (loading is not ported yet); a
     missing one is logged and the random init kept."""
+    import logging
+
+    # an agent built earlier in this process set up the port's logger,
+    # which stops propagation to the root logger that caplog reads
+    monkeypatch.setattr(logging.getLogger("certifiedgpt_tpu_torch"), "propagate", True)
     ckpt = tmp_path / "eva_vit_g.pth"
     ckpt.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="checkpoint"):
