@@ -4,10 +4,11 @@ The host half of ``certifiedgpt_tpu/data/loader.py``: ``Loader`` iterates a
 dataset in a seeded order and collates batches on a background prefetch
 thread, each sample loaded by a small thread pool (JPEG decode and resize
 release the GIL in PIL). ``process_index`` and ``process_count`` are plain
-arguments: under ``process_count > 1`` each process loads its contiguous
-slice of every global batch. The JAX package's ``shard_batch`` lays a batch
-out over a device mesh; its counterpart here, ``to_device``, moves the
-arrays onto one device and does nothing else.
+arguments; ``process_count > 1`` (each process loading its slice of every
+global batch) waits for distributed work to be ported and raises. The JAX
+package's ``shard_batch`` lays a batch out over a device mesh; its
+counterpart here, ``to_device``, moves the arrays onto one device and does
+nothing else.
 
 ``upload`` and ``HostCopy`` are the two copies the look-ahead loops make
 without waiting for the card: onto the device from a pinned snapshot of a
@@ -40,10 +41,12 @@ class Loader:
         process_index: int = 0,
         process_count: int = 1,
     ):
+        if process_count > 1:
+            raise NotImplementedError(
+                f"process_count = {process_count}: loading one process's slice of "
+                "each batch is not ported yet (ROADMAP.md, modules item 16)"
+            )
         self.dataset = dataset
-        # batch_size is the GLOBAL batch; each process loads only its
-        # contiguous 1/process_count slice of every batch (same seeded order
-        # on every process, disjoint rows)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -51,13 +54,6 @@ class Loader:
         self.prefetch = prefetch
         self.num_workers = max(int(num_workers), 1)
         self.epoch = 0
-        self.process_index = process_index
-        self.process_count = process_count
-        if self.process_count > 1 and batch_size % self.process_count != 0:
-            raise ValueError(
-                f"Global batch_size {batch_size} must be divisible by the "
-                f"process count ({self.process_count})"
-            )
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -77,27 +73,6 @@ class Loader:
             return rng.permutation(n)
         return np.arange(n)
 
-    def _local_slice(self, idx: np.ndarray):
-        """This process's rows of a global batch (contiguous split);
-        returns ``(local_idx, real_rows)``.
-
-        A partial final batch (drop_last=False) pads by wrapping to the
-        next process_count multiple, so every process gets the same
-        non-empty local count and no sample is dropped. ``real_rows``
-        counts the unwrapped rows of this slice (wrapped duplicates land at
-        the tail of the last process's slice)."""
-        if self.process_count <= 1:
-            return idx, len(idx)
-        n_real = len(idx)
-        if len(idx) % self.process_count != 0:
-            target = -(-len(idx) // self.process_count) * self.process_count
-            reps = -(-target // len(idx))
-            idx = np.tile(idx, reps)[:target]
-        per = len(idx) // self.process_count
-        start = self.process_index * per
-        real = max(0, min(per, n_real - start))
-        return idx[start : start + per], real
-
     def _batches(self) -> Iterator[Dict[str, Any]]:
         order = self._index_order()
 
@@ -109,20 +84,16 @@ class Loader:
                 idx = order[b * self.batch_size : (b + 1) * self.batch_size]
                 if len(idx) == 0 or (len(idx) < self.batch_size and self.drop_last):
                     continue
-                yield self._local_slice(idx)
+                yield idx
 
         if self.num_workers <= 1:
-            for idx, real in indices():
-                batch = self.dataset.collater([load(i) for i in idx])
-                batch["__local_real_rows__"] = real
-                yield batch
+            for idx in indices():
+                yield self.dataset.collater([load(i) for i in idx])
             return
 
         with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
-            for idx, real in indices():
-                batch = self.dataset.collater(list(pool.map(load, idx)))
-                batch["__local_real_rows__"] = real
-                yield batch
+            for idx in indices():
+                yield self.dataset.collater(list(pool.map(load, idx)))
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         if self.prefetch <= 0:

@@ -50,7 +50,9 @@ Phases, each of which exits non-zero on any failure:
    computes that row in its one launch). Prints per-stage seconds, peak
    device memory and the
    certify row, and checks the row. Then times one decode step against
-   converting the int8 decoder weights to bf16, and checks the outputs: the
+   converting the int8 decoder weights to bf16, the host's launch of one
+   step from an idle card and behind a spin that holds the card (does the
+   step fill the launch queue?), and checks the outputs: the
    ViT through the kernels against the ViT through their plain versions on
    8 images (a cls stream below the 17 rows ``torch._int_mm`` takes), finite
    projected image tokens, greedy tokens in range.
@@ -77,7 +79,11 @@ Phases, each of which exits non-zero on any failure:
    window 4's peak within phase 4's plus three noisy-image buffers. Then
    one chunk of the serial and one of the mixed pipeline dispatched, from
    the noise draw to the event behind the tokens' copy, under
-   ``torch.cuda.set_sync_debug_mode("error")``: a host sync fails.
+   ``torch.cuda.set_sync_debug_mode("error")``: a host sync fails. Then
+   the early exit firing: a tiny model whose weights chain each row's
+   prompt to EOS at a different step decodes with the exit off and on under
+   the same mode; the tokens must agree, and the exit must launch at least
+   the steps until the last EOS and fewer than the full loop's.
 8. Launcher: ``certifiedgpt_tpu_torch.launch.main`` runs ``certify`` on
    ``configs/certify_configs/vqav2_certify_noise_0.5.yaml`` and
    ``smoothing_predict`` on ``vqav2_predict_noise_0.5.yaml``, both
@@ -218,6 +224,14 @@ LOOKAHEAD_RUN_CFG = dict(RUN_CFG, certify_n0=MC_BATCH, certify_n=3 * MC_BATCH)
 # (dispatch_window, early_exit) of phase 9.1's runs, in their order; the
 # last repeats the first to show drift
 LOOKAHEAD_RUNS = ((1, False), (4, False), (1, True), (4, True), (1, False))
+# phase 9.2's early exit that fires: a tiny model whose decoder sends each
+# prompt's last token along its chain to EOS (2), as in
+# tests/test_torch_generate_gpu.py: (last prompt token, the tokens after it)
+EXIT_CHAINS = ((20, ()), (10, (11, 12)), (30, (31, 32, 33, 34)), (40, (41,)))
+EXIT_STEPS = 24
+# phase 4: the card is held by a spin of this length while the host launches
+# one decode step, to see whether the step's launches fill the launch queue
+SPIN_MS = 500.0
 QUESTION = "<Img><ImageHere></Img> [vqa] Based on the image, what animal is this?"
 GT_ANSWERS = ["cat", "cat", "cat", "dog", "cat", "cat", "kitten", "cat", "cat", "cat"]
 
@@ -890,7 +904,13 @@ def decode_costs(torch, model, device):
     host or the card sets a step's pace: the host's seconds to launch one
     step (from an idle card, not waiting for it), and the same step
     replayed from a CUDA graph (the card's time without the host's
-    launches)."""
+    launches); and the host's seconds to launch the step behind a spin that
+    holds the card for ``SPIN_MS``: near the spin's length if the step's
+    launches fill the launch queue (the host then waits for the card), near
+    the idle card's figure if they do not (the time is the host's own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from certifiedgpt_tpu_torch.models.llama import init_kv_cache, llama_apply
 
     params = model.params["llama"]
@@ -927,6 +947,26 @@ def decode_costs(torch, model, device):
         step()
         host_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
+    # the same launch behind a spin that holds the card: a step whose
+    # launches overflow the launch queue makes the host wait for the spin
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    end.synchronize()
+    spin_cycles = int(10 ** 8 * SPIN_MS / start.elapsed_time(end))
+    behind_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles)
+        t0 = time.perf_counter()
+        step()
+        behind_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -941,6 +981,15 @@ def decode_costs(torch, model, device):
         f"[main] decode step: the host launches it in {min(host_ms):.2f} ms (of 3: "
         f"{', '.join(f'{t:.2f}' for t in host_ms)}), the card runs it from a CUDA graph in "
         f"{graph_ms:.2f} ms, eager {step_ms:.2f} ms"
+    )
+    verdict = ("the launch queue filled: the host waited for the card"
+               if min(behind_ms) > SPIN_MS / 2 else
+               "the queue never filled: the launch time is the host's own")
+    log(
+        f"[main] decode step behind a {SPIN_MS:.0f} ms spin of the card: the host launches it "
+        f"in {min(behind_ms):.2f} ms (of 3: {', '.join(f'{t:.2f}' for t in behind_ms)}), "
+        f"from an idle card {min(host_ms):.2f} ms; {device_ops} device operations a step; "
+        f"{verdict}"
     )
 
 
@@ -1218,6 +1267,7 @@ def phase_lookahead(torch, model, image, card, main_summary):
         fail(f"phase 9.1 drew {[len(x) for x in first[1]]} labels, not the whole budget")
     log(f"[lookahead] table {json.dumps(table)}")
     check_no_sync(torch, model, image, card)
+    check_early_exit_fires(torch, model.device, card)
     return table
 
 
@@ -1280,6 +1330,72 @@ def check_no_sync(torch, model, image, card):
             fail(f"phase 9.2: the {name} chunk's tokens are malformed: {tokens.shape}")
         log(f"[nosync] a {name} chunk dispatched without a sync (set_sync_debug_mode "
             f"'error'): queued in {queued:.4f} s, tokens on the host after {wall:.4f} s; {card}")
+
+
+def check_early_exit_fires(torch, device, card):
+    """Phase 9.2, the early exit firing on the card: a tiny model whose
+    decoder weights send each row's last prompt token along a chain to EOS
+    (``EXIT_CHAINS``), rows ending at different steps. With the exit on, the
+    tokens equal the full loop's (and the chains'), the host launched at
+    least the steps until the last EOS and fewer than the full loop's, and
+    neither call of ``generate`` made the host wait for the card."""
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+    from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model
+
+    eos, pad = 2, 0
+    model = MiniGPT4Model.from_config({"model_size": "tiny"}, device)
+    llama = model.params["llama"]
+    for name in ("o_proj", "down_proj"):  # attention and MLP add nothing
+        for leaf in llama["layers"][name].values():
+            leaf.zero_()
+    emb = llama["embed_tokens"]["embedding"]
+    d = emb.shape[1]
+    emb.copy_(torch.eye(d, device=device)[torch.arange(emb.shape[0], device=device) % d])
+    head = llama["lm_head"]["kernel"]  # each one-hot to its successor
+    head.copy_(torch.eye(d, head.shape[1], device=device))
+    for first, chain in EXIT_CHAINS:
+        seq = (first, *chain, eos)
+        for a, b in zip(seq, seq[1:]):
+            head[a, a] = 0.0
+            head[a, b] = 1.0
+    if llama["lm_head"].get("bias") is not None:
+        llama["lm_head"]["bias"].zero_()
+    llama["norm"]["scale"].fill_(1.0)
+    rows, seq_len, img = (0, 1, 2, 3, 1), 40, model.cfg.vit.img_size
+    ids = torch.full((len(rows), seq_len), 5, dtype=torch.long, device=device)
+    ids[:, -1] = torch.tensor([EXIT_CHAINS[r][0] for r in rows], device=device)
+    batch = {"image": torch.randn((len(rows), img, img, 3), device=device),
+             "input_ids": ids, "attention_mask": torch.ones_like(ids),
+             "img_pos": torch.full((len(rows),), 2, dtype=torch.long, device=device)}
+    want = [list(EXIT_CHAINS[r][1]) + [eos] for r in rows]
+    want = [t + [pad] * (EXIT_STEPS - len(t)) for t in want]
+    longest = max(len(t) for t in (EXIT_CHAINS[r][1] for r in rows)) + 1
+    M.generate(model.params, model.cfg, batch, EXIT_STEPS, eos, pad)  # warm-up
+    outs, launched = {}, {}
+    for early in (False, True):
+        M.generate.decode_steps = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = M.generate(model.params, model.cfg, batch, EXIT_STEPS, eos, pad,
+                             early_exit=early)
+        except RuntimeError as exc:
+            fail(f"phase 9.2: generate (early_exit {early}) made the host wait for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs[early] = out.cpu().tolist()
+        launched[early] = M.generate.decode_steps
+    if outs[True] != outs[False] or outs[False] != want:
+        fail(f"phase 9.2: early exit tokens {outs[True]} differ from the full loop's "
+             f"{outs[False]} or the chains' {want}")
+    if launched[False] != EXIT_STEPS - 1 or not longest <= launched[True] < EXIT_STEPS - 1:
+        fail(f"phase 9.2: {launched[True]} decode steps launched with the exit firing and "
+             f"{launched[False]} without; want {longest} to {EXIT_STEPS - 2}, and "
+             f"{EXIT_STEPS - 1}")
+    log(f"[nosync] early exit firing (tiny model, weights chain tokens to EOS; the last row "
+        f"done after {longest} steps): {launched[True]} decode steps launched, "
+        f"{launched[False]} without the exit; tokens equal to the full loop's; no sync "
+        f"(set_sync_debug_mode 'error'); {card}")
 
 
 # ----------------------------------------------------------------------

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_generate_gpu import CHAINS, EOS, PAD, chain_batch, chain_model, chain_tokens
 from test_torch_launch import jax_tree, port_on_jax_weights, vqa  # noqa: F401 (fixtures)
 
 from certifiedgpt_tpu.agents.base import setup_agent as j_setup_agent
@@ -351,61 +352,22 @@ def test_sample_fn_window_checks_memory_for_the_window(monkeypatch):
     assert seen == [3]
 
 
-# (last prompt token, the tokens it leads to): each token leads to the next,
-# the last to EOS (2); a token outside the chains leads to itself
-CHAINS = [(20, []), (10, [11, 12]), (30, [31, 32, 33, 34]), (40, [41])]
-
-
-def _chain_model():
-    """The tiny model whose decoder maps each token to the next of its
-    chain: attention and MLP outputs zeroed, one-hot embeddings, and an LM
-    head that sends each one-hot to its successor."""
-    model = MiniGPT4Model.from_config({"model_size": "tiny"}, "cpu")
-    llama = model.params["llama"]
-    for name in ("o_proj", "down_proj"):
-        for leaf in llama["layers"][name].values():
-            leaf.zero_()
-    emb = llama["embed_tokens"]["embedding"]
-    d = emb.shape[1]
-    emb.copy_(torch.eye(d, dtype=emb.dtype)[torch.arange(emb.shape[0]) % d])
-    head = llama["lm_head"]["kernel"]
-    head.zero_()
-    for tok in range(d):
-        head[tok, tok] = 1.0
-    for first, chain in CHAINS:
-        seq = [first] + chain + [2]
-        for a, b in zip(seq, seq[1:]):
-            head[a, a] = 0.0
-            head[a, b] = 1.0
-    if llama["lm_head"].get("bias") is not None:
-        llama["lm_head"]["bias"].zero_()
-    llama["norm"]["scale"].fill_(1.0)
-    return model
-
-
 @pytest.mark.parametrize("rows", [[0, 1, 2, 3], [1, 1, 3], [0, 2]], ids=["mixed", "short", "spread"])
 def test_early_exit_gives_the_full_loops_tokens(rows):
     """Rows that emit EOS at different steps: ``early_exit`` returns the
     full loop's tokens and launches fewer decode steps (on the CPU the
     flags are read as soon as they are written)."""
-    model = _chain_model()
+    model = chain_model()
     cfg, params = model.cfg, model.params
-    b, s, steps = len(rows), 40, 9
-    ids = torch.full((b, s), 5, dtype=torch.long)
-    ids[:, -1] = torch.tensor([CHAINS[r][0] for r in rows])
-    img = cfg.vit.img_size
-    batch = {"image": torch.randn((b, img, img, 3), generator=torch.Generator().manual_seed(0)),
-             "input_ids": ids, "attention_mask": torch.ones((b, s), dtype=torch.long),
-             "img_pos": torch.full((b,), 2, dtype=torch.long)}
+    steps = 9
+    batch = chain_batch(model, rows)
     outs, launched = {}, {}
     for early in (False, True):
         TM.generate.decode_steps = 0
-        outs[early] = TM.generate(params, cfg, batch, steps, 2, 0, early_exit=early)
+        outs[early] = TM.generate(params, cfg, batch, steps, EOS, PAD, early_exit=early)
         launched[early] = TM.generate.decode_steps
     assert torch.equal(outs[True], outs[False])
-    want = [CHAINS[r][1] + [2] for r in rows]
-    for row, tokens in zip(outs[False].tolist(), want):
-        assert row == tokens + [0] * (steps - len(tokens))
-    longest = max(len(t) for t in want)
+    assert outs[False].tolist() == chain_tokens(rows, steps)
+    longest = max(len(CHAINS[r][1]) + 1 for r in rows)
     assert launched[False] == steps - 1
     assert launched[True] == longest  # the step after the last EOS sees all rows done

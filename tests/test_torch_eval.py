@@ -154,19 +154,23 @@ class _Numbers:
     dict(batch_size=6, shuffle=True, seed=2, drop_last=False, process_index=2, process_count=3),
 ], ids=["shuffle", "drop-last", "ordered", "process-1-of-2", "process-2-of-3"])
 def test_loader_order_matches_jax(kw):
+    """One process: the JAX Loader's batches in its order for each seed and
+    epoch. More than one process is refused until distributed work is
+    ported (ROADMAP item 16)."""
     kw = dict(kw)
-    kw.setdefault("process_index", 0)
-    kw.setdefault("process_count", 1)
+    if kw.get("process_count", 1) > 1:
+        with pytest.raises(NotImplementedError, match="item 16"):
+            Loader(_Numbers(11), **kw)
+        return
     for epoch in (0, 1):
-        got_loader, want_loader = Loader(_Numbers(11), **kw), JLoader(_Numbers(11), **kw)
+        got_loader = Loader(_Numbers(11), **kw)
+        want_loader = JLoader(_Numbers(11), process_index=0, process_count=1, **kw)
         got_loader.set_epoch(epoch)
         want_loader.set_epoch(epoch)
         got, want = list(got_loader), list(want_loader)
         assert len(got_loader) == len(want_loader) == len(want)
         assert [b["i"].tolist() for b in got] == [b["i"].tolist() for b in want]
-        assert [b["__local_real_rows__"] for b in got] == [b["__local_real_rows__"] for b in want]
-    with pytest.raises(ValueError, match="divisible"):
-        Loader(_Numbers(4), batch_size=3, process_count=2)
+        assert all(set(w) - set(g) == {"__local_real_rows__"} for g, w in zip(got, want))
 
 
 def test_to_device_and_host_copy_on_the_cpu():
