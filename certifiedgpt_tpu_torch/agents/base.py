@@ -1,12 +1,15 @@
-"""Base agent: config and model ownership, checkpoint and history plumbing.
+"""Base agent: config and model ownership, optimizer, checkpoint and
+history plumbing.
 
-The serving half of ``certifiedgpt_tpu/agents/base.py``: an agent owns the
-config, the output directory, the logger and the model, which it builds
-through the port's registry on the launcher's device (one device: the
-JAX package's device mesh has no counterpart yet). It reads the finetuned
-weights a model block names (``vqa_finetuned``) from the JAX package's
-``.npz`` format and writes ``loss_history.json`` when it finishes. The
-optimizer half waits for training (ROADMAP.md, modules item 14).
+Port of ``certifiedgpt_tpu/agents/base.py``: an agent owns the config, the
+output directory, the logger and the model, which it builds through the
+port's registry on the launcher's device (one device: the JAX package's
+device mesh has no counterpart yet). It builds the optimizer and the lr
+schedule from the run block (``optim.py``), writes and reads checkpoints in
+the JAX package's ``.npz`` format (trainable leaves, optimizer state,
+metadata; ``vqa_finetuned`` names finetuned weights), records the loss of
+each epoch and writes ``loss_history.json`` and its plot when it finishes;
+a plot that fails only warns.
 """
 
 from __future__ import annotations
@@ -21,9 +24,14 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
-from certifiedgpt_tpu_torch.common.checkpoint import load_checkpoint
+from certifiedgpt_tpu_torch.common.checkpoint import (
+    load_checkpoint,
+    load_opt_state,
+    save_checkpoint,
+)
 from certifiedgpt_tpu_torch.common.logging import get_logger
 from certifiedgpt_tpu_torch.common.registry import registry
+from certifiedgpt_tpu_torch.optim import AdamW, build_lr_schedule
 
 #: run-block knobs that place a run on more than one device
 PARALLEL_KNOBS = ("model_parallel", "pipeline_parallel", "dcn_parallel")
@@ -57,17 +65,47 @@ class BaseAgent:
             raise KeyError(f"Unknown model arch '{self.config.arch}'")
         return model_cls.from_config(self.config.model, device=self.device)
 
+    def build_optimizer(self, trainable: Mapping[str, Any], schedule=None) -> AdamW:
+        """AdamW over the trainable tree with the run block's schedule and
+        knobs (``weight_decay``, ``beta1``/``beta2``,
+        ``accumulated_gradients``, ``max_grad_norm``); a host-stateful
+        schedule (``reduce_lr_on_plateau``) sets the lr between epochs."""
+        run = self.run_cfg
+        schedule = schedule if schedule is not None else build_lr_schedule(run)
+        self.lr_schedule = schedule
+        self.stateful_lr = hasattr(schedule, "step_metric")
+        return AdamW(
+            trainable, schedule,
+            weight_decay=float(run.get("weight_decay", 0.05)),
+            beta1=float(run.get("beta1", 0.9)),
+            beta2=float(run.get("beta2", 0.999)),
+            accumulate_steps=int(run.get("accumulated_gradients", 1)),
+            max_grad_norm=run.get("max_grad_norm"),
+            stateful_lr=self.stateful_lr,
+        )
+
     # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
     def checkpoint_path(self, name: str) -> str:
         return os.path.join(self.output_dir, f"{name}.npz")
 
+    def save_agent_checkpoint(self, name: str, trainable: Mapping[str, Any],
+                              optimizer: Optional[AdamW] = None, **metadata) -> str:
+        """``{name}.npz`` (and its meta sidecar) in the output directory:
+        the trainable tree, the optimizer's state when given, ``metadata``."""
+        path = self.checkpoint_path(name)
+        opt_state = optimizer.state_arrays() if optimizer is not None else None
+        save_checkpoint(path, trainable, opt_state, metadata)
+        self.logger.info("Saved checkpoint %s", path)
+        return path
+
     def load_agent_checkpoint(self, name_or_path: str, trainable_template):
-        """(trainable, metadata) from a path, or from ``{name}.npz`` in the
-        output directory. Under ``run.use_cache`` the file (and its meta
-        sidecar) is first staged into the temporary directory, keyed by its
-        full path and refreshed when the source is newer."""
+        """(trainable, optimizer state arrays or None, metadata) from a
+        path, or from ``{name}.npz`` in the output directory. Under
+        ``run.use_cache`` the file (and its meta sidecar) is first staged
+        into the temporary directory, keyed by its full path and refreshed
+        when the source is newer."""
         path = (
             name_or_path
             if os.path.exists(name_or_path)
@@ -95,7 +133,8 @@ class BaseAgent:
                 os.replace(tmp, staged)
                 self.logger.info("staged checkpoint to %s", staged)
             path = staged
-        return load_checkpoint(path, trainable_template)
+        trainable, metadata = load_checkpoint(path, trainable_template)
+        return trainable, load_opt_state(path), metadata
 
     def load_finetuned(self, trainable_template: Mapping[str, Any]) -> Optional[Dict[str, Any]]:
         """The finetuned trainable weights the model block names
@@ -104,14 +143,38 @@ class BaseAgent:
         path = self.config.model.get("vqa_finetuned")
         if not path:
             return None
-        trainable, meta = self.load_agent_checkpoint(str(path), trainable_template)
+        trainable, _, meta = self.load_agent_checkpoint(str(path), trainable_template)
         self.logger.info("Loaded finetuned weights from %s (meta=%s)", path, meta)
         return trainable
 
     # ------------------------------------------------------------------
+    def record_loss(self, split: str, value: float) -> None:
+        self.loss_history.setdefault(split, []).append(float(value))
+
     def save_history(self) -> None:
+        """``loss_history.json``, and ``loss_history.png`` when a loss was
+        recorded (matplotlib; a plot that fails only warns)."""
         with open(os.path.join(self.output_dir, "loss_history.json"), "w") as handle:
             json.dump(self.loss_history, handle)
+        if not any(self.loss_history.values()):
+            return
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            fig, ax = plt.subplots()
+            for split, values in self.loss_history.items():
+                if values:
+                    ax.plot(values, label=split)
+            ax.set_xlabel("epoch")
+            ax.set_ylabel("loss")
+            ax.legend()
+            fig.savefig(os.path.join(self.output_dir, "loss_history.png"))
+            plt.close(fig)
+        except Exception as exc:  # plotting must never kill a run
+            self.logger.warning("loss plot failed: %s", exc)
 
     def run(self):  # pragma: no cover - interface
         raise NotImplementedError

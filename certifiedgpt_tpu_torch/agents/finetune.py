@@ -1,13 +1,58 @@
-"""Train-time input noise.
+"""Finetune agent (``image_text_finetune``) and train-time input noise.
 
-The one function of ``certifiedgpt_tpu/agents/finetune.py`` that the eval
-agent needs. The ``FinetuneAgent`` itself waits for training (ROADMAP.md,
-modules item 14).
+Port of ``certifiedgpt_tpu/agents/finetune.py``. A train step draws the
+input noise on the device (``add_input_noise``), runs the loss (ViT ->
+Q-Former -> projection -> decoder, label-smoothed CE; ``minigpt4_loss``),
+backpropagates into the trainable leaves only (``run.trainable_keys``,
+default ``["llama_proj"]``: the module's ``nn.Parameter``s; every other
+leaf is a frozen buffer, so no graph is kept through the frozen towers),
+then steps AdamW (``optim.py``). ``run.pack_sequences`` K packs K samples
+into each training row. Validation runs unpacked with
+``reduction="none"``, each batch padded to ``batch_size`` by repeating its
+last row and the padded rows masked out. Each epoch writes the resume
+checkpoint (with the optimizer state) and, when the monitored loss
+improves, ``{checkpoint_name}_best``; early stopping after ``patience``
+epochs without improvement; ``resume_ckpt_path`` resumes (from either
+package's checkpoint); ``loss_history.json`` and its plot at the end;
+step-metric rows in ``{checkpoint_name}.txt``. ``run.evaluate`` runs
+validation only, ``run.debug_graph_computation`` one step and a
+``debug_ckpt``.
+
+Noise keying: each train step's noise comes from a generator seeded by
+(seed, epoch, step within the epoch), each validation batch's by (seed,
+``VAL_NOISE_KEY``, batch), on the images' device. A resumed run starts its
+epoch at step 0 and so draws the same noise as a run that was never
+interrupted, with nothing to replay (the JAX package keys by the global
+step and restores it). The two packages' generators differ, so their runs
+agree only at noise 0.
+
+Not ported: ``pipeline_parallel``/``model_parallel`` > 1 (``BaseAgent``
+refuses them) and ``run.enable_profile`` (ROADMAP.md, modules item 16).
 """
 
 from __future__ import annotations
 
+import time
+from typing import Any, Dict
+
+import numpy as np
 import torch
+
+from certifiedgpt_tpu_torch.agents.base import BaseAgent
+from certifiedgpt_tpu_torch.common.metrics import StepMetrics
+from certifiedgpt_tpu_torch.common.registry import registry
+from certifiedgpt_tpu_torch.data.loader import Loader, to_device
+from certifiedgpt_tpu_torch.data.text import (
+    BatchSpec,
+    build_multiturn_train_batch,
+    build_train_batch,
+    pack_train_batch,
+)
+from certifiedgpt_tpu_torch.models.minigpt4 import minigpt4_loss
+from certifiedgpt_tpu_torch.smoothing.classifier import chunk_seed
+
+#: the epoch key of the validation batches' noise generators
+VAL_NOISE_KEY = 10_000_000
 
 
 def add_input_noise(images: torch.Tensor, sigma: float, dist: str = "gaussian",
@@ -21,3 +66,319 @@ def add_input_noise(images: torch.Tensor, sigma: float, dist: str = "gaussian",
     draw = torch.rand if dist == "uniform" else torch.randn
     return images + sigma * draw(images.shape, generator=generator, device=images.device,
                                  dtype=images.dtype)
+
+
+def noise_seed(seed: int, epoch: int, step: int) -> int:
+    """Generator seed of one step's noise: (seed, epoch, step)."""
+    return chunk_seed(chunk_seed(seed, epoch), step)
+
+
+@registry.register_agent("image_text_finetune")
+class FinetuneAgent(BaseAgent):
+    def __init__(self, config, device="cuda"):
+        run = config.run
+        if run.get("enable_profile", False):
+            raise NotImplementedError(
+                "run.enable_profile: common/profiling.py is not ported yet "
+                "(ROADMAP.md, modules item 16)"
+            )
+        super().__init__(config, device)
+        self.max_epoch = int(run.get("max_epoch", 1))
+        self.patience = int(run.get("patience", 5))
+        self.noise_level = float(run.get("noise_level", 0.0))
+        self.noise_dist = str(run.get("noise_dist", "gaussian"))
+        self.batch_size = int(run.get("batch_size", 4))
+        self.seq_len = int(run.get("seq_len", 256))
+        # K samples a training row (block-diagonal attention, per-segment
+        # positions); validation stays unpacked for per-sample losses
+        self.pack = int(run.get("pack_sequences", 1))
+        if self.pack < 1:
+            raise ValueError(f"run.pack_sequences must be >= 1, got {self.pack}")
+        if self.batch_size % self.pack:
+            raise ValueError(
+                f"run.batch_size={self.batch_size} is not divisible by "
+                f"run.pack_sequences={self.pack}"
+            )
+        # every packed segment gets a fixed seq_len // pack budget, so
+        # whether a sample fits is a property of the config: checked here
+        seg_budget = self.seq_len // self.pack
+        n_img = self.model.cfg.num_img_tokens
+        if self.pack > 1 and seg_budget < 1 + n_img + 2:
+            raise ValueError(
+                f"run.seq_len={self.seq_len} / run.pack_sequences={self.pack} leaves a "
+                f"{seg_budget}-token segment budget but bos + {n_img} image tokens + an "
+                f"answer needs {1 + n_img + 2} (raise run.seq_len or lower "
+                f"run.pack_sequences)"
+            )
+        max_pos = int(self.model.cfg.llama.max_position_embeddings)
+        if self.pack > 1 and seg_budget > max_pos:
+            raise ValueError(
+                f"run.seq_len={self.seq_len} / run.pack_sequences={self.pack} = a "
+                f"{seg_budget}-token segment budget, past the decoder's "
+                f"max_position_embeddings={max_pos} rotary table (raise "
+                f"model.max_position_embeddings or pack more)"
+            )
+        self.seed = int(run.get("seed", 42))
+        self.trainable_keys = tuple(run.get("trainable_keys", ["llama_proj"]))
+        self.trainable = self.model.make_trainable(self.trainable_keys)
+        self.optimizer = self.build_optimizer(self.trainable)
+        self.wandb_run = self._setup_wandb()
+        self.metrics = StepMetrics(self.output_dir, str(run.get("checkpoint_name", "metrics")))
+        self.metrics.track("train_step", self._train_step)
+
+    # ------------------------------------------------------------------
+    def _setup_wandb(self):
+        if not self.run_cfg.get("wandb", False):
+            return None
+        try:
+            import wandb
+
+            run = wandb.init(project=str(self.run_cfg.get("wandb_name", "certifiedgpt_tpu")),
+                             config=self.config.to_dict())
+            try:
+                run.define_metric("epoch")
+                for metric in ("train_loss", "val_loss", "learning_rate", "param_norm"):
+                    run.define_metric(metric, step_metric="epoch")
+            except Exception:  # older wandb without define_metric
+                pass
+            return run
+        except Exception as exc:
+            self.logger.warning("wandb unavailable: %s", exc)
+            return None
+
+    def _generator(self, epoch: int, step: int) -> torch.Generator:
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(noise_seed(self.seed, epoch, step))
+        return generator
+
+    def _noisy(self, batch: Dict[str, torch.Tensor], generator) -> Dict[str, torch.Tensor]:
+        images = add_input_noise(batch["image"], self.noise_level, self.noise_dist, generator)
+        return dict(batch, image=images)
+
+    def _train_step(self, batch: Dict[str, torch.Tensor], generator) -> torch.Tensor:
+        """One step: noise, loss, backward into the trainable leaves, an
+        optimizer step. Returns the loss (on the device)."""
+        loss = minigpt4_loss(self.model.params, self.model.cfg, self._noisy(batch, generator))
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def _eval_step(self, batch, valid: torch.Tensor, generator):
+        """Sum of the per-sample losses over the valid rows, and their count."""
+        losses = minigpt4_loss(self.model.params, self.model.cfg, self._noisy(batch, generator),
+                               reduction="none")
+        v = valid.to(losses.dtype)
+        return (losses * v).sum(), v.sum()
+
+    # ------------------------------------------------------------------
+    def create_loaders(self) -> Dict[str, Loader]:
+        loaders: Dict[str, Loader] = {}
+        for name in self.config.datasets.keys():
+            builder_cls = registry.get_builder_class(name)
+            if builder_cls is None:
+                raise KeyError(f"Unknown builder '{name}'")
+            for split, dataset in builder_cls().build_datasets().items():
+                if split in loaders:
+                    self.logger.warning(
+                        "dataset '%s' also provides split '%s'; keeping the first "
+                        "configured dataset (one dataset per finetune run)", name, split,
+                    )
+                    continue
+                if self.model.prompt_list and hasattr(dataset, "set_prompts"):
+                    dataset.set_prompts(self.model.prompt_list)
+                # train drops the remainder (one shape a step); val keeps it
+                loaders[split] = Loader(
+                    dataset, batch_size=self.batch_size, shuffle=(split == "train"),
+                    drop_last=(split == "train"), seed=self.seed,
+                    num_workers=int(self.run_cfg.get("num_workers", 4)),
+                )
+        return loaders
+
+    def device_batch(self, host_batch: Dict[str, Any], pack: int = 0) -> Dict[str, torch.Tensor]:
+        """The host batch's text arrays (packed K to a row when ``pack`` >
+        1; a multi-turn batch by conversation) and images, on the device."""
+        pack = pack or self.pack
+        spec = BatchSpec(seq_len=self.seq_len, num_img_tokens=self.model.cfg.num_img_tokens,
+                         max_answer_len=self.model.cfg.max_txt_len)
+        tok = self.model.tokenizer
+        if "turns" in host_batch:
+            if pack > 1:
+                raise ValueError(
+                    "run.pack_sequences does not support multi-turn conversation datasets "
+                    "(each row already carries one long conversation)"
+                )
+            text = build_multiturn_train_batch(tok, host_batch["turns"], spec)
+        elif pack > 1:
+            text = pack_train_batch(tok, host_batch["instruction_input"], host_batch["answer"],
+                                    spec, pack)
+        else:
+            text = build_train_batch(tok, host_batch["instruction_input"],
+                                     host_batch["answer"], spec)
+        arrays = {"image": host_batch["image"].astype(np.float32),
+                  **{k: v.astype(np.int64) for k, v in text.items()}}
+        return to_device(arrays, self.device)
+
+    # ------------------------------------------------------------------
+    def debug_graph_computation(self) -> Dict[str, Any]:
+        """One forward/backward/update on the first train batch and a
+        ``debug_ckpt`` checkpoint."""
+        batch = next(iter(self.create_loaders()["train"]))
+        loss = float(self._train_step(self.device_batch(batch), self._generator(0, 0)))
+        self.logger.info("debug_graph_computation: loss=%.4f", loss)
+        self.save_agent_checkpoint("debug_ckpt", self.trainable, self.optimizer, epoch=0)
+        self.metrics.log_event(f"debug_graph_computation loss={loss:.4f}")
+        return {"loss": loss, "steps": 1}
+
+    @staticmethod
+    def _pad_host_batch(batch, pad_to: int):
+        """Every field of a host batch padded to ``pad_to`` rows by
+        repeating the last row; returns (padded batch, real rows)."""
+        n = len(next(iter(batch.values())))
+        if n >= pad_to:
+            return batch, n
+        reps = pad_to - n
+        out = {}
+        for key, val in batch.items():
+            if isinstance(val, np.ndarray):
+                out[key] = np.concatenate([val, np.repeat(val[-1:], reps, 0)])
+            else:
+                out[key] = list(val) + [val[-1]] * reps
+        return out, n
+
+    def _run_validation(self, val_loader) -> float:
+        """Sample-weighted mean loss over the val split, unpacked, each
+        batch padded to ``batch_size`` with the padded rows masked."""
+        v_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        v_rows = torch.zeros((), dtype=torch.float32, device=self.device)
+        for index, batch in enumerate(val_loader):
+            batch, rows = self._pad_host_batch(dict(batch), self.batch_size)
+            valid = torch.zeros((self.batch_size,), dtype=torch.int32, device=self.device)
+            valid[:rows] = 1
+            loss_sum, count = self._eval_step(self.device_batch(batch, pack=1), valid,
+                                              self._generator(VAL_NOISE_KEY, index))
+            v_sum += loss_sum
+            v_rows += count
+        if float(v_rows) == 0:
+            raise RuntimeError(
+                "validation split produced no batches; check the val dataset "
+                "configuration or set run.has_val_split: false"
+            )
+        return float(v_sum) / float(v_rows)
+
+    def _resume(self, path: str):
+        """(first epoch, global step) after restoring the trainable leaves
+        and the optimizer state of ``path``; (0, 0) when it is missing."""
+        try:
+            trainable, opt_state, meta = self.load_agent_checkpoint(path, self.trainable)
+        except FileNotFoundError:
+            self.logger.info("No resume checkpoint at %s; fresh start", path)
+            return 0, 0
+        with torch.no_grad():
+            for key, tree in trainable.items():
+                _copy_tree(self.trainable[key], tree)
+        if opt_state is not None:
+            self.optimizer.load_state_arrays(opt_state)
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        self.logger.info("Resumed from %s at epoch %d", path, start_epoch)
+        return start_epoch, int(meta.get("global_step", 0))
+
+    def run(self) -> Dict[str, Any]:
+        run = self.run_cfg
+        if run.get("debug_graph_computation", False):
+            return self.debug_graph_computation()
+        loaders = self.create_loaders()
+        train_loader = loaders.get("train")
+        val_loader = loaders.get("val") if run.get("has_val_split", True) else None
+        evaluate_only = bool(run.get("evaluate", False))
+        if train_loader is None and not evaluate_only:
+            raise RuntimeError("No train split configured")
+
+        start_epoch, start_step = 0, 0
+        resume = run.get("resume_ckpt_path")
+        if resume:
+            start_epoch, start_step = self._resume(str(resume))
+
+        if evaluate_only:
+            if val_loader is None:
+                raise RuntimeError("run.evaluate needs a val split")
+            val_loss = self._run_validation(val_loader)
+            self.record_loss("val", val_loss)
+            self.logger.info("evaluate-only: val_loss %.4f", val_loss)
+            self.save_history()
+            return {"val_loss": val_loss, "epochs": 0, "evaluate_only": True}
+
+        ckpt_name = str(run.get("checkpoint_name", "checkpoint"))
+        best_val = float("inf")
+        bad_epochs = 0
+        global_step = start_step
+        max_iters = run.get("iters_per_epoch")
+        epoch = start_epoch - 1  # stays if the loop body never runs
+        for epoch in range(start_epoch, self.max_epoch):
+            train_loader.set_epoch(epoch)
+            epoch_loss, n_steps = 0.0, 0
+            t0 = time.time()
+            for batch in train_loader:
+                loss = float(self._train_step(self.device_batch(batch),
+                                              self._generator(epoch, n_steps)))
+                self.metrics.log_step_metrics("train", epoch, n_steps, loss,
+                                              lr=float(self.lr_schedule(global_step)))
+                epoch_loss += loss
+                n_steps += 1
+                global_step += 1
+                if max_iters and n_steps >= int(max_iters):
+                    break
+            train_loss = epoch_loss / max(n_steps, 1)
+            self.record_loss("train", train_loss)
+            dt = time.time() - t0
+            self.logger.info("epoch %d train_loss %.4f (%d steps, %.1fs, %.2f steps/s)",
+                             epoch, train_loss, n_steps, dt, n_steps / max(dt, 1e-9))
+
+            val_loss = None
+            if val_loader is not None:
+                val_loss = self._run_validation(val_loader)
+                self.record_loss("val", val_loss)
+                self.logger.info("epoch %d val_loss %.4f", epoch, val_loss)
+
+            monitored = val_loss if val_loss is not None else train_loss
+            if self.stateful_lr:
+                new_lr = self.lr_schedule.step_metric(monitored)
+                self.optimizer.set_learning_rate(new_lr)
+                self.logger.info("plateau scheduler lr -> %.2e", new_lr)
+            if self.wandb_run is not None:
+                self._log_wandb(epoch, train_loss, val_loss, global_step)
+
+            # the resume checkpoint every epoch, with the optimizer state
+            self.save_agent_checkpoint(ckpt_name, self.trainable, self.optimizer, epoch=epoch,
+                                       global_step=global_step)
+            if monitored < best_val:
+                best_val = monitored
+                bad_epochs = 0
+                self.save_agent_checkpoint(f"{ckpt_name}_best", self.trainable, epoch=epoch,
+                                           val_loss=monitored)
+            else:
+                bad_epochs += 1
+                if bad_epochs >= self.patience:
+                    self.logger.info("Early stopping at epoch %d (patience %d)",
+                                     epoch, self.patience)
+                    break
+
+        self.save_history()
+        # "steps": steps run in this invocation (a resume with nothing left: 0)
+        return {"best_val": best_val, "epochs": epoch + 1, "steps": global_step - start_step}
+
+    def _log_wandb(self, epoch, train_loss, val_loss, global_step) -> None:
+        param_norm = float(torch.sqrt(sum((p.float() ** 2).sum() for p in self.optimizer.params)))
+        lr = self.optimizer.current_lr() if self.stateful_lr \
+            else float(self.lr_schedule(global_step))
+        self.wandb_run.log({"epoch": epoch, "train_loss": train_loss, "learning_rate": lr,
+                            "param_norm": param_norm,
+                            **({"val_loss": val_loss} if val_loss is not None else {})})
+
+
+def _copy_tree(dst, src) -> None:
+    for key, value in src.items():
+        if isinstance(value, dict):
+            _copy_tree(dst[key], value)
+        else:
+            dst[key].copy_(value)

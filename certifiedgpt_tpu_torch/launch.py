@@ -2,7 +2,7 @@
 
 The counterpart of the repository's ``launch.py`` for the port::
 
-    python -m certifiedgpt_tpu_torch.launch {certify,smoothing_predict,eval} \\
+    python -m certifiedgpt_tpu_torch.launch {train,certify,smoothing_predict,eval} \\
         --config-path cfg.yaml [--device cuda|cpu]
 
 The mode picks the agent unless the config's ``run.agent`` names one
@@ -10,8 +10,8 @@ The mode picks the agent unless the config's ``run.agent`` names one
 console and ``{run.output_dir}/certified.log``; Python's and numpy's global
 seeds are set from ``run.seed``. The model runs on ``--device``, the card by
 default: without CUDA, ``--device cuda`` stops with an error and nothing
-falls back to the CPU. ``train`` and ``attack`` are accepted and raise
-``NotImplementedError`` until their agents are ported, as does
+falls back to the CPU. ``attack`` is accepted and raises
+``NotImplementedError`` until its agent is ported, as does
 ``run.distributed``.
 """
 
@@ -38,7 +38,7 @@ MODE_DEFAULT_AGENTS = {
     "attack": "image_text_attack",
 }
 #: modes whose agents are not ported yet, with their ROADMAP.md modules item
-UNPORTED_MODES = {"train": 14, "attack": 15}
+UNPORTED_MODES = {"attack": 15}
 
 
 def parse_args(argv=None):

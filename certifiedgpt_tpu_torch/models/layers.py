@@ -19,16 +19,21 @@ from certifiedgpt_tpu_torch.ops import quantization as Q
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors in the JAX layout, held as buffers so that
-    ``.to(device)`` and ``state_dict`` see them; ``tree()`` returns the
-    dict that the ``*_apply`` functions take. Frozen: no gradients."""
+    """A nested dict of tensors in the JAX layout; ``tree()`` returns the
+    dict that the ``*_apply`` functions take. Frozen (the default), every
+    leaf is a buffer, so ``.to(device)`` and ``state_dict`` see it and
+    autograd records nothing for it. ``trainable`` makes each floating
+    leaf an ``nn.Parameter`` (``requires_grad``), the tensor an optimizer
+    updates in place; integer leaves stay buffers."""
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], trainable: bool = False):
         super().__init__()
         self._names = list(tree)
         for name, value in tree.items():
             if isinstance(value, Mapping):
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, trainable))
+            elif trainable and value.is_floating_point():
+                self.register_parameter(name, nn.Parameter(value.detach()))
             else:
                 self.register_buffer(name, value)
 
@@ -58,15 +63,8 @@ def dense(params, x: torch.Tensor, act_quant: bool = False) -> torch.Tensor:
         out = Q.w8a8_matmul(x, params["kernel_q"], params["scale"])
     elif "kernel_q" in params:
         # weight-only int8: the per-output-channel scale commutes with the
-        # contraction and multiplies the f32 result. On CUDA the bf16 copy
-        # of the int8 kernel is made on every call (a plain-PyTorch cost
-        # the decode path pays; see ROADMAP.md).
-        kq = params["kernel_q"]
-        if x.device.type == "cuda" and x.dtype != torch.float32:
-            acc = torch.matmul(x, kq.to(x.dtype)).float()
-        else:
-            acc = torch.matmul(x.float(), kq.float())
-        out = (acc * params["scale"]).to(x.dtype)
+        # contraction and multiplies the f32 result
+        out = Q.int8_weight_matmul(x, params["kernel_q"], params["scale"])
     else:
         # f32 accumulation, one rounding to x's dtype (cuBLAS and the CPU
         # kernels accumulate bf16 products in f32, like the JAX einsums'

@@ -1,14 +1,21 @@
-"""LLaMA/Vicuna decoder, cached (serving) mode.
+"""LLaMA/Vicuna decoder: the training forward and the cached (serving) mode.
 
-Port of ``certifiedgpt_tpu/models/llama.py`` for generation: rotary,
-RMSNorm and SwiGLU as in HF LLaMA, a per-layer KV cache (optionally int8
-with per-(batch, position, head) f32 scales), W8A8 on multi-token calls
-only (``act_quant``: prefill; single-token decode keeps the weight-only
-path). The training forward (no cache, packing, remat) waits for a later
-slice.
+Port of ``certifiedgpt_tpu/models/llama.py``: rotary, RMSNorm and SwiGLU as
+in HF LLaMA, W8A8 on multi-token calls only (``act_quant``: prefill and
+training; single-token decode keeps the weight-only path).
 
-Unlike the JAX package, whose arrays are immutable, the cache buffers are
-updated in place: ``llama_apply`` writes the new keys/values into the
+Without a cache (training), ``llama_apply`` runs causal self-attention over
+the whole sequence, combined with the padding mask and, for packed rows,
+with ``segment_ids`` (block-diagonal: a token sees only its own segment;
+rotary positions are the caller's). ``remat`` recomputes blocks in the
+backward (``torch.utils.checkpoint``, non-reentrant): ``remat_policy``
+``full`` saves nothing, ``dots`` saves the outputs of the products without
+a batch dimension (the projections), ``dots_all`` every product's (the
+attention's too), ``remat_every`` k checkpoints the first block of every k.
+
+With a cache, the per-layer KV cache (optionally int8 with per-(batch,
+position, head) f32 scales) is updated in place, unlike the JAX package's
+immutable arrays: ``llama_apply`` writes the new keys/values into the
 tensors it is given and returns the same dict.
 """
 
@@ -19,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils import checkpoint as _checkpoint
 
 from certifiedgpt_tpu_torch.models import layers as L
 from certifiedgpt_tpu_torch.ops.attention import (
@@ -44,6 +52,13 @@ class LlamaConfig:
     act_quant: bool = False
     # int8 KV cache with per-row f32 scale sidecars
     kv_quant: bool = False
+    # recompute decoder blocks in the backward (training forward only)
+    remat: bool = False
+    # what a recomputed block saves: "full" nothing, "dots" the products
+    # without a batch dimension, "dots_all" every product
+    remat_policy: str = "full"
+    # checkpoint only the first block of every remat_every
+    remat_every: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -90,10 +105,11 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
     return cache
 
 
-def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache, cache_offset):
+def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
+           cache_offset=None):
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    aq = cfg.act_quant and s > 1  # prefill only; decode is bandwidth-bound
+    aq = cfg.act_quant and s > 1  # prefill and training; decode is bandwidth-bound
 
     hidden = L.rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
     q = L.dense(lp["q_proj"], hidden, act_quant=aq).reshape(b, s, h, dh)
@@ -102,8 +118,10 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache, cache_offs
     q = L.apply_rotary(q, cos, sin, positions)
     k = L.apply_rotary(k, cos, sin, positions)
 
-    at = slice(cache_offset, cache_offset + s)
-    if cfg.kv_quant:
+    if cache is None:
+        attn = multi_head_attention(q, k, v, mask)
+    elif cfg.kv_quant:
+        at = slice(cache_offset, cache_offset + s)
         kq, ks = quantize_rows(k)
         vq, vs = quantize_rows(v)
         cache["k"][:, at] = kq
@@ -114,6 +132,7 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache, cache_offs
             q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask
         )
     else:
+        at = slice(cache_offset, cache_offset + s)
         cache["k"][:, at] = k
         cache["v"][:, at] = v
         attn = multi_head_attention(q, cache["k"], cache["v"], mask)
@@ -125,38 +144,140 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache, cache_offs
     return x + L.dense(lp["down_proj"], gate * up, act_quant=aq)
 
 
+# the products a recomputed block keeps under each of the JAX package's
+# remat policies: "full" none, "dots" those without a batch dimension (the
+# projections, the int8 ones included), "dots_all" the attention's too
+_SAVED_PRODUCTS = {"full": (), "dots": ("mm", "addmm", "_int_mm"),
+                   "dots_all": ("mm", "addmm", "_int_mm", "bmm", "baddbmm")}
+
+
+def _remat_context(policy: str):
+    """The ``context_fn`` of a block checkpointed under ``policy``: None
+    for ``full`` (save nothing), else selective checkpointing that saves
+    the outputs of the policy's products."""
+    if policy not in _SAVED_PRODUCTS:
+        raise ValueError(f"remat_policy={policy!r} not in {sorted(_SAVED_PRODUCTS)}")
+    if not _SAVED_PRODUCTS[policy]:
+        return None
+    ops = {getattr(torch.ops.aten, name).default for name in _SAVED_PRODUCTS[policy]}
+
+    def decide(ctx, op, *args, **kwargs):
+        if op in ops:
+            return _checkpoint.CheckpointPolicy.MUST_SAVE
+        return _checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: _checkpoint.create_selective_checkpoint_contexts(decide)
+
+
+def _training_mask(attention_mask, segment_ids, s: int, device) -> torch.Tensor:
+    """Causal ``[1, 1, S, S]`` and key validity ``[B, 1, 1, S]``, and with
+    ``segment_ids`` the block diagonal ``[B, 1, S, S]``: a query sees a key
+    only inside its own packed segment. Pad slots carry id 0 and end fully
+    masked; the softmax's guard gives their rows zeros (and zero
+    gradients), not NaN."""
+    causal = torch.ones((s, s), dtype=torch.bool, device=device).tril()[None, None]
+    mask = causal & attention_mask[:, None, None, :].bool()
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        mask = mask & same[:, None]
+    return mask
+
+
+def _run_layers(params, cfg: LlamaConfig, x, cos, sin, positions, mask):
+    """The decoder blocks of the training forward, with ``cfg.remat``'s
+    checkpointing."""
+    every = int(cfg.remat_every) if cfg.remat else 1
+    if cfg.remat and cfg.num_layers % every:
+        raise ValueError(f"remat_every={every} must divide num_layers={cfg.num_layers}")
+    context = _remat_context(cfg.remat_policy) if cfg.remat else None
+    for layer in range(cfg.num_layers):
+        lp = L.layer_slice(params["layers"], layer)
+        if cfg.remat and layer % every == 0:
+            kwargs = {} if context is None else {"context_fn": context}
+            x = _checkpoint.checkpoint(_block, x, lp, cfg, cos, sin, positions, mask,
+                                       use_reentrant=False, **kwargs)
+        else:
+            x = _block(x, lp, cfg, cos, sin, positions, mask)
+    return x
+
+
 def llama_apply(
     params: Dict[str, Any],
     cfg: LlamaConfig,
     inputs_embeds: torch.Tensor,  # [B, S, D]
-    attention_mask: torch.Tensor,  # [B, max_len] 1 = valid cache slot
+    attention_mask: torch.Tensor,  # [B, S] (no cache) or [B, max_len] 1 = valid
     positions: torch.Tensor,  # [B, S] rotary positions of the query tokens
-    kv_cache: Dict[str, Tuple[torch.Tensor, ...]],
-    cache_offset: int,
+    kv_cache: Optional[Dict[str, Tuple[torch.Tensor, ...]]] = None,
+    cache_offset: Optional[int] = None,
     compute_logits: bool = True,
-) -> Tuple[Optional[torch.Tensor], torch.Tensor, Dict[str, Tuple[torch.Tensor, ...]]]:
-    """Cached forward: the S query tokens write their keys/values at
+    segment_ids: Optional[torch.Tensor] = None,  # [B, S] packed-segment ids
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, Optional[Dict[str, Tuple[torch.Tensor, ...]]]]:
+    """Run the decoder. Returns ``(logits or None, final hidden, cache)``.
+
+    Without a cache (training): causal self-attention over the S tokens,
+    ``attention_mask`` [B, S] the padding validity, ``segment_ids`` (if
+    given) isolating packed segments; the cache returned is None.
+
+    With a cache: the S query tokens write their keys/values at
     ``cache_offset`` and attend over the whole cache; query i (position
     ``cache_offset + i``) sees slot j iff ``j <= cache_offset + i`` and the
-    slot is valid. Returns ``(logits or None, final hidden, cache)``."""
+    slot is valid."""
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     cos, sin = L.rotary_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, device=device)
-    sk = kv_cache["k"][0].shape[1]
-    q_pos = cache_offset + torch.arange(s, device=device)[:, None]
-    k_pos = torch.arange(sk, device=device)[None, :]
-    mask = (k_pos <= q_pos)[None, None] & attention_mask[:, None, None, :].bool()
-
     x = inputs_embeds.to(cfg.dtype)
-    names = tuple(kv_cache)
-    for layer in range(cfg.num_layers):
-        lp = L.layer_slice(params["layers"], layer)
-        layer_cache = {name: kv_cache[name][layer] for name in names}
-        x = _block(x, lp, cfg, cos, sin, positions, mask, layer_cache, cache_offset)
+    if kv_cache is None:
+        mask = _training_mask(attention_mask, segment_ids, s, device)
+        x = _run_layers(params, cfg, x, cos, sin, positions, mask)
+    else:
+        if segment_ids is not None:
+            raise ValueError(
+                "segment_ids (packed sequences) is a training-forward feature; "
+                "cached prefill/decode is unpacked"
+            )
+        sk = kv_cache["k"][0].shape[1]
+        q_pos = cache_offset + torch.arange(s, device=device)[:, None]
+        k_pos = torch.arange(sk, device=device)[None, :]
+        mask = (k_pos <= q_pos)[None, None] & attention_mask[:, None, None, :].bool()
+        names = tuple(kv_cache)
+        for layer in range(cfg.num_layers):
+            lp = L.layer_slice(params["layers"], layer)
+            layer_cache = {name: kv_cache[name][layer] for name in names}
+            x = _block(x, lp, cfg, cos, sin, positions, mask, layer_cache, cache_offset)
     x = L.rms_norm(params["norm"], x, cfg.rms_norm_eps)
     logits = lm_head_logits(params, x) if compute_logits else None
     return logits, x, kv_cache
+
+
+IGNORE_INDEX = -100
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # [B, S, V]
+    labels: torch.Tensor,  # [B, S] with IGNORE_INDEX masking
+    label_smoothing: float = 0.1,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Label-smoothed CE with the causal shift (logits[:, :-1] against
+    labels[:, 1:]), in f32. ``mean``: over every valid token of the batch;
+    ``none``: each sample's mean over its valid tokens; ``sum``: each
+    sample's sum over its valid tokens (the JAX package's definitions)."""
+    logits = logits[:, :-1, :].float()
+    labels = labels[:, 1:]
+    valid = labels != IGNORE_INDEX
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    smooth = -logp.mean(dim=-1)
+    per_token = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    per_token = torch.where(valid, per_token, 0.0)
+    counts = valid.sum(dim=-1)
+    if reduction == "none":
+        return per_token.sum(dim=-1) / counts.clamp_min(1)
+    if reduction == "sum":
+        return per_token.sum(dim=-1)
+    return per_token.sum() / counts.sum().clamp_min(1)
 
 
 class Llama(nn.Module):
@@ -165,7 +286,7 @@ class Llama(nn.Module):
         self.cfg = cfg
         self.params = L.ParamTree(params)
 
-    def forward(self, inputs_embeds, attention_mask, positions, kv_cache,
-                cache_offset, compute_logits=True):
+    def forward(self, inputs_embeds, attention_mask, positions, kv_cache=None,
+                cache_offset=None, compute_logits=True, segment_ids=None):
         return llama_apply(self.params.tree(), self.cfg, inputs_embeds, attention_mask,
-                           positions, kv_cache, cache_offset, compute_logits)
+                           positions, kv_cache, cache_offset, compute_logits, segment_ids)

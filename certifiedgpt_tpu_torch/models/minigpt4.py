@@ -1,11 +1,13 @@
 """MiniGPT-4 assembly: EVA ViT -> ln_vision -> Q-Former -> llama_proj -> decoder.
 
-Port of the generation path of ``certifiedgpt_tpu/models/minigpt4.py``
-(``encode_img``, ``assemble_embeds``, greedy ``generate`` with the KV cache
-and ``early_exit``). Prompts are left-padded, so every row's last prompt
-token sits at slot S-1 and decoding proceeds from one cache offset.
-Sampling, beam search, candidate ranking and the training loss wait for
-later slices.
+Port of ``certifiedgpt_tpu/models/minigpt4.py``: ``encode_img``, the
+embedding assembly (``assemble_embeds``, and ``assemble_packed_embeds`` for
+packed training rows), the training loss ``minigpt4_loss``,
+``split_params``/``merge_params``, and greedy ``generate`` with the KV
+cache and ``early_exit``. Generation prompts are left-padded, so every
+row's last prompt token sits at slot S-1 and decoding proceeds from one
+cache offset; training rows are right-padded. Sampling, beam search and
+candidate ranking wait for later slices.
 
 ``early_exit`` never waits for the device: the JAX package ends its decode
 loop on the device (``lax.while_loop``); here each step queues a copy of
@@ -21,7 +23,7 @@ The parameter tree is ``{"vit", "ln_vision", "qformer", "llama_proj",
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,6 +34,7 @@ from certifiedgpt_tpu_torch.models.eva_vit import EvaViT, EvaViTConfig, eva_vit_
 from certifiedgpt_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
+    cross_entropy_loss,
     embed_tokens,
     init_kv_cache,
     llama_apply,
@@ -47,6 +50,7 @@ class MiniGPT4Config:
     llama: LlamaConfig = dataclasses.field(default_factory=LlamaConfig)
     max_txt_len: int = 160
     max_context_len: int = 3800
+    label_smoothing: float = 0.1
 
     @staticmethod
     def tiny(**overrides) -> "MiniGPT4Config":
@@ -91,6 +95,81 @@ def assemble_embeds(params: Dict[str, Any], cfg: MiniGPT4Config,
     rows = torch.arange(text.shape[0], device=text.device)[:, None]
     text[rows, slots] = img_embeds.to(text.dtype)
     return text
+
+
+def assemble_packed_embeds(params: Dict[str, Any], cfg: MiniGPT4Config,
+                           input_ids: torch.Tensor,  # [R, S] packed rows
+                           img_embeds: torch.Tensor,  # [R, K, T_img, D] one image a segment
+                           img_pos: torch.Tensor,  # [R, K] image span start of each segment
+                           ) -> torch.Tensor:
+    """``assemble_embeds`` for packed rows (``data/text.pack_train_batch``):
+    each of a row's K segments gets its own image span. A span start is
+    clamped so that the span fits the row, as JAX's
+    ``dynamic_update_slice`` clamps it."""
+    text = embed_tokens(params["llama"], input_ids)
+    s, t_img = text.shape[1], img_embeds.shape[2]
+    start = img_pos.long().clamp(0, s - t_img)
+    slots = start[:, :, None] + torch.arange(t_img, device=text.device)
+    rows = torch.arange(text.shape[0], device=text.device)[:, None, None]
+    text[rows, slots] = img_embeds.to(text.dtype)
+    return text
+
+
+TRAINABLE_DEFAULT = ("llama_proj",)
+
+
+def split_params(params: Dict[str, Any], trainable_keys: Tuple[str, ...] = TRAINABLE_DEFAULT
+                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Partition the tree into (trainable, frozen) by top-level key."""
+    trainable = {k: v for k, v in params.items() if k in trainable_keys}
+    frozen = {k: v for k, v in params.items() if k not in trainable_keys}
+    return trainable, frozen
+
+
+def merge_params(trainable: Dict[str, Any], frozen: Dict[str, Any]) -> Dict[str, Any]:
+    return {**frozen, **trainable}
+
+
+def minigpt4_loss(params: Dict[str, Any], cfg: MiniGPT4Config, batch: Dict[str, torch.Tensor],
+                  reduction: str = "mean", img_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Label-smoothed CE on the answer tokens (-100 outside the answer
+    span). ``batch``: image [B,H,W,C], input_ids, attention_mask, labels
+    [B,S], img_pos [B]; a packed batch (``data/text.pack_train_batch``)
+    carries segment_ids and positions [R,S] and img_pos [R,K] for B = R*K
+    images, and runs block-diagonal attention with per-segment rotary
+    positions. ``img_embeds`` skips the vision tower. Rotary positions
+    past the decoder's table raise (the JAX package would give NaN)."""
+    if img_embeds is None:
+        img_embeds = encode_img(params, cfg, batch["image"])
+    table = cfg.llama.max_position_embeddings
+    if "segment_ids" in batch:
+        rows, k = batch["img_pos"].shape
+        seg_budget = batch["input_ids"].shape[1] // k
+        if seg_budget > table:
+            raise ValueError(
+                f"run.seq_len//pack_sequences={seg_budget} exceeds the decoder's "
+                f"max_position_embeddings={table}; packed per-segment rotary positions "
+                f"past the table would silently NaN"
+            )
+        embeds = assemble_packed_embeds(
+            params, cfg, batch["input_ids"],
+            img_embeds.reshape(rows, k, *img_embeds.shape[1:]), batch["img_pos"],
+        )
+        positions, segment_ids = batch["positions"].long(), batch["segment_ids"]
+    else:
+        embeds = assemble_embeds(params, cfg, batch["input_ids"], img_embeds, batch["img_pos"])
+        if embeds.shape[1] > table:
+            raise ValueError(
+                f"run.seq_len={embeds.shape[1]} exceeds the decoder's "
+                f"max_position_embeddings={table}; rotary positions past the table "
+                f"would silently NaN"
+            )
+        positions = torch.arange(embeds.shape[1], device=embeds.device).expand(embeds.shape[:2])
+        segment_ids = None
+    logits, _, _ = llama_apply(params["llama"], cfg.llama, embeds, batch["attention_mask"],
+                               positions, segment_ids=segment_ids)
+    return cross_entropy_loss(logits, batch["labels"], cfg.label_smoothing, reduction=reduction)
 
 
 class _DoneFlags:

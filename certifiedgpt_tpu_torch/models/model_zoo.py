@@ -3,8 +3,9 @@
 ``MiniGPT4Model`` holds (cfg, params, tokenizer) as in
 ``certifiedgpt_tpu/models/model_zoo.py``; ``MiniGPT4Model.from_config`` is
 the synthetic half of its ``from_config``: it reads a config's model block
-(a plain mapping) into a ``MiniGPT4Config`` (``config_from_block``) and makes
-the seeded synthetic weights on the target device. ``build_synthetic_model``
+(a plain mapping) into a ``MiniGPT4Config`` (``config_from_block``), makes
+the seeded synthetic weights on the target device and loads the alignment
+prompt pool (``prompt_path``). ``build_synthetic_model``
 makes full-width weights from a seed directly on the device, each layer
 stack of the ViT and the decoder at the serving int8 layout or in its float
 dtype, module by module so that the peak stays about one float layer stack
@@ -50,14 +51,9 @@ def config_from_block(model_cfg: Mapping[str, Any]) -> MiniGPT4Config:
     ``image_size``, ``num_query_token``, ``vit_attn_impl`` and
     ``max_txt_len``. ``act_quant`` turns on W8A8 in the ViT and the decoder,
     ``kv_quant`` the int8 KV cache, ``max_position_embeddings`` sets the
-    decoder's rotary table length. ``remat`` (with ``remat_policy`` and
-    ``remat_every``, which act only under it) is a training knob and raises
-    ``NotImplementedError`` until the training slice is ported."""
-    if model_cfg.get("remat"):
-        raise NotImplementedError(
-            "model.remat: rematerialization belongs to the training forward, which "
-            "is not ported yet (ROADMAP.md, modules item 14)"
-        )
+    decoder's rotary table length, and the training knob ``remat`` (with
+    ``remat_policy`` and ``remat_every``, which act only under it)
+    recomputes decoder blocks in the backward."""
     if model_cfg.get("model_size", "full") == "tiny":
         cfg = MiniGPT4Config.tiny()
     else:
@@ -72,13 +68,16 @@ def config_from_block(model_cfg: Mapping[str, Any]) -> MiniGPT4Config:
         )
     aq = bool(model_cfg.get("act_quant", False))
     kvq = bool(model_cfg.get("kv_quant", False))
+    remat = bool(model_cfg.get("remat", False))
     mpe = model_cfg.get("max_position_embeddings")
-    if aq or kvq or mpe:
+    if aq or kvq or remat or mpe:
         cfg = dataclasses.replace(
             cfg,
             vit=dataclasses.replace(cfg.vit, act_quant=aq),
             llama=dataclasses.replace(
-                cfg.llama, act_quant=aq, kv_quant=kvq,
+                cfg.llama, act_quant=aq, kv_quant=kvq, remat=remat,
+                remat_policy=str(model_cfg.get("remat_policy", "full")),
+                remat_every=int(model_cfg.get("remat_every", 1)),
                 max_position_embeddings=int(mpe) if mpe else cfg.llama.max_position_embeddings,
             ),
         )
@@ -104,15 +103,19 @@ def load_prompt_pool(prompt_path, prompt_template="{}"):
 @registry.register_model("minigpt4")
 class MiniGPT4Model:
     """Holds the config, the model (one module per tower, parameters in the
-    JAX layout) and the tokenizer. ``params`` is the parameter dict the
-    ``models.minigpt4`` functions take, rebuilt from the modules on every
-    access: assigning into it changes nothing, so weights are replaced on
-    the modules (``set_llama_proj``)."""
+    JAX layout), the tokenizer and the alignment prompt pool. ``params`` is
+    the parameter dict the ``models.minigpt4`` functions take, rebuilt from
+    the modules on every access: assigning into it changes nothing, so
+    weights are replaced on the modules (``set_llama_proj``,
+    ``make_trainable``)."""
 
-    def __init__(self, cfg: MiniGPT4Config, params: Dict[str, Any], tokenizer):
+    def __init__(self, cfg: MiniGPT4Config, params: Dict[str, Any], tokenizer,
+                 prompt_list=()):
         self.cfg = cfg
         self.module = MiniGPT4(cfg, params)
         self.tokenizer = tokenizer
+        # datasets without per-sample instructions draw from it
+        self.prompt_list = list(prompt_list)
 
     @property
     def params(self) -> Dict[str, Any]:
@@ -122,10 +125,31 @@ class MiniGPT4Model:
     def device(self) -> torch.device:
         return self.module.llama.params.embed_tokens.embedding.device
 
+    def _set_tree(self, key: str, tree: L.ParamTree) -> None:
+        holder = getattr(self.module, key)
+        if isinstance(holder, L.ParamTree):
+            setattr(self.module, key, tree)
+        else:  # a tower module holding its tree as .params
+            holder.params = tree
+
     def set_llama_proj(self, tree: Mapping[str, torch.Tensor]) -> None:
         """Replace the projection's weights (``{"kernel", "bias"}``, e.g. a
         finetuned ``llama_proj``) on the module the forward reads."""
-        self.module.llama_proj = L.ParamTree(tree)
+        self._set_tree("llama_proj", L.ParamTree(tree))
+
+    def make_trainable(self, keys) -> Dict[str, Any]:
+        """Make the top-level subtrees ``keys`` trainable on the modules the
+        forward reads: each floating leaf becomes an ``nn.Parameter``
+        (``requires_grad``; every other leaf stays a frozen buffer, so
+        autograd records nothing for the frozen towers). Returns the
+        trainable tree, whose parameters an optimizer updates in place."""
+        params = self.params
+        for key in keys:
+            if key not in params:
+                raise KeyError(f"run.trainable_keys names {key!r}, not one of {sorted(params)}")
+            self._set_tree(key, L.ParamTree(params[key], trainable=True))
+        params = self.params
+        return {key: params[key] for key in keys}
 
     @classmethod
     def from_config(cls, model_cfg: Mapping[str, Any], device="cuda") -> "MiniGPT4Model":
@@ -153,7 +177,11 @@ class MiniGPT4Model:
             quantize_vit=bool(model_cfg.get("quantize_vit", False)),
             quantize_llama=bool(model_cfg.get("quantize_llama", False)),
         )
-        return cls(cfg, params, ByteTokenizer())
+        prompt_list = load_prompt_pool(model_cfg.get("prompt_path"),
+                                       model_cfg.get("prompt_template", "{}"))
+        if prompt_list:
+            logger.info("Loaded %d alignment prompts", len(prompt_list))
+        return cls(cfg, params, ByteTokenizer(), prompt_list=prompt_list)
 
 
 class _Init:

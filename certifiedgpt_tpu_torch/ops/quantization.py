@@ -19,10 +19,17 @@ ulp of the sum above it, so the two differ by less than 1e-7 relative
 before the bf16 output rounding) and an f32 product of the int8 values on
 the CPU (exact below 2^24). ``_int_mm`` takes the int8 kernel column-major
 (``int8_kernel_layout``), which the model builders store.
+
+``w8a8_matmul``, ``w8a8_gelu_matmul`` and the weight-only product
+``int8_weight_matmul`` are ``torch.autograd.Function``s, differentiable in
+their activation by the JAX package's straight-through estimators: the
+backward multiplies by the dequantized weight and saves only the int8
+kernel and its scale. The kernels and scales get no gradient.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -97,10 +104,10 @@ def w8a8_matmul(
     x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor
 ) -> torch.Tensor:
     """``x [..., in] @ int8 kernel [in, out]`` with dynamic per-row
-    activation quant: ``(xq @ wq) * xs * ws`` in f32, cast to x's dtype
-    (forward only: the serving towers are frozen)."""
-    xq, xs = quantize_rows(x)
-    return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype)
+    activation quant: ``(xq @ wq) * xs * ws`` in f32, cast to x's dtype.
+    Differentiable in ``x`` by the straight-through estimator of the JAX
+    package's ``custom_vjp`` (``_W8A8Matmul``)."""
+    return _W8A8Matmul.apply(x, kernel_q, scale)
 
 
 def _w8a8_epilogue(xq, xs, kernel_q, scale, dtype) -> torch.Tensor:
@@ -114,9 +121,111 @@ def w8a8_gelu_matmul(
     x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor
 ) -> torch.Tensor:
     """``gelu(x) @ int8 kernel`` with the gelu and the per-row activation
-    quant fused (``gelu_quant_rows``)."""
-    xq, xs = gelu_quant_rows(x)
-    return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype)
+    quant fused (``gelu_quant_rows``). Differentiable in ``x``: the
+    backward is ``(g @ w^T) * gelu'(x)`` (``_W8A8GeluMatmul``)."""
+    return _W8A8GeluMatmul.apply(x, kernel_q, scale)
+
+
+def _dequantized_t(kernel_q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """``(kernel_q * scale)^T`` as ``[out, in]`` in ``dtype``: the float
+    weight that the straight-through backward multiplies by."""
+    return (kernel_q.float() * scale[None, :]).to(dtype).t()
+
+
+def _grad_input(g: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """``g [..., out] @ (kernel_q * scale)^T`` in ``g``'s dtype, cast to
+    ``dtype``: JAX's ``einsum("...o,io->...i", g, w)``."""
+    return torch.matmul(g, _dequantized_t(kernel_q, scale, g.dtype)).to(dtype)
+
+
+class _W8A8Matmul(torch.autograd.Function):
+    """The JAX package's ``w8a8_matmul`` ``custom_vjp``
+    (certifiedgpt_tpu/ops/quantization.py:68-113). The forward quantizes
+    the rows and runs the int8 product; the backward is the float
+    product's, ``g @ (kernel_q * scale)^T``, so ``round``'s zero derivative
+    never appears. Saved for the backward, as in JAX: the int8 kernel, its
+    scale and x's dtype (no activation, no dequantized weight); the kernel
+    and the scale get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_q, scale):
+        ctx.save_for_backward(kernel_q, scale)
+        ctx.x_dtype = x.dtype
+        xq, xs = quantize_rows(x)
+        return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        kernel_q, scale = ctx.saved_tensors
+        return _grad_input(g, kernel_q, scale, ctx.x_dtype), None, None
+
+
+class _W8A8GeluMatmul(torch.autograd.Function):
+    """The JAX package's ``w8a8_gelu_matmul`` ``custom_vjp``
+    (certifiedgpt_tpu/ops/quantization.py:308-345). The forward is the
+    fused GELU + row quant (the CUDA kernel on the card) and the int8
+    product; the backward is ``(g @ w^T) * (Phi(x) + x phi(x))`` with the
+    exact erf (JAX's ``_w8a8_gelu_bwd``), not the kernel's A-S erf. Saved:
+    x, the int8 kernel and its scale."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_q, scale):
+        ctx.save_for_backward(x, kernel_q, scale)
+        xq, xs = gelu_quant_rows(x)
+        return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel_q, scale = ctx.saved_tensors
+        gh = _grad_input(g, kernel_q, scale, torch.float32)
+        x32 = x.float()
+        cdf = 0.5 * (1.0 + torch.erf(x32 * 2.0 ** -0.5))
+        pdf = torch.exp(-0.5 * x32 * x32) * (1.0 / math.sqrt(2.0 * math.pi))
+        return (gh * (cdf + x32 * pdf)).to(x.dtype), None, None
+
+
+def int8_weight_matmul(
+    x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor
+) -> torch.Tensor:
+    """Weight-only int8 product ``(x @ kernel_q) * scale`` in x's dtype
+    (the per-output-channel scale commutes with the contraction). Its
+    backward saves only the int8 kernel and the scale and dequantizes when
+    it runs (``_Int8WeightMatmul``): a saved float copy of every decoder
+    kernel would hold gigabytes across a training step."""
+    return _Int8WeightMatmul.apply(x, kernel_q, scale)
+
+
+def _int8_weight_forward(x, kernel_q, scale):
+    # on CUDA the bf16 copy of the int8 kernel is made on every call (a
+    # plain-PyTorch cost the decode path pays; see ROADMAP.md)
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        acc = torch.matmul(x, kernel_q.to(x.dtype)).float()
+    else:
+        acc = torch.matmul(x.float(), kernel_q.float())
+    return (acc * scale).to(x.dtype)
+
+
+class _Int8WeightMatmul(torch.autograd.Function):
+    """Weight-only int8 product with the gradient of the JAX package's
+    ``(einsum(x, kernel_q.astype(x.dtype)) * scale).astype(x.dtype)``:
+    ``gx = (g * scale) @ kernel_q^T`` in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_q, scale):
+        ctx.save_for_backward(kernel_q, scale)
+        ctx.x_dtype = x.dtype
+        return _int8_weight_forward(x, kernel_q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        kernel_q, scale = ctx.saved_tensors
+        gs = g.float() * scale
+        if g.device.type == "cuda" and ctx.x_dtype != torch.float32:
+            gx = torch.matmul(gs.to(ctx.x_dtype), kernel_q.to(ctx.x_dtype).t())
+        else:
+            gx = torch.matmul(gs, kernel_q.float().t())
+        return gx.to(ctx.x_dtype), None, None
 
 
 # ----------------------------------------------------------------------

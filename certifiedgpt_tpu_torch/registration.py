@@ -2,7 +2,8 @@
 
 Importing this module registers, in the port's registry
 (``common/registry.py``), the processors, dataset builders, model and
-agents that the port has, under the JAX package's names::
+agents and lr schedulers that the port has, under the JAX package's
+names::
 
     from certifiedgpt_tpu_torch import registration  # noqa: F401
 """
@@ -12,3 +13,5 @@ import certifiedgpt_tpu_torch.data.builders  # noqa: F401
 import certifiedgpt_tpu_torch.models.model_zoo  # noqa: F401
 import certifiedgpt_tpu_torch.agents.certify  # noqa: F401
 import certifiedgpt_tpu_torch.agents.eval  # noqa: F401
+import certifiedgpt_tpu_torch.agents.finetune  # noqa: F401
+import certifiedgpt_tpu_torch.optim  # noqa: F401

@@ -19,7 +19,8 @@ Phases, each of which exits non-zero on any failure:
    (one launch: the patch rows and the cls row, the latter also against its
    own plain version); the LN + row-quant and GELU + row-quant kernels at
    the patch and cls streams' row counts (98304 and 96) and at 1 and 4097
-   rows and at the eval batch's patch and cls streams (8192 and 8 rows),
+   rows and at the eval and train batches' patch and cls streams (8192 and
+   8, 49152 and 48 rows),
    each input with a row of zeros, timed on N(0, 1) and N(0, 3^2)
    rows; the flash kernel at
    [96, 1025, 16, 88] in both layouts and causal at [4, 333, 16, 88]; the
@@ -116,9 +117,32 @@ Phases, each of which exits non-zero on any failure:
    JAX package's summary keys and 10 predictions, each batch ran the
    path's launches; prints samples per second and the peak memory.
 
+11. Training, with autograd on, over a written VQAv2-shaped set (96 train
+   and 48 val 640x480 JPEGs; the model block's checkpoint paths where
+   nothing exists). 11.1: on one full-width batch of
+   ``configs/train_configs/vqav2_finetuning_noise_0.5_w8a8.yaml`` (48
+   images packed 3 to a row, 16 rows x 256 tokens) the loss and the
+   ``llama_proj`` gradient through the kernels against the same through
+   their plain versions (limits ``TRAIN_LOSS_REL_LIMIT``,
+   ``TRAIN_GRAD_REL_LIMIT``, and ``WEIGHT_ONLY_GRAD_REL_LIMIT`` with the
+   decoder's activation quant off), with a control (the plain image tokens
+   changed at random by as much); one decoder layer's straight-through
+   backward against the layer with dequantized bf16 kernels; a batch whose
+   last packed row is all padding gives finite values. 11.2:
+   ``launch.main(["train", ...])`` on that YAML and on
+   ``vqav2_finetuning_noise_0.5.yaml`` (bf16 towers), each a copy with only
+   ``max_epoch`` cut to ``TRAIN_EPOCHS``: every train step and val batch
+   timed (synchronized) with its kernel launches (39 / 156 / 78 at W8A8, 39
+   cls-split with the bf16 towers), finite losses, the checkpoints (the
+   resume one with optimizer state), ``loss_history.json`` and the metric
+   rows; prints seconds a step, samples and decoder tokens a second and
+   the peak memory. 11.3: the predict YAML on phase 8's two images with
+   ``vqa_finetuned`` the W8A8 run's ``_best`` checkpoint: every
+   ``encode_img`` call reads the trained projection.
+
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``cli_launches``: the
-launches in each run of phases 8-10), and as its last line
+launches in each launcher run of phases 8-11), and as its last line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
@@ -127,6 +151,7 @@ kernel) and prints the kernel records instead of the two closing lines.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -172,6 +197,8 @@ NOISE_ODD_CASES = (((1,), 1), ((7,), 3), ((3, 3, 1), 3), ((5, 3, 3), 96), ((4097
 MC_BATCH = 96
 # batch_size of configs/eval_configs/vqav2_eval_noise_0.5.yaml
 EVAL_BATCH = 8
+# batch_size of the VQAv2 finetuning configs (configs/train_configs/)
+TRAIN_BATCH = 48
 VIT_TOKENS = 1024
 VIT_SEQ = VIT_TOKENS + 1
 VIT_WIDTH = 1408
@@ -716,8 +743,10 @@ def phase_kernels(torch, device):
 
     g = torch.Generator(device=device).manual_seed(0)
     rows = MC_BATCH * VIT_TOKENS
-    # patch and cls streams first, then odd counts and eval's two streams
-    row_counts = (rows, MC_BATCH, 1, 4097, EVAL_BATCH * VIT_TOKENS, EVAL_BATCH)
+    # patch and cls streams first, then odd counts, eval's two streams and a
+    # training batch's two
+    row_counts = (rows, MC_BATCH, 1, 4097, EVAL_BATCH * VIT_TOKENS, EVAL_BATCH,
+                  TRAIN_BATCH * VIT_TOKENS, TRAIN_BATCH)
 
     def normal(shape, std):
         return (torch.randn(shape, generator=g, device=device) * std).to(torch.bfloat16)
@@ -1736,6 +1765,396 @@ def phase_eval(torch, card, d_in: int, d_out: int):
     return res["launches"]
 
 
+# ----------------------------------------------------------------------
+# phase 11: training on the shipped VQAv2 finetuning configs
+# ----------------------------------------------------------------------
+TRAIN_W8A8_CONFIG = "configs/train_configs/vqav2_finetuning_noise_0.5_w8a8.yaml"
+TRAIN_BF16_CONFIG = "configs/train_configs/vqav2_finetuning_noise_0.5.yaml"
+# each run with max_epoch cut to this (its only change), inside the time limit
+TRAIN_EPOCHS = 3
+# a written VQAv2-shaped set: two train steps of 48 an epoch, one val batch
+TRAIN_SAMPLES = 96
+VAL_SAMPLES = 48
+# 11.1 limits, kernels against their plain versions on one full-width batch
+# of the _w8a8 config. The ViT's tokens agree within 5e-2 (phase 4's limit;
+# 2.3e-2 measured), the projected image tokens within ~1.2e-2, and the loss
+# averages over every answer token. The W8A8 decoder's backward amplifies
+# a change of its image tokens ~25x: its int8 activation codes flip (one
+# H100 at 700 W: the loss's gradient in the tokens 3.1e-1 apart, the
+# projection's 8.9e-2; the controls below print a random change of the
+# tokens of the same size, and the same decoder with weight-only int8
+# products)
+TRAIN_LOSS_REL_LIMIT = 1e-2
+TRAIN_GRAD_REL_LIMIT = 0.25
+# the projection's gradient with the decoder's activation quant off
+# (weight-only int8 products): no codes to flip
+WEIGHT_ONLY_GRAD_REL_LIMIT = 5e-2
+# one decoder layer's straight-through backward against autograd through the
+# same layer with the int8 kernels dequantized to bf16 and no activation
+# quant: they differ only by the forward's int8 activation rounding (~1 %)
+LAYER_GRAD_REL_LIMIT = 5e-2
+# kernel launches a train step (and a val batch) of 48 images: the ViT once;
+# the bf16 towers run no row-quant kernel
+PER_TRAIN_STEP = {
+    "w8a8": PER_CHUNK["flash_cls"],
+    "bf16": {"cls_split_attention": VIT_DEPTH},
+}
+
+
+def write_train_set(root) -> dict:
+    """Seeded 640x480 JPEGs named as COCO train2014 (``TRAIN_SAMPLES``) and
+    val2014 (``VAL_SAMPLES``) images with VQAv2-shaped question and
+    annotation JSONs; returns the environment the train YAMLs read (the
+    model block's checkpoint paths where nothing exists)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(3)
+    (root / "train_images").mkdir()
+    env = {"VQAV2_IMAGES": str(root / "train_images"),
+           **{name: str(root / "absent" / name.lower()) for name in CHECKPOINT_ENV}}
+    for split, n, base in (("train", TRAIN_SAMPLES, 20000), ("val", VAL_SAMPLES, 30000)):
+        questions, annotations = [], []
+        for i in range(n):
+            image_id = base + i
+            Image.fromarray(rng.randint(0, 255, (480, 640, 3), dtype=np.uint8)).save(
+                root / "train_images" / f"COCO_{split}2014_{image_id:012d}.jpg")
+            questions.append({"question_id": image_id, "image_id": image_id,
+                              "question": "what animal is this?"})
+            annotations.append({
+                "question_id": image_id, "image_id": image_id, "question_type": "what",
+                "answer_type": "other",
+                "answers": [{"answer": a, "answer_confidence": "yes", "answer_id": j + 1}
+                            for j, a in enumerate(GT_ANSWERS)]})
+        for kind, rows in (("QUESTIONS", {"questions": questions}),
+                           ("ANNOTATIONS", {"annotations": annotations})):
+            path = root / f"{split}_{kind.lower()}.json"
+            path.write_text(json.dumps(rows))
+            env[f"VQAV2_{split.upper()}_{kind}"] = str(path)
+    return env
+
+
+def cut_config(path: str, root, epochs: int):
+    """A copy of the shipped YAML ``path`` with only ``run.max_epoch`` set to
+    ``epochs``; its ``${env:...}`` values stay as written."""
+    import yaml
+
+    with open(path) as handle:
+        cfg = yaml.safe_load(handle)
+    cfg["run"]["max_epoch"] = epochs
+    out = root / os.path.basename(path)
+    out.write_text(yaml.safe_dump(cfg))
+    return out
+
+
+def plain_versions():
+    """Patches that route the path's kernels to their plain versions."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.models import eva_vit as V
+    from certifiedgpt_tpu_torch.ops import flash_attention as FA
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    return [mock.patch.object(V, "cls_split_attention_parts", FA._cls_split_attention_plain),
+            mock.patch.object(Q, "ln_quant_rows", Q._ln_quant_rows_plain),
+            mock.patch.object(Q, "gelu_quant_rows", Q._gelu_quant_rows_as_plain)]
+
+
+def phase_train_checks(torch, card, device, root, env):
+    """11.1: on one full-width batch of the ``_w8a8`` config (48 written
+    448 px images, pack 3, seq_len 256) the loss and the ``llama_proj``
+    gradient through the kernels against the same through their plain
+    versions; one decoder layer's straight-through backward against a
+    dequantized bf16 reference; a batch whose last packed row is all
+    padding gives a finite loss and finite gradients."""
+    import dataclasses
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch import registration  # noqa: F401 (the agents)
+    from certifiedgpt_tpu_torch.agents.base import setup_agent
+    from certifiedgpt_tpu_torch.common.config import Config
+    from certifiedgpt_tpu_torch.models import layers as L
+    from certifiedgpt_tpu_torch.models import llama as LL
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    with mock.patch.dict(os.environ, dict(env, OUTPUT_DIR=str(root / "out_checks"))):
+        agent = setup_agent(Config(TRAIN_W8A8_CONFIG), device=device)
+        host = next(iter(agent.create_loaders()["train"]))
+    batch = agent.device_batch(host)
+    model, cfg = agent.model, agent.model.cfg
+    proj = model.module.llama_proj
+
+    def loss_and_grad(b, offset=None, run_cfg=cfg):
+        """The loss, the projection's gradient, the image tokens (plus
+        ``offset``) and the loss's gradient in them (what the decoder's
+        backward hands the projection), and whether the bias gradient is
+        finite."""
+        proj.kernel.grad = proj.bias.grad = None
+        tokens = M.encode_img(model.params, run_cfg, b["image"])
+        if offset is not None:
+            tokens = tokens + offset
+        tokens.retain_grad()
+        loss = M.minigpt4_loss(model.params, run_cfg, b, img_embeds=tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss.detach()), proj.kernel.grad.clone(), tokens.detach(),
+                tokens.grad, bool(torch.isfinite(proj.bias.grad).all()))
+
+    loss_and_grad(batch)  # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, grad, tokens, tokens_grad, _ = loss_and_grad(batch)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts("train 11.1", launches, PER_TRAIN_STEP["w8a8"], 1)
+    weight_only = dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, act_quant=False))
+    wo_grad = loss_and_grad(batch, run_cfg=weight_only)[1]
+    with contextlib.ExitStack() as stack:
+        for patch in plain_versions():
+            stack.enter_context(patch)
+        plain_loss, plain_grad, plain_tokens, plain_tokens_grad, _ = loss_and_grad(batch)
+        wo_plain_grad = loss_and_grad(batch, run_cfg=weight_only)[1]
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    grad_rel = rel_err(grad, plain_grad)
+    wo_rel = rel_err(wo_grad, wo_plain_grad)
+    # control: the plain tokens changed at random by as much as the kernels
+    # change them
+    g = torch.Generator(device=device).manual_seed(7)
+    noise = torch.randn(plain_tokens.shape, generator=g, device=device)
+    noise *= (tokens.float() - plain_tokens.float()).norm() / noise.norm()
+    with contextlib.ExitStack() as stack:
+        for patch in plain_versions():
+            stack.enter_context(patch)
+        control = loss_and_grad(batch, offset=noise.to(plain_tokens.dtype))
+    rows, seq = batch["input_ids"].shape
+    log(f"[train] 11.1 {TRAIN_W8A8_CONFIG}: batch of {batch['image'].shape[0]} images as "
+        f"{rows} packed rows x {seq}: loss {loss:.6f} through the kernels, {plain_loss:.6f} "
+        f"through their plain versions (relative error {loss_rel:.3e}, limit "
+        f"{TRAIN_LOSS_REL_LIMIT:g}); llama_proj gradient relative error (Frobenius) "
+        f"{grad_rel:.3e} (limit {TRAIN_GRAD_REL_LIMIT:g}); on the way: projected image tokens "
+        f"{rel_err(tokens, plain_tokens):.3e}, the loss's gradient in them (the decoder's "
+        f"backward) {rel_err(tokens_grad, plain_tokens_grad):.3e}; forward + backward "
+        f"{seconds:.3f} s; launches {json.dumps(launches)}; {card}")
+    log(f"[train] 11.1 controls: the plain path with its image tokens changed at random by as "
+        f"much: the loss's gradient in them {rel_err(control[3], plain_tokens_grad):.3e}, the "
+        f"projection's {rel_err(control[1], plain_grad):.3e}; the decoder with weight-only "
+        f"int8 products (no activation quant), kernels against plain versions: the "
+        f"projection's gradient {wo_rel:.3e} (limit {WEIGHT_ONLY_GRAD_REL_LIMIT:g})")
+    if not (math.isfinite(loss) and bool(torch.isfinite(grad).all())):
+        fail("train 11.1: the loss or the llama_proj gradient is not finite")
+    if not (loss_rel < TRAIN_LOSS_REL_LIMIT and grad_rel < TRAIN_GRAD_REL_LIMIT
+            and wo_rel < WEIGHT_ONLY_GRAD_REL_LIMIT):
+        fail("train 11.1: the loss or gradient through the kernels disagrees with the plain "
+             "versions")
+
+    # one decoder layer: the W8A8 straight-through backward against autograd
+    # through the same layer with dequantized bf16 kernels
+    g = torch.Generator(device=device).manual_seed(11)
+    lp = L.layer_slice(model.params["llama"]["layers"], 0)
+    lcfg = cfg.llama
+    x = torch.randn((rows, seq, lcfg.hidden_size), generator=g, device=device).bfloat16()
+    r = torch.randn((rows, seq, lcfg.hidden_size), generator=g, device=device)
+    cos, sin = L.rotary_tables(lcfg.head_dim, lcfg.max_position_embeddings, lcfg.rope_theta,
+                               device=device)
+    mask = LL._training_mask(batch["attention_mask"], batch["segment_ids"], seq, device)
+
+    def layer_grad(params, layer_cfg):
+        xx = x.clone().requires_grad_(True)
+        out = LL._block(xx, params, layer_cfg, cos, sin, batch["positions"], mask)
+        (out.float() * r).sum().backward()
+        return xx.grad
+
+    dequantized = {name: {"kernel": (leaf["kernel_q"].float() * leaf["scale"]).bfloat16()}
+                   if "kernel_q" in leaf else leaf for name, leaf in lp.items()}
+    layer_rel = rel_err(layer_grad(lp, lcfg),
+                        layer_grad(dequantized, dataclasses.replace(lcfg, act_quant=False)))
+    log(f"[train] 11.1 decoder layer 0, W8A8 straight-through backward against a dequantized "
+        f"bf16 layer at [{rows}, {seq}, {lcfg.hidden_size}]: input-gradient relative error "
+        f"{layer_rel:.3e} (limit {LAYER_GRAD_REL_LIMIT:g})")
+    if not layer_rel < LAYER_GRAD_REL_LIMIT:
+        fail("train 11.1: the straight-through backward disagrees with the bf16 reference")
+
+    # the last packed row all padding: every query of it fully masked
+    padded = {k: v.clone() for k, v in batch.items()}
+    for key, fill in (("input_ids", model.tokenizer.pad_token_id), ("attention_mask", 0),
+                      ("labels", -100), ("segment_ids", 0), ("positions", 0)):
+        padded[key][-1] = fill
+    pad_loss, pad_grad, _, _, bias_ok = loss_and_grad(padded)
+    finite = math.isfinite(pad_loss) and bool(torch.isfinite(pad_grad).all()) and bias_ok
+    log(f"[train] 11.1 last packed row all padding: loss {pad_loss:.6f}, gradient finite "
+        f"{finite}")
+    if not finite:
+        fail("train 11.1: a row of padding gives a loss or gradient that is not finite")
+
+    # where a train step's time goes: each stage ends in a synchronize
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    proj.kernel.grad = proj.bias.grad = None
+    tokens = M.encode_img(model.params, cfg, batch["image"])
+    mark()
+    loss = M.minigpt4_loss(model.params, cfg, batch, img_embeds=tokens)
+    mark()
+    loss.backward()
+    mark()
+    agent.optimizer.step()
+    mark()
+    parts = [b - a for a, b in zip(marks, marks[1:])]
+    log(f"[train] 11.1 a train step's stages, each synchronized: ViT + Q-Former + projection "
+        f"{parts[0]:.4f} s, decoder forward + loss {parts[1]:.4f} s, backward {parts[2]:.4f} s, "
+        f"AdamW {parts[3]:.4f} s; {card}")
+    del agent, model, batch, padded, grad, plain_grad, pad_grad, tokens, plain_tokens, loss
+    del tokens_grad, plain_tokens_grad, control, wo_grad, wo_plain_grad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_runs(torch, card, root, env):
+    """11.2: ``launch.main(["train", ...])`` on the shipped ``_w8a8`` and
+    bf16 VQAv2 finetuning YAMLs (``max_epoch`` cut to ``TRAIN_EPOCHS``),
+    each train step and val batch timed (synchronized) with the kernels'
+    launches counted; checks the losses, the artifacts and the launches.
+    Returns each run's launches and the W8A8 run's output directory and
+    initial projection."""
+    from unittest import mock
+
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.agents import finetune as F
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    counted, w8a8 = {}, None
+    for kind, path in (("w8a8", TRAIN_W8A8_CONFIG), ("bf16", TRAIN_BF16_CONFIG)):
+        run = Config(path).run
+        name = str(run.get("checkpoint_name"))
+        cut = cut_config(path, root, TRAIN_EPOCHS)
+        out = root / f"out_train_{kind}"
+        calls = {"train": [], "val": []}
+        first_proj = []
+
+        def timed(split, original):
+            def call(self, batch, *args):
+                if not first_proj:
+                    first_proj.append(self.model.module.llama_proj.kernel.detach().clone())
+                torch.cuda.synchronize()
+                before = read_counts()
+                t0 = time.perf_counter()
+                result = original(self, batch, *args)
+                torch.cuda.synchronize()
+                after = read_counts()
+                calls[split].append((time.perf_counter() - t0,
+                                     {k: after[k] - before[k] for k in after},
+                                     batch["image"].shape[0], batch["input_ids"].numel()))
+                return result
+            return call
+
+        with mock.patch.object(F.FinetuneAgent, "_train_step",
+                               timed("train", F.FinetuneAgent._train_step)), \
+                mock.patch.object(F.FinetuneAgent, "_eval_step",
+                                  timed("val", F.FinetuneAgent._eval_step)):
+            res = run_launch(torch, ["train", "--config-path", str(cut)], env, out)
+        summary = res["summary"]
+        history = json.loads((out / "loss_history.json").read_text())
+        steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // int(run.get("batch_size")))
+        log(f"[train] 11.2 {kind} {path} (max_epoch {TRAIN_EPOCHS}): summary "
+            f"{json.dumps(summary)}; losses {json.dumps(history)}; launches "
+            f"{json.dumps(res['launches'])}")
+        if summary["steps"] != steps or summary["epochs"] != TRAIN_EPOCHS \
+                or len(history["train"]) != TRAIN_EPOCHS or len(history["val"]) != TRAIN_EPOCHS \
+                or not all(math.isfinite(v) for v in history["train"] + history["val"]):
+            fail(f"train {kind}: {summary}, losses {history} are not {TRAIN_EPOCHS} finite "
+                 f"epochs of {steps // TRAIN_EPOCHS} steps")
+        files = {}
+        for f in (f"{name}.npz", f"{name}.npz.meta.json", f"{name}_best.npz",
+                  f"{name}_best.npz.meta.json", f"{name}.txt", "loss_history.json"):
+            if not (out / f).exists():
+                fail(f"train {kind}: {f} was not written")
+            files[f] = (out / f).stat().st_size
+        opt_keys = [k for k in np.load(out / f"{name}.npz").files if k.startswith("opt:")]
+        if not opt_keys:
+            fail(f"train {kind}: the resume checkpoint holds no optimizer state")
+        per_step = PER_TRAIN_STEP[kind]
+        for split, rows in calls.items():
+            for _, launched, _, _ in rows:
+                for kernel, n in launched.items():
+                    if n != per_step.get(kernel, 0):
+                        fail(f"train {kind} {split}: kernel {kernel} launched {n} times a "
+                             f"step, expected {per_step.get(kernel, 0)}")
+        if len(calls["train"]) != steps or len(calls["val"]) != TRAIN_EPOCHS:
+            fail(f"train {kind}: {len(calls['train'])} train steps and {len(calls['val'])} "
+                 f"val batches timed")
+        times = sorted(t for t, _, _, _ in calls["train"][1:])
+        median = times[len(times) // 2]
+        _, _, samples, tokens = calls["train"][0]
+        val = sorted(t for t, _, _, _ in calls["val"][1:])
+        log(f"[train] 11.2 {kind}: {median:.4f} s a train step (median of {len(times)} after "
+            f"the first, {calls['train'][0][0]:.4f} s; min {times[0]:.4f}, max "
+            f"{times[-1]:.4f}), {samples / median:.2f} samples a second, {tokens / median:.1f} "
+            f"decoder tokens a second ({samples} samples as {tokens} tokens a step); val batch "
+            f"{val[len(val) // 2]:.4f} s (median after the first); peak memory "
+            f"{res['peak_gb']:.2f} GB; model build {res['build_s']:.3f} s; CLI wall "
+            f"{res['wall']:.3f} s; launches a train step and a val batch "
+            f"{json.dumps(calls['train'][0][1])}; files {json.dumps(files)}; {card}; card during "
+            f"the run: {res['card_state']}")
+        counted[f"train {kind}"] = res["launches"]
+        if kind == "w8a8":
+            w8a8 = (out / f"{name}_best.npz", first_proj[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counted, w8a8
+
+
+def phase_train_predict(torch, card, root, best, initial, d_in, d_out):
+    """11.3: the port's predict agent on phase 8's two images with
+    ``model.vqa_finetuned`` the W8A8 run's ``_best`` checkpoint: every
+    ``encode_img`` call reads that projection, which training moved away
+    from the initial one."""
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.agents import certify as A
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    mode, path, kind = LAUNCH_RUNS[1]
+    sub = root / "predict"
+    sub.mkdir()
+    env, _ = launch_files(sub, LAUNCH_IMAGES, d_in, d_out)
+    env["VQA_FINETUNED"] = str(best)
+    with np.load(best) as data:
+        proj = {k: data[k] for k in data.files}
+    if np.array_equal(proj["model:llama_proj/kernel"], initial.cpu().numpy()):
+        fail("train 11.3: the trained projection equals the initial one")
+    knobs = A.SmoothingKnobs.from_run(Config(path).run)
+    out = sub / "out"
+    res = run_launch(torch, [mode, "--config-path", path], env, out)
+    rows = read_rows(out / f"{kind}_results.jsonl")
+    check_certify_rows("train 11.3", rows, kind, LAUNCH_IMAGES, knobs.predict_n, knobs.sigma)
+    chunks = sum(dispatched_chunks(r, 0, knobs.predict_n, knobs.mc_batch, knobs.dispatch_window)
+                 for r in rows)
+    check_projection("train 11.3", res["seen"], proj, chunks)
+    log(f"[train] 11.3 {mode} {path} with vqa_finetuned {best.name}: every encode_img call "
+        f"({chunks}) read the trained projection; rows {json.dumps(rows)}; {card}")
+    return res["launches"]
+
+
+def phase_train(torch, card, device, d_in: int, d_out: int):
+    """Phase 11: 11.1, 11.2 and 11.3 on one written set. Returns the
+    launches of each launcher run."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        env = write_train_set(root)
+        phase_train_checks(torch, card, device, root, env)
+        counted, (best, initial) = phase_train_runs(torch, card, root, env)
+        counted["predict trained"] = phase_train_predict(torch, card, root, best, initial,
+                                                         d_in, d_out)
+    return counted
+
+
 def main() -> int:
     try:
         import torch
@@ -1767,6 +2186,8 @@ def main() -> int:
         cli_launches, serial_rows = phase_launcher(torch, card, *widths, summary)
         cli_launches["certify continuous"] = phase_continuous(torch, card, *widths, serial_rows)
         cli_launches["eval"] = phase_eval(torch, card, *widths)
+    # phase 11 trains: autograd on
+    cli_launches.update(phase_train(torch, card, device, *widths))
     summary["lookahead"] = lookahead
     log(f"[main] summary {json.dumps(summary)}")
     by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches}

@@ -108,4 +108,4 @@ print(" ".join(names))
     assert len(names) >= 20
     assert {f"certifiedgpt_tpu_torch.{m}" for m in (
         "smoothing.continuous", "agents.eval", "agents.finetune", "data.loader",
-        "vqa_tools.vqa")} <= names
+        "vqa_tools.vqa", "optim", "common.metrics", "common.checkpoint")} <= names

@@ -403,10 +403,20 @@ def test_unported_knobs_are_refused(vqa, knob, value, item):
         setup_agent(Config(vqa(agent, "refused", **{knob: value})), device="cpu")
 
 
-@pytest.mark.parametrize("mode,item", [("train", 14), ("attack", 15)])
-def test_launcher_refuses_unported_modes(mode, item):
+@pytest.mark.parametrize("mode,item", [("train", 16), ("attack", 15)])
+def test_launcher_refuses_unported_modes(mode, item, tmp_path):
+    """``attack`` is not ported (item 15); ``train`` runs, and its agent
+    refuses the shipped VQAv2 YAML with ``pipeline_parallel: 2`` (item 16)
+    before it builds a model."""
+    path = CERTIFY_CONFIGS[0]
+    if mode == "train":
+        cfg = Config(os.path.join(REPO, "configs", "train_configs",
+                                  "vqav2_finetuning_noise_0.5.yaml")).to_dict()
+        cfg["run"].update(pipeline_parallel=2, output_dir=str(tmp_path / "out"))
+        path = tmp_path / "train.yaml"
+        path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        launch.main([mode, "--config-path", CERTIFY_CONFIGS[0], "--device", "cpu"])
+        launch.main([mode, "--config-path", str(path), "--device", "cpu"])
 
 
 def test_launcher_routes_eval_to_image_text_eval(vqa, tmp_path):

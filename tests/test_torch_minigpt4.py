@@ -185,10 +185,23 @@ def test_from_config_matches_jax(block):
 
 
 def test_from_config_refuses_remat():
-    """remat is a training knob; the port has no training forward yet."""
-    with pytest.raises(NotImplementedError, match="remat"):
-        MiniGPT4Model.from_config({"model_size": "tiny", "remat": True,
-                                   "remat_policy": "dots"}, "cpu")
+    """remat was refused before the training forward was ported; now the
+    knob and its two companions are read as the JAX package reads them,
+    and rematerialization changes no logit of the training forward."""
+    block = {"model_size": "tiny", "remat": True, "remat_policy": "dots", "remat_every": 2}
+    model = MiniGPT4Model.from_config(block, "cpu")
+    jcfg = JModel.from_config(block).cfg.llama
+    assert (model.cfg.llama.remat, model.cfg.llama.remat_policy, model.cfg.llama.remat_every) \
+        == (jcfg.remat, jcfg.remat_policy, jcfg.remat_every) == (True, "dots", 2)
+    plain = MiniGPT4Model.from_config({"model_size": "tiny"}, "cpu")
+    assert plain.cfg.llama.remat is False
+    emb = torch.randn(2, 10, model.cfg.llama.hidden_size, requires_grad=True)
+    mask = torch.ones(2, 10, dtype=torch.int32)
+    pos = torch.arange(10).expand(2, 10)
+    llama = model.params["llama"]
+    with_remat, _, _ = TLM.llama_apply(llama, model.cfg.llama, emb, mask, pos)
+    without, _, _ = TLM.llama_apply(llama, plain.cfg.llama, emb, mask, pos)
+    assert torch.equal(with_remat, without)
 
 
 def test_from_config_checkpoint_paths(tmp_path, caplog, monkeypatch):
