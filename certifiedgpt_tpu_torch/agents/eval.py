@@ -1,11 +1,15 @@
-"""Eval agent (``image_text_eval``), greedy decoding.
+"""Eval agent (``image_text_eval``).
 
 Port of ``certifiedgpt_tpu/agents/eval.py``: load the finetuned projection
 (``model.vqa_finetuned``), add the run's input noise to each batch of the
-val split, greedy-generate answers through the batched KV-cache decode,
-clean them up and score them with the official VQA protocol
-(``vqa_tools``). A split with no ground truth (``testvqav2``) writes the
-VQA submission file ``vqa_test_predictions.json`` instead.
+val split, generate answers through the batched KV-cache decode, clean them
+up and score them with the official VQA protocol (``vqa_tools``). Decoding
+is greedy by default; ``num_beams`` > 1 runs beam search (``generate_beam``,
+with ``length_penalty``), and ``do_sample`` (``temperature``, ``top_p``),
+``repetition_penalty`` != 1 and ``min_length`` > 1 run ``generate`` with
+those knobs; beam search applies none of the three (a warning says so).
+A split with no ground truth (``testvqav2``) writes the VQA submission file
+``vqa_test_predictions.json`` instead.
 
 Aux metrics as in the JAX package: exact match, token-level F1 and the
 answer bias (how often the model gives its most frequent answer);
@@ -17,13 +21,9 @@ the decode sees one shape; padded rows are dropped after decoding. Up to
 ``run.dispatch_window`` batches (default 2) stay in flight: a batch's
 generate is queued on the card with its tokens' copy to pinned host memory
 (``data.loader.HostCopy``), and the host decodes a batch's answers only
-once the window is full. Batch ``step``'s noise comes from a generator
-seeded by (seed, step).
-
-Sampling (``do_sample``, ``temperature``, ``top_p``), the repetition
-penalty, ``min_length`` and beam search (``num_beams``) are not ported
-(ROADMAP.md, modules item 13): a config that sets them is refused, since
-greedy decoding in their place would be another result.
+once the window is full. Batch ``step``'s noise and its token sampling
+draw from two generators seeded from (seed, step) by
+``split_noise_sample_seeds``, so the two streams are disjoint.
 """
 
 from __future__ import annotations
@@ -47,15 +47,17 @@ from certifiedgpt_tpu_torch.data.text import (
     decode_until_eos,
 )
 from certifiedgpt_tpu_torch.models.conversation import wrap_instruction
-from certifiedgpt_tpu_torch.models.minigpt4 import generate_greedy
+from certifiedgpt_tpu_torch.models.minigpt4 import generate, generate_beam, generate_greedy
 from certifiedgpt_tpu_torch.smoothing.classifier import check_dispatch_window_hbm, chunk_seed
 from certifiedgpt_tpu_torch.vqa_tools.vqa import VQA
 from certifiedgpt_tpu_torch.vqa_tools.vqa_eval import VQAEval, normalize_answer
 
-#: decode knobs of the JAX eval agent that the port does not have, with
-#: the value that keeps greedy decoding
-UNPORTED_DECODE_KNOBS = {"num_beams": 1, "do_sample": False, "repetition_penalty": 1.0,
-                         "min_length": 1}
+def split_noise_sample_seeds(seed: int, step: int):
+    """Seeds of eval step ``step``'s two generators: the input noise's,
+    ``chunk_seed(seed, step)``, and the token sampler's, a splitmix64 of
+    that seed, so the noise and the sampling draw disjoint streams."""
+    noise_seed = chunk_seed(seed, step)
+    return noise_seed, chunk_seed(noise_seed, 1)
 
 
 def maybe_bertscore(predictions, references, logger):
@@ -89,22 +91,9 @@ def token_f1(prediction: str, reference: str) -> float:
     return 2 * precision * recall / (precision + recall)
 
 
-def check_decode_knobs(run) -> None:
-    """Refuse the decode knobs whose decoding is not ported."""
-    for key, greedy in UNPORTED_DECODE_KNOBS.items():
-        value = run.get(key, greedy)
-        if type(greedy)(value) != greedy:
-            raise NotImplementedError(
-                f"run.{key} = {value}: only greedy decoding is ported; sampling, the "
-                "repetition penalty, min_length and beam search wait for ROADMAP.md, "
-                "modules item 13"
-            )
-
-
 @registry.register_agent("image_text_eval")
 class EvalAgent(BaseAgent):
     def __init__(self, config, device="cuda"):
-        check_decode_knobs(config.run)
         super().__init__(config, device)
         run = self.run_cfg
         self.batch_size = int(run.get("batch_size", 4))
@@ -115,6 +104,22 @@ class EvalAgent(BaseAgent):
         self.seed = int(run.get("seed", 42))
         self.early_exit = bool(run.get("early_exit", False))
         self.conv_template = run.get("conv_template")
+        # the decode knobs of the JAX agent, with its defaults
+        self.num_beams = int(run.get("num_beams", 1))
+        self.length_penalty = float(run.get("length_penalty", 1.0))
+        self.sampling = {
+            "do_sample": bool(run.get("do_sample", False)),
+            "temperature": float(run.get("temperature", 1.0)),
+            "top_p": float(run.get("top_p", 0.9)),
+            "repetition_penalty": float(run.get("repetition_penalty", 1.0)),
+            "min_length": int(run.get("min_length", 1)),
+        }
+        knobs = self.sampling
+        self.knobs_on = (knobs["do_sample"] or knobs["repetition_penalty"] != 1.0
+                         or knobs["min_length"] > 1)
+        if self.num_beams > 1 and self.knobs_on:
+            self.logger.warning("num_beams>1: do_sample/repetition_penalty/min_length are "
+                                "not applied by beam search")
         finetuned = self.load_finetuned({"llama_proj": self.model.params["llama_proj"]})
         if finetuned is not None:
             self.model.set_llama_proj(finetuned["llama_proj"])
@@ -123,17 +128,27 @@ class EvalAgent(BaseAgent):
         return [wrap_instruction(inst, self.conv_template) for inst in instructions]
 
     def generate(self, batch: Dict[str, torch.Tensor], step: int) -> torch.Tensor:
-        """Queue one padded batch's noisy greedy decode; returns the token
-        ids ``[batch_size, max_new_tokens]`` on the device."""
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(chunk_seed(self.seed, step))
-        images = add_input_noise(batch["image"], self.noise_level, self.noise_dist, generator)
+        """Queue one padded batch's noisy decode (greedy, beam search or
+        with the sampling knobs); returns the token ids
+        ``[batch_size, max_new_tokens]`` on the device."""
+        noise_seed, sample_seed = split_noise_sample_seeds(self.seed, step)
+        noise_gen = torch.Generator(device=self.device)
+        noise_gen.manual_seed(noise_seed)
+        images = add_input_noise(batch["image"], self.noise_level, self.noise_dist, noise_gen)
         gen_batch = {"image": images,
                      **{k: batch[k].long() for k in ("input_ids", "attention_mask", "img_pos")}}
         tok = self.model.tokenizer
-        return generate_greedy(self.model.params, self.model.cfg, gen_batch,
-                               self.max_new_tokens, tok.eos_token_id, tok.pad_token_id,
-                               early_exit=self.early_exit)
+        args = (self.model.params, self.model.cfg, gen_batch, self.max_new_tokens,
+                tok.eos_token_id, tok.pad_token_id)
+        if self.num_beams > 1:
+            return generate_beam(*args, num_beams=self.num_beams,
+                                 length_penalty=self.length_penalty)
+        if self.knobs_on:
+            sample_gen = torch.Generator(device=self.device)
+            sample_gen.manual_seed(sample_seed)
+            return generate(*args, **self.sampling, generator=sample_gen,
+                            early_exit=self.early_exit)
+        return generate_greedy(*args, early_exit=self.early_exit)
 
     # ------------------------------------------------------------------
     def create_loader(self) -> Loader:

@@ -8,8 +8,10 @@ outside the answer span: ``build_train_batch`` one sample a row,
 ``positions``, ``img_pos`` [rows, K]), ``build_multiturn_train_batch`` a
 conversation a row. Each image span (marked by ``img_pos``) holds pad ids
 that the model replaces with the projected query embeddings
-(``models/minigpt4.assemble_embeds``). The HF tokenizer waits for the
-checkpoint loaders (ROADMAP.md, modules item 12).
+(``models/minigpt4.assemble_embeds``). Tokenizers: ``HFTokenizer`` wraps
+the HuggingFace fast tokenizer of a Vicuna checkpoint directory (pad token
+``"$$"`` where it has none); ``ByteTokenizer`` is a dependency-free
+byte-level tokenizer for synthetic weights and tests.
 """
 
 from __future__ import annotations
@@ -52,6 +54,48 @@ class ByteTokenizer:
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
         data = bytes(i - 4 for i in ids if 4 <= i < 260)
         return data.decode("utf-8", errors="replace")
+
+
+class HFTokenizer:
+    """A HuggingFace fast tokenizer (``AutoTokenizer.from_pretrained(path,
+    use_fast=True)``) with LLaMA's conventions: pad ``"$$"`` when the
+    tokenizer has no pad token. ``vocab_size`` is ``len(tokenizer)`` (added
+    tokens included), not the model's vocabulary. ``transformers`` is
+    imported here, on the host only; without it the tokenizer cannot be
+    built and this raises."""
+
+    def __init__(self, name_or_path: str):
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as exc:
+            raise ImportError(
+                f"HFTokenizer({name_or_path!r}) needs the transformers package: {exc}"
+            ) from exc
+        self.tok = AutoTokenizer.from_pretrained(name_or_path, use_fast=True)
+        if self.tok.pad_token is None:
+            self.tok.pad_token = "$$"
+
+    @property
+    def pad_token_id(self) -> int:
+        return self.tok.pad_token_id
+
+    @property
+    def bos_token_id(self) -> int:
+        return self.tok.bos_token_id
+
+    @property
+    def eos_token_id(self) -> int:
+        return self.tok.eos_token_id
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.tok)
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        return self.tok.encode(text, add_special_tokens=add_special_tokens)
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self.tok.decode(ids, skip_special_tokens=skip_special_tokens)
 
 
 def _split_instruction(tokenizer, instruction: str) -> Tuple[List[int], List[int]]:

@@ -6,7 +6,9 @@ the port's tree: same nesting, same layout, torch tensors on ``device``.
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays, which torch
 cannot wrap: they go through f32 and back to ``torch.bfloat16`` (exact).
 int8 and f32 leaves go across as they are; on CUDA the int8 kernels are
-stored column-major (``ops.quantization.int8_kernel_layout``).
+stored column-major (``ops.quantization.int8_kernel_layout``). Every leaf is
+carried, those the forward does not read too (the Q-Former's text surface,
+which a converted BLIP-2 checkpoint carries).
 """
 
 from __future__ import annotations

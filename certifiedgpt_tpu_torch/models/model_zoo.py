@@ -1,38 +1,54 @@
-"""Model holder, config parsing and seeded synthetic initialization.
+"""Model holder, config parsing, checkpoint loading and seeded synthetic
+initialization.
 
 ``MiniGPT4Model`` holds (cfg, params, tokenizer) as in
-``certifiedgpt_tpu/models/model_zoo.py``; ``MiniGPT4Model.from_config`` is
-the synthetic half of its ``from_config``: it reads a config's model block
-(a plain mapping) into a ``MiniGPT4Config`` (``config_from_block``), makes
-the seeded synthetic weights on the target device and loads the alignment
-prompt pool (``prompt_path``). ``build_synthetic_model``
-makes full-width weights from a seed directly on the device, each layer
-stack of the ViT and the decoder at the serving int8 layout or in its float
-dtype, module by module so that the peak stays about one float layer stack
-above the final footprint: the counterpart of the JAX
+``certifiedgpt_tpu/models/model_zoo.py``. ``MiniGPT4Model.from_config``
+reads a config's model block (a plain mapping) into a ``MiniGPT4Config``
+(``config_from_block``), loads the four checkpoint families it names (a
+Vicuna HF directory, ``eva_vit_g.pth``, the BLIP-2 Q-Former and the
+MiniGPT-4 stage-2 checkpoint; a URL through the download cache of
+``common/utils.py``) onto the target device, makes seeded synthetic weights
+for every tower it does not load, and loads the alignment prompt pool
+(``prompt_path``). The towers to load are decided before any
+initialization, so a loaded tower is never drawn at random first; each
+loaded layer stack is converted (``models/convert.py``) and, with
+``quantize_llama``/``quantize_vit``, quantized one layer at a time on the
+device. ``build_synthetic_params`` makes full-width weights from a seed
+directly on the device, each layer stack at the serving int8 layout or in
+its float dtype, module by module, so that the peak stays about one float
+layer stack above the final footprint: the counterpart of the JAX
 ``bench.py::build_full_int8_params`` and of ``init_minigpt4`` followed by
 ``quantize_eva_vit``/``quantize_llama``. ``MiniGPT4Model`` is registered as
-``minigpt4`` in the port's registry, which the agents build from. Loading
-real checkpoints waits for a later slice (ROADMAP.md, modules item 12).
+``minigpt4`` in the port's registry, which the agents build from.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import logging
 import math
 import os
-from typing import Any, Dict, Mapping
+import pickle
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from certifiedgpt_tpu_torch.common.registry import registry
-from certifiedgpt_tpu_torch.data.text import ByteTokenizer
+from certifiedgpt_tpu_torch.common.utils import is_url, resolve_checkpoint
+from certifiedgpt_tpu_torch.data.text import ByteTokenizer, HFTokenizer
 from certifiedgpt_tpu_torch.models import layers as L
+from certifiedgpt_tpu_torch.models.convert import (
+    convert_eva_vit_state_dict,
+    convert_llama_state_dict,
+    convert_qformer_state_dict,
+    load_projection,
+)
 from certifiedgpt_tpu_torch.models.eva_vit import EvaViTConfig
 from certifiedgpt_tpu_torch.models.llama import LlamaConfig
 from certifiedgpt_tpu_torch.models.minigpt4 import MiniGPT4, MiniGPT4Config
 from certifiedgpt_tpu_torch.models.qformer import QFormerConfig
+from certifiedgpt_tpu_torch.models.safetensors_io import SafetensorsDir
 from certifiedgpt_tpu_torch.ops.quantization import int8_kernel_layout, quantize_kernel
 
 logger = logging.getLogger(__name__)
@@ -40,6 +56,54 @@ logger = logging.getLogger(__name__)
 #: model-block keys that name checkpoint files, as the JAX package reads them
 CHECKPOINT_KEYS = ("llama_model", "eva_vit_g_pth", "vit_ckpt", "q_former_model",
                    "qformer_ckpt", "ckpt", "minigpt4_ckpt")
+
+
+def _torch_load(path: str):
+    """``torch.load`` onto the CPU, tensors only first; a checkpoint that
+    pickles other objects beside its tensors (as LAVIS checkpoints do) is
+    read in full. Checkpoint paths come from the user's own configs, so
+    the files are trusted."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _resolve(path) -> Optional[str]:
+    """A configured checkpoint as an existing local path: a URL is
+    downloaded into the cache (a failed download is logged and gives
+    None), a local path is returned if it exists, None otherwise."""
+    if not path:
+        return None
+    path = str(path)
+    if is_url(path):
+        try:
+            return resolve_checkpoint(path)
+        except OSError as exc:
+            logger.warning("checkpoint download failed (%s): %s", path, exc)
+            return None
+    return path if os.path.exists(path) else None
+
+
+def load_llama_dir(path: str, cfg: LlamaConfig, device="cuda", quantize: bool = False):
+    """The decoder tree of a Vicuna HF directory on ``device``: its
+    ``*.safetensors`` shards read one tensor at a time
+    (``safetensors_io.SafetensorsDir``), or without any, its
+    ``pytorch_model*.bin`` shards (``torch.load``), converted layer by
+    layer (``quantize``: int8 layer kernels)."""
+    if glob.glob(os.path.join(path, "*.safetensors")):
+        sd = SafetensorsDir(path)
+        try:
+            return convert_llama_state_dict(sd, cfg, device, quantize)
+        finally:
+            sd.close()
+    shards = sorted(glob.glob(os.path.join(path, "pytorch_model*.bin")))
+    if not shards:
+        raise FileNotFoundError(f"{path} holds no *.safetensors or pytorch_model*.bin shard")
+    sd = {}
+    for shard in shards:
+        sd.update(_torch_load(shard))
+    return convert_llama_state_dict(sd, cfg, device, quantize)
 
 
 def config_from_block(model_cfg: Mapping[str, Any]) -> MiniGPT4Config:
@@ -154,34 +218,60 @@ class MiniGPT4Model:
     @classmethod
     def from_config(cls, model_cfg: Mapping[str, Any], device="cuda") -> "MiniGPT4Model":
         """The model of a config's model block (a plain mapping, e.g. the
-        ``model:`` block of a certify YAML) with seeded synthetic weights
-        (``init_seed``) on ``device``: int8 ViT layer kernels with
-        ``quantize_vit``, int8 decoder layer kernels with ``quantize_llama``,
-        float kernels otherwise; the byte-level tokenizer. A checkpoint path
-        that exists raises ``NotImplementedError`` (loading waits for
-        ROADMAP.md modules item 12); a configured path that does not exist is
-        logged and the random init kept, as in the JAX package."""
+        ``model:`` block of a certify YAML) on ``device``, in the JAX
+        package's order: the Vicuna directory ``llama_model`` (and its
+        tokenizer, ``HFTokenizer``; the byte-level tokenizer without it),
+        ``eva_vit_g_pth``/``vit_ckpt``, ``q_former_model``/``qformer_ckpt``
+        (its ``model`` dict, keys under ``Qformer.bert.``, the root
+        ``query_tokens``), then the stage-2 ``ckpt``/``minigpt4_ckpt``
+        (``llama_proj`` and ``ln_vision``). Every tower not loaded gets
+        seeded synthetic weights (``init_seed``). Layer kernels are int8 with
+        ``quantize_vit`` (ViT) and ``quantize_llama`` (decoder), loaded or
+        not. A configured path that does not exist is logged and the random
+        init kept; a file that does not parse raises."""
+        cfg = config_from_block(model_cfg)
         for key in CHECKPOINT_KEYS:
             path = model_cfg.get(key)
-            if not path:
-                continue
-            if os.path.exists(str(path)):
-                raise NotImplementedError(
-                    f"model.{key} = {path}: loading checkpoints is not ported yet "
-                    "(ROADMAP.md, modules item 12: checkpoint loaders)"
-                )
-            logger.warning("%s path %s not found; using random init", key, path)
-        cfg = config_from_block(model_cfg)
-        params = build_synthetic_params(
-            cfg, device, seed=int(model_cfg.get("init_seed", 0)),
-            quantize_vit=bool(model_cfg.get("quantize_vit", False)),
-            quantize_llama=bool(model_cfg.get("quantize_llama", False)),
-        )
+            if path and not is_url(str(path)) and not os.path.exists(str(path)):
+                logger.warning("%s path %s not found; using random init", key, path)
+        quantize_vit = bool(model_cfg.get("quantize_vit", False))
+        quantize_llama = bool(model_cfg.get("quantize_llama", False))
+        llama_path = model_cfg.get("llama_model")
+        load_llama = bool(llama_path and os.path.exists(str(llama_path)))
+        vit_path = _resolve(model_cfg.get("eva_vit_g_pth") or model_cfg.get("vit_ckpt"))
+        skip = tuple(name for name, loading in (("llama", load_llama), ("vit", bool(vit_path)))
+                     if loading)
+        params = build_synthetic_params(cfg, device, seed=int(model_cfg.get("init_seed", 0)),
+                                        quantize_vit=quantize_vit,
+                                        quantize_llama=quantize_llama, skip=skip)
+        if load_llama:
+            logger.info("Loading LLaMA weights from %s", llama_path)
+            tokenizer = HFTokenizer(str(llama_path))
+            params["llama"] = load_llama_dir(str(llama_path), cfg.llama, device, quantize_llama)
+        else:
+            tokenizer = ByteTokenizer()
+        if vit_path:
+            logger.info("Loading EVA ViT weights from %s", vit_path)
+            params["vit"] = convert_eva_vit_state_dict(_torch_load(vit_path), cfg.vit, device,
+                                                       quantize_vit)
+        qformer_path = _resolve(model_cfg.get("q_former_model") or model_cfg.get("qformer_ckpt"))
+        if qformer_path:
+            logger.info("Loading Q-Former weights from %s", qformer_path)
+            sd = _torch_load(qformer_path)
+            converted = convert_qformer_state_dict(sd.get("model", sd), cfg.qformer,
+                                                   prefix="Qformer.bert.", device=device)
+            converted.setdefault("query_tokens", params["qformer"]["query_tokens"])
+            params["qformer"] = converted
+        ckpt = _resolve(model_cfg.get("ckpt") or model_cfg.get("minigpt4_ckpt"))
+        if ckpt:
+            logger.info("Loading MiniGPT-4 stage-2 checkpoint from %s", ckpt)
+            sd = _torch_load(ckpt)
+            load_projection(params, sd.get("model_state_dict", sd.get("model", sd)), device)
         prompt_list = load_prompt_pool(model_cfg.get("prompt_path"),
                                        model_cfg.get("prompt_template", "{}"))
         if prompt_list:
             logger.info("Loaded %d alignment prompts", len(prompt_list))
-        return cls(cfg, params, ByteTokenizer(), prompt_list=prompt_list)
+        return cls(cfg, params, tokenizer, prompt_list=prompt_list)
 
 
 class _Init:
@@ -308,23 +398,26 @@ def _llama_params(init: _Init, cfg, quantize: bool) -> Dict[str, Any]:
 
 
 def build_synthetic_params(cfg: MiniGPT4Config, device="cuda", seed: int = 0,
-                           quantize_vit: bool = True,
-                           quantize_llama: bool = True) -> Dict[str, Any]:
+                           quantize_vit: bool = True, quantize_llama: bool = True,
+                           skip: Tuple[str, ...] = ()) -> Dict[str, Any]:
     """Seeded random parameters in the JAX package's tree: with
     ``quantize_vit`` the ViT qkv/proj/fc1/fc2 layer kernels are int8, with
     ``quantize_llama`` the decoder layer kernels; every other leaf is in its
-    float dtype."""
+    float dtype. The towers named in ``skip`` (``"vit"``, ``"llama"``: the
+    ones a checkpoint will fill) are left out."""
     init = _Init(seed, device)
-    return {
-        "vit": _vit_params(init, cfg.vit, quantize_vit),
-        "ln_vision": {"scale": init.const((cfg.vit.embed_dim,), 1.0, cfg.vit.dtype),
-                      "bias": init.const((cfg.vit.embed_dim,), 0.0, cfg.vit.dtype)},
-        "qformer": _qformer_params(init, cfg.qformer),
-        # the projection is the trained leaf; f32 as in the JAX package
-        "llama_proj": init.dense(cfg.qformer.hidden_size, cfg.llama.hidden_size,
-                                 torch.float32),
-        "llama": _llama_params(init, cfg.llama, quantize_llama),
-    }
+    params = {}
+    if "vit" not in skip:
+        params["vit"] = _vit_params(init, cfg.vit, quantize_vit)
+    params["ln_vision"] = {"scale": init.const((cfg.vit.embed_dim,), 1.0, cfg.vit.dtype),
+                           "bias": init.const((cfg.vit.embed_dim,), 0.0, cfg.vit.dtype)}
+    params["qformer"] = _qformer_params(init, cfg.qformer)
+    # the projection is the trained leaf; f32 as in the JAX package
+    params["llama_proj"] = init.dense(cfg.qformer.hidden_size, cfg.llama.hidden_size,
+                                      torch.float32)
+    if "llama" not in skip:
+        params["llama"] = _llama_params(init, cfg.llama, quantize_llama)
+    return params
 
 
 def build_synthetic_model(cfg: MiniGPT4Config, device="cuda",

@@ -44,10 +44,18 @@ MAX_ROW_WIDTH = 8192
 INT_MM_MIN_ROWS = 24
 
 
+def ieee_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded as one IEEE division on every device (on CUDA,
+    PyTorch divides by a Python number as a product with its reciprocal)."""
+    return a / torch.full_like(a, b)
+
+
 def quantize_kernel(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """[in, out] float kernel -> per-out-channel symmetric int8."""
+    """[in, out] float kernel -> per-out-channel symmetric int8 (the scale's
+    division by 127 an IEEE division on every device, as in the JAX
+    package)."""
     w = kernel.float()
-    scale = w.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    scale = ieee_div(w.abs().amax(dim=0).clamp_min(1e-8), 127.0)
     q = torch.round(w / scale[None, :]).clamp(-127, 127).to(torch.int8)
     return {"kernel_q": q, "scale": scale}
 
@@ -55,7 +63,7 @@ def quantize_kernel(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
 def quantize_stacked_kernel(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[L, in, out] stacked float kernels -> per-(layer, out-channel) int8."""
     w32 = w.float()
-    scale = w32.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+    scale = ieee_div(w32.abs().amax(dim=1).clamp_min(1e-8), 127.0)
     q = torch.round(w32 / scale[:, None, :]).clamp(-127, 127).to(torch.int8)
     return {"kernel_q": q, "scale": scale}
 
@@ -240,18 +248,12 @@ _AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 _LANES, _LN_PIECE = 32, 4
 
 
-def _div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / b`` rounded as one IEEE division on every device (on CUDA,
-    PyTorch divides by a Python number as a product with its reciprocal)."""
-    return a / torch.full_like(a, b)
-
-
 def _quantize_bf16_rows(h: torch.Tensor):
     """``quantize_rows`` of f32 rows ``h`` (already rounded through the
     activation dtype), the scale's division by 127 an IEEE division, as in
     the kernels."""
     amax = h.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
-    xs = _div(amax, 127.0)
+    xs = ieee_div(amax, 127.0)
     return torch.round(h / xs).clamp(-127, 127).to(torch.int8), xs
 
 
@@ -301,9 +303,9 @@ def _ln_quant_rows_plain(x, scale, bias, eps):
     is rounded once, so on the card the kernel gives the same bits."""
     x32 = x.float().reshape(-1, x.shape[-1])
     k = x32.shape[-1]
-    mean = _div(_row_sums(x32), k)
+    mean = ieee_div(_row_sums(x32), k)
     d = x32 - mean
-    var = _div(_row_sums(d * d), k)
+    var = ieee_div(_row_sums(d * d), k)
     rs = 1.0 / torch.sqrt(var + eps)
     out = (d * rs) * scale.float() + bias.float()
     xq, xs = _quantize_bf16_rows(out.to(x.dtype).float())

@@ -139,10 +139,39 @@ Phases, each of which exits non-zero on any failure:
    the peak memory. 11.3: the predict YAML on phase 8's two images with
    ``vqa_finetuned`` the W8A8 run's ``_best`` checkpoint: every
    ``encode_img`` call reads the trained projection.
+12. Checkpoints: 12.1 writes the four checkpoint files at full width from a
+   seeded generator on the card, in the upstream formats, under a temporary
+   directory (removed at the phase's end; the free disk space is printed
+   first and must hold them): a Vicuna HF directory (``config.json``, two
+   bf16 safetensors shards and ``model.safetensors.index.json``, written by
+   ``write_safetensors``, and a BPE tokenizer trained here with its
+   vocabulary padded to 32000 ids where ``transformers`` and ``tokenizers``
+   import), ``eva_vit_g.pth`` (f16, BEiT naming, the position table at the
+   224-px grid of 257 entries), the BLIP-2 ``.pth`` (``Qformer.bert.*``
+   with the text branch, a root ``query_tokens``, keys of other modules)
+   and the stage-2 ``.pth``. 12.2: ``launch.main`` certifies one written
+   image with ``vqav2_certify_noise_0.5.yaml`` unchanged, ``VICUNA_7B``,
+   ``EVA_VIT_G``, ``QFORMER_CKPT``, ``MINIGPT4_STAGE2`` at the files and
+   ``VQA_FINETUNED`` empty; prints the seconds to write and to load each
+   file, the model build, the peak device memory and host RSS of the load,
+   the row and its launches a chunk; checks the first and last layer of
+   every stack and the other sampled leaves against the written tensors
+   transposed and cast (int8 stacks: ``quantize_kernel`` of them) bit for
+   bit, that the row certifies, that every ``encode_img`` read the stage-2
+   ``llama_proj``, and the path's launches per chunk.
+13. Decode modes: ``launch.main`` runs ``vqav2_eval_noise_0.5.yaml`` on
+   phase 10's ten questions with only its run block changed, once with
+   ``num_beams: 3``, once sampling (``top_p`` 0.9), once with
+   ``repetition_penalty`` 1.2 and ``min_length`` 2 (seconds, launches, peak
+   memory, the JAX package's keys); then, on the full-width model,
+   ``generate_beam`` at one beam gives greedy's tokens and sampling repeats
+   with its seed and differs across seeds, and on phase 9.2's chain model
+   ``min_length`` holds EOS back and ``generate`` with every knob and the
+   early exit on is dispatched under ``set_sync_debug_mode("error")``.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``cli_launches``: the
-launches in each launcher run of phases 8-11), and as its last line
+launches in each launcher run of phases 8-13), and as its last line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
@@ -256,6 +285,7 @@ LOOKAHEAD_RUNS = ((1, False), (4, False), (1, True), (4, True), (1, False))
 # tests/test_torch_generate_gpu.py: (last prompt token, the tokens after it)
 EXIT_CHAINS = ((20, ()), (10, (11, 12)), (30, (31, 32, 33, 34)), (40, (41,)))
 EXIT_STEPS = 24
+EXIT_ROWS = (0, 1, 2, 3, 1)  # the chain of each row of the batch
 # phase 4: the card is held by a spin of this length while the host launches
 # one decode step, to see whether the step's launches fill the launch queue
 SPIN_MS = 500.0
@@ -1361,17 +1391,13 @@ def check_no_sync(torch, model, image, card):
             f"'error'): queued in {queued:.4f} s, tokens on the host after {wall:.4f} s; {card}")
 
 
-def check_early_exit_fires(torch, device, card):
-    """Phase 9.2, the early exit firing on the card: a tiny model whose
-    decoder weights send each row's last prompt token along a chain to EOS
-    (``EXIT_CHAINS``), rows ending at different steps. With the exit on, the
-    tokens equal the full loop's (and the chains'), the host launched at
-    least the steps until the last EOS and fewer than the full loop's, and
-    neither call of ``generate`` made the host wait for the card."""
-    from certifiedgpt_tpu_torch.models import minigpt4 as M
+def chain_model(torch, device):
+    """Phase 9.2's tiny model whose decoder weights send each row's last
+    prompt token along a chain to EOS (``EXIT_CHAINS``), and its batch of
+    ``EXIT_ROWS`` rows, which end at different steps."""
     from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model
 
-    eos, pad = 2, 0
+    eos = 2
     model = MiniGPT4Model.from_config({"model_size": "tiny"}, device)
     llama = model.params["llama"]
     for name in ("o_proj", "down_proj"):  # attention and MLP add nothing
@@ -1390,12 +1416,26 @@ def check_early_exit_fires(torch, device, card):
     if llama["lm_head"].get("bias") is not None:
         llama["lm_head"]["bias"].zero_()
     llama["norm"]["scale"].fill_(1.0)
-    rows, seq_len, img = (0, 1, 2, 3, 1), 40, model.cfg.vit.img_size
-    ids = torch.full((len(rows), seq_len), 5, dtype=torch.long, device=device)
-    ids[:, -1] = torch.tensor([EXIT_CHAINS[r][0] for r in rows], device=device)
-    batch = {"image": torch.randn((len(rows), img, img, 3), device=device),
+    seq_len, img = 40, model.cfg.vit.img_size
+    ids = torch.full((len(EXIT_ROWS), seq_len), 5, dtype=torch.long, device=device)
+    ids[:, -1] = torch.tensor([EXIT_CHAINS[r][0] for r in EXIT_ROWS], device=device)
+    batch = {"image": torch.randn((len(EXIT_ROWS), img, img, 3), device=device),
              "input_ids": ids, "attention_mask": torch.ones_like(ids),
-             "img_pos": torch.full((len(rows),), 2, dtype=torch.long, device=device)}
+             "img_pos": torch.full((len(EXIT_ROWS),), 2, dtype=torch.long, device=device)}
+    return model, batch
+
+
+def check_early_exit_fires(torch, device, card):
+    """Phase 9.2, the early exit firing on the card: on ``chain_model``,
+    with the exit on, the tokens equal the full loop's (and the chains'),
+    the host launched at least the steps until the last EOS and fewer than
+    the full loop's, and neither call of ``generate`` made the host wait for
+    the card."""
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    eos, pad = 2, 0
+    model, batch = chain_model(torch, device)
+    rows = EXIT_ROWS
     want = [list(EXIT_CHAINS[r][1]) + [eos] for r in rows]
     want = [t + [pad] * (EXIT_STEPS - len(t)) for t in want]
     longest = max(len(t) for t in (EXIT_CHAINS[r][1] for r in rows)) + 1
@@ -1834,17 +1874,22 @@ def write_train_set(root) -> dict:
     return env
 
 
-def cut_config(path: str, root, epochs: int):
-    """A copy of the shipped YAML ``path`` with only ``run.max_epoch`` set to
-    ``epochs``; its ``${env:...}`` values stay as written."""
+def config_with_run(path: str, out, **run):
+    """A copy of the shipped YAML ``path`` at ``out`` with only the run
+    block's ``run`` keys set; its ``${env:...}`` values stay as written."""
     import yaml
 
     with open(path) as handle:
         cfg = yaml.safe_load(handle)
-    cfg["run"]["max_epoch"] = epochs
-    out = root / os.path.basename(path)
+    cfg["run"].update(run)
     out.write_text(yaml.safe_dump(cfg))
     return out
+
+
+def cut_config(path: str, root, epochs: int):
+    """A copy of the shipped YAML ``path`` with only ``run.max_epoch`` set to
+    ``epochs``."""
+    return config_with_run(path, root / os.path.basename(path), max_epoch=epochs)
 
 
 def plain_versions():
@@ -2155,6 +2200,605 @@ def phase_train(torch, card, device, d_in: int, d_out: int):
     return counted
 
 
+# ----------------------------------------------------------------------
+# phase 12: the shipped certify config from full-width checkpoint files
+# ----------------------------------------------------------------------
+CKPT_SEED = 12
+# the four files take ~16 GB: Vicuna 6.74 G parameters in bf16, the ViT
+# 0.99 G in f16, the Q-Former ~0.11 G in f32
+CKPT_DISK_GB = 20
+CKPT_IMAGES = 1
+# the safetensors dtype names of the tensors written
+ST_DTYPES = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16"}
+# the stacks' layers whose written tensors are kept to check the load
+VICUNA_MODULES = {"q_proj": "self_attn", "k_proj": "self_attn", "v_proj": "self_attn",
+                  "o_proj": "self_attn", "gate_proj": "mlp", "up_proj": "mlp",
+                  "down_proj": "mlp"}
+VIT_KERNELS = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+# the tokenizer trained in the phase: a BPE over a small corpus, its
+# vocabulary padded to the decoder's 32000 ids
+TOKENIZER_CORPUS = ["what animal is this? a cat sits on the mat", "the dog runs fast",
+                    "yes no two three blue red <Img> </Img> [vqa] [INST] [/INST]",
+                    "based on the image, answer the question"] * 8
+
+
+def write_safetensors(torch, path, specs, make):
+    """A ``.safetensors`` file of ``specs`` [(name, shape, dtype)]: the
+    header, then each tensor ``make(name, shape, dtype)`` copied to the host
+    and written, one at a time."""
+    import struct
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, shape, dtype in specs:
+        size = math.prod(shape) * dtype.itemsize
+        header[name] = {"dtype": ST_DTYPES[str(dtype)], "shape": list(shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as handle:
+        handle.write(struct.pack("<Q", len(blob)))
+        handle.write(blob)
+        for name, shape, dtype in specs:
+            handle.write(make(name, shape, dtype).contiguous().cpu().view(torch.uint8).numpy())
+    return offset
+
+
+class CheckpointWriter:
+    """Seeded tensors drawn on the card for the four checkpoint files; the
+    tensors the load checks read are kept on the host (``kept``)."""
+
+    def __init__(self, torch, device, keep):
+        self.torch, self.device, self.keep = torch, device, keep
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(CKPT_SEED)
+        self.kept = {}
+
+    def __call__(self, name, shape, dtype, std=0.02, offset=0.0):
+        t = self.torch.randn(shape, generator=self.gen, device=self.device) * std + offset
+        t = t.to(dtype)
+        if self.keep(name):
+            self.kept[name] = t.cpu()
+        return t
+
+    def linear(self, name, shape, dtype):
+        """A Linear weight (std 1/sqrt(fan-in)), a norm's weight (1 +
+        noise) or a bias, by name."""
+        if name.endswith(("norm.weight", "LayerNorm.weight", "norm1.weight", "norm2.weight",
+                          "layernorm.weight")):
+            return self(name, shape, dtype, offset=1.0)
+        if len(shape) == 2 and "embed" not in name and name != "lm_head.weight":
+            return self(name, shape, dtype, std=shape[1] ** -0.5)
+        return self(name, shape, dtype)
+
+
+def vicuna_specs(torch, lc):
+    """HF ``LlamaForCausalLM`` tensors in two shards: the embeddings and
+    the first half of the layers, then the rest, the norm and the head."""
+    d, inter, n = lc.hidden_size, lc.intermediate_size, lc.num_layers
+    shapes = {"q_proj": (d, d), "k_proj": (d, d), "v_proj": (d, d), "o_proj": (d, d),
+              "gate_proj": (inter, d), "up_proj": (inter, d), "down_proj": (d, inter)}
+
+    def layer(i):
+        p = f"model.layers.{i}."
+        out = [(f"{p}{VICUNA_MODULES[m]}.{m}.weight", s, torch.bfloat16)
+               for m, s in shapes.items()]
+        return out + [(p + "input_layernorm.weight", (d,), torch.bfloat16),
+                      (p + "post_attention_layernorm.weight", (d,), torch.bfloat16)]
+
+    first = [("model.embed_tokens.weight", (lc.vocab_size, d), torch.bfloat16)]
+    first += [spec for i in range(n // 2) for spec in layer(i)]
+    second = [spec for i in range(n // 2, n) for spec in layer(i)]
+    second += [("model.norm.weight", (d,), torch.bfloat16),
+               ("lm_head.weight", (lc.vocab_size, d), torch.bfloat16)]
+    return first, second
+
+
+def write_tokenizer(path, vocab: int) -> bool:
+    """A BPE tokenizer trained on ``TOKENIZER_CORPUS`` (Metaspace, as
+    LLaMA's; unk 0, bos 1, eos 2, pad "$$" 3), its vocabulary padded with
+    filler pieces to ``vocab`` ids (pieces of the model, not added tokens,
+    as a real 32000-piece vocabulary), written as ``tokenizer.json`` and
+    ``tokenizer_config.json``. False when ``tokenizers`` or
+    ``transformers`` does not import."""
+    try:
+        import transformers  # noqa: F401
+        from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+    except ImportError:
+        return False
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Metaspace()
+    tok.decoder = decoders.Metaspace()
+    tok.train_from_iterator(TOKENIZER_CORPUS, trainers.BpeTrainer(
+        vocab_size=400, special_tokens=["<unk>", "<s>", "</s>", "$$"]))
+    spec = json.loads(tok.to_str())
+    pieces = spec["model"]["vocab"]
+    for i in range(len(pieces), vocab):
+        pieces[f"\u2581w{i}"] = i
+    (path / "tokenizer.json").write_text(json.dumps(spec))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<s>", "eos_token": "</s>",
+        "unk_token": "<unk>", "pad_token": "$$", "model_max_length": 2048}))
+    return True
+
+
+def write_checkpoints(torch, device, root, cfg):
+    """The four files at ``cfg``'s widths in the upstream formats: a Vicuna
+    HF directory (``config.json``, two bf16 safetensors shards and their
+    index, the tokenizer where it can be built), ``eva_vit_g.pth`` (f16,
+    BEiT naming, the position table at the 224-px grid of 257 entries),
+    the BLIP-2 ``.pth`` and the stage-2 ``.pth``. Returns the paths, the
+    kept tensors, the seconds to write each and whether a tokenizer was
+    written."""
+    lc, vc, qc = cfg.llama, cfg.vit, cfg.qformer
+    last_l, last_v, last_q = lc.num_layers - 1, vc.depth - 1, qc.num_layers - 1
+
+    def keep(name):
+        """The tensors outside the stacks, and the first and last layer's."""
+        import re
+
+        found = re.search(r"(model\.layers|blocks|encoder\.layer)\.(\d+)\.", name)
+        if found is None:
+            return True
+        last = {"model.layers": last_l, "blocks": last_v, "encoder.layer": last_q}[found[1]]
+        return int(found[2]) in (0, last)
+
+    w = CheckpointWriter(torch, device, keep)
+    paths = {"llama_model": root / "vicuna-7b", "eva_vit_g_pth": root / "eva_vit_g.pth",
+             "q_former_model": root / "blip2_pretrained_flant5xxl.pth",
+             "ckpt": root / "pretrained_minigpt4.pth"}
+    seconds = {}
+
+    t0 = time.perf_counter()
+    vicuna = paths["llama_model"]
+    vicuna.mkdir()
+    (vicuna / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "hidden_size": lc.hidden_size, "intermediate_size": lc.intermediate_size,
+        "num_hidden_layers": lc.num_layers, "num_attention_heads": lc.num_heads,
+        "num_key_value_heads": lc.num_kv_heads, "vocab_size": lc.vocab_size,
+        "max_position_embeddings": 2048, "rms_norm_eps": lc.rms_norm_eps,
+        "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 0,
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
+    weight_map, total = {}, 0
+    shards = vicuna_specs(torch, lc)
+    for k, specs in enumerate(shards):
+        name = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += write_safetensors(torch, vicuna / name, specs, w.linear)
+        weight_map.update({spec[0]: name for spec in specs})
+    (vicuna / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    tokenizer = write_tokenizer(vicuna, lc.vocab_size)
+    seconds["llama_model"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    d, grid = vc.embed_dim, 224 // vc.patch_size
+    h = torch.float16
+    vit = {"patch_embed.proj.weight": w("patch_embed.proj.weight",
+                                        (d, vc.in_channels, vc.patch_size, vc.patch_size), h,
+                                        std=(vc.in_channels * vc.patch_size ** 2) ** -0.5),
+           "patch_embed.proj.bias": w("patch_embed.proj.bias", (d,), h),
+           "cls_token": w("cls_token", (1, 1, d), h),
+           "pos_embed": w("pos_embed", (1, grid * grid + 1, d), h)}
+    for i in range(vc.depth):
+        b = f"blocks.{i}."
+        for name, shape in (("norm1.weight", (d,)), ("norm1.bias", (d,)),
+                            ("attn.qkv.weight", (3 * d, d)), ("attn.q_bias", (d,)),
+                            ("attn.v_bias", (d,)), ("attn.proj.weight", (d, d)),
+                            ("attn.proj.bias", (d,)), ("norm2.weight", (d,)), ("norm2.bias", (d,)),
+                            ("mlp.fc1.weight", (vc.mlp_hidden, d)), ("mlp.fc1.bias", (vc.mlp_hidden,)),
+                            ("mlp.fc2.weight", (d, vc.mlp_hidden)), ("mlp.fc2.bias", (d,))):
+            vit[b + name] = w.linear(b + name, shape, h).cpu()
+    torch.save(vit, paths["eva_vit_g_pth"])
+    del vit
+    seconds["eva_vit_g_pth"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    f32, qd = torch.float32, qc.hidden_size
+    bert = {}
+
+    def put(name, shape):
+        bert["Qformer.bert." + name] = w.linear(name, shape, f32).cpu()
+
+    def lin(name, d_out, d_in):
+        put(name + ".weight", (d_out, d_in))
+        put(name + ".bias", (d_out,))
+
+    def ln(name):
+        put(name + ".weight", (qd,))
+        put(name + ".bias", (qd,))
+
+    put("embeddings.word_embeddings.weight", (30523, qd))
+    put("embeddings.position_embeddings.weight", (512, qd))
+    ln("embeddings.LayerNorm")
+    for i in range(qc.num_layers):
+        b = f"encoder.layer.{i}."
+        for part in ("query", "key", "value"):
+            lin(f"{b}attention.self.{part}", qd, qd)
+        lin(b + "attention.output.dense", qd, qd)
+        ln(b + "attention.output.LayerNorm")
+        if qc.has_cross_attention(i):
+            lin(b + "crossattention.self.query", qd, qd)
+            lin(b + "crossattention.self.key", qd, qc.encoder_width)
+            lin(b + "crossattention.self.value", qd, qc.encoder_width)
+            lin(b + "crossattention.output.dense", qd, qd)
+            ln(b + "crossattention.output.LayerNorm")
+        for branch in ("", "_query"):
+            lin(f"{b}intermediate{branch}.dense", qc.intermediate_size, qd)
+            lin(f"{b}output{branch}.dense", qd, qc.intermediate_size)
+            ln(f"{b}output{branch}.LayerNorm")
+    bert["query_tokens"] = w("query_tokens", (1, qc.num_query_tokens, qd), f32).cpu()
+    # keys of the other BLIP-2 modules, which the loader's prefix drops
+    bert["visual_encoder.cls_token"] = torch.zeros(1, 1, d)
+    bert["t5_proj.weight"] = torch.zeros(8, qd)
+    bert["t5_proj.bias"] = torch.zeros(8)
+    torch.save({"model": bert}, paths["q_former_model"])
+    del bert
+    seconds["q_former_model"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    torch.save({"model": {
+        "llama_proj.weight": w("llama_proj.weight", (lc.hidden_size, qd), f32, std=qd ** -0.5).cpu(),
+        "llama_proj.bias": w("llama_proj.bias", (lc.hidden_size,), f32).cpu(),
+        "ln_vision.weight": w("ln_vision.weight", (d,), f32, offset=1.0).cpu(),
+        "ln_vision.bias": w("ln_vision.bias", (d,), f32).cpu()}}, paths["ckpt"])
+    seconds["ckpt"] = time.perf_counter() - t0
+    return {k: str(v) for k, v in paths.items()}, w.kept, seconds, tokenizer
+
+
+def check_loaded_leaves(torch, params, kept, cfg) -> int:
+    """The first and last layer of every stack, the position table, the
+    embeddings and heads, ``llama_proj`` and ``ln_vision`` of the loaded
+    model equal the written tensors transposed and cast to the model's
+    dtypes (int8 stacks: ``quantize_kernel`` of them), bit for bit. Returns
+    the number of leaves checked."""
+    from certifiedgpt_tpu_torch.models.convert import interpolate_pos_embed
+    from certifiedgpt_tpu_torch.ops.quantization import quantize_kernel
+
+    device = params["llama_proj"]["kernel"].device
+    checked = []
+
+    def cast(name, dtype, transpose=False):
+        t = kept[name].to(device).float()
+        return (t.T if transpose else t).to(dtype)
+
+    def same(label, got, want):
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            fail(f"phase 12: the loaded {label} ({got.dtype}, {tuple(got.shape)}) is not the "
+                 f"written tensor transposed and cast ({want.dtype}, {tuple(want.shape)})")
+        checked.append(label)
+
+    def stack(label, tree, i, name, dtype):
+        """Layer ``i`` of a stacked dense leaf: its kernel (or int8 codes
+        and scales) and its bias where it has one."""
+        want = cast(name + ".weight", dtype, transpose=True)
+        if "kernel_q" in tree:
+            q = quantize_kernel(want)
+            same(label + " codes", tree["kernel_q"][i], q["kernel_q"])
+            same(label + " scales", tree["scale"][i], q["scale"])
+        else:
+            same(label, tree["kernel"][i], want)
+        if "bias" in tree:
+            same(label + " bias", tree["bias"][i], cast(name + ".bias", dtype))
+
+    lc, vc, qc = cfg.llama, cfg.vit, cfg.qformer
+    llama, bf = params["llama"], lc.dtype
+    for i in (0, lc.num_layers - 1):
+        for mod, scope in VICUNA_MODULES.items():
+            stack(f"decoder layer {i} {mod}", llama["layers"][mod], i,
+                  f"model.layers.{i}.{scope}.{mod}", bf)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            same(f"decoder layer {i} {norm}", llama["layers"][norm]["scale"][i],
+                 cast(f"model.layers.{i}.{norm}.weight", bf))
+    same("embed_tokens", llama["embed_tokens"]["embedding"], cast("model.embed_tokens.weight", bf))
+    same("lm_head", llama["lm_head"]["kernel"], cast("lm_head.weight", bf, transpose=True))
+    same("decoder norm", llama["norm"]["scale"], cast("model.norm.weight", bf))
+
+    vit, vt = params["vit"], vc.dtype
+    for i in (0, vc.depth - 1):
+        for mod, src in VIT_KERNELS.items():
+            stack(f"ViT layer {i} {mod}", vit["layers"][mod], i, f"blocks.{i}.{src}", vt)
+        for norm in ("norm1", "norm2"):
+            same(f"ViT layer {i} {norm}", vit["layers"][norm]["scale"][i],
+                 cast(f"blocks.{i}.{norm}.weight", vt))
+            same(f"ViT layer {i} {norm} bias", vit["layers"][norm]["bias"][i],
+                 cast(f"blocks.{i}.{norm}.bias", vt))
+        for bias in ("q_bias", "v_bias"):
+            same(f"ViT layer {i} {bias}", vit["layers"][bias][i], cast(f"blocks.{i}.attn.{bias}", vt))
+    pos = interpolate_pos_embed(kept["pos_embed"], vc.num_patches)
+    same("ViT pos_embed (the 224-px table resampled)", vit["pos_embed"], pos.to(device).to(vt))
+    same("ViT cls_token", vit["cls_token"], cast("cls_token", vt))
+    conv = kept["patch_embed.proj.weight"].to(device).float()
+    same("ViT patch_embed", vit["patch_embed"]["kernel"],
+         conv.reshape(conv.shape[0], -1).T.to(vt).contiguous())
+
+    q, qt = params["qformer"], qc.dtype
+    same("Q-Former query_tokens", q["query_tokens"], cast("query_tokens", qt))
+    same("Q-Former word_embeddings", q["word_embeddings"]["embedding"],
+         cast("embeddings.word_embeddings.weight", qt))
+    for i in (0, qc.num_layers - 1):
+        lp, b = q["layers"][f"layer_{i}"], f"encoder.layer.{i}."
+        for leaf, name in (("self_q", "attention.self.query"), ("int_q", "intermediate_query.dense"),
+                           ("int_txt", "intermediate.dense"), ("out_txt", "output.dense")):
+            same(f"Q-Former layer {i} {leaf}", lp[leaf]["kernel"],
+                 cast(f"{b}{name}.weight", qt, transpose=True))
+            same(f"Q-Former layer {i} {leaf} bias", lp[leaf]["bias"], cast(f"{b}{name}.bias", qt))
+    same("llama_proj kernel", params["llama_proj"]["kernel"],
+         cast("llama_proj.weight", torch.float32, transpose=True))
+    same("llama_proj bias", params["llama_proj"]["bias"], cast("llama_proj.bias", torch.float32))
+    for leaf, name in (("scale", "weight"), ("bias", "bias")):
+        same(f"ln_vision {leaf}", params["ln_vision"][leaf],
+             cast(f"ln_vision.{name}", params["ln_vision"][leaf].dtype))
+    return len(checked)
+
+
+def phase_checkpoints(torch, card, device, main_summary):
+    """Phase 12: write the four checkpoint files at full width (12.1), then
+    run ``launch.main`` on the shipped certify YAML, unchanged, over one
+    written image with the YAML's checkpoint variables pointing at them
+    (12.2): the seconds to load each file, the model build, the peak host
+    and device memory of the load, the row and its launches; the loaded
+    leaves against the written tensors, and every ``encode_img`` reading
+    the stage-2 projection. Returns the run's launches."""
+    import resource
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.agents import certify as A
+    from certifiedgpt_tpu_torch.common.config import Config
+    from certifiedgpt_tpu_torch.models import model_zoo as Z
+
+    path = LAUNCH_RUNS[0][1]
+    knobs = A.SmoothingKnobs.from_run(Config(path).run)
+    cfg = Z.config_from_block(CERTIFY_MODEL_BLOCK)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        log(f"[ckpt] 12.1: {free_gb:.1f} GB free on the disk of {tmp}")
+        if free_gb < CKPT_DISK_GB:
+            fail(f"phase 12: {free_gb:.1f} GB free under {tmp}, the checkpoints need "
+                 f"{CKPT_DISK_GB} GB")
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        paths, kept, write_s, tokenizer = write_checkpoints(torch, device, root, cfg)
+        sizes = {k: sum(f.stat().st_size for f in Path(p).rglob("*")) if Path(p).is_dir()
+                 else Path(p).stat().st_size for k, p in paths.items()}
+        log(f"[ckpt] 12.1: wrote {json.dumps({k: round(v / 1e9, 3) for k, v in sizes.items()})} "
+            f"GB in {json.dumps({k: round(v, 3) for k, v in write_s.items()})} s "
+            f"({time.perf_counter() - t0:.3f} s with the tokenizer: "
+            f"{'trained' if tokenizer else 'none, transformers or tokenizers does not import'})")
+
+        (root / "vqa").mkdir()
+        write_vqa_set(root / "vqa", CKPT_IMAGES)
+        env = {"VQAV2_IMAGES": str(root / "vqa" / "images"),
+               "VQAV2_VAL_QUESTIONS": str(root / "vqa" / "questions.json"),
+               "VQAV2_VAL_ANNOTATIONS": str(root / "vqa" / "annotations.json"),
+               "VQA_FINETUNED": "",  # the projection is the stage-2 file's
+               **dict(zip(CHECKPOINT_ENV, (paths["llama_model"], paths["eva_vit_g_pth"],
+                                           paths["q_former_model"], paths["ckpt"]))),
+               }
+        if not tokenizer:
+            env["VICUNA_7B"] = str(root / "absent")
+            log("[ckpt] 12.2: transformers does not import here, so the Vicuna directory "
+                "(which needs its tokenizer) is left out of the YAML's run and loaded through "
+                "load_llama_dir for the leaf checks")
+
+        load, models = {}, []
+
+        def timed(fn, key):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                k = key(args) if callable(key) else key
+                load[k] = load.get(k, 0.0) + time.perf_counter() - start
+                return out
+            return wrapper
+
+        file_of = {p: k for k, p in paths.items()}
+        from_config = Z.MiniGPT4Model.from_config.__func__
+
+        def build(klass, block, device="cuda"):
+            rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+            torch.cuda.reset_peak_memory_stats()
+            model = from_config(klass, block, device)
+            torch.cuda.synchronize()
+            load["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            load["model_gb"] = torch.cuda.memory_allocated() / 1e9
+            load["host_rss_gb"] = (rss0, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6)
+            models.append(model)
+            return model
+
+        patches = [
+            mock.patch.object(Z.MiniGPT4Model, "from_config", classmethod(build)),
+            mock.patch.object(Z, "_torch_load", timed(Z._torch_load,
+                                                      lambda a: f"{file_of.get(str(a[0]), a[0])} read")),
+            mock.patch.object(Z, "load_llama_dir", timed(Z.load_llama_dir, "llama_model")),
+            mock.patch.object(Z, "HFTokenizer", timed(Z.HFTokenizer, "tokenizer")),
+            mock.patch.object(Z, "convert_eva_vit_state_dict",
+                              timed(Z.convert_eva_vit_state_dict, "eva_vit_g_pth convert")),
+            mock.patch.object(Z, "convert_qformer_state_dict",
+                              timed(Z.convert_qformer_state_dict, "q_former_model convert")),
+            mock.patch.object(Z, "load_projection", timed(Z.load_projection, "ckpt convert")),
+        ]
+        out = root / "out_certify"
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            res = run_launch(torch, ["certify", "--config-path", path], env, out)
+        rows = read_rows(out / "certify_results.jsonl")
+        log(f"[ckpt] 12.2 certify {path} from the files: rows {json.dumps(rows)}")
+        check_certify_rows("phase 12", rows, "certify", CKPT_IMAGES, knobs.n0 + knobs.n,
+                           knobs.sigma)
+        if rows[0]["abstain"]:
+            fail(f"phase 12: the row abstains: {rows[0]}")
+        chunks = dispatched_chunks(rows[0], knobs.n0, knobs.n, knobs.mc_batch,
+                                   knobs.dispatch_window)
+        proj = {"model:llama_proj/kernel": kept["llama_proj.weight"].T.contiguous().numpy(),
+                "model:llama_proj/bias": kept["llama_proj.bias"].numpy()}
+        check_projection("phase 12", res["seen"], proj, chunks)
+        check_counts("phase 12 certify", res["launches"], PER_CHUNK["flash_cls"], chunks)
+
+        model = models[0]
+        params = dict(model.params)
+        if not tokenizer:
+            params["llama"] = Z.load_llama_dir(paths["llama_model"], cfg.llama, device,
+                                               bool(CERTIFY_MODEL_BLOCK["quantize_llama"]))
+        checked = check_loaded_leaves(torch, params, kept, cfg)
+        del model, models, params
+        per_file = {k: round(load.get(f"{k} read", 0.0) + load.get(f"{k} convert", 0.0)
+                             + load.get(k, 0.0), 3) for k in paths}
+        rss0, rss1 = load["host_rss_gb"]
+        log(f"[ckpt] 12.2: seconds to load each file (read + convert + quantize on the card) "
+            f"{json.dumps(per_file)}, the tokenizer {load.get('tokenizer', 0.0):.3f} s; model "
+            f"build {res['build_s']:.3f} s (certified.log); peak device memory of the load "
+            f"{load['peak_device_gb']:.2f} GB for a {load['model_gb']:.2f} GB model; the "
+            f"process's peak host RSS {rss0:.2f} GB before the load, {rss1:.2f} GB after; "
+            f"{checked} loaded leaves equal the written tensors transposed and cast (int8: "
+            f"quantize_kernel of them); every encode_img ({len(res['seen'])}) read the stage-2 "
+            f"llama_proj; {card}")
+        phase4 = ("phase 4 not run" if main_summary is None else
+                  f"phase 4's certify_item on synthetic weights: "
+                  f"{main_summary['wall_seconds'] / main_summary['chunks']:.4f} s a chunk")
+        log(f"[ckpt] 12.2: {rows[0]['seconds']:.3f} s per certified image from the files over "
+            f"{chunks} chunks ({rows[0]['seconds'] / chunks:.4f} s a chunk; {phase4}); "
+            f"launches a chunk "
+            f"{json.dumps({k: v // chunks for k, v in res['launches'].items()})}; "
+            f"{res['decode_steps']} decode steps launched; peak memory {res['peak_gb']:.2f} GB; "
+            f"CLI wall {res['wall']:.3f} s; card during the run: {res['card_state']}")
+        return res["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# phase 13: the decode modes on the card
+# ----------------------------------------------------------------------
+# run-block changes of the shipped eval config, one run each
+DECODE_RUNS = (("beam search", {"num_beams": 3}),
+               ("sampling", {"do_sample": True, "top_p": 0.9, "temperature": 1.0}),
+               ("penalty", {"repetition_penalty": 1.2, "min_length": 2}))
+DECODE_MIN_LENGTH = 3  # the chain model's rows end at steps 1-5 without it
+
+
+def check_decode_modes(torch, device, card):
+    """Phase 13's direct checks: on the full-width synthetic model of the
+    eval config, ``generate_beam`` at one beam gives ``generate``'s greedy
+    tokens, and sampling repeats with its seed and differs across seeds; on
+    phase 9.2's chain model, no row emits EOS before ``min_length`` (and
+    without it a row does at once), and ``generate`` with every knob on and
+    the early exit is dispatched without a host sync."""
+    from certifiedgpt_tpu_torch.common.config import Config
+    from certifiedgpt_tpu_torch.data.text import BatchSpec, build_gen_batch
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+    from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model
+
+    run = Config(EVAL_CONFIG).run
+    seq_len, steps = int(run.get("seq_len")), int(run.get("max_new_tokens"))
+    model = MiniGPT4Model.from_config(CERTIFY_MODEL_BLOCK, device)
+    prompt = build_gen_batch(model.tokenizer, [QUESTION] * EVAL_BATCH,
+                             BatchSpec(seq_len=seq_len, num_img_tokens=model.cfg.num_img_tokens))
+    g = torch.Generator(device=device)
+    g.manual_seed(13)
+    batch = {k: torch.from_numpy(v).long().to(device) for k, v in prompt.items()}
+    batch["image"] = torch.randn((EVAL_BATCH, *IMAGE_HWC), generator=g, device=device)
+    tok = model.tokenizer
+    args = (model.params, model.cfg, batch, steps, tok.eos_token_id, tok.pad_token_id)
+    greedy = M.generate(*args)
+    beam = M.generate_beam(*args, num_beams=1)
+    if not torch.equal(beam, greedy):
+        fail(f"phase 13: generate_beam at one beam {beam.tolist()} is not greedy {greedy.tolist()}")
+
+    def sample(seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return M.generate(*args, do_sample=True, top_p=0.9, temperature=1.0, generator=gen)
+
+    first, again, other = sample(1), sample(1), sample(2)
+    if not torch.equal(first, again) or torch.equal(first, other):
+        fail("phase 13: sampling does not repeat with its seed, or two seeds drew the same tokens")
+    del model, batch, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    chain, batch = chain_model(torch, device)
+    eos, pad = 2, 0
+    plain = M.generate(chain.params, chain.cfg, batch, EXIT_STEPS, eos, pad).cpu().tolist()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    knobs = dict(do_sample=True, top_p=0.9, temperature=1.0, repetition_penalty=1.2,
+                 min_length=DECODE_MIN_LENGTH, generator=gen, early_exit=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = M.generate(chain.params, chain.cfg, batch, EXIT_STEPS, eos, pad, **knobs)
+    except RuntimeError as exc:
+        fail(f"phase 13: generate with the decode knobs made the host wait for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = out.cpu().tolist()
+    first_eos = [row.index(eos) if eos in row else EXIT_STEPS for row in out]
+    if min(first_eos) < DECODE_MIN_LENGTH - 1 or plain[0][0] != eos:
+        fail(f"phase 13: EOS before min_length {DECODE_MIN_LENGTH}: {out} (without it: {plain})")
+    log(f"[decode] generate_beam at one beam equals greedy on the full-width model "
+        f"({EVAL_BATCH} rows x {steps} tokens); sampling (top_p 0.9) repeats with its seed and "
+        f"differs across seeds; on the chain model min_length {DECODE_MIN_LENGTH} holds EOS "
+        f"back (first EOS at {first_eos}; without it {[r.index(eos) for r in plain]}); "
+        f"generate with sampling, the repetition penalty, min_length and the early exit "
+        f"dispatched with no sync (set_sync_debug_mode 'error'); {card}")
+
+
+def phase_decode(torch, card, device, d_in: int, d_out: int):
+    """Phase 13: ``launch.main`` in ``eval`` mode on
+    ``vqav2_eval_noise_0.5.yaml`` with only its run block changed
+    (``DECODE_RUNS``) over phase 10's ten written questions (synthetic
+    weights, as phase 10): the JAX package's summary keys, a prediction
+    for every question, each batch the path's launches and the stage-2
+    or finetuned projection read; then ``check_decode_modes``. Returns the
+    launches of each run."""
+    import tempfile
+    from pathlib import Path
+
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    run = Config(EVAL_CONFIG).run
+    batches = -(-EVAL_QUESTIONS // int(run.get("batch_size")))
+    counted = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
+        root = Path(tmp)
+        env, proj = launch_files(root, EVAL_QUESTIONS, d_in, d_out)
+        for name, knobs in DECODE_RUNS:
+            tag = name.replace(" ", "_")
+            cfg = config_with_run(EVAL_CONFIG, root / f"eval_{tag}.yaml", **knobs)
+            out = root / f"out_{tag}"
+            res = run_launch(torch, ["eval", "--config-path", str(cfg)], env, out)
+            saved = json.loads((out / "eval_results.json").read_text())
+            summary = res["summary"]
+            if saved["summary"] != summary or set(summary) != EVAL_SUMMARY_KEYS \
+                    or summary["num_questions"] != EVAL_QUESTIONS \
+                    or sorted(p["question_id"] for p in saved["predictions"]) \
+                    != list(range(1, EVAL_QUESTIONS + 1)):
+                fail(f"phase 13 {name}: results {saved} do not have the JAX package's keys")
+            check_projection(f"phase 13 {name}", res["seen"], proj, batches)
+            check_counts(f"phase 13 {name}", res["launches"], PER_CHUNK["flash_cls"], batches)
+            log(f"[decode] eval {EVAL_CONFIG} with {json.dumps(knobs)}: "
+                f"{res['wall'] - res['build_s']:.3f} s over the agent's run ({EVAL_QUESTIONS} "
+                f"questions in {batches} batches), CLI wall {res['wall']:.3f} s; "
+                f"{res['decode_steps']} generate decode steps launched; peak memory "
+                f"{res['peak_gb']:.2f} GB; launches {json.dumps(res['launches'])}; first "
+                f"predictions {json.dumps(saved['predictions'][:2])}; {card}")
+            counted[f"eval {name}"] = res["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+    check_decode_modes(torch, device, card)
+    return counted
+
+
 def main() -> int:
     try:
         import torch
@@ -2188,6 +2832,12 @@ def main() -> int:
         cli_launches["eval"] = phase_eval(torch, card, *widths)
     # phase 11 trains: autograd on
     cli_launches.update(phase_train(torch, card, device, *widths))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cli_launches["certify from checkpoints"] = phase_checkpoints(torch, card, device, summary)
+        t1 = time.perf_counter()
+        cli_launches.update(phase_decode(torch, card, device, *widths))
+        log(f"[main] phase 12 took {t1 - t0:.1f} s, phase 13 {time.perf_counter() - t1:.1f} s")
     summary["lookahead"] = lookahead
     log(f"[main] summary {json.dumps(summary)}")
     by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches}

@@ -2,8 +2,9 @@
 writes the JAX agent's predictions and summary at noise 0 on the same
 weights (every ``dispatch_window``, the last batch padded), and the test
 split's submission file; ``Loader``, ``VQA``/``VQAEval.evaluate``,
-``token_f1`` and ``add_input_noise`` match the JAX package's; the decode
-knobs the port does not have are refused."""
+``token_f1`` and ``add_input_noise`` match the JAX package's; each decode
+knob (beam search, sampling, the repetition penalty, ``min_length``) gives
+the JAX agent's predictions."""
 
 import json
 
@@ -126,9 +127,19 @@ def test_eval_test_split_writes_the_submission_file(tmp_path, port_on_jax_weight
 
 @pytest.mark.parametrize("knob,value", [("num_beams", 2), ("do_sample", True),
                                         ("repetition_penalty", 1.2), ("min_length", 2)])
-def test_unported_decode_knobs_are_refused(vqa, knob, value):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        setup_agent(Config(vqa("image_text_eval", "refused", **{knob: value})), device="cpu")
+def test_unported_decode_knobs_are_refused(vqa, port_on_jax_weights, knob, value):  # noqa: F811
+    """Each decode knob of the JAX eval agent now runs in the port: beam
+    search, sampling (with one token left in the nucleus, so that the draw
+    is the same in both packages), the repetition penalty and
+    ``min_length`` give the JAX agent's predictions and summary at noise 0."""
+    run = dict(batch_size=4, noise_level=0.0, max_new_tokens=4, **{knob: value})
+    if knob == "do_sample":
+        run["top_p"] = 1e-6
+    j_result, j_out = _eval_run(vqa, "jax", f"knob-{knob}", **run)
+    t_result, t_out = _eval_run(vqa, "torch", f"knob-{knob}", **run)
+    got = json.load(open(t_out / "eval_results.json"))
+    assert got == json.load(open(j_out / "eval_results.json"))
+    assert t_result == j_result == got["summary"] and len(got["predictions"]) == len(ANSWERS)
 
 
 class _Numbers:

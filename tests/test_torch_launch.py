@@ -397,10 +397,15 @@ def test_missing_vqa_finetuned_raises(vqa, tmp_path):
 ])
 def test_unported_knobs_are_refused(vqa, knob, value, item):
     """Knobs the port does not have yet raise, naming their ROADMAP item:
-    the certify agent's, and the eval agent's decode knobs (item 13)."""
-    agent = "image_text_eval" if item == "item 13" else "image_text_certify"
+    the certify agent's. The eval agent's ``num_beams`` (item 13, ported)
+    now builds the agent, with beam search on."""
+    if item == "item 13":
+        agent = setup_agent(Config(vqa("image_text_eval", "beams", **{knob: value})),
+                            device="cpu")
+        assert agent.num_beams == value
+        return
     with pytest.raises(NotImplementedError, match=item):
-        setup_agent(Config(vqa(agent, "refused", **{knob: value})), device="cpu")
+        setup_agent(Config(vqa("image_text_certify", "refused", **{knob: value})), device="cpu")
 
 
 @pytest.mark.parametrize("mode,item", [("train", 16), ("attack", 15)])

@@ -205,17 +205,23 @@ def test_from_config_refuses_remat():
 
 
 def test_from_config_checkpoint_paths(tmp_path, caplog, monkeypatch):
-    """An existing checkpoint path is refused (loading is not ported yet); a
-    missing one is logged and the random init kept."""
+    """An existing checkpoint path is loaded (an ``eva_vit_g.pth`` in the
+    upstream layout, as the JAX package converts it); a missing one is
+    logged and the random init kept."""
     import logging
+
+    from certifiedgpt_tpu.models.convert import convert_eva_vit_state_dict
+    from test_torch_checkpoints import assert_tree_equal, eva_state_dict
 
     # an agent built earlier in this process set up the port's logger,
     # which stops propagation to the root logger that caplog reads
     monkeypatch.setattr(logging.getLogger("certifiedgpt_tpu_torch"), "propagate", True)
     ckpt = tmp_path / "eva_vit_g.pth"
-    ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        MiniGPT4Model.from_config({"model_size": "tiny", "eva_vit_g_pth": str(ckpt)}, "cpu")
+    sd = eva_state_dict(np.random.RandomState(0))
+    torch.save(sd, ckpt)
+    model = MiniGPT4Model.from_config({"model_size": "tiny", "eva_vit_g_pth": str(ckpt)}, "cpu")
+    want = convert_eva_vit_state_dict(sd, JModel.from_config({"model_size": "tiny"}).cfg.vit)
+    assert_tree_equal(model.params["vit"], jax.tree.map(np.asarray, want))
     with caplog.at_level("WARNING"):
         model = MiniGPT4Model.from_config(
             {"model_size": "tiny", "llama_model": str(tmp_path / "missing")}, "cpu")
