@@ -2,7 +2,7 @@
 
 The counterpart of the repository's ``launch.py`` for the port::
 
-    python -m certifiedgpt_tpu_torch.launch {train,certify,smoothing_predict,eval} \\
+    python -m certifiedgpt_tpu_torch.launch {train,certify,smoothing_predict,eval,attack} \\
         --config-path cfg.yaml [--device cuda|cpu]
 
 The mode picks the agent unless the config's ``run.agent`` names one
@@ -10,9 +10,8 @@ The mode picks the agent unless the config's ``run.agent`` names one
 console and ``{run.output_dir}/certified.log``; Python's and numpy's global
 seeds are set from ``run.seed``. The model runs on ``--device``, the card by
 default: without CUDA, ``--device cuda`` stops with an error and nothing
-falls back to the CPU. ``attack`` is accepted and raises
-``NotImplementedError`` until its agent is ported, as does
-``run.distributed``.
+falls back to the CPU. ``run.distributed`` raises ``NotImplementedError``
+until multi-process runs are ported.
 """
 
 from __future__ import annotations
@@ -37,8 +36,6 @@ MODE_DEFAULT_AGENTS = {
     "certify": "image_text_certify",
     "attack": "image_text_attack",
 }
-#: modes whose agents are not ported yet, with their ROADMAP.md modules item
-UNPORTED_MODES = {"attack": 15}
 
 
 def parse_args(argv=None):
@@ -57,11 +54,6 @@ def setup_seeds(seed: int) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"mode {args.mode}: its agent ({MODE_DEFAULT_AGENTS[args.mode]}) is not ported "
-            f"yet (ROADMAP.md, modules item {UNPORTED_MODES[args.mode]})"
-        )
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "certifiedgpt_tpu_torch.launch: --device cuda, but no CUDA device is "

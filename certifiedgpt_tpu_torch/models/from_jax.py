@@ -8,7 +8,9 @@ cannot wrap: they go through f32 and back to ``torch.bfloat16`` (exact).
 int8 and f32 leaves go across as they are; on CUDA the int8 kernels are
 stored column-major (``ops.quantization.int8_kernel_layout``). Every leaf is
 carried, those the forward does not read too (the Q-Former's text surface,
-which a converted BLIP-2 checkpoint carries).
+which a converted BLIP-2 checkpoint carries). ``surrogate_params_from_jax``
+carries an attack surrogate's tree (CLIP ViT, text tower or ResNet, whose
+``layers`` are lists of block dicts, or an f32 EVA tree) the same way.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ def _convert(tree: Any, device) -> Any:
         if "kernel_q" in out and out["kernel_q"].device.type == "cuda":
             out["kernel_q"] = int8_kernel_layout(out["kernel_q"])
         return out
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, device) for v in tree]
     return tensor_from_numpy(tree, device)
 
 
@@ -61,4 +65,11 @@ def params_from_jax(tree: Mapping[str, Any], cfg: MiniGPT4Config, device="cuda")
     _expect(tree, ("qformer", "query_tokens"), (1, q.num_query_tokens, q.hidden_size))
     _expect(tree, ("llama_proj", "kernel"), (q.hidden_size, lc.hidden_size))
     _expect(tree, ("llama", "embed_tokens", "embedding"), (lc.vocab_size, lc.hidden_size))
+    return _convert(tree, torch.device(device))
+
+
+def surrogate_params_from_jax(tree: Any, device="cuda"):
+    """The port's tree of an attack surrogate from the JAX package's (a
+    ``certifiedgpt_tpu/attack/clip.py`` tree, or an f32 EVA tree): same
+    nesting, lists of blocks included, torch tensors on ``device``."""
     return _convert(tree, torch.device(device))

@@ -14,4 +14,5 @@ import certifiedgpt_tpu_torch.models.model_zoo  # noqa: F401
 import certifiedgpt_tpu_torch.agents.certify  # noqa: F401
 import certifiedgpt_tpu_torch.agents.eval  # noqa: F401
 import certifiedgpt_tpu_torch.agents.finetune  # noqa: F401
+import certifiedgpt_tpu_torch.attack.agent  # noqa: F401
 import certifiedgpt_tpu_torch.optim  # noqa: F401

@@ -169,10 +169,34 @@ Phases, each of which exits non-zero on any failure:
    ``min_length`` holds EOS back and ``generate`` with every knob and the
    early exit on is dispatched under ``set_sync_debug_mode("error")``.
 
+14. Attack: 14.1 the three kernels of a victim caption at batch 1 against
+   their plain versions within phase 3's limits (cls-split attention at
+   [1, 16, 1024, 88] with its cls row, LN- and GELU-quant at 1024 and 1
+   rows), their times and bounds at those shapes; 14.2 the five surrogates
+   of ``configs/attack_configs/vqav2_attack.yaml`` (RN50, RN101, ViT-B/16,
+   B/32, L/14) at full width, seeded on the card: one image's embedding
+   and the loss gradient's signs against the CPU's, milliseconds a PGD step
+   (forward + backward) on one image and on four, the resize's share, and
+   the peak memory; 14.3 ``launch.main`` in
+   ``attack`` mode on that YAML unchanged over two written images (100 PGD
+   steps for each backbone, four sigmas, the full-width W8A8 victim from its
+   seed) with ``CLIP_HF_DIR``/``CLIP_VIT_B32`` at a written full-width
+   ViT-B/32 HF directory (``model.safetensors``, ``config.json``, a
+   synthesized CLIP tokenizer) and ``CLIP_RN50`` at a written OpenAI-layout
+   ``RN50.pt``: 40 rows within the 8/255 budget, the success-rate grid and
+   the ANCOVA, loaded leaves equal to the written tensors, the CLIP text
+   scorer, 39 / 156 / 78 launches a caption, every caption's projection the
+   written checkpoint's; seconds per attacked image split into each
+   backbone's PGD and the captions; then one caption through the kernels
+   against their plain versions (image tokens within the attention's limit,
+   the first step's logits against a control); 14.4 the RGF query stage
+   (vit_b32, sigma 0.5, 2 queries, 1 iteration) over one image: its
+   caption streams and launches.
+
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
-attention kernels' achieved TFLOP/s among them; ``cli_launches``: the
-launches in each launcher run of phases 8-13), and as its last line
-``{"ok": true, "device": {...}}``.
+attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
+14.1's; ``cli_launches``: the launches in each launcher run of phases 8-14),
+and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
 kernel) and prints the kernel records instead of the two closing lines.
@@ -471,12 +495,12 @@ def check_row_quant(torch, name, kernel, plains, shapes, ops_per_elem, make_args
     return record
 
 
-def check_cls_split(torch, device):
+def check_cls_split(torch, device, b=MC_BATCH):
     import torch.nn.functional as F
 
     from certifiedgpt_tpu_torch.ops import flash_attention as FA
 
-    b, h, n, d = MC_BATCH, VIT_HEADS, VIT_TOKENS, VIT_WIDTH // VIT_HEADS
+    h, n, d = VIT_HEADS, VIT_TOKENS, VIT_WIDTH // VIT_HEADS
     g = torch.Generator(device=device).manual_seed(1)
     prem = (d ** -0.5) * FA.CLS_SPLIT_Q_PREMUL_LOG2E
     # operands as the main path makes them: strided views of the fused qkv
@@ -513,7 +537,7 @@ def check_cls_split(torch, device):
         fail("cls_split_attention disagrees with its plain version")
     # ms: the wrapper's one launch (N patch rows and the cls row); plain_ms and
     # library_ms compute the same N + 1 rows
-    ms = cuda_ms(torch, lambda: FA.cls_split_attention_parts(*args), iters=10)
+    ms = cuda_ms(torch, lambda: FA.cls_split_attention_parts(*args), iters=10 if b > 1 else 100)
     plain_ms = cuda_ms(torch, lambda: FA._cls_split_attention_plain(*args), iters=3, warmup=1)
     q = torch.cat([qc, qp], dim=2)
     k = torch.cat([kc, kp], dim=2)
@@ -527,7 +551,7 @@ def check_cls_split(torch, device):
     moved = 2.0 * 4 * b * h * (n + 1) * d  # q, k, v with their cls rows, out
     bms, by = bound_ms(moved, ops, PEAK_BF16_FLOPS)
     tflops = ops / ms / 1e9
-    log(f"[kernel] cls_split_attention: one launch with the cls row {ms:.3f} ms "
+    log(f"[kernel] cls_split_attention batch {b}: one launch with the cls row {ms:.4f} ms "
         f"({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
         f"scaled_dot_product_attention {library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
     del args, out_c, out_p, ref_c, ref_p, q, k, v
@@ -768,15 +792,10 @@ ROW_QUANT_TIGHT = (1, 1e-4, 1e-6)
 ROW_QUANT_EXACT_ERF = (1, 1e-3, 1e-2)
 
 
-def phase_kernels(torch, device):
-    from certifiedgpt_tpu_torch.ops import quantization as Q
-
-    g = torch.Generator(device=device).manual_seed(0)
-    rows = MC_BATCH * VIT_TOKENS
-    # patch and cls streams first, then odd counts, eval's two streams and a
-    # training batch's two
-    row_counts = (rows, MC_BATCH, 1, 4097, EVAL_BATCH * VIT_TOKENS, EVAL_BATCH,
-                  TRAIN_BATCH * VIT_TOKENS, TRAIN_BATCH)
+def row_quant_args(torch, device, seed: int):
+    """Makers of the row-quant kernels' arguments ``(m, k, std)``: bf16
+    N(0, std^2) rows, and the LayerNorm's scale and bias."""
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def normal(shape, std):
         return (torch.randn(shape, generator=g, device=device) * std).to(torch.bfloat16)
@@ -788,6 +807,19 @@ def phase_kernels(torch, device):
 
     def gelu_args(m, k, std):
         return [normal((m, k), std)]
+
+    return ln_args, gelu_args
+
+
+def phase_kernels(torch, device):
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    rows = MC_BATCH * VIT_TOKENS
+    # patch and cls streams first, then odd counts, eval's two streams and a
+    # training batch's two
+    row_counts = (rows, MC_BATCH, 1, 4097, EVAL_BATCH * VIT_TOKENS, EVAL_BATCH,
+                  TRAIN_BATCH * VIT_TOKENS, TRAIN_BATCH)
+    ln_args, gelu_args = row_quant_args(torch, device, 0)
 
     records = {}
     records["cls_split_attention"] = check_cls_split(torch, device)
@@ -2240,7 +2272,8 @@ def write_safetensors(torch, path, specs, make):
         handle.write(struct.pack("<Q", len(blob)))
         handle.write(blob)
         for name, shape, dtype in specs:
-            handle.write(make(name, shape, dtype).contiguous().cpu().view(torch.uint8).numpy())
+            handle.write(make(name, shape, dtype).contiguous().cpu().reshape(-1)
+                         .view(torch.uint8).numpy())
     return offset
 
 
@@ -2799,6 +2832,572 @@ def phase_decode(torch, card, device, d_in: int, d_out: int):
     return counted
 
 
+# ----------------------------------------------------------------------
+# phase 14: the attack stage on the shipped attack config
+# ----------------------------------------------------------------------
+ATTACK_CONFIG = "configs/attack_configs/vqav2_attack.yaml"
+ATTACK_IMAGES = 2  # the written set caps the YAML's max_images
+# the YAML's backbones (and its run.attack_backbones order)
+ATTACK_BACKBONES = ("rn50", "rn101", "vit_b16", "vit_b32", "vit_l14")
+ATTACK_SEED = 14
+ATTACK_TIMED_STEPS = 10  # PGD steps timed per backbone in 14.2
+# 14.2, each surrogate on the card against the CPU (f32 both): relative
+# (Frobenius) error of one image's embedding, share of the loss gradient's
+# signs that agree
+SURROGATE_EMBED_REL_LIMIT = 1e-4
+SURROGATE_SIGN_SHARE = 0.99
+# 14.3: the caption's first-step logits through the kernels may move from the
+# plain versions' at most this many times as far as a random change of the
+# plain image tokens by as much as the kernels changed them
+CAPTION_LOGIT_FACTOR = 2.0
+ATTACK_ROW_KEYS = {"index", "question_id", "backbone", "sigma", "target_text", "clean_caption",
+                   "adv_caption", "clean_similarity", "adv_similarity", "similarity",
+                   "success", "linf"}
+ATTACK_SUMMARY_KEYS = {"total", "sigma_grid", "epsilon", "steps", "success_rate_per_backbone",
+                       "overall_success_rate", "success_rate_grid", "ancova"}
+CLIP_VIT_B32 = {"hidden": 768, "layers": 12, "inter": 3072, "patch": 32, "positions": 50,
+                "proj": 512, "text_hidden": 512, "text_layers": 12, "text_inter": 2048,
+                "vocab": 49408, "text_positions": 77}
+
+
+def phase_attack_kernels(torch, device):
+    """14.1: the three kernels of a victim caption at batch 1 against their
+    plain versions, within phase 3's limits: the cls-split kernel with 16
+    (b, h) pairs, the row-quant kernels at the patch stream's 1024 rows and
+    the cls stream's one."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    ln_args, gelu_args = row_quant_args(torch, device, ATTACK_SEED)
+    rows = (VIT_TOKENS, 1)  # one image's patch stream, its cls stream
+    return {
+        "cls_split_attention": check_cls_split(torch, device, b=1),
+        "ln_quant_rows": check_row_quant(
+            torch, "ln_quant_rows", Q.ln_quant_rows, [(Q._ln_quant_rows_plain, *ROW_QUANT_TIGHT)],
+            [(m, VIT_WIDTH) for m in rows], LN_QUANT_OPS_PER_ELEM, ln_args),
+        "gelu_quant_rows": check_row_quant(
+            torch, "gelu_quant_rows", Q.gelu_quant_rows,
+            [(Q._gelu_quant_rows_as_plain, *ROW_QUANT_TIGHT),
+             (Q._gelu_quant_rows_plain, *ROW_QUANT_EXACT_ERF)],
+            [(m, VIT_MLP) for m in rows], GELU_QUANT_OPS_PER_ELEM, gelu_args),
+    }
+
+
+def tree_to(tree, device):
+    """A copy of a nested dict/list of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def phase_attack_surrogates(torch, card, device):
+    """14.2: each of the YAML's five surrogates at full width, seeded on the
+    card as the agent seeds them: one 448-px image's embedding on the card
+    against the CPU's (same weights), the gradient of the loss toward a
+    target image's embedding on both (the share of signs that agree), the
+    card's milliseconds a PGD step (forward + backward, resize and
+    normalization included) and the peak memory with all five resident."""
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.attack import agent as AG
+    from certifiedgpt_tpu_torch.attack import attack as AT
+
+    rng = np.random.RandomState(ATTACK_SEED)
+    x_cpu = torch.from_numpy(rng.rand(1, *IMAGE_HWC).astype(np.float32))
+    t_cpu = torch.from_numpy(rng.rand(1, *IMAGE_HWC).astype(np.float32))
+    x, target = x_cpu.to(device), t_cpu.to(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    per_step, kept = {}, []
+    for i, name in enumerate(ATTACK_BACKBONES):
+        cfg, apply_fn, init_fn = AG._BACKBONES[name]()
+        params = init_fn(1000 + i, cfg, device)
+        size = getattr(cfg, "image_size", None) or cfg.img_size
+        enc = AT.SurrogateEncoder(name, lambda p, imgs, f=apply_fn, c=cfg: f(p, c, imgs),
+                                  params, size)
+        cpu_params = tree_to(params, "cpu")
+        n_params = tree_numel(params)
+        emb = AT.embed_images([enc], {name: params}, x)[name]
+        emb_cpu = AT.embed_images([enc], {name: cpu_params}, x_cpu)[name]
+        tgt = AT.embed_images([enc], {name: params}, target)
+        tgt_cpu = AT.embed_images([enc], {name: cpu_params}, t_cpu)
+        grads = []
+        for px, p, tg in ((x, params, tgt), (x_cpu, cpu_params, tgt_cpu)):
+            with AT.exact_f32(), torch.enable_grad():
+                xg = px.clone().requires_grad_(True)
+                (grad,) = torch.autograd.grad(AT.ensemble_loss([enc], xg, {name: p}, tg), xg)
+            grads.append(grad)
+        erel = rel_err(emb.cpu(), emb_cpu)
+        share = float((torch.sign(grads[0].cpu()) == torch.sign(grads[1])).float().mean())
+        attack = AT.make_pgd_attack([enc], 8.0 / 255.0, 1.0 / 255.0, ATTACK_TIMED_STEPS)
+        ms = cuda_ms(torch, lambda: attack({name: params}, x, tgt), iters=1, warmup=1)
+        per_step[name] = ms / ATTACK_TIMED_STEPS
+        # the same steps on four images at once: a step that takes about as
+        # long is bound by its launches, not by the card's work
+        x4 = x.expand(4, -1, -1, -1).contiguous()
+        tgt4 = {name: tgt[name].expand(4, -1).contiguous()}
+        ms4 = cuda_ms(torch, lambda: attack({name: params}, x4, tgt4), iters=1, warmup=1)
+        log(f"[attack] 14.2 {name}: {n_params / 1e6:.1f} M f32 parameters at {size} px; "
+            f"embedding on the card vs the CPU: relative error {erel:.3e}; loss gradient signs "
+            f"agreeing {share:.6f}; {per_step[name]:.3f} ms a PGD step (forward + backward, "
+            f"{ATTACK_TIMED_STEPS} steps timed), {ms4 / ATTACK_TIMED_STEPS:.3f} ms a step "
+            f"on 4 images")
+        if not erel < SURROGATE_EMBED_REL_LIMIT or not share >= SURROGATE_SIGN_SHARE \
+                or not bool(torch.isfinite(grads[0]).all()):
+            fail(f"14.2 {name}: the card's surrogate disagrees with the CPU's "
+                 f"(embedding {erel:.3e}, signs {share:.6f})")
+        kept.append(params)
+        del cpu_params, emb_cpu, tgt_cpu, grads
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    xr = x.clone().requires_grad_(True)
+
+    def resize_step():
+        with torch.enable_grad():
+            torch.autograd.grad(AT._normalize(AT._resize(xr, 224)).sum(), xr)
+
+    log(f"[attack] 14.2: the 448 -> 224 resize and normalization, forward + backward: "
+        f"{cuda_ms(torch, resize_step, iters=20):.4f} ms a step")
+    log(f"[attack] 14.2: ms a PGD step {json.dumps({k: round(v, 4) for k, v in per_step.items()})}; "
+        f"the five surrogates {(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB resident, "
+        f"peak {peak:.2f} GB over them; {card}")
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def clip_tokenizer_files(path) -> int:
+    """A CLIP BPE tokenizer with no merges (``vocab.json``, ``merges.txt``,
+    ``tokenizer_config.json``): the 256 byte characters, the same with
+    ``</w>``, then ``<|startoftext|>`` and ``<|endoftext|>`` (pad = EOT = the
+    highest id, so the text tower pools at the first EOT). Returns its size."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    extra = [b for b in range(256) if b not in bs]
+    chars = [chr(c) for c in bs] + [chr(256 + n) for n in range(len(extra))]
+    vocab = chars + [c + "</w>" for c in chars] + ["<|startoftext|>", "<|endoftext|>"]
+    (path / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)}))
+    (path / "merges.txt").write_text("#version: 0.2\n")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "CLIPTokenizer", "bos_token": "<|startoftext|>",
+        "eos_token": "<|endoftext|>", "unk_token": "<|endoftext|>",
+        "pad_token": "<|endoftext|>", "model_max_length": 77}))
+    return len(vocab)
+
+
+class SeededTensors:
+    """Seeded f32 tensors drawn on the card, by name: norm weights 1 + noise,
+    matrices std 1/sqrt(fan-in), anything else std 0.02; ``kept`` holds the
+    host copies of the names ``keep`` lists."""
+
+    def __init__(self, torch, device, seed, keep=()):
+        self.torch, self.device, self.keep = torch, device, set(keep)
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.kept = {}
+
+    def __call__(self, name, shape, dtype=None):
+        torch = self.torch
+        t = torch.randn(shape, generator=self.gen, device=self.device)
+        if name.endswith("weight") and any(n in name for n in ("norm", ".bn", "downsample.1")):
+            t = 1.0 + 0.02 * t
+        elif name.endswith("running_var"):
+            t = 1.0 + 0.1 * t.abs()
+        elif len(shape) >= 2 and "embedding" not in name:
+            t = t * math.prod(shape[1:]) ** -0.5
+        else:
+            t = t * 0.02
+        if name in self.keep:
+            self.kept[name] = t.cpu()
+        return t
+
+
+def write_clip_dir(torch, device, path):
+    """A full-width HF ViT-B/32 CLIP directory from a seed: ``config.json``
+    (the vision block's patch; the text block left to CLIP's defaults),
+    ``model.safetensors`` (f32, ``CLIPModel``'s keys, written by
+    ``write_safetensors``) and the synthesized tokenizer. Returns the
+    seeded tensors (with the kept ones)."""
+    c = CLIP_VIT_B32
+    path.mkdir()
+    specs = [("logit_scale", (), torch.float32)]
+
+    def tower(prefix, d, inter, layers):
+        for i in range(layers):
+            p = f"{prefix}.encoder.layers.{i}."
+            for m in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                specs.extend([(p + f"self_attn.{m}.weight", (d, d), torch.float32),
+                              (p + f"self_attn.{m}.bias", (d,), torch.float32)])
+            specs.extend([(p + "mlp.fc1.weight", (inter, d), torch.float32),
+                          (p + "mlp.fc1.bias", (inter,), torch.float32),
+                          (p + "mlp.fc2.weight", (d, inter), torch.float32),
+                          (p + "mlp.fc2.bias", (d,), torch.float32)])
+            for n in ("layer_norm1", "layer_norm2"):
+                specs.extend([(p + f"{n}.weight", (d,), torch.float32),
+                              (p + f"{n}.bias", (d,), torch.float32)])
+
+    d, td = c["hidden"], c["text_hidden"]
+    specs += [("vision_model.embeddings.class_embedding", (d,), torch.float32),
+              ("vision_model.embeddings.patch_embedding.weight", (d, 3, c["patch"], c["patch"]),
+               torch.float32),
+              ("vision_model.embeddings.position_embedding.weight", (c["positions"], d),
+               torch.float32)]
+    for n in ("pre_layrnorm", "post_layernorm"):
+        specs += [(f"vision_model.{n}.weight", (d,), torch.float32),
+                  (f"vision_model.{n}.bias", (d,), torch.float32)]
+    tower("vision_model", d, c["inter"], c["layers"])
+    specs += [("visual_projection.weight", (c["proj"], d), torch.float32),
+              ("text_model.embeddings.token_embedding.weight", (c["vocab"], td), torch.float32),
+              ("text_model.embeddings.position_embedding.weight", (c["text_positions"], td),
+               torch.float32),
+              ("text_model.final_layer_norm.weight", (td,), torch.float32),
+              ("text_model.final_layer_norm.bias", (td,), torch.float32),
+              ("text_projection.weight", (c["proj"], td), torch.float32)]
+    tower("text_model", td, c["text_inter"], c["text_layers"])
+    make = SeededTensors(torch, device, ATTACK_SEED, keep=(
+        "visual_projection.weight", "vision_model.encoder.layers.11.mlp.fc2.weight",
+        "text_projection.weight"))
+    size = write_safetensors(torch, path / "model.safetensors", specs,
+                             lambda name, shape, dtype: make(name, shape))
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": c["proj"],
+        "text_config": {}, "vision_config": {"patch_size": c["patch"]}}))
+    vocab = clip_tokenizer_files(path)
+    log(f"[attack] 14.3: wrote {path.name}: model.safetensors {size / 1e9:.3f} GB "
+        f"({len(specs)} tensors), config.json, a CLIP tokenizer of {vocab} ids")
+    return make
+
+
+def openai_resnet_shapes(cfg):
+    """(key, shape) of every tensor of an OpenAI CLIP ``visual.*`` ResNet
+    state dict at ``cfg``'s widths (``torch.save`` of its
+    ``ModifiedResNet``: convs, BatchNorm with running statistics and
+    ``num_batches_tracked`` (shape None), the attention pool)."""
+    shapes = []
+
+    def conv(key, cout, cin, k):
+        shapes.append((key + ".weight", (cout, cin, k, k)))
+
+    def bn(key, ch):
+        shapes.extend((f"{key}.{leaf}", (ch,))
+                      for leaf in ("weight", "bias", "running_mean", "running_var"))
+        shapes.append((key + ".num_batches_tracked", None))
+
+    w = cfg.width
+    for i, (cin, cout) in enumerate(((3, w // 2), (w // 2, w // 2), (w // 2, w)), 1):
+        conv(f"visual.conv{i}", cout, cin, 3)
+        bn(f"visual.bn{i}", cout)
+    cin = w
+    for stage, blocks in enumerate(cfg.layers):
+        planes = w * 2 ** stage
+        for b in range(blocks):
+            base = f"visual.layer{stage + 1}.{b}"
+            conv(base + ".conv1", planes, cin, 1)
+            bn(base + ".bn1", planes)
+            conv(base + ".conv2", planes, planes, 3)
+            bn(base + ".bn2", planes)
+            conv(base + ".conv3", planes * 4, planes, 1)
+            bn(base + ".bn3", planes * 4)
+            if b == 0:  # stride 2, or the first stage's change of width
+                conv(base + ".downsample.0", planes * 4, cin, 1)
+                bn(base + ".downsample.1", planes * 4)
+            cin = planes * 4
+    embed = w * 32
+    shapes.append(("visual.attnpool.positional_embedding",
+                   ((cfg.image_size // 32) ** 2 + 1, embed)))
+    for proj, out in (("q_proj", embed), ("k_proj", embed), ("v_proj", embed),
+                      ("c_proj", cfg.embed_dim)):
+        shapes += [(f"visual.attnpool.{proj}.weight", (out, embed)),
+                   (f"visual.attnpool.{proj}.bias", (out,))]
+    return shapes
+
+
+def write_rn50(torch, device, path):
+    """``RN50.pt`` in the OpenAI ``visual.*`` layout from a seed (a plain
+    ``torch.save`` state dict at RN50's widths). Returns the seeded
+    tensors."""
+    from certifiedgpt_tpu_torch.attack.clip import ClipResNetConfig
+
+    make = SeededTensors(torch, device, ATTACK_SEED + 1, keep=(
+        "visual.attnpool.c_proj.weight", "visual.layer3.5.conv2.weight",
+        "visual.layer4.0.downsample.1.running_var"))
+    sd = {key: torch.tensor(0) if shape is None else make(key, shape).cpu()
+          for key, shape in openai_resnet_shapes(ClipResNetConfig.rn50())}
+    torch.save(sd, path)
+    log(f"[attack] 14.3: wrote {path.name}: {len(sd)} tensors, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB")
+    return make
+
+
+def check_loaded_surrogates(torch, agent, clip_made, rn_made, clip_dir, rn_path, log_text):
+    """The ViT-B/32 surrogate and RN50 hold the written tensors (transposed
+    and permuted to the JAX layout) bit for bit; the text scorer is the CLIP
+    tower; the log names each load."""
+    from certifiedgpt_tpu_torch.attack import agent as AG
+
+    enc = {e.name: e.params for e in agent.encoders}
+    vit, rn = enc["vit_b32"], enc["rn50"]
+    k = clip_made.kept
+    pairs = [(vit["proj"], k["visual_projection.weight"].T),
+             (vit["layers"][11]["fc2"]["kernel"], k["vision_model.encoder.layers.11.mlp.fc2.weight"].T)]
+    k = rn_made.kept
+    pairs += [(rn["attnpool"]["proj"]["kernel"], k["visual.attnpool.c_proj.weight"].T),
+              (rn["layer3"][5]["conv2"]["kernel"], k["visual.layer3.5.conv2.weight"].permute(2, 3, 1, 0)),
+              (rn["layer4"][0]["downsample"]["bn"]["var"], k["visual.layer4.0.downsample.1.running_var"])]
+    for got, want in pairs:
+        if not torch.equal(got.cpu(), want.contiguous()):
+            fail("14.3: a loaded surrogate leaf differs from the written tensor")
+    if isinstance(agent.text_encoder, AG._HashTextEncoder):
+        fail("14.3: the CLIP text encoder did not load from the written directory")
+    for line in (f"Loaded vit_b32 weights from {clip_dir}", f"Loaded rn50 weights from {rn_path}",
+                 f"CLIP text encoder loaded from {clip_dir}"):
+        if line not in log_text:
+            fail(f"14.3: certified.log lacks {line!r}")
+    for name in ("rn101", "vit_b16", "vit_l14"):
+        if f"attack backbone {name} is running on RANDOM weights" not in log_text:
+            fail(f"14.3: no random-weights warning for {name}")
+    return len(pairs)
+
+
+def check_attack_outputs(label, out, rows, summary, n_rows, backbones, sigmas, epsilon):
+    if len(rows) != n_rows or any(set(r) != ATTACK_ROW_KEYS for r in rows):
+        fail(f"{label}: {len(rows)} rows, not {n_rows} with the JAX package's keys")
+    for row in rows:
+        if not 0.0 <= row["linf"] <= epsilon + 1e-6 or row["sigma"] not in sigmas \
+                or row["backbone"] not in backbones \
+                or not all(math.isfinite(row[k]) for k in ("clean_similarity", "adv_similarity")):
+            fail(f"{label}: malformed row {row}")
+    on_disk = json.loads((out / "attack_summary.json").read_text())
+    if json.dumps(on_disk, sort_keys=True) != json.dumps(summary, sort_keys=True) \
+            or summary["total"] != n_rows \
+            or set(summary["success_rate_per_backbone"]) != set(backbones):
+        fail(f"{label}: summary {summary} does not match its rows")
+    csv_rows = (out / "attack_ancova.csv").read_text().splitlines()
+    if len(csv_rows) != n_rows + 1:
+        fail(f"{label}: attack_ancova.csv has {len(csv_rows)} lines")
+
+
+def phase_attack(torch, card, device, d_in: int, d_out: int):
+    """14.3: ``launch.main`` in ``attack`` mode on ``vqav2_attack.yaml``
+    unchanged over ``ATTACK_IMAGES`` written images (full-width W8A8
+    victim from its seed, 100 PGD steps for each of five backbones, four
+    sigmas), ``CLIP_HF_DIR``/``CLIP_VIT_B32`` at a written full-width
+    ViT-B/32 directory and ``CLIP_RN50`` at a written ``RN50.pt``, the other
+    checkpoint variables where nothing exists. 14.4: a copy whose run block
+    has one backbone (vit_b32), sigma 0.5 and the RGF stage (2 queries, 1
+    iteration) over one image. Checks rows, files, the loads, the launches
+    a caption and the caption streams; prints seconds per attacked image
+    split into each backbone's PGD and the captions. Returns 14.3's
+    launches."""
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.attack import agent as AG
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    model_block = Config(ATTACK_CONFIG).to_dict()["model"]
+    if {k: model_block.get(k) for k in CERTIFY_MODEL_BLOCK} != CERTIFY_MODEL_BLOCK:
+        fail(f"{ATTACK_CONFIG}: the model block is not the certify configs' ({model_block})")
+    run_cfg = Config(ATTACK_CONFIG).run
+    sigmas = [float(s) for s in run_cfg.get("sigma_grid")]
+    epsilon = float(run_cfg.get("attack_epsilon"))
+    backbones = list(run_cfg.get("attack_backbones"))
+    if tuple(backbones) != ATTACK_BACKBONES:
+        fail(f"{ATTACK_CONFIG} names backbones {backbones}, not {ATTACK_BACKBONES}")
+    timing = {"pgd": {}, "caption": [], "streams": [], "agents": []}
+    transfer, caption, run = (AG.AttackAgent._transfer_attack, AG.AttackAgent.caption,
+                              AG.AttackAgent.run)
+
+    def timed_transfer(self, attack, pixels, target_pixels, enc):
+        t0 = time.perf_counter()
+        out = transfer(self, attack, pixels, target_pixels, enc)  # numpy: synchronized
+        timing["pgd"].setdefault(enc.name, []).append(time.perf_counter() - t0)
+        return out
+
+    def timed_caption(self, pixels, instruction, stream, sigma=None):
+        t0 = time.perf_counter()
+        out = caption(self, pixels, instruction, stream, sigma)  # a string: synchronized
+        timing["caption"].append(time.perf_counter() - t0)
+        timing["streams"].append(tuple(stream))
+        return out
+
+    def timed_run(self):
+        timing["agents"].append(self)
+        t0 = time.perf_counter()
+        out = run(self)
+        timing["run_s"] = time.perf_counter() - t0
+        return out
+
+    patches = [mock.patch.object(AG.AttackAgent, "_transfer_attack", timed_transfer),
+               mock.patch.object(AG.AttackAgent, "caption", timed_caption),
+               mock.patch.object(AG.AttackAgent, "run", timed_run)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_attack_") as tmp, \
+            contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        root = Path(tmp)
+        env, proj = launch_files(root, ATTACK_IMAGES, d_in, d_out)
+        t0 = time.perf_counter()
+        clip_dir, rn_path = root / "clip-vit-base-patch32", root / "RN50.pt"
+        clip_made = write_clip_dir(torch, device, clip_dir)
+        rn_made = write_rn50(torch, device, rn_path)
+        log(f"[attack] 14.3: the two surrogate files written in {time.perf_counter() - t0:.3f} s")
+        env.update({"CLIP_HF_DIR": str(clip_dir), "CLIP_VIT_B32": str(clip_dir),
+                    "CLIP_RN50": str(rn_path),
+                    **{k: str(root / "absent" / k.lower())
+                       for k in ("CLIP_VIT_B16", "CLIP_VIT_L14", "CLIP_RN101")}})
+        out = root / "out_attack"
+        res = run_launch(torch, ["attack", "--config-path", ATTACK_CONFIG], env, out)
+        rows = read_rows(out / "attack_results.jsonl")
+        summary = res["summary"]
+        n_rows = ATTACK_IMAGES * len(backbones) * len(sigmas)
+        check_attack_outputs("14.3", out, rows, summary, n_rows, backbones, sigmas, epsilon)
+        grid = summary.get("success_rate_grid", {})
+        if set(summary) != ATTACK_SUMMARY_KEYS or set(grid) != set(backbones) \
+                or any(set(cells) != {str(s) for s in sigmas} or None in cells.values()
+                       for cells in grid.values()) \
+                or len(summary["ancova"]["coefficients"]) != 2 + 2 * (len(backbones) - 1):
+            fail(f"14.3: summary {summary} lacks the grid or the ANCOVA")
+        if max(r["linf"] for r in rows) < epsilon - 1.5 / 255:
+            fail("14.3: the PGD did not reach the l-inf budget")
+        captions = ATTACK_IMAGES * len(sigmas) * (1 + len(backbones))
+        if len(timing["caption"]) != captions:
+            fail(f"14.3: {len(timing['caption'])} captions, expected {captions}")
+        check_projection("14.3", res["seen"], proj, captions)
+        check_counts("launch attack", res["launches"], PER_CHUNK["flash_cls"], captions)
+        pgd = {name: sum(v) / ATTACK_IMAGES for name, v in timing["pgd"].items()}
+        cap_s = sum(timing["caption"]) / ATTACK_IMAGES
+        per_image = timing["run_s"] / ATTACK_IMAGES
+        log_text = (out / "certified.log").read_text()
+        loaded = check_loaded_surrogates(torch, timing["agents"][0], clip_made, rn_made,
+                                         clip_dir, rn_path, log_text)
+        log(f"[attack] 14.3 {ATTACK_CONFIG}: {len(rows)} rows, linf max "
+            f"{max(r['linf'] for r in rows) * 255:.3f}/255; success_rate_grid "
+            f"{json.dumps(grid)}; ancova sigma {json.dumps(summary['ancova']['coefficients']['sigma'])}; "
+            f"{loaded} loaded leaves equal the written tensors; launches "
+            f"{json.dumps(res['launches'])} over {captions} captions")
+        log(f"[attack] 14.3: {per_image:.3f} s per attacked image (the agent's run "
+            f"{timing['run_s']:.3f} s over {ATTACK_IMAGES} images): PGD "
+            f"{json.dumps({k: round(v, 3) for k, v in pgd.items()})} s "
+            f"({sum(pgd.values()):.3f} s, {len(backbones)} x {int(run_cfg.get('attack_steps'))} "
+            f"steps), {captions // ATTACK_IMAGES} captions {cap_s:.3f} s "
+            f"({cap_s * ATTACK_IMAGES / captions:.4f} s a caption), other "
+            f"{per_image - sum(pgd.values()) - cap_s:.3f} s; model build {res['build_s']:.3f} s, "
+            f"CLI wall {res['wall']:.3f} s; {res['decode_steps']} decode steps launched; peak "
+            f"memory {res['peak_gb']:.2f} GB; {card}; card during the run: {res['card_state']}")
+        check_caption_kernels(torch, card, timing["agents"][0])
+        counted = res["launches"]
+        del res
+        timing.update(pgd={}, caption=[], streams=[], agents=[])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 14.4: the RGF query stage on the card
+        cfg = config_with_run(ATTACK_CONFIG, root / "attack_rgf.yaml", attack_backbones=["vit_b32"],
+                              sigma_grid=[0.5], rgf_queries=2, rgf_iters=1, max_images=1)
+        out = root / "out_rgf"
+        res = run_launch(torch, ["attack", "--config-path", str(cfg)], env, out)
+        rows = read_rows(out / "attack_results.jsonl")
+        check_attack_outputs("14.4", out, rows, res["summary"], 1, ["vit_b32"], [0.5], epsilon)
+        want = [(0, 0), (2, 0, 0, 0, 1), (2, 0, 0, 0, 2), (2, 0, 0, 0, 3), (1, 0, 0)]
+        if timing["streams"] != want:
+            fail(f"14.4: caption streams {timing['streams']}, expected {want}")
+        check_counts("launch attack rgf", res["launches"], PER_CHUNK["flash_cls"], len(want))
+        log(f"[attack] 14.4 RGF (vit_b32, sigma 0.5, 2 queries, 1 iteration): row "
+            f"{json.dumps(rows[0])}; {len(want)} captions {sum(timing['caption']):.3f} s, PGD "
+            f"{sum(timing['pgd']['vit_b32']):.3f} s, the agent's run {timing['run_s']:.3f} s; "
+            f"launches {json.dumps(res['launches'])}; {card}")
+        del res, timing["agents"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
+
+
+def check_caption_kernels(torch, card, agent):
+    """14.3 (end), on 14.3's agent (the full-width W8A8 victim): one caption
+    at batch 1 through the kernels and through their plain versions on the
+    same seeded pixels and noise stream. The image tokens must agree within
+    the attention's relative limit, and the first decode step's logits must
+    move from the plain path's by at most ``CAPTION_LOGIT_FACTOR`` times
+    what a random change of the plain image tokens of the same size moves
+    them (the random-weight W8A8 decoder turns a 1 % change of its input
+    into different greedy tokens, as phase 11 found, so token equality is
+    held only on the tiny model, ``tests/test_torch_attack_gpu.py``). The
+    kernels must run once a layer a ViT forward (39 / 156 / 78)."""
+    from unittest import mock
+
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.attack.attack import _resize
+    from certifiedgpt_tpu_torch.data.text import BatchSpec, build_gen_batch
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+    from certifiedgpt_tpu_torch.models.llama import lm_head_logits
+
+    rng = np.random.RandomState(ATTACK_SEED)
+    pixels = rng.rand(*IMAGE_HWC).astype(np.float32)
+    params, cfg, device = agent.model.params, agent.model.cfg, agent.device
+    mean, std = agent._pixel_stats()
+    image = _resize(torch.from_numpy((pixels - mean) / std)[None].to(device), cfg.vit.img_size)
+    prompt = build_gen_batch(agent.model.tokenizer, [QUESTION],
+                             BatchSpec(seq_len=agent.seq_len, num_img_tokens=cfg.num_img_tokens))
+    batch = {k: torch.from_numpy(v).long().to(device) for k, v in prompt.items()}
+    batch["image"] = image
+    victim = agent._victim_generate
+    tokens = []
+
+    def recording(*args):
+        out = victim(*args)
+        tokens.append(out.cpu())
+        return out
+
+    def first_logits(feats):
+        with mock.patch.object(M, "encode_img", lambda *a, **k: feats):
+            return lm_head_logits(params["llama"], M.prefill(params, cfg, batch, 1)[0])
+
+    agent._victim_generate = recording
+    try:
+        with torch.no_grad():
+            reset_counts()
+            agent.caption(pixels, QUESTION, (0, 0), 0.5)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            feats = M.encode_img(params, cfg, image)
+            with contextlib.ExitStack() as stack:
+                for p in plain_versions():
+                    stack.enter_context(p)
+                agent.caption(pixels, QUESTION, (0, 0), 0.5)
+                plain = M.encode_img(params, cfg, image)
+                noise = torch.randn(plain.shape, generator=torch.Generator(device=device)
+                                    .manual_seed(ATTACK_SEED), device=device)
+                control = plain + (noise * (feats - plain).float().norm() / noise.norm()).to(
+                    plain.dtype)
+                logits = [first_logits(f) for f in (feats, plain, control)]
+    finally:
+        agent._victim_generate = victim
+    err = rel_err(feats, plain)
+    dev_k, dev_c = rel_err(logits[0], logits[1]), rel_err(logits[2], logits[1])
+    same = [int(a != b) for a, b in zip(tokens[0][0].tolist(), tokens[1][0].tolist())]
+    log(f"[attack] 14.3 a caption at batch 1 (full width, W8A8, sigma 0.5) through the kernels "
+        f"vs their plain versions: image tokens relative error {err:.3e}; first-step logits "
+        f"{dev_k:.3e} apart (a random change of the plain image tokens as large: {dev_c:.3e}); "
+        f"greedy tokens {tokens[0][0].tolist()} vs {tokens[1][0].tolist()} ({sum(same)} of "
+        f"{len(same)} differ); launches {json.dumps(launches)}; {card}")
+    check_counts("14.3 caption", launches, PER_CHUNK["flash_cls"], 1)
+    if not err < ATTN_REL_LIMIT or not dev_k <= CAPTION_LOGIT_FACTOR * dev_c:
+        fail("14.3: the caption through the kernels disagrees with the plain versions'")
+
+
 def main() -> int:
     try:
         import torch
@@ -2838,6 +3437,16 @@ def main() -> int:
         t1 = time.perf_counter()
         cli_launches.update(phase_decode(torch, card, device, *widths))
         log(f"[main] phase 12 took {t1 - t0:.1f} s, phase 13 {time.perf_counter() - t1:.1f} s")
+    # phase 14: the attack stage (its PGD turns autograd on for itself)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        batch1 = phase_attack_kernels(torch, device)
+    phase_attack_surrogates(torch, card, device)
+    cli_launches["attack"] = phase_attack(torch, card, device, *widths)
+    log(f"[main] phase 14 took {time.perf_counter() - t0:.1f} s")
+    for name, rec in batch1.items():
+        records[name]["attack_batch1"] = {k: rec[k] for k in (
+            "ms", "ms_cls", "plain_ms", "bound_ms", "bound_by", "max_abs_err") if k in rec}
     summary["lookahead"] = lookahead
     log(f"[main] summary {json.dumps(summary)}")
     by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches}

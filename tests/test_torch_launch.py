@@ -409,17 +409,29 @@ def test_unported_knobs_are_refused(vqa, knob, value, item):
 
 
 @pytest.mark.parametrize("mode,item", [("train", 16), ("attack", 15)])
-def test_launcher_refuses_unported_modes(mode, item, tmp_path):
-    """``attack`` is not ported (item 15); ``train`` runs, and its agent
-    refuses the shipped VQAv2 YAML with ``pipeline_parallel: 2`` (item 16)
-    before it builds a model."""
-    path = CERTIFY_CONFIGS[0]
-    if mode == "train":
-        cfg = Config(os.path.join(REPO, "configs", "train_configs",
-                                  "vqav2_finetuning_noise_0.5.yaml")).to_dict()
-        cfg["run"].update(pipeline_parallel=2, output_dir=str(tmp_path / "out"))
-        path = tmp_path / "train.yaml"
-        path.write_text(json.dumps(cfg))
+def test_launcher_refuses_unported_modes(mode, item, vqa, tmp_path):
+    """``train`` runs, and its agent refuses the shipped VQAv2 YAML with
+    ``pipeline_parallel: 2`` (item 16) before it builds a model. ``attack``
+    (item 15) is ported: it routes to ``image_text_attack``, which writes its
+    rows, summary and ANCOVA CSV."""
+    if mode == "attack":
+        cfg = vqa("", "routed-attack", attack_backbones=["vit_tiny"], attack_steps=1,
+                  max_images=1)
+        del cfg["run"]["agent"]
+        path = tmp_path / "attack.yaml"
+        path.write_text(json.dumps(cfg))  # JSON is YAML
+        summary = launch.main([mode, "--config-path", str(path), "--device", "cpu"])
+        out = vqa.root / "out" / "routed-attack"
+        assert registry.get("configuration").run.agent == "image_text_attack"
+        assert summary == json.load(open(out / "attack_summary.json"))
+        assert summary["total"] == 1 and len(_rows(out / "attack_results.jsonl")) == 1
+        assert (out / "attack_ancova.csv").exists()
+        return
+    cfg = Config(os.path.join(REPO, "configs", "train_configs",
+                              "vqav2_finetuning_noise_0.5.yaml")).to_dict()
+    cfg["run"].update(pipeline_parallel=2, output_dir=str(tmp_path / "out"))
+    path = tmp_path / "train.yaml"
+    path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         launch.main([mode, "--config-path", str(path), "--device", "cpu"])
 
