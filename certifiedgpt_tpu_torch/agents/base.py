@@ -2,9 +2,15 @@
 history plumbing.
 
 Port of ``certifiedgpt_tpu/agents/base.py``: an agent owns the config, the
-output directory, the logger and the model, which it builds through the
-port's registry on the launcher's device (one device: the JAX package's
-device mesh has no counterpart yet). It builds the optimizer and the lr
+output directory, the logger, the process mesh and the model, which it
+builds through the port's registry on the launcher's device. The mesh
+(``parallel/mesh.py``) comes from ``run.model_parallel`` and
+``run.dcn_parallel`` over the ranks of ``torch.distributed``; with
+``model_parallel`` > 1 the agent keeps only this rank's shard of the
+decoder (``partition_llama``). ``run.pipeline_parallel`` > 1 is refused:
+the GPipe schedule is not ported (ROADMAP.md, modules item 17). Only rank 0
+writes the history and the checkpoints; the others wait at a barrier after
+a checkpoint. It builds the optimizer and the lr
 schedule from the run block (``optim.py``), writes and reads checkpoints in
 the JAX package's ``.npz`` format (trainable leaves, optimizer state,
 metadata; ``vqa_finetuned`` names finetuned weights), records the loss of
@@ -32,32 +38,58 @@ from certifiedgpt_tpu_torch.common.checkpoint import (
 from certifiedgpt_tpu_torch.common.logging import get_logger
 from certifiedgpt_tpu_torch.common.registry import registry
 from certifiedgpt_tpu_torch.optim import AdamW, build_lr_schedule
-
-#: run-block knobs that place a run on more than one device
-PARALLEL_KNOBS = ("model_parallel", "pipeline_parallel", "dcn_parallel")
+from certifiedgpt_tpu_torch.parallel.mesh import (
+    barrier,
+    make_mesh,
+    process_index,
+    set_active_mesh,
+    shard_decoder,
+)
 
 
 class BaseAgent:
     def __init__(self, config, device="cuda"):
         self.config = config
         self.run_cfg = config.run
-        for key in PARALLEL_KNOBS:
-            if int(self.run_cfg.get(key, 1) or 1) > 1:
-                raise NotImplementedError(
-                    f"run.{key} = {self.run_cfg.get(key)}: multi-device runs are not "
-                    "ported yet (ROADMAP.md, modules item 16: parallel/)"
-                )
+        n_model = int(self.run_cfg.get("model_parallel", 1) or 1)
+        n_pipe = int(self.run_cfg.get("pipeline_parallel", 1) or 1)
+        if n_pipe > 1 and n_model > 1:
+            raise ValueError(
+                "pipeline_parallel x model_parallel composition is not wired in the "
+                "agents (the pipeline replicates lm_head/norm); pick one"
+            )
+        if n_pipe > 1:
+            raise NotImplementedError(
+                f"run.pipeline_parallel = {n_pipe}: the GPipe schedule is not ported yet "
+                "(ROADMAP.md, modules item 17)"
+            )
         self.device = device
         self.logger = get_logger()
         self.output_dir = str(self.run_cfg.get("output_dir", "output"))
         os.makedirs(self.output_dir, exist_ok=True)
+        self.mesh = make_mesh(n_model=n_model,
+                              n_dcn=int(self.run_cfg.get("dcn_parallel", 0) or 0))
+        set_active_mesh(self.mesh)
         t0 = time.perf_counter()
         self.model = self.build_model()
+        if self.mesh.n_model > 1:
+            # run.model_parallel > 1: this rank keeps its shard of the decoder
+            shard_decoder(self.model, self.mesh)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)  # the build's device work, in its time
         self.logger.info("built model %s on %s in %.3f s", self.config.arch, device,
                          time.perf_counter() - t0)
         self.loss_history: Dict[str, list] = {"train": [], "val": []}
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return process_index() == 0
+
+    def out_path(self, name: str) -> str:
+        """``name`` in the output directory on rank 0; the null device on
+        the other ranks, which compute the same results and write nothing."""
+        return os.path.join(self.output_dir, name) if self.is_writer else os.devnull
 
     def build_model(self):
         model_cls = registry.get_model_class(self.config.arch)
@@ -93,11 +125,17 @@ class BaseAgent:
     def save_agent_checkpoint(self, name: str, trainable: Mapping[str, Any],
                               optimizer: Optional[AdamW] = None, **metadata) -> str:
         """``{name}.npz`` (and its meta sidecar) in the output directory:
-        the trainable tree, the optimizer's state when given, ``metadata``."""
+        the trainable tree, the optimizer's state when given, ``metadata``.
+        Rank 0 writes; every rank then waits at a barrier, so none reads a
+        half-written file (the barrier runs even when the write fails)."""
         path = self.checkpoint_path(name)
-        opt_state = optimizer.state_arrays() if optimizer is not None else None
-        save_checkpoint(path, trainable, opt_state, metadata)
-        self.logger.info("Saved checkpoint %s", path)
+        try:
+            if self.is_writer:
+                opt_state = optimizer.state_arrays() if optimizer is not None else None
+                save_checkpoint(path, trainable, opt_state, metadata)
+                self.logger.info("Saved checkpoint %s", path)
+        finally:
+            barrier()
         return path
 
     def load_agent_checkpoint(self, name_or_path: str, trainable_template):
@@ -153,7 +191,9 @@ class BaseAgent:
 
     def save_history(self) -> None:
         """``loss_history.json``, and ``loss_history.png`` when a loss was
-        recorded (matplotlib; a plot that fails only warns)."""
+        recorded (matplotlib; a plot that fails only warns); rank 0 only."""
+        if not self.is_writer:
+            return
         with open(os.path.join(self.output_dir, "loss_history.json"), "w") as handle:
             json.dump(self.loss_history, handle)
         if not any(self.loss_history.values()):
@@ -180,7 +220,12 @@ class BaseAgent:
         raise NotImplementedError
 
     def finalize(self) -> None:
+        # a trace whose window outlives the run is stopped and written here
+        profiler = getattr(self, "profiler", None)
+        if profiler is not None:
+            profiler.stop()
         self.save_history()
+        set_active_mesh(None)
 
 
 def setup_agent(config, device="cuda") -> BaseAgent:

@@ -25,8 +25,13 @@ rows land out of order and carry ``elapsed_seconds`` (wall clock since the
 run began) instead of ``seconds``, and the summary adds ``continuous``,
 ``images_per_hour`` and ``mean_seconds_per_image`` = wall / images.
 
-Not ported yet: the profiler (``run.enable_profile``), ROADMAP.md modules
-item 16.
+``run.enable_profile`` traces with ``common/profiling.py``: the serial
+loops open the trace at image ``profile_step``, the continuous scheduler at
+chunk ``profile_step``. Under data parallelism (``run.distributed`` with
+more than one rank in the mesh's batch group) every chunk splits over the
+ranks (``smoothing/classifier.py``); ``mc_batch`` is rounded down to a
+multiple of the batch divisor, as in the JAX agent; every rank computes the
+same rows, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import numpy as np
 
 from certifiedgpt_tpu_torch.agents.base import BaseAgent
+from certifiedgpt_tpu_torch.common.profiling import Profiler
 from certifiedgpt_tpu_torch.common.registry import registry
 from certifiedgpt_tpu_torch.common.stages import StageClock
 from certifiedgpt_tpu_torch.models.conversation import wrap_instruction
@@ -122,9 +128,11 @@ class SmoothingKnobs:
 
 
 def make_smooth(model, knobs: SmoothingKnobs, instruction: str, vocab: AnswerVocabulary,
-                clock: Optional[StageClock] = None) -> Smooth:
+                clock: Optional[StageClock] = None, mesh=None,
+                on_chunk: Optional[Callable[[int], None]] = None) -> Smooth:
     """``Smooth`` over noisy greedy generation of ``model`` on the wrapped
-    ``instruction``, labelled by ``vocab``."""
+    ``instruction``, labelled by ``vocab``; ``mesh`` splits each chunk over
+    its batch group; ``on_chunk`` runs before each chunk's dispatch."""
     sample_fn = make_sample_fn(
         model,
         wrap_instruction(instruction, knobs.conv_template),
@@ -137,6 +145,8 @@ def make_smooth(model, knobs: SmoothingKnobs, instruction: str, vocab: AnswerVoc
         clock=clock,
         noise_dist=knobs.noise_dist,
         window=knobs.dispatch_window,
+        mesh=mesh,
+        on_chunk=on_chunk,
     )
     return Smooth(sample_fn, vocab.num_classes, knobs.sigma)
 
@@ -226,14 +236,20 @@ class SmoothedVQAAgentBase(BaseAgent):
 
     def __init__(self, config, device="cuda"):
         run = config.run
-        if run.get("enable_profile", False):
-            raise NotImplementedError(
-                "run.enable_profile: common/profiling.py is not ported yet "
-                "(ROADMAP.md, modules item 16)"
-            )
         super().__init__(config, device)
         self.knobs = SmoothingKnobs.from_run(run)
+        # keep mc_batch a multiple of the mesh's batch axes (the MC axis
+        # splits over dcn x data) instead of failing at the first image
+        n_data = self.mesh.batch_divisor
+        if n_data > 1 and self.knobs.mc_batch % n_data:
+            rounded = max(self.knobs.mc_batch // n_data, 1) * n_data
+            self.logger.warning("mc_batch %d not divisible by mesh data axis %d; using %d",
+                                self.knobs.mc_batch, n_data, rounded)
+            self.knobs = dataclasses.replace(self.knobs, mc_batch=rounded)
         self.max_images = run.get("max_images")
+        # the image index (serial loops) or chunk index (continuous) is the
+        # profile step
+        self.profiler = Profiler(run, device)
         finetuned = self.load_finetuned({"llama_proj": self.model.params["llama_proj"]})
         if finetuned is not None:
             self.model.set_llama_proj(finetuned["llama_proj"])
@@ -287,7 +303,8 @@ class SmoothedVQAAgentBase(BaseAgent):
 
     def smoothed_classifier(self, item, dataset=None):
         vocab = self.build_vocab(item, dataset)
-        return make_smooth(self.model, self.knobs, item["instruction_input"], vocab), vocab
+        return make_smooth(self.model, self.knobs, item["instruction_input"], vocab,
+                           mesh=self.mesh, on_chunk=self.profiler.poll), vocab
 
     def limit(self, dataset) -> int:
         """Items to run: the first ``max_images`` of the dataset."""
@@ -300,10 +317,11 @@ class SmoothedVQAAgentBase(BaseAgent):
         to ``{mode}_results.jsonl``, the agent's ``summarize`` of all rows
         goes to ``{mode}_summary.json``."""
         rows: List[Dict[str, Any]] = []
-        with open(os.path.join(self.output_dir, f"{mode}_results.jsonl"), "w") as sink:
+        with open(self.out_path(f"{mode}_results.jsonl"), "w") as sink:
             for idx in range(self.limit(dataset)):
                 item = dataset[idx]
                 smooth, vocab = self.smoothed_classifier(item, dataset)
+                self.profiler.maybe_start(0, idx)
                 row = make_row(smooth, vocab, self.knobs, item["image"], item["gt_answers"],
                                idx, item["question_id"])
                 rows.append(row)
@@ -315,7 +333,7 @@ class SmoothedVQAAgentBase(BaseAgent):
                     row["correct"], row["seconds"],
                 )
         summary = self.summarize(rows)
-        with open(os.path.join(self.output_dir, f"{mode}_summary.json"), "w") as handle:
+        with open(self.out_path(f"{mode}_summary.json"), "w") as handle:
             json.dump(summary, handle, indent=2)
         self.logger.info("%s summary: %s", mode, summary)
         return summary
@@ -333,6 +351,7 @@ class SmoothedVQAAgentBase(BaseAgent):
             noise_dist=k.noise_dist, early_exit=k.early_exit, window=k.dispatch_window,
             mode=mode, early_abstain=k.early_abstain,
             early_stop_radius=k.early_stop_radius if mode == "certify" else None,
+            mesh=self.mesh,
         )
 
     def _continuous_run(self, dataset, mode: str, n0: int, n: int) -> Dict[str, Any]:
@@ -347,7 +366,7 @@ class SmoothedVQAAgentBase(BaseAgent):
         scheduler = self.make_continuous(n0, n, mode=mode)
         rows: List[Dict[str, Any]] = []
         t0 = time.time()
-        with open(os.path.join(self.output_dir, f"{mode}_results.jsonl"), "w") as sink:
+        with open(self.out_path(f"{mode}_results.jsonl"), "w") as sink:
             def on_result(res, job):
                 label = res["label"]
                 row = {
@@ -382,6 +401,8 @@ class SmoothedVQAAgentBase(BaseAgent):
                 lambda item: self.build_vocab(item, dataset),
                 seed=certify_seed(k.seed, 0, k.sigma),
                 on_result=on_result,
+                # the profile step is the dispatched chunk's index
+                on_chunk=lambda chunk: self.profiler.maybe_start(0, chunk),
             )
         elapsed = time.time() - t0
         rows.sort(key=lambda r: r["index"])
@@ -389,7 +410,7 @@ class SmoothedVQAAgentBase(BaseAgent):
         summary["mean_seconds_per_image"] = elapsed / max(len(rows), 1)
         summary["continuous"] = True
         summary["images_per_hour"] = 3600.0 / max(summary["mean_seconds_per_image"], 1e-9)
-        with open(os.path.join(self.output_dir, f"{mode}_summary.json"), "w") as handle:
+        with open(self.out_path(f"{mode}_summary.json"), "w") as handle:
             json.dump(summary, handle, indent=2)
         self.logger.info("%s summary: %s", mode, summary)
         return summary
@@ -426,7 +447,7 @@ class CertifyAgent(SmoothedVQAAgentBase):
                 sweep[str(sigma)] = self._run_single(dataset)
         finally:
             self.output_dir, self.knobs = base_out, base_knobs
-        with open(os.path.join(base_out, "certify_sweep.json"), "w") as handle:
+        with open(self.out_path("certify_sweep.json"), "w") as handle:
             json.dump(sweep, handle, indent=2)
         self.logger.info("sigma sweep complete: %s", list(sweep))
         return {"sweep": sweep}

@@ -24,6 +24,13 @@ generate is queued on the card with its tokens' copy to pinned host memory
 once the window is full. Batch ``step``'s noise and its token sampling
 draw from two generators seeded from (seed, step) by
 ``split_noise_sample_seeds``, so the two streams are disjoint.
+
+Data parallelism (``run.distributed``, a mesh batch group of more than one
+rank), as the JAX agent shards a batch: every rank loads every batch, pads
+it to a multiple of the batch divisor, draws the whole batch's noise, runs
+its block of rows and gathers the tokens; every rank scores, rank 0 writes.
+Greedy and beam tokens are the one-process ones; the token sampler's draws
+are of each rank's rows, so a sampled answer differs from one process's.
 """
 
 from __future__ import annotations
@@ -130,13 +137,20 @@ class EvalAgent(BaseAgent):
     def generate(self, batch: Dict[str, torch.Tensor], step: int) -> torch.Tensor:
         """Queue one padded batch's noisy decode (greedy, beam search or
         with the sampling knobs); returns the token ids
-        ``[batch_size, max_new_tokens]`` on the device."""
+        ``[rows, max_new_tokens]`` on the device (under data parallelism
+        each rank decodes its rows and the tokens are gathered)."""
         noise_seed, sample_seed = split_noise_sample_seeds(self.seed, step)
         noise_gen = torch.Generator(device=self.device)
         noise_gen.manual_seed(noise_seed)
         images = add_input_noise(batch["image"], self.noise_level, self.noise_dist, noise_gen)
         gen_batch = {"image": images,
                      **{k: batch[k].long() for k in ("input_ids", "attention_mask", "img_pos")}}
+        if self.mesh.batch_group is not None:
+            gen_batch = {k: self.mesh.local_rows(v) for k, v in gen_batch.items()}
+            return self.mesh.gather_rows(self._generate(gen_batch, sample_seed))
+        return self._generate(gen_batch, sample_seed)
+
+    def _generate(self, gen_batch: Dict[str, torch.Tensor], sample_seed: int) -> torch.Tensor:
         tok = self.model.tokenizer
         args = (self.model.params, self.model.cfg, gen_batch, self.max_new_tokens,
                 tok.eos_token_id, tok.pad_token_id)
@@ -184,9 +198,13 @@ class EvalAgent(BaseAgent):
         gt_annotations: List[dict] = []
         gt_questions: List[dict] = []
 
+        # one decode shape: batch_size rows, padded to a multiple of the
+        # mesh's batch divisor
+        div = self.mesh.batch_divisor
+        pad_to = -(-self.batch_size // div) * div
         # each batch in flight holds its padded images on the device
         window = max(1, int(self.run_cfg.get("dispatch_window", 2)))
-        check_dispatch_window_hbm(window, self.batch_size, self.model.cfg.vit.img_size,
+        check_dispatch_window_hbm(window, pad_to, self.model.cfg.vit.img_size,
                                   self.device, logger=self.logger)
         inflight: deque = deque()
 
@@ -216,9 +234,9 @@ class EvalAgent(BaseAgent):
                                    self.wrap_instructions(batch["instruction_input"]), spec)
             n = batch["image"].shape[0]
             images = batch["image"]
-            if n < self.batch_size:
+            if n < pad_to:
                 # one decode shape for every batch; padded rows are dropped
-                reps = self.batch_size - n
+                reps = pad_to - n
                 images = np.concatenate([images, np.repeat(images[-1:], reps, 0)])
                 text = {key: np.concatenate([val, np.repeat(val[-1:], reps, 0)], axis=0)
                         for key, val in text.items()}
@@ -242,7 +260,7 @@ class EvalAgent(BaseAgent):
             # a test split (no question has ground truth): the official
             # VQA submission format
             path = os.path.join(self.output_dir, "vqa_test_predictions.json")
-            with open(path, "w") as handle:
+            with open(self.out_path("vqa_test_predictions.json"), "w") as handle:
                 json.dump(predictions, handle)
             self.logger.info("wrote %d test predictions to %s", len(predictions), path)
             return {"num_questions": len(predictions), "predictions_path": path}
@@ -283,7 +301,7 @@ class EvalAgent(BaseAgent):
         }
         if bert_f1 is not None:
             results["bertscore_f1"] = bert_f1
-        with open(os.path.join(self.output_dir, "eval_results.json"), "w") as handle:
+        with open(self.out_path("eval_results.json"), "w") as handle:
             json.dump({"summary": results, "predictions": predictions}, handle, indent=2)
         self.logger.info("eval results: %s", results)
         return results

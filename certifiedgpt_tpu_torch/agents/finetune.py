@@ -26,8 +26,21 @@ interrupted, with nothing to replay (the JAX package keys by the global
 step and restores it). The two packages' generators differ, so their runs
 agree only at noise 0.
 
-Not ported: ``pipeline_parallel``/``model_parallel`` > 1 (``BaseAgent``
-refuses them) and ``run.enable_profile`` (ROADMAP.md, modules item 16).
+``run.enable_profile`` traces the train step (``profile_epoch``,
+``profile_step``) with ``common/profiling.py``.
+
+Data parallelism (``run.distributed``, the mesh's batch group): each rank
+loads its contiguous slice of every global batch (``batch_size`` rows; a
+packed run needs ``batch_size / pack_sequences`` rows that divide too) and
+draws the whole batch's noise from the step's generator, keeping its rows,
+so every sample gets the one-process noise. The loss is the one-process
+loss: the per-token losses and the token counts are summed over the batch
+group before the division (not a mean of means), so packing and
+``real_rows`` weigh right; after the backward the trainable leaves'
+gradients are summed over the batch group. AdamW's state stays replicated.
+Tensor parallelism (``run.model_parallel``) shards the decoder
+(``BaseAgent``). ``pipeline_parallel`` > 1 is refused (ROADMAP.md, modules
+item 17).
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ import torch
 
 from certifiedgpt_tpu_torch.agents.base import BaseAgent
 from certifiedgpt_tpu_torch.common.metrics import StepMetrics
+from certifiedgpt_tpu_torch.common.profiling import Profiler
 from certifiedgpt_tpu_torch.common.registry import registry
 from certifiedgpt_tpu_torch.data.loader import Loader, to_device
 from certifiedgpt_tpu_torch.data.text import (
@@ -48,6 +62,7 @@ from certifiedgpt_tpu_torch.data.text import (
     build_train_batch,
     pack_train_batch,
 )
+from certifiedgpt_tpu_torch.models.llama import IGNORE_INDEX
 from certifiedgpt_tpu_torch.models.minigpt4 import minigpt4_loss
 from certifiedgpt_tpu_torch.smoothing.classifier import chunk_seed
 
@@ -68,6 +83,31 @@ def add_input_noise(images: torch.Tensor, sigma: float, dist: str = "gaussian",
                                  dtype=images.dtype)
 
 
+def data_parallel_step(model, batch: Dict[str, torch.Tensor], optimizer, mesh=None
+                       ) -> torch.Tensor:
+    """One optimizer step on this rank's rows of a batch whose loss is the
+    one-process loss: the token losses and the token counts summed over the
+    mesh's batch group before the division (not a mean of means, so packed
+    rows and uneven counts weigh right), the gradients of the trainable
+    leaves summed over the group after the backward. Returns the loss.
+    Without a mesh, the same arithmetic in one process."""
+    local = minigpt4_loss(model.params, model.cfg, batch, reduction="sum").sum()
+    count = (batch["labels"][:, 1:] != IGNORE_INDEX).sum().float()
+    if mesh is not None:
+        mesh.batch_sum(count)
+    (local / count.clamp_min(1)).backward()
+    if mesh is not None:
+        for p in optimizer.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            mesh.batch_sum(p.grad)
+    optimizer.step()
+    total = local.detach().clone()
+    if mesh is not None:
+        mesh.batch_sum(total)
+    return total / count.clamp_min(1)
+
+
 def noise_seed(seed: int, epoch: int, step: int) -> int:
     """Generator seed of one step's noise: (seed, epoch, step)."""
     return chunk_seed(chunk_seed(seed, epoch), step)
@@ -77,11 +117,6 @@ def noise_seed(seed: int, epoch: int, step: int) -> int:
 class FinetuneAgent(BaseAgent):
     def __init__(self, config, device="cuda"):
         run = config.run
-        if run.get("enable_profile", False):
-            raise NotImplementedError(
-                "run.enable_profile: common/profiling.py is not ported yet "
-                "(ROADMAP.md, modules item 16)"
-            )
         super().__init__(config, device)
         self.max_epoch = int(run.get("max_epoch", 1))
         self.patience = int(run.get("patience", 5))
@@ -118,18 +153,35 @@ class FinetuneAgent(BaseAgent):
                 f"max_position_embeddings={max_pos} rotary table (raise "
                 f"model.max_position_embeddings or pack more)"
             )
+        # the packed text rows split over the mesh's batch axes like the
+        # images: catch a row count they do not divide here, not at step 1
+        n_data = self.mesh.batch_divisor
+        rows = self.batch_size // self.pack
+        if self.pack > 1 and rows % n_data:
+            raise ValueError(
+                f"run.batch_size={self.batch_size} / run.pack_sequences={self.pack} = "
+                f"{rows} packed rows, which does not divide the mesh data axis "
+                f"({n_data}); pick batch_size so batch_size/pack_sequences is a "
+                "multiple of it"
+            )
+        if self.batch_size % n_data:
+            raise ValueError(
+                f"Global batch_size {self.batch_size} must be divisible by the "
+                f"mesh data axis ({n_data})"
+            )
         self.seed = int(run.get("seed", 42))
         self.trainable_keys = tuple(run.get("trainable_keys", ["llama_proj"]))
         self.trainable = self.model.make_trainable(self.trainable_keys)
         self.optimizer = self.build_optimizer(self.trainable)
         self.wandb_run = self._setup_wandb()
+        self.profiler = Profiler(run, device)
         self.metrics = StepMetrics(self.output_dir, str(run.get("checkpoint_name", "metrics")))
         self.metrics.track("train_step", self._train_step)
 
     # ------------------------------------------------------------------
     def _setup_wandb(self):
-        if not self.run_cfg.get("wandb", False):
-            return None
+        if not self.run_cfg.get("wandb", False) or not self.is_writer:
+            return None  # one wandb run, owned by rank 0
         try:
             import wandb
 
@@ -151,23 +203,34 @@ class FinetuneAgent(BaseAgent):
         generator.manual_seed(noise_seed(self.seed, epoch, step))
         return generator
 
-    def _noisy(self, batch: Dict[str, torch.Tensor], generator) -> Dict[str, torch.Tensor]:
-        images = add_input_noise(batch["image"], self.noise_level, self.noise_dist, generator)
-        return dict(batch, image=images)
+    def _noisy(self, batch: Dict[str, torch.Tensor], generator,
+               per: int = None) -> Dict[str, torch.Tensor]:
+        """The batch with its images' noise: the whole batch's noise
+        (``batch_size`` rows) is drawn and this rank keeps the rows of its
+        samples, which start at ``batch_index * per`` (``per``: the
+        loader's rows a rank, the batch's rows when None; one process
+        keeps rows from 0)."""
+        images = batch["image"]
+        whole = torch.zeros((self.batch_size,) + tuple(images.shape[1:]), dtype=images.dtype,
+                            device=images.device)
+        noise = add_input_noise(whole, self.noise_level, self.noise_dist, generator)
+        start = self.mesh.batch_index * (images.shape[0] if per is None else per)
+        return dict(batch, image=images + noise[start:start + images.shape[0]])
 
     def _train_step(self, batch: Dict[str, torch.Tensor], generator) -> torch.Tensor:
         """One step: noise, loss, backward into the trainable leaves, an
-        optimizer step. Returns the loss (on the device)."""
-        loss = minigpt4_loss(self.model.params, self.model.cfg, self._noisy(batch, generator))
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        optimizer step (``data_parallel_step``: the loss is the sum of every
+        rank's token losses over the sum of their token counts, and the
+        gradients are summed over the batch group before the step). Returns
+        the loss (on the device)."""
+        return data_parallel_step(self.model, self._noisy(batch, generator), self.optimizer,
+                                  self.mesh)
 
     @torch.no_grad()
-    def _eval_step(self, batch, valid: torch.Tensor, generator):
+    def _eval_step(self, batch, valid: torch.Tensor, generator, per: int = None):
         """Sum of the per-sample losses over the valid rows, and their count."""
-        losses = minigpt4_loss(self.model.params, self.model.cfg, self._noisy(batch, generator),
-                               reduction="none")
+        losses = minigpt4_loss(self.model.params, self.model.cfg,
+                               self._noisy(batch, generator, per), reduction="none")
         v = valid.to(losses.dtype)
         return (losses * v).sum(), v.sum()
 
@@ -192,6 +255,8 @@ class FinetuneAgent(BaseAgent):
                     dataset, batch_size=self.batch_size, shuffle=(split == "train"),
                     drop_last=(split == "train"), seed=self.seed,
                     num_workers=int(self.run_cfg.get("num_workers", 4)),
+                    process_index=self.mesh.batch_index,
+                    process_count=self.mesh.batch_divisor,
                 )
         return loaders
 
@@ -223,7 +288,8 @@ class FinetuneAgent(BaseAgent):
     def debug_graph_computation(self) -> Dict[str, Any]:
         """One forward/backward/update on the first train batch and a
         ``debug_ckpt`` checkpoint."""
-        batch = next(iter(self.create_loaders()["train"]))
+        batch = dict(next(iter(self.create_loaders()["train"])))
+        batch.pop("__local_real_rows__", None)
         loss = float(self._train_step(self.device_batch(batch), self._generator(0, 0)))
         self.logger.info("debug_graph_computation: loss=%.4f", loss)
         self.save_agent_checkpoint("debug_ckpt", self.trainable, self.optimizer, epoch=0)
@@ -248,17 +314,28 @@ class FinetuneAgent(BaseAgent):
 
     def _run_validation(self, val_loader) -> float:
         """Sample-weighted mean loss over the val split, unpacked, each
-        batch padded to ``batch_size`` with the padded rows masked."""
+        batch padded to ``batch_size`` rows (this rank's share of them
+        under data parallelism) with the padded rows and the loader's
+        wrapped duplicates (``__local_real_rows__``) masked; the sums are
+        summed over the batch group."""
         v_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         v_rows = torch.zeros((), dtype=torch.float32, device=self.device)
+        pad_to = self.batch_size // self.mesh.batch_divisor
         for index, batch in enumerate(val_loader):
-            batch, rows = self._pad_host_batch(dict(batch), self.batch_size)
-            valid = torch.zeros((self.batch_size,), dtype=torch.int32, device=self.device)
+            batch = dict(batch)
+            real_rows = batch.pop("__local_real_rows__", None)
+            per = len(batch["image"])
+            batch, rows = self._pad_host_batch(batch, pad_to)
+            if real_rows is not None:
+                rows = min(rows, int(real_rows))
+            valid = torch.zeros((pad_to,), dtype=torch.int32, device=self.device)
             valid[:rows] = 1
             loss_sum, count = self._eval_step(self.device_batch(batch, pack=1), valid,
-                                              self._generator(VAL_NOISE_KEY, index))
+                                              self._generator(VAL_NOISE_KEY, index), per)
             v_sum += loss_sum
             v_rows += count
+        self.mesh.batch_sum(v_sum)
+        self.mesh.batch_sum(v_rows)
         if float(v_rows) == 0:
             raise RuntimeError(
                 "validation split produced no batches; check the val dataset "
@@ -319,6 +396,9 @@ class FinetuneAgent(BaseAgent):
             epoch_loss, n_steps = 0.0, 0
             t0 = time.time()
             for batch in train_loader:
+                batch = dict(batch)
+                batch.pop("__local_real_rows__", None)  # train batches are whole
+                self.profiler.maybe_start(epoch, n_steps)
                 loss = float(self._train_step(self.device_batch(batch),
                                               self._generator(epoch, n_steps)))
                 self.metrics.log_step_metrics("train", epoch, n_steps, loss,

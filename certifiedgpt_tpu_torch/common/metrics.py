@@ -5,8 +5,12 @@
 including its ``compiles[name]=N`` counter of each tracked function. There
 that counter is the jit cache size of a compiled function; the port's
 functions have no jit cache, so it reads -1, as the JAX package's
-``jit_cache_size`` gives for a function without one. A failed write warns
-and the run goes on.
+``jit_cache_size`` gives for a function without one. Only the process of
+rank 0 (``parallel.mesh.process_index``) writes: every rank appending to a
+shared file would interleave duplicate rows. A failed write remounts the
+output directory once (``utils/gcs.py::ensure_mounted``, for a gcsfuse
+bucket) and writes the row again; a second failure warns and the run goes
+on.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import time
 from typing import Dict, Optional
 
 from certifiedgpt_tpu_torch.common.logging import get_logger
+from certifiedgpt_tpu_torch.parallel.mesh import process_index
 
 
 def jit_cache_size(fn) -> int:
@@ -51,8 +56,18 @@ class StepMetrics:
         self._append(f"{time.strftime('%Y-%m-%d %H:%M:%S')} event={message}")
 
     def _append(self, row: str) -> None:
+        if process_index() != 0:
+            return
         try:
             with open(self.path, "a") as handle:
                 handle.write(row + "\n")
         except OSError as exc:
-            self.logger.warning("metrics write failed: %s", exc)
+            self.logger.warning("metrics write failed: %s; remounting", exc)
+            try:
+                from certifiedgpt_tpu_torch.utils.gcs import ensure_mounted
+
+                ensure_mounted(os.path.dirname(self.path))
+                with open(self.path, "a") as handle:
+                    handle.write(row + "\n")
+            except OSError as exc2:
+                self.logger.warning("metrics write failed after remount: %s", exc2)

@@ -4,8 +4,11 @@ The host half of ``certifiedgpt_tpu/data/loader.py``: ``Loader`` iterates a
 dataset in a seeded order and collates batches on a background prefetch
 thread, each sample loaded by a small thread pool (JPEG decode and resize
 release the GIL in PIL). ``process_index`` and ``process_count`` are plain
-arguments; ``process_count > 1`` (each process loading its slice of every
-global batch) waits for distributed work to be ported and raises. The JAX
+arguments (the agents pass their mesh's ``batch_index`` and
+``batch_divisor``): with more than one process, ``batch_size`` is the global
+batch and each process loads its contiguous slice of every batch, in the
+same seeded order on every process (``_local_slice``, the JAX package's),
+and each batch carries ``__local_real_rows__``. The JAX
 package's ``shard_batch`` lays a batch out over a device mesh; its
 counterpart here, ``to_device``, moves the arrays onto one device and does
 nothing else.
@@ -41,11 +44,13 @@ class Loader:
         process_index: int = 0,
         process_count: int = 1,
     ):
-        if process_count > 1:
-            raise NotImplementedError(
-                f"process_count = {process_count}: loading one process's slice of "
-                "each batch is not ported yet (ROADMAP.md, modules item 16)"
+        if process_count > 1 and batch_size % process_count != 0:
+            raise ValueError(
+                f"Global batch_size {batch_size} must be divisible by the "
+                f"process count ({process_count})"
             )
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -73,6 +78,26 @@ class Loader:
             return rng.permutation(n)
         return np.arange(n)
 
+    def _local_slice(self, idx: np.ndarray):
+        """This process's rows of a global batch (contiguous split) and how
+        many of them are real: ``(local_idx, real_rows)``. A partial final
+        batch (``drop_last=False``) pads by wrapping to the next
+        ``process_count`` multiple, as ``DistributedSampler`` does, so every
+        process gets the same non-empty count and no sample is dropped; the
+        wrapped duplicates land at the tail of the last processes' slices,
+        and ``real_rows`` leaves them out for loss weighting."""
+        if self.process_count <= 1:
+            return idx, len(idx)
+        n_real = len(idx)
+        if len(idx) % self.process_count != 0:
+            target = -(-len(idx) // self.process_count) * self.process_count
+            reps = -(-target // len(idx))
+            idx = np.tile(idx, reps)[:target]
+        per = len(idx) // self.process_count
+        start = self.process_index * per
+        real = max(0, min(per, n_real - start))
+        return idx[start : start + per], real
+
     def _batches(self) -> Iterator[Dict[str, Any]]:
         order = self._index_order()
 
@@ -84,16 +109,22 @@ class Loader:
                 idx = order[b * self.batch_size : (b + 1) * self.batch_size]
                 if len(idx) == 0 or (len(idx) < self.batch_size and self.drop_last):
                     continue
-                yield idx
+                yield self._local_slice(idx)
+
+        def collate(samples, real):
+            batch = self.dataset.collater(samples)
+            if self.process_count > 1:
+                batch["__local_real_rows__"] = real
+            return batch
 
         if self.num_workers <= 1:
-            for idx in indices():
-                yield self.dataset.collater([load(i) for i in idx])
+            for idx, real in indices():
+                yield collate([load(i) for i in idx], real)
             return
 
         with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
-            for idx in indices():
-                yield self.dataset.collater(list(pool.map(load, idx)))
+            for idx, real in indices():
+                yield collate(list(pool.map(load, idx)), real)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         if self.prefetch <= 0:

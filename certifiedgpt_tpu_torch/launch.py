@@ -10,13 +10,28 @@ The mode picks the agent unless the config's ``run.agent`` names one
 console and ``{run.output_dir}/certified.log``; Python's and numpy's global
 seeds are set from ``run.seed``. The model runs on ``--device``, the card by
 default: without CUDA, ``--device cuda`` stops with an error and nothing
-falls back to the CPU. ``run.distributed`` raises ``NotImplementedError``
-until multi-process runs are ported.
+falls back to the CPU.
+
+``run.distributed`` joins a ``torch.distributed`` process group from the
+``env://`` variables that ``torch.distributed.run`` sets (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): NCCL on
+``--device cuda`` with this process on ``cuda:{LOCAL_RANK}``, gloo on
+``--device cpu``, one process per rank of the agent's mesh
+(``run.model_parallel``, ``run.dcn_parallel``)::
+
+    python -m torch.distributed.run --nproc_per_node N -m certifiedgpt_tpu_torch.launch \
+        certify --config-path cfg.yaml
+
+A group that the caller already initialized is used as it is. The group
+this launcher made is destroyed when the run ends. Unlike the JAX launcher,
+which goes on as a single process when ``jax.distributed.initialize``
+fails, a failed join raises: no fallback hides a broken cluster.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
 import sys
 
@@ -28,6 +43,7 @@ from certifiedgpt_tpu_torch.agents.base import setup_agent
 from certifiedgpt_tpu_torch.common.config import Config
 from certifiedgpt_tpu_torch.common.logging import setup_logger
 from certifiedgpt_tpu_torch.common.registry import registry
+from certifiedgpt_tpu_torch.parallel.mesh import set_active_mesh
 
 MODE_DEFAULT_AGENTS = {
     "train": "image_text_finetune",
@@ -52,6 +68,34 @@ def setup_seeds(seed: int) -> None:
     np.random.seed(seed)
 
 
+def init_distributed(device: str):
+    """Join the process group of ``torch.distributed.run``'s environment;
+    returns (the device this rank runs on, whether this call made the
+    group)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        rank = dist.get_rank()
+        made = False
+    else:
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+                   if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                f"run.distributed: the env:// variables {missing} are not set; launch "
+                "with python -m torch.distributed.run --nproc_per_node N -m "
+                "certifiedgpt_tpu_torch.launch ..."
+            )
+        dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method="env://")
+        rank = dist.get_rank()
+        made = True
+    if device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank % max(torch.cuda.device_count(), 1)))
+        torch.cuda.set_device(local)
+        return f"cuda:{local}", made
+    return device, made
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -69,23 +113,31 @@ def main(argv=None):
         if config.config._data.get("run") is None:
             config.config._data["run"] = {}
         config.config._data["run"]["agent"] = MODE_DEFAULT_AGENTS[args.mode]
-    if run.get("distributed", False):
-        raise NotImplementedError(
-            "run.distributed: multi-process runs are not ported yet "
-            "(ROADMAP.md, modules item 16)"
-        )
-
     logger = setup_logger(str(run.get("output_dir", "output")))
     setup_seeds(int(run.get("seed", 42)))
     registry.register("mode", args.mode)
-    logger.info("mode=%s agent=%s device=%s", args.mode, config.run.get("agent"), args.device)
-    agent = setup_agent(config, device=args.device)
+    device, made_group = args.device, False
+    if run.get("distributed", False):
+        import torch.distributed as dist
+
+        device, made_group = init_distributed(args.device)
+        logger.info("torch.distributed: rank %d of %d (%s) on %s", dist.get_rank(),
+                    dist.get_world_size(), dist.get_backend(), device)
     try:
-        result = agent.run()
-        logger.info("run complete: %s", result)
-        return result
+        logger.info("mode=%s agent=%s device=%s", args.mode, config.run.get("agent"), device)
+        agent = setup_agent(config, device=device)
+        try:
+            result = agent.run()
+            logger.info("run complete: %s", result)
+            return result
+        finally:
+            agent.finalize()
     finally:
-        agent.finalize()
+        if made_group:
+            import torch.distributed as dist
+
+            set_active_mesh(None)
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,15 @@ With a cache, the per-layer KV cache (optionally int8 with per-(batch,
 position, head) f32 scales) is updated in place, unlike the JAX package's
 immutable arrays: ``llama_apply`` writes the new keys/values into the
 tensors it is given and returns the same dict.
+
+Tensor parallelism (``run.model_parallel``): when the active mesh has a
+model group (``parallel/mesh.py``), the parameters are this rank's shard
+(``partition_llama``, Megatron layout) and the functions here run on it:
+local heads and kv heads (read off the shards' widths), the row-split
+o_proj/down_proj summed over the group (``parallel/tensor_parallel.py``),
+the vocabulary-split embedding and lm_head, and a KV cache of this rank's
+kv heads (its int8 scales are per (token, head), so they need no
+collective).
 """
 
 from __future__ import annotations
@@ -34,6 +43,13 @@ from certifiedgpt_tpu_torch.ops.attention import (
     multi_head_attention_kv8,
 )
 from certifiedgpt_tpu_torch.ops.quantization import quantize_rows
+from certifiedgpt_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    gather_from_model,
+    row_parallel_dense,
+    tensor_parallel,
+    vocab_parallel_embed,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +92,21 @@ class LlamaConfig:
 
 
 def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
+    tp = tensor_parallel()
+    if tp is not None:
+        return vocab_parallel_embed(params["embed_tokens"]["embedding"], ids, tp)
     return L.embed(params["embed_tokens"], ids)
 
 
 def lm_head_logits(params, hidden: torch.Tensor) -> torch.Tensor:
-    """Hidden states [..., D] -> f32 vocabulary logits (+ the optional bias)."""
+    """Hidden states [..., D] -> f32 vocabulary logits (+ the optional bias);
+    under tensor parallelism this rank's vocabulary columns, gathered whole."""
+    tp = tensor_parallel()
+    if tp is not None:
+        hidden = copy_to_model(hidden, tp)
     logits = torch.matmul(hidden.float(), params["lm_head"]["kernel"].float())
+    if tp is not None:
+        logits = gather_from_model(logits, tp)
     bias = params["lm_head"].get("bias")
     if bias is not None:
         logits = logits + bias.float()
@@ -90,9 +115,12 @@ def lm_head_logits(params, hidden: torch.Tensor) -> torch.Tensor:
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   device="cuda") -> Dict[str, Tuple[torch.Tensor, ...]]:
-    """Per-layer cache buffers ``[B, T, Hkv, Dh]``; with ``kv_quant`` int8
-    plus ``k_scale``/``v_scale`` ``[B, T, Hkv, 1]`` f32."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    """Per-layer cache buffers ``[B, T, Hkv, Dh]`` (under tensor parallelism
+    this rank's Hkv / model_parallel heads); with ``kv_quant`` int8 plus
+    ``k_scale``/``v_scale`` ``[B, T, Hkv, 1]`` f32."""
+    tp = tensor_parallel()
+    kv_heads = cfg.num_kv_heads // (tp.n_model if tp is not None else 1)
+    shape = (batch, max_len, kv_heads, cfg.head_dim)
     dtype = torch.int8 if cfg.kv_quant else cfg.dtype
 
     def bufs(shp, dt):
@@ -108,13 +136,22 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
 def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
            cache_offset=None):
     b, s, _ = x.shape
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     aq = cfg.act_quant and s > 1  # prefill and training; decode is bandwidth-bound
+    tp = tensor_parallel()
+
+    def row_dense(params, inp):
+        if tp is None:
+            return L.dense(params, inp, act_quant=aq)
+        return row_parallel_dense(params, inp, tp, act_quant=aq)
 
     hidden = L.rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
-    q = L.dense(lp["q_proj"], hidden, act_quant=aq).reshape(b, s, h, dh)
-    k = L.dense(lp["k_proj"], hidden, act_quant=aq).reshape(b, s, hkv, dh)
-    v = L.dense(lp["v_proj"], hidden, act_quant=aq).reshape(b, s, hkv, dh)
+    if tp is not None:
+        hidden = copy_to_model(hidden, tp)
+    # heads from the shard widths: this rank's under tensor parallelism
+    q = L.dense(lp["q_proj"], hidden, act_quant=aq).reshape(b, s, -1, dh)
+    k = L.dense(lp["k_proj"], hidden, act_quant=aq).reshape(b, s, -1, dh)
+    v = L.dense(lp["v_proj"], hidden, act_quant=aq).reshape(b, s, -1, dh)
     q = L.apply_rotary(q, cos, sin, positions)
     k = L.apply_rotary(k, cos, sin, positions)
 
@@ -137,11 +174,13 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
         cache["v"][:, at] = v
         attn = multi_head_attention(q, cache["k"], cache["v"], mask)
 
-    x = x + L.dense(lp["o_proj"], attn.reshape(b, s, h * dh), act_quant=aq)
+    x = x + row_dense(lp["o_proj"], attn.reshape(b, s, -1))
     hidden = L.rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
+    if tp is not None:
+        hidden = copy_to_model(hidden, tp)
     gate = L.silu(L.dense(lp["gate_proj"], hidden, act_quant=aq))
     up = L.dense(lp["up_proj"], hidden, act_quant=aq)
-    return x + L.dense(lp["down_proj"], gate * up, act_quant=aq)
+    return x + row_dense(lp["down_proj"], gate * up)
 
 
 # the products a recomputed block keeps under each of the JAX package's

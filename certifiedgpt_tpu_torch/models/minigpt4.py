@@ -13,7 +13,10 @@ right-padded. Sampling draws from an explicit ``torch.Generator`` (the
 Gumbel-max draw of ``jax.random.categorical``; the streams differ, the
 distribution is the same).
 
-``early_exit`` never waits for the device: the JAX package ends its decode
+``early_exit`` never waits for the device (under tensor parallelism over
+more than one rank it is off: the ranks of a model group must launch the
+same steps, and each sees its flags land at its own time; the tokens do not
+change): the JAX package ends its decode
 loop on the device (``lax.while_loop``); here each step queues a copy of
 "every row is done" into pinned host memory with an event behind it, and
 the host stops launching steps once a copy whose event has completed reads
@@ -46,6 +49,7 @@ from certifiedgpt_tpu_torch.models.llama import (
 )
 from certifiedgpt_tpu_torch.models.qformer import QFormer, QFormerConfig, qformer_apply
 from certifiedgpt_tpu_torch.ops.quantization import ieee_div
+from certifiedgpt_tpu_torch.parallel.tensor_parallel import tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,6 +312,8 @@ def generate(
     counts the decode steps launched."""
     last, cache, cache_mask, s, prompt_len = prefill(params, cfg, batch, max_new_tokens, clock)
     b, device = last.shape[0], last.device
+    if tensor_parallel() is not None:
+        early_exit = False  # every rank of the model group launches every step
     if do_sample and generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)

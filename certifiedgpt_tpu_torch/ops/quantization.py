@@ -30,7 +30,7 @@ kernel and its scale. The kernels and scales get no gradient.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,12 +68,19 @@ def quantize_stacked_kernel(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"kernel_q": q, "scale": scale}
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, reduce_amax: Optional[Callable[[torch.Tensor], None]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row symmetric int8 quantization of ``x [..., K]``:
     ``(xq int8, xs f32 [..., 1])`` with ``x ~ xq * xs``. ``torch.round``
-    rounds half to even, as ``jnp.round`` does."""
+    rounds half to even, as ``jnp.round`` does. ``reduce_amax``, when
+    given, turns the rows' ``|x|`` max ``[..., 1]`` in place into the max
+    of the whole rows, of which ``x`` holds a part (a MAX over the ranks
+    that hold the other columns)."""
     x32 = x.float()
-    xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    if reduce_amax is not None:
+        reduce_amax(amax)
+    xs = amax.clamp_min(1e-8) / 127.0
     xq = torch.round(x32 / xs).clamp(-127, 127).to(torch.int8)
     return xq, xs
 
@@ -90,6 +97,13 @@ def int8_matmul(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
     f32 ``[M, N]``. On CUDA, fewer than ``INT_MM_MIN_ROWS`` rows (a cls
     stream of a few images) are zero-padded to that many for
     ``torch._int_mm``, which needs M > 16."""
+    return int8_accumulate(xq, kernel_q).float()
+
+
+def int8_accumulate(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
+    """``int8_matmul``'s accumulator before its f32 cast: int32 on CUDA
+    (``torch._int_mm``), f32 on the CPU (exact below 2^24). A
+    tensor-parallel product sums these partials over its ranks."""
     if xq.device.type != "cuda":
         return xq.float() @ kernel_q.float()
     m, k = xq.shape
@@ -105,7 +119,7 @@ def int8_matmul(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
         )
     if m < INT_MM_MIN_ROWS:
         xq = F.pad(xq, (0, 0, 0, INT_MM_MIN_ROWS - m))
-    return torch._int_mm(xq.contiguous(), kernel_q)[:m].float()
+    return torch._int_mm(xq.contiguous(), kernel_q)[:m]
 
 
 def w8a8_matmul(
@@ -228,12 +242,19 @@ class _Int8WeightMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         kernel_q, scale = ctx.saved_tensors
-        gs = g.float() * scale
-        if g.device.type == "cuda" and ctx.x_dtype != torch.float32:
-            gx = torch.matmul(gs.to(ctx.x_dtype), kernel_q.to(ctx.x_dtype).t())
-        else:
-            gx = torch.matmul(gs, kernel_q.float().t())
-        return gx.to(ctx.x_dtype), None, None
+        return int8_weight_grad(g, kernel_q, scale, ctx.x_dtype), None, None
+
+
+def int8_weight_grad(g: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
+                     dtype) -> torch.Tensor:
+    """The input gradient of ``int8_weight_matmul``: ``(g * scale) @
+    kernel_q^T`` in ``dtype``."""
+    gs = g.float() * scale
+    if g.device.type == "cuda" and dtype != torch.float32:
+        gx = torch.matmul(gs.to(dtype), kernel_q.to(dtype).t())
+    else:
+        gx = torch.matmul(gs, kernel_q.float().t())
+    return gx.to(dtype)
 
 
 # ----------------------------------------------------------------------

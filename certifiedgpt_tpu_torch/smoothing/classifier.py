@@ -1,6 +1,6 @@
 """Decoder-to-label certification mapping.
 
-Port of ``certifiedgpt_tpu/smoothing/classifier.py`` (single device).
+Port of ``certifiedgpt_tpu/smoothing/classifier.py``.
 ``Smooth`` needs a discrete classifier; MiniGPT-4 emits free text. The
 bridge, fixed before any sampling so Cohen's guarantee holds:
 
@@ -24,6 +24,13 @@ tokens' copy into pinned host memory behind them (``data.loader.HostCopy``),
 with no host sync. Up to ``window`` chunks are in flight; the host waits
 only for the oldest one's tokens, dispatches the next chunk, then decodes
 labels while the card runs, as the JAX package's loop does.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): the Monte-Carlo batch
+splits over the mesh's batch group, as the JAX package shards it over
+``("dcn", "data")``. Each rank draws the chunk's whole noise tile from the
+chunk's generator and keeps its own rows, so the draws are the one-process
+draws; it runs its rows, and the token ids are gathered over the batch
+group, so every rank counts the same labels.
 """
 
 from __future__ import annotations
@@ -134,9 +141,22 @@ def chunk_seed(seed: int, chunk: int) -> int:
     return h ^ (h >> 31)
 
 
+def data_parallel(mesh, mc_batch: int):
+    """``mesh`` when the Monte-Carlo batch splits over its batch group
+    (None without one); ``mc_batch`` must divide by the batch divisor."""
+    if mesh is None or mesh.batch_group is None:
+        return None
+    if mc_batch % mesh.batch_divisor:
+        raise ValueError(
+            f"mc_batch {mc_batch} must be divisible by the mesh batch axes "
+            f"dcn*data ({mesh.batch_divisor})"
+        )
+    return mesh
+
+
 def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: int,
                            seq_len: int = 64, early_exit: bool = False,
-                           noise_dist: str = "gaussian"):
+                           noise_dist: str = "gaussian", mesh=None):
     """Returns ``fn(image_hwc, input_ids, attention_mask, img_pos, generator,
     clock=None) -> token ids [mc_batch, T]`` for a one-row ``[1, S]``
     prompt, which is tiled (as a view) to the Monte-Carlo batch. The noise
@@ -144,8 +164,11 @@ def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: i
     (``certifiedgpt_tpu/smoothing/classifier.py`` ``noise_fn``):
     ``noise_dist="uniform"`` adds ``sigma * U[0, 1)`` to every copy (the
     reference's bug-compatible train noise; always drawn, so sigma = 0
-    multiplies the draw away), any other value ``noisy_tile``'s Gaussian."""
+    multiplies the draw away), any other value ``noisy_tile``'s Gaussian.
+    With a ``mesh`` each rank generates its rows of the tile and the tokens
+    are gathered whole."""
     cfg = model.cfg
+    dp = data_parallel(mesh, mc_batch)
     eos = model.tokenizer.eos_token_id
     pad = model.tokenizer.pad_token_id
 
@@ -163,11 +186,15 @@ def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: i
                                                     device=image.device, dtype=torch.float32)
             else:
                 images = noisy_tile(image, mc_batch, sigma, generator)
-        batch = {"image": images, "input_ids": input_ids.expand(mc_batch, -1),
-                 "attention_mask": attention_mask.expand(mc_batch, -1),
-                 "img_pos": img_pos.expand(mc_batch)}
-        return generate_greedy(model.params, cfg, batch, max_new_tokens, eos, pad,
-                               early_exit=early_exit, clock=clock)
+            if dp is not None:
+                images = dp.local_rows(images)
+        rows = images.shape[0]
+        batch = {"image": images, "input_ids": input_ids.expand(rows, -1),
+                 "attention_mask": attention_mask.expand(rows, -1),
+                 "img_pos": img_pos.expand(rows)}
+        tokens = generate_greedy(model.params, cfg, batch, max_new_tokens, eos, pad,
+                                 early_exit=early_exit, clock=clock)
+        return tokens if dp is None else dp.gather_rows(tokens)
 
     return fn
 
@@ -175,7 +202,9 @@ def make_noisy_generate_fn(model, sigma: float, mc_batch: int, max_new_tokens: i
 def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: float,
                    mc_batch: int = 32, max_new_tokens: int = 10, seq_len: int = 64,
                    early_exit: bool = False, clock: Optional[StageClock] = None,
-                   noise_dist: str = "gaussian", window: int = 4) -> Callable[..., np.ndarray]:
+                   noise_dist: str = "gaussian", window: int = 4,
+                   mesh=None, on_chunk: Optional[Callable[[int], None]] = None
+                   ) -> Callable[..., np.ndarray]:
     """Bind (model, question prompt, vocab, sigma) into the
     ``sample_fn(x, num, seed, should_stop=None) -> labels`` interface of
     ``Smooth``, with up to ``window`` chunks in flight. ``should_stop(
@@ -184,7 +213,9 @@ def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: floa
     full-budget stream) and the chunks still in flight are abandoned (their
     device work is sunk: the window bounds that waste). A ``clock``
     synchronizes at every stage, so it serializes the chunks whatever the
-    window."""
+    window. ``mesh`` splits each chunk over its batch group
+    (``make_noisy_generate_fn``); ``on_chunk(chunk)`` is called before each
+    chunk is dispatched (the agents' profiler polls there)."""
     if int(window) < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     device = model.device
@@ -197,7 +228,7 @@ def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: floa
     )
     gen = make_noisy_generate_fn(model, sigma, mc_batch, max_new_tokens,
                                  seq_len=seq_len, early_exit=early_exit,
-                                 noise_dist=noise_dist)
+                                 noise_dist=noise_dist, mesh=mesh)
     tokenizer = model.tokenizer
 
     def sample_fn(x: np.ndarray, num: int, seed: int, should_stop=None) -> np.ndarray:
@@ -207,6 +238,8 @@ def make_sample_fn(model, instruction: str, vocab: AnswerVocabulary, sigma: floa
         pending: deque = deque()
 
         def dispatch(chunk: int) -> None:
+            if on_chunk is not None:
+                on_chunk(chunk)
             generator = torch.Generator(device=device)
             generator.manual_seed(chunk_seed(seed, chunk))
             pending.append(HostCopy(gen(image, p_ids, p_am, p_pos, generator, clock=clock)))

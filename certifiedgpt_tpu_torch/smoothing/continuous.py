@@ -46,7 +46,11 @@ import torch
 from certifiedgpt_tpu_torch.data.loader import HostCopy, upload
 from certifiedgpt_tpu_torch.data.text import BatchSpec, build_gen_batch, decode_until_eos
 from certifiedgpt_tpu_torch.models.minigpt4 import generate_greedy
-from certifiedgpt_tpu_torch.smoothing.classifier import check_dispatch_window_hbm, chunk_seed
+from certifiedgpt_tpu_torch.smoothing.classifier import (
+    check_dispatch_window_hbm,
+    chunk_seed,
+    data_parallel,
+)
 from certifiedgpt_tpu_torch.smoothing.smoothing import (
     ABSTAIN,
     certify_from_counts,
@@ -58,7 +62,7 @@ from certifiedgpt_tpu_torch.smoothing.smoothing import (
 
 def make_mixed_generate_fn(model, mc_batch: int, max_new_tokens: int, num_slots: int,
                            seq_len: int = 64, noise_dist: str = "gaussian",
-                           early_exit: bool = False):
+                           early_exit: bool = False, mesh=None):
     """The mixed-chunk pipeline.
 
     Returns ``fn(image_bank, ids_bank, am_bank, pos_bank, row_slot,
@@ -68,8 +72,11 @@ def make_mixed_generate_fn(model, mc_batch: int, max_new_tokens: int, num_slots:
     [mc_batch]`` assigns each row to a slot. The noise step
     (``fn.noise_fn``) draws on the gathered images as the JAX package's
     mixed path does: ``x + sigma * U[0, 1)`` under ``noise_dist="uniform"``,
-    else ``x + sigma * N(0, 1)``, always drawn."""
+    else ``x + sigma * N(0, 1)``, always drawn. With a ``mesh`` each rank
+    draws the whole chunk, generates its rows of it and gathers the tokens
+    (``classifier.make_noisy_generate_fn``)."""
     cfg = model.cfg
+    dp = data_parallel(mesh, mc_batch)
     eos = model.tokenizer.eos_token_id
     pad = model.tokenizer.pad_token_id
 
@@ -88,10 +95,13 @@ def make_mixed_generate_fn(model, mc_batch: int, max_new_tokens: int, num_slots:
                 f"({num_slots}, {seq_len}): rebuild the banks to match this gen's BatchSpec"
             )
         images = noise_fn(image_bank, row_slot, generator, sigma)
+        if dp is not None:
+            images, row_slot = dp.local_rows(images), dp.local_rows(row_slot)
         batch = {"image": images, "input_ids": ids_bank[row_slot],
                  "attention_mask": am_bank[row_slot], "img_pos": pos_bank[row_slot]}
-        return generate_greedy(model.params, cfg, batch, max_new_tokens, eos, pad,
-                               early_exit=early_exit)
+        tokens = generate_greedy(model.params, cfg, batch, max_new_tokens, eos, pad,
+                                 early_exit=early_exit)
+        return tokens if dp is None else dp.gather_rows(tokens)
 
     fn.noise_fn = noise_fn
     return fn
@@ -184,6 +194,7 @@ class ContinuousCertifier:
         mode: str = "certify",
         early_abstain: bool = False,
         early_stop_radius: Optional[float] = None,
+        mesh=None,
     ):
         if mode not in ("certify", "predict"):
             raise ValueError(f"mode must be certify|predict, got {mode!r}")
@@ -235,7 +246,7 @@ class ContinuousCertifier:
                 self._m_success = m
         self.gen = gen or make_mixed_generate_fn(
             model, mc_batch, max_new_tokens, num_slots, seq_len=seq_len,
-            noise_dist=noise_dist, early_exit=early_exit,
+            noise_dist=noise_dist, early_exit=early_exit, mesh=mesh,
         )
         cfg = model.cfg
         self._spec = BatchSpec(seq_len=seq_len, num_img_tokens=cfg.num_img_tokens)

@@ -192,10 +192,24 @@ Phases, each of which exits non-zero on any failure:
    the first step's logits against a control); 14.4 the RGF query stage
    (vit_b32, sigma 0.5, 2 queries, 1 iteration) over one image: its
    caption streams and launches.
+15. Distributed and profiled: 15.1 phase 8's certify run again on the same
+   written files (the shipped certify YAML at full width, ``max_images`` 1)
+   with ``run.distributed`` (NCCL, world size 1: every chunk's token ids go
+   through the batch group's all_gather) and ``enable_profile`` (image 0, a window of about one chunk),
+   through ``python -m torch.distributed.run --standalone --nproc_per_node
+   1`` running this script's one-rank worker (``--phase15-worker``, which
+   calls ``launch.main`` between the launch counters): the row (label,
+   radius, draws) equal to phase 8's first, its seconds beside phase 8's,
+   NCCL in ``certified.log``, the trace's size and CUDA kernel events, the
+   path kernels' launches a chunk; 15.2 one chunk of the main path with
+   every stage (noise, ViT, Q-Former, prefill, decode, host labels) under
+   its own ``torch.profiler`` context: device seconds by stage and kernel
+   group, and the elementwise/copy seconds of ``encode_img``, the prefill
+   and the decode.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
-14.1's; ``cli_launches``: the launches in each launcher run of phases 8-14),
+14.1's; ``cli_launches``: the launches in each launcher run of phases 8-15),
 and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
@@ -3398,7 +3412,218 @@ def check_caption_kernels(torch, card, agent):
         fail("14.3: the caption through the kernels disagrees with the plain versions'")
 
 
+# ----------------------------------------------------------------------
+# phase 15: run.distributed at world size 1, the profiler, the stage split
+# ----------------------------------------------------------------------
+# a trace window of about one certify chunk (2.7-2.8 s a chunk in phase 8)
+PROFILE_WINDOW_MS = 3000
+# 15.2's stages: the clock names of the certify path (ViT and Q-Former are
+# encode_img)
+STAGE_NAMES = ("noise", "vit", "qformer", "prefill", "decode", "host_labels")
+ELEMENTWISE = "other elementwise / copy"
+
+
+def phase15_worker(spec_json: str) -> int:
+    """One rank of ``torch.distributed.run``: ``launch.main`` on the
+    spec's argv with the launch counters reset just before and read just
+    after; writes the summary, the wall seconds, the launches and the
+    decode steps to the spec's result file."""
+    import torch
+
+    from certifiedgpt_tpu_torch import launch
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    spec = json.loads(spec_json)
+    reset_counts()
+    M.generate.decode_steps = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = launch.main(spec["argv"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(spec["result"], "w") as handle:
+        json.dump({"summary": summary, "wall": wall, "launches": read_counts(),
+                   "decode_steps": M.generate.decode_steps,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, handle)
+    return 0
+
+
+def phase_distributed(torch, card, d_in: int, d_out: int, serial_rows):
+    """15.1: phase 8's certify run again on the same written files (the
+    shipped ``vqav2_certify_noise_0.5.yaml`` at full width, ``max_images``
+    1), with ``run.distributed`` (NCCL, world size 1: the token gather of
+    every chunk runs through the batch group; a model group of one leaves
+    the decoder unsplit) and ``enable_profile`` (image 0, a window of about
+    one chunk), through ``python -m torch.distributed.run --nproc_per_node
+    1``.
+    Its row (label, radius, draws) must equal phase 8's first certify row;
+    the trace must be written and hold CUDA kernel events; each path kernel
+    launched its launches a chunk. Returns the launches."""
+    import re
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.agents import certify as A
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        root = Path(tmp)
+        env, _ = launch_files(root, LAUNCH_IMAGES, d_in, d_out)
+        out, logdir = root / "out_dist", root / "trace"
+        env["OUTPUT_DIR"] = str(out)
+        with mock.patch.dict(os.environ, env):
+            cfg = Config(LAUNCH_RUNS[0][1]).to_dict()
+        cfg["run"].update(distributed=True, max_images=1, enable_profile=True, profile_step=0,
+                          duration_ms=PROFILE_WINDOW_MS, profile_logdir=str(logdir),
+                          output_dir=str(out))
+        path = root / "certify_distributed.yaml"
+        path.write_text(json.dumps(cfg))  # JSON is YAML
+        spec = {"argv": ["certify", "--config-path", str(path), "--device", "cuda"],
+                "result": str(root / "worker.json")}
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", os.path.abspath(__file__), "--phase15-worker",
+               json.dumps(spec)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=dict(os.environ, **env), capture_output=True,
+                              text=True, timeout=600)
+        command_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"15.1: torch.distributed.run exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        res = json.loads((root / "worker.json").read_text())
+        rows = read_rows(out / "certify_results.jsonl")
+        log_text = (out / "certified.log").read_text()
+        knobs = A.SmoothingKnobs.from_run(cfg["run"])
+        check_certify_rows("15.1", rows, "certify", 1, knobs.n0 + knobs.n, knobs.sigma)
+        row, want = rows[0], serial_rows["certify"][0]
+        log(f"[dist] certify row {json.dumps(row)}")
+        if "rank 0 of 1 (nccl)" not in log_text:
+            fail("15.1: certified.log does not show an NCCL group of one rank")
+        if (row["label"], row["radius"], row["draws"]) != \
+                (want["label"], want["radius"], want["draws"]):
+            fail(f"15.1: row {row} differs from phase 8's first certify row {want}")
+        chunks = dispatched_chunks(row, knobs.n0, knobs.n, knobs.mc_batch,
+                                   knobs.dispatch_window)
+        check_counts("15.1 certify distributed", res["launches"], PER_CHUNK["flash_cls"], chunks)
+        trace = logdir / "trace_rank0_epoch0_step0.json"
+        if not trace.exists():
+            fail(f"15.1: no trace at {trace}")
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        if kernels == 0:
+            fail("15.1: the trace holds no CUDA kernel events")
+        log(f"[dist] trace {trace.name}: {trace.stat().st_size} bytes, {len(events)} events, "
+            f"{kernels} CUDA kernel events (window {PROFILE_WINDOW_MS} ms)")
+        export = re.search(r"profiler trace stopped: .* \(stop and export ([0-9.]+) s\)", log_text)
+        if export is None:
+            fail("15.1: certified.log has no profiler stop line")
+        export_s = float(export.group(1))
+        log(f"[dist] the trace's stop and export took {export_s:.3f} s inside the row's seconds; "
+            f"without it {row['seconds'] - export_s:.3f} s "
+            f"({(row['seconds'] - export_s) / want['seconds']:.3f}x phase 8's)")
+        log(f"[dist] certify through torch.distributed.run (NCCL, world size 1, profiler on): "
+            f"{row['seconds']:.3f} s for the certified image against {want['seconds']:.3f} s "
+            f"for the same image in phase 8 ({row['seconds'] / want['seconds']:.3f}x); "
+            f"launch.main {res['wall']:.3f} s, command {command_s:.3f} s; {chunks} chunks "
+            f"dispatched; {res['decode_steps']} decode steps; peak memory "
+            f"{res['peak_gb']:.2f} GB; launches {json.dumps(res['launches'])}; {card}")
+    return res["launches"]
+
+
+class ProfiledStages:
+    """A stage clock for the certify path whose every stage runs under its
+    own ``torch.profiler`` context (CUDA activity): device seconds summed
+    by stage and by ``PROFILE_GROUPS``, and each stage's wall seconds."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.groups = {}
+        self.wall = {}
+        self.counts = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            self.wall[name] = self.wall.get(name, 0.0) + time.perf_counter() - t0
+        groups = self.groups.setdefault(name, {})
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+                continue
+            key = e.key.lower()
+            group = next((g for g, keys in PROFILE_GROUPS if any(k in key for k in keys)),
+                         ELEMENTWISE)
+            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e6
+
+    def count(self, name, n=1):
+        self.counts[name] = self.counts.get(name, 0) + n
+
+
+def phase_stage_split(torch, card, device):
+    """15.2: one certify chunk of the main path (the shipped knobs, 96
+    draws) with every stage under ``torch.profiler``: the device seconds of
+    ``encode_img`` (ViT, Q-Former), the prefill and the decode, each split
+    by kernel group, and the elementwise/copy seconds of each stage."""
+    import numpy as np
+
+    from certifiedgpt_tpu_torch.agents.certify import SmoothingKnobs
+    from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model
+    from certifiedgpt_tpu_torch.smoothing.classifier import AnswerVocabulary, make_sample_fn
+
+    t0 = time.perf_counter()
+    model = MiniGPT4Model.from_config(CERTIFY_MODEL_BLOCK, device)
+    torch.cuda.synchronize()
+    log(f"[stages] built the full-width model in {time.perf_counter() - t0:.1f} s")
+    knobs = SmoothingKnobs.from_run(RUN_CFG)
+    vocab = AnswerVocabulary(GT_ANSWERS)
+    image = np.random.RandomState(0).randn(*IMAGE_HWC).astype(np.float32)
+
+    def chunk(clock):
+        fn = make_sample_fn(model, QUESTION, vocab, knobs.sigma, mc_batch=MC_BATCH,
+                            max_new_tokens=knobs.max_new_tokens, seq_len=knobs.seq_len,
+                            early_exit=knobs.early_exit, clock=clock, window=1)
+        return fn(image, MC_BATCH, seed=0)
+
+    chunk(None)  # warm-up
+    clock = ProfiledStages(torch)
+    labels = chunk(clock)
+    if len(labels) != MC_BATCH:
+        fail(f"15.2: {len(labels)} labels for a chunk of {MC_BATCH}")
+    total = sum(sum(g.values()) for g in clock.groups.values())
+    if total <= 0:
+        fail("15.2: the profiler saw no device time")
+    for name in STAGE_NAMES:
+        groups = clock.groups.get(name, {})
+        device_s = sum(groups.values())
+        log(f"[stages] {name:11s} wall {clock.wall.get(name, 0.0):8.4f} s, device "
+            f"{device_s:8.4f} s, elementwise/copy {groups.get(ELEMENTWISE, 0.0):8.4f} s; "
+            + ", ".join(f"{g} {sec:.4f} s" for g, sec in sorted(groups.items(),
+                                                               key=lambda kv: -kv[1])))
+    elementwise = {name: groups.get(ELEMENTWISE, 0.0) for name, groups in clock.groups.items()}
+    split = {"encode_img": elementwise.get("vit", 0.0) + elementwise.get("qformer", 0.0),
+             "prefill": elementwise.get("prefill", 0.0), "decode": elementwise.get("decode", 0.0)}
+    log(f"[stages] one chunk of {MC_BATCH}: elementwise/copy device seconds by stage "
+        f"{json.dumps({k: round(v, 4) for k, v in split.items()})} of "
+        f"{sum(elementwise.values()):.4f} s; device total {total:.4f} s; decode steps "
+        f"{clock.counts.get('decode_step', 0)}; {card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--phase15-worker"]:  # one rank of phase 15.1's run
+        return phase15_worker(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3444,6 +3669,14 @@ def main() -> int:
     phase_attack_surrogates(torch, card, device)
     cli_launches["attack"] = phase_attack(torch, card, device, *widths)
     log(f"[main] phase 14 took {time.perf_counter() - t0:.1f} s")
+    # phase 15: run.distributed (NCCL, world size 1) with the profiler, then
+    # the stage split of one chunk's device time
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cli_launches["certify distributed"] = phase_distributed(torch, card, *widths,
+                                                                serial_rows)
+        phase_stage_split(torch, card, device)
+    log(f"[main] phase 15 took {time.perf_counter() - t0:.1f} s")
     for name, rec in batch1.items():
         records[name]["attack_batch1"] = {k: rec[k] for k in (
             "ms", "ms_cls", "plain_ms", "bound_ms", "bound_by", "max_abs_err") if k in rec}

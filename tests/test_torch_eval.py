@@ -165,23 +165,27 @@ class _Numbers:
     dict(batch_size=6, shuffle=True, seed=2, drop_last=False, process_index=2, process_count=3),
 ], ids=["shuffle", "drop-last", "ordered", "process-1-of-2", "process-2-of-3"])
 def test_loader_order_matches_jax(kw):
-    """One process: the JAX Loader's batches in its order for each seed and
-    epoch. More than one process is refused until distributed work is
-    ported (ROADMAP item 16)."""
+    """The JAX Loader's batches in its order for each seed and epoch: one
+    process, and this process's slice of each global batch when there are
+    more (its rows, the wrapped tail of a partial batch and
+    ``__local_real_rows__``, as the JAX ``_local_slice`` gives them)."""
     kw = dict(kw)
-    if kw.get("process_count", 1) > 1:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            Loader(_Numbers(11), **kw)
-        return
+    several = kw.get("process_count", 1) > 1
     for epoch in (0, 1):
         got_loader = Loader(_Numbers(11), **kw)
-        want_loader = JLoader(_Numbers(11), process_index=0, process_count=1, **kw)
+        want_loader = JLoader(_Numbers(11), **({} if several else
+                                               dict(process_index=0, process_count=1)), **kw)
         got_loader.set_epoch(epoch)
         want_loader.set_epoch(epoch)
         got, want = list(got_loader), list(want_loader)
         assert len(got_loader) == len(want_loader) == len(want)
         assert [b["i"].tolist() for b in got] == [b["i"].tolist() for b in want]
-        assert all(set(w) - set(g) == {"__local_real_rows__"} for g, w in zip(got, want))
+        if several:
+            assert [b["__local_real_rows__"] for b in got] == \
+                [b["__local_real_rows__"] for b in want]
+            assert all(set(w) == set(g) for g, w in zip(got, want))
+        else:
+            assert all(set(w) - set(g) == {"__local_real_rows__"} for g, w in zip(got, want))
 
 
 def test_to_device_and_host_copy_on_the_cpu():

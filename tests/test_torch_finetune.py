@@ -243,7 +243,21 @@ def test_noise_keys_by_epoch_and_step(train_set, monkeypatch):
     ("pack_sequences", 3, ValueError, "not divisible"),
     ("seq_len", 20, ValueError, "segment budget"),
 ])
-def test_finetune_refusals(train_set, knob, value, error, match):
+def test_finetune_refusals(train_set, tmp_path, knob, value, error, match):
+    """Config errors raise before a step. ``pipeline_parallel`` names ROADMAP
+    item 17 now (the GPipe schedule). ``enable_profile`` (item 16) is
+    ported: a one-step run traces its step 0 (``profile_epoch`` 0) into a
+    Chrome trace."""
+    if knob == "enable_profile":
+        logdir = tmp_path / "trace"
+        _run(train_set, "torch", "profiled", max_epoch=1, iters_per_epoch=1,
+             has_val_split=False, enable_profile=True, duration_ms=60000,
+             profile_logdir=str(logdir))
+        traces = list(logdir.glob("trace_rank0_epoch0_step0.json"))
+        assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
+        return
+    if knob == "pipeline_parallel":
+        error, match = NotImplementedError, "item 17"
     with pytest.raises(error, match=match):
         setup_agent(Config(train_set("refused", **{knob: value})), device="cpu")
 

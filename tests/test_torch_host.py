@@ -108,4 +108,22 @@ print(" ".join(names))
     assert len(names) >= 20
     assert {f"certifiedgpt_tpu_torch.{m}" for m in (
         "smoothing.continuous", "agents.eval", "agents.finetune", "data.loader",
-        "vqa_tools.vqa", "optim", "common.metrics", "common.checkpoint")} <= names
+        "vqa_tools.vqa", "optim", "common.metrics", "common.checkpoint",
+        "common.profiling", "utils.gcs", "utils.subset", "utils.dataset_stats",
+        "parallel.mesh", "parallel.tensor_parallel", "parallel.processes",
+        "parallel.dryrun")} <= names
+    # the port's quality runbook imports neither either
+    script = os.path.join(REPO, "scripts", "verify_checkpoints_torch.py")
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"spec = importlib.util.spec_from_file_location('vct', {script!r})\n"
+        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        "import certifiedgpt_tpu_torch.launch\n"
+        "bad = [m for m in sys.modules if m == 'certifiedgpt_tpu' "
+        "or m.startswith('certifiedgpt_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr

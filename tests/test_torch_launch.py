@@ -390,28 +390,78 @@ def test_missing_vqa_finetuned_raises(vqa, tmp_path):
         setup_agent(Config(cfg), device="cpu")
 
 
+def _rows_without_timing(path):
+    return [{k: v for k, v in row.items() if k not in TIMING_KEYS} for row in _rows(path)]
+
+
+def _certify_on_ranks(vqa, tmp_path, out, n, **run):
+    """``launch.main`` certify with ``run.distributed`` on ``n`` gloo CPU
+    ranks; returns rank 0's rows, and the same config's rows in this
+    process (one rank, no process group)."""
+    from certifiedgpt_tpu_torch.parallel.processes import run_ranks
+
+    cfg = vqa("image_text_certify", out, distributed=True, **run)
+    path = tmp_path / f"{out}.yaml"
+    path.write_text(json.dumps(cfg))  # JSON is YAML
+    run_ranks(n, f"""
+from certifiedgpt_tpu_torch import launch
+launch.main(["certify", "--config-path", {str(path)!r}, "--device", "cpu"])
+""", str(tmp_path), timeout=240)
+    got = _rows_without_timing(vqa.root / "out" / out / "certify_results.jsonl")
+    one = dict(cfg["run"], distributed=False, model_parallel=1, dcn_parallel=0,
+               output_dir=str(vqa.root / "out" / f"{out}-one"))
+    agent = setup_agent(Config(dict(cfg, run=one)), device="cpu")
+    try:
+        agent.run()
+    finally:
+        agent.finalize()
+    return got, _rows_without_timing(vqa.root / "out" / f"{out}-one" / "certify_results.jsonl")
+
+
 @pytest.mark.parametrize("knob,value,item", [
     ("num_beams", 2, "item 13"), ("enable_profile", True, "item 16"),
     ("model_parallel", 2, "item 16"), ("pipeline_parallel", 2, "item 16"),
     ("dcn_parallel", 2, "item 16"),
 ])
-def test_unported_knobs_are_refused(vqa, knob, value, item):
-    """Knobs the port does not have yet raise, naming their ROADMAP item:
-    the certify agent's. The eval agent's ``num_beams`` (item 13, ported)
-    now builds the agent, with beam search on."""
-    if item == "item 13":
+def test_unported_knobs_are_refused(vqa, tmp_path, knob, value, item):
+    """The knobs of ROADMAP items 13 and 16 are ported: ``num_beams`` builds
+    the eval agent with beam search on; ``enable_profile`` writes a trace of
+    the certify run (a Chrome trace JSON); ``model_parallel`` 2 (the decoder
+    tensor-parallel) and ``dcn_parallel`` 2 (the Monte-Carlo batch over two
+    ranks) certify on two gloo ranks with rows equal to one process's.
+    ``pipeline_parallel`` is still refused, naming ROADMAP item 17."""
+    if knob == "num_beams":
         agent = setup_agent(Config(vqa("image_text_eval", "beams", **{knob: value})),
                             device="cpu")
         assert agent.num_beams == value
         return
-    with pytest.raises(NotImplementedError, match=item):
-        setup_agent(Config(vqa("image_text_certify", "refused", **{knob: value})), device="cpu")
+    if knob == "pipeline_parallel":
+        with pytest.raises(NotImplementedError, match="item 17"):
+            setup_agent(Config(vqa("image_text_certify", "refused", **{knob: value})),
+                        device="cpu")
+        return
+    if knob == "enable_profile":
+        logdir = tmp_path / "trace"
+        agent = setup_agent(Config(vqa("image_text_certify", "profiled", enable_profile=True,
+                                       profile_step=1, duration_ms=60000,
+                                       profile_logdir=str(logdir))), device="cpu")
+        try:
+            agent.run()
+        finally:
+            agent.finalize()  # the window outlives the run: finalize writes it
+        traces = list(logdir.glob("trace_rank0_epoch0_step1.json"))
+        assert len(traces) == 1
+        assert json.loads(traces[0].read_text())["traceEvents"]
+        return
+    got, want = _certify_on_ranks(vqa, tmp_path, f"ranks-{knob}", 2, **{knob: value})
+    assert got == want and len(got) == 2
 
 
 @pytest.mark.parametrize("mode,item", [("train", 16), ("attack", 15)])
 def test_launcher_refuses_unported_modes(mode, item, vqa, tmp_path):
     """``train`` runs, and its agent refuses the shipped VQAv2 YAML with
-    ``pipeline_parallel: 2`` (item 16) before it builds a model. ``attack``
+    ``pipeline_parallel: 2`` before it builds a model, naming ROADMAP item
+    17 (the GPipe schedule; item 16 ported the rest of ``parallel/``). ``attack``
     (item 15) is ported: it routes to ``image_text_attack``, which writes its
     rows, summary and ANCOVA CSV."""
     if mode == "attack":
@@ -432,7 +482,7 @@ def test_launcher_refuses_unported_modes(mode, item, vqa, tmp_path):
     cfg["run"].update(pipeline_parallel=2, output_dir=str(tmp_path / "out"))
     path = tmp_path / "train.yaml"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         launch.main([mode, "--config-path", str(path), "--device", "cpu"])
 
 
@@ -451,6 +501,13 @@ def test_launcher_routes_eval_to_image_text_eval(vqa, tmp_path):
 
 
 def test_launcher_routes_predict_and_refuses_distributed(vqa, tmp_path):
+    """``smoothing_predict`` routes to the predict agent. ``run.distributed``
+    without the ``env://`` variables of ``torch.distributed.run`` raises
+    (no single-process fallback); in a process group the caller made (one
+    gloo rank, joined through a file) the same run gives the same rows,
+    and the group is left to its maker."""
+    import torch.distributed as dist
+
     cfg = vqa("", "routed")
     del cfg["run"]["agent"]
     path = tmp_path / "predict.yaml"
@@ -460,10 +517,25 @@ def test_launcher_routes_predict_and_refuses_distributed(vqa, tmp_path):
     assert summary["total"] == 2 and summary["n"] == 16
     assert len(_rows(out / "predict_results.jsonl")) == 2
     assert (out / "certified.log").exists() and registry.get("mode") == "smoothing_predict"
-    cfg["run"]["distributed"] = True
+    plain = _rows_without_timing(out / "predict_results.jsonl")
+    cfg["run"].update(distributed=True, output_dir=str(vqa.root / "out" / "routed-dist"))
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        launch.main(["certify", "--config-path", str(path), "--device", "cpu"])
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT")}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(os, "environ", env)
+        with pytest.raises(RuntimeError, match="env://"):
+            launch.main(["smoothing_predict", "--config-path", str(path), "--device", "cpu"])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        summary = launch.main(["smoothing_predict", "--config-path", str(path),
+                               "--device", "cpu"])
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
+    assert summary["total"] == 2
+    assert _rows_without_timing(vqa.root / "out" / "routed-dist" / "predict_results.jsonl") \
+        == plain
 
 
 @pytest.mark.parametrize("alpha", [0.001, 0.05, 0.3])

@@ -1,0 +1,106 @@
+"""The distributed code paths at world size 1 on the card, through NCCL.
+
+The card machine has one GPU, and NCCL refuses two ranks on one card, so
+the data-parallel and tensor-parallel paths are held there at world size 1:
+the mesh's groups exist, every collective runs on the one rank. A tiny
+W8A8 decoder's prefill and int8-cache decode through the tensor-parallel
+functions (forced on: the decoder splits only past one rank) give the plain
+run's greedy tokens and its logits within 2e-2 relative (bf16 roundings:
+the plain run rounds each weight-only product to bf16 before its scale,
+the split path sums f32 partials and rounds once; one bf16 rounding is
+3.9e-3 relative); a certification whose chunks go through
+the batch group's token gather gives the plain run's labels. They skip
+where there is no CUDA device. This file imports neither JAX nor the
+JAX package, so on the GPU machine it runs without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_parallel_gpu.py -q
+"""
+
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from certifiedgpt_tpu_torch.data.text import ByteTokenizer
+from certifiedgpt_tpu_torch.models import llama as TLM
+from certifiedgpt_tpu_torch.models import minigpt4 as TM
+from certifiedgpt_tpu_torch.models.minigpt4 import MiniGPT4Config
+from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model, build_synthetic_params
+from certifiedgpt_tpu_torch.parallel.mesh import make_mesh, partition_llama, set_active_mesh
+from certifiedgpt_tpu_torch.smoothing.classifier import AnswerVocabulary, make_sample_fn
+
+
+@pytest.fixture
+def nccl(tmp_path):
+    """One NCCL rank on the card, joined through a file."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run on the GPU machine)")
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh(n_model=1)
+    finally:
+        set_active_mesh(None)
+        dist.destroy_process_group()
+
+
+def _model(device):
+    cfg = MiniGPT4Config.tiny(llama=TLM.LlamaConfig.tiny(act_quant=True, kv_quant=True,
+                                                         dtype=torch.bfloat16))
+    return MiniGPT4Model(cfg, build_synthetic_params(cfg, device, seed=0), ByteTokenizer())
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_path_at_world_size_one(nccl):
+    model = _model("cuda")
+    cfg = model.cfg.llama
+    b, s, new = 4, 24, 4
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((b, s, cfg.hidden_size), generator=g, device="cuda").to(cfg.dtype)
+    mask = torch.ones((b, s + new), dtype=torch.int32, device="cuda")
+    positions = torch.arange(s, device="cuda").expand(b, s)
+
+    def run(params):
+        cache = TLM.init_kv_cache(cfg, b, s + new, "cuda")
+        logits, _, cache = TLM.llama_apply(params, cfg, x, mask, positions, cache, 0)
+        out = [logits[:, -1]]
+        for t in range(new):
+            token = torch.argmax(out[-1], dim=-1)
+            emb = TLM.embed_tokens(params, token[:, None])
+            logits, _, cache = TLM.llama_apply(params, cfg, emb, mask,
+                                               torch.full((b, 1), s + t, device="cuda"),
+                                               cache, s + t)
+            out.append(logits[:, -1])
+        return torch.stack(out)
+
+    with torch.no_grad():
+        plain = run(model.params["llama"])
+        assert nccl.model_group is not None and nccl.batch_group is not None
+        with mock.patch.object(TLM, "tensor_parallel", lambda: nccl), \
+                mock.patch.object(TM, "tensor_parallel", lambda: nccl):
+            tp = run(partition_llama(model.params["llama"], nccl, cfg))
+    assert torch.equal(tp.argmax(-1), plain.argmax(-1))
+    rel = float((tp - plain).norm() / plain.norm())
+    assert rel < 2e-2, rel
+
+
+@pytest.mark.gpu
+def test_data_parallel_certify_at_world_size_one(nccl):
+    model = _model("cuda")
+    vocab = AnswerVocabulary(["cat", "dog"])
+    image = np.random.RandomState(0).randn(28, 28, 3).astype(np.float32)
+
+    def labels(mesh):
+        set_active_mesh(mesh)
+        fn = make_sample_fn(model, "<Img><ImageHere></Img> [vqa] what?", vocab, sigma=0.5,
+                            mc_batch=8, max_new_tokens=3, seq_len=32, mesh=mesh)
+        return fn(image, 24, seed=3)
+
+    with torch.no_grad():
+        plain = labels(None)
+        got = labels(nccl)
+    np.testing.assert_array_equal(got, plain)
