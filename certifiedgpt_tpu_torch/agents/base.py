@@ -4,13 +4,18 @@ history plumbing.
 Port of ``certifiedgpt_tpu/agents/base.py``: an agent owns the config, the
 output directory, the logger, the process mesh and the model, which it
 builds through the port's registry on the launcher's device. The mesh
-(``parallel/mesh.py``) comes from ``run.model_parallel`` and
-``run.dcn_parallel`` over the ranks of ``torch.distributed``; with
-``model_parallel`` > 1 the agent keeps only this rank's shard of the
-decoder (``partition_llama``). ``run.pipeline_parallel`` > 1 is refused:
-the GPipe schedule is not ported (ROADMAP.md, modules item 17). Only rank 0
-writes the history and the checkpoints; the others wait at a barrier after
-a checkpoint. It builds the optimizer and the lr
+(``parallel/mesh.py``) comes from ``run.model_parallel``,
+``run.dcn_parallel`` and ``run.pipeline_parallel`` over the ranks of
+``torch.distributed``; with ``model_parallel`` > 1 the agent keeps only
+this rank's shard of the decoder (``partition_llama``). Under
+``pipeline_parallel`` > 1 the finetune agent keeps this stage's blocks
+(``parallel/pipeline.py``); the serving agents keep the whole decoder,
+run it sequentially and split their batch over the data ranks, as XLA
+gathers the stack for the JAX serving agents. Pipe x model is refused, as
+in the JAX package. Only rank 0 writes the history and the checkpoints (a
+decoder split over the ranks, into stages or tensor-parallel shards, is
+gathered whole into them); the others wait at a barrier after a
+checkpoint. It builds the optimizer and the lr
 schedule from the run block (``optim.py``), writes and reads checkpoints in
 the JAX package's ``.npz`` format (trainable leaves, optimizer state,
 metadata; ``vqa_finetuned`` names finetuned weights), records the loss of
@@ -40,10 +45,12 @@ from certifiedgpt_tpu_torch.common.registry import registry
 from certifiedgpt_tpu_torch.optim import AdamW, build_lr_schedule
 from certifiedgpt_tpu_torch.parallel.mesh import (
     barrier,
+    gather_split_leaves,
     make_mesh,
     process_index,
     set_active_mesh,
     shard_decoder,
+    split_grad_norm_sq,
 )
 
 
@@ -55,20 +62,16 @@ class BaseAgent:
         n_pipe = int(self.run_cfg.get("pipeline_parallel", 1) or 1)
         if n_pipe > 1 and n_model > 1:
             raise ValueError(
-                "pipeline_parallel x model_parallel composition is not wired in the "
-                "agents (the pipeline replicates lm_head/norm); pick one"
-            )
-        if n_pipe > 1:
-            raise NotImplementedError(
-                f"run.pipeline_parallel = {n_pipe}: the GPipe schedule is not ported yet "
-                "(ROADMAP.md, modules item 17)"
+                "pipeline_parallel x model_parallel composition is not wired in the agents "
+                "yet (the pipeline replicates lm_head/norm; see parallel/pipeline.py) — pick "
+                "one"
             )
         self.device = device
         self.logger = get_logger()
         self.output_dir = str(self.run_cfg.get("output_dir", "output"))
         os.makedirs(self.output_dir, exist_ok=True)
         self.mesh = make_mesh(n_model=n_model,
-                              n_dcn=int(self.run_cfg.get("dcn_parallel", 0) or 0))
+                              n_dcn=int(self.run_cfg.get("dcn_parallel", 0) or 0), n_pipe=n_pipe)
         set_active_mesh(self.mesh)
         t0 = time.perf_counter()
         self.model = self.build_model()
@@ -108,6 +111,7 @@ class BaseAgent:
         self.stateful_lr = hasattr(schedule, "step_metric")
         return AdamW(
             trainable, schedule,
+            grad_norm_sq=split_grad_norm_sq(self.mesh) if self.mesh.splits_decoder else None,
             weight_decay=float(run.get("weight_decay", 0.05)),
             beta1=float(run.get("beta1", 0.9)),
             beta2=float(run.get("beta2", 0.999)),
@@ -127,11 +131,17 @@ class BaseAgent:
         """``{name}.npz`` (and its meta sidecar) in the output directory:
         the trainable tree, the optimizer's state when given, ``metadata``.
         Rank 0 writes; every rank then waits at a barrier, so none reads a
-        half-written file (the barrier runs even when the write fails)."""
+        half-written file (the barrier runs even when the write fails).
+        Decoder leaves split over the ranks (pipe stages, tensor-parallel
+        shards) and their optimizer state are first gathered whole, every
+        rank taking part."""
         path = self.checkpoint_path(name)
         try:
+            if self.is_writer or self.mesh.splits_decoder:
+                trainable = gather_split_leaves(trainable, self.mesh, self.device)
+                opt_state = None if optimizer is None else gather_split_leaves(
+                    optimizer.state_arrays(), self.mesh, self.device)
             if self.is_writer:
-                opt_state = optimizer.state_arrays() if optimizer is not None else None
                 save_checkpoint(path, trainable, opt_state, metadata)
                 self.logger.info("Saved checkpoint %s", path)
         finally:

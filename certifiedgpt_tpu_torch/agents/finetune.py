@@ -39,8 +39,13 @@ group before the division (not a mean of means), so packing and
 ``real_rows`` weigh right; after the backward the trainable leaves'
 gradients are summed over the batch group. AdamW's state stays replicated.
 Tensor parallelism (``run.model_parallel``) shards the decoder
-(``BaseAgent``). ``pipeline_parallel`` > 1 is refused (ROADMAP.md, modules
-item 17).
+(``BaseAgent``). Pipeline parallelism (``run.pipeline_parallel`` P > 1)
+keeps this stage's blocks of the decoder (``parallel/pipeline.py``) and
+routes the decoder of every train step through the GPipe schedule in
+``run.pipeline_microbatches`` microbatches (default 2 x P; they must
+divide the decoder rows, and each microbatch the data axis), validation
+in one; the batch splits over the data axis only, so the stages of one
+pipeline see the same rows.
 """
 
 from __future__ import annotations
@@ -64,6 +69,12 @@ from certifiedgpt_tpu_torch.data.text import (
 )
 from certifiedgpt_tpu_torch.models.llama import IGNORE_INDEX
 from certifiedgpt_tpu_torch.models.minigpt4 import minigpt4_loss
+from certifiedgpt_tpu_torch.parallel.mesh import gather_split_leaves, split_leaves
+from certifiedgpt_tpu_torch.parallel.pipeline import (
+    n_stages,
+    pipeline_minigpt4_loss,
+    stage_decoder,
+)
 from certifiedgpt_tpu_torch.smoothing.classifier import chunk_seed
 
 #: the epoch key of the validation batches' noise generators
@@ -83,29 +94,49 @@ def add_input_noise(images: torch.Tensor, sigma: float, dist: str = "gaussian",
                                  dtype=images.dtype)
 
 
-def data_parallel_step(model, batch: Dict[str, torch.Tensor], optimizer, mesh=None
-                       ) -> torch.Tensor:
-    """One optimizer step on this rank's rows of a batch whose loss is the
-    one-process loss: the token losses and the token counts summed over the
-    mesh's batch group before the division (not a mean of means, so packed
-    rows and uneven counts weigh right), the gradients of the trainable
-    leaves summed over the group after the backward. Returns the loss.
-    Without a mesh, the same arithmetic in one process."""
-    local = minigpt4_loss(model.params, model.cfg, batch, reduction="sum").sum()
+def train_loss(model, batch: Dict[str, torch.Tensor], mesh=None, n_micro: int = 1,
+               reduction: str = "mean") -> torch.Tensor:
+    """The loss a run trains with: ``minigpt4_loss``, or, when the mesh has
+    pipe stages, ``pipeline_minigpt4_loss`` at ``n_micro`` microbatches
+    (the JAX agent's ``_loss_fn``)."""
+    if n_stages(mesh) > 1:
+        return pipeline_minigpt4_loss(model.params, model.cfg, batch, mesh, n_micro,
+                                      reduction=reduction)
+    return minigpt4_loss(model.params, model.cfg, batch, reduction=reduction)
+
+
+def data_parallel_loss(model, batch: Dict[str, torch.Tensor], params, mesh=None,
+                       n_micro: int = 1) -> torch.Tensor:
+    """The one-process loss of a batch whose rows are split over the mesh's
+    batch group, each rank passing its own: the token losses and the token
+    counts summed over the group before the division (not a mean of means,
+    so packed rows and uneven counts weigh right). Backpropagates and sums
+    the gradients of ``params`` over the group; returns the loss. Without a
+    mesh, the same arithmetic in one process. Under pipe stages the decoder
+    runs the GPipe schedule in ``n_micro`` microbatches."""
+    local = train_loss(model, batch, mesh, n_micro, reduction="sum").sum()
     count = (batch["labels"][:, 1:] != IGNORE_INDEX).sum().float()
     if mesh is not None:
         mesh.batch_sum(count)
     (local / count.clamp_min(1)).backward()
     if mesh is not None:
-        for p in optimizer.params:
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             mesh.batch_sum(p.grad)
-    optimizer.step()
     total = local.detach().clone()
     if mesh is not None:
         mesh.batch_sum(total)
     return total / count.clamp_min(1)
+
+
+def data_parallel_step(model, batch: Dict[str, torch.Tensor], optimizer, mesh=None,
+                       n_micro: int = 1) -> torch.Tensor:
+    """``data_parallel_loss`` over the optimizer's parameters, then one
+    optimizer step. Returns the loss."""
+    loss = data_parallel_loss(model, batch, optimizer.params, mesh, n_micro)
+    optimizer.step()
+    return loss
 
 
 def noise_seed(seed: int, epoch: int, step: int) -> int:
@@ -118,6 +149,9 @@ class FinetuneAgent(BaseAgent):
     def __init__(self, config, device="cuda"):
         run = config.run
         super().__init__(config, device)
+        if self.mesh.n_pipe > 1:
+            # run.pipeline_parallel: this rank keeps its stage's blocks
+            stage_decoder(self.model, self.mesh)
         self.max_epoch = int(run.get("max_epoch", 1))
         self.patience = int(run.get("patience", 5))
         self.noise_level = float(run.get("noise_level", 0.0))
@@ -169,6 +203,20 @@ class FinetuneAgent(BaseAgent):
                 f"Global batch_size {self.batch_size} must be divisible by the "
                 f"mesh data axis ({n_data})"
             )
+        # run.pipeline_microbatches (default 2 x stages: bubble (P-1)/(M+P-1))
+        # must divide the decoder rows, and each microbatch the data axis
+        self.n_pipe = self.mesh.n_pipe
+        self.n_micro = (int(run.get("pipeline_microbatches", 2 * self.n_pipe))
+                        if self.n_pipe > 1 else 1)
+        if self.n_pipe > 1:
+            if rows % self.n_micro:
+                raise ValueError(
+                    f"{rows} decoder rows (batch_size/pack_sequences) do not divide into "
+                    f"run.pipeline_microbatches={self.n_micro}")
+            if (rows // self.n_micro) % n_data:
+                raise ValueError(
+                    f"a {rows // self.n_micro}-row microbatch does not divide the mesh data "
+                    f"axis ({n_data}); lower run.pipeline_microbatches or the data degree")
         self.seed = int(run.get("seed", 42))
         self.trainable_keys = tuple(run.get("trainable_keys", ["llama_proj"]))
         self.trainable = self.model.make_trainable(self.trainable_keys)
@@ -224,13 +272,15 @@ class FinetuneAgent(BaseAgent):
         gradients are summed over the batch group before the step). Returns
         the loss (on the device)."""
         return data_parallel_step(self.model, self._noisy(batch, generator), self.optimizer,
-                                  self.mesh)
+                                  self.mesh, self.n_micro)
 
     @torch.no_grad()
     def _eval_step(self, batch, valid: torch.Tensor, generator, per: int = None):
-        """Sum of the per-sample losses over the valid rows, and their count."""
-        losses = minigpt4_loss(self.model.params, self.model.cfg,
-                               self._noisy(batch, generator, per), reduction="none")
+        """Sum of the per-sample losses over the valid rows, and their count
+        (under pipe stages in one microbatch: the padded val batch need not
+        divide the train setting)."""
+        losses = train_loss(self.model, self._noisy(batch, generator, per), self.mesh,
+                            n_micro=1, reduction="none")
         v = valid.to(losses.dtype)
         return (losses * v).sum(), v.sum()
 
@@ -346,11 +396,15 @@ class FinetuneAgent(BaseAgent):
     def _resume(self, path: str):
         """(first epoch, global step) after restoring the trainable leaves
         and the optimizer state of ``path``; (0, 0) when it is missing."""
+        # a checkpoint holds the decoder whole: this rank keeps its part
+        template = gather_split_leaves(self.trainable, self.mesh, self.device)
         try:
-            trainable, opt_state, meta = self.load_agent_checkpoint(path, self.trainable)
+            trainable, opt_state, meta = self.load_agent_checkpoint(path, template)
         except FileNotFoundError:
             self.logger.info("No resume checkpoint at %s; fresh start", path)
             return 0, 0
+        trainable, opt_state = split_leaves(trainable, self.mesh), split_leaves(opt_state,
+                                                                                 self.mesh)
         with torch.no_grad():
             for key, tree in trainable.items():
                 _copy_tree(self.trainable[key], tree)

@@ -139,16 +139,17 @@ def merge_params(trainable: Dict[str, Any], frozen: Dict[str, Any]) -> Dict[str,
     return {**frozen, **trainable}
 
 
-def minigpt4_loss(params: Dict[str, Any], cfg: MiniGPT4Config, batch: Dict[str, torch.Tensor],
-                  reduction: str = "mean", img_embeds: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
-    """Label-smoothed CE on the answer tokens (-100 outside the answer
-    span). ``batch``: image [B,H,W,C], input_ids, attention_mask, labels
-    [B,S], img_pos [B]; a packed batch (``data/text.pack_train_batch``)
-    carries segment_ids and positions [R,S] and img_pos [R,K] for B = R*K
-    images, and runs block-diagonal attention with per-segment rotary
-    positions. ``img_embeds`` skips the vision tower. Rotary positions
-    past the decoder's table raise (the JAX package would give NaN)."""
+def decoder_inputs(params: Dict[str, Any], cfg: MiniGPT4Config, batch: Dict[str, torch.Tensor],
+                   img_embeds: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The decoder's inputs of a train batch: ``(inputs_embeds, positions,
+    segment_ids or None)``. ``batch``: image [B,H,W,C], input_ids,
+    attention_mask, labels [B,S], img_pos [B]; a packed batch
+    (``data/text.pack_train_batch``) carries segment_ids and positions
+    [R,S] and img_pos [R,K] for B = R*K images, whose rows run
+    block-diagonal attention with per-segment rotary positions.
+    ``img_embeds`` skips the vision tower. Rotary positions past the
+    decoder's table raise (the JAX package would give NaN)."""
     if img_embeds is None:
         img_embeds = encode_img(params, cfg, batch["image"])
     table = cfg.llama.max_position_embeddings
@@ -165,17 +166,25 @@ def minigpt4_loss(params: Dict[str, Any], cfg: MiniGPT4Config, batch: Dict[str, 
             params, cfg, batch["input_ids"],
             img_embeds.reshape(rows, k, *img_embeds.shape[1:]), batch["img_pos"],
         )
-        positions, segment_ids = batch["positions"].long(), batch["segment_ids"]
-    else:
-        embeds = assemble_embeds(params, cfg, batch["input_ids"], img_embeds, batch["img_pos"])
-        if embeds.shape[1] > table:
-            raise ValueError(
-                f"run.seq_len={embeds.shape[1]} exceeds the decoder's "
-                f"max_position_embeddings={table}; rotary positions past the table "
-                f"would silently NaN"
-            )
-        positions = torch.arange(embeds.shape[1], device=embeds.device).expand(embeds.shape[:2])
-        segment_ids = None
+        return embeds, batch["positions"].long(), batch["segment_ids"]
+    embeds = assemble_embeds(params, cfg, batch["input_ids"], img_embeds, batch["img_pos"])
+    if embeds.shape[1] > table:
+        raise ValueError(
+            f"run.seq_len={embeds.shape[1]} exceeds the decoder's "
+            f"max_position_embeddings={table}; rotary positions past the table "
+            f"would silently NaN"
+        )
+    return embeds, torch.arange(embeds.shape[1], device=embeds.device).expand(
+        embeds.shape[:2]), None
+
+
+def minigpt4_loss(params: Dict[str, Any], cfg: MiniGPT4Config, batch: Dict[str, torch.Tensor],
+                  reduction: str = "mean", img_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Label-smoothed CE on the answer tokens (-100 outside the answer
+    span) of a train batch (``decoder_inputs``: packed or not; its
+    ``img_embeds`` skips the vision tower)."""
+    embeds, positions, segment_ids = decoder_inputs(params, cfg, batch, img_embeds)
     logits, _, _ = llama_apply(params["llama"], cfg.llama, embeds, batch["attention_mask"],
                                positions, segment_ids=segment_ids)
     return cross_entropy_loss(logits, batch["labels"], cfg.label_smoothing, reduction=reduction)

@@ -173,6 +173,10 @@ def build_lr_schedule(run_cfg) -> Any:
 # ----------------------------------------------------------------------
 # AdamW
 # ----------------------------------------------------------------------
+def _grad_norm_sq(paths, grads: List[torch.Tensor]) -> torch.Tensor:
+    return sum(torch.sum(g.float() * g.float()) for g in grads)
+
+
 class AdamW:
     """AdamW with optax's arithmetic (module docstring) over the tensors
     of ``tree`` (``nn.Parameter``s, updated in place). ``step()`` reads
@@ -183,7 +187,7 @@ class AdamW:
     def __init__(self, tree: Mapping[str, Any], schedule, weight_decay: float = 0.05,
                  beta1: float = 0.9, beta2: float = 0.999, accumulate_steps: int = 1,
                  max_grad_norm: Optional[float] = None, stateful_lr: bool = False,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, grad_norm_sq=None):
         if stateful_lr:
             # inject_hyperparams holds every hyperparameter as an f32 array
             weight_decay, beta1, beta2, eps = (float(_F32(v)) for v in
@@ -194,6 +198,9 @@ class AdamW:
         self.b1, self.b2, self.eps = float(beta1), float(beta2), float(eps)
         self.k = int(accumulate_steps)
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm else None
+        # (paths, grads) -> the squared global norm; ranks that hold parts
+        # of a leaf sum them (parallel/mesh.split_grad_norm_sq)
+        self.grad_norm_sq = grad_norm_sq or _grad_norm_sq
         self.stateful_lr = bool(stateful_lr)
         self.lr = float(_F32(schedule(0))) if stateful_lr else None
         self.count = 0  # scale_by_adam's count (inject_hyperparams' too)
@@ -251,7 +258,7 @@ class AdamW:
 
     def _apply(self, params, grads) -> None:
         if self.max_grad_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+            norm = torch.sqrt(self.grad_norm_sq(self.paths, grads))
             if not bool(norm < self.max_grad_norm):
                 grads = [(g / norm.to(g.dtype)) * self.max_grad_norm for g in grads]
         lr = self.current_lr()

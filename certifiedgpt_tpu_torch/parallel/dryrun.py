@@ -3,7 +3,7 @@
 
 ``dryrun_multichip(n)`` starts ``n`` gloo CPU processes
 (``parallel/processes.py``) and runs, on the tiny model with seeded
-parameters, the four cases of the JAX dry run that need no pipeline:
+parameters, the five cases of the JAX dry run:
 
 1. one train step on a data x model mesh (model = 2 when ``n`` is even and
    at least 4): the decoder tensor-parallel, the batch split over data;
@@ -12,10 +12,10 @@ parameters, the four cases of the JAX dry run that need no pipeline:
 3. a certification (``Smooth.predict``) with the Monte-Carlo batch split
    over data and the decoder over model, on those parameters;
 4. a train step and a certification on a dcn=2 x data=n/2 mesh from the
-   seeded parameters.
-
-The fifth JAX case, a pipe=2 x data=4 train step, is refused: the GPipe
-schedule is not ported (ROADMAP.md, modules item 17).
+   seeded parameters;
+5. the loss and the ``llama_proj`` gradient of the train batch (no noise)
+   through the GPipe decoder (``parallel/pipeline.py``) on a pipe=2 x
+   data=n/2 mesh at 2 microbatches, from the seeded parameters.
 
 The image noise of the train steps is drawn on the host from numpy seeds
 (``dryrun_inputs``), so that the JAX package can run the same cases on the
@@ -28,6 +28,7 @@ rank's results equal.
 from __future__ import annotations
 
 import json
+import math
 import os
 import tempfile
 from typing import Any, Dict, Optional
@@ -41,12 +42,13 @@ from certifiedgpt_tpu_torch.parallel.mesh import (
     set_active_mesh,
     shard_decoder,
 )
+from certifiedgpt_tpu_torch.parallel.pipeline import stage_decoder
 
 #: the certification prompt and answer set of the JAX dry run
 PROMPT = "<Img><ImageHere></Img> [vqa] what?"
 ANSWERS = ("cat", "dog")
-PIPELINE_REFUSAL = ("pipeline-train refused (ROADMAP.md, modules item 17: the GPipe "
-                    "schedule is not ported)")
+#: the microbatches of the pipeline case, as the JAX dry run's
+PIPE_MICRO = 2
 _RESULT_FILE = "dryrun_result.json"
 
 
@@ -131,6 +133,8 @@ class _Run:
         self.model = MiniGPT4Model(cfg, _to_torch(params), ByteTokenizer())
         if mesh is not None and mesh.n_model > 1:
             shard_decoder(self.model, mesh)
+        if mesh is not None and mesh.n_pipe > 1:
+            stage_decoder(self.model, mesh)
         self.trainable = self.model.make_trainable(("llama_proj",))
         self.optimizer = AdamW(self.trainable, lambda step: 1e-4)
 
@@ -138,14 +142,33 @@ class _Run:
         t = torch.from_numpy(np.ascontiguousarray(x))
         return t if self.mesh is None else self.mesh.local_rows(t)
 
+    def _rows_batch(self, batch: Dict[str, np.ndarray], noise: Optional[np.ndarray]):
+        dev = {k: self.rows(v).long() for k, v in batch.items() if k != "image"}
+        dev["image"] = self.rows(batch["image"])
+        if noise is not None:
+            dev["image"] = dev["image"] + self.rows(noise)
+        return dev
+
     def train_step(self, batch: Dict[str, np.ndarray], noise: np.ndarray) -> float:
         """One step on the noisy batch; returns its loss (before the
         update), the finetune agent's data-parallel step."""
         from certifiedgpt_tpu_torch.agents.finetune import data_parallel_step
 
-        dev = {k: self.rows(v).long() for k, v in batch.items() if k != "image"}
-        dev["image"] = self.rows(batch["image"]) + self.rows(noise)
-        return float(data_parallel_step(self.model, dev, self.optimizer, self.mesh))
+        return float(data_parallel_step(self.model, self._rows_batch(batch, noise),
+                                        self.optimizer, self.mesh))
+
+    def loss_and_grad_norm(self, batch: Dict[str, np.ndarray], n_micro: int):
+        """The loss of the batch (no noise) and the global norm of its
+        ``llama_proj`` gradient, the decoder pipelined over the mesh's
+        stages at ``n_micro`` microbatches (one process: the sequential
+        decoder)."""
+        from certifiedgpt_tpu_torch.agents.finetune import data_parallel_loss
+
+        loss = data_parallel_loss(self.model, self._rows_batch(batch, None),
+                                  self.optimizer.params, self.mesh, n_micro)
+        norm = math.sqrt(sum(float((p.grad.double() ** 2).sum())
+                             for p in self.optimizer.params))
+        return float(loss), norm
 
     @torch.no_grad()
     def certify(self, mc_batch: int) -> int:
@@ -161,7 +184,7 @@ class _Run:
 
 
 def dryrun_cases(n_devices: int, distributed: bool) -> Dict[str, Any]:
-    """The four cases' losses and labels: on this process's rank of
+    """The five cases' losses and labels: on this process's rank of
     ``n_devices`` gloo ranks when ``distributed``, else in one process."""
     inputs = dryrun_inputs(n_devices)
     cfg = inputs["cfg"]
@@ -179,6 +202,11 @@ def dryrun_cases(n_devices: int, distributed: bool) -> Dict[str, Any]:
             out["dcn_loss"] = run.train_step(inputs["batch"], inputs["noise"])
             out["dcn_certify_label"] = run.certify(n_devices)
             out["dcn_data"] = n_devices // 2
+            mesh = make_mesh(n_pipe=2) if distributed else None
+            run = _Run(cfg, inputs["params"], mesh)
+            out["pipe_loss"], out["pipe_grad_norm"] = run.loss_and_grad_norm(inputs["batch"],
+                                                                             PIPE_MICRO)
+            out["pipe_data"] = n_devices // 2
     finally:
         set_active_mesh(None)
     return out
@@ -192,7 +220,9 @@ def summary_line(n_devices: int, res: Dict[str, Any]) -> str:
     if "dcn_certify_label" in res:
         line += (f", dcn-train loss={res['dcn_loss']:.4f}, dcn-certify "
                  f"label={res['dcn_certify_label']} (dcn=2 x data={res['dcn_data']})")
-    return line + ", " + PIPELINE_REFUSAL
+    if "pipe_loss" in res:
+        line += f", pipeline-train loss={res['pipe_loss']:.4f} (pipe=2 x data={res['pipe_data']})"
+    return line
 
 
 _WORKER = f"""

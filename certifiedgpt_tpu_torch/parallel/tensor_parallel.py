@@ -16,7 +16,9 @@ rank:
   rounding that one process lacks. Its W8A8 input is split across the
   ranks, and per-row quantization needs the whole row's max: a MAX over the
   model group comes first. The backward is the one-process product's on
-  this rank's rows of the weight (identity through the sum).
+  this rank's rows of the weight (identity through the sum); a trainable
+  float weight (``run.trainable_keys: [llama]``) gets its rows' gradient,
+  ``x^T g``, from this rank's part of x.
 - ``vocab_parallel_embed``: a masked lookup in this rank's rows of the
   table, then a sum over the model group.
 - ``gather_from_model``: this rank's vocabulary columns of the logits,
@@ -118,11 +120,12 @@ class _RowParallelDense(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, scale, act_quant, mesh):
-        ctx.save_for_backward(weight, scale)
-        ctx.x_dtype, ctx.act_quant = x.dtype, act_quant
-        group = mesh.model_group
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
+        # x only for the gradient of a trainable float weight
+        ctx.save_for_backward(weight, scale, x2 if weight.requires_grad else None)
+        ctx.x_dtype, ctx.act_quant = x.dtype, act_quant
+        group = mesh.model_group
         if scale is not None and act_quant:
             xq, xs = Q.quantize_rows(
                 x2, lambda amax: dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group))
@@ -137,14 +140,18 @@ class _RowParallelDense(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        weight, scale = ctx.saved_tensors
+        weight, scale, x2 = ctx.saved_tensors
         if scale is not None and ctx.act_quant:
             gx = Q._grad_input(g, weight, scale, ctx.x_dtype)
         elif scale is not None:
             gx = Q.int8_weight_grad(g, weight, scale, ctx.x_dtype)
         else:
             gx = torch.matmul(g, weight.to(g.dtype).t()).to(ctx.x_dtype)
-        return gx, None, None, None, None
+        gw = None
+        if x2 is not None:  # the one-process product's: x^T g in x's dtype
+            g2 = g.reshape(-1, g.shape[-1]).to(x2.dtype)
+            gw = torch.matmul(x2.t(), g2).to(weight.dtype)
+        return gx, gw, None, None, None
 
 
 def row_parallel_dense(params, x: torch.Tensor, mesh: ProcessMesh,

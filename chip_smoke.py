@@ -206,6 +206,18 @@ Phases, each of which exits non-zero on any failure:
    its own ``torch.profiler`` context: device seconds by stage and kernel
    group, and the elementwise/copy seconds of ``encode_img``, the prefill
    and the decode.
+16. Pipeline (run inside phase 11.1, on its full-width ``_w8a8`` model and
+   packed batch of 48 images, 16 rows x 256 tokens; a one-process mesh
+   whose pipe axis is 1): 16.1 ``parallel.pipeline.pipeline_minigpt4_loss``
+   at 1, 2 and 4 microbatches, its loss and ``llama_proj`` gradient
+   against ``minigpt4_loss`` on the same parameters within 11.1's limits
+   (11.1's random-change control printed beside), 39 / 156 / 78 launches a step of the path
+   kernels and none of the others, the schedule's hand-written backward
+   once a step and the sequential decoder never; 16.2 a synchronized
+   forward + backward at each count beside the sequential one (median of
+   three, warmed by 16.1) with its peak device memory; 16.3 the sequential
+   step and the 4-microbatch one under ``torch.profiler`` (summed kernel
+   time, busy share, kernel launches), on ``[pipe]`` lines.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
@@ -2017,6 +2029,7 @@ def phase_train_checks(torch, card, device, root, env):
         for patch in plain_versions():
             stack.enter_context(patch)
         control = loss_and_grad(batch, offset=noise.to(plain_tokens.dtype))
+    control_rel = rel_err(control[1], plain_grad)
     rows, seq = batch["input_ids"].shape
     log(f"[train] 11.1 {TRAIN_W8A8_CONFIG}: batch of {batch['image'].shape[0]} images as "
         f"{rows} packed rows x {seq}: loss {loss:.6f} through the kernels, {plain_loss:.6f} "
@@ -2028,7 +2041,7 @@ def phase_train_checks(torch, card, device, root, env):
         f"{seconds:.3f} s; launches {json.dumps(launches)}; {card}")
     log(f"[train] 11.1 controls: the plain path with its image tokens changed at random by as "
         f"much: the loss's gradient in them {rel_err(control[3], plain_tokens_grad):.3e}, the "
-        f"projection's {rel_err(control[1], plain_grad):.3e}; the decoder with weight-only "
+        f"projection's {control_rel:.3e}; the decoder with weight-only "
         f"int8 products (no activation quant), kernels against plain versions: the "
         f"projection's gradient {wo_rel:.3e} (limit {WEIGHT_ONLY_GRAD_REL_LIMIT:g})")
     if not (math.isfinite(loss) and bool(torch.isfinite(grad).all())):
@@ -2097,10 +2110,125 @@ def phase_train_checks(torch, card, device, root, env):
     log(f"[train] 11.1 a train step's stages, each synchronized: ViT + Q-Former + projection "
         f"{parts[0]:.4f} s, decoder forward + loss {parts[1]:.4f} s, backward {parts[2]:.4f} s, "
         f"AdamW {parts[3]:.4f} s; {card}")
-    del agent, model, batch, padded, grad, plain_grad, pad_grad, tokens, plain_tokens, loss
-    del tokens_grad, plain_tokens_grad, control, wo_grad, wo_plain_grad
+    del padded, plain_grad, pad_grad, tokens, plain_tokens, loss
+    del tokens_grad, plain_tokens_grad, wo_grad, wo_plain_grad
+    gc.collect()
+    t0 = time.perf_counter()
+    launched = phase_pipeline(torch, card, agent, batch, control_rel)
+    log(f"[pipe] phase 16 took {time.perf_counter() - t0:.1f} s")
+    del agent, model, batch, grad, control
     gc.collect()
     torch.cuda.empty_cache()
+    return launched
+
+
+PIPE_MICRO = (1, 2, 4)
+PIPE_TIMED_STEPS = 3  # 16.1 ran each form once: they are warm
+
+
+def phase_pipeline(torch, card, agent, batch, control_rel):
+    """Phase 16, on 11.1's agent (the ``_w8a8`` YAML at full width) and
+    packed batch (48 images, 16 rows x 256 tokens), with a one-process mesh
+    whose pipe axis is 1: 16.1 ``pipeline_minigpt4_loss`` at each of
+    ``PIPE_MICRO`` microbatch counts, its loss and ``llama_proj`` gradient
+    against ``minigpt4_loss`` through the kernels on the same parameters
+    (11.1's limits; 11.1's random-change control printed beside), the
+    three path kernels' launches a step (39 / 156 / 78, the others none),
+    the schedule's backward run once a step and the sequential decoder
+    never; 16.2 a
+    synchronized forward + backward at each count beside the sequential
+    one (the median of ``PIPE_TIMED_STEPS``, 16.1 having run each) and its peak
+    device memory; 16.3 the sequential step and the last count's under
+    ``torch.profiler``: summed kernel time, busy share, kernel launches.
+    Returns the launches of each count's step."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+    from certifiedgpt_tpu_torch.parallel import pipeline as PP
+    from certifiedgpt_tpu_torch.parallel.mesh import make_mesh
+
+    model, cfg = agent.model, agent.model.cfg
+    proj = model.module.llama_proj
+    mesh = make_mesh(n_pipe=1)
+    rows, seq = batch["input_ids"].shape
+
+    def step(n_micro):
+        proj.kernel.grad = proj.bias.grad = None
+        if n_micro is None:
+            loss = M.minigpt4_loss(model.params, cfg, batch)
+        else:
+            loss = PP.pipeline_minigpt4_loss(model.params, cfg, batch, mesh, n_micro)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), proj.kernel.grad
+
+    def no_sequential(*args, **kwargs):
+        raise AssertionError("the pipelined loss called the sequential decoder")
+
+    # 11.1's stage split stepped AdamW: the reference is taken anew
+    seq_loss, seq_grad = step(None)
+    seq_grad = seq_grad.clone()
+    launched = {}
+    for n_micro in PIPE_MICRO:
+        backward = mock.patch.object(PP._Schedule, "backward", autospec=True,
+                                     side_effect=PP._Schedule.backward)
+        with backward as spy, mock.patch.object(M, "llama_apply", no_sequential):
+            reset_counts()
+            loss, grad = step(n_micro)
+            launches = read_counts()
+        check_counts(f"pipe 16.1 n_micro={n_micro}", launches, PER_TRAIN_STEP["w8a8"], 1)
+        if spy.call_count != 1:
+            fail(f"pipe 16.1 n_micro={n_micro}: the schedule's backward ran "
+                 f"{spy.call_count} times in a step")
+        loss_rel = abs(loss - seq_loss) / abs(seq_loss)
+        grad_rel = rel_err(grad, seq_grad)
+        log(f"[pipe] 16.1 n_micro={n_micro} ({rows // n_micro} rows x {seq} a microbatch, one "
+            f"stage): loss {loss:.6f} against the sequential {seq_loss:.6f} (relative error "
+            f"{loss_rel:.3e}, limit {TRAIN_LOSS_REL_LIMIT:g}); llama_proj gradient relative "
+            f"error {grad_rel:.3e} (limit {TRAIN_GRAD_REL_LIMIT:g}; 11.1's control, a random "
+            f"change of the image tokens: {control_rel:.3e}); launches {json.dumps(launches)}")
+        if not (math.isfinite(loss) and bool(torch.isfinite(grad).all())):
+            fail(f"pipe 16.1 n_micro={n_micro}: the loss or the gradient is not finite")
+        if not (loss_rel < TRAIN_LOSS_REL_LIMIT and grad_rel < TRAIN_GRAD_REL_LIMIT):
+            fail(f"pipe 16.1 n_micro={n_micro}: the pipelined loss or gradient disagrees "
+                 "with the sequential decoder's")
+        launched[f"train pipeline n_micro={n_micro}"] = launches
+
+    timed = {}
+    for n_micro in (None, *PIPE_MICRO):
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(PIPE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(n_micro)
+            times.append(time.perf_counter() - t0)
+        name = "sequential" if n_micro is None else f"n_micro={n_micro}"
+        timed[name] = sorted(times)[len(times) // 2]
+        log(f"[pipe] 16.2 {name}: forward + backward {timed[name]:.4f} s a step (median of "
+            f"{PIPE_TIMED_STEPS}, warmed by 16.1; min {min(times):.4f}, max {max(times):.4f}), "
+            f"{timed[name] / timed['sequential']:.3f} x the sequential; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+
+    # 16.3: where a step's extra time goes: device work, or idle gaps
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for n_micro in (None, PIPE_MICRO[-1]):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(n_micro)
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        if busy <= 0:
+            fail("pipe 16.3: the profiler saw no device time")
+        name = "sequential" if n_micro is None else f"n_micro={n_micro}"
+        log(f"[pipe] 16.3 {name} under torch.profiler: wall {wall:.4f} s, summed kernel time "
+            f"{busy:.4f} s ({100 * busy / wall:.1f} % busy), "
+            f"{sum(e.count for e in kernels)} kernel launches; {card}")
+    proj.kernel.grad = proj.bias.grad = None
+    return launched
 
 
 def phase_train_runs(torch, card, root, env):
@@ -2239,8 +2367,9 @@ def phase_train(torch, card, device, d_in: int, d_out: int):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = Path(tmp)
         env = write_train_set(root)
-        phase_train_checks(torch, card, device, root, env)
+        pipe_launches = phase_train_checks(torch, card, device, root, env)
         counted, (best, initial) = phase_train_runs(torch, card, root, env)
+        counted.update(pipe_launches)
         counted["predict trained"] = phase_train_predict(torch, card, root, best, initial,
                                                          d_in, d_out)
     return counted

@@ -238,16 +238,19 @@ def test_noise_keys_by_epoch_and_step(train_set, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value,error,match", [
-    ("pipeline_parallel", 2, NotImplementedError, "item 16"),
+    ("pipeline_parallel", 2, ValueError, "pipeline_microbatches=3"),
     ("enable_profile", True, NotImplementedError, "item 16"),
     ("pack_sequences", 3, ValueError, "not divisible"),
     ("seq_len", 20, ValueError, "segment budget"),
 ])
 def test_finetune_refusals(train_set, tmp_path, knob, value, error, match):
-    """Config errors raise before a step. ``pipeline_parallel`` names ROADMAP
-    item 17 now (the GPipe schedule). ``enable_profile`` (item 16) is
+    """Config errors raise before a step. ``enable_profile`` (item 16) is
     ported: a one-step run traces its step 0 (``profile_epoch`` 0) into a
-    Chrome trace."""
+    Chrome trace. ``pipeline_parallel`` (item 17) is ported: on two gloo
+    ranks each keeps its stage's block of every stacked decoder leaf (the
+    one-process stack's rows), runs 2 x 2 microbatches by default, and
+    ``pipeline_microbatches`` 3, which does not divide the 8 decoder rows,
+    raises the JAX agent's message."""
     if knob == "enable_profile":
         logdir = tmp_path / "trace"
         _run(train_set, "torch", "profiled", max_epoch=1, iters_per_epoch=1,
@@ -257,7 +260,34 @@ def test_finetune_refusals(train_set, tmp_path, knob, value, error, match):
         assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
         return
     if knob == "pipeline_parallel":
-        error, match = NotImplementedError, "item 17"
+        from certifiedgpt_tpu_torch.parallel.processes import run_ranks
+
+        cfg = train_set("staged", distributed=True, **{knob: value})
+        path = tmp_path / "staged.yaml"
+        path.write_text(json.dumps(cfg))  # JSON is YAML
+        run_ranks(2, f"""
+import json, pytest, torch
+from certifiedgpt_tpu_torch import registration
+from certifiedgpt_tpu_torch.agents.base import setup_agent
+from certifiedgpt_tpu_torch.common.config import Config
+cfg = json.load(open({str(path)!r}))
+agent = setup_agent(Config(cfg), device="cpu")
+torch.save((agent.n_micro, agent.model.params["llama"]["layers"]), f"layers{{RANK}}.pt")
+agent.finalize()
+cfg["run"]["pipeline_microbatches"] = 3
+with pytest.raises({error.__name__}, match={match!r}):
+    setup_agent(Config(cfg), device="cpu")
+""", str(tmp_path), timeout=240)
+        whole = setup_agent(Config(train_set("whole")), device="cpu").model.params["llama"]
+        for rank in (0, 1):
+            n_micro, layers = torch.load(tmp_path / f"layers{rank}.pt")
+            assert n_micro == 4
+            for mod, leaves in layers.items():
+                for leaf, block in leaves.items():
+                    want = whole["layers"][mod][leaf]
+                    assert block.shape[0] * 2 == want.shape[0]
+                    assert torch.equal(block, want.chunk(2)[rank]), (rank, mod, leaf)
+        return
     with pytest.raises(error, match=match):
         setup_agent(Config(train_set("refused", **{knob: value})), device="cpu")
 

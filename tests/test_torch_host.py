@@ -111,7 +111,7 @@ print(" ".join(names))
         "vqa_tools.vqa", "optim", "common.metrics", "common.checkpoint",
         "common.profiling", "utils.gcs", "utils.subset", "utils.dataset_stats",
         "parallel.mesh", "parallel.tensor_parallel", "parallel.processes",
-        "parallel.dryrun")} <= names
+        "parallel.dryrun", "parallel.pipeline")} <= names
     # the port's quality runbook imports neither either
     script = os.path.join(REPO, "scripts", "verify_checkpoints_torch.py")
     code = (

@@ -12,6 +12,7 @@ import os
 import re
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -409,6 +410,7 @@ launch.main(["certify", "--config-path", {str(path)!r}, "--device", "cpu"])
 """, str(tmp_path), timeout=240)
     got = _rows_without_timing(vqa.root / "out" / out / "certify_results.jsonl")
     one = dict(cfg["run"], distributed=False, model_parallel=1, dcn_parallel=0,
+               pipeline_parallel=1,
                output_dir=str(vqa.root / "out" / f"{out}-one"))
     agent = setup_agent(Config(dict(cfg, run=one)), device="cpu")
     try:
@@ -428,17 +430,14 @@ def test_unported_knobs_are_refused(vqa, tmp_path, knob, value, item):
     the eval agent with beam search on; ``enable_profile`` writes a trace of
     the certify run (a Chrome trace JSON); ``model_parallel`` 2 (the decoder
     tensor-parallel) and ``dcn_parallel`` 2 (the Monte-Carlo batch over two
-    ranks) certify on two gloo ranks with rows equal to one process's.
-    ``pipeline_parallel`` is still refused, naming ROADMAP item 17."""
+    ranks) certify on two gloo ranks with rows equal to one process's. So
+    does ``pipeline_parallel`` 2 (item 17): each stage keeps the whole
+    decoder, runs it sequentially and takes its data ranks' share of the
+    batch (one each here)."""
     if knob == "num_beams":
         agent = setup_agent(Config(vqa("image_text_eval", "beams", **{knob: value})),
                             device="cpu")
         assert agent.num_beams == value
-        return
-    if knob == "pipeline_parallel":
-        with pytest.raises(NotImplementedError, match="item 17"):
-            setup_agent(Config(vqa("image_text_certify", "refused", **{knob: value})),
-                        device="cpu")
         return
     if knob == "enable_profile":
         logdir = tmp_path / "trace"
@@ -459,9 +458,10 @@ def test_unported_knobs_are_refused(vqa, tmp_path, knob, value, item):
 
 @pytest.mark.parametrize("mode,item", [("train", 16), ("attack", 15)])
 def test_launcher_refuses_unported_modes(mode, item, vqa, tmp_path):
-    """``train`` runs, and its agent refuses the shipped VQAv2 YAML with
-    ``pipeline_parallel: 2`` before it builds a model, naming ROADMAP item
-    17 (the GPipe schedule; item 16 ported the rest of ``parallel/``). ``attack``
+    """``train`` runs the shipped VQAv2 YAML with ``pipeline_parallel: 2``
+    (item 17, the GPipe schedule) into the mesh, which at world size 1
+    raises the JAX ``make_mesh``'s message before a model is built (two
+    ranks train: tests/test_torch_pipeline.py). ``attack``
     (item 15) is ported: it routes to ``image_text_attack``, which writes its
     rows, summary and ANCOVA CSV."""
     if mode == "attack":
@@ -482,8 +482,12 @@ def test_launcher_refuses_unported_modes(mode, item, vqa, tmp_path):
     cfg["run"].update(pipeline_parallel=2, output_dir=str(tmp_path / "out"))
     path = tmp_path / "train.yaml"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    built = []
+    with mock.patch.object(TB.BaseAgent, "build_model", lambda self: built.append(self)), \
+            pytest.raises(ValueError,
+                          match="^1 devices do not divide into pipeline_parallel=2 stages$"):
         launch.main([mode, "--config-path", str(path), "--device", "cpu"])
+    assert not built
 
 
 def test_launcher_routes_eval_to_image_text_eval(vqa, tmp_path):

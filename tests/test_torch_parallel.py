@@ -449,23 +449,56 @@ def _jax_dryrun_losses(inputs, n_devices):
         return float(loss), float(loss_p)
 
 
+def _jax_dryrun_pipeline(inputs, n_devices):
+    """The JAX dry run's fifth case on the port's seeded parameters and
+    train batch: the loss and the ``llama_proj`` gradient's global norm of
+    ``pipeline_minigpt4_loss`` on a pipe=2 x data mesh at 2 microbatches."""
+    from certifiedgpt_tpu.models.minigpt4 import MiniGPT4Config, merge_params, split_params
+    from certifiedgpt_tpu.parallel.pipeline import (
+        partition_llama_pipeline,
+        pipeline_minigpt4_loss,
+    )
+
+    cfg = MiniGPT4Config.tiny()
+    mesh = JMESH.make_mesh(n_pipe=2, devices=jax.devices()[:n_devices])
+    params = jax.tree.map(jnp.asarray, inputs["params"])
+    params["llama"] = partition_llama_pipeline(params["llama"], mesh)
+    trainable, frozen = split_params(params)
+    batch = {k: jnp.asarray(v) for k, v in inputs["batch"].items()}
+    with mesh:
+        loss, grads = jax.value_and_grad(lambda tr: pipeline_minigpt4_loss(
+            merge_params(tr, frozen), cfg, batch, mesh, n_micro=2))(trainable)
+    norm = float(sum(jnp.sum(g * g) for g in jax.tree.leaves(grads)) ** 0.5)
+    return float(loss), norm
+
+
 def test_dryrun_multichip_eight_processes(tmp_path, capsys):
-    """``dryrun_multichip(8)``: the four cases on 8 gloo ranks print the JAX
-    dry run's line (the pipeline case refused, naming ROADMAP item 17);
-    labels equal one process's exactly, losses within ``LOSS_RTOL`` of one
-    process's, and the train-step losses within the decoder's float
-    tolerance of tests/test_torch_train_model.py (1e-5 relative) of the
-    JAX package's on the same parameters, batches and noise."""
+    """``dryrun_multichip(8)``: the five cases on 8 gloo ranks print the JAX
+    dry run's line, the pipeline case's included; labels equal one
+    process's exactly, losses within ``LOSS_RTOL`` of one process's, and
+    the train-step losses within the decoder's float tolerance of
+    tests/test_torch_train_model.py (1e-5 relative) of the JAX package's on
+    the same parameters, batches and noise; the pipeline case's loss within
+    ``LOSS_RTOL`` of the one-process (sequential) loss and within 1e-5 of
+    the JAX dry run's fifth case, its ``llama_proj`` gradient norm within
+    1e-4 of both."""
     got = dryrun_multichip(8, workdir=str(tmp_path))
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("dryrun_multichip ok: 8 processes (data=4 x model=2)")
-    assert "dcn-certify label=" in line and "item 17" in line
+    assert "dcn-certify label=" in line
+    assert line.endswith(f", pipeline-train loss={got['pipe_loss']:.4f} (pipe=2 x data=4)")
     one = dryrun_cases(8, distributed=False)
-    for key in ("certify_label", "dcn_certify_label", "n_data", "n_model", "dcn_data"):
+    for key in ("certify_label", "dcn_certify_label", "n_data", "n_model", "dcn_data",
+                "pipe_data"):
         assert got[key] == one[key], key
-    for key in ("loss", "packed_loss", "dcn_loss"):
+    for key in ("loss", "packed_loss", "dcn_loss", "pipe_loss"):
         np.testing.assert_allclose(got[key], one[key], rtol=LOSS_RTOL, err_msg=key)
-    jax_loss, jax_packed = _jax_dryrun_losses(dryrun_inputs(8), 8)
+    inputs = dryrun_inputs(8)
+    jax_loss, jax_packed = _jax_dryrun_losses(inputs, 8)
     np.testing.assert_allclose(one["loss"], jax_loss, rtol=1e-5)
     np.testing.assert_allclose(one["packed_loss"], jax_packed, rtol=1e-5)
     np.testing.assert_allclose(got["dcn_loss"], jax_loss, rtol=1e-5)
+    jax_pipe, jax_norm = _jax_dryrun_pipeline(inputs, 8)
+    np.testing.assert_allclose(got["pipe_loss"], jax_pipe, rtol=1e-5)
+    np.testing.assert_allclose(got["pipe_grad_norm"], jax_norm, rtol=1e-4)
+    np.testing.assert_allclose(got["pipe_grad_norm"], one["pipe_grad_norm"], rtol=1e-4)

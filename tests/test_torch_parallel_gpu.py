@@ -9,7 +9,10 @@ run's greedy tokens and its logits within 2e-2 relative (bf16 roundings:
 the plain run rounds each weight-only product to bf16 before its scale,
 the split path sums f32 partials and rounds once; one bf16 rounding is
 3.9e-3 relative); a certification whose chunks go through
-the batch group's token gather gives the plain run's labels. They skip
+the batch group's token gather gives the plain run's labels; the GPipe
+loss and ``llama_proj`` gradient of a tiny fp32 model at one stage in two
+microbatches give the sequential path's (f32, TF32 off: 1e-5 relative;
+only the products' row blocking differs). They skip
 where there is no CUDA device. This file imports neither JAX nor the
 JAX package, so on the GPU machine it runs without the conftest:
 
@@ -28,6 +31,7 @@ from certifiedgpt_tpu_torch.models import minigpt4 as TM
 from certifiedgpt_tpu_torch.models.minigpt4 import MiniGPT4Config
 from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model, build_synthetic_params
 from certifiedgpt_tpu_torch.parallel.mesh import make_mesh, partition_llama, set_active_mesh
+from certifiedgpt_tpu_torch.parallel.pipeline import pipeline_minigpt4_loss
 from certifiedgpt_tpu_torch.smoothing.classifier import AnswerVocabulary, make_sample_fn
 
 
@@ -104,3 +108,37 @@ def test_data_parallel_certify_at_world_size_one(nccl):
         plain = labels(None)
         got = labels(nccl)
     np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.gpu
+def test_pipeline_at_one_stage_matches_sequential(nccl):
+    from certifiedgpt_tpu_torch.data.text import BatchSpec, build_train_batch
+
+    cfg = MiniGPT4Config.tiny(llama=TLM.LlamaConfig.tiny(num_layers=4))
+    model = MiniGPT4Model(cfg, build_synthetic_params(cfg, "cuda", seed=0), ByteTokenizer())
+    trainable = model.make_trainable(("llama_proj",))
+    spec = BatchSpec(seq_len=48, num_img_tokens=cfg.num_img_tokens, max_answer_len=8)
+    text = build_train_batch(ByteTokenizer(), [f"<Img><ImageHere></Img> what is {i}?"
+                                               for i in range(4)],
+                             ["cat", "dog", "two", "red"], spec)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in text.items()}
+    batch["image"] = torch.from_numpy(np.random.RandomState(0).randn(
+        4, cfg.vit.img_size, cfg.vit.img_size, 3).astype(np.float32)).cuda()
+    assert nccl.n_pipe == 1 and nccl.pipe_group is None
+
+    def loss_and_grad(loss_fn):
+        for p in trainable["llama_proj"].values():
+            p.grad = None
+        loss = loss_fn()
+        loss.backward()
+        return float(loss.detach()), trainable["llama_proj"]["kernel"].grad.clone()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = loss_and_grad(lambda: TM.minigpt4_loss(model.params, cfg, batch))
+        got = loss_and_grad(lambda: pipeline_minigpt4_loss(model.params, cfg, batch, nccl, 2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(got[0] - want[0]) / abs(want[0]) < 1e-5
+    assert float((got[1] - want[1]).norm() / want[1].norm()) < 1e-5
