@@ -3,6 +3,13 @@
 // Replaces two Pallas TPU kernels of certifiedgpt_tpu/ops/quantization.py:
 //   _ln_quant_kernel   (:208)  LayerNorm with affine -> int8 rows  (ViT qkv / fc1 inputs)
 //   _gelu_quant_kernel (:136)  GELU, A-S erf (:122)   -> int8 rows  (ViT fc2 input)
+// and, with the identity as its transform, the XLA-fused quantize_rows (:52-65)
+// of bf16 rows (the ViT's proj input, the decoder prefill's product inputs,
+// the int8 KV cache's rows of head_dim): quant_rows_kernel, one warp a row as
+// the LayerNorm, rows up to kMaxIdentityRowWidth wide (the prefill's
+// down_proj input is 11008), fewer teams a block for wider rows. f32 rows
+// (the f32 configurations) take quant_rows_f32_kernel, a plain walk of a warp
+// a row with an IEEE division an element.
 // Per row: f32 transform -> round through bf16 (the unfused chain quantizes the
 // bf16 activation) -> xs = max(absmax, 1e-8) / 127 -> codes rint(h / xs)
 // (half to even), clipped to +-127.
@@ -63,6 +70,10 @@ constexpr int kMaxTeamWarps = 4;
 constexpr int kBarBytes = kMaxTeams * kMaxStages * 8;       // an mbarrier a buffer
 constexpr int kRedBytes = kMaxTeams * kMaxTeamWarps * 4;    // a team's per-warp partials
 constexpr int kMaxRowWidth = 8192;
+constexpr int kMaxIdentityRowWidth = 32768;
+
+// the row transform before the quantization
+enum Mode { kLnMode, kGeluMode, kIdentityMode };
 
 constexpr float kRoundMagic = 12582912.f;     // 1.5 * 2^23
 constexpr float kNearHalf = 0.5f - 0x1p-14f;  // |t - rint(t)| above this: exact quotient
@@ -369,6 +380,21 @@ __device__ __forceinline__ void gelu_row(unsigned char* slot, int K, int8_t* qro
   quantize_row<4>(slot, K, amax, qrow, srow, team);
 }
 
+// ---- identity ----
+// One warp a row, pieces of 4: the row's absmax, then its codes.
+__device__ __forceinline__ void identity_row(const unsigned char* slot, int K, int8_t* qrow,
+                                             float* srow, const Team<1>& team) {
+  const uint2* piece = reinterpret_cast<const uint2*>(slot);
+  __nv_bfloat162 m = __float2bfloat162_rn(0.f);
+#pragma unroll 4
+  for (int p = team.tid; p < K / 4; p += 32) {
+    const uint2 w = piece[p];
+    m = absmax2(absmax2(m, w.x), w.y);
+  }
+  const float amax = team.max(fmaxf(__low2float(m), __high2float(m)));
+  quantize_row<2>(slot, K, amax, qrow, srow, team);
+}
+
 // ---- the persistent walk over rows ----
 __device__ __forceinline__ float load_param(const void* p, int is_f32, int k) {
   return is_f32 ? static_cast<const float*>(p)[k]
@@ -377,13 +403,14 @@ __device__ __forceinline__ float load_param(const void* p, int is_f32, int k) {
 
 // Each team of the block walks rows team, team + teams a grid, ...; its ring
 // of `stages` row buffers is filled `stages` rows ahead.
-template <bool kLn, int kWarps>
+template <int kMode, int kWarps>
 __device__ __forceinline__ void walk_rows(const RowQuantArgs& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   using T = Team<kWarps>;
   const int teams = blockDim.x / T::kThreads;
   const int K = a.K, stages = a.stages;
   const uint32_t row_bytes = 2u * static_cast<uint32_t>(K);
+  constexpr bool kLn = kMode == kLnMode;
   float* gamma = reinterpret_cast<float*>(smem + kBarBytes + kRedBytes);
   float* beta = gamma + K;
   if constexpr (kLn) {
@@ -418,8 +445,10 @@ __device__ __forceinline__ void walk_rows(const RowQuantArgs& a) {
     mbarrier_wait(bar0 + 8 * slot, parity);
     if constexpr (kLn) {
       ln_row(buf, gamma, beta, K, a.eps, a.q + row * K, a.s + row, team);
-    } else {
+    } else if constexpr (kMode == kGeluMode) {
       gelu_row(buf, K, a.q + row * K, a.s + row, team);
+    } else {
+      identity_row(buf, K, a.q + row * K, a.s + row, team);
     }
     // this thread's reads and writes of the buffer come before the copy that
     // refills it (the copy writes through the async proxy)
@@ -437,12 +466,26 @@ __device__ __forceinline__ void walk_rows(const RowQuantArgs& a) {
 }
 
 __global__ void __launch_bounds__(kMaxTeams * 32, 3) ln_quant_kernel(const RowQuantArgs a) {
-  walk_rows<true, 1>(a);
+  walk_rows<kLnMode, 1>(a);
 }
 
 __global__ void __launch_bounds__(kMaxTeams * 32 * kGeluTeamWarps, 1)
     gelu_quant_kernel(const RowQuantArgs a) {
-  walk_rows<false, kGeluTeamWarps>(a);
+  walk_rows<kGeluMode, kGeluTeamWarps>(a);
+}
+
+__global__ void __launch_bounds__(kMaxTeams * 32, 3) quant_rows_kernel(const RowQuantArgs a) {
+  walk_rows<kIdentityMode, 1>(a);
+}
+
+// the kernel of each mode and its threads a team
+constexpr int team_threads(int mode) { return 32 * (mode == kGeluMode ? kGeluTeamWarps : 1); }
+
+template <int kMode>
+const void* kernel_of() {
+  if constexpr (kMode == kLnMode) return reinterpret_cast<const void*>(ln_quant_kernel);
+  if constexpr (kMode == kGeluMode) return reinterpret_cast<const void*>(gelu_quant_kernel);
+  return reinterpret_cast<const void*>(quant_rows_kernel);
 }
 
 struct Plan {
@@ -454,8 +497,9 @@ struct Plan {
 // ring depth of the kernel, or less, down to 2, then the most teams up to
 // kMaxTeams, that fit in a block's shared memory, and as many blocks as stay
 // resident.
-template <bool kLn>
+template <int kMode>
 cudaError_t plan_for(int K, Plan* out) {
+  constexpr bool kLn = kMode == kLnMode;
   constexpr int kPlans = 16;
   static Plan plans[kPlans];
   static int next = 0;
@@ -468,9 +512,8 @@ cudaError_t plan_for(int K, Plan* out) {
       return cudaSuccess;
     }
   }
-  const void* kernel = kLn ? reinterpret_cast<const void*>(ln_quant_kernel)
-                           : reinterpret_cast<const void*>(gelu_quant_kernel);
-  const int threads_per_team = 32 * (kLn ? 1 : kGeluTeamWarps);
+  const void* kernel = kernel_of<kMode>();
+  const int threads_per_team = team_threads(kMode);
   int sms = 0, max_smem = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
@@ -484,7 +527,7 @@ cudaError_t plan_for(int K, Plan* out) {
   p.dev = dev;
   p.K = K;
   p.teams = kMaxTeams;
-  p.stages = kLn ? kLnStages : kGeluStages;
+  p.stages = kMode == kGeluMode ? kGeluStages : kLnStages;
   const size_t row_bytes = 2 * static_cast<size_t>(K);
   auto bytes = [&](int teams, int stages) {
     return slot_offset(K, kLn) + teams * stages * row_bytes;
@@ -503,24 +546,28 @@ cudaError_t plan_for(int K, Plan* out) {
   return cudaSuccess;
 }
 
-template <bool kLn>
+template <int kMode>
 int launch(RowQuantArgs a, void* stream) {
-  if (a.M < 0 || a.K <= 0 || a.K % 8 != 0 || a.K > kMaxRowWidth ||
+  const int widest = kMode == kIdentityMode ? kMaxIdentityRowWidth : kMaxRowWidth;
+  if (a.M < 0 || a.K <= 0 || a.K % 8 != 0 || a.K > widest ||
       reinterpret_cast<uintptr_t>(a.x) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.M == 0) return 0;
   Plan p;
-  const cudaError_t err = plan_for<kLn>(a.K, &p);
+  const cudaError_t err = plan_for<kMode>(a.K, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (a.M + p.teams - 1) / p.teams;
   const unsigned grid = static_cast<unsigned>(blocks < p.grid ? blocks : p.grid);
   a.stages = p.stages;
   auto st = static_cast<cudaStream_t>(stream);
-  if constexpr (kLn) {
-    ln_quant_kernel<<<grid, p.teams * 32, p.smem, st>>>(a);
+  const unsigned threads = p.teams * team_threads(kMode);
+  if constexpr (kMode == kLnMode) {
+    ln_quant_kernel<<<grid, threads, p.smem, st>>>(a);
+  } else if constexpr (kMode == kGeluMode) {
+    gelu_quant_kernel<<<grid, threads, p.smem, st>>>(a);
   } else {
-    gelu_quant_kernel<<<grid, p.teams * 32 * kGeluTeamWarps, p.smem, st>>>(a);
+    quant_rows_kernel<<<grid, threads, p.smem, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -532,14 +579,61 @@ extern "C" int cgpt_ln_quant(const void* x, const void* gamma, int gamma_f32, co
                              void* stream) {
   RowQuantArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
                  static_cast<float*>(s), gamma, beta, gamma_f32, beta_f32, eps, M, K, 0};
-  return launch<true>(a, stream);
+  return launch<kLnMode>(a, stream);
 }
 
 extern "C" int cgpt_gelu_quant(const void* x, void* q, void* s, long long M, int K,
                                void* stream) {
   RowQuantArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
                  static_cast<float*>(s), nullptr, nullptr, 0, 0, 0.f, M, K, 0};
-  return launch<false>(a, stream);
+  return launch<kGeluMode>(a, stream);
+}
+
+extern "C" int cgpt_quant_rows(const void* x, void* q, void* s, long long M, int K, void* stream) {
+  RowQuantArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
+                 static_cast<float*>(s), nullptr, nullptr, 0, 0, 0.f, M, K, 0};
+  return launch<kIdentityMode>(a, stream);
+}
+
+namespace {
+
+// ---- f32 rows ----
+// quantize_rows of f32 rows [M, K], any K: one warp a row (8 a block, the
+// blocks walking the rows), the absmax, then the codes rint(x / xs), each an
+// IEEE division, clipped to +-127.
+constexpr int kF32RowWarps = 8;
+constexpr long long kF32MaxBlocks = 4096;
+
+__global__ void __launch_bounds__(kF32RowWarps * 32)
+    quant_rows_f32_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                          float* __restrict__ s, long long M, int K) {
+  const int lane = threadIdx.x % 32;
+  const long long stride = static_cast<long long>(gridDim.x) * kF32RowWarps;
+  for (long long row = blockIdx.x * static_cast<long long>(kF32RowWarps) + threadIdx.x / 32;
+       row < M; row += stride) {
+    const float* xr = x + row * K;
+    float amax = 0.f;
+    for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(xr[k]));
+    const float xs = __fdiv_rn(fmaxf(warp_max(amax), 1e-8f), 127.f);
+    if (lane == 0) s[row] = xs;
+    for (int k = lane; k < K; k += 32) {
+      const float t = fminf(fmaxf(rintf(__fdiv_rn(xr[k], xs)), -127.f), 127.f);
+      q[row * K + k] = static_cast<int8_t>(t);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int cgpt_quant_rows_f32(const void* x, void* q, void* s, long long M, int K,
+                                   void* stream) {
+  if (M < 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const long long blocks = (M + kF32RowWarps - 1) / kF32RowWarps;
+  const unsigned grid = static_cast<unsigned>(blocks < kF32MaxBlocks ? blocks : kF32MaxBlocks);
+  quant_rows_f32_kernel<<<grid, kF32RowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), M, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* cgpt_error_string(int code) {

@@ -113,6 +113,11 @@ def _qkv_heads(lp: Dict[str, Any], hidden: torch.Tensor, cfg: EvaViTConfig,
     b, s, _ = hidden.shape
     h, dh, d = cfg.num_heads, cfg.head_dim, cfg.embed_dim
     p = lp["qkv"]
+    # the k bias is identically zero
+    qb = lp["q_bias"].to(hidden.dtype)
+    if q_premul != 1.0:
+        qb = qb * torch.tensor(q_premul, dtype=qb.dtype)
+    bias = torch.cat([qb, torch.zeros_like(qb), lp["v_bias"].to(hidden.dtype)])
     if "kernel_q" in p:
         # int8 kernels: the factor goes into the f32 dequant scale of q
         scale = torch.cat([p["scale"][:d] * q_premul, p["scale"][d:]])
@@ -121,7 +126,8 @@ def _qkv_heads(lp: Dict[str, Any], hidden: torch.Tensor, cfg: EvaViTConfig,
             xq, xs = Q.ln_quant_rows(hidden, ln["scale"], ln["bias"], cfg.layer_norm_eps)
         else:
             xq, xs = Q.quantize_rows(hidden)
-        y = Q._w8a8_epilogue(xq, xs, p["kernel_q"], scale, hidden.dtype)
+        # the bias is added in the rescale's pass (w8a8_epilogue)
+        y = Q._w8a8_epilogue(xq, xs, p["kernel_q"], scale, hidden.dtype, bias)
     else:
         if ln is not None:
             hidden = L.layer_norm(ln, hidden, cfg.layer_norm_eps)
@@ -132,11 +138,8 @@ def _qkv_heads(lp: Dict[str, Any], hidden: torch.Tensor, cfg: EvaViTConfig,
             if q_premul != 1.0:
                 w = torch.cat([w[:, :1] * torch.tensor(q_premul, dtype=w.dtype), w[:, 1:]], dim=1)
             y = L.dense({"kernel": w.reshape(-1, 3 * d)}, hidden)
-    qb = lp["q_bias"].to(y.dtype)
-    if q_premul != 1.0:
-        qb = qb * torch.tensor(q_premul, dtype=qb.dtype)
-    bias = torch.cat([qb, torch.zeros_like(qb), lp["v_bias"].to(y.dtype)])
-    y = (y + bias).reshape(b, s, 3, h, dh)
+        y = y + bias
+    y = y.reshape(b, s, 3, h, dh)
     return tuple(y[:, :, i].transpose(1, 2) for i in range(3))
 
 

@@ -59,9 +59,10 @@ def layer_slice(stacked: Dict[str, Any], layer: int) -> Dict[str, Any]:
 
 def dense(params, x: torch.Tensor, act_quant: bool = False) -> torch.Tensor:
     if "kernel_q" in params and act_quant:
-        # W8A8: (xq @ wq) * xs * ws, dynamic per-row activation quant
-        out = Q.w8a8_matmul(x, params["kernel_q"], params["scale"])
-    elif "kernel_q" in params:
+        # W8A8: (xq @ wq) * xs * ws (+ bias), dynamic per-row activation
+        # quant; the rescale and the bias are one pass (w8a8_epilogue)
+        return Q.w8a8_matmul(x, params["kernel_q"], params["scale"], params.get("bias"))
+    if "kernel_q" in params:
         # weight-only int8: the per-output-channel scale commutes with the
         # contraction and multiplies the f32 result
         out = Q.int8_weight_matmul(x, params["kernel_q"], params["scale"])
@@ -139,21 +140,22 @@ def ln_dense(params, x: torch.Tensor, ln_params, eps: float = 1e-6,
     and the activation quant are one kernel (``ops.quantization.ln_quant_rows``)."""
     if "kernel_q" in params and act_quant:
         xq, xs = Q.ln_quant_rows(x, ln_params["scale"], ln_params["bias"], eps)
-        out = Q._w8a8_epilogue(xq, xs, params["kernel_q"], params["scale"], x.dtype)
-    else:
-        return dense(params, layer_norm(ln_params, x, eps), act_quant=act_quant)
-    if "bias" in params:
-        out = out + params["bias"].to(out.dtype)
-    return out
+        return Q._w8a8_epilogue(xq, xs, params["kernel_q"], params["scale"], x.dtype,
+                                params.get("bias"))
+    return dense(params, layer_norm(ln_params, x, eps), act_quant=act_quant)
+
+
+def dense_quantized(params, xq: torch.Tensor, xs: torch.Tensor, dtype) -> torch.Tensor:
+    """``dense(params, x, act_quant=True)`` of rows already quantized
+    (``xq, xs = quantize_rows(x)``), for products that share an input: the
+    codes and scales are the same whichever product quantizes them."""
+    return Q._w8a8_epilogue(xq, xs, params["kernel_q"], params["scale"], dtype,
+                            params.get("bias"))
 
 
 def gelu_dense(params, x: torch.Tensor, act_quant: bool = False) -> torch.Tensor:
     """``dense(params, gelu(x))``; on the W8A8 path the GELU and the
     activation quant are one kernel (``ops.quantization.gelu_quant_rows``)."""
     if "kernel_q" in params and act_quant:
-        out = Q.w8a8_gelu_matmul(x, params["kernel_q"], params["scale"])
-    else:
-        return dense(params, gelu(x), act_quant=act_quant)
-    if "bias" in params:
-        out = out + params["bias"].to(out.dtype)
-    return out
+        return Q.w8a8_gelu_matmul(x, params["kernel_q"], params["scale"], params.get("bias"))
+    return dense(params, gelu(x), act_quant=act_quant)

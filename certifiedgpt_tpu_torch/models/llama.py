@@ -38,11 +38,8 @@ import torch.nn as nn
 from torch.utils import checkpoint as _checkpoint
 
 from certifiedgpt_tpu_torch.models import layers as L
-from certifiedgpt_tpu_torch.ops.attention import (
-    multi_head_attention,
-    multi_head_attention_kv8,
-)
-from certifiedgpt_tpu_torch.ops.quantization import quantize_rows
+from certifiedgpt_tpu_torch.ops import attention as A
+from certifiedgpt_tpu_torch.ops import quantization as Q
 from certifiedgpt_tpu_torch.parallel.tensor_parallel import (
     copy_to_model,
     gather_from_model,
@@ -145,42 +142,50 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
             return L.dense(params, inp, act_quant=aq)
         return row_parallel_dense(params, inp, tp, act_quant=aq)
 
+    def shared_input(inp, names):
+        """The products of ``names`` on one input: under the cached W8A8
+        path (the prefill) the input is quantized once for all of them, as
+        XLA's CSE does for the JAX package; elsewhere each product quantizes
+        it itself (a training forward differentiates through each)."""
+        if cache is not None and aq and all("kernel_q" in lp[n] for n in names):
+            xq, xs = Q.quantize_rows(inp)
+            return [L.dense_quantized(lp[n], xq, xs, inp.dtype) for n in names]
+        return [L.dense(lp[n], inp, act_quant=aq) for n in names]
+
     hidden = L.rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
     if tp is not None:
         hidden = copy_to_model(hidden, tp)
     # heads from the shard widths: this rank's under tensor parallelism
-    q = L.dense(lp["q_proj"], hidden, act_quant=aq).reshape(b, s, -1, dh)
-    k = L.dense(lp["k_proj"], hidden, act_quant=aq).reshape(b, s, -1, dh)
-    v = L.dense(lp["v_proj"], hidden, act_quant=aq).reshape(b, s, -1, dh)
+    q, k, v = (y.reshape(b, s, -1, dh)
+               for y in shared_input(hidden, ("q_proj", "k_proj", "v_proj")))
     q = L.apply_rotary(q, cos, sin, positions)
     k = L.apply_rotary(k, cos, sin, positions)
 
     if cache is None:
-        attn = multi_head_attention(q, k, v, mask)
+        attn = A.multi_head_attention(q, k, v, mask)
     elif cfg.kv_quant:
         at = slice(cache_offset, cache_offset + s)
-        kq, ks = quantize_rows(k)
-        vq, vs = quantize_rows(v)
+        kq, ks = Q.quantize_rows(k)
+        vq, vs = Q.quantize_rows(v)
         cache["k"][:, at] = kq
         cache["v"][:, at] = vq
         cache["k_scale"][:, at] = ks
         cache["v_scale"][:, at] = vs
-        attn = multi_head_attention_kv8(
+        attn = A.multi_head_attention_kv8(
             q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask
         )
     else:
         at = slice(cache_offset, cache_offset + s)
         cache["k"][:, at] = k
         cache["v"][:, at] = v
-        attn = multi_head_attention(q, cache["k"], cache["v"], mask)
+        attn = A.multi_head_attention(q, cache["k"], cache["v"], mask)
 
     x = x + row_dense(lp["o_proj"], attn.reshape(b, s, -1))
     hidden = L.rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
     if tp is not None:
         hidden = copy_to_model(hidden, tp)
-    gate = L.silu(L.dense(lp["gate_proj"], hidden, act_quant=aq))
-    up = L.dense(lp["up_proj"], hidden, act_quant=aq)
-    return x + row_dense(lp["down_proj"], gate * up)
+    gate, up = shared_input(hidden, ("gate_proj", "up_proj"))
+    return x + row_dense(lp["down_proj"], L.silu(gate) * up)
 
 
 # the products a recomputed block keeps under each of the JAX package's

@@ -318,7 +318,7 @@ def generate(
     EOS. ``early_exit`` stops launching decode steps once the host sees,
     without waiting, that every row has emitted EOS (``_DoneFlags``); the
     output is identical to the full loop's. ``generate.decode_steps``
-    counts the decode steps launched."""
+    counts the decode steps launched (``generate_beam``'s too)."""
     last, cache, cache_mask, s, prompt_len = prefill(params, cfg, batch, max_new_tokens, clock)
     b, device = last.shape[0], last.device
     if tensor_parallel() is not None:
@@ -402,7 +402,8 @@ def generate_beam(
     only with EOS at no cost, so its score is frozen. The winner maximizes
     ``score / generated_length ** length_penalty`` (the JAX package's
     normalization by generated tokens; HF divides by the whole length).
-    Returns [B, max_new_tokens] token ids of each row's best beam."""
+    Each step adds one to ``generate.decode_steps``. Returns [B,
+    max_new_tokens] token ids of each row's best beam."""
     last, cache, cache_mask, s, prompt_len = prefill(params, cfg, batch, max_new_tokens)
     b, device, k = last.shape[0], last.device, num_beams
     logp0 = torch.log_softmax(lm_head_logits(params["llama"], last), dim=-1)  # [B, V]
@@ -424,6 +425,7 @@ def generate_beam(
     rows = torch.arange(b, device=device)[:, None] * k
 
     for t in range(max_new_tokens - 1):
+        generate.decode_steps += 1
         tok_embed = embed_tokens(params["llama"], tokens[:, None])
         logits, _, cache = llama_apply(params["llama"], cfg.llama, tok_embed, flat_mask,
                                        positions[:, None], cache, s + t)

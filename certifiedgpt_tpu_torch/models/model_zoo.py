@@ -19,7 +19,9 @@ its float dtype, module by module, so that the peak stays about one float
 layer stack above the final footprint: the counterpart of the JAX
 ``bench.py::build_full_int8_params`` and of ``init_minigpt4`` followed by
 ``quantize_eva_vit``/``quantize_llama``. ``MiniGPT4Model`` is registered as
-``minigpt4`` in the port's registry, which the agents build from.
+``minigpt4`` in the port's registry, which the agents build from;
+``load_model``, ``load_preprocess``, ``load_model_and_preprocess`` and
+``model_zoo`` are the JAX package's model-zoo surface over that registry.
 """
 
 from __future__ import annotations
@@ -427,3 +429,57 @@ def build_synthetic_model(cfg: MiniGPT4Config, device="cuda",
     (``quantize_llama`` and ``quantize_vit`` on)."""
     params = build_synthetic_params(cfg, device, seed)
     return MiniGPT4Model(cfg, params, ByteTokenizer())
+
+
+def load_model(name: str, model_cfg: Optional[Mapping[str, Any]] = None, device="cuda"):
+    """The registered model ``name`` built from the model block
+    ``model_cfg`` (``{"model_size": "tiny"}`` when None) on ``device``: the
+    JAX package's ``load_model`` (certifiedgpt_tpu/models/model_zoo.py:91)."""
+    model_cls = registry.get_model_class(name)
+    if model_cls is None:
+        raise KeyError(f"Unknown model '{name}'. Available: {registry.list_models()}")
+    return model_cls.from_config(model_cfg or {"model_size": "tiny"}, device)
+
+
+def load_preprocess(preprocess_cfg: Optional[Mapping[str, Any]] = None):
+    """``(vis_processors, text_processors)``, each keyed by ``train`` and
+    ``eval``, from a config's ``vis_processor``/``text_processor`` blocks
+    (the BLIP-2 image processors and ``blip_caption`` by default)."""
+    from certifiedgpt_tpu_torch.data import processors  # noqa: F401 (registration)
+
+    cfg = preprocess_cfg or {}
+    vis, text = {}, {}
+    for split, default in (("train", "blip2_image_train"), ("eval", "blip2_image_val")):
+        block = (cfg.get("vis_processor") or {}).get(split, {"name": default})
+        vis[split] = registry.get_processor_class(block["name"]).from_config(block)
+    for split in ("train", "eval"):
+        block = (cfg.get("text_processor") or {}).get(split, {"name": "blip_caption"})
+        text[split] = registry.get_processor_class(block["name"]).from_config(block)
+    return vis, text
+
+
+def load_model_and_preprocess(name: str, model_cfg: Optional[Mapping[str, Any]] = None,
+                              preprocess_cfg: Optional[Mapping[str, Any]] = None,
+                              device="cuda"):
+    """``load_model`` and ``load_preprocess`` together: ``(model, vis, text)``."""
+    model = load_model(name, model_cfg, device)
+    vis, text = load_preprocess(preprocess_cfg)
+    return model, vis, text
+
+
+class ModelZoo:
+    """The registered models: iterable, sized, and listed by ``repr``."""
+
+    def __repr__(self) -> str:
+        rows = ["=" * 40, f"{'Architectures':<30}", "=" * 40]
+        rows += [f"{name:<30}" for name in registry.list_models()]
+        return "\n".join(rows)
+
+    def __iter__(self):
+        return iter(registry.list_models())
+
+    def __len__(self):
+        return len(registry.list_models())
+
+
+model_zoo = ModelZoo()

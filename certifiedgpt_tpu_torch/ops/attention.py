@@ -1,4 +1,4 @@
-"""Attention compute ops (plain PyTorch).
+"""Attention compute ops.
 
 Port of ``certifiedgpt_tpu/ops/attention.py``. ``multi_head_attention`` serves
 the Q-Former, the decoder and the ViT's plain path; ``multi_head_attention_kv8``
@@ -7,6 +7,11 @@ As in the JAX package, products take bf16 (or f32) operands with f32
 accumulation: the operands are upcast to f32 here, which gives the same
 values as JAX's ``preferred_element_type=float32`` (bf16 products are exact
 in f32). Shapes follow [batch, seq, heads, head_dim].
+
+``multi_head_attention_kv8`` is a hand-written CUDA kernel on the card
+(``csrc/attention_kv8.cu``), which dequantizes the cache inside the kernel;
+CPU tensors take its plain version, ``_multi_head_attention_kv8_plain``.
+``multi_head_attention_kv8.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from certifiedgpt_tpu_torch.ops import cuda_kernels
 
 _F32_MIN = torch.finfo(torch.float32).min
 _F32_TINY = torch.finfo(torch.float32).tiny
@@ -52,19 +59,91 @@ def multi_head_attention(
     return out.to(q.dtype)
 
 
+#: most warps a block of the kv8 kernel (csrc/attention_kv8.cu kMaxWarps)
+KV8_MAX_WARPS = 8
+#: the kv8 launcher's code for a cache too long for its shared memory
+#: (csrc/attention_kv8.cu kCacheTooLong)
+_KV8_CACHE_TOO_LONG = -1
+
+
 def multi_head_attention_kv8(
     q: torch.Tensor,  # [B, Sq, H, Dh]
     kq8: torch.Tensor,  # [B, Sk, H_kv, Dh] int8
     ks: torch.Tensor,  # [B, Sk, H_kv, 1] f32 per-row scales
     vq8: torch.Tensor,  # [B, Sk, H_kv, Dh] int8
     vs: torch.Tensor,  # [B, Sk, H_kv, 1] f32
-    mask: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,  # bool, broadcastable to [B, 1, Sq, Sk]
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention over an int8 KV cache with the per-row scales applied to
     the score and weight tensors (``dequant(kq8) = kq8 * ks`` commutes with
-    both contractions). Grouped-query caches are contracted as
-    [B, Sq, H_kv, G, Dh] against the H_kv cache directly."""
+    both contractions), grouped-query heads folded as the JAX function
+    folds them (``h // h_kv``). Returns [B, Sq, H, Dh] in q's dtype.
+
+    Replaces the XLA-fused ``multi_head_attention_kv8`` of the JAX package
+    (certifiedgpt_tpu/ops/attention.py:76). CPU tensors take
+    ``_multi_head_attention_kv8_plain``; bf16 and f32 CUDA tensors launch
+    ``cgpt_attention_kv8`` (csrc/attention_kv8.cu), which reads the int8
+    cache and makes no dequantized copy. The kernel takes a head-agnostic
+    mask (dimension 1 of size 1) and raises on a per-head one, and on a
+    cache too long for its rows of logits in shared memory."""
+    if q.device.type == "cpu":
+        return _multi_head_attention_kv8_plain(q, kq8, ks, vq8, vs, mask, scale)
+    b, sq, h, dh = q.shape
+    t, h_kv = kq8.shape[1], kq8.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float32) or kq8.dtype != torch.int8 \
+            or vq8.dtype != torch.int8:
+        raise TypeError(f"multi_head_attention_kv8: the CUDA kernel takes bf16 or f32 q and an "
+                        f"int8 cache, got {q.dtype}, {kq8.dtype}, {vq8.dtype}")
+    if vq8.shape != kq8.shape or kq8.shape[0] != b or kq8.shape[3] != dh or h % h_kv:
+        raise ValueError(f"multi_head_attention_kv8: q {tuple(q.shape)} against a cache "
+                         f"{tuple(kq8.shape)} / {tuple(vq8.shape)}")
+    if dh % 16 or dh > 256:
+        raise ValueError(f"multi_head_attention_kv8: head_dim {dh} must be a multiple of 16 "
+                         "up to 256")
+    if vq8.stride() != kq8.stride() or kq8.stride(3) != 1 or any(
+            st % 16 for st in kq8.stride()[:3]):
+        raise ValueError("multi_head_attention_kv8: k and v must share strides with "
+                         "contiguous, 16-byte aligned rows")
+    ks3, vs3 = ks[..., 0], vs[..., 0]
+    if ks3.shape != (b, t, h_kv) or vs3.stride() != ks3.stride():
+        raise ValueError(f"multi_head_attention_kv8: scales {tuple(ks.shape)} / "
+                         f"{tuple(vs.shape)} must be [{b}, {t}, {h_kv}, 1] with equal strides")
+    if ks3.dtype != torch.float32 or vs3.dtype != torch.float32:
+        raise TypeError("multi_head_attention_kv8: the cache scales must be f32")
+    q = q if q.stride(3) == 1 else q.contiguous()
+    mask_ptr, mask_strides = None, (0, 0, 0)
+    if mask is not None:
+        if mask.dim() != 4 or mask.shape[1] != 1:
+            raise ValueError(f"multi_head_attention_kv8: the CUDA kernel takes a head-agnostic "
+                             f"mask [B|1, 1, Sq|1, Sk], got {tuple(mask.shape)}")
+        m3 = mask.to(torch.bool).expand(b, 1, sq, t)[:, 0]
+        mask_ptr, mask_strides = m3.data_ptr(), m3.stride()
+    warps = min(KV8_MAX_WARPS, (h // h_kv) * sq)
+    if scale is None:
+        scale = dh ** -0.5
+    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    code = cuda_kernels.build().lib.cgpt_attention_kv8(
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        kq8.data_ptr(), vq8.data_ptr(), *kq8.stride()[:3],
+        ks3.data_ptr(), vs3.data_ptr(), *ks3.stride(),
+        mask_ptr, *mask_strides, out.data_ptr(),
+        b, sq, h, h_kv, t, dh, float(scale), warps, int(q.dtype == torch.float32),
+        cuda_kernels.stream_of(q))
+    if code == _KV8_CACHE_TOO_LONG:
+        raise ValueError(f"multi_head_attention_kv8: a cache of {t} positions does not fit "
+                         f"the kernel's shared memory ({warps} rows of {dh} + {t} floats)")
+    multi_head_attention_kv8.launches += 1
+    cuda_kernels.check(code, "multi_head_attention_kv8")
+    return out
+
+
+multi_head_attention_kv8.launches = 0
+
+
+def _multi_head_attention_kv8_plain(q, kq8, ks, vq8, vs, mask=None, scale=None):
+    """``multi_head_attention_kv8`` in plain PyTorch: the JAX function's
+    arithmetic, with the int8 cache upcast to f32 (exact)."""
     b, sq, h, dh = q.shape
     h_kv = kq8.shape[2]
     g = h // h_kv

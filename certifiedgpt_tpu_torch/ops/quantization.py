@@ -7,18 +7,23 @@ symmetric, rounds half to even and clips to +-127.
 
 Two of the repository's Pallas TPU kernels live here as hand-written CUDA
 kernels (``csrc/row_quant.cu``): ``ln_quant_rows`` (LayerNorm + row quant)
-and ``gelu_quant_rows`` (GELU + row quant). Each wrapper dispatches on the
-tensor's device: a CPU tensor takes the plain PyTorch version next to it,
-a CUDA tensor launches the kernel or raises. ``<wrapper>.launches`` counts
-the kernel launches.
+and ``gelu_quant_rows`` (GELU + row quant). So do three ops that the JAX
+package leaves to XLA's fusion: ``quantize_rows`` (the same file's kernel
+with the identity as its transform), ``w8a8_epilogue`` (the int8 product's
+rescale, ``csrc/w8a8_epilogue.cu``) and ``int8_weight_forward`` (the
+weight-only product, ``csrc/int8_weight_matmul.cu``). Each wrapper
+dispatches on the tensor's device: a CPU tensor takes the plain PyTorch
+version next to it, a CUDA tensor launches the kernel or raises.
+``<wrapper>.launches`` counts the kernel launches.
 
 The W8A8 GEMM is a plain matrix product in the JAX package (an einsum
 outside any kernel), so here it is ``torch._int_mm`` on CUDA (exact int32
 accumulation; JAX accumulates in f32, exact below 2^24 and within one f32
 ulp of the sum above it, so the two differ by less than 1e-7 relative
 before the bf16 output rounding) and an f32 product of the int8 values on
-the CPU (exact below 2^24). ``_int_mm`` takes the int8 kernel column-major
-(``int8_kernel_layout``), which the model builders store.
+the CPU (exact below 2^24), followed by ``w8a8_epilogue``. ``_int_mm`` takes
+the int8 kernel column-major (``int8_kernel_layout``), which the model
+builders store.
 
 ``w8a8_matmul``, ``w8a8_gelu_matmul`` and the weight-only product
 ``int8_weight_matmul`` are ``torch.autograd.Function``s, differentiable in
@@ -29,6 +34,8 @@ kernel and its scale. The kernels and scales get no gradient.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -39,6 +46,8 @@ from certifiedgpt_tpu_torch.ops import cuda_kernels
 
 #: widest row the row-quant kernels take (csrc/row_quant.cu kMaxRowWidth)
 MAX_ROW_WIDTH = 8192
+#: widest row ``quantize_rows``' kernel takes (kMaxIdentityRowWidth)
+MAX_IDENTITY_ROW_WIDTH = 32768
 
 #: fewest rows ``torch._int_mm`` takes on CUDA (M > 16, a multiple of 8)
 INT_MM_MIN_ROWS = 24
@@ -68,21 +77,56 @@ def quantize_stacked_kernel(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"kernel_q": q, "scale": scale}
 
 
-def quantize_rows(x: torch.Tensor, reduce_amax: Optional[Callable[[torch.Tensor], None]] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic per-row symmetric int8 quantization of ``x [..., K]``:
-    ``(xq int8, xs f32 [..., 1])`` with ``x ~ xq * xs``. ``torch.round``
-    rounds half to even, as ``jnp.round`` does. ``reduce_amax``, when
-    given, turns the rows' ``|x|`` max ``[..., 1]`` in place into the max
-    of the whole rows, of which ``x`` holds a part (a MAX over the ranks
-    that hold the other columns)."""
+def _quantize_rows_plain(x: torch.Tensor,
+                         reduce_amax: Optional[Callable[[torch.Tensor], None]] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_rows`` in plain PyTorch: the scale ``max(amax, 1e-8) /
+    127`` and the codes ``round(x / xs)`` each one IEEE division, as in the
+    JAX package (certifiedgpt_tpu/ops/quantization.py:52-65), on every
+    device."""
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
     if reduce_amax is not None:
         reduce_amax(amax)
-    xs = amax.clamp_min(1e-8) / 127.0
+    xs = ieee_div(amax.clamp_min(1e-8), 127.0)
     xq = torch.round(x32 / xs).clamp(-127, 127).to(torch.int8)
     return xq, xs
+
+
+def quantize_rows(x: torch.Tensor, reduce_amax: Optional[Callable[[torch.Tensor], None]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row symmetric int8 quantization of ``x [..., K]``:
+    ``(xq int8, xs f32 [..., 1])`` with ``x ~ xq * xs``, rounding half to
+    even, as ``jnp.round`` does. ``reduce_amax``, when given, turns the
+    rows' ``|x|`` max ``[..., 1]`` in place into the max of the whole rows,
+    of which ``x`` holds a part (a MAX over the ranks that hold the other
+    columns): that call keeps the plain two-step form on every device, the
+    collective lying between its two passes.
+
+    Replaces the XLA-fused ``quantize_rows`` of the JAX package. CPU
+    tensors take ``_quantize_rows_plain``; bf16 CUDA tensors launch
+    ``quant_rows_kernel`` and f32 ones ``quant_rows_f32_kernel``
+    (csrc/row_quant.cu), whose codes and scales are the plain version's bit
+    for bit."""
+    if _device_kind(x) == "cpu" or reduce_amax is not None:
+        return _quantize_rows_plain(x, reduce_amax)
+    x2 = x.contiguous()
+    lib = cuda_kernels.build().lib
+    if x.dtype == torch.float32:
+        m, k, entry = math.prod(x.shape[:-1]), x.shape[-1], lib.cgpt_quant_rows_f32
+    else:
+        m, k = _check_rows(x2, "quantize_rows", MAX_IDENTITY_ROW_WIDTH)
+        entry = lib.cgpt_quant_rows
+    xq, xs = _row_outputs(x)
+    if m == 0:
+        return xq, xs
+    code = entry(x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, cuda_kernels.stream_of(x))
+    quantize_rows.launches += 1
+    cuda_kernels.check(code, "quantize_rows")
+    return xq, xs
+
+
+quantize_rows.launches = 0
 
 
 def int8_kernel_layout(kernel_q: torch.Tensor) -> torch.Tensor:
@@ -92,18 +136,12 @@ def int8_kernel_layout(kernel_q: torch.Tensor) -> torch.Tensor:
     return kernel_q.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
-def int8_matmul(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
-    """``xq [M, K] int8 @ kernel_q [K, N] int8`` accumulated exactly, as
-    f32 ``[M, N]``. On CUDA, fewer than ``INT_MM_MIN_ROWS`` rows (a cls
-    stream of a few images) are zero-padded to that many for
-    ``torch._int_mm``, which needs M > 16."""
-    return int8_accumulate(xq, kernel_q).float()
-
-
 def int8_accumulate(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
-    """``int8_matmul``'s accumulator before its f32 cast: int32 on CUDA
-    (``torch._int_mm``), f32 on the CPU (exact below 2^24). A
-    tensor-parallel product sums these partials over its ranks."""
+    """``xq [M, K] int8 @ kernel_q [K, N] int8`` accumulated exactly: int32
+    on CUDA (``torch._int_mm``; fewer than ``INT_MM_MIN_ROWS`` rows, a cls
+    stream of a few images, are zero-padded to that many, as it needs
+    M > 16), f32 on the CPU (exact below 2^24). ``w8a8_epilogue`` rescales
+    it; a tensor-parallel product sums these partials over its ranks."""
     if xq.device.type != "cuda":
         return xq.float() @ kernel_q.float()
     m, k = xq.shape
@@ -123,29 +161,91 @@ def int8_accumulate(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
 
 
 def w8a8_matmul(
-    x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor
+    x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x [..., in] @ int8 kernel [in, out]`` with dynamic per-row
-    activation quant: ``(xq @ wq) * xs * ws`` in f32, cast to x's dtype.
-    Differentiable in ``x`` by the straight-through estimator of the JAX
-    package's ``custom_vjp`` (``_W8A8Matmul``)."""
-    return _W8A8Matmul.apply(x, kernel_q, scale)
+    activation quant: ``(xq @ wq) * xs * ws`` in f32, cast to x's dtype,
+    plus ``bias`` in x's dtype when given (the dense layer's add, done in
+    the same pass). Differentiable in ``x`` (and ``bias``) by the
+    straight-through estimator of the JAX package's ``custom_vjp``
+    (``_W8A8Matmul``)."""
+    return _W8A8Matmul.apply(x, kernel_q, scale, bias)
 
 
-def _w8a8_epilogue(xq, xs, kernel_q, scale, dtype) -> torch.Tensor:
+def _w8a8_epilogue_plain(acc, xs, scale, bias, dtype) -> torch.Tensor:
+    """``w8a8_epilogue`` in plain PyTorch: ``(acc * xs * ws)`` in f32,
+    rounded to ``dtype``, then ``+ bias`` in ``dtype`` (the JAX package's
+    ``w8a8_matmul`` and the dense layer's bias add)."""
+    out = (acc.float() * xs * scale).to(dtype)
+    if bias is not None:
+        out = out + bias.to(dtype)
+    return out
+
+
+def w8a8_epilogue(acc: torch.Tensor, xs: torch.Tensor, scale: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8 product's accumulator ``acc [M, N]`` (int32 on CUDA, f32 on
+    the CPU) times the row scales ``xs [M, 1]`` and the channel scales
+    ``scale [N]``, rounded to ``dtype``, plus ``bias [N]``: one pass.
+
+    Replaces the rescale XLA fuses into the JAX package's int8 einsum
+    (certifiedgpt_tpu/ops/quantization.py:68, :308). CPU tensors take
+    ``_w8a8_epilogue_plain``; CUDA launches ``cgpt_w8a8_epilogue``
+    (csrc/w8a8_epilogue.cu, bf16 or f32 out), equal to the plain version
+    bit for bit."""
+    if _device_kind(acc) == "cpu":
+        return _w8a8_epilogue_plain(acc, xs, scale, bias, dtype)
+    m, n = acc.shape
+    if acc.dtype != torch.int32 or dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w8a8_epilogue: the CUDA kernel takes an int32 accumulator to bf16 "
+                        f"or f32, got {acc.dtype} to {dtype}")
+    if n % 4 or acc.stride(1) != 1 or acc.stride(0) % 4 or acc.data_ptr() % 16:
+        raise ValueError("w8a8_epilogue: the accumulator's rows must be 16-byte aligned with "
+                         f"a width that is a multiple of 4, got {tuple(acc.shape)}")
+    xs = xs.reshape(m).float().contiguous()
+    ws = scale.float().contiguous()
+    if ws.shape != (n,):
+        raise ValueError(f"w8a8_epilogue: scale must be [{n}], got {tuple(scale.shape)}")
+    if ws.data_ptr() % 16:
+        ws = ws.clone()
+    if bias is not None:
+        bias = bias.to(dtype).contiguous()
+        if bias.shape != (n,):
+            raise ValueError(f"w8a8_epilogue: bias must be [{n}], got {tuple(bias.shape)}")
+    out = torch.empty((m, n), dtype=dtype, device=acc.device)
+    if m == 0:
+        return out
+    code = cuda_kernels.build().lib.cgpt_w8a8_epilogue(
+        acc.data_ptr(), acc.stride(0), xs.data_ptr(), ws.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
+        int(dtype == torch.float32), cuda_kernels.stream_of(acc))
+    w8a8_epilogue.launches += 1
+    cuda_kernels.check(code, "w8a8_epilogue")
+    return out
+
+
+w8a8_epilogue.launches = 0
+
+
+def _w8a8_epilogue(xq, xs, kernel_q, scale, dtype, bias=None) -> torch.Tensor:
+    """``(xq @ kernel_q) * xs * scale`` in ``dtype`` (+ ``bias``) of
+    quantized rows ``xq [..., K]``, ``xs [..., 1]``: the int8 product, then
+    ``w8a8_epilogue``."""
     lead = xq.shape[:-1]
-    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), kernel_q)
-    acc = acc.reshape(*lead, -1)
-    return (acc * xs * scale).to(dtype)
+    acc = int8_accumulate(xq.reshape(-1, xq.shape[-1]), kernel_q)
+    out = w8a8_epilogue(acc, xs.reshape(-1, 1), scale, bias, dtype)
+    return out.reshape(*lead, -1)
 
 
 def w8a8_gelu_matmul(
-    x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor
+    x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``gelu(x) @ int8 kernel`` with the gelu and the per-row activation
-    quant fused (``gelu_quant_rows``). Differentiable in ``x``: the
-    backward is ``(g @ w^T) * gelu'(x)`` (``_W8A8GeluMatmul``)."""
-    return _W8A8GeluMatmul.apply(x, kernel_q, scale)
+    """``gelu(x) @ int8 kernel`` (+ ``bias``) with the gelu and the per-row
+    activation quant fused (``gelu_quant_rows``). Differentiable in ``x``:
+    the backward is ``(g @ w^T) * gelu'(x)`` (``_W8A8GeluMatmul``)."""
+    return _W8A8GeluMatmul.apply(x, kernel_q, scale, bias)
 
 
 def _dequantized_t(kernel_q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
@@ -161,26 +261,38 @@ def _grad_input(g: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
     return torch.matmul(g, _dequantized_t(kernel_q, scale, g.dtype)).to(dtype)
 
 
+def _bias_grad(ctx, g, bias_dtype):
+    """The gradient of the bias added in ``dtype`` after the product: ``g``
+    summed over the leading axes, in the bias's dtype (None when the bias
+    needs none)."""
+    if not ctx.needs_input_grad[3]:
+        return None
+    return g.reshape(-1, g.shape[-1]).sum(dim=0).to(bias_dtype)
+
+
 class _W8A8Matmul(torch.autograd.Function):
     """The JAX package's ``w8a8_matmul`` ``custom_vjp``
-    (certifiedgpt_tpu/ops/quantization.py:68-113). The forward quantizes
-    the rows and runs the int8 product; the backward is the float
-    product's, ``g @ (kernel_q * scale)^T``, so ``round``'s zero derivative
-    never appears. Saved for the backward, as in JAX: the int8 kernel, its
-    scale and x's dtype (no activation, no dequantized weight); the kernel
-    and the scale get no gradient."""
+    (certifiedgpt_tpu/ops/quantization.py:68-113), with the dense layer's
+    bias add after it. The forward quantizes the rows and runs the int8
+    product; the backward is the float product's, ``g @ (kernel_q *
+    scale)^T``, so ``round``'s zero derivative never appears. Saved for the
+    backward, as in JAX: the int8 kernel, its scale and x's dtype (no
+    activation, no dequantized weight); the kernel and the scale get no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, x, kernel_q, scale):
+    def forward(ctx, x, kernel_q, scale, bias):
         ctx.save_for_backward(kernel_q, scale)
         ctx.x_dtype = x.dtype
+        ctx.bias_dtype = None if bias is None else bias.dtype
         xq, xs = quantize_rows(x)
-        return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype)
+        return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype, bias)
 
     @staticmethod
     def backward(ctx, g):
         kernel_q, scale = ctx.saved_tensors
-        return _grad_input(g, kernel_q, scale, ctx.x_dtype), None, None
+        return (_grad_input(g, kernel_q, scale, ctx.x_dtype), None, None,
+                _bias_grad(ctx, g, ctx.bias_dtype))
 
 
 class _W8A8GeluMatmul(torch.autograd.Function):
@@ -192,10 +304,11 @@ class _W8A8GeluMatmul(torch.autograd.Function):
     x, the int8 kernel and its scale."""
 
     @staticmethod
-    def forward(ctx, x, kernel_q, scale):
+    def forward(ctx, x, kernel_q, scale, bias):
         ctx.save_for_backward(x, kernel_q, scale)
+        ctx.bias_dtype = None if bias is None else bias.dtype
         xq, xs = gelu_quant_rows(x)
-        return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype)
+        return _w8a8_epilogue(xq, xs, kernel_q, scale, x.dtype, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -204,7 +317,8 @@ class _W8A8GeluMatmul(torch.autograd.Function):
         x32 = x.float()
         cdf = 0.5 * (1.0 + torch.erf(x32 * 2.0 ** -0.5))
         pdf = torch.exp(-0.5 * x32 * x32) * (1.0 / math.sqrt(2.0 * math.pi))
-        return (gh * (cdf + x32 * pdf)).to(x.dtype), None, None
+        return ((gh * (cdf + x32 * pdf)).to(x.dtype), None, None,
+                _bias_grad(ctx, g, ctx.bias_dtype))
 
 
 def int8_weight_matmul(
@@ -218,14 +332,79 @@ def int8_weight_matmul(
     return _Int8WeightMatmul.apply(x, kernel_q, scale)
 
 
-def _int8_weight_forward(x, kernel_q, scale):
-    # on CUDA the bf16 copy of the int8 kernel is made on every call (a
-    # plain-PyTorch cost the decode path pays; see ROADMAP.md)
-    if x.device.type == "cuda" and x.dtype != torch.float32:
-        acc = torch.matmul(x, kernel_q.to(x.dtype)).float()
+def _int8_weight_forward_plain(x, kernel_q, scale):
+    """``int8_weight_forward`` in plain PyTorch: the JAX package's
+    ``einsum(x, kernel_q.astype(x.dtype), preferred_element_type=f32) *
+    scale``, rounded to x's dtype. On CUDA a bf16 ``x`` multiplies a bf16
+    copy of the kernel into an f32 product; elsewhere both operands go to
+    f32 (exact for them)."""
+    if x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float16):
+        x2 = x.reshape(-1, x.shape[-1])
+        acc = torch.mm(x2, kernel_q.to(x.dtype), out_dtype=torch.float32)
+        acc = acc.reshape(*x.shape[:-1], -1)
     else:
         acc = torch.matmul(x.float(), kernel_q.float())
     return (acc * scale).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_only_workspace(m: int, n: int, k: int, x_f32: int, device_index: int) -> int:
+    """Bytes of workspace the weight-only launcher names for a shape (it
+    plans the split K), asked once a shape: a decode step makes seven such
+    products a layer and is held by the host's launches."""
+    nbytes = ctypes.c_longlong(0)
+    cuda_kernels.check(cuda_kernels.build().lib.cgpt_int8_weight_matmul_workspace(
+        m, n, k, x_f32, ctypes.byref(nbytes)), "int8_weight_forward")
+    return nbytes.value
+
+
+def int8_weight_forward(x: torch.Tensor, kernel_q: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ kernel_q [K, N]`` accumulated in f32, times the
+    channel scales, in x's dtype: the weight-only int8 product's forward.
+
+    Replaces the weight-only branch of the JAX package's dense
+    (certifiedgpt_tpu/models/layers.py:62-82), where XLA feeds the int8 ->
+    bf16 convert into the matrix unit. CPU tensors take
+    ``_int8_weight_forward_plain``; bf16 and f32 CUDA tensors launch
+    ``cgpt_int8_weight_matmul`` (csrc/int8_weight_matmul.cu), which reads
+    the column-major int8 kernel once and makes no float copy of it. The
+    launcher splits K where the output tiles leave SMs idle and names the
+    workspace it needs for that, which is taken from PyTorch's allocator on
+    the call's stream."""
+    if _device_kind(x) == "cpu":
+        return _int8_weight_forward_plain(x, kernel_q, scale)
+    k, n = kernel_q.shape
+    if x.dtype not in (torch.bfloat16, torch.float32) or kernel_q.dtype != torch.int8:
+        raise TypeError(f"int8_weight_forward: the CUDA kernel takes bf16 or f32 x and an int8 "
+                        f"kernel, got {x.dtype} and {kernel_q.dtype}")
+    if x.shape[-1] != k or k % 16 or n % 8:
+        raise ValueError(f"int8_weight_forward: x [..., {x.shape[-1]}] @ kernel [{k}, {n}] "
+                         "needs K a multiple of 16 and N of 8")
+    if kernel_q.stride(0) != 1 or kernel_q.stride(1) % 16 or kernel_q.data_ptr() % 16:
+        raise ValueError("int8_weight_forward: the int8 kernel must be column-major "
+                         "(ops.quantization.int8_kernel_layout) on 16-byte boundaries")
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*x.shape[:-1], n)
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    ws = scale.float().contiguous()
+    x_f32 = int(x.dtype == torch.float32)
+    nbytes = _weight_only_workspace(m, n, k, x_f32, x.device.index)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+    code = cuda_kernels.build().lib.cgpt_int8_weight_matmul(
+        x2.data_ptr(), k, kernel_q.data_ptr(), kernel_q.stride(1), ws.data_ptr(),
+        out.data_ptr(), n, m, n, k, x_f32, None if workspace is None else workspace.data_ptr(),
+        nbytes, cuda_kernels.stream_of(x))
+    int8_weight_forward.launches += 1
+    cuda_kernels.check(code, "int8_weight_forward")
+    return out.reshape(*x.shape[:-1], n)
+
+
+int8_weight_forward.launches = 0
 
 
 class _Int8WeightMatmul(torch.autograd.Function):
@@ -237,7 +416,7 @@ class _Int8WeightMatmul(torch.autograd.Function):
     def forward(ctx, x, kernel_q, scale):
         ctx.save_for_backward(kernel_q, scale)
         ctx.x_dtype = x.dtype
-        return _int8_weight_forward(x, kernel_q, scale)
+        return int8_weight_forward(x, kernel_q, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -269,20 +448,11 @@ _AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 _LANES, _LN_PIECE = 32, 4
 
 
-def _quantize_bf16_rows(h: torch.Tensor):
-    """``quantize_rows`` of f32 rows ``h`` (already rounded through the
-    activation dtype), the scale's division by 127 an IEEE division, as in
-    the kernels."""
-    amax = h.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
-    xs = ieee_div(amax, 127.0)
-    return torch.round(h / xs).clamp(-127, 127).to(torch.int8), xs
-
-
 def _gelu_quant_rows_plain(x: torch.Tensor):
     """``quantize_rows(gelu(x))``: exact-erf GELU in f32, rounded to x's
     dtype, then the per-row int8 quantization (the JAX package's chain off
     the TPU)."""
-    return _quantize_bf16_rows(F.gelu(x.float()).to(x.dtype).float())
+    return _quantize_rows_plain(F.gelu(x.float()).to(x.dtype).float())
 
 
 def _gelu_quant_rows_as_plain(x: torch.Tensor):
@@ -296,7 +466,7 @@ def _gelu_quant_rows_as_plain(x: torch.Tensor):
     a1, a2, a3, a4, a5 = _AS_A
     poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
     erf = torch.sign(z) * (1.0 - poly * torch.exp(-az * az))
-    return _quantize_bf16_rows((0.5 * x32 * (1.0 + erf)).to(x.dtype).float())
+    return _quantize_rows_plain((0.5 * x32 * (1.0 + erf)).to(x.dtype).float())
 
 
 def _row_sums(v: torch.Tensor) -> torch.Tensor:
@@ -329,21 +499,20 @@ def _ln_quant_rows_plain(x, scale, bias, eps):
     var = ieee_div(_row_sums(d * d), k)
     rs = 1.0 / torch.sqrt(var + eps)
     out = (d * rs) * scale.float() + bias.float()
-    xq, xs = _quantize_bf16_rows(out.to(x.dtype).float())
+    xq, xs = _quantize_rows_plain(out.to(x.dtype).float())
     return xq.reshape(x.shape), xs.reshape(*x.shape[:-1], 1)
 
 
-def _check_rows(x: torch.Tensor, name: str) -> Tuple[int, int]:
+def _check_rows(x: torch.Tensor, name: str, widest: int = MAX_ROW_WIDTH) -> Tuple[int, int]:
     """Rows the kernels take: bf16, a width that is a multiple of 8 up to
-    ``MAX_ROW_WIDTH``, the first row on a 16-byte boundary (the bulk copies'
+    ``widest``, the first row on a 16-byte boundary (the bulk copies'
     alignment; the width then keeps every row there)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
     k = x.shape[-1]
-    if k % 8 or k > MAX_ROW_WIDTH:
+    if k % 8 or k > widest:
         raise ValueError(
-            f"{name}: row width {k} must be a multiple of 8 and at most "
-            f"{MAX_ROW_WIDTH}"
+            f"{name}: row width {k} must be a multiple of 8 and at most {widest}"
         )
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: the rows must start on a 16-byte boundary")

@@ -12,7 +12,7 @@ Phases, each of which exits non-zero on any failure:
 2. Build: compiles the CUDA kernels from ``certifiedgpt_tpu_torch/csrc/``
    (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary
    (registers, spills, shared memory, performance warnings).
-3. Kernels: calls each of the six kernels' wrappers at the main path's
+3. Kernels: calls each of the ten kernels' wrappers at the main path's
    shapes, holds the result against its plain PyTorch version on the same
    card, and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (CUDA events): the cls-split kernel
@@ -35,6 +35,18 @@ Phases, each of which exits non-zero on any failure:
    shape and at odd sizes down to one element, moments of (out - x) / sigma
    within 0.01 of 0 and 1, sigma = 0 exact; the noise kernel's SASS
    instructions an element and their time at the issue rate are printed.
+   Then the four kernels of the ops that XLA fuses for the JAX package:
+   the W8A8 epilogue at the ViT's and the prefill's products and at 1 and
+   8 rows, bit for bit against its plain chain; quantize_rows' kernel at
+   the ViT's proj input, the prefill's inputs, the KV cache's rows and at
+   1 and 8 rows, bit for bit; the weight-only int8 product at 96, 8, 1
+   and 9216 rows of the decoder's three weight shapes, within
+   ``INT8_MATMUL_REL_LIMIT`` (relative Frobenius), timed also against the
+   bf16 copy + matmul it replaces and cuBLAS on a bf16 weight; attention
+   over the int8 KV cache at the certify decode and prefill, eval's and a
+   caption's decode and grouped-query heads, within the attention limits,
+   a fully masked row giving zeros, timed also against
+   ``scaled_dot_product_attention`` on a dequantized bf16 cache.
 4. Main path: builds MiniGPT-4 at full width (EVA ViT-g/14 at 448 px with 39
    layers, the 12-layer Q-Former, a 32-layer 4096-wide Vicuna-7B-shaped
    decoder) through ``MiniGPT4Model.from_config`` from the model block of
@@ -46,7 +58,8 @@ Phases, each of which exits non-zero on any failure:
    (its per-stage clock synchronizes at every stage), after one warm-up
    certification of a single chunk each way. The kernels' launch counters
    are reset just before and read just after; each kernel of the path must
-   have launched its launches per chunk times the chunks run, every other
+   have launched its launches per chunk times the chunks run (the decode's
+   int8 kernels: per decode step times the steps launched), every other
    kernel never, and the plain cls query row not once (the cls-split kernel
    computes that row in its one launch). Prints per-stage seconds, peak
    device memory and the
@@ -288,6 +301,14 @@ VIT_DEPTH = 39
 IMAGE_HWC = (448, 448, 3)
 # the causal case of the flash kernel (the decoder-prefill form, in tests)
 CAUSAL_SHAPE = (4, 333, VIT_HEADS, VIT_HEAD_DIM)
+# the decoder of the certify model (Vicuna-7B widths)
+LLAMA_DEPTH = 32
+LLAMA_WIDTH = 4096
+LLAMA_MLP = 11008
+LLAMA_HEADS = 32
+LLAMA_HEAD_DIM = LLAMA_WIDTH // LLAMA_HEADS
+# seq_len of configs/eval_configs/vqav2_eval_noise_0.5.yaml
+EVAL_SEQ = 320
 
 # model block of configs/certify_configs/vqav2_certify_noise_0.5.yaml; its
 # checkpoint paths are left out: the weights are seeded synthetic ones
@@ -318,6 +339,11 @@ RUN_CFG = {  # run block of configs/certify_configs/vqav2_certify_noise_0.5.yaml
     "seq_len": 96,
     "seed": 42,
 }
+# rows of the ViT's patch stream and of the decoder's prefill a chunk, and
+# the KV cache's positions
+VIT_ROWS = MC_BATCH * VIT_TOKENS
+PREFILL_ROWS = MC_BATCH * RUN_CFG["seq_len"]
+CACHE_LEN = RUN_CFG["seq_len"] + RUN_CFG["max_new_tokens"]
 # phase 4 reads per-stage seconds with a clock that synchronizes the card at
 # every stage: one chunk in flight
 CLOCKED_RUN_CFG = dict(RUN_CFG, dispatch_window=1)
@@ -345,7 +371,10 @@ GT_ANSWERS = ["cat", "cat", "cat", "dog", "cat", "cat", "kitten", "cat", "cat", 
 # kernel-name substrings of each profile group, first match wins
 PROFILE_GROUPS = (
     ("attention kernel", ("attention_kernel",)),
-    ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel")),
+    ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel", "quant_rows_kernel")),
+    ("W8A8 epilogue kernel", ("w8a8_epilogue_kernel",)),
+    ("weight-only int8 kernel", ("int8_weight_matmul_kernel",)),
+    ("int8-KV attention kernel", ("attention_kv8_kernel",)),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
     ("reductions", ("reduce_kernel",)),
 )
@@ -373,6 +402,24 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device milliseconds of ``fn`` replayed from one CUDA graph of
+    ``iters`` calls: the card's time alone, where back-to-back eager calls
+    (``cuda_ms``) can be held to the host's pace of launching them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # capture wants its warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(torch, graph.replay, iters=3, warmup=1) / iters
+    del graph
+    return ms
 
 
 class CardSampler:
@@ -837,6 +884,381 @@ def row_quant_args(torch, device, seed: int):
     return ln_args, gelu_args
 
 
+def bits_unequal(torch, a, b) -> int:
+    """Elements of two tensors of one dtype whose bits differ."""
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return int((a.view(view) != b.view(view)).sum())
+
+
+# quantize_rows' kernel at the ViT's proj input (patch and cls streams), the
+# prefill's product inputs, the KV cache's rows (a prefill's and a decode
+# step's), and at 1 and 8 rows (a caption; eval's batch)
+QUANT_ROWS_SHAPES = ((VIT_ROWS, VIT_WIDTH), (MC_BATCH, VIT_WIDTH), (PREFILL_ROWS, LLAMA_WIDTH),
+                     (PREFILL_ROWS, LLAMA_MLP), (PREFILL_ROWS * LLAMA_HEADS, LLAMA_HEAD_DIM),
+                     (MC_BATCH * LLAMA_HEADS, LLAMA_HEAD_DIM), (1, VIT_WIDTH),
+                     (EVAL_BATCH, LLAMA_WIDTH))
+# f32 operations an element counted for quantize_rows' bound: |x|, max, the
+# product with 1 / xs, the rounding, the clip and the pack
+QUANT_ROWS_OPS_PER_ELEM = 6
+
+
+def check_quant_rows(torch, device):
+    """quantize_rows' kernel against its plain version at ``QUANT_ROWS_SHAPES``
+    on N(0, 3^2) rows with a row of zeros: codes and scales bit for bit.
+    Each shape timed against the plain version (the call the kernel
+    replaces: the same two-step form)."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=device).manual_seed(6)
+    record = {"max_abs_err": 0.0, "shapes": {}}
+    for m, k in QUANT_ROWS_SHAPES:
+        x = (torch.randn((m, k), generator=g, device=device) * 3).to(torch.bfloat16)
+        if m > 1:
+            x[m // 2].zero_()
+        q, s = Q.quantize_rows(x)
+        pq, ps = Q._quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        off = bits_unequal(torch, q, pq) + bits_unequal(torch, s, ps)
+        err = compare_codes(torch, (q, s), (pq, ps))[-1]
+        ms = cuda_ms(torch, lambda: Q.quantize_rows(x), iters=20)
+        g_ms = graph_ms(torch, lambda: Q.quantize_rows(x))
+        plain_ms = cuda_ms(torch, lambda: Q._quantize_rows_plain(x), iters=5, warmup=1)
+        bms, by = bound_ms(3.0 * m * k + 4 * m, QUANT_ROWS_OPS_PER_ELEM * m * k, PEAK_F32_FLOPS)
+        log(f"[kernel] quant_rows [{m}, {k}]: {off} codes and scales not bit-identical to the "
+            f"plain version; {ms:.4f} ms ({g_ms:.4f} from a CUDA graph), plain {plain_ms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by})")
+        if off:
+            fail(f"quant_rows disagrees with its plain version at [{m}, {k}]")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["shapes"][f"{m}x{k}"] = {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                                        "bound_ms": bms}
+        if (m, k) == QUANT_ROWS_SHAPES[0]:
+            record.update(ms=ms, plain_ms=plain_ms, replaced_ms=plain_ms, bound_ms=bms,
+                          bound_by=by, library_ms=None)
+        del x, q, s, pq, ps
+        torch.cuda.empty_cache()
+    return record
+
+
+# the W8A8 epilogue at the ViT's products (qkv, fc1, proj and fc2 on the
+# patch stream, qkv on the cls stream; with their biases), the prefill's
+# (q/k/v/o and down at 4096 columns, gate/up at 11008; no bias), and at 1
+# and 8 rows: (rows, columns, bias)
+EPILOGUE_SHAPES = ((VIT_ROWS, 3 * VIT_WIDTH, True), (VIT_ROWS, VIT_MLP, True),
+                   (VIT_ROWS, VIT_WIDTH, True), (MC_BATCH, 3 * VIT_WIDTH, True),
+                   (PREFILL_ROWS, LLAMA_WIDTH, False), (PREFILL_ROWS, LLAMA_MLP, False),
+                   (1, 3 * VIT_WIDTH, True), (EVAL_BATCH, VIT_MLP, True))
+# f32 operations an element counted for the epilogue's bound: the convert,
+# two products and the bias add
+EPILOGUE_OPS_PER_ELEM = 4
+
+
+def check_w8a8_epilogue(torch, device):
+    """The W8A8 epilogue against its plain chain (the call it replaces) at
+    ``EPILOGUE_SHAPES``, bit for bit, from int32 accumulators of int8
+    products' size; each shape timed."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=device).manual_seed(5)
+    record = {"max_abs_err": 0.0, "shapes": {}}
+    for m, n, with_bias in EPILOGUE_SHAPES:
+        acc = torch.randint(-2 ** 23, 2 ** 23, (m, n), generator=g, device=device,
+                            dtype=torch.int32)
+        xs = torch.rand((m, 1), generator=g, device=device) * 1e-2 + 1e-3
+        ws = torch.rand(n, generator=g, device=device) * 1e-4
+        bias = ((torch.randn(n, generator=g, device=device) * 0.1).to(torch.bfloat16)
+                if with_bias else None)
+        out = Q.w8a8_epilogue(acc, xs, ws, bias)
+        ref = Q._w8a8_epilogue_plain(acc, xs, ws, bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        off = bits_unequal(torch, out, ref)
+        ms = cuda_ms(torch, lambda: Q.w8a8_epilogue(acc, xs, ws, bias), iters=10)
+        g_ms = graph_ms(torch, lambda: Q.w8a8_epilogue(acc, xs, ws, bias), iters=10)
+        plain_ms = cuda_ms(torch, lambda: Q._w8a8_epilogue_plain(acc, xs, ws, bias,
+                                                                 torch.bfloat16),
+                           iters=3, warmup=1)
+        moved = 6.0 * m * n + 4 * m + 4 * n + (2 * n if with_bias else 0)
+        bms, by = bound_ms(moved, EPILOGUE_OPS_PER_ELEM * m * n, PEAK_F32_FLOPS)
+        log(f"[kernel] w8a8_epilogue [{m}, {n}]{' + bias' if with_bias else ''}: {off} outputs "
+            f"not bit-identical to the plain chain; {ms:.4f} ms ({g_ms:.4f} from a CUDA graph), "
+            f"plain chain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if off:
+            fail(f"w8a8_epilogue disagrees with its plain chain at [{m}, {n}]")
+        record["max_abs_err"] = max(record["max_abs_err"], max_err(out, ref))
+        record["shapes"][f"{m}x{n}"] = {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                                        "bound_ms": bms}
+        if (m, n, with_bias) == EPILOGUE_SHAPES[0]:
+            record.update(ms=ms, plain_ms=plain_ms, replaced_ms=plain_ms, bound_ms=bms,
+                          bound_by=by, library_ms=None)
+        del acc, out, ref
+        torch.cuda.empty_cache()
+    return record
+
+
+# limit on the relative Frobenius error of the weight-only int8 kernel against
+# its plain version: both sum the same exact products in f32, in another
+# order, so only a few bf16 roundings of the output move, one step (2^-8) each
+INT8_MATMUL_REL_LIMIT = 2e-3
+# the decoder's weight-only products (K, N, products a layer): q/k/v/o,
+# gate/up, down; at the certify decode's rows, eval's, a caption's and a
+# prefill without activation quant
+WEIGHT_ONLY_SHAPES = ((LLAMA_WIDTH, LLAMA_WIDTH, 4), (LLAMA_WIDTH, LLAMA_MLP, 2),
+                      (LLAMA_MLP, LLAMA_WIDTH, 1))
+WEIGHT_ONLY_ROWS = (MC_BATCH, EVAL_BATCH, 1, PREFILL_ROWS)
+
+
+def check_int8_weight(torch, device):
+    """The weight-only int8 kernel against its plain version (f32 sums of
+    the same products) at ``WEIGHT_ONLY_SHAPES`` x ``WEIGHT_ONLY_ROWS``
+    within ``INT8_MATMUL_REL_LIMIT``; each timed against the plain version,
+    the call it replaces (``torch.matmul`` on a bf16 copy of the int8
+    kernel made in the call) and cuBLAS on a bf16 weight converted before.
+    The record's times are a decode layer's seven products at the certify
+    decode's 96 rows."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=device).manual_seed(7)
+    record = {"max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": {}}
+    layer = dict.fromkeys(("ms", "plain_ms", "replaced_ms", "library_ms", "bound_ms", "graph_ms",
+                           "library_graph_ms"), 0.0)
+    for k, n, per_layer in WEIGHT_ONLY_SHAPES:
+        kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=device,
+                                                dtype=torch.int8))
+        scale = torch.rand(n, generator=g, device=device) * 1e-3
+        w16 = kq.to(torch.bfloat16)
+        for m in WEIGHT_ONLY_ROWS:
+            x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+            out = Q.int8_weight_forward(x, kq, scale)
+            ref = Q._int8_weight_forward_plain(x, kq, scale)
+            torch.cuda.synchronize()
+            rel, err = rel_err(out, ref), max_err(out, ref)
+            iters = 3 if m == PREFILL_ROWS else 20
+            t = {"ms": cuda_ms(torch, lambda: Q.int8_weight_forward(x, kq, scale), iters),
+                 "plain_ms": cuda_ms(torch, lambda: Q._int8_weight_forward_plain(x, kq, scale),
+                                     iters),
+                 "replaced_ms": cuda_ms(torch, lambda: (torch.matmul(x, kq.to(torch.bfloat16))
+                                                        .float() * scale).to(torch.bfloat16),
+                                        iters),
+                 "library_ms": cuda_ms(torch, lambda: torch.matmul(x, w16), iters),
+                 "graph_ms": graph_ms(torch, lambda: Q.int8_weight_forward(x, kq, scale)),
+                 "library_graph_ms": graph_ms(torch, lambda: torch.matmul(x, w16))}
+            t["bound_ms"], by = bound_ms(1.0 * k * n + 2 * m * k + 2 * m * n + 4 * n,
+                                         2.0 * m * k * n, PEAK_BF16_FLOPS)
+            log(f"[kernel] int8_weight_matmul [{m}, {k}] x [{k}, {n}]: relative error "
+                f"(Frobenius) {rel:.3e}, max abs {err:.3e}; {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bf16 copy + matmul (replaced) {t['replaced_ms']:.4f} ms, "
+                f"cuBLAS on a bf16 weight {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({by}); from a CUDA graph (the card alone): kernel {t['graph_ms']:.4f} ms "
+                f"({1e-6 * k * n / t['graph_ms']:.1f} GB/s of weights), cuBLAS "
+                f"{t['library_graph_ms']:.4f} ms")
+            if not (math.isfinite(rel) and rel < INT8_MATMUL_REL_LIMIT):
+                fail(f"int8_weight_matmul disagrees with its plain version at [{m}, {k}] x "
+                     f"[{k}, {n}] (relative {rel:.3e})")
+            record["max_abs_err"] = max(record["max_abs_err"], err)
+            record["max_rel_err"] = max(record["max_rel_err"], rel)
+            record["shapes"][f"{m}x{k}x{n}"] = t
+            if m == MC_BATCH:
+                for key in layer:
+                    layer[key] += per_layer * t[key]
+                record.setdefault("bound_by", by)
+            del x, out, ref
+        del kq, w16
+        torch.cuda.empty_cache()
+    record.update(layer)
+    log(f"[kernel] int8_weight_matmul: a decode layer's seven products at {MC_BATCH} rows "
+        f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, replaced "
+        f"{layer['replaced_ms']:.4f} ms, cuBLAS on bf16 weights {layer['library_ms']:.4f} ms, "
+        f"bound {layer['bound_ms']:.4f} ms; from CUDA graphs: kernel {layer['graph_ms']:.4f} ms, "
+        f"cuBLAS {layer['library_graph_ms']:.4f} ms")
+    return record
+
+
+# attention over the int8 cache: the certify decode and prefill, eval's and a
+# caption's decode, and grouped-query heads: (batch, query rows, heads, kv
+# heads, cache positions, offset of the first query)
+KV8_CASES = (("decode", MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
+             ("prefill", MC_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, 0),
+             ("eval decode", EVAL_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, EVAL_SEQ),
+             ("caption decode", 1, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
+             ("grouped", 4, 5, LLAMA_HEADS, 8, CACHE_LEN, 3))
+
+
+def kv8_case(torch, device, g, b, sq, h, h_kv, t, offset):
+    """q and a quantized cache with the decoder's mask (query i at position
+    offset + i sees slot j <= offset + i that its row keeps; row 0 left-padded
+    by two slots, the last batch row fully masked)."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    d = LLAMA_HEAD_DIM
+    q = torch.randn((b, sq, h, d), generator=g, device=device).to(torch.bfloat16)
+    kq, ks = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=device)
+                             .to(torch.bfloat16))
+    vq, vs = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=device)
+                             .to(torch.bfloat16))
+    valid = torch.ones((b, t), dtype=torch.bool, device=device)
+    valid[0, :2] = False
+    if b > 1:
+        valid[-1] = False
+    q_pos = offset + torch.arange(sq, device=device)[:, None]
+    mask = (torch.arange(t, device=device)[None, :] <= q_pos)[None, None] & valid[:, None, None]
+    return q, kq, ks, vq, vs, mask
+
+
+# limit on the relative Frobenius error of the int8-KV attention kernel
+# against its plain version: both round p to bf16 and multiply exactly, so
+# only the order of the f32 sums and the exponential's last bit differ
+# (1.6e-5 measured, H100 80GB HBM3, 700.00 W); skipping the bf16 rounding
+# of p gives 2.6e-3 (the plain version so changed, on the CPU)
+KV8_REL_LIMIT = 5e-4
+
+
+def check_attention_kv8(torch, device):
+    """The int8-KV attention kernel against its plain version (the call it
+    replaces) at ``KV8_CASES``, within ``KV8_REL_LIMIT`` (relative
+    Frobenius) and 2e-2 absolute, a fully masked row giving zeros; timed
+    against the plain version and ``scaled_dot_product_attention`` on the
+    cache dequantized to bf16 beforehand. The record's times are one decode
+    launch (a layer a step) at the certify batch."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=device).manual_seed(8)
+    record = {"max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": {}}
+    for name, b, sq, h, h_kv, t, offset in KV8_CASES:
+        args = kv8_case(torch, device, g, b, sq, h, h_kv, t, offset)
+        q, kq, ks, vq, vs, mask = args
+        out = A.multi_head_attention_kv8(*args)
+        ref = A._multi_head_attention_kv8_plain(*args)
+        torch.cuda.synchronize()
+        rel, err = rel_err(out, ref), max_err(out, ref)
+        zeros = b == 1 or not bool(out[-1].any())
+        log(f"[kernel] attention_kv8 {name} q [{b}, {sq}, {h}, {LLAMA_HEAD_DIM}] over "
+            f"{t} cached positions of {h_kv} heads: relative error (Frobenius) {rel:.3e}, max "
+            f"abs {err:.3e}; fully masked row zeros: {zeros}")
+        if not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
+            fail(f"attention_kv8 disagrees with its plain version ({name})")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["max_rel_err"] = max(record["max_rel_err"], rel)
+        if name in ("decode", "prefill"):
+            rep = h // h_kv
+            kd = (kq.float() * ks).to(torch.bfloat16).repeat_interleave(rep, 2).transpose(1, 2)
+            vd = (vq.float() * vs).to(torch.bfloat16).repeat_interleave(rep, 2).transpose(1, 2)
+            qh = q.transpose(1, 2)
+            scale = LLAMA_HEAD_DIM ** -0.5
+            tm = {"ms": cuda_ms(torch, lambda: A.multi_head_attention_kv8(*args), iters=20),
+                  "plain_ms": cuda_ms(torch, lambda: A._multi_head_attention_kv8_plain(*args),
+                                      iters=5, warmup=1),
+                  "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                      qh, kd, vd, attn_mask=mask, scale=scale), iters=20),
+                  "graph_ms": graph_ms(torch, lambda: A.multi_head_attention_kv8(*args))}
+            kept = float(mask.expand(b, 1, sq, t).sum())
+            moved = (2.0 * 2 * b * sq * h * LLAMA_HEAD_DIM + 2.0 * b * t * h_kv * LLAMA_HEAD_DIM
+                     + 8.0 * b * t * h_kv + b * sq * t)
+            tm["bound_ms"], by = bound_ms(moved, 4.0 * LLAMA_HEAD_DIM * h * kept,
+                                          PEAK_BF16_FLOPS)
+            log(f"[kernel] attention_kv8 {name}: {tm['ms']:.4f} ms ({tm['graph_ms']:.4f} from a "
+                f"CUDA graph), plain {tm['plain_ms']:.4f} ms, scaled_dot_product_attention on a "
+                f"dequantized bf16 cache {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+                f"({by})")
+            record["shapes"][name] = tm
+            if name == "decode":
+                record.update(tm, replaced_ms=tm["plain_ms"], bound_by=by)
+            del kd, vd, qh
+        del args, q, kq, ks, vq, vs, mask, out, ref
+        torch.cuda.empty_cache()
+    return record
+
+
+# the f32 instances (f32 configurations: f32 activations, int8 kernels and
+# cache) at a tiny model's shapes and at the main path's
+F32_QUANT_ROWS = ((5, 24), (MC_BATCH, LLAMA_WIDTH))
+F32_EPILOGUE = ((7, 64, False), (MC_BATCH, 3 * VIT_WIDTH, True))
+F32_WEIGHT_ONLY = ((3, 64, 24), (MC_BATCH, LLAMA_WIDTH, LLAMA_WIDTH), (1, LLAMA_WIDTH, LLAMA_MLP))
+F32_KV8 = (("decode", MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
+           ("grouped", 4, 5, LLAMA_HEADS, 8, CACHE_LEN, 3))
+# the f32 weight-only kernel sums exact f32 products on the CUDA cores in
+# another order than cuBLAS: a few f32 ulps
+F32_MATMUL_REL_LIMIT = 1e-5
+
+
+def check_f32_instances(torch, device, records):
+    """The four kernels' f32 instances against their plain versions: the
+    row quantization and the epilogue bit for bit, the weight-only product
+    within ``F32_MATMUL_REL_LIMIT`` and the attention within
+    ``KV8_REL_LIMIT``; each timed against its plain version, into
+    ``records[name]["f32"]``."""
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=device).manual_seed(9)
+
+    def record(name, shape, kernel, plain, off, rel):
+        ms = cuda_ms(torch, kernel, iters=10)
+        plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+        log(f"[kernel] {name} f32 {shape}: {off} outputs not bit-identical, relative error "
+            f"(Frobenius) {rel:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        records[name].setdefault("f32", {})[shape] = {"ms": ms, "plain_ms": plain_ms,
+                                                      "rel_err": rel, "off": off}
+
+    for m, k in F32_QUANT_ROWS:
+        x = torch.randn((m, k), generator=g, device=device) * 3
+        got, want = Q.quantize_rows(x), Q._quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        off = bits_unequal(torch, got[0], want[0]) + bits_unequal(torch, got[1], want[1])
+        record("quant_rows", f"{m}x{k}", lambda: Q.quantize_rows(x),
+               lambda: Q._quantize_rows_plain(x), off, 0.0)
+        if off:
+            fail(f"quant_rows' f32 instance disagrees with its plain version at [{m}, {k}]")
+    for m, n, with_bias in F32_EPILOGUE:
+        acc = torch.randint(-2 ** 23, 2 ** 23, (m, n), generator=g, device=device,
+                            dtype=torch.int32)
+        xs = torch.rand((m, 1), generator=g, device=device) * 1e-2 + 1e-3
+        ws = torch.rand(n, generator=g, device=device) * 1e-4
+        bias = torch.randn(n, generator=g, device=device) * 0.1 if with_bias else None
+        out = Q.w8a8_epilogue(acc, xs, ws, bias, torch.float32)
+        ref = Q._w8a8_epilogue_plain(acc, xs, ws, bias, torch.float32)
+        torch.cuda.synchronize()
+        off = bits_unequal(torch, out, ref)
+        record("w8a8_epilogue", f"{m}x{n}", lambda: Q.w8a8_epilogue(acc, xs, ws, bias,
+                                                                    torch.float32),
+               lambda: Q._w8a8_epilogue_plain(acc, xs, ws, bias, torch.float32), off, 0.0)
+        if off or out.dtype != torch.float32:
+            fail(f"w8a8_epilogue's f32 instance disagrees with its plain chain at [{m}, {n}]")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 product in full
+    try:
+        for m, k, n in F32_WEIGHT_ONLY:
+            kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g,
+                                                    device=device, dtype=torch.int8))
+            scale = torch.rand(n, generator=g, device=device) * 1e-3
+            x = torch.randn((m, k), generator=g, device=device)
+            out = Q.int8_weight_forward(x, kq, scale)
+            ref = Q._int8_weight_forward_plain(x, kq, scale)
+            torch.cuda.synchronize()
+            rel = rel_err(out, ref)
+            record("int8_weight_matmul", f"{m}x{k}x{n}",
+                   lambda: Q.int8_weight_forward(x, kq, scale),
+                   lambda: Q._int8_weight_forward_plain(x, kq, scale), 0, rel)
+            if not (math.isfinite(rel) and rel < F32_MATMUL_REL_LIMIT) \
+                    or out.dtype != torch.float32:
+                fail(f"int8_weight_matmul's f32 instance disagrees with its plain version at "
+                     f"[{m}, {k}] x [{k}, {n}] (relative {rel:.3e})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name, b, sq, h, h_kv, t, offset in F32_KV8:
+        q, *rest = kv8_case(torch, device, g, b, sq, h, h_kv, t, offset)
+        args = (q.float(), *rest)
+        out = A.multi_head_attention_kv8(*args)
+        ref = A._multi_head_attention_kv8_plain(*args)
+        torch.cuda.synchronize()
+        rel = rel_err(out, ref)
+        record("attention_kv8", name, lambda: A.multi_head_attention_kv8(*args),
+               lambda: A._multi_head_attention_kv8_plain(*args), 0, rel)
+        if not rel < KV8_REL_LIMIT or out.dtype != torch.float32 or bool(out[-1].any()):
+            fail(f"attention_kv8's f32 instance disagrees with its plain version ({name})")
+
+
 def phase_kernels(torch, device):
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
@@ -863,6 +1285,11 @@ def phase_kernels(torch, device):
     records["flash_attention"] = check_flash(torch, device)
     records["cls_split_attention_scaled"] = check_cls_split_scaled(torch, device)
     records["noisy_tile_kernel"] = check_noise(torch, device)
+    records["w8a8_epilogue"] = check_w8a8_epilogue(torch, device)
+    records["int8_weight_matmul"] = check_int8_weight(torch, device)
+    records["attention_kv8"] = check_attention_kv8(torch, device)
+    records["quant_rows"] = check_quant_rows(torch, device)
+    check_f32_instances(torch, device, records)
     return records
 
 
@@ -880,7 +1307,48 @@ KERNELS = [
      "certifiedgpt_tpu/ops/noise.py:58", "noisy_tile kernel mode"),
     ("cls_split_attention_scaled", "certifiedgpt_tpu_torch/csrc/cls_split_attention.cu",
      "scripts/bench_cls_split_attention.py:35", "cls_split_attention_scaled"),
+    # the ops that XLA fuses for the JAX package (no Pallas kernel there)
+    ("w8a8_epilogue", "certifiedgpt_tpu_torch/csrc/w8a8_epilogue.cu",
+     "certifiedgpt_tpu/ops/quantization.py:68", "certify flash_cls"),
+    ("int8_weight_matmul", "certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu",
+     "certifiedgpt_tpu/models/layers.py:62", "certify flash_cls"),
+    ("attention_kv8", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
+     "certifiedgpt_tpu/ops/attention.py:76", "certify flash_cls"),
+    ("quant_rows", "certifiedgpt_tpu_torch/csrc/row_quant.cu",
+     "certifiedgpt_tpu/ops/quantization.py:52", "certify flash_cls"),
 ]
+
+
+def plus(*counts):
+    """The sum of launch-count dicts, kernel by kernel."""
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def times(counts, k):
+    return {name: n * k for name, n in counts.items()}
+
+
+# launches of the int8 ops: an image batch through the ViT (the split-stream
+# tower: its four W8A8 products a layer on each stream, the proj input's
+# quantization on each; the flash block: its four products and the qkv, proj
+# and fc1 inputs' quantization on its one stream); the prefill (seven W8A8
+# products a layer, the q/k/v input quantized once for the three and the
+# gate/up input once for the two, the o and down inputs, the k and v rows
+# written to the int8 cache, the attention over it); a decode step (seven
+# weight-only products a layer, the two cache writes, the attention); and a
+# training forward of the decoder (seven W8A8 products a layer, each
+# quantizing its own input)
+VIT_INT8 = {"flash_cls": {"w8a8_epilogue": 8 * VIT_DEPTH, "quant_rows": 2 * VIT_DEPTH},
+            "flash_custom": {"w8a8_epilogue": 4 * VIT_DEPTH, "quant_rows": 3 * VIT_DEPTH}}
+PREFILL_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 6 * LLAMA_DEPTH,
+                "attention_kv8": LLAMA_DEPTH}
+PER_DECODE_STEP = {"int8_weight_matmul": 7 * LLAMA_DEPTH, "quant_rows": 2 * LLAMA_DEPTH,
+                   "attention_kv8": LLAMA_DEPTH}
+TRAIN_DECODER_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 7 * LLAMA_DEPTH}
 
 # launches per certify chunk of each kernel under each ViT attention form:
 # the split-stream tower runs the cls-split kernel once a layer and the two
@@ -888,12 +1356,16 @@ KERNELS = [
 # fc2); the flash block runs the flash kernel once a layer and the GELU
 # kernel at fc2 on its one stream, and quantizes its qkv and fc1 inputs in
 # plain PyTorch as the JAX package's block does
-PER_CHUNK = {
+VIT_PER_CHUNK = {
     "flash_cls": {"cls_split_attention": VIT_DEPTH, "ln_quant_rows": 4 * VIT_DEPTH,
                   "gelu_quant_rows": 2 * VIT_DEPTH, "flash_attention": 0},
     "flash_custom": {"cls_split_attention": 0, "ln_quant_rows": 0,
                      "gelu_quant_rows": VIT_DEPTH, "flash_attention": VIT_DEPTH},
 }
+# a chunk (or an eval batch, or a caption): the ViT and the prefill; its
+# decode steps add PER_DECODE_STEP each
+PER_CHUNK = {form: plus(vit, VIT_INT8[form], PREFILL_INT8)
+             for form, vit in VIT_PER_CHUNK.items()}
 PER_CHUNK["flash"] = PER_CHUNK["flash_custom"]
 
 
@@ -904,29 +1376,45 @@ def wrappers():
         cls_split_attention_scaled,
         flash_attention,
     )
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+    from certifiedgpt_tpu_torch.ops.attention import multi_head_attention_kv8
     from certifiedgpt_tpu_torch.ops.noise import noisy_tile
-    from certifiedgpt_tpu_torch.ops.quantization import gelu_quant_rows, ln_quant_rows
 
     return {"cls_split_attention": cls_split_attention_parts,
-            "ln_quant_rows": ln_quant_rows, "gelu_quant_rows": gelu_quant_rows,
+            "ln_quant_rows": Q.ln_quant_rows, "gelu_quant_rows": Q.gelu_quant_rows,
             "flash_attention": flash_attention, "noisy_tile_kernel": noisy_tile,
-            "cls_split_attention_scaled": cls_split_attention_scaled}
+            "cls_split_attention_scaled": cls_split_attention_scaled,
+            "w8a8_epilogue": Q.w8a8_epilogue, "int8_weight_matmul": Q.int8_weight_forward,
+            "attention_kv8": multi_head_attention_kv8, "quant_rows": Q.quantize_rows}
 
 
 def reset_counts():
+    """Every kernel's launches, the plain cls query row's calls and the
+    decode steps launched, to 0."""
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
     from certifiedgpt_tpu_torch.ops.flash_attention import _cls_query_row
 
     for fn in wrappers().values():
         fn.launches = 0
     _cls_query_row.calls = 0
+    M.generate.decode_steps = 0
 
 
 def read_counts():
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def check_counts(label, launches, per_chunk, chunks):
-    """Every kernel of the path launched ``per_chunk`` times a chunk, and
+def decode_steps() -> int:
+    """Decode steps ``generate`` launched since ``reset_counts``."""
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    return M.generate.decode_steps
+
+
+def check_counts(label, launches, per_chunk, chunks, steps=0):
+    """Every kernel of the path launched ``per_chunk`` times a chunk plus
+    ``PER_DECODE_STEP`` times each of the ``steps`` decode steps
+    (``generate.decode_steps``, greedy, sampled and beam search alike), and
     no other kernel at all; the plain cls query row (the cls-split kernel
     computes that row itself) was never called."""
     from certifiedgpt_tpu_torch.ops.flash_attention import _cls_query_row
@@ -934,18 +1422,20 @@ def check_counts(label, launches, per_chunk, chunks):
     if _cls_query_row.calls:
         fail(f"{label}: the plain cls query row ran {_cls_query_row.calls} times")
     for name, n in launches.items():
-        want = per_chunk.get(name, 0) * chunks
+        base, per_step = per_chunk.get(name, 0) * chunks, PER_DECODE_STEP.get(name, 0)
+        want = base + (per_step * steps if per_step else 0)
         if n != want:
             fail(f"{label}: kernel {name} launched {n} times, expected {want} "
-                 f"({per_chunk.get(name, 0)} x {chunks} chunks)")
-        if per_chunk.get(name, 0) and n <= 0:
+                 f"({per_chunk.get(name, 0)} x {chunks} chunks + {per_step} x {steps} "
+                 "decode steps)")
+        if want and n <= 0:
             fail(f"{label}: kernel {name} was not launched")
 
 
 # ----------------------------------------------------------------------
 # phase 4: the main path
 # ----------------------------------------------------------------------
-def phase_main_path(torch, device):
+def phase_main_path(torch, device, card):
     import numpy as np
 
     from certifiedgpt_tpu_torch.agents.certify import certify_item
@@ -978,16 +1468,18 @@ def phase_main_path(torch, device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_counts()
+    steps = decode_steps()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     chunks = clock.counts.get("noise", 0)
     stages = stage_seconds(clock, wall)
     log(f"[main] certify row: {json.dumps(row)}")
-    log(f"[main] wall {wall:.3f} s over {chunks} chunks of {MC_BATCH}; stage seconds {json.dumps(stages)}")
+    log(f"[main] wall {wall:.3f} s over {chunks} chunks of {MC_BATCH}; stage seconds "
+        f"{json.dumps(stages)}; {card}")
     log(f"[main] decode steps {clock.counts.get('decode_step', 0)}; peak memory {peak_gb:.2f} GB; "
         f"card during the run: {card_state.summary()}")
     log(f"[main] launches {json.dumps(launches)}")
-    check_counts("certify flash_cls", launches, PER_CHUNK["flash_cls"], chunks)
+    check_counts("certify flash_cls", launches, PER_CHUNK["flash_cls"], chunks, steps)
     check_row(row, CLOCKED_RUN_CFG)
     decode_costs(torch, model, device)
     check_outputs(torch, model, device)
@@ -1015,10 +1507,9 @@ def check_row(row, run_cfg):
 
 
 def decode_costs(torch, model, device):
-    """What the plain decode path costs per step: the time to convert every
-    int8 decoder kernel to bf16 (the weight-only matmuls do this each step)
-    against one whole decode step at the certify batch; and whether the
-    host or the card sets a step's pace: the host's seconds to launch one
+    """What the decode costs per step: one whole decode step at the certify
+    batch against the bound for reading its int8 weights once; and whether
+    the host or the card sets a step's pace: the host's seconds to launch one
     step (from an idle card, not waiting for it), and the same step
     replayed from a CUDA graph (the card's time without the host's
     launches); and the host's seconds to launch the step behind a spin that
@@ -1034,12 +1525,6 @@ def decode_costs(torch, model, device):
     cfg = model.cfg.llama
     mods = [m for m, leaves in params["layers"].items() if "kernel_q" in leaves]
 
-    def dequant_all():
-        for m in mods:
-            kq = params["layers"][m]["kernel_q"]
-            for layer in range(kq.shape[0]):
-                kq[layer].to(torch.bfloat16)
-
     total = RUN_CFG["seq_len"] + RUN_CFG["max_new_tokens"]
     cache = init_kv_cache(cfg, MC_BATCH, total, device)
     mask = torch.ones((MC_BATCH, total), dtype=torch.int32, device=device)
@@ -1049,14 +1534,11 @@ def decode_costs(torch, model, device):
     def step():
         llama_apply(params, cfg, x, mask, pos, cache, RUN_CFG["seq_len"])
 
-    conv_ms = cuda_ms(torch, dequant_all, iters=3, warmup=1)
     step_ms = cuda_ms(torch, step, iters=3, warmup=1)
     wbytes = sum(params["layers"][m]["kernel_q"].numel() for m in mods)
-    log(
-        f"[main] decode step {step_ms:.2f} ms at batch {MC_BATCH}; converting the "
-        f"{wbytes / 1e9:.2f} G int8 decoder weights to bf16 alone takes {conv_ms:.2f} ms "
-        f"(bound for reading them once as int8: {wbytes / PEAK_BYTES_PER_S * 1e3:.2f} ms)"
-    )
+    log(f"[main] decode step {step_ms:.2f} ms at batch {MC_BATCH}; bound for reading its "
+        f"{wbytes / 1e9:.2f} G int8 decoder weights once: "
+        f"{wbytes / PEAK_BYTES_PER_S * 1e3:.2f} ms")
     host_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1134,7 +1616,9 @@ def check_outputs(torch, model, device):
     feats = M.eva_vit_apply(params["vit"], cfg.vit, images)
     with mock.patch.object(V, "cls_split_attention_parts", FA._cls_split_attention_plain), \
             mock.patch.object(Q, "ln_quant_rows", Q._ln_quant_rows_plain), \
-            mock.patch.object(Q, "gelu_quant_rows", Q._gelu_quant_rows_plain):
+            mock.patch.object(Q, "gelu_quant_rows", Q._gelu_quant_rows_plain), \
+            mock.patch.object(Q, "quantize_rows", Q._quantize_rows_plain), \
+            mock.patch.object(Q, "w8a8_epilogue", Q._w8a8_epilogue_plain):
         feats_plain = M.eva_vit_apply(params["vit"], cfg.vit, images)
     rel = float((feats.float() - feats_plain.float()).norm() / feats_plain.float().norm())
     log(f"[check] ViT tokens {tuple(feats.shape)}, kernels vs plain versions on {num} images: "
@@ -1263,6 +1747,7 @@ def phase_forms(torch, model, image, device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        steps = decode_steps()
         chunks = clock.counts.get("noise", 0)
         vit_per_chunk = clock.seconds.get("vit", 0.0) / max(chunks, 1)
         log(f"[forms] certify under {form}: row {json.dumps(row)}")
@@ -1270,7 +1755,7 @@ def phase_forms(torch, model, image, device):
             f"{vit_per_chunk:.4f} s per chunk; stage seconds "
             f"{json.dumps(stage_seconds(clock, wall))}; launches {json.dumps(launches)}")
         check_row(row, TWO_CHUNK_RUN_CFG)
-        check_counts(f"certify {form}", launches, PER_CHUNK[form], chunks)
+        check_counts(f"certify {form}", launches, PER_CHUNK[form], chunks, steps)
         counted[form] = launches
     return counted["flash_custom"]
 
@@ -1740,7 +2225,8 @@ def phase_launcher(torch, card, d_in: int, d_out: int, main_summary):
             chunks = sum(dispatched_chunks(r, n0, n, knobs.mc_batch, knobs.dispatch_window)
                          for r in rows)
             check_projection(mode, res["seen"], proj, chunks)
-            check_counts(f"launch {mode}", res["launches"], PER_CHUNK["flash_cls"], chunks)
+            check_counts(f"launch {mode}", res["launches"], PER_CHUNK["flash_cls"], chunks,
+                         res["decode_steps"])
             row_s = sum(r["seconds"] for r in rows)
             line = (f"[launch] {mode}: dispatch_window {knobs.dispatch_window}; model build "
                     f"{res['build_s']:.3f} s; CLI wall {res['wall']:.3f} s, of which rows "
@@ -1801,7 +2287,8 @@ def phase_continuous(torch, card, d_in: int, d_out: int, serial_rows):
         if row["answer"] != "<other>" or row["radius"] != radius or row["draws"] != budget:
             fail(f"continuous: row {row} is not OTHER at radius {radius} after {budget} draws")
     check_projection("continuous", res["seen"], proj, chunks)
-    check_counts("launch continuous", res["launches"], PER_CHUNK["flash_cls"], chunks)
+    check_counts("launch continuous", res["launches"], PER_CHUNK["flash_cls"], chunks,
+                 res["decode_steps"])
     per_image = summary["mean_seconds_per_image"]
     serial = sum(r["seconds"] for r in serial_rows["certify"]) / len(serial_rows["certify"])
     log(f"[continuous] {chunks} chunks dispatched for {CONTINUOUS_IMAGES} images "
@@ -1850,7 +2337,8 @@ def phase_eval(torch, card, d_in: int, d_out: int):
     if sorted(p["question_id"] for p in saved["predictions"]) != list(range(1, EVAL_QUESTIONS + 1)):
         fail(f"eval: predictions {saved['predictions']} do not cover the questions")
     check_projection("eval", res["seen"], proj, batches)
-    check_counts("launch eval", res["launches"], PER_CHUNK["flash_cls"], batches)
+    check_counts("launch eval", res["launches"], PER_CHUNK["flash_cls"], batches,
+                 res["decode_steps"])
     agent_s = res["wall"] - res["build_s"]
     log(f"[eval] {EVAL_QUESTIONS} questions in {batches} batches of {batch}: "
         f"{EVAL_QUESTIONS / agent_s:.3f} samples per second over the agent's run "
@@ -1891,12 +2379,19 @@ WEIGHT_ONLY_GRAD_REL_LIMIT = 5e-2
 # same layer with the int8 kernels dequantized to bf16 and no activation
 # quant: they differ only by the forward's int8 activation rounding (~1 %)
 LAYER_GRAD_REL_LIMIT = 5e-2
-# kernel launches a train step (and a val batch) of 48 images: the ViT once;
-# the bf16 towers run no row-quant kernel
+# kernel launches a train step (and a val batch) of 48 images: the ViT once
+# and the decoder's training forward; the bf16 towers run no int8 kernel
 PER_TRAIN_STEP = {
-    "w8a8": PER_CHUNK["flash_cls"],
+    "w8a8": plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"], TRAIN_DECODER_INT8),
     "bf16": {"cls_split_attention": VIT_DEPTH},
 }
+
+
+def pipeline_step_launches(n_micro: int):
+    """A pipelined W8A8 train step's launches: the ViT once, the decoder's
+    forward once a microbatch."""
+    return plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"],
+                times(TRAIN_DECODER_INT8, n_micro))
 
 
 def write_train_set(root) -> dict:
@@ -1955,12 +2450,17 @@ def plain_versions():
     from unittest import mock
 
     from certifiedgpt_tpu_torch.models import eva_vit as V
+    from certifiedgpt_tpu_torch.ops import attention as A
     from certifiedgpt_tpu_torch.ops import flash_attention as FA
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
     return [mock.patch.object(V, "cls_split_attention_parts", FA._cls_split_attention_plain),
             mock.patch.object(Q, "ln_quant_rows", Q._ln_quant_rows_plain),
-            mock.patch.object(Q, "gelu_quant_rows", Q._gelu_quant_rows_as_plain)]
+            mock.patch.object(Q, "gelu_quant_rows", Q._gelu_quant_rows_as_plain),
+            mock.patch.object(Q, "quantize_rows", Q._quantize_rows_plain),
+            mock.patch.object(Q, "w8a8_epilogue", Q._w8a8_epilogue_plain),
+            mock.patch.object(Q, "int8_weight_forward", Q._int8_weight_forward_plain),
+            mock.patch.object(A, "multi_head_attention_kv8", A._multi_head_attention_kv8_plain)]
 
 
 def phase_train_checks(torch, card, device, root, env):
@@ -2176,7 +2676,8 @@ def phase_pipeline(torch, card, agent, batch, control_rel):
             reset_counts()
             loss, grad = step(n_micro)
             launches = read_counts()
-        check_counts(f"pipe 16.1 n_micro={n_micro}", launches, PER_TRAIN_STEP["w8a8"], 1)
+        check_counts(f"pipe 16.1 n_micro={n_micro}", launches, pipeline_step_launches(n_micro),
+                     1)
         if spy.call_count != 1:
             fail(f"pipe 16.1 n_micro={n_micro}: the schedule's backward ran "
                  f"{spy.call_count} times in a step")
@@ -2816,7 +3317,8 @@ def phase_checkpoints(torch, card, device, main_summary):
         proj = {"model:llama_proj/kernel": kept["llama_proj.weight"].T.contiguous().numpy(),
                 "model:llama_proj/bias": kept["llama_proj.bias"].numpy()}
         check_projection("phase 12", res["seen"], proj, chunks)
-        check_counts("phase 12 certify", res["launches"], PER_CHUNK["flash_cls"], chunks)
+        check_counts("phase 12 certify", res["launches"], PER_CHUNK["flash_cls"], chunks,
+                     res["decode_steps"])
 
         model = models[0]
         params = dict(model.params)
@@ -2961,7 +3463,8 @@ def phase_decode(torch, card, device, d_in: int, d_out: int):
                     != list(range(1, EVAL_QUESTIONS + 1)):
                 fail(f"phase 13 {name}: results {saved} do not have the JAX package's keys")
             check_projection(f"phase 13 {name}", res["seen"], proj, batches)
-            check_counts(f"phase 13 {name}", res["launches"], PER_CHUNK["flash_cls"], batches)
+            check_counts(f"phase 13 {name}", res["launches"], PER_CHUNK["flash_cls"], batches,
+                         res["decode_steps"])
             log(f"[decode] eval {EVAL_CONFIG} with {json.dumps(knobs)}: "
                 f"{res['wall'] - res['build_s']:.3f} s over the agent's run ({EVAL_QUESTIONS} "
                 f"questions in {batches} batches), CLI wall {res['wall']:.3f} s; "
@@ -3418,7 +3921,8 @@ def phase_attack(torch, card, device, d_in: int, d_out: int):
         if len(timing["caption"]) != captions:
             fail(f"14.3: {len(timing['caption'])} captions, expected {captions}")
         check_projection("14.3", res["seen"], proj, captions)
-        check_counts("launch attack", res["launches"], PER_CHUNK["flash_cls"], captions)
+        check_counts("launch attack", res["launches"], PER_CHUNK["flash_cls"], captions,
+                     res["decode_steps"])
         pgd = {name: sum(v) / ATTACK_IMAGES for name, v in timing["pgd"].items()}
         cap_s = sum(timing["caption"]) / ATTACK_IMAGES
         per_image = timing["run_s"] / ATTACK_IMAGES
@@ -3456,7 +3960,8 @@ def phase_attack(torch, card, device, d_in: int, d_out: int):
         want = [(0, 0), (2, 0, 0, 0, 1), (2, 0, 0, 0, 2), (2, 0, 0, 0, 3), (1, 0, 0)]
         if timing["streams"] != want:
             fail(f"14.4: caption streams {timing['streams']}, expected {want}")
-        check_counts("launch attack rgf", res["launches"], PER_CHUNK["flash_cls"], len(want))
+        check_counts("launch attack rgf", res["launches"], PER_CHUNK["flash_cls"], len(want),
+                     res["decode_steps"])
         log(f"[attack] 14.4 RGF (vit_b32, sigma 0.5, 2 queries, 1 iteration): row "
             f"{json.dumps(rows[0])}; {len(want)} captions {sum(timing['caption']):.3f} s, PGD "
             f"{sum(timing['pgd']['vit_b32']):.3f} s, the agent's run {timing['run_s']:.3f} s; "
@@ -3515,6 +4020,7 @@ def check_caption_kernels(torch, card, agent):
             agent.caption(pixels, QUESTION, (0, 0), 0.5)
             torch.cuda.synchronize()
             launches = read_counts()
+            steps = decode_steps()
             feats = M.encode_img(params, cfg, image)
             with contextlib.ExitStack() as stack:
                 for p in plain_versions():
@@ -3536,7 +4042,7 @@ def check_caption_kernels(torch, card, agent):
         f"{dev_k:.3e} apart (a random change of the plain image tokens as large: {dev_c:.3e}); "
         f"greedy tokens {tokens[0][0].tolist()} vs {tokens[1][0].tolist()} ({sum(same)} of "
         f"{len(same)} differ); launches {json.dumps(launches)}; {card}")
-    check_counts("14.3 caption", launches, PER_CHUNK["flash_cls"], 1)
+    check_counts("14.3 caption", launches, PER_CHUNK["flash_cls"], 1, steps)
     if not err < ATTN_REL_LIMIT or not dev_k <= CAPTION_LOGIT_FACTOR * dev_c:
         fail("14.3: the caption through the kernels disagrees with the plain versions'")
 
@@ -3636,7 +4142,8 @@ def phase_distributed(torch, card, d_in: int, d_out: int, serial_rows):
             fail(f"15.1: row {row} differs from phase 8's first certify row {want}")
         chunks = dispatched_chunks(row, knobs.n0, knobs.n, knobs.mc_batch,
                                    knobs.dispatch_window)
-        check_counts("15.1 certify distributed", res["launches"], PER_CHUNK["flash_cls"], chunks)
+        check_counts("15.1 certify distributed", res["launches"], PER_CHUNK["flash_cls"], chunks,
+                     res["decode_steps"])
         trace = logdir / "trace_rank0_epoch0_step0.json"
         if not trace.exists():
             fail(f"15.1: no trace at {trace}")
@@ -3770,7 +4277,7 @@ def main() -> int:
         if sys.argv[1:] == ["--kernels"]:  # phases 1-3 only, for work on a kernel
             print(json.dumps({"kernel_phase": records}), flush=True)
             return 0
-        model, image, main_launches, summary = phase_main_path(torch, device)
+        model, image, main_launches, summary = phase_main_path(torch, device, card)
         flash_launches = phase_forms(torch, model, image, device)
         entry_launches = phase_entries(torch, device)
         # 9.1 and 9.2 run on phase 4's model, before the launcher phases

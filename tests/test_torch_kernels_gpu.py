@@ -14,10 +14,12 @@ build's failure when there is no ``nvcc`` and ``sass_count.py``'s loop count.
 import ctypes
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
 import sass_count
+from certifiedgpt_tpu_torch.ops import attention as A
 from certifiedgpt_tpu_torch.ops import cuda_kernels
 from certifiedgpt_tpu_torch.ops import flash_attention as FA
 from certifiedgpt_tpu_torch.ops import noise as N
@@ -259,10 +261,10 @@ def test_int8_matmul_on_gpu(cuda, rows):
     a = torch.randint(-127, 128, (rows, 64), generator=g, device=cuda, dtype=torch.int8)
     b = torch.randint(-127, 128, (64, 24), generator=g, device=cuda, dtype=torch.int8)
     want = a.double() @ b.double()
-    got = Q.int8_matmul(a, Q.int8_kernel_layout(b))
+    got = Q.int8_accumulate(a, Q.int8_kernel_layout(b))
     assert got.shape == (rows, 24) and torch.equal(got.double(), want)
     with pytest.raises(ValueError, match="column-major"):
-        Q.int8_matmul(a, b.contiguous())
+        Q.int8_accumulate(a, b.contiguous())
 
 
 def _bshd_views(b, s, h, d, device, generator):
@@ -443,3 +445,257 @@ def test_philox_matches_curand_on_gpu(cuda, tmp_path):
     words = [(ctr[:, i].long() & 0xFFFFFFFF) for i in range(4)]
     plain = N.philox4x32_10(words, [torch.tensor(k, device=cuda) for k in key])
     assert torch.equal(torch.stack(plain, dim=1), want.long() & 0xFFFFFFFF)
+
+
+# ----------------------------------------------------------------------
+# the int8 ops of the main path: quantize_rows, the W8A8 epilogue, the
+# weight-only product and attention over the int8 KV cache
+# ----------------------------------------------------------------------
+def reciprocal_rows(n, k, seed=0):
+    """bf16 rows ``[n, k]`` whose absmax ``a`` is a value where the product
+    with f32(1 / 127) and the IEEE division a / 127 differ (what PyTorch on
+    CUDA computes for ``t / 127.0``, against the JAX package's division),
+    found with numpy from seeded |N(0, 3^2)| maxima; the other values of a
+    row lie within its absmax."""
+    rng = np.random.RandomState(seed)
+    cand = torch.from_numpy(np.abs(rng.randn(50 * n) * 3).astype(np.float32))
+    cand = cand.to(torch.bfloat16).float().numpy()
+    differ = cand / np.float32(127) != cand * (np.float32(1) / np.float32(127))
+    amax = cand[differ][:n]
+    assert amax.size == n
+    x = rng.uniform(-1, 1, (n, k)).astype(np.float32) * amax[:, None]
+    x[:, 0] = amax
+    return torch.from_numpy(x).to(torch.bfloat16), amax
+
+
+@pytest.mark.gpu
+def test_quantize_rows_divides_by_127_on_gpu(cuda):
+    """The row scale is max(amax, 1e-8) / 127 as one IEEE division on the
+    card, as on the CPU and in the JAX package: on rows whose absmax makes
+    the reciprocal product differ from the division, the scales equal
+    numpy's division and the codes and scales the CPU's, through the kernel
+    and through the plain version on the card."""
+    x, amax = reciprocal_rows(64, 256)
+    want = (amax / np.float32(127))[:, None]
+    cpu_q, cpu_s = Q.quantize_rows(x)
+    np.testing.assert_array_equal(cpu_s.numpy(), want)
+    q, s = Q.quantize_rows(x.to(cuda))
+    np.testing.assert_array_equal(s.cpu().numpy(), want)
+    assert torch.equal(q.cpu(), cpu_q) and torch.equal(s.cpu(), cpu_s)
+    q, s = Q._quantize_rows_plain(x.to(cuda))
+    np.testing.assert_array_equal(s.cpu().numpy(), want)
+    assert torch.equal(q.cpu(), cpu_q) and torch.equal(s.cpu(), cpu_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows", [1, 8, 96, 4097])
+@pytest.mark.parametrize("k", [8, 128, 1408, 4096, 11008, 32768])
+def test_quant_rows_kernel_matches_plain_on_gpu(cuda, k, rows, dtype):
+    """quantize_rows' kernel (bf16 rows, and the f32 instance) against its
+    plain version on the card and on the CPU, bit for bit: the KV cache's
+    rows (128), the ViT's proj input (1408), the prefill's inputs (4096,
+    11008) and the narrowest and widest, on N(0, 3^2) rows with a row of
+    zeros and a row of exact ties."""
+    g = torch.Generator(device=cuda).manual_seed(k + rows)
+    x = (torch.randn((rows, k), generator=g, device=cuda) * 3).to(dtype)
+    if rows > 1:
+        x[rows // 2] = 0
+        ties = torch.tensor(_TIES[:k], device=cuda)
+        x[0, :ties.numel()] = ties.to(torch.bfloat16)
+        x[0, ties.numel():] = 0
+    n = Q.quantize_rows.launches
+    q, s = Q.quantize_rows(x)
+    assert Q.quantize_rows.launches == n + 1
+    pq, ps = Q._quantize_rows_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    cq, cs = Q.quantize_rows(x.cpu())
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+    if rows > 1:
+        assert float(s[0]) == 1.0 and torch.equal(q[0, :ties.numel()],
+                                                  torch.round(ties).to(torch.int8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("m,n", [(1, 1408), (8, 4224), (96, 6144), (4097, 1408), (300, 11008)])
+def test_w8a8_epilogue_matches_plain_on_gpu(cuda, m, n, bias, dtype):
+    """The epilogue (bf16 out, and the f32 instance) against its plain chain
+    bit for bit, from a padded _int_mm accumulator (a row slice, as
+    int8_accumulate hands it on) with and without a bias; and
+    _w8a8_epilogue end to end from int8 rows."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    acc = torch.randint(-2 ** 22, 2 ** 22, (m + 5, n), generator=g, device=cuda,
+                        dtype=torch.int32)[:m]
+    xs = torch.rand((m, 1), generator=g, device=cuda) * 1e-2
+    ws = torch.rand(n, generator=g, device=cuda) * 1e-3
+    b = torch.randn(n, generator=g, device=cuda).to(dtype) if bias else None
+    before = Q.w8a8_epilogue.launches
+    out = Q.w8a8_epilogue(acc, xs, ws, b, dtype)
+    assert Q.w8a8_epilogue.launches == before + 1 and out.dtype == dtype
+    assert torch.equal(out, Q._w8a8_epilogue_plain(acc, xs, ws, b, dtype))
+    xq = torch.randint(-127, 128, (m, 256), generator=g, device=cuda, dtype=torch.int8)
+    kq = Q.int8_kernel_layout(torch.randint(-127, 128, (256, n), generator=g, device=cuda,
+                                            dtype=torch.int8))
+    got = Q._w8a8_epilogue(xq, xs, kq, ws, dtype, b)
+    want = Q._w8a8_epilogue_plain(Q.int8_accumulate(xq, kq), xs, ws, b, dtype)
+    assert torch.equal(got, want)
+
+
+#: relative Frobenius error of the weight-only kernel against its plain
+#: version: both sum exact products in f32, in another order, so only a few
+#: bf16 roundings of the output move (one step each, 2^-8 relative)
+INT8_MATMUL_REL_LIMIT = 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 96, 130, 700])
+@pytest.mark.parametrize("k,n", [(64, 24), (4096, 4096), (4096, 11008), (11008, 4096),
+                                 (1408, 200)])
+def test_int8_weight_matmul_matches_plain_on_gpu(cuda, m, k, n):
+    """The weight-only product against its plain version (f32 sums of the
+    same exact products) within INT8_MATMUL_REL_LIMIT, and against the sums
+    in f64: at the decode's rows (1, 8, 96), a second row tile (130), a
+    larger M (700), split K and not, N off the 128-column tile."""
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                                            dtype=torch.int8))
+    scale = torch.rand(n, generator=g, device=cuda) * 1e-2
+    before = Q.int8_weight_forward.launches
+    out = Q.int8_weight_forward(x, kq, scale)
+    assert Q.int8_weight_forward.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    plain = Q._int8_weight_forward_plain(x, kq, scale)
+    exact = ((x.double() @ kq.double()) * scale.double()).to(torch.bfloat16)
+    assert _rel(out, plain) < INT8_MATMUL_REL_LIMIT
+    assert _rel(out, exact) < INT8_MATMUL_REL_LIMIT
+    again = Q.int8_weight_forward(x, kq, scale)
+    assert torch.equal(out, again)  # the split-K sum's order is fixed
+
+
+@pytest.mark.gpu
+def test_int8_weight_matmul_refuses_bad_operands_on_gpu(cuda):
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=cuda)
+    kq = torch.zeros((64, 24), dtype=torch.int8, device=cuda)
+    n = Q.int8_weight_forward.launches
+    with pytest.raises(ValueError, match="column-major"):
+        Q.int8_weight_forward(x, kq, torch.ones(24, device=cuda))
+    with pytest.raises(TypeError):
+        Q.int8_weight_forward(x.half(), Q.int8_kernel_layout(kq), torch.ones(24, device=cuda))
+    assert Q.int8_weight_forward.launches == n
+
+
+#: relative Frobenius error of the weight-only kernel's f32 instance: exact
+#: f32 products summed in another order than cuBLAS's, a few f32 ulps
+F32_MATMUL_REL_LIMIT = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 64, 24), (3, 64, 128), (33, 1408, 200),
+                                   (96, 4096, 4096)])
+def test_int8_weight_matmul_f32_matches_plain_on_gpu(cuda, m, k, n):
+    """The f32 instance (f32 configurations) launches the kernel and agrees
+    with the plain version's full-precision f32 product."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                                            dtype=torch.int8))
+    scale = torch.rand(n, generator=g, device=cuda) * 1e-2
+    before = Q.int8_weight_forward.launches
+    out = Q.int8_weight_forward(x, kq, scale)
+    assert Q.int8_weight_forward.launches == before + 1
+    exact = ((x.double() @ kq.double()) * scale.double()).float()
+    assert out.dtype == torch.float32 and _rel(out, exact) < F32_MATMUL_REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_int8_weight_matmul_split_k_on_two_streams_on_gpu(cuda):
+    """Split-K launches in flight on two streams at once keep their own tile
+    counters: every result equals the one of a launch alone."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((8, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    kq = Q.int8_kernel_layout(torch.randint(-127, 128, (4096, 4096), generator=g,
+                                            device=cuda, dtype=torch.int8))
+    scale = torch.rand(4096, generator=g, device=cuda) * 1e-2
+    want = Q.int8_weight_forward(x, kq, scale)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(8):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(Q.int8_weight_forward(x, kq, scale))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+#: relative Frobenius error of the int8-KV attention kernel against its
+#: plain version: the same roundings, the f32 sums in another order (1.6e-5
+#: measured on the H100); a kernel that skipped p's bf16 rounding is 2.6e-3 off
+KV8_REL_LIMIT = 5e-4
+
+
+def _kv8_case(b, sq, h, h_kv, t, dh, offset, device, seed=0):
+    """q and a quantized cache of ``t`` slots, the first ``offset + sq``
+    written, with the decoder's mask: query i at position offset + i sees
+    slot j <= offset + i that its row's validity keeps (row 0 left-padded)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, sq, h, dh), generator=g, device=device).to(torch.bfloat16)
+    k = torch.randn((b, t, h_kv, dh), generator=g, device=device).to(torch.bfloat16)
+    v = torch.randn((b, t, h_kv, dh), generator=g, device=device).to(torch.bfloat16)
+    kq, ks = Q.quantize_rows(k)
+    vq, vs = Q.quantize_rows(v)
+    valid = torch.ones((b, t), dtype=torch.int32, device=device)
+    valid[0, :2] = 0
+    q_pos = offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = (k_pos <= q_pos)[None, None] & valid[:, None, None, :].bool()
+    return q, kq, ks, vq, vs, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,h,h_kv,t,offset", [
+    (96, 1, 32, 32, 106, 100),  # the certify decode
+    (4, 96, 32, 32, 106, 0),  # the certify prefill's rows
+    (3, 1, 8, 2, 330, 321),  # grouped-query heads, eval's cache
+    (2, 7, 8, 4, 40, 3),
+    (2, 1, 4, 4, 1500, 1400),  # a long cache
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kv8_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, offset, dtype):
+    """The kernel against its plain version within KV8_REL_LIMIT (relative
+    Frobenius) and 2e-2 absolute, for bf16 and f32 queries: decode and
+    prefill rows, grouped-query heads, a left-padded row, a long cache;
+    with no mask; and a fully masked row gives zeros, as the plain
+    version's guard does."""
+    q, *cache = _kv8_case(b, sq, h, h_kv, t, 128, offset, cuda)
+    args = (q.to(dtype), *cache)
+    before = A.multi_head_attention_kv8.launches
+    out = A.multi_head_attention_kv8(*args)
+    assert A.multi_head_attention_kv8.launches == before + 1
+    ref = A._multi_head_attention_kv8_plain(*args)
+    assert out.shape == ref.shape == (b, sq, h, 128) and out.dtype == dtype
+    assert _rel(out, ref) < KV8_REL_LIMIT
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2
+    nomask = A.multi_head_attention_kv8(*args[:5], None, 0.1)
+    assert _rel(nomask, A._multi_head_attention_kv8_plain(*args[:5], None, 0.1)) < KV8_REL_LIMIT
+    mask = args[5].clone()
+    mask[-1] = False
+    out = A.multi_head_attention_kv8(*args[:5], mask)
+    assert not out[-1].any() and torch.isfinite(out).all()
+    assert _rel(out, A._multi_head_attention_kv8_plain(*args[:5], mask)) < KV8_REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_attention_kv8_refuses_bad_operands_on_gpu(cuda):
+    q, kq, ks, vq, vs, mask = _kv8_case(2, 3, 4, 4, 16, 128, 0, cuda)
+    n = A.multi_head_attention_kv8.launches
+    with pytest.raises(ValueError, match="head-agnostic"):
+        A.multi_head_attention_kv8(q, kq, ks, vq, vs, mask.expand(2, 4, 3, 16))
+    with pytest.raises(TypeError):
+        A.multi_head_attention_kv8(q.half(), kq, ks, vq, vs, mask)
+    long = _kv8_case(1, 1, 4, 4, 60000, 128, 0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.multi_head_attention_kv8(*long)
+    assert A.multi_head_attention_kv8.launches == n

@@ -121,7 +121,7 @@ def test_int8_matmul_exact_and_quantize_modules():
     rng = np.random.RandomState(4)
     a = rng.randint(-127, 128, size=(32, 64)).astype(np.int8)
     b = rng.randint(-127, 128, size=(64, 24)).astype(np.int8)
-    got = TQ.int8_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    got = TQ.int8_accumulate(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_array_equal(got, a.astype(np.int64) @ b.astype(np.int64))
     col = TQ.int8_kernel_layout(torch.from_numpy(b))
     assert col.stride() == (1, 64) and torch.equal(col, torch.from_numpy(b))

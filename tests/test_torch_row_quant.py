@@ -87,7 +87,7 @@ def test_exact_ties_at_scale_one(h, code):
     got, _ = _codes_twin(np.array([h], np.float32), xs)
     assert int(got[0]) == code
     # the plain versions' quantization agrees
-    q, s = TQ._quantize_bf16_rows(torch.tensor([[h, 127.0]]))
+    q, s = TQ._quantize_rows_plain(torch.tensor([[h, 127.0]]))
     assert int(q[0, 0]) == code and float(s[0, 0]) == 1.0
 
 
