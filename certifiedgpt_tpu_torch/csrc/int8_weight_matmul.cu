@@ -5,37 +5,53 @@
 // int8_kernel_layout), read once a call and never copied to bf16.
 //
 // Replaces the weight-only branch of the JAX package's dense
-// (certifiedgpt_tpu/models/layers.py:62-82): einsum(x, kernel_q.astype(bf16),
+// (certifiedgpt_tpu/models/layers.py:61-76): einsum(x, kernel_q.astype(bf16),
 // preferred_element_type=f32) * scale, where XLA feeds the int8 -> bf16
-// convert straight into the matrix unit. Here each int8 value is converted to
-// bf16 in registers (exact: |q| <= 128) and multiplied on the tensor cores by
+// convert straight into the matrix unit. Each int8 value becomes bf16 in
+// registers (exact: |q| <= 128) and is multiplied on the tensor cores by
 // mma.sync.m16n8k16 (bf16 in, f32 accumulation), so the products are exact
 // and only the order of the f32 sums differs from the plain version's
 // (ops/quantization.py::_int8_weight_forward_plain).
 //
-// Bound on the H100: bytes at the decode's rows (M <= 96: the 6.48 GB of
-// int8 weights a step of the 7-billion decoder, 1.93 ms at 3.35 TB/s);
-// operations at the prefill's M = 9216. Design, simple first: a block owns a
-// 128 x 128 output tile (eight warps, 2 x 4, each 64 rows x 32 columns) and
-// walks K in tiles of 64 through a three-stage cp.async ring in shared
-// memory (x tile rows padded to 160 bytes, weight tile channels to 80, so
-// that the fragment reads are free of bank conflicts). K is permuted inside
-// each 16-wide step so that a thread reads four neighbouring weight bytes
-// as one word and four neighbouring x values as one 8-byte word: the
-// fragment slots (2t, 2t+1, 2t+8, 2t+9) of the m16n8k16 layout hold k = 4t ..
-// 4t+3, the same in A and B. Rows past M are neither loaded nor multiplied
-// (a warp skips its 16-row slices beyond M), so M = 1 costs the weight read
-// and little else. Where the output tiles alone leave SMs idle (M <= 128: one
-// row tile), K is split over blockIdx.z: every split writes its f32 partial
-// tile to a workspace, and the last split of a tile to arrive (a counter
-// per tile) sums the partials in split order, so the
-// result does not depend on the order the blocks ran in; it reads the
-// partials four columns and up to eight splits at a time. The launcher plans
-// the splits from the shape and the card's SM count, and the caller hands it
-// one workspace of the size cgpt_int8_weight_matmul_workspace names: the
-// partials, then the tile counters, which the launcher zeroes on the call's
-// stream before the kernel runs (so launches on several streams never share
-// a counter).
+// Bound on the H100: bytes at the decode's rows (M <= 96: 202 MB of int8
+// weights a decoder layer, 0.06 ms at 3.35 TB/s, against 0.04 ms for its
+// 39 GFLOP at the bf16 peak: near the ridge at M = 96); operations at the
+// prefill's M = 9216. Design:
+// - The product is computed transposed, out^T = q^T x^T: the column-major
+//   int8 kernel is the K-major A operand, so output channels fill the
+//   instruction's 16 rows and the M rows of x its 8-wide columns, in
+//   8-row steps (MT of them: instances for 1, 2, 4, 8, 12 and 16). No
+//   warp rows sit idle at M = 96, and M = 1 costs an 8-row column.
+// - A block owns 128 channels (four warps of 32: two A fragments against
+//   each of the MT x fragments) and walks K in tiles of 64 through a ring
+//   of cp.async stages in shared memory, as deep as ~110 KB allows (8
+//   stages at M <= 16, 4 at 96, 3 at 128), two blocks an SM;
+//   a thread's copy addresses are worked out once, and each weight copy
+//   asks the L2 for its whole 128-byte line (the channel's next K tile).
+//   Tile rows are padded (weights to 80 bytes, x to 160) so that fragment
+//   reads are free of bank conflicts; K is permuted inside each 16-wide
+//   step so that a thread reads four weight bytes as one word and four x
+//   values as one 8-byte word, the same permutation in A and B.
+// - The conversion takes no I2F: a byte, offset to unsigned, becomes the
+//   low mantissa byte of the f32 2^23 + u by a byte permute, one f32
+//   subtraction of 2^23 + 128 leaves its value, and the bf16 is the f32's
+//   upper half (two values a permute): 11 instructions for four bytes.
+// - Where the output tiles alone leave the card's blocks idle, K is split
+//   over a cluster of 2 or 3 blocks (blockIdx.z, cluster dims (1, 1,
+//   splits)): each block leaves its f32 partial tile in its own shared
+//   memory, and after a cluster barrier each block sums a share of the
+//   tile's outputs over the blocks' partials, read through distributed
+//   shared memory in split order, so the result does not depend on the
+//   order the blocks ran in. No partials go to device memory and no counter
+//   needs zeroing: a launch is one kernel and no memset, on any stream and
+//   inside a CUDA graph. Reading partials from other SMs is slow (a tile
+//   split 8 ways spent more on the exchange than on its products), so the
+//   launcher splits at most 3 ways.
+// - The output is staged through shared memory and written 16 bytes a
+//   thread (N % 8 == 0).
+// What holds it back (scripts/bench_torch_int8_ops.py): the weight stream
+// itself, at about half the card's rate with a few blocks an SM, and at
+// M = 96 the mma.sync issue and its latency on four warps a block.
 //
 // An f32 instance (f32 x and output, the tiny and f32 configurations) is a
 // plain tiled product on the CUDA cores: each int8 value goes to f32 (exact)
@@ -46,19 +62,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cstring>
-
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kStages = 3;
-constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int kXStride = 2 * kBK + 32;  // bytes a row of the x tile (160)
+constexpr int kWarps = 4;               // a warp owns 32 output channels
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBN = 32 * kWarps;        // output channels a block (128)
+constexpr int kBK = 64;                 // K values a stage
 constexpr int kWStride = kBK + 16;      // bytes a channel of the weight tile (80)
-constexpr int kXTile = kBM * kXStride;
-constexpr int kWTile = kBN * kWStride;
-constexpr int kStageBytes = kXTile + kWTile;
-constexpr int kSmemBytes = kStages * kStageBytes;
+constexpr int kXStride = 2 * kBK + 32;  // bytes a row of the x tile (160)
+constexpr int kPStride = kBN + 4;       // floats a row of the partial tile
+// the most K splits (a cluster): beyond 3 the exchange of partials costs
+// more than the extra blocks add (scripts/bench_torch_int8_ops.py)
+constexpr int kMaxSplits = 3;
+constexpr int kRingBytes = 110 * 1024;  // two blocks an SM
+
+// the 8-row steps of the instances, and the most rows a block takes
+constexpr int kMTs[] = {1, 2, 4, 8, 12, 16};
+constexpr int kInstances = sizeof(kMTs) / sizeof(kMTs[0]);
+constexpr int kMaxRows = 8 * 16;
+
+template <int MT>
+struct Tile {
+  static constexpr int kRows = 8 * MT;
+  static constexpr int kWBytes = kBN * kWStride;
+  static constexpr int kStageBytes = kWBytes + kRows * kXStride;
+  static constexpr int kStages = kRingBytes / kStageBytes > 8 ? 8 : kRingBytes / kStageBytes;
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kPartial = kRows * kPStride * 4;
+  static constexpr int kSmem = kRing > kPartial ? kRing : kPartial;
+  static_assert(kStages >= 3, "the ring needs three stages");
+};
 
 struct Args {
   const __nv_bfloat16* x;
@@ -70,12 +103,11 @@ struct Args {
   long long ldo;  // elements
   int M, N, K;
   int k_per_split;  // a multiple of kBK
-  float* workspace;  // [splits, M, N] f32 when splits > 1
-  int* counters;     // a zeroed int a (row tile, column tile)
 };
 
 // the f32 instance's tile: 32 rows x 64 channels, K in steps of 32; each of
 // the 256 threads keeps 2 rows x 4 channels
+constexpr int kFThreads = 256;
 constexpr int kFBM = 32, kFBN = 64, kFBK = 32;
 
 struct F32Args {
@@ -99,6 +131,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int by
                : "memory");
 }
 
+// the same, the L2 fetching the whole 128-byte line around it (a weight
+// channel's next K tile, 64 bytes on)
+__device__ __forceinline__ void cp_async16_line(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -108,210 +148,250 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// two signed bytes -> a bf16 pair (exact)
-__device__ __forceinline__ uint32_t bf16x2_of(uint32_t w, int shift) {
-  const float lo = static_cast<float>(static_cast<int8_t>(w >> shift));
-  const float hi = static_cast<float>(static_cast<int8_t>(w >> (shift + 8)));
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &h, sizeof(u));
-  return u;
+// Four signed bytes -> two bf16 pairs (bytes 0-1 in `lo`, 2-3 in `hi`, the
+// lower byte in the lower half), exact and without I2F: the byte offset to
+// unsigned is the low mantissa byte of the f32 2^23 + u, 2^23 + 128 is
+// subtracted, and the bf16 is the f32's upper half.
+__device__ __forceinline__ void bf16x4_of(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  constexpr uint32_t kMagic = 0x4B000000u;  // 2^23
+  constexpr float kOffset = 8388736.f;      // 2^23 + 128
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, kMagic, 0x7440)) - kOffset;
+  const float f1 = __uint_as_float(__byte_perm(u, kMagic, 0x7441)) - kOffset;
+  const float f2 = __uint_as_float(__byte_perm(u, kMagic, 0x7442)) - kOffset;
+  const float f3 = __uint_as_float(__byte_perm(u, kMagic, 0x7443)) - kOffset;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+// The cluster's barrier: every block's earlier shared-memory writes are
+// seen by the others' later reads.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// 16 bytes of block `rank`'s shared memory at the offset of `local` in ours
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Starts the copies of the K tile at k0 (clipped to k_end) into `stage`.
-__device__ __forceinline__ void load_tile(const Args& a, unsigned char* stage, int m0, int n0,
-                                          int k0, int k_end) {
-  const uint32_t xs = smem_u32(stage), ws = smem_u32(stage + kXTile);
-  // x: kBM rows x 8 chunks of 8 values; rows past M are not loaded
-  for (int c = threadIdx.x; c < kBM * (kBK / 8); c += kThreads) {
-    const int r = c / (kBK / 8), part = c % (kBK / 8);
-    if (m0 + r >= a.M) continue;
-    const int k = k0 + 8 * part;
-    const bool in = k < k_end;
-    const __nv_bfloat16* src = a.x + (m0 + r) * a.ldx + (in ? k : 0);
-    cp_async16(xs + r * kXStride + 16 * part, src, in ? 16 : 0);
-  }
-  // weights: kBN channels x 4 chunks of 16 bytes; channels past N are not loaded
-  for (int c = threadIdx.x; c < kBN * (kBK / 16); c += kThreads) {
-    const int n = c / (kBK / 16), part = c % (kBK / 16);
-    if (n0 + n >= a.N) continue;
-    const int k = k0 + 16 * part;
-    const bool in = k < k_end;
-    const int8_t* src = a.w + (n0 + n) * a.ldw + (in ? k : 0);
-    cp_async16(ws + n * kWStride + 16 * part, src, in ? 16 : 0);
-  }
-}
+// A thread's share of each stage's copies, its addresses worked out once:
+// the weight chunks (16 bytes of a channel) and x chunks (8 values of a row)
+// it copies at every K tile; channels past N and rows past M are not loaded
+// (they only reach outputs that are never stored).
+template <int MT>
+struct Copies {
+  static constexpr int kW = kBN * (kBK / 16) / kThreads;
+  static constexpr int kX = (Tile<MT>::kRows * (kBK / 8) + kThreads - 1) / kThreads;
+  const int8_t* w[kW];
+  const __nv_bfloat16* x[kX];
+  uint32_t w_dst[kW], x_dst[kX];  // offsets in a stage
+  int w_k[kW], x_k[kX];           // K offsets in a tile
 
-__device__ __forceinline__ float4 add4(float4 x, float4 y) {
-  return make_float4(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y), __fadd_rn(x.z, y.z),
-                     __fadd_rn(x.w, y.w));
-}
-
-// The last split of a tile: each thread takes four neighbouring columns of
-// the tile at a time, loads up to eight splits' partials at once (they are
-// independent loads) and adds them in split order, then scales and rounds.
-__device__ __forceinline__ void sum_splits(const Args& a, int m0, int n0, int splits) {
-  const int rows = min(kBM, a.M - m0), quads_per_row = min(kBN, a.N - n0) / 4;
-  const long long plane = static_cast<long long>(a.M) * a.N / 4;  // float4s a split
-  for (int qd = threadIdx.x; qd < rows * quads_per_row; qd += kThreads) {
-    const int m = m0 + qd / quads_per_row, n = n0 + 4 * (qd % quads_per_row);
-    const float4* p =
-        reinterpret_cast<const float4*>(a.workspace + static_cast<long long>(m) * a.N + n);
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s0 = 0; s0 < splits; s0 += 8) {
-      float4 part[8];
+  __device__ __forceinline__ Copies(const Args& a, int m0, int n0) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (s0 + i < splits) part[i] = __ldcg(p + (s0 + i) * plane);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (s0 + i < splits) sum = add4(sum, part[i]);
-      }
+    for (int i = 0; i < kW; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int n = c / (kBK / 16), part = c % (kBK / 16);
+      w[i] = n0 + n < a.N ? a.w + (n0 + n) * a.ldw + 16 * part : nullptr;
+      w_dst[i] = n * kWStride + 16 * part;
+      w_k[i] = 16 * part;
     }
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(__fmul_rn(sum.x, a.scale[n]),
-                                                    __fmul_rn(sum.y, a.scale[n + 1]));
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(__fmul_rn(sum.z, a.scale[n + 2]),
-                                                    __fmul_rn(sum.w, a.scale[n + 3]));
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(a.out + m * a.ldo + n);
-    o[0] = lo;
-    o[1] = hi;
+#pragma unroll
+    for (int i = 0; i < kX; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int r = c / (kBK / 8), part = c % (kBK / 8);
+      x[i] = r < Tile<MT>::kRows && m0 + r < a.M ? a.x + (m0 + r) * a.ldx + 8 * part : nullptr;
+      x_dst[i] = Tile<MT>::kWBytes + r * kXStride + 16 * part;
+      x_k[i] = 8 * part;
+    }
   }
-}
 
-__global__ void __launch_bounds__(kThreads, 1) int8_weight_matmul_kernel(const Args a) {
+  // Starts the copies of the K tile at k0 (clipped to k_end, the rest
+  // zeros) into the stage at shared address `stage`.
+  __device__ __forceinline__ void issue(uint32_t stage, int k0, int k_end) const {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      if (w[i] == nullptr) continue;
+      const bool in = k0 + w_k[i] < k_end;
+      cp_async16_line(stage + w_dst[i], w[i] + (in ? k0 : 0), in ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kX; ++i) {
+      if (x[i] == nullptr) continue;
+      const bool in = k0 + x_k[i] < k_end;
+      cp_async16(stage + x_dst[i], x[i] + (in ? k0 : 0), in ? 16 : 0);
+    }
+  }
+};
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 2) int8_weight_matmul_kernel(const Args a) {
+  using T = Tile<MT>;
   extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * T::kRows;
   const int k_begin = blockIdx.z * a.k_per_split;
   const int k_end = min(a.K, k_begin + a.k_per_split);
-  const int tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
-  // 16-row slices of this warp that hold rows below M
-  const int row0 = m0 + 64 * wm;
-  const int slices = max(0, min(4, (a.M - row0 + 15) / 16));
+  const int tiles = (k_end - k_begin + kBK - 1) / kBK;  // at least 1: the plan has no empty split
 
-  float acc[4][4][4];
+  float acc[2][MT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < MT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
+  const Copies<MT> copies(a, m0, n0);
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) load_tile(a, smem + s * kStageBytes, m0, n0, k_begin + s * kBK, k_end);
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < tiles) copies.issue(base + s * T::kStageBytes, k_begin + s * kBK, k_end);
     cp_async_commit();
   }
   for (int kt = 0; kt < tiles; ++kt) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<T::kStages - 2>();
     __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
-    const int next = kt + kStages - 1;
+    const int next = kt + T::kStages - 1;
     if (next < tiles) {
-      load_tile(a, smem + (next % kStages) * kStageBytes, m0, n0, k_begin + next * kBK, k_end);
+      copies.issue(base + (next % T::kStages) * T::kStageBytes, k_begin + next * kBK, k_end);
     }
     cp_async_commit();
-    if (slices == 0) continue;
-    const unsigned char* stage = smem + (kt % kStages) * kStageBytes;
-    const unsigned char* xt = stage + (64 * wm) * kXStride;
-    const unsigned char* wt = stage + kXTile + (32 * wn) * kWStride;
+    const unsigned char* wt = smem + (kt % T::kStages) * T::kStageBytes + (32 * warp) * kWStride;
+    const unsigned char* xt = smem + (kt % T::kStages) * T::kStageBytes + T::kWBytes;
 #pragma unroll
     for (int k16 = 0; k16 < kBK; k16 += 16) {
-      uint32_t b[4][2];
+      // A: channels g and g + 8 of each 16-channel half, k = 4t .. 4t + 3
+      uint32_t af[2][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t w4 =
-            *reinterpret_cast<const uint32_t*>(wt + (8 * j + g) * kWStride + k16 + 4 * t);
-        b[j][0] = bf16x2_of(w4, 0);
-        b[j][1] = bf16x2_of(w4, 16);
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t w_lo =
+            *reinterpret_cast<const uint32_t*>(wt + (16 * i + g) * kWStride + k16 + 4 * t);
+        const uint32_t w_hi =
+            *reinterpret_cast<const uint32_t*>(wt + (16 * i + g + 8) * kWStride + k16 + 4 * t);
+        bf16x4_of(w_lo, af[i][0], af[i][2]);
+        bf16x4_of(w_hi, af[i][1], af[i][3]);
       }
+      // B: row g of each 8-row step of x, the same k
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i >= slices) break;
-        const uint2 lo =
-            *reinterpret_cast<const uint2*>(xt + (16 * i + g) * kXStride + 2 * (k16 + 4 * t));
-        const uint2 hi =
-            *reinterpret_cast<const uint2*>(xt + (16 * i + g + 8) * kXStride + 2 * (k16 + 4 * t));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], lo.x, hi.x, lo.y, hi.y, b[j][0], b[j][1]);
+      for (int j = 0; j < MT; ++j) {
+        const uint2 xb =
+            *reinterpret_cast<const uint2*>(xt + (8 * j + g) * kXStride + 2 * (k16 + 4 * t));
+        mma_bf16(acc[0][j], af[0], xb.x, xb.y);
+        mma_bf16(acc[1][j], af[1], xb.x, xb.y);
       }
     }
   }
   cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: the partial tile takes its place
 
-  const int splits = gridDim.z;
-  if (splits > 1) {
-    // this split's partial tile, then the last split of the tile sums them
-    float* part = a.workspace + static_cast<long long>(blockIdx.z) * a.M * a.N;
+  // this block's f32 partial tile [rows][channels]: a fragment's rows are
+  // channels, its columns rows of x
+  float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i >= slices) break;
+  for (int i = 0; i < 2; ++i) {
+    const int ch = 32 * warp + 16 * i + g;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + 32 * wn + 8 * j + 2 * t;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = row0 + 16 * i + g + 8 * h;
-          if (m >= a.M) continue;
-          if (n < a.N) part[static_cast<long long>(m) * a.N + n] = acc[i][j][2 * h];
-          if (n + 1 < a.N) part[static_cast<long long>(m) * a.N + n + 1] = acc[i][j][2 * h + 1];
-        }
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    __shared__ int last;
-    int* counter = a.counters + blockIdx.y * gridDim.x + blockIdx.x;
-    if (threadIdx.x == 0) last = atomicAdd(counter, 1) == splits - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    sum_splits(a, m0, n0, splits);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i >= slices) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 32 * wn + 8 * j + 2 * t;
-      if (n >= a.N) continue;  // N is even: n + 1 < N with n
-      const float s0 = a.scale[n], s1 = a.scale[n + 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = row0 + 16 * i + g + 8 * h;
-        if (m >= a.M) continue;
-        const __nv_bfloat162 o = __floats2bfloat162_rn(__fmul_rn(acc[i][j][2 * h], s0),
-                                                       __fmul_rn(acc[i][j][2 * h + 1], s1));
-        *reinterpret_cast<__nv_bfloat162*>(a.out + m * a.ldo + n) = o;
-      }
+    for (int j = 0; j < MT; ++j) {
+      const int m = 8 * j + 2 * t;
+      part[m * kPStride + ch] = acc[i][j][0];
+      part[(m + 1) * kPStride + ch] = acc[i][j][1];
+      part[m * kPStride + ch + 8] = acc[i][j][2];
+      part[(m + 1) * kPStride + ch + 8] = acc[i][j][3];
     }
   }
+  cluster_sync();  // every split's partial tile is in place
+
+  // block q of the cluster sums the outputs u = q, q + splits, ... of the
+  // tile (8 neighbouring channels of one row) over the splits in order
+  const int splits = static_cast<int>(cluster_blocks());
+  const int units = min(T::kRows, a.M - m0) * (kBN / 8);
+  for (int u = static_cast<int>(cluster_rank()) + splits * static_cast<int>(threadIdx.x);
+       u < units; u += splits * kThreads) {
+    const int r = u / (kBN / 8), c = u % (kBN / 8);
+    const int n = n0 + 8 * c;
+    if (n >= a.N) continue;  // N % 8 == 0: a unit is whole or out
+    // every split's 8 partials read at once (all in flight), then added in
+    // split order
+    const uint32_t mine = smem_u32(part + r * kPStride + 8 * c);
+    float4 v[kMaxSplits][2];
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q) {
+      if (q < splits) {
+        v[q][0] = ld_cluster_f4(mine, q);
+        v[q][1] = ld_cluster_f4(mine + 16, q);
+      }
+    }
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q) {
+      if (q < splits) {
+        s[0] = __fadd_rn(s[0], v[q][0].x);
+        s[1] = __fadd_rn(s[1], v[q][0].y);
+        s[2] = __fadd_rn(s[2], v[q][0].z);
+        s[3] = __fadd_rn(s[3], v[q][0].w);
+        s[4] = __fadd_rn(s[4], v[q][1].x);
+        s[5] = __fadd_rn(s[5], v[q][1].y);
+        s[6] = __fadd_rn(s[6], v[q][1].z);
+        s[7] = __fadd_rn(s[7], v[q][1].w);
+      }
+    }
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(s[2 * e], a.scale[n + 2 * e]),
+                                                     __fmul_rn(s[2 * e + 1],
+                                                               a.scale[n + 2 * e + 1]));
+      o[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(a.out + (m0 + r) * a.ldo + n) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+  if (splits > 1) cluster_sync();  // a block's partials stay until every peer has read them
 }
 
-__global__ void __launch_bounds__(kThreads) int8_weight_matmul_f32_kernel(const F32Args a) {
+__global__ void __launch_bounds__(kFThreads) int8_weight_matmul_f32_kernel(const F32Args a) {
   __shared__ float xt[kFBK][kFBM + 1];  // the x tile, k-major
   __shared__ float wt[kFBK][kFBN + 1];  // the weight tile, k-major
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
   float acc[2][4] = {};
   for (int k0 = 0; k0 < a.K; k0 += kFBK) {
-    for (int i = threadIdx.x; i < kFBM * kFBK; i += kThreads) {
+    for (int i = threadIdx.x; i < kFBM * kFBK; i += kFThreads) {
       const int r = i / kFBK, c = i % kFBK, m = m0 + r, k = k0 + c;
       xt[c][r] = m < a.M && k < a.K ? a.x[m * a.ldx + k] : 0.f;
     }
-    for (int i = threadIdx.x; i < kFBN * kFBK; i += kThreads) {
+    for (int i = threadIdx.x; i < kFBN * kFBK; i += kFThreads) {
       const int n = n0 + i / kFBK, c = i % kFBK, k = k0 + c;
       wt[c][i / kFBK] = n < a.N && k < a.K ? static_cast<float>(a.w[n * a.ldw + k]) : 0.f;
     }
@@ -340,11 +420,13 @@ __global__ void __launch_bounds__(kThreads) int8_weight_matmul_f32_kernel(const 
   }
 }
 
-// The card's SM count and the shared-memory opt-in, read and made once a
-// device (no query inside a CUDA graph's capture).
+// The card's SM count, and for each instance how many of its blocks the
+// card holds at once in clusters of s blocks (s = 1 .. kMaxSplits): read once
+// a device with the instance's shared-memory opt-in, so a launch inside a
+// CUDA graph's capture makes no query.
 struct Device {
   int sms = 0;
-  bool configured = false;
+  int resident[kInstances][kMaxSplits + 1] = {};
 };
 
 cudaError_t device_info(Device** out) {
@@ -362,30 +444,130 @@ cudaError_t device_info(Device** out) {
   return cudaSuccess;
 }
 
+// the instance for M rows: the fewest 8-row steps that hold min(M, 128) rows
+int instance_for(int M) {
+  const int steps = ((M < kMaxRows ? M : kMaxRows) + 7) / 8;
+  int i = 0;
+  while (kMTs[i] < steps) ++i;
+  return i;
+}
+
+template <int MT>
+cudaError_t configure(Device& d, int index) {
+  using T = Tile<MT>;
+  if (d.resident[index][1] != 0) return cudaSuccess;
+  const void* fn = reinterpret_cast<const void*>(int8_weight_matmul_kernel<MT>);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  for (int s = 1; s <= kMaxSplits; ++s) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, 1, s);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = T::kSmem;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = 1;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = s;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, int8_weight_matmul_kernel<MT>, &cfg);
+    if (err != cudaSuccess) return err;
+    d.resident[index][s] = clusters > 0 ? clusters * s : 1;
+  }
+  return cudaSuccess;
+}
+
 struct Plan {
-  int splits = 1, k_per_split = 0, tiles = 0;
-  long long workspace_bytes = 0;  // partials, then a counter a tile
+  int rows = 0, row_tiles = 0, col_tiles = 0, splits = 1, k_per_split = 0, resident = 0;
 };
 
-// K is split so that the output tiles times the splits give about two
-// blocks an SM (M <= 128 leaves one row tile), each split at least four K
-// tiles long (shorter splits cost more in partials than they add in blocks).
-// The f32 instance does not split.
-Plan plan_for(int M, int N, int K, bool x_f32, int sms) {
+// K is split (at most kMaxSplits ways, each split at least two K tiles)
+// only where the output tiles leave the card's blocks idle; the split count
+// is the one whose clusters fill the resident blocks' waves best (the
+// fewest splits among equals).
+Plan plan_for(int M, int N, int K, int rows, const int* resident) {
   Plan p;
-  p.tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  p.rows = rows;
+  p.row_tiles = (M + rows - 1) / rows;
+  p.col_tiles = (N + kBN - 1) / kBN;
+  const long long tiles = static_cast<long long>(p.row_tiles) * p.col_tiles;
   const int k_tiles = (K + kBK - 1) / kBK;
-  p.k_per_split = k_tiles * kBK;
-  if (x_f32) return p;
-  const int want = (2 * sms + p.tiles - 1) / p.tiles;  // at least 1
-  const int longest = k_tiles / 4 > 1 ? k_tiles / 4 : 1;
-  const int splits = want < longest ? want : longest;
-  p.k_per_split = (k_tiles + splits - 1) / splits * kBK;
-  p.splits = (K + p.k_per_split - 1) / p.k_per_split;
-  if (p.splits > 1) {
-    p.workspace_bytes = 4LL * p.splits * M * N + 4LL * p.tiles;
+  int best = 1;
+  if (tiles < resident[1]) {
+    const int most = k_tiles / 2 < kMaxSplits ? k_tiles / 2 : kMaxSplits;
+    // busy share of the resident blocks over the waves: blocks / (waves * resident)
+    long long best_blocks = tiles, best_slots = resident[1];
+    for (int s = 2; s <= most; ++s) {
+      const long long per_wave = resident[s] / s;  // clusters, one a tile
+      if (per_wave == 0) continue;
+      const long long slots = (tiles + per_wave - 1) / per_wave * resident[s];
+      if (tiles * s * best_slots > best_blocks * slots) {
+        best = s;
+        best_blocks = tiles * s;
+        best_slots = slots;
+      }
+    }
   }
+  p.k_per_split = (k_tiles + best - 1) / best * kBK;
+  p.splits = (K + p.k_per_split - 1) / p.k_per_split;
+  p.resident = resident[p.splits];
   return p;
+}
+
+// The instance and plan for an M x K x N product.
+cudaError_t choose(int M, int N, int K, Device& d, int* index, Plan* plan) {
+  const int idx = instance_for(M);
+  cudaError_t err;
+  switch (kMTs[idx]) {
+    case 1: err = configure<1>(d, idx); break;
+    case 2: err = configure<2>(d, idx); break;
+    case 4: err = configure<4>(d, idx); break;
+    case 8: err = configure<8>(d, idx); break;
+    case 12: err = configure<12>(d, idx); break;
+    default: err = configure<16>(d, idx); break;
+  }
+  if (err != cudaSuccess) return err;
+  *index = idx;
+  *plan = plan_for(M, N, K, 8 * kMTs[idx], d.resident[idx]);
+  return cudaSuccess;
+}
+
+template <int MT>
+cudaError_t launch_bf16(const Args& base, const Plan& p, cudaStream_t stream) {
+  using T = Tile<MT>;
+  if (p.row_tiles > 65535) return cudaErrorInvalidValue;
+  Args a = base;
+  a.k_per_split = p.k_per_split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.col_tiles, p.row_tiles, p.splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = T::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = p.splits;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_weight_matmul_kernel<MT>, a);
+}
+
+int stages_of(int index) {
+  switch (kMTs[index]) {
+    case 1: return Tile<1>::kStages;
+    case 2: return Tile<2>::kStages;
+    case 4: return Tile<4>::kStages;
+    case 8: return Tile<8>::kStages;
+    case 12: return Tile<12>::kStages;
+    default: return Tile<16>::kStages;
+  }
 }
 
 bool bad_shape(int M, int N, int K) {
@@ -394,67 +576,64 @@ bool bad_shape(int M, int N, int K) {
 
 }  // namespace
 
-// Bytes of the workspace cgpt_int8_weight_matmul needs at this shape (0:
-// none), into *bytes.
-extern "C" int cgpt_int8_weight_matmul_workspace(int M, int N, int K, int x_f32,
-                                                 long long* bytes) {
-  if (bad_shape(M, N, K)) return static_cast<int>(cudaErrorInvalidValue);
-  Device* d = nullptr;
-  const cudaError_t err = device_info(&d);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *bytes = plan_for(M, N, K, x_f32 != 0, d->sms).workspace_bytes;
-  return 0;
-}
-
 // x [M, K] bf16 (row stride ldx elements), w: channel n's K int8 values at
 // w + n * ldw, scale [N] f32, out [M, N] bf16 (row stride ldo); with x_f32,
 // x and out are f32. K a multiple of 16, N of 8; x, w, ldx * 2 and ldw
-// 16-byte aligned. `workspace` holds workspace_bytes, at least what
-// cgpt_int8_weight_matmul_workspace names for the shape (16-byte aligned).
+// 16-byte aligned, and for bf16 out and ldo * 2 too. One kernel launch, no
+// memset, no workspace.
 extern "C" int cgpt_int8_weight_matmul(const void* x, long long ldx, const void* w, long long ldw,
                                        const void* scale, void* out, long long ldo, int M, int N,
-                                       int K, int x_f32, void* workspace,
-                                       long long workspace_bytes, void* stream) {
+                                       int K, int x_f32, void* stream) {
   if (bad_shape(M, N, K) || ldx < K || ldw < K || ldo < N || (2 * ldx) % 16 != 0 ||
-      ldw % 16 != 0 || ldo % 2 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      ldw % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
+      (!x_f32 && ((2 * ldo) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Device* d = nullptr;
   cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Plan p = plan_for(M, N, K, x_f32 != 0, d->sms);
-  if (p.splits > 65535 || (p.workspace_bytes > 0 &&
-                           (workspace == nullptr || workspace_bytes < p.workspace_bytes))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const auto st = static_cast<cudaStream_t>(stream);
   if (x_f32) {
     F32Args a{static_cast<const float*>(x), ldx, static_cast<const int8_t*>(w), ldw,
               static_cast<const float*>(scale), static_cast<float*>(out), ldo, M, N, K};
     const dim3 grid((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM);
-    int8_weight_matmul_f32_kernel<<<grid, kThreads, 0, st>>>(a);
+    int8_weight_matmul_f32_kernel<<<grid, kFThreads, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (!d->configured) {
-    err = cudaFuncSetAttribute(int8_weight_matmul_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    d->configured = true;
+  const Args a{static_cast<const __nv_bfloat16*>(x), ldx, static_cast<const int8_t*>(w), ldw,
+               static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), ldo, M, N, K,
+               0};
+  int index = 0;
+  Plan p;
+  err = choose(M, N, K, *d, &index, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (kMTs[index]) {
+    case 1: err = launch_bf16<1>(a, p, st); break;
+    case 2: err = launch_bf16<2>(a, p, st); break;
+    case 4: err = launch_bf16<4>(a, p, st); break;
+    case 8: err = launch_bf16<8>(a, p, st); break;
+    case 12: err = launch_bf16<12>(a, p, st); break;
+    default: err = launch_bf16<16>(a, p, st); break;
   }
-  float* partials = static_cast<float*>(workspace);
-  int* counters = nullptr;
-  if (p.splits > 1) {
-    counters = reinterpret_cast<int*>(static_cast<char*>(workspace) +
-                                      4LL * p.splits * M * N);
-    err = cudaMemsetAsync(counters, 0, 4LL * p.tiles, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  Args a{static_cast<const __nv_bfloat16*>(x), ldx, static_cast<const int8_t*>(w), ldw,
-         static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), ldo, M, N, K,
-         p.k_per_split, partials, counters};
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, p.splits);
-  int8_weight_matmul_kernel<<<grid, kThreads, kSmemBytes, st>>>(a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 launch's plan for an M x K x N product, into out[7]: rows a
+// block, row tiles, channel tiles, K splits (the cluster size), K values a
+// split, blocks the card holds at once in such clusters, ring stages.
+extern "C" int cgpt_int8_weight_matmul_plan(int M, int N, int K, int* out) {
+  if (bad_shape(M, N, K)) return static_cast<int>(cudaErrorInvalidValue);
+  Device* d = nullptr;
+  cudaError_t err = device_info(&d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int index = 0;
+  Plan p;
+  err = choose(M, N, K, *d, &index, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int values[] = {p.rows, p.row_tiles, p.col_tiles, p.splits, p.k_per_split, p.resident,
+                        stages_of(index)};
+  for (int i = 0; i < 7; ++i) out[i] = values[i];
+  return 0;
 }

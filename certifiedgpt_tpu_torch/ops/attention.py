@@ -9,9 +9,12 @@ values as JAX's ``preferred_element_type=float32`` (bf16 products are exact
 in f32). Shapes follow [batch, seq, heads, head_dim].
 
 ``multi_head_attention_kv8`` is a hand-written CUDA kernel on the card
-(``csrc/attention_kv8.cu``), which dequantizes the cache inside the kernel;
-CPU tensors take its plain version, ``_multi_head_attention_kv8_plain``.
-``multi_head_attention_kv8.launches`` counts the kernel's launches.
+(``csrc/attention_kv8.cu``), which dequantizes the cache inside the kernel:
+the prefill on the tensor cores, the decode a warp a query row; CPU tensors
+take its plain version, ``_multi_head_attention_kv8_plain``.
+``multi_head_attention_kv8.launches`` counts the kernel's launches, and
+``multi_head_attention_kv8.tensor_core_launches`` those of its tensor-core
+instance.
 """
 
 from __future__ import annotations
@@ -61,6 +64,10 @@ def multi_head_attention(
 
 #: most warps a block of the kv8 kernel (csrc/attention_kv8.cu kMaxWarps)
 KV8_MAX_WARPS = 8
+#: the head_dim and the most cached positions of the kv8 kernel's
+#: tensor-core instance (csrc/attention_kv8.cu kMmaDh, kMmaMaxKeys)
+KV8_MMA_HEAD_DIM = 128
+KV8_MMA_MAX_KEYS = 256
 #: the kv8 launcher's code for a cache too long for its shared memory
 #: (csrc/attention_kv8.cu kCacheTooLong)
 _KV8_CACHE_TOO_LONG = -1
@@ -84,9 +91,13 @@ def multi_head_attention_kv8(
     (certifiedgpt_tpu/ops/attention.py:76). CPU tensors take
     ``_multi_head_attention_kv8_plain``; bf16 and f32 CUDA tensors launch
     ``cgpt_attention_kv8`` (csrc/attention_kv8.cu), which reads the int8
-    cache and makes no dequantized copy. The kernel takes a head-agnostic
-    mask (dimension 1 of size 1) and raises on a per-head one, and on a
-    cache too long for its rows of logits in shared memory."""
+    cache and makes no dequantized copy. bf16 queries of more than one row
+    (the prefill) at head_dim 128 over at most 256 cached positions run its
+    tensor-core instance, with the row of logits in registers; one query
+    row (the decode), f32 queries and longer caches run its warp-a-row
+    instance. The kernel takes a head-agnostic mask (dimension 1 of size 1)
+    and raises on a per-head one, and on a cache too long for the warp-a-row
+    instance's rows of logits in shared memory."""
     if q.device.type == "cpu":
         return _multi_head_attention_kv8_plain(q, kq8, ks, vq8, vs, mask, scale)
     b, sq, h, dh = q.shape
@@ -111,7 +122,12 @@ def multi_head_attention_kv8(
                          f"{tuple(vs.shape)} must be [{b}, {t}, {h_kv}, 1] with equal strides")
     if ks3.dtype != torch.float32 or vs3.dtype != torch.float32:
         raise TypeError("multi_head_attention_kv8: the cache scales must be f32")
-    q = q if q.stride(3) == 1 else q.contiguous()
+    tensor_cores = (q.dtype == torch.bfloat16 and sq > 1 and dh == KV8_MMA_HEAD_DIM
+                    and t <= KV8_MMA_MAX_KEYS)
+    if q.stride(3) != 1 or (tensor_cores and (
+            q.data_ptr() % 16 or any(st % 8 for st in q.stride()[:3]))):
+        # the tensor-core instance copies q rows 16 bytes at a time
+        q = q.clone(memory_format=torch.contiguous_format)
     mask_ptr, mask_strides = None, (0, 0, 0)
     if mask is not None:
         if mask.dim() != 4 or mask.shape[1] != 1:
@@ -129,16 +145,19 @@ def multi_head_attention_kv8(
         ks3.data_ptr(), vs3.data_ptr(), *ks3.stride(),
         mask_ptr, *mask_strides, out.data_ptr(),
         b, sq, h, h_kv, t, dh, float(scale), warps, int(q.dtype == torch.float32),
-        cuda_kernels.stream_of(q))
+        int(tensor_cores), cuda_kernels.stream_of(q))
     if code == _KV8_CACHE_TOO_LONG:
         raise ValueError(f"multi_head_attention_kv8: a cache of {t} positions does not fit "
                          f"the kernel's shared memory ({warps} rows of {dh} + {t} floats)")
     multi_head_attention_kv8.launches += 1
+    multi_head_attention_kv8.tensor_core_launches += tensor_cores
     cuda_kernels.check(code, "multi_head_attention_kv8")
     return out
 
 
 multi_head_attention_kv8.launches = 0
+#: the launches (of ``launches``) that ran the tensor-core instance
+multi_head_attention_kv8.tensor_core_launches = 0
 
 
 def _multi_head_attention_kv8_plain(q, kq8, ks, vq8, vs, mask=None, scale=None):

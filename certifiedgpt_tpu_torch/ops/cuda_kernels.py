@@ -65,11 +65,10 @@ _SIGNATURES = {
     "cgpt_quant_rows": (_P, _P, _P, _I64, _I32, _P),  # x, q, s, M, K
     "cgpt_quant_rows_f32": (_P, _P, _P, _I64, _I32, _P),  # x, q, s, M, K
     "cgpt_w8a8_epilogue": (_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _P),  # acc, lda, xs, ws, bias, out, M, N, out f32
-    "cgpt_int8_weight_matmul_workspace": (_I32, _I32, _I32, _I32, _P),  # M, N, K, x f32, &bytes
+    "cgpt_int8_weight_matmul_plan": (_I32, _I32, _I32, _P),  # M, N, K, int[7] out
     "cgpt_int8_weight_matmul": (
         _P, _I64, _P, _I64, _P, _P, _I64,  # x, ldx, kernel, its channel stride, scale, out, ldo
         _I32, _I32, _I32, _I32,  # M, N, K, x f32
-        _P, _I64,  # workspace and its bytes
         _P,  # stream
     ),
     "cgpt_attention_kv8": (
@@ -79,7 +78,7 @@ _SIGNATURES = {
         _P, _I64, _I64, _I64,  # mask and its (b, s, t) strides
         _P,  # out
         _I32, _I32, _I32, _I32, _I32, _I32,  # B, Sq, H, Hkv, T, Dh
-        _F32, _I32, _I32,  # scale, warps, q f32
+        _F32, _I32, _I32, _I32,  # scale, warps, q f32, tensor-core instance
         _P,  # stream
     ),
 }

@@ -34,8 +34,6 @@ kernel and its scale. The kernels and scales get no gradient.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -347,31 +345,20 @@ def _int8_weight_forward_plain(x, kernel_q, scale):
     return (acc * scale).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _weight_only_workspace(m: int, n: int, k: int, x_f32: int, device_index: int) -> int:
-    """Bytes of workspace the weight-only launcher names for a shape (it
-    plans the split K), asked once a shape: a decode step makes seven such
-    products a layer and is held by the host's launches."""
-    nbytes = ctypes.c_longlong(0)
-    cuda_kernels.check(cuda_kernels.build().lib.cgpt_int8_weight_matmul_workspace(
-        m, n, k, x_f32, ctypes.byref(nbytes)), "int8_weight_forward")
-    return nbytes.value
-
-
 def int8_weight_forward(x: torch.Tensor, kernel_q: torch.Tensor,
                         scale: torch.Tensor) -> torch.Tensor:
     """``x [..., K] @ kernel_q [K, N]`` accumulated in f32, times the
     channel scales, in x's dtype: the weight-only int8 product's forward.
 
     Replaces the weight-only branch of the JAX package's dense
-    (certifiedgpt_tpu/models/layers.py:62-82), where XLA feeds the int8 ->
+    (certifiedgpt_tpu/models/layers.py:61-76), where XLA feeds the int8 ->
     bf16 convert into the matrix unit. CPU tensors take
     ``_int8_weight_forward_plain``; bf16 and f32 CUDA tensors launch
     ``cgpt_int8_weight_matmul`` (csrc/int8_weight_matmul.cu), which reads
-    the column-major int8 kernel once and makes no float copy of it. The
-    launcher splits K where the output tiles leave SMs idle and names the
-    workspace it needs for that, which is taken from PyTorch's allocator on
-    the call's stream."""
+    the column-major int8 kernel once and makes no float copy of it. A call
+    is one kernel launch: where the launcher splits K, the splits of a tile
+    form a thread-block cluster and sum their partials in shared memory, so
+    no workspace and no memset go with it."""
     if _device_kind(x) == "cpu":
         return _int8_weight_forward_plain(x, kernel_q, scale)
     k, n = kernel_q.shape
@@ -392,13 +379,9 @@ def int8_weight_forward(x: torch.Tensor, kernel_q: torch.Tensor,
     if x2.data_ptr() % 16:
         x2 = x2.clone()
     ws = scale.float().contiguous()
-    x_f32 = int(x.dtype == torch.float32)
-    nbytes = _weight_only_workspace(m, n, k, x_f32, x.device.index)
-    workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     code = cuda_kernels.build().lib.cgpt_int8_weight_matmul(
         x2.data_ptr(), k, kernel_q.data_ptr(), kernel_q.stride(1), ws.data_ptr(),
-        out.data_ptr(), n, m, n, k, x_f32, None if workspace is None else workspace.data_ptr(),
-        nbytes, cuda_kernels.stream_of(x))
+        out.data_ptr(), n, m, n, k, int(x.dtype == torch.float32), cuda_kernels.stream_of(x))
     int8_weight_forward.launches += 1
     cuda_kernels.check(code, "int8_weight_forward")
     return out.reshape(*x.shape[:-1], n)

@@ -11,7 +11,9 @@ Phases, each of which exits non-zero on any failure:
    TF32 off for float32 matmuls and convolutions.
 2. Build: compiles the CUDA kernels from ``certifiedgpt_tpu_torch/csrc/``
    (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary
-   (registers, spills, shared memory, performance warnings).
+   (registers, spills, shared memory, performance warnings), with a line of
+   registers and spills for each instance of the weight-only and int8-KV
+   attention kernels (also in their ``kernels`` records, ``ptxas``).
 3. Kernels: calls each of the ten kernels' wrappers at the main path's
    shapes, holds the result against its plain PyTorch version on the same
    card, and times the kernel, the plain version and, where one PyTorch call
@@ -42,11 +44,14 @@ Phases, each of which exits non-zero on any failure:
    1 and 8 rows, bit for bit; the weight-only int8 product at 96, 8, 1
    and 9216 rows of the decoder's three weight shapes, within
    ``INT8_MATMUL_REL_LIMIT`` (relative Frobenius), timed also against the
-   bf16 copy + matmul it replaces and cuBLAS on a bf16 weight; attention
+   bf16 copy + matmul it replaces and cuBLAS on a bf16 weight, its bf16
+   instances' SASS holding no I2F (``sass_count.py``); attention
    over the int8 KV cache at the certify decode and prefill, eval's and a
    caption's decode and grouped-query heads, within the attention limits,
    a fully masked row giving zeros, timed also against
-   ``scaled_dot_product_attention`` on a dequantized bf16 cache.
+   ``scaled_dot_product_attention`` on a dequantized bf16 cache; the
+   prefill's launch (the kernel's tensor-core instance) is a record of its
+   own, ``attention_kv8_prefill``, whose launches phase 4 counts apart.
 4. Main path: builds MiniGPT-4 at full width (EVA ViT-g/14 at 448 px with 39
    layers, the 12-layer Q-Former, a 32-layer 4096-wide Vicuna-7B-shaped
    decoder) through ``MiniGPT4Model.from_config`` from the model block of
@@ -248,6 +253,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -374,7 +380,7 @@ PROFILE_GROUPS = (
     ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel", "quant_rows_kernel")),
     ("W8A8 epilogue kernel", ("w8a8_epilogue_kernel",)),
     ("weight-only int8 kernel", ("int8_weight_matmul_kernel",)),
-    ("int8-KV attention kernel", ("attention_kv8_kernel",)),
+    ("int8-KV attention kernel", ("attention_kv8_kernel", "attention_kv8_mma_kernel")),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
     ("reductions", ("reduce_kernel",)),
 )
@@ -494,7 +500,37 @@ def phase_device(torch) -> str:
     return card
 
 
+def ptxas_resources(log_text: str) -> dict:
+    """Each entry function's registers and spill bytes from ``ptxas -v``'s
+    output: {mangled name: (registers, spill store bytes, spill load bytes)}."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
+    return out
+
+
+# the kernels whose registers and spills get a [build] line of their own and
+# go into their `kernels` records (name part of the mangled entry -> record)
+PTXAS_KERNELS = (("int8_weight_matmul_kernel", "int8_weight_matmul"),
+                 ("attention_kv8_mma_kernel", "attention_kv8_prefill"),
+                 ("attention_kv8_kernel", "attention_kv8"))
+
+
 def phase_build():
+    """Build the kernels, log ptxas' summary; returns {record name:
+    {mangled kernel: {registers, spill_stores, spill_loads}}} for
+    ``PTXAS_KERNELS``."""
     from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     t0 = time.perf_counter()
@@ -506,6 +542,16 @@ def phase_build():
     for line in build.log.splitlines():
         if line.startswith("==") or any(w in line for w in ("Used", "spill", "arning", "wgmma")):
             log(f"[build] {line.strip()}")
+    resources = {}
+    for fn, (regs, stores, loads) in sorted(ptxas_resources(build.log).items()):
+        part = next((p for p in PTXAS_KERNELS if p[0] in fn), None)
+        if part is None:
+            continue
+        resources.setdefault(part[1], {})[fn] = {"registers": regs, "spill_stores": stores,
+                                                  "spill_loads": loads}
+        log(f"[build] {part[1]}: {fn}: {regs} registers, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads")
+    return resources
 
 
 # ----------------------------------------------------------------------
@@ -1005,6 +1051,23 @@ INT8_MATMUL_REL_LIMIT = 2e-3
 WEIGHT_ONLY_SHAPES = ((LLAMA_WIDTH, LLAMA_WIDTH, 4), (LLAMA_WIDTH, LLAMA_MLP, 2),
                       (LLAMA_MLP, LLAMA_WIDTH, 1))
 WEIGHT_ONLY_ROWS = (MC_BATCH, EVAL_BATCH, 1, PREFILL_ROWS)
+# the fields of cgpt_int8_weight_matmul_plan's answer
+WEIGHT_ONLY_PLAN = ("rows", "row_tiles", "channel_tiles", "splits", "k_per_split",
+                    "resident_blocks", "stages")
+
+
+def weight_only_plan(m: int, k: int, n: int) -> dict:
+    """The weight-only launcher's plan for an [m, k] x [k, n] product: rows
+    a block, row and channel tiles, K splits (the cluster size), K values a
+    split, blocks the card holds at once in such clusters, ring stages."""
+    import ctypes
+
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    plan = (ctypes.c_int * len(WEIGHT_ONLY_PLAN))()
+    cuda_kernels.check(cuda_kernels.build().lib.cgpt_int8_weight_matmul_plan(m, n, k, plan),
+                       "int8_weight_matmul plan")
+    return dict(zip(WEIGHT_ONLY_PLAN, plan))
 
 
 def check_int8_weight(torch, device):
@@ -1044,13 +1107,14 @@ def check_int8_weight(torch, device):
                  "library_graph_ms": graph_ms(torch, lambda: torch.matmul(x, w16))}
             t["bound_ms"], by = bound_ms(1.0 * k * n + 2 * m * k + 2 * m * n + 4 * n,
                                          2.0 * m * k * n, PEAK_BF16_FLOPS)
+            t["plan"] = weight_only_plan(m, k, n)
             log(f"[kernel] int8_weight_matmul [{m}, {k}] x [{k}, {n}]: relative error "
                 f"(Frobenius) {rel:.3e}, max abs {err:.3e}; {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, bf16 copy + matmul (replaced) {t['replaced_ms']:.4f} ms, "
                 f"cuBLAS on a bf16 weight {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
                 f"({by}); from a CUDA graph (the card alone): kernel {t['graph_ms']:.4f} ms "
                 f"({1e-6 * k * n / t['graph_ms']:.1f} GB/s of weights), cuBLAS "
-                f"{t['library_graph_ms']:.4f} ms")
+                f"{t['library_graph_ms']:.4f} ms; plan {json.dumps(t['plan'])}")
             if not (math.isfinite(rel) and rel < INT8_MATMUL_REL_LIMIT):
                 fail(f"int8_weight_matmul disagrees with its plain version at [{m}, {k}] x "
                      f"[{k}, {n}] (relative {rel:.3e})")
@@ -1065,12 +1129,36 @@ def check_int8_weight(torch, device):
         del kq, w16
         torch.cuda.empty_cache()
     record.update(layer)
+    record["sass_i2f"] = check_no_i2f()
     log(f"[kernel] int8_weight_matmul: a decode layer's seven products at {MC_BATCH} rows "
         f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, replaced "
         f"{layer['replaced_ms']:.4f} ms, cuBLAS on bf16 weights {layer['library_ms']:.4f} ms, "
         f"bound {layer['bound_ms']:.4f} ms; from CUDA graphs: kernel {layer['graph_ms']:.4f} ms, "
         f"cuBLAS {layer['library_graph_ms']:.4f} ms")
     return record
+
+
+def check_no_i2f() -> dict:
+    """I2F/I2FP instructions in each bf16 instance of the weight-only
+    kernel (``cuobjdump -sass``): its conversion is byte permutes and an f32
+    subtraction, so there must be none; the tensor-core attention's
+    instances are counted beside it."""
+    import sass_count
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    text = sass_count.sass_of(cuda_kernels.build().path)
+    found = {}
+    for part in ("int8_weight_matmul_kernelILi", "attention_kv8_mma_kernel"):
+        counts = sass_count.opcode_counts(text, part)
+        if not counts:
+            fail(f"no SASS function matching {part!r} in the built library")
+        for fn, ops in counts.items():
+            found[fn] = sum(n for op, n in ops.items() if op.startswith("I2F"))
+            log(f"[kernel] SASS {fn}: {sum(ops.values())} instructions, {found[fn]} I2F/I2FP")
+    bad = {fn: n for fn, n in found.items() if "int8_weight" in fn and n}
+    if bad:
+        fail(f"the weight-only kernel converts with I2F: {bad}")
+    return found
 
 
 # attention over the int8 cache: the certify decode and prefill, eval's and a
@@ -1117,8 +1205,9 @@ def check_attention_kv8(torch, device):
     replaces) at ``KV8_CASES``, within ``KV8_REL_LIMIT`` (relative
     Frobenius) and 2e-2 absolute, a fully masked row giving zeros; timed
     against the plain version and ``scaled_dot_product_attention`` on the
-    cache dequantized to bf16 beforehand. The record's times are one decode
-    launch (a layer a step) at the certify batch."""
+    cache dequantized to bf16 beforehand. Returns two records: one decode
+    launch (a layer a step, the warp-a-row instance) at the certify batch,
+    and one prefill launch (a layer a chunk, the tensor-core instance)."""
     import torch.nn.functional as F
 
     from certifiedgpt_tpu_torch.ops import attention as A
@@ -1164,10 +1253,13 @@ def check_attention_kv8(torch, device):
             record["shapes"][name] = tm
             if name == "decode":
                 record.update(tm, replaced_ms=tm["plain_ms"], bound_by=by)
+            else:
+                prefill = dict(tm, replaced_ms=tm["plain_ms"], bound_by=by, max_abs_err=err,
+                               max_rel_err=rel)
             del kd, vd, qh
         del args, q, kq, ks, vq, vs, mask, out, ref
         torch.cuda.empty_cache()
-    return record
+    return record, prefill
 
 
 # the f32 instances (f32 configurations: f32 activations, int8 kernels and
@@ -1287,7 +1379,8 @@ def phase_kernels(torch, device):
     records["noisy_tile_kernel"] = check_noise(torch, device)
     records["w8a8_epilogue"] = check_w8a8_epilogue(torch, device)
     records["int8_weight_matmul"] = check_int8_weight(torch, device)
-    records["attention_kv8"] = check_attention_kv8(torch, device)
+    records["attention_kv8"], records["attention_kv8_prefill"] = check_attention_kv8(torch,
+                                                                                     device)
     records["quant_rows"] = check_quant_rows(torch, device)
     check_f32_instances(torch, device, records)
     return records
@@ -1311,8 +1404,11 @@ KERNELS = [
     ("w8a8_epilogue", "certifiedgpt_tpu_torch/csrc/w8a8_epilogue.cu",
      "certifiedgpt_tpu/ops/quantization.py:68", "certify flash_cls"),
     ("int8_weight_matmul", "certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu",
-     "certifiedgpt_tpu/models/layers.py:62", "certify flash_cls"),
+     "certifiedgpt_tpu/models/layers.py:61", "certify flash_cls"),
     ("attention_kv8", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
+     "certifiedgpt_tpu/ops/attention.py:76", "certify flash_cls"),
+    # its tensor-core instance, which the prefill runs
+    ("attention_kv8_prefill", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
      "certifiedgpt_tpu/ops/attention.py:76", "certify flash_cls"),
     ("quant_rows", "certifiedgpt_tpu_torch/csrc/row_quant.cu",
      "certifiedgpt_tpu/ops/quantization.py:52", "certify flash_cls"),
@@ -1394,8 +1490,11 @@ def reset_counts():
     from certifiedgpt_tpu_torch.models import minigpt4 as M
     from certifiedgpt_tpu_torch.ops.flash_attention import _cls_query_row
 
+    from certifiedgpt_tpu_torch.ops.attention import multi_head_attention_kv8
+
     for fn in wrappers().values():
         fn.launches = 0
+    multi_head_attention_kv8.tensor_core_launches = 0
     _cls_query_row.calls = 0
     M.generate.decode_steps = 0
 
@@ -1480,12 +1579,26 @@ def phase_main_path(torch, device, card):
         f"card during the run: {card_state.summary()}")
     log(f"[main] launches {json.dumps(launches)}")
     check_counts("certify flash_cls", launches, PER_CHUNK["flash_cls"], chunks, steps)
+    launches["attention_kv8_prefill"] = check_prefill_instance(chunks)
     check_row(row, CLOCKED_RUN_CFG)
     decode_costs(torch, model, device)
     check_outputs(torch, model, device)
     phase_profile(torch, model, image)
     return model, image, launches, {"wall_seconds": wall, "stage_seconds": stages,
                                     "chunks": chunks, "peak_gb": peak_gb, "row": row}
+
+
+def check_prefill_instance(chunks: int) -> int:
+    """The int8-KV attention's launches in the run that took its tensor-core
+    instance: every prefill launch (one a layer a chunk), no decode launch."""
+    from certifiedgpt_tpu_torch.ops.attention import multi_head_attention_kv8
+
+    n = multi_head_attention_kv8.tensor_core_launches
+    log(f"[main] attention_kv8 tensor-core (prefill) instance: {n} launches")
+    if n != LLAMA_DEPTH * chunks:
+        fail(f"the int8-KV attention's tensor-core instance launched {n} times, expected "
+             f"{LLAMA_DEPTH} x {chunks} chunks (the prefill's)")
+    return n
 
 
 def stage_seconds(clock, wall):
@@ -4271,9 +4384,11 @@ def main() -> int:
 
     card = phase_device(torch)
     device = torch.device("cuda", 0)
-    phase_build()
+    resources = phase_build()
     with torch.no_grad():
         records = phase_kernels(torch, device)
+        for name, kernels in resources.items():
+            records[name]["ptxas"] = kernels
         if sys.argv[1:] == ["--kernels"]:  # phases 1-3 only, for work on a kernel
             print(json.dumps({"kernel_phase": records}), flush=True)
             return 0
@@ -4327,10 +4442,10 @@ def main() -> int:
         log(f"[kernel] {name}: {rec['ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
             f"({rec['bound_by']}), plain {rec['plain_ms']:.3f} ms, library {lib_ms}; "
             f"{n} launches on its path ({path}); through the launcher "
-            f"{json.dumps({m: c[name] for m, c in cli_launches.items()})}")
+            f"{json.dumps({m: c.get(name) for m, c in cli_launches.items()})}")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
-                        "cli_launches": {m: c[name] for m, c in cli_launches.items()},
+                        "cli_launches": {m: c.get(name) for m, c in cli_launches.items()},
                         **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Count a CUDA kernel's SASS instructions by class, from ``cuobjdump -sass``.
 
 A measuring aid of ``chip_smoke.py`` and ``scripts/bench_torch_noise.py``;
-the package does not use it. It counts one trip of a kernel's innermost
-loop: for the noise kernel (``certifiedgpt_tpu_torch/csrc/noise.cu``), one
+the package does not use it. It counts each opcode over a kernel's
+instances (``opcode_counts``: the weight-only int8 kernel must carry no
+``I2F``), and one trip of a kernel's innermost loop: for the noise kernel
+(``certifiedgpt_tpu_torch/csrc/noise.cu``), one
 trip of its image loop writes eight elements of one image, so the count over
 eight is what an element costs in issue slots. The time those take at 128
 instructions a clock an SM is an issue-rate figure, not a bound. Needs the
@@ -59,6 +61,31 @@ def parse(text: str, function: str):
     return insts
 
 
+def sass_of(lib_path) -> str:
+    """``cuobjdump -sass`` of a built library."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def opcode_counts(text: str, function: str):
+    """{function name: {opcode base: count}} of every function in ``cuobjdump
+    -sass`` output whose name contains ``function`` (each instance of a
+    template, say)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            found = line.split("Function :")[1].strip()
+            name = found if function in found else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if name and m:
+            counts = out.setdefault(name, {})
+            base = m.group(1).split(".")[0]
+            counts[base] = counts.get(base, 0) + 1
+    return out
+
+
 def _branch_target(op: str, args: str):
     """The address a ``BRA`` jumps to, or None for any other instruction."""
     if not op.startswith("BRA"):
@@ -95,10 +122,7 @@ def loop_trip(insts):
 def noise_trip(lib_path):
     """One trip of the noise kernel's image loop in a built library, counted
     by class, and its instructions an element."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
-                         text=True, check=True).stdout
-    trip = loop_trip(parse(out, NOISE_KERNEL))
+    trip = loop_trip(parse(sass_of(lib_path), NOISE_KERNEL))
     if trip is None:
         raise RuntimeError(f"no image loop in the SASS of {NOISE_KERNEL!r} in {lib_path}")
     return trip, trip["all"] / NOISE_ELEMS_PER_TRIP

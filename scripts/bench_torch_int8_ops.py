@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Where the time of the weight-only int8 product and of the int8-KV
+attention's prefill goes, on one NVIDIA GPU.
+
+Times a decode layer's seven weight-only products (q/k/v/o at 4096 x 4096,
+gate/up at 4096 x 11008, down at 11008 x 4096; ``int8_weight_forward``) at
+96, 8 and 1 rows, and the int8-KV attention's prefill launch (q [96, 96,
+32, 128] over a [96, 106, 32, 128] int8 cache with the decoder's causal,
+left-padded mask; ``multi_head_attention_kv8``), each replayed from a CUDA
+graph (the card's time alone), first as built from
+``certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu`` and
+``csrc/attention_kv8.cu`` and then with one part compiled out or a design
+alternative: the tensor-core products, the int8 -> bf16 conversion, the
+weight kernel's x fragments, its whole compute loop (the copies stay), its
+cluster reduction, the split of K, a deeper ring, eight warps a block; the
+attention's softmax, its mask reads, its q copies and output stores. A variant computes wrong
+values; only its time means anything.
+
+Each variant is a copy of the source with its edits applied, built by
+``nvcc`` into a library of its own; all builds run in parallel, then every
+variant is timed through the package's wrappers in one process, in turns, so
+that their times compare on one card:
+
+    python3 scripts/bench_torch_int8_ops.py            # all variants
+    python3 scripts/bench_torch_int8_ops.py weight:whole attention:whole
+
+Prints one line per variant with the card's name and power limit, the
+times, the weights' rate and share of the byte bound (3.35 TB/s), and
+ptxas' registers of the variant's kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+PEAK_BYTES_PER_S = 3.35e12
+# cgpt_int8_weight_matmul_plan's fields
+PLAN_FIELDS = ("rows a block", "row tiles", "channel tiles", "splits", "K a split",
+               "resident blocks", "stages")
+# (K, N, products a decoder layer) of Vicuna-7B
+LAYER = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))
+ROWS = (96, 8, 1)
+# the certify prefill: (batch, query rows, heads, cached positions, head_dim)
+PREFILL = (96, 96, 32, 106, 128)
+
+# edits that apply to both sources (the same helpers in each)
+_NO_MMA = [(r'asm volatile\(\n\s*"mma\.sync.*?"r"\(b1\)\);',
+            "c[0] = __fadd_rn(c[0], __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1) "
+            "& 0x3f800000u));")]
+_NO_CONVERT = [(r"(void bf16x4_of\(uint32_t w, uint32_t& lo, uint32_t& hi\) \{)",
+                r"\1\n  lo = w;\n  hi = w ^ 0x00800080u;\n  return;")]
+_DEEP_RING = [(r"kRingBytes = 110 \* 1024;", "kRingBytes = 220 * 1024;"),
+              (r"__launch_bounds__\(kThreads, 2\)", "__launch_bounds__(kThreads, 1)")]
+WEIGHT_VARIANTS = {
+    "whole": [],
+    "no_mma": _NO_MMA,
+    "no_convert": _NO_CONVERT,
+    "no_x_frags": [(r"const uint2 xb =\s*\*reinterpret_cast<const uint2\*>\(xt[^;]*\);",
+                    "const uint2 xb = make_uint2(af[0][j & 3], af[1][(j + 1) & 3]);")],
+    "copies_only": [(r"(    cp_async_commit\(\);\n)(    const unsigned char\* wt = )",
+                     r"\1    if (a.M > 0) continue;\n\2")],
+    "no_reduction": [(r"(  cp_async_wait<0>\(\);\n  __syncthreads\(\);[^\n]*\n)",
+                      r"\1  if (acc[0][0][0] != 1.2345f) return;\n")],
+    "splits_1": [(r"kMaxSplits = 3;", "kMaxSplits = 1;")],
+    "splits_2": [(r"kMaxSplits = 3;", "kMaxSplits = 2;")],
+    "splits_8": [(r"kMaxSplits = 3;", "kMaxSplits = 8;")],
+    "deep_ring": _DEEP_RING,
+    "warps_8": _DEEP_RING + [(r"kWarps = 4;", "kWarps = 8;")],
+    # the weight copies ask the L2 for the 256 bytes around them, or only
+    # for their own 16
+    "l2_256": [(r"\.L2::128B \[", ".L2::256B [")],
+    "no_line_fetch": [(r"cp_async16_line\(stage \+ w_dst", "cp_async16(stage + w_dst")],
+    # the reduction reads its own block's partials only: no distributed
+    # shared memory traffic
+    "local_reduction": [(r'asm volatile\("mapa\.shared::cluster\.u32 %0, %1, %2;" : "=r"\(remote\) : '
+                         r'"r"\(local\), "r"\(rank\)\);', "remote = local + 0 * rank;"),
+                        (r"ld\.shared::cluster\.v4\.f32", "ld.shared.v4.f32")],
+    # each block walks its K tiles from a point of its own (blockIdx.x)
+    "rotate": [(r"(  const int tiles = [^\n]*\n)", r"\1  const int rot = blockIdx.x % tiles;\n"),
+               (r"k_begin \+ s \* kBK", "k_begin + ((s + rot) % tiles) * kBK"),
+               (r"k_begin \+ next \* kBK", "k_begin + ((next + rot) % tiles) * kBK")],
+    # x read by the first column of blocks only: the L2 traffic of x gone
+    "x_once": [(r"(x\[i\] = r < Tile<MT>::kRows && m0 \+ r < a\.M)", r"\1 && blockIdx.x == 0")],
+}
+ATTENTION_VARIANTS = {
+    "whole": [],
+    "no_mma": [(r"(void mma_bf16_if\(bool on, float \(&c\)\[4\], const uint32_t \(&a\)\[4\],\s*"
+                r"uint32_t b0, uint32_t b1\) \{)",
+                r"\1\n  c[0] = __fadd_rn(c[0], __uint_as_float((a[0] ^ b0 ^ b1) & 0x3f800000u));"
+                r"\n  return;")],
+    "no_convert": _NO_CONVERT,
+    "no_softmax": [(r"exp_sfu\(__fsub_rn\(s\[nt\]\[e\], mx\[e >> 1\]\)\)", "s[nt][e]")],
+    "no_rows": [(r"    // the lane's mask bits of rows gr \(lo\).*?(    // the output rows, staged)",
+                 r"    const RowPos first = row_pos(16 * rt, a.Sq);\n"
+                 r"    float o[kMmaDh / 8][4] = {};\n\1")],
+    "no_q_loads": [(r"src, in \? 16 : 0\);", "src, 0);")],
+    "no_out_stores": [(r"\*reinterpret_cast<uint4\*>\(dst\) =\s*\*reinterpret_cast<const uint4\*>\(qt \+ "
+                       r"r \* kMmaRowBytes \+ 16 \* part\);",
+                       "const uint4 v = *reinterpret_cast<const uint4*>(qt + r * kMmaRowBytes + "
+                       "16 * part); if (v.x == 0x12345678u) *reinterpret_cast<uint4*>(dst) = v;")],
+    "slab_only": [(r"  \} else \{\n    const uint8_t\* grow =.*?\n  \}\n\}", "  }\n}")],
+    # without the instance for T <= 112 (the certify prefill's 106 then
+    # takes the one for T <= 128)
+    "no_nt14": [(r"  \} else if \(T <= 112\) \{\n    launch_mma<14>\(a, warps, smem, st\);\n", "")],
+    "no_mask_loads": [(r"\(srow\[8 \* nt \+ e\] != 0\)", "true")],
+}
+# the timeline variants: thread 0 of each block writes %globaltimer at its
+# phases' ends into g_stamps (4 a block), read back by cgpt_debug_stamps
+_STAMPS = (r"(#include <stdint\.h>\n)", r"""\1
+__device__ unsigned long long g_stamps[4 * 65536];
+__device__ __forceinline__ unsigned long long stamp_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+extern "C" int cgpt_debug_stamps(void* host, long long bytes) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, bytes));
+}
+""")
+WEIGHT_VARIANTS["timeline"] = [
+    _STAMPS,
+    (r"(  const uint32_t base = smem_u32\(smem\);\n)",
+     r"\1  const unsigned long long t_start = stamp_now();\n"),
+    (r"(  cp_async_wait<0>\(\);\n  __syncthreads\(\);  // every warp is done with the ring)",
+     r"  const unsigned long long t_loop = stamp_now();\n\1"),
+    (r"(  cluster_sync\(\);  // every split's partial tile is in place\n)",
+     r"\1  const unsigned long long t_sync = stamp_now();\n"),
+    (r"(  if \(splits > 1\) cluster_sync\(\);[^\n]*\n)\}",
+     r"\1  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * (blockIdx.x + "
+     r"gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)); st[0] = t_start; st[1] = t_loop; "
+     r"st[2] = t_sync; st[3] = stamp_now(); }\n}"),
+]
+ATTENTION_VARIANTS["timeline"] = [
+    _STAMPS,
+    (r"(  unsigned char\* smem = mma_smem;\n)",
+     r"\1  const unsigned long long t_start = stamp_now();\n"),
+    (r"(  for \(int rt = warp; rt < row_tiles; rt \+= warps\) \{)",
+     r"  const unsigned long long t_staged = stamp_now();\n\1"),
+    (r"(    __syncwarp\(\);  // the tile is out before the next row tile's q lands\n  \}\n)\}",
+     r"\1  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * blockIdx.x; "
+     r"st[0] = t_start; st[1] = t_staged; st[2] = stamp_now(); st[3] = st[2]; }\n}"),
+]
+SOURCES = {"weight": ("int8_weight_matmul.cu", WEIGHT_VARIANTS, "cgpt_int8_weight_matmul"),
+           "attention": ("attention_kv8.cu", ATTENTION_VARIANTS, "cgpt_attention_kv8")}
+_ERROR_STRING = """#include <cuda_runtime.h>
+extern "C" const char* cgpt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+"""
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def graph_ms(torch, fn, reps: int = 10) -> float:
+    """Milliseconds of ``fn`` replayed from a CUDA graph of ``reps`` calls
+    (the best of five replays, over ``reps``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del graph
+    return best
+
+
+class _Build:
+    """What the wrappers read from ``cuda_kernels.build()``: the library."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+
+def build_variants(names, tmp: Path):
+    """Edit and compile each (source, variant) once, all in parallel;
+    returns {(source, variant): (library, ptxas register lines)}."""
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    errors = tmp / "error_string.cu"
+    errors.write_text(_ERROR_STRING)
+    procs = {}
+    for src, name in names:
+        file, variants, _entry = SOURCES[src]
+        text = (cuda_kernels.CSRC / file).read_text()
+        for pattern, repl in [e for part in name.split("+") for e in variants[part]]:
+            text, n = re.subn(pattern, repl, text, flags=re.S)
+            if n == 0:
+                raise SystemExit(f"{src}:{name}: the edit {pattern!r} matched nothing")
+        unit = tmp / f"{src}_{name}.cu"
+        unit.write_text(text)
+        lib = tmp / f"lib{src}_{name}.so"
+        procs[(src, name)] = (lib, subprocess.Popen(
+            [cuda_kernels._nvcc(), *cuda_kernels.NVCC_FLAGS, "-shared", str(unit), str(errors),
+             "-o", str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for key, (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on variant {key}:\n{out}")
+        lib = ctypes.CDLL(str(path))
+        entry = SOURCES[key[0]][2]
+        getattr(lib, entry).argtypes = cuda_kernels._SIGNATURES[entry]
+        getattr(lib, entry).restype = ctypes.c_int
+        lib.cgpt_error_string.argtypes = (ctypes.c_int,)
+        lib.cgpt_error_string.restype = ctypes.c_char_p
+        regs = [re.sub(r".*Used ", "", line) for line in out.splitlines() if "Used" in line]
+        built[key] = (lib, regs)
+    return built
+
+
+def weight_cases(torch, dev):
+    """{rows: a call of a decoder layer's seven products}, and the layer's
+    weight bytes."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    weights = []  # seven weights of their own (202 MB, more than the L2 holds)
+    for k, n, per_layer in LAYER:
+        for _ in range(per_layer):
+            kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g,
+                                                    device=dev, dtype=torch.int8))
+            weights.append((kq, torch.rand(n, generator=g, device=dev) * 1e-3))
+    calls = {}
+    for m in ROWS:
+        xs = {k: torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+              for k in {k for k, _n, _p in LAYER}}
+
+        def layer(xs=xs):
+            for kq, scale in weights:
+                Q.int8_weight_forward(xs[kq.shape[0]], kq, scale)
+
+        calls[m] = layer
+    return calls, sum(k * n * p for k, n, p in LAYER)
+
+
+def product_cases(torch, dev):
+    """(label, call, (M, K, N)) of single products for the timeline."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = []
+    for m, k, n in ((96, 4096, 4096), (96, 4096, 11008), (96, 11008, 4096), (1, 4096, 4096)):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                                                dtype=torch.int8))
+        scale = torch.rand(n, generator=g, device=dev)
+        out.append((f"[{m}, {k}] x [{k}, {n}]",
+                    lambda x=x, kq=kq, scale=scale: Q.int8_weight_forward(x, kq, scale),
+                    (m, k, n)))
+    return out
+
+
+def prefill_case(torch, dev):
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    b, sq, h, t, d = PREFILL
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = Q.quantize_rows(torch.randn((b, t, h, d), generator=g, device=dev)
+                             .to(torch.bfloat16))
+    vq, vs = Q.quantize_rows(torch.randn((b, t, h, d), generator=g, device=dev)
+                             .to(torch.bfloat16))
+    valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+    valid[:, :2] = False
+    mask = ((torch.arange(t, device=dev)[None, :] <= torch.arange(sq, device=dev)[:, None])
+            [None, None] & valid[:, None, None])
+    return lambda: A.multi_head_attention_kv8(q, kq, ks, vq, vs, mask)
+
+
+def blocks(lib, mkn) -> int:
+    """Blocks the launcher plans for an (M, K, N) product."""
+    m, k, n = mkn
+    plan = (ctypes.c_int * 7)()
+    lib.cgpt_int8_weight_matmul_plan.argtypes = (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+    if lib.cgpt_int8_weight_matmul_plan(m, n, k, plan) != 0:
+        raise SystemExit("cgpt_int8_weight_matmul_plan failed")
+    return plan[1] * plan[2] * plan[3]
+
+
+def plans(lib):
+    """The launcher's plan for each product of a decoder layer at ``ROWS``."""
+    lib.cgpt_int8_weight_matmul_plan.argtypes = (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+    out = []
+    for m in ROWS:
+        for k, n, _p in LAYER:
+            plan = (ctypes.c_int * 7)()
+            if lib.cgpt_int8_weight_matmul_plan(m, n, k, plan) != 0:
+                raise SystemExit("cgpt_int8_weight_matmul_plan failed")
+            out.append(f"weight:plan [{m}, {k}] x [{k}, {n}]: " + ", ".join(
+                f"{name} {v}" for name, v in zip(PLAN_FIELDS, plan)))
+    return out
+
+
+def timeline(torch, lib, call, blocks: int) -> str:
+    """One launch of ``call`` with the timeline variant: its blocks' phase
+    ends (%globaltimer, ns) summarized in microseconds."""
+    import numpy as np
+
+    call()
+    torch.cuda.synchronize()
+    call()
+    torch.cuda.synchronize()
+    stamps = np.zeros(4 * blocks, dtype=np.uint64)
+    lib.cgpt_debug_stamps.argtypes = (ctypes.c_void_p, ctypes.c_longlong)
+    if lib.cgpt_debug_stamps(stamps.ctypes.data, stamps.nbytes) != 0:
+        raise SystemExit("cgpt_debug_stamps failed")
+    st = stamps.reshape(blocks, 4).astype(np.int64)
+    st = st[st[:, 0] > 0]
+    t0 = st[:, 0].min()
+    us = (st - t0) / 1e3
+    parts = [f"{blocks} blocks, span {us[:, 3].max():.2f} us, starts {us[:, 0].min():.2f}-"
+             f"{us[:, 0].max():.2f} us"]
+    for i, name in ((1, "phase 1"), (2, "phase 2"), (3, "phase 3")):
+        d = us[:, i] - us[:, i - 1]
+        parts.append(f"{name} median {np.median(d):.2f} max {d.max():.2f} us")
+    return "; ".join(parts)
+
+
+def main() -> int:
+    import torch
+
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    if sys.argv[1:]:
+        names = [tuple(a.split(":", 1)) for a in sys.argv[1:]]
+    else:
+        names = [(src, v) for src, (_f, variants, _e) in SOURCES.items() for v in variants]
+    for src, name in names:  # a variant may join several with "+"
+        if src not in SOURCES or any(p not in SOURCES[src][1] for p in name.split("+")):
+            raise SystemExit(f"unknown variant {src}:{name}")
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA GPU")
+    smi = card()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        built = build_variants(names, Path(tmp))
+        layer_calls, layer_bytes = weight_cases(torch, dev)
+        prefill = prefill_case(torch, dev)
+        times = {}
+        for _ in range(2):  # two rounds, variants in turns
+            for key in names:
+                cuda_kernels.build = lambda lib=built[key][0]: _Build(lib)
+                if key[0] == "weight":
+                    for m, call in layer_calls.items():
+                        times.setdefault((key, m), []).append(graph_ms(torch, call))
+                else:
+                    times.setdefault((key, 0), []).append(graph_ms(torch, prefill))
+        lines = []
+        for key in names:
+            if "timeline" not in key[1].split("+"):
+                continue
+            cuda_kernels.build = lambda lib=built[key][0]: _Build(lib)
+            if key[0] == "weight":
+                lines += [f"weight:timeline {label} (phases: main loop, first cluster barrier, "
+                          f"reduction): {timeline(torch, built[key][0], call, blocks(lib, mkn))}"
+                          for label, call, mkn in product_cases(torch, dev)
+                          for lib in (built[key][0],)]
+            else:
+                b, _sq, h, _t, _d = PREFILL
+                lines.append(f"attention:timeline prefill (phases: staging, row tiles): "
+                             f"{timeline(torch, built[key][0], prefill, b * h)}")
+        if ("weight", "whole") in names:
+            lines += plans(built[("weight", "whole")][0])
+    for line in lines:
+        print(line, flush=True)
+    bound = layer_bytes / PEAK_BYTES_PER_S * 1e3
+    for key in names:
+        regs = "; ".join(built[key][1])
+        if key[0] == "weight":
+            parts = []
+            for m in ROWS:
+                ms = min(times[(key, m)])
+                parts.append(f"M={m} {ms:.4f} ms ({layer_bytes / ms * 1e-6:.0f} GB/s of "
+                             f"weights, {100 * bound / ms:.0f} % of the byte bound)")
+            print(f"weight:{key[1]}: a decode layer's seven products {', '.join(parts)} "
+                  f"[ptxas: {regs}] ({smi})", flush=True)
+        else:
+            print(f"attention:{key[1]}: the prefill launch {min(times[(key, 0)]):.4f} ms "
+                  f"[ptxas: {regs}] ({smi})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

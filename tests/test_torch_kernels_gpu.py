@@ -143,6 +143,18 @@ def test_sass_count_counts_one_trip_of_the_innermost_loop():
         10 * 96 * 448 * 448 * 3 / (128 * 132 * 1980e6) * 1e3)
 
 
+def test_sass_count_counts_opcodes_of_each_instance():
+    """Each function whose name holds the part, its opcodes by base (the
+    weight-only kernel's I2F check reads I2F and I2FP)."""
+    counts = sass_count.opcode_counts(_SASS, "noise_kernel")
+    assert set(counts) == {"_ZN12_GLOBAL__N_112noise_kernelILb1EEEvPKf",
+                           "_ZN12_GLOBAL__N_112noise_kernelILb0EEEvPKf"}
+    first = counts["_ZN12_GLOBAL__N_112noise_kernelILb1EEEvPKf"]
+    assert first["BRA"] == 4 and first["EXIT"] == 2 and sum(first.values()) == 17
+    assert counts["_ZN12_GLOBAL__N_112noise_kernelILb0EEEvPKf"] == {"EXIT": 1}
+    assert sass_count.opcode_counts(_SASS, "int8_weight_matmul_kernel") == {}
+
+
 def _assert_codes_close(got, want, share, scale_rtol):
     """Codes at most one step apart on at most ``share`` of the elements;
     scales within ``scale_rtol``."""
@@ -550,14 +562,16 @@ INT8_MATMUL_REL_LIMIT = 2e-3
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 8, 96, 130, 700])
+@pytest.mark.parametrize("m", [1, 8, 17, 96, 130, 700, 9216])
 @pytest.mark.parametrize("k,n", [(64, 24), (4096, 4096), (4096, 11008), (11008, 4096),
-                                 (1408, 200)])
+                                 (1408, 200), (4112, 136), (48, 8)])
 def test_int8_weight_matmul_matches_plain_on_gpu(cuda, m, k, n):
     """The weight-only product against its plain version (f32 sums of the
     same exact products) within INT8_MATMUL_REL_LIMIT, and against the sums
-    in f64: at the decode's rows (1, 8, 96), a second row tile (130), a
-    larger M (700), split K and not, N off the 128-column tile."""
+    in f64: at the decode's rows (1, 8, 96; 17, an instance of 32 rows
+    partly filled), a second row tile (130), a larger M (700) and the
+    prefill's 9216 rows, split K and not, K off the 64-value K tile (4112,
+    48), N a multiple of 8 off the 128-channel tile."""
     g = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
     kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=cuda,
@@ -611,11 +625,12 @@ def test_int8_weight_matmul_f32_matches_plain_on_gpu(cuda, m, k, n):
 
 
 @pytest.mark.gpu
-def test_int8_weight_matmul_split_k_on_two_streams_on_gpu(cuda):
-    """Split-K launches in flight on two streams at once keep their own tile
-    counters: every result equals the one of a launch alone."""
+@pytest.mark.parametrize("m", [8, 96])
+def test_int8_weight_matmul_split_k_on_two_streams_on_gpu(cuda, m):
+    """Split-K launches in flight on two streams at once share nothing:
+    every result equals the one of a launch alone."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn((8, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn((m, 4096), generator=g, device=cuda).to(torch.bfloat16)
     kq = Q.int8_kernel_layout(torch.randint(-127, 128, (4096, 4096), generator=g,
                                             device=cuda, dtype=torch.int8))
     scale = torch.rand(4096, generator=g, device=cuda) * 1e-2
@@ -628,6 +643,59 @@ def test_int8_weight_matmul_split_k_on_two_streams_on_gpu(cuda):
             outs.append(Q.int8_weight_forward(x, kq, scale))
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
+
+
+def _weight_only_case(m, k, n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                                            dtype=torch.int8))
+    return x, kq, torch.rand(n, generator=g, device="cuda") * 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 96])
+def test_int8_weight_matmul_in_a_cuda_graph_on_gpu(cuda, m):
+    """A decode layer's products captured in a CUDA graph (split K and
+    not) replay to the eager results, replay after replay."""
+    shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
+    cases = [_weight_only_case(m, k, n, seed) for seed, (k, n) in enumerate(shapes)]
+    eager = [Q.int8_weight_forward(*c) for c in cases]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        [Q.int8_weight_forward(*c) for c in cases]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [Q.int8_weight_forward(*c) for c in cases]
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+@pytest.mark.gpu
+def test_int8_weight_matmul_is_one_kernel_and_no_memset_on_gpu(cuda):
+    """Each call puts one operation on the card, the kernel: no memset of
+    split-K counters (the first two shapes split K, the third does not)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = [_weight_only_case(m, k, n, 5) for m, k, n in
+             ((96, 4096, 4096), (8, 11008, 4096), (9216, 4096, 1408))]
+    for c in cases:  # first calls: the build and the device queries
+        Q.int8_weight_forward(*c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in cases:
+            Q.int8_weight_forward(*c)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == len(cases), ops
+    assert all("int8_weight_matmul_kernel" in name for name in ops), ops
 
 
 #: relative Frobenius error of the int8-KV attention kernel against its
@@ -661,19 +729,29 @@ def _kv8_case(b, sq, h, h_kv, t, dh, offset, device, seed=0):
     (3, 1, 8, 2, 330, 321),  # grouped-query heads, eval's cache
     (2, 7, 8, 4, 40, 3),
     (2, 1, 4, 4, 1500, 1400),  # a long cache
+    (96, 96, 32, 32, 106, 0),  # the certify prefill
+    (3, 9, 8, 2, 77, 5),  # grouped heads (36 rows a kv head), T off the 16-key step
+    (2, 40, 8, 2, 200, 0),  # 160 rows a kv head (two row tiles a warp), 32 key tiles
+    (2, 33, 4, 4, 50, 10),  # T <= 64: 8 key tiles
+    (2, 12, 4, 4, 300, 280),  # several query rows over a cache past 256
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_attention_kv8_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, offset, dtype):
     """The kernel against its plain version within KV8_REL_LIMIT (relative
     Frobenius) and 2e-2 absolute, for bf16 and f32 queries: decode and
     prefill rows, grouped-query heads, a left-padded row, a long cache;
-    with no mask; and a fully masked row gives zeros, as the plain
-    version's guard does."""
+    with no mask and with one mask row for every query; and a fully masked
+    row gives zeros, as the plain version's guard does. bf16 queries of
+    several rows over at most 256 positions take the tensor-core instance,
+    the rest the warp-a-row one."""
     q, *cache = _kv8_case(b, sq, h, h_kv, t, 128, offset, cuda)
     args = (q.to(dtype), *cache)
     before = A.multi_head_attention_kv8.launches
+    before_tc = A.multi_head_attention_kv8.tensor_core_launches
     out = A.multi_head_attention_kv8(*args)
     assert A.multi_head_attention_kv8.launches == before + 1
+    tensor_cores = dtype == torch.bfloat16 and sq > 1 and t <= 256
+    assert A.multi_head_attention_kv8.tensor_core_launches == before_tc + tensor_cores
     ref = A._multi_head_attention_kv8_plain(*args)
     assert out.shape == ref.shape == (b, sq, h, 128) and out.dtype == dtype
     assert _rel(out, ref) < KV8_REL_LIMIT
@@ -685,6 +763,25 @@ def test_attention_kv8_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, offset, dty
     out = A.multi_head_attention_kv8(*args[:5], mask)
     assert not out[-1].any() and torch.isfinite(out).all()
     assert _rel(out, A._multi_head_attention_kv8_plain(*args[:5], mask)) < KV8_REL_LIMIT
+    # one mask row for every query ([B, 1, 1, T], a stride of 0): read from
+    # device memory by the tensor-core instance, not staged
+    pad = args[5][:, :, -1:]
+    out = A.multi_head_attention_kv8(*args[:5], pad)
+    assert _rel(out, A._multi_head_attention_kv8_plain(*args[:5], pad)) < KV8_REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_attention_kv8_prefill_takes_strided_queries_on_gpu(cuda):
+    """q as a view of the fused qkv product (head stride 3 * 128, an offset
+    row pointer) and a cache slice of a longer cache, as the decoder hands
+    them over: the tensor-core instance against the plain version."""
+    q, kq, ks, vq, vs, mask = _kv8_case(3, 20, 8, 8, 120, 128, 0, cuda, seed=4)
+    fused = torch.stack([q, q, q], dim=3).reshape(3, 20, 8 * 3, 128)[:, :, 1::3]
+    assert not fused.is_contiguous()
+    longer = [torch.cat([c, c[:, :8]], dim=1)[:, :120] for c in (kq, ks, vq, vs)]
+    out = A.multi_head_attention_kv8(fused, longer[0], longer[1], longer[2], longer[3], mask)
+    ref = A._multi_head_attention_kv8_plain(q, kq, ks, vq, vs, mask)
+    assert _rel(out, ref) < KV8_REL_LIMIT
 
 
 @pytest.mark.gpu
