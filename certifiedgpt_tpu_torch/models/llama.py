@@ -163,6 +163,9 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
 
     if cache is None:
         attn = A.multi_head_attention(q, k, v, mask)
+    elif cfg.kv_quant and s == 1:
+        # the decode step: the cache write and the attention in one launch
+        attn = A.decode_attention_kv8(q, k, v, cache, cache_offset, mask)
     elif cfg.kv_quant:
         at = slice(cache_offset, cache_offset + s)
         kq, ks = Q.quantize_rows(k)

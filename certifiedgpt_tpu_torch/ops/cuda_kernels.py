@@ -81,6 +81,17 @@ _SIGNATURES = {
         _F32, _I32, _I32, _I32,  # scale, warps, q f32, tensor-core instance
         _P,  # stream
     ),
+    "cgpt_attention_kv8_decode": (
+        _P, _I64, _I64,  # q and its (b, h) strides
+        _P, _P, _I64, _I64,  # the step's k, v and their (b, h) strides
+        _P, _P, _I64, _I64, _I64,  # the int8 cache k, v and their (b, t, h) strides
+        _P, _P, _I64, _I64, _I64,  # k_scale, v_scale and their (b, t, h) strides
+        _P, _I64, _I64,  # mask and its (b, t) strides
+        _P,  # out
+        _I32, _I32, _I32, _I32, _I32, _I32,  # B, H, Hkv, T, Dh, offset
+        _F32, _I32,  # scale, q f32
+        _P,  # stream
+    ),
 }
 
 

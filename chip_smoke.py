@@ -13,7 +13,8 @@ Phases, each of which exits non-zero on any failure:
    (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary
    (registers, spills, shared memory, performance warnings), with a line of
    registers and spills for each instance of the weight-only and int8-KV
-   attention kernels (also in their ``kernels`` records, ``ptxas``).
+   attention kernels and the decode's int8-KV kernel (also in their
+   ``kernels`` records, ``ptxas``).
 3. Kernels: calls each of the ten kernels' wrappers at the main path's
    shapes, holds the result against its plain PyTorch version on the same
    card, and times the kernel, the plain version and, where one PyTorch call
@@ -46,12 +47,23 @@ Phases, each of which exits non-zero on any failure:
    ``INT8_MATMUL_REL_LIMIT`` (relative Frobenius), timed also against the
    bf16 copy + matmul it replaces and cuBLAS on a bf16 weight, its bf16
    instances' SASS holding no I2F (``sass_count.py``); attention
-   over the int8 KV cache at the certify decode and prefill, eval's and a
-   caption's decode and grouped-query heads, within the attention limits,
-   a fully masked row giving zeros, timed also against
+   over the int8 KV cache at the certify prefill, eval's prefill (its
+   warp-a-row instance: a cache past 256 positions), eval's and a
+   caption's decode rows and grouped-query heads, within the attention
+   limits, a fully masked row giving zeros, timed also against
    ``scaled_dot_product_attention`` on a dequantized bf16 cache; the
    prefill's launch (the kernel's tensor-core instance) is a record of its
    own, ``attention_kv8_prefill``, whose launches phase 4 counts apart.
+   Then the decode step's kernel (``decode_attention_kv8``: the step's k
+   and v quantized into the cache and the attention over it, one launch)
+   at the certify decode, a caption's (batch 1), eval's, grouped-query
+   heads and a 2048-position cache: the cache's codes and scales bit for
+   bit its plain version's, the output within the attention limits, a
+   fully masked row giving zeros, its SASS holding no I2F; timed eager and
+   from a CUDA graph against its plain version, the sequence it replaced
+   (``quantize_rows`` of k and v, the four slice writes, the warp-a-row
+   attention launch) and ``scaled_dot_product_attention`` on a dequantized
+   bf16 cache.
 4. Main path: builds MiniGPT-4 at full width (EVA ViT-g/14 at 448 px with 39
    layers, the 12-layer Q-Former, a 32-layer 4096-wide Vicuna-7B-shaped
    decoder) through ``MiniGPT4Model.from_config`` from the model block of
@@ -380,7 +392,8 @@ PROFILE_GROUPS = (
     ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel", "quant_rows_kernel")),
     ("W8A8 epilogue kernel", ("w8a8_epilogue_kernel",)),
     ("weight-only int8 kernel", ("int8_weight_matmul_kernel",)),
-    ("int8-KV attention kernel", ("attention_kv8_kernel", "attention_kv8_mma_kernel")),
+    ("int8-KV attention kernel", ("attention_kv8_kernel", "attention_kv8_mma_kernel",
+                                  "kv8_decode_kernel")),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
     ("reductions", ("reduce_kernel",)),
 )
@@ -524,7 +537,8 @@ def ptxas_resources(log_text: str) -> dict:
 # go into their `kernels` records (name part of the mangled entry -> record)
 PTXAS_KERNELS = (("int8_weight_matmul_kernel", "int8_weight_matmul"),
                  ("attention_kv8_mma_kernel", "attention_kv8_prefill"),
-                 ("attention_kv8_kernel", "attention_kv8"))
+                 ("attention_kv8_kernel", "attention_kv8"),
+                 ("kv8_decode_kernel", "attention_kv8_decode"))
 
 
 def phase_build():
@@ -1140,31 +1154,33 @@ def check_int8_weight(torch, device):
 
 def check_no_i2f() -> dict:
     """I2F/I2FP instructions in each bf16 instance of the weight-only
-    kernel (``cuobjdump -sass``): its conversion is byte permutes and an f32
+    kernel and in every instance of the decode's int8-KV kernel
+    (``cuobjdump -sass``): their conversion is byte permutes and an f32
     subtraction, so there must be none; the tensor-core attention's
-    instances are counted beside it."""
+    instances are counted beside them."""
     import sass_count
     from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     text = sass_count.sass_of(cuda_kernels.build().path)
     found = {}
-    for part in ("int8_weight_matmul_kernelILi", "attention_kv8_mma_kernel"):
+    for part in ("int8_weight_matmul_kernelILi", "attention_kv8_mma_kernel", "kv8_decode_kernel"):
         counts = sass_count.opcode_counts(text, part)
         if not counts:
             fail(f"no SASS function matching {part!r} in the built library")
         for fn, ops in counts.items():
             found[fn] = sum(n for op, n in ops.items() if op.startswith("I2F"))
             log(f"[kernel] SASS {fn}: {sum(ops.values())} instructions, {found[fn]} I2F/I2FP")
-    bad = {fn: n for fn, n in found.items() if "int8_weight" in fn and n}
+    bad = {fn: n for fn, n in found.items() if ("int8_weight" in fn or "kv8_decode" in fn) and n}
     if bad:
-        fail(f"the weight-only kernel converts with I2F: {bad}")
+        fail(f"the weight-only or the decode's int8-KV kernel converts with I2F: {bad}")
     return found
 
 
-# attention over the int8 cache: the certify decode and prefill, eval's and a
-# caption's decode, and grouped-query heads: (batch, query rows, heads, kv
-# heads, cache positions, offset of the first query)
-KV8_CASES = (("decode", MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
+# attention over the int8 cache: the certify prefill, eval's prefill (a
+# cache past 256 positions: the warp-a-row instance), eval's and a caption's
+# decode rows, and grouped-query heads: (batch, query rows, heads, kv heads,
+# cache positions, offset of the first query)
+KV8_CASES = (("eval prefill", EVAL_BATCH, EVAL_SEQ, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, 0),
              ("prefill", MC_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, 0),
              ("eval decode", EVAL_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, EVAL_SEQ),
              ("caption decode", 1, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
@@ -1205,9 +1221,9 @@ def check_attention_kv8(torch, device):
     replaces) at ``KV8_CASES``, within ``KV8_REL_LIMIT`` (relative
     Frobenius) and 2e-2 absolute, a fully masked row giving zeros; timed
     against the plain version and ``scaled_dot_product_attention`` on the
-    cache dequantized to bf16 beforehand. Returns two records: one decode
-    launch (a layer a step, the warp-a-row instance) at the certify batch,
-    and one prefill launch (a layer a chunk, the tensor-core instance)."""
+    cache dequantized to bf16 beforehand. Returns two records: eval's
+    prefill launch (a layer a batch, the warp-a-row instance), and the
+    certify prefill launch (a layer a chunk, the tensor-core instance)."""
     import torch.nn.functional as F
 
     from certifiedgpt_tpu_torch.ops import attention as A
@@ -1229,7 +1245,7 @@ def check_attention_kv8(torch, device):
             fail(f"attention_kv8 disagrees with its plain version ({name})")
         record["max_abs_err"] = max(record["max_abs_err"], err)
         record["max_rel_err"] = max(record["max_rel_err"], rel)
-        if name in ("decode", "prefill"):
+        if name in ("eval prefill", "prefill"):
             rep = h // h_kv
             kd = (kq.float() * ks).to(torch.bfloat16).repeat_interleave(rep, 2).transpose(1, 2)
             vd = (vq.float() * vs).to(torch.bfloat16).repeat_interleave(rep, 2).transpose(1, 2)
@@ -1251,7 +1267,7 @@ def check_attention_kv8(torch, device):
                 f"dequantized bf16 cache {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
                 f"({by})")
             record["shapes"][name] = tm
-            if name == "decode":
+            if name == "eval prefill":
                 record.update(tm, replaced_ms=tm["plain_ms"], bound_by=by)
             else:
                 prefill = dict(tm, replaced_ms=tm["plain_ms"], bound_by=by, max_abs_err=err,
@@ -1262,6 +1278,136 @@ def check_attention_kv8(torch, device):
     return record, prefill
 
 
+# the decode step's kernel: the certify decode, a caption's, eval's,
+# grouped-query heads and a long cache: (batch, heads, kv heads, cache
+# positions, the step's slot)
+KV8_DECODE_CASES = (("certify decode", MC_BATCH, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN,
+                     CACHE_LEN - 2),
+                    ("caption decode", 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
+                    ("eval decode", EVAL_BATCH, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10,
+                     EVAL_SEQ + 1),
+                    ("grouped", 4, LLAMA_HEADS, 8, 300, 299),
+                    ("long cache", MC_BATCH, LLAMA_HEADS, LLAMA_HEADS, 2048, 2000))
+
+
+def kv8_decode_case(torch, device, g, b, h, h_kv, t, offset, dtype=None):
+    """A decode step's q, k and v (bf16, or ``dtype``) and a quantized cache
+    of ``t`` slots with the decoder's mask [B, 1, 1, T]: slots after
+    ``offset`` hidden, row 0 left-padded by two slots, the last batch row
+    fully masked."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    d = LLAMA_HEAD_DIM
+    q, k, v = (torch.randn((b, 1, n, d), generator=g, device=device).to(dtype or torch.bfloat16)
+               for n in (h, h_kv, h_kv))
+    kq, ks = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=device)
+                             .to(torch.bfloat16))
+    vq, vs = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=device)
+                             .to(torch.bfloat16))
+    valid = torch.ones((b, t), dtype=torch.bool, device=device)
+    valid[0, :2] = False
+    if b > 1:
+        valid[-1] = False
+    mask = (torch.arange(t, device=device) <= offset)[None, None, None, :] & \
+        valid[:, None, None, :]
+    return q, k, v, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}, offset, mask
+
+
+def copy_cache(cache):
+    return {name: c.clone() for name, c in cache.items()}
+
+
+def cache_bits_unequal(torch, a, b) -> int:
+    return sum(bits_unequal(torch, a[name], b[name]) for name in a)
+
+
+def check_attention_kv8_decode(torch, device):
+    """The decode step's kernel against its plain version (the quantization,
+    the slot writes and the plain attention) at ``KV8_DECODE_CASES``: the
+    cache's codes and scales bit for bit, the output within
+    ``KV8_REL_LIMIT`` (relative Frobenius) and 2e-2 absolute, a fully masked
+    row giving zeros. The certify decode timed eager and from a CUDA graph
+    against the plain version, the sequence the kernel replaced (two
+    ``quantize_rows`` launches, the four slice writes and the warp-a-row
+    attention launch, eager and from a graph) and
+    ``scaled_dot_product_attention`` on the cache dequantized to bf16
+    beforehand; a caption's (batch 1) and the long cache timed too."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=device).manual_seed(10)
+    record = {"max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": {}}
+    for name, b, h, h_kv, t, offset in KV8_DECODE_CASES:
+        q, k, v, cache, offset, mask = kv8_decode_case(torch, device, g, b, h, h_kv, t, offset)
+        mine, theirs = copy_cache(cache), copy_cache(cache)
+        out = A.decode_attention_kv8(q, k, v, mine, offset, mask)
+        ref = A._decode_attention_kv8_plain(q, k, v, theirs, offset, mask)
+        torch.cuda.synchronize()
+        off = cache_bits_unequal(torch, mine, theirs)
+        rel, err = rel_err(out, ref), max_err(out, ref)
+        zeros = b == 1 or not bool(out[-1].any())
+        log(f"[kernel] attention_kv8_decode {name} q [{b}, 1, {h}, {LLAMA_HEAD_DIM}] over {t} "
+            f"cached positions of {h_kv} heads, slot {offset}: {off} cache codes and scales not "
+            f"bit-identical to the plain version's; relative error (Frobenius) {rel:.3e}, max "
+            f"abs {err:.3e}; fully masked row zeros: {zeros}")
+        if off or not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
+            fail(f"attention_kv8_decode disagrees with its plain version ({name})")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["max_rel_err"] = max(record["max_rel_err"], rel)
+        if name in ("certify decode", "caption decode", "long cache"):
+            def step():
+                return A.decode_attention_kv8(q, k, v, mine, offset, mask)
+
+            def replaced():
+                kq, ks = Q.quantize_rows(k)
+                vq, vs = Q.quantize_rows(v)
+                at = slice(offset, offset + 1)
+                theirs["k"][:, at] = kq
+                theirs["v"][:, at] = vq
+                theirs["k_scale"][:, at] = ks
+                theirs["v_scale"][:, at] = vs
+                return A.multi_head_attention_kv8(q, theirs["k"], theirs["k_scale"], theirs["v"],
+                                                  theirs["v_scale"], mask)
+
+            tm = {"ms": cuda_ms(torch, step, iters=20), "graph_ms": graph_ms(torch, step),
+                  "plain_ms": cuda_ms(torch, lambda: A._decode_attention_kv8_plain(
+                      q, k, v, theirs, offset, mask), iters=5, warmup=1),
+                  "replaced_ms": cuda_ms(torch, replaced, iters=20),
+                  "replaced_graph_ms": graph_ms(torch, replaced)}
+            rep_ = h // h_kv
+            kd = (mine["k"].float() * mine["k_scale"]).to(torch.bfloat16) \
+                .repeat_interleave(rep_, 2).transpose(1, 2)
+            vd = (mine["v"].float() * mine["v_scale"]).to(torch.bfloat16) \
+                .repeat_interleave(rep_, 2).transpose(1, 2)
+            qh = q.transpose(1, 2)
+            tm["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=mask, scale=LLAMA_HEAD_DIM ** -0.5), iters=20)
+            kept = float(mask.expand(b, 1, 1, t).sum())
+            # the cache and its scales read, the batch row's mask, q, the
+            # step's k and v read, the output and the slot's codes and
+            # scales written
+            moved = (2.0 * b * t * h_kv * LLAMA_HEAD_DIM + 8.0 * b * t * h_kv + b * t
+                     + 2.0 * 2 * b * h * LLAMA_HEAD_DIM + 2.0 * 2 * b * h_kv * LLAMA_HEAD_DIM
+                     + 2.0 * b * h_kv * LLAMA_HEAD_DIM + 8.0 * b * h_kv)
+            tm["bound_ms"], by = bound_ms(moved, 4.0 * LLAMA_HEAD_DIM * h * kept,
+                                          PEAK_BF16_FLOPS)
+            log(f"[kernel] attention_kv8_decode {name}: {tm['ms']:.4f} ms eager, "
+                f"{tm['graph_ms']:.4f} ms from a CUDA graph; plain {tm['plain_ms']:.4f} ms; the "
+                f"replaced sequence {tm['replaced_ms']:.4f} ms eager, "
+                f"{tm['replaced_graph_ms']:.4f} ms from a CUDA graph; "
+                f"scaled_dot_product_attention on a dequantized bf16 cache "
+                f"{tm['library_ms']:.4f} ms; bound {tm['bound_ms']:.4f} ms ({by})")
+            record["shapes"][name] = tm
+            if name == "certify decode":
+                record.update(tm, bound_by=by)
+            del kd, vd, qh
+        del q, k, v, cache, mine, theirs, mask, out, ref
+        torch.cuda.empty_cache()
+    return record
+
+
 # the f32 instances (f32 configurations: f32 activations, int8 kernels and
 # cache) at a tiny model's shapes and at the main path's
 F32_QUANT_ROWS = ((5, 24), (MC_BATCH, LLAMA_WIDTH))
@@ -1269,16 +1415,19 @@ F32_EPILOGUE = ((7, 64, False), (MC_BATCH, 3 * VIT_WIDTH, True))
 F32_WEIGHT_ONLY = ((3, 64, 24), (MC_BATCH, LLAMA_WIDTH, LLAMA_WIDTH), (1, LLAMA_WIDTH, LLAMA_MLP))
 F32_KV8 = (("decode", MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
            ("grouped", 4, 5, LLAMA_HEADS, 8, CACHE_LEN, 3))
+F32_KV8_DECODE = (("certify decode", MC_BATCH, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
+                  ("grouped", 4, LLAMA_HEADS, 8, CACHE_LEN, 3))
 # the f32 weight-only kernel sums exact f32 products on the CUDA cores in
 # another order than cuBLAS: a few f32 ulps
 F32_MATMUL_REL_LIMIT = 1e-5
 
 
 def check_f32_instances(torch, device, records):
-    """The four kernels' f32 instances against their plain versions: the
+    """The five kernels' f32 instances against their plain versions: the
     row quantization and the epilogue bit for bit, the weight-only product
-    within ``F32_MATMUL_REL_LIMIT`` and the attention within
-    ``KV8_REL_LIMIT``; each timed against its plain version, into
+    within ``F32_MATMUL_REL_LIMIT``, the attention within ``KV8_REL_LIMIT``
+    and the decode's kernel with its cache write bit for bit and its output
+    within ``KV8_REL_LIMIT``; each timed against its plain version, into
     ``records[name]["f32"]``."""
     from certifiedgpt_tpu_torch.ops import attention as A
     from certifiedgpt_tpu_torch.ops import quantization as Q
@@ -1349,6 +1498,20 @@ def check_f32_instances(torch, device, records):
                lambda: A._multi_head_attention_kv8_plain(*args), 0, rel)
         if not rel < KV8_REL_LIMIT or out.dtype != torch.float32 or bool(out[-1].any()):
             fail(f"attention_kv8's f32 instance disagrees with its plain version ({name})")
+    for name, b, h, h_kv, t, offset in F32_KV8_DECODE:
+        q, k, v, cache, offset, mask = kv8_decode_case(torch, device, g, b, h, h_kv, t, offset,
+                                                       torch.float32)
+        mine, theirs = copy_cache(cache), copy_cache(cache)
+        out = A.decode_attention_kv8(q, k, v, mine, offset, mask)
+        ref = A._decode_attention_kv8_plain(q, k, v, theirs, offset, mask)
+        torch.cuda.synchronize()
+        off, rel = cache_bits_unequal(torch, mine, theirs), rel_err(out, ref)
+        record("attention_kv8_decode", name,
+               lambda: A.decode_attention_kv8(q, k, v, mine, offset, mask),
+               lambda: A._decode_attention_kv8_plain(q, k, v, theirs, offset, mask), off, rel)
+        if off or not rel < KV8_REL_LIMIT or out.dtype != torch.float32 \
+                or bool(out[-1].any()):
+            fail(f"attention_kv8_decode's f32 instance disagrees with its plain version ({name})")
 
 
 def phase_kernels(torch, device):
@@ -1381,6 +1544,9 @@ def phase_kernels(torch, device):
     records["int8_weight_matmul"] = check_int8_weight(torch, device)
     records["attention_kv8"], records["attention_kv8_prefill"] = check_attention_kv8(torch,
                                                                                      device)
+    records["attention_kv8_decode"] = check_attention_kv8_decode(torch, device)
+    records["attention_kv8_decode"]["sass_i2f"] = {
+        fn: n for fn, n in records["int8_weight_matmul"]["sass_i2f"].items() if "kv8_decode" in fn}
     records["quant_rows"] = check_quant_rows(torch, device)
     check_f32_instances(torch, device, records)
     return records
@@ -1405,13 +1571,19 @@ KERNELS = [
      "certifiedgpt_tpu/ops/quantization.py:68", "certify flash_cls"),
     ("int8_weight_matmul", "certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu",
      "certifiedgpt_tpu/models/layers.py:61", "certify flash_cls"),
+    # its warp-a-row instance now serves eval's prefill (a cache past 256
+    # positions) and f32 queries of several rows; timed at eval's prefill
     ("attention_kv8", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
-     "certifiedgpt_tpu/ops/attention.py:76", "certify flash_cls"),
+     "certifiedgpt_tpu/ops/attention.py:76", "eval"),
     # its tensor-core instance, which the prefill runs
     ("attention_kv8_prefill", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
      "certifiedgpt_tpu/ops/attention.py:76", "certify flash_cls"),
     ("quant_rows", "certifiedgpt_tpu_torch/csrc/row_quant.cu",
      "certifiedgpt_tpu/ops/quantization.py:52", "certify flash_cls"),
+    # the decode step's cache write (two quantize_rows, four slice writes)
+    # and attention in one launch, the JAX block's cached branch
+    ("attention_kv8_decode", "certifiedgpt_tpu_torch/csrc/attention_kv8_decode.cu",
+     "certifiedgpt_tpu/models/llama.py:243", "certify flash_cls"),
 ]
 
 
@@ -1435,15 +1607,15 @@ def times(counts, k):
 # products a layer, the q/k/v input quantized once for the three and the
 # gate/up input once for the two, the o and down inputs, the k and v rows
 # written to the int8 cache, the attention over it); a decode step (seven
-# weight-only products a layer, the two cache writes, the attention); and a
+# weight-only products a layer, the cache write and the attention in one
+# launch); and a
 # training forward of the decoder (seven W8A8 products a layer, each
 # quantizing its own input)
 VIT_INT8 = {"flash_cls": {"w8a8_epilogue": 8 * VIT_DEPTH, "quant_rows": 2 * VIT_DEPTH},
             "flash_custom": {"w8a8_epilogue": 4 * VIT_DEPTH, "quant_rows": 3 * VIT_DEPTH}}
 PREFILL_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 6 * LLAMA_DEPTH,
                 "attention_kv8": LLAMA_DEPTH}
-PER_DECODE_STEP = {"int8_weight_matmul": 7 * LLAMA_DEPTH, "quant_rows": 2 * LLAMA_DEPTH,
-                   "attention_kv8": LLAMA_DEPTH}
+PER_DECODE_STEP = {"int8_weight_matmul": 7 * LLAMA_DEPTH, "attention_kv8_decode": LLAMA_DEPTH}
 TRAIN_DECODER_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 7 * LLAMA_DEPTH}
 
 # launches per certify chunk of each kernel under each ViT attention form:
@@ -1473,7 +1645,7 @@ def wrappers():
         flash_attention,
     )
     from certifiedgpt_tpu_torch.ops import quantization as Q
-    from certifiedgpt_tpu_torch.ops.attention import multi_head_attention_kv8
+    from certifiedgpt_tpu_torch.ops.attention import decode_attention_kv8, multi_head_attention_kv8
     from certifiedgpt_tpu_torch.ops.noise import noisy_tile
 
     return {"cls_split_attention": cls_split_attention_parts,
@@ -1481,7 +1653,8 @@ def wrappers():
             "flash_attention": flash_attention, "noisy_tile_kernel": noisy_tile,
             "cls_split_attention_scaled": cls_split_attention_scaled,
             "w8a8_epilogue": Q.w8a8_epilogue, "int8_weight_matmul": Q.int8_weight_forward,
-            "attention_kv8": multi_head_attention_kv8, "quant_rows": Q.quantize_rows}
+            "attention_kv8": multi_head_attention_kv8, "quant_rows": Q.quantize_rows,
+            "attention_kv8_decode": decode_attention_kv8}
 
 
 def reset_counts():
@@ -1700,8 +1873,8 @@ def decode_costs(torch, model, device):
     log(
         f"[main] decode step behind a {SPIN_MS:.0f} ms spin of the card: the host launches it "
         f"in {min(behind_ms):.2f} ms (of 3: {', '.join(f'{t:.2f}' for t in behind_ms)}), "
-        f"from an idle card {min(host_ms):.2f} ms; {device_ops} device operations a step; "
-        f"{verdict}"
+        f"from an idle card {min(host_ms):.2f} ms; {device_ops} device operations a step "
+        f"(1950 in the run before the decode's kernel wrote the cache itself); {verdict}"
     )
 
 
@@ -2573,7 +2746,8 @@ def plain_versions():
             mock.patch.object(Q, "quantize_rows", Q._quantize_rows_plain),
             mock.patch.object(Q, "w8a8_epilogue", Q._w8a8_epilogue_plain),
             mock.patch.object(Q, "int8_weight_forward", Q._int8_weight_forward_plain),
-            mock.patch.object(A, "multi_head_attention_kv8", A._multi_head_attention_kv8_plain)]
+            mock.patch.object(A, "multi_head_attention_kv8", A._multi_head_attention_kv8_plain),
+            mock.patch.object(A, "decode_attention_kv8", A._decode_attention_kv8_plain)]
 
 
 def phase_train_checks(torch, card, device, root, env):
@@ -4433,7 +4607,8 @@ def main() -> int:
             "ms", "ms_cls", "plain_ms", "bound_ms", "bound_by", "max_abs_err") if k in rec}
     summary["lookahead"] = lookahead
     log(f"[main] summary {json.dumps(summary)}")
-    by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches}
+    by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches,
+               "eval": cli_launches["eval"]}
     kernels = []
     for name, source, replaces, path in KERNELS:
         rec = records[name]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the weight-only int8 product and of the int8-KV
-attention's prefill goes, on one NVIDIA GPU.
+"""Where the time of the weight-only int8 product, of the int8-KV
+attention's prefill and of the decode step's int8-KV kernel goes, on one
+NVIDIA GPU.
 
 Times a decode layer's seven weight-only products (q/k/v/o at 4096 x 4096,
 gate/up at 4096 x 11008, down at 11008 x 4096; ``int8_weight_forward``) at
@@ -13,8 +14,15 @@ graph (the card's time alone), first as built from
 alternative: the tensor-core products, the int8 -> bf16 conversion, the
 weight kernel's x fragments, its whole compute loop (the copies stay), its
 cluster reduction, the split of K, a deeper ring, eight warps a block; the
-attention's softmax, its mask reads, its q copies and output stores. A variant computes wrong
-values; only its time means anything.
+attention's softmax, its mask reads, its q copies and output stores. The
+decode step's launch (``decode_attention_kv8``, ``csrc/attention_kv8_decode.cu``)
+at the certify decode (q [96, 1, 32, 128] over a [96, 106, 32, 128] cache),
+a caption's, eval's and a 2048-position cache: as built, its conversion
+cut to a bit operation, its compute loops skipped (the copies alone), a
+block a batch row, a three-stage ring, a register cap for four blocks an
+SM, every launch at 4 or at 8 warps a block, and its blocks' timelines
+(first tile in place, first item done, the rest). A variant
+computes wrong values; only its time means anything.
 
 Each variant is a copy of the source with its edits applied, built by
 ``nvcc`` into a library of its own; all builds run in parallel, then every
@@ -23,6 +31,7 @@ that their times compare on one card:
 
     python3 scripts/bench_torch_int8_ops.py            # all variants
     python3 scripts/bench_torch_int8_ops.py weight:whole attention:whole
+    python3 scripts/bench_torch_int8_ops.py decode:whole decode:copies_only decode:timeline
 
 Prints one line per variant with the card's name and power limit, the
 times, the weights' rate and share of the byte bound (3.35 TB/s), and
@@ -50,6 +59,12 @@ LAYER = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))
 ROWS = (96, 8, 1)
 # the certify prefill: (batch, query rows, heads, cached positions, head_dim)
 PREFILL = (96, 96, 32, 106, 128)
+# the certify decode, a caption's, eval's and a long cache: (batch, heads,
+# kv heads, cached positions, head_dim, the step's slot)
+DECODES = {"certify decode": (96, 32, 32, 106, 128, 100),
+           "caption decode": (1, 32, 32, 106, 128, 100),
+           "eval decode": (8, 32, 32, 330, 128, 321),
+           "long cache": (96, 32, 32, 2048, 128, 2000)}
 
 # edits that apply to both sources (the same helpers in each)
 _NO_MMA = [(r'asm volatile\(\n\s*"mma\.sync.*?"r"\(b1\)\);',
@@ -124,6 +139,11 @@ __device__ __forceinline__ unsigned long long stamp_now() {
 extern "C" int cgpt_debug_stamps(void* host, long long bytes) {
   return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, bytes));
 }
+extern "C" int cgpt_debug_clear_stamps() {
+  void* at = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&at, g_stamps);
+  return static_cast<int>(err != cudaSuccess ? err : cudaMemset(at, 0, sizeof(g_stamps)));
+}
 """)
 WEIGHT_VARIANTS["timeline"] = [
     _STAMPS,
@@ -148,8 +168,45 @@ ATTENTION_VARIANTS["timeline"] = [
      r"\1  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * blockIdx.x; "
      r"st[0] = t_start; st[1] = t_staged; st[2] = stamp_now(); st[3] = st[2]; }\n}"),
 ]
+# the decode step's launch (csrc/attention_kv8_decode.cu): as built; its
+# conversion made one bit operation a value; its compute loops skipped (the
+# copies, the cache write, the softmax and the reductions stay); its blocks'
+# phase ends (the first item's K tile in place, the first item done, the
+# block's last item done)
+DECODE_VARIANTS = {
+    "whole": [],
+    "no_convert": [(r"(void bytes_f32\(uint4 w, float \(&f\)\[16\]\) \{)",
+                    r"\1\n  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};\n"
+                    r"#pragma unroll\n  for (int i = 0; i < 16; ++i) "
+                    r"f[i] = __uint_as_float(ws[i / 4] << (8 * (i % 4)));\n  return;")],
+    "copies_only": [(r"r0 < rows;", "r0 < rows * (a.scale == 12345.f);")],
+    # a block a batch row (no walk over rows); a three-stage ring; registers
+    # for four blocks of 8 warps an SM
+    "one_item": [(r"rows_blocks = rows_blocks < 1 \? 1 : \(rows_blocks > B \? B : rows_blocks\);",
+                  "rows_blocks = B;")],
+    "stages_3": [(r"kStages = 2;", "kStages = 3;")],
+    "min_blocks_4": [(r"kMinBlocks = 3;", "kMinBlocks = 4;")],
+    # every launch at 4 or at 8 warps a block (the launcher picks 4 for the
+    # certify decode, 8 for the others)
+    "warps_4": [(r"\? 4 : kMaxWarps;", "? 4 : 4;")],
+    "warps_8": [(r"\? 4 : kMaxWarps;", "? kMaxWarps : kMaxWarps;")],
+    "timeline": [
+        _STAMPS,
+        (r"(  extern __shared__ __align__\(128\) unsigned char smem\[\];\n)",
+         r"\1  const unsigned long long t_start = stamp_now();\n"
+         r"  unsigned long long t_k = 0, t_item = 0;\n"),
+        (r"(      __syncthreads\(\);  // the tile, the scales, the mask and the quantized rows are "
+         r"in place\n)", r"\1      if (c == 0 && k == 0) t_k = stamp_now();\n"),
+        (r"(      store\(orow \+ i, s\);\n    \}\n)  \}\n\}",
+         r"\1    if (k == 0) t_item = stamp_now();\n  }\n"
+         r"  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * (blockIdx.x + "
+         r"gridDim.x * blockIdx.y); st[0] = t_start; st[1] = t_k; st[2] = t_item; "
+         r"st[3] = stamp_now(); }\n}"),
+    ],
+}
 SOURCES = {"weight": ("int8_weight_matmul.cu", WEIGHT_VARIANTS, "cgpt_int8_weight_matmul"),
-           "attention": ("attention_kv8.cu", ATTENTION_VARIANTS, "cgpt_attention_kv8")}
+           "attention": ("attention_kv8.cu", ATTENTION_VARIANTS, "cgpt_attention_kv8"),
+           "decode": ("attention_kv8_decode.cu", DECODE_VARIANTS, "cgpt_attention_kv8_decode")}
 _ERROR_STRING = """#include <cuda_runtime.h>
 extern "C" const char* cgpt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -292,6 +349,26 @@ def prefill_case(torch, dev):
     return lambda: A.multi_head_attention_kv8(q, kq, ks, vq, vs, mask)
 
 
+def decode_case(torch, dev, b, h, h_kv, t, d, offset):
+    """A decode step's launch (``decode_attention_kv8``) over a quantized
+    cache with the decoder's mask, row 0 left-padded."""
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((b, 1, n, d), generator=g, device=dev).to(torch.bfloat16)
+               for n in (h, h_kv, h_kv))
+    kq, ks = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=dev)
+                             .to(torch.bfloat16))
+    vq, vs = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=dev)
+                             .to(torch.bfloat16))
+    cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+    valid[0, :2] = False
+    mask = (torch.arange(t, device=dev) <= offset)[None, None, None, :] & valid[:, None, None]
+    return lambda: A.decode_attention_kv8(q, k, v, cache, offset, mask)
+
+
 def blocks(lib, mkn) -> int:
     """Blocks the launcher plans for an (M, K, N) product."""
     m, k, n = mkn
@@ -323,6 +400,8 @@ def timeline(torch, lib, call, blocks: int) -> str:
 
     call()
     torch.cuda.synchronize()
+    if lib.cgpt_debug_clear_stamps() != 0:  # no stamp of another launch is read
+        raise SystemExit("cgpt_debug_clear_stamps failed")
     call()
     torch.cuda.synchronize()
     stamps = np.zeros(4 * blocks, dtype=np.uint64)
@@ -361,6 +440,7 @@ def main() -> int:
         built = build_variants(names, Path(tmp))
         layer_calls, layer_bytes = weight_cases(torch, dev)
         prefill = prefill_case(torch, dev)
+        decodes = {label: decode_case(torch, dev, *shape) for label, shape in DECODES.items()}
         times = {}
         for _ in range(2):  # two rounds, variants in turns
             for key in names:
@@ -368,8 +448,11 @@ def main() -> int:
                 if key[0] == "weight":
                     for m, call in layer_calls.items():
                         times.setdefault((key, m), []).append(graph_ms(torch, call))
-                else:
+                elif key[0] == "attention":
                     times.setdefault((key, 0), []).append(graph_ms(torch, prefill))
+                else:
+                    for label, call in decodes.items():
+                        times.setdefault((key, label), []).append(graph_ms(torch, call))
         lines = []
         for key in names:
             if "timeline" not in key[1].split("+"):
@@ -380,10 +463,15 @@ def main() -> int:
                           f"reduction): {timeline(torch, built[key][0], call, blocks(lib, mkn))}"
                           for label, call, mkn in product_cases(torch, dev)
                           for lib in (built[key][0],)]
-            else:
+            elif key[0] == "attention":
                 b, _sq, h, _t, _d = PREFILL
                 lines.append(f"attention:timeline prefill (phases: staging, row tiles): "
                              f"{timeline(torch, built[key][0], prefill, b * h)}")
+            else:
+                lines += [f"decode:timeline {label} (phases: the first K tile in place, "
+                          f"the first item done, the remaining items): "
+                          f"{timeline(torch, built[key][0], decodes[label], shape[0] * shape[2])}"
+                          for label, shape in DECODES.items()]
         if ("weight", "whole") in names:
             lines += plans(built[("weight", "whole")][0])
     for line in lines:
@@ -399,9 +487,12 @@ def main() -> int:
                              f"weights, {100 * bound / ms:.0f} % of the byte bound)")
             print(f"weight:{key[1]}: a decode layer's seven products {', '.join(parts)} "
                   f"[ptxas: {regs}] ({smi})", flush=True)
-        else:
+        elif key[0] == "attention":
             print(f"attention:{key[1]}: the prefill launch {min(times[(key, 0)]):.4f} ms "
                   f"[ptxas: {regs}] ({smi})", flush=True)
+        else:
+            parts = [f"{label} {min(times[(key, label)]):.4f} ms" for label in DECODES]
+            print(f"decode:{key[1]}: {', '.join(parts)} [ptxas: {regs}] ({smi})", flush=True)
     return 0
 
 

@@ -177,7 +177,8 @@ def test_prefill_quantizes_a_shared_input_once():
     """The cached W8A8 prefill quantizes each layer's q/k/v input once and
     its gate/up input once: six row quantizations a layer (with the o and
     down inputs and the two cache writes) where the training forward makes
-    seven; a decode step two (the cache writes)."""
+    seven; a decode step none: its two cache writes are inside
+    ``decode_attention_kv8``, called once a layer."""
     cfg = TLM.LlamaConfig.tiny(act_quant=True, kv_quant=True)
     params = TQ.quantize_llama(_tiny_llama_params(cfg))
     calls = []
@@ -191,13 +192,21 @@ def test_prefill_quantizes_a_shared_input_once():
     x = torch.randn(b, s, cfg.hidden_size)
     mask = torch.ones(b, s + 2, dtype=torch.int32)
     pos = torch.arange(s)[None].expand(b, s)
-    with mock.patch.object(TQ, "quantize_rows", counted):
+    decodes = []
+    real_decode = TA.decode_attention_kv8
+
+    def decode_counted(*args, **kwargs):
+        decodes.append(args[0].shape)
+        return real_decode(*args, **kwargs)
+
+    with mock.patch.object(TQ, "quantize_rows", counted), \
+            mock.patch.object(TA, "decode_attention_kv8", decode_counted):
         cache = TLM.init_kv_cache(cfg, b, s + 2, "cpu")
         TLM.llama_apply(params, cfg, x, mask, pos, cache, 0)
-        assert len(calls) == 6 * cfg.num_layers
+        assert len(calls) == 6 * cfg.num_layers and not decodes
         calls.clear()
         TLM.llama_apply(params, cfg, x[:, :1], mask, pos[:, :1] + s, cache, s)
-        assert len(calls) == 2 * cfg.num_layers
+        assert not calls and len(decodes) == cfg.num_layers
         calls.clear()
         TLM.llama_apply(params, cfg, x, mask[:, :s], pos)
         assert len(calls) == 7 * cfg.num_layers

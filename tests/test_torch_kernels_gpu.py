@@ -796,3 +796,169 @@ def test_attention_kv8_refuses_bad_operands_on_gpu(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         A.multi_head_attention_kv8(*long)
     assert A.multi_head_attention_kv8.launches == n
+
+
+# ----------------------------------------------------------------------
+# the decode step's int8-KV attention with its cache write
+# (csrc/attention_kv8_decode.cu)
+# ----------------------------------------------------------------------
+def _decode_case(b, t, h, h_kv, dh, offset, dtype, device, seed=0):
+    """The step's q, k and v in ``dtype``; a cache of ``t`` slots holding
+    quantized rows of N(0, 2^2) data; the decoder's
+    mask [B, 1, 1, T]: slots after ``offset`` hidden, row 0 left-padded by
+    up to two slots, the last row of a batch fully masked."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, 1, n, dh), generator=g, device=device).to(dtype) * s
+               for n, s in ((h, 1.0), (h_kv, 3.0), (h_kv, 1.0)))
+    kc, ksc = Q._quantize_rows_plain(torch.randn((b, t, h_kv, dh), generator=g,
+                                                 device=device) * 2)
+    vc, vsc = Q._quantize_rows_plain(torch.randn((b, t, h_kv, dh), generator=g, device=device))
+    cache = {"k": kc, "v": vc, "k_scale": ksc, "v_scale": vsc}
+    valid = torch.ones((b, t), dtype=torch.bool, device=device)
+    valid[0, :min(2, offset)] = False
+    if b > 1:
+        valid[-1] = False
+    mask = (torch.arange(t, device=device) <= offset)[None, None, None, :] & \
+        valid[:, None, None, :]
+    return q, k, v, cache, mask
+
+
+def _copy(cache):
+    return {name: c.clone() for name, c in cache.items()}
+
+
+def _cache_bits_unequal(a, b):
+    return {name: int((a[name].view(torch.int8 if a[name].dtype == torch.int8 else torch.int32)
+                       != b[name].view(torch.int8 if b[name].dtype == torch.int8
+                                       else torch.int32)).sum()) for name in a}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,h_kv,dh,offset", [
+    (96, 106, 32, 32, 128, 100),  # the certify decode
+    (1, 106, 32, 32, 128, 105),  # a caption's decode (batch 1)
+    (96, 106, 32, 8, 128, 60),  # grouped-query heads (4 a kv head), the certify batch
+    (1, 300, 32, 8, 128, 299),  # past one 128-position tile, the last slot
+    (96, 2048, 32, 32, 128, 2000),  # a long cache, many tiles
+    (1, 2048, 32, 8, 128, 1024),
+    (4, 1, 32, 8, 128, 0),  # one cached position
+    (3, 130, 8, 1, 128, 128),  # eight query heads a kv head, the offset in the second tile
+    (2, 40, 4, 2, 128, 39),  # two a kv head
+    (3, 17, 4, 4, 16, 9),  # the tiny configuration's head_dim
+    (2, 33, 4, 2, 48, 20),  # three 16-byte pieces a row
+    (2, 20, 4, 4, 256, 7),  # the widest head_dim
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_decode_attention_kv8_matches_plain_on_gpu(cuda, b, t, h, h_kv, dh, offset, dtype):
+    """One launch writes the cache bit for bit as the plain sequence does
+    (quantize_rows of k and v, the slot writes) and attends within
+    KV8_REL_LIMIT (relative Frobenius) and 2e-2 absolute of the plain
+    attention; a fully masked row gives zeros; with no mask and another
+    scale too."""
+    q, k, v, cache, mask = _decode_case(b, t, h, h_kv, dh, offset, dtype, cuda)
+    mine, ref_cache = _copy(cache), _copy(cache)
+    before = A.decode_attention_kv8.launches
+    out = A.decode_attention_kv8(q, k, v, mine, offset, mask)
+    assert A.decode_attention_kv8.launches == before + 1
+    ref = A._decode_attention_kv8_plain(q, k, v, ref_cache, offset, mask)
+    torch.cuda.synchronize()
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert out.shape == ref.shape == (b, 1, h, dh) and out.dtype == dtype
+    assert _rel(out, ref) < KV8_REL_LIMIT
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2
+    if b > 1:
+        assert not out[-1].any() and torch.isfinite(out).all()
+    mine, ref_cache = _copy(cache), _copy(cache)
+    out = A.decode_attention_kv8(q, k, v, mine, offset, None, 0.1)
+    ref = A._decode_attention_kv8_plain(q, k, v, ref_cache, offset, None, 0.1)
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert _rel(out, ref) < KV8_REL_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,offset", [(96, 106, 100), (8, 300, 250)],
+                         ids=["4_warps", "8_warps"])
+def test_decode_attention_kv8_is_deterministic_on_gpu(cuda, b, t, offset):
+    """The partial outputs meet in a fixed order: repeated launches agree
+    bit for bit, and with the plain version, at both block widths the
+    launcher picks (4 warps for many items over one tile, 8 otherwise)."""
+    q, k, v, cache, mask = _decode_case(b, t, 32, 32, 128, offset, torch.bfloat16, cuda, seed=2)
+    outs = [A.decode_attention_kv8(q, k, v, cache, offset, mask) for _ in range(3)]
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    ref = A._decode_attention_kv8_plain(q, k, v, _copy(cache), offset, mask)
+    assert _rel(outs[0], ref) < KV8_REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_decode_attention_kv8_in_a_cuda_graph_and_on_two_streams_on_gpu(cuda):
+    """Captured in a CUDA graph, a decode layer's launch replays to the
+    eager output and cache, replay after replay; launches on two streams at
+    once, each on a cache of its own, give the output of a launch alone."""
+    q, k, v, cache, mask = _decode_case(96, 106, 32, 32, 128, 100, torch.bfloat16, cuda, seed=3)
+    eager_cache = _copy(cache)
+    eager = A.decode_attention_kv8(q, k, v, eager_cache, 100, mask)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        A.decode_attention_kv8(q, k, v, _copy(cache), 100, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graphed = _copy(cache)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.decode_attention_kv8(q, k, v, graphed, 100, mask)
+    for _ in range(3):
+        out.zero_()
+        for name in graphed:
+            graphed[name].copy_(cache[name])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert _cache_bits_unequal(graphed, eager_cache) == {name: 0 for name in cache}
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    caches = [_copy(cache) for _ in range(8)]
+    torch.cuda.synchronize()
+    outs = []
+    for i, c in enumerate(caches):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(A.decode_attention_kv8(q, k, v, c, 100, mask))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, eager) for o in outs)
+    assert all(_cache_bits_unequal(c, eager_cache) == {name: 0 for name in cache}
+               for c in caches)
+
+
+@pytest.mark.gpu
+def test_decode_attention_kv8_is_one_kernel_and_no_memset_on_gpu(cuda):
+    """Each call puts one operation on the card, the kernel: the cache
+    write rides in it, no copy, no quantization launch, no memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = [_decode_case(96, 106, 32, 32, 128, 100, dt, cuda) for dt in
+             (torch.bfloat16, torch.float32)]
+    for q, k, v, cache, mask in cases:  # first calls: the build and the device queries
+        A.decode_attention_kv8(q, k, v, cache, 100, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for q, k, v, cache, mask in cases:
+            A.decode_attention_kv8(q, k, v, cache, 100, mask)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == len(cases), ops
+    assert all("kv8_decode_kernel" in name for name in ops), ops
+
+
+@pytest.mark.gpu
+def test_decode_attention_kv8_refuses_bad_operands_on_gpu(cuda):
+    q, k, v, cache, mask = _decode_case(2, 16, 12, 4, 128, 5, torch.bfloat16, cuda)
+    n = A.decode_attention_kv8.launches
+    with pytest.raises(ValueError, match="query heads a kv head"):  # three a kv head
+        A.decode_attention_kv8(q, k, v, cache, 5, mask)
+    q, k, v, cache, mask = _decode_case(2, 16, 8, 4, 128, 5, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head-agnostic"):
+        A.decode_attention_kv8(q, k, v, cache, 5, mask.expand(2, 8, 1, 16))
+    with pytest.raises(TypeError):
+        A.decode_attention_kv8(q.half(), k.half(), v.half(), cache, 5, mask)
+    with pytest.raises(ValueError, match="outside"):
+        A.decode_attention_kv8(q, k, v, cache, 16, mask)
+    assert A.decode_attention_kv8.launches == n
