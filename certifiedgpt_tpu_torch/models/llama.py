@@ -167,16 +167,8 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
         # the decode step: the cache write and the attention in one launch
         attn = A.decode_attention_kv8(q, k, v, cache, cache_offset, mask)
     elif cfg.kv_quant:
-        at = slice(cache_offset, cache_offset + s)
-        kq, ks = Q.quantize_rows(k)
-        vq, vs = Q.quantize_rows(v)
-        cache["k"][:, at] = kq
-        cache["v"][:, at] = vq
-        cache["k_scale"][:, at] = ks
-        cache["v_scale"][:, at] = vs
-        attn = A.multi_head_attention_kv8(
-            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask
-        )
+        # the prefill: the cache write and the attention in one launch
+        attn = A.prefill_attention_kv8(q, k, v, cache, cache_offset, mask)
     else:
         at = slice(cache_offset, cache_offset + s)
         cache["k"][:, at] = k

@@ -78,9 +78,22 @@ _SIGNATURES = {
         _P, _I64, _I64, _I64,  # mask and its (b, s, t) strides
         _P,  # out
         _I32, _I32, _I32, _I32, _I32, _I32,  # B, Sq, H, Hkv, T, Dh
-        _F32, _I32, _I32, _I32,  # scale, warps, q f32, tensor-core instance
+        _F32, _I32, _I32,  # scale, warps, q f32
         _P,  # stream
     ),
+    "cgpt_attention_kv8_prefill": (
+        _P, _I64, _I64, _I64,  # q and its (b, s, h) strides
+        _P, _I64, _I64, _I64,  # the new k rows and their (b, s, h) strides
+        _P, _I64, _I64, _I64,  # the new v rows and their (b, s, h) strides
+        _P, _P, _I64, _I64, _I64,  # the int8 cache k, v and their (b, t, h) strides
+        _P, _P, _I64, _I64, _I64,  # k_scale, v_scale and their (b, t, h) strides
+        _P, _I64, _I64, _I64,  # mask and its (b, s, t) strides
+        _P,  # out
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # B, Sq, H, Hkv, T, Dh, offset, Sn
+        _F32,  # scale
+        _P,  # stream
+    ),
+    "cgpt_attention_kv8_prefill_plan": (_I32,) * 7 + (_P,),  # B, Sq, H, Hkv, T, offset, Sn, int[5] out
     "cgpt_attention_kv8_decode": (
         _P, _I64, _I64,  # q and its (b, h) strides
         _P, _P, _I64, _I64,  # the step's k, v and their (b, h) strides

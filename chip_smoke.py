@@ -15,7 +15,7 @@ Phases, each of which exits non-zero on any failure:
    registers and spills for each instance of the weight-only and int8-KV
    attention kernels and the decode's int8-KV kernel (also in their
    ``kernels`` records, ``ptxas``).
-3. Kernels: calls each of the ten kernels' wrappers at the main path's
+3. Kernels: calls each kernel's wrapper at the main path's
    shapes, holds the result against its plain PyTorch version on the same
    card, and times the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (CUDA events): the cls-split kernel
@@ -38,7 +38,7 @@ Phases, each of which exits non-zero on any failure:
    shape and at odd sizes down to one element, moments of (out - x) / sigma
    within 0.01 of 0 and 1, sigma = 0 exact; the noise kernel's SASS
    instructions an element and their time at the issue rate are printed.
-   Then the four kernels of the ops that XLA fuses for the JAX package:
+   Then the kernels of the ops that XLA fuses for the JAX package:
    the W8A8 epilogue at the ViT's and the prefill's products and at 1 and
    8 rows, bit for bit against its plain chain; quantize_rows' kernel at
    the ViT's proj input, the prefill's inputs, the KV cache's rows and at
@@ -46,14 +46,24 @@ Phases, each of which exits non-zero on any failure:
    and 9216 rows of the decoder's three weight shapes, within
    ``INT8_MATMUL_REL_LIMIT`` (relative Frobenius), timed also against the
    bf16 copy + matmul it replaces and cuBLAS on a bf16 weight, its bf16
-   instances' SASS holding no I2F (``sass_count.py``); attention
-   over the int8 KV cache at the certify prefill, eval's prefill (its
-   warp-a-row instance: a cache past 256 positions), eval's and a
-   caption's decode rows and grouped-query heads, within the attention
-   limits, a fully masked row giving zeros, timed also against
-   ``scaled_dot_product_attention`` on a dequantized bf16 cache; the
-   prefill's launch (the kernel's tensor-core instance) is a record of its
-   own, ``attention_kv8_prefill``, whose launches phase 4 counts apart.
+   instances' SASS holding no I2F (``sass_count.py``); the entry
+   ``multi_head_attention_kv8`` over the int8 KV cache at the certify and
+   eval prefills (the prefill's kernel with no rows to write), eval's and a
+   caption's decode rows and a lone row at the certify batch (the warp-a-row
+   kernel, record ``attention_kv8``, timed at that row also against
+   ``scaled_dot_product_attention`` on a dequantized bf16 cache) and
+   grouped-query heads, within the attention limits, a fully masked row
+   giving zeros. Then the prefill's kernel (``prefill_attention_kv8``: the
+   new k and v rows quantized into the cache and the attention over it, one
+   launch, ``csrc/attention_kv8_prefill.cu``) at the certify prefill, eval's,
+   a caption's (batch 1), grouped-query heads and a 2048-position cache at an
+   offset: the cache's codes and scales bit for bit its plain version's,
+   the output within the attention limits, a fully masked row giving zeros,
+   its SASS holding no I2F; each case timed eager and alone (from a CUDA
+   graph) against the sequence it replaced (``quantize_rows`` of k and v,
+   the four slice writes, ``multi_head_attention_kv8``; its quantization
+   and writes apart) and ``scaled_dot_product_attention`` on a dequantized
+   bf16 cache, with its launch plan and a bound that counts the write.
    Then the decode step's kernel (``decode_attention_kv8``: the step's k
    and v quantized into the cache and the attention over it, one launch)
    at the certify decode, a caption's (batch 1), eval's, grouped-query
@@ -80,7 +90,10 @@ Phases, each of which exits non-zero on any failure:
    kernel never, and the plain cls query row not once (the cls-split kernel
    computes that row in its one launch). Prints per-stage seconds, peak
    device memory and the
-   certify row, and checks the row. Then times one decode step against
+   certify row, and checks the row. Then one chunk's prefill, as the port
+   runs it and with ``prefill_attention_kv8`` replaced by the sequence it
+   took the place of, in turns: device operations (192 fewer) and eager
+   time. Then times one decode step against
    converting the int8 decoder weights to bf16, the host's launch of one
    step from an idle card and behind a spin that holds the card (does the
    step fill the launch queue?), and checks the outputs: the
@@ -98,9 +111,11 @@ Phases, each of which exits non-zero on any failure:
    over two chunks (n0 = n = 96) after a warm-up, with per-stage seconds
    and launch counts (flash_custom and flash: the flash kernel and the
    GELU kernel once a layer per chunk, no other kernel).
-7. Entries: the noise kernel mode of ``noisy_tile`` and
-   ``cls_split_attention_scaled``, which no certify path calls, each driven
-   once through its entry point at the shapes above, launches counted.
+7. Entries: the noise kernel mode of ``noisy_tile``,
+   ``cls_split_attention_scaled`` and ``multi_head_attention_kv8`` of a lone
+   query row (the warp-a-row kernel), which no certify path calls, each
+   driven once through its entry point at the shapes above, launches
+   counted.
 9.1-9.2. Look-ahead and early exit, on phase 4's model (run before phase
    8, which builds its own): ``certify_item`` with no clock at (window,
    early exit) (1, off), (4, off), (1, on), (4, on), (1, off) over four
@@ -392,7 +407,7 @@ PROFILE_GROUPS = (
     ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel", "quant_rows_kernel")),
     ("W8A8 epilogue kernel", ("w8a8_epilogue_kernel",)),
     ("weight-only int8 kernel", ("int8_weight_matmul_kernel",)),
-    ("int8-KV attention kernel", ("attention_kv8_kernel", "attention_kv8_mma_kernel",
+    ("int8-KV attention kernel", ("attention_kv8_kernel", "kv8_prefill_kernel",
                                   "kv8_decode_kernel")),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
     ("reductions", ("reduce_kernel",)),
@@ -536,7 +551,7 @@ def ptxas_resources(log_text: str) -> dict:
 # the kernels whose registers and spills get a [build] line of their own and
 # go into their `kernels` records (name part of the mangled entry -> record)
 PTXAS_KERNELS = (("int8_weight_matmul_kernel", "int8_weight_matmul"),
-                 ("attention_kv8_mma_kernel", "attention_kv8_prefill"),
+                 ("kv8_prefill_kernel", "attention_kv8_prefill"),
                  ("attention_kv8_kernel", "attention_kv8"),
                  ("kv8_decode_kernel", "attention_kv8_decode"))
 
@@ -1154,36 +1169,37 @@ def check_int8_weight(torch, device):
 
 def check_no_i2f() -> dict:
     """I2F/I2FP instructions in each bf16 instance of the weight-only
-    kernel and in every instance of the decode's int8-KV kernel
+    kernel and in the decode's and the prefill's int8-KV kernels
     (``cuobjdump -sass``): their conversion is byte permutes and an f32
-    subtraction, so there must be none; the tensor-core attention's
-    instances are counted beside them."""
+    subtraction (the prefill's codes a magic add), so there must be none."""
     import sass_count
     from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     text = sass_count.sass_of(cuda_kernels.build().path)
     found = {}
-    for part in ("int8_weight_matmul_kernelILi", "attention_kv8_mma_kernel", "kv8_decode_kernel"):
+    for part in ("int8_weight_matmul_kernelILi", "kv8_prefill_kernel", "kv8_decode_kernel"):
         counts = sass_count.opcode_counts(text, part)
         if not counts:
             fail(f"no SASS function matching {part!r} in the built library")
         for fn, ops in counts.items():
             found[fn] = sum(n for op, n in ops.items() if op.startswith("I2F"))
             log(f"[kernel] SASS {fn}: {sum(ops.values())} instructions, {found[fn]} I2F/I2FP")
-    bad = {fn: n for fn, n in found.items() if ("int8_weight" in fn or "kv8_decode" in fn) and n}
+    bad = {fn: n for fn, n in found.items() if n}
     if bad:
-        fail(f"the weight-only or the decode's int8-KV kernel converts with I2F: {bad}")
+        fail(f"the weight-only or an int8-KV kernel converts with I2F: {bad}")
     return found
 
 
-# attention over the int8 cache: the certify prefill, eval's prefill (a
-# cache past 256 positions: the warp-a-row instance), eval's and a caption's
-# decode rows, and grouped-query heads: (batch, query rows, heads, kv heads,
-# cache positions, offset of the first query)
+# the entry multi_head_attention_kv8 over the int8 cache: the certify and
+# eval prefills (bf16 rows: the prefill's kernel with no rows to write),
+# eval's and a caption's decode rows and a lone row at the certify batch (the
+# warp-a-row kernel), grouped-query heads: (batch, query rows, heads, kv
+# heads, cached positions, offset of the first query)
 KV8_CASES = (("eval prefill", EVAL_BATCH, EVAL_SEQ, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, 0),
              ("prefill", MC_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, 0),
              ("eval decode", EVAL_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, EVAL_SEQ),
              ("caption decode", 1, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
+             ("lone row", MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
              ("grouped", 4, 5, LLAMA_HEADS, 8, CACHE_LEN, 3))
 
 
@@ -1199,31 +1215,46 @@ def kv8_case(torch, device, g, b, sq, h, h_kv, t, offset):
                              .to(torch.bfloat16))
     vq, vs = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=device)
                              .to(torch.bfloat16))
+    return (q, kq, ks, vq, vs, decoder_mask(torch, device, b, sq, t, offset))
+
+
+def decoder_mask(torch, device, b, sq, t, offset):
+    """[B, 1, Sq, T]: query i at slot offset + i sees the slots up to its
+    own; row 0 left-padded by two slots, the last batch row fully masked."""
     valid = torch.ones((b, t), dtype=torch.bool, device=device)
     valid[0, :2] = False
     if b > 1:
         valid[-1] = False
     q_pos = offset + torch.arange(sq, device=device)[:, None]
-    mask = (torch.arange(t, device=device)[None, :] <= q_pos)[None, None] & valid[:, None, None]
-    return q, kq, ks, vq, vs, mask
+    return (torch.arange(t, device=device)[None, :] <= q_pos)[None, None] & valid[:, None, None]
 
 
-# limit on the relative Frobenius error of the int8-KV attention kernel
-# against its plain version: both round p to bf16 and multiply exactly, so
-# only the order of the f32 sums and the exponential's last bit differ
+def dequantized(torch, cache, rep):
+    """The cache's k and v dequantized to bf16 [B, H, T, Dh] (kv heads
+    repeated ``rep`` times): the operands of ``scaled_dot_product_attention``,
+    made before the timing."""
+    kd = (cache["k"].float() * cache["k_scale"]).to(torch.bfloat16)
+    vd = (cache["v"].float() * cache["v_scale"]).to(torch.bfloat16)
+    return (kd.repeat_interleave(rep, 2).transpose(1, 2),
+            vd.repeat_interleave(rep, 2).transpose(1, 2))
+
+
+# limit on the relative Frobenius error of the int8-KV attention kernels
+# against their plain versions: both round p to bf16 and multiply exactly, so
+# only the order of the f32 sums and the exponential's last bits differ
 # (1.6e-5 measured, H100 80GB HBM3, 700.00 W); skipping the bf16 rounding
 # of p gives 2.6e-3 (the plain version so changed, on the CPU)
 KV8_REL_LIMIT = 5e-4
 
 
 def check_attention_kv8(torch, device):
-    """The int8-KV attention kernel against its plain version (the call it
-    replaces) at ``KV8_CASES``, within ``KV8_REL_LIMIT`` (relative
-    Frobenius) and 2e-2 absolute, a fully masked row giving zeros; timed
-    against the plain version and ``scaled_dot_product_attention`` on the
-    cache dequantized to bf16 beforehand. Returns two records: eval's
-    prefill launch (a layer a batch, the warp-a-row instance), and the
-    certify prefill launch (a layer a chunk, the tensor-core instance)."""
+    """The entry ``multi_head_attention_kv8`` against its plain version at
+    ``KV8_CASES`` (several bf16 rows run the prefill's kernel with no rows
+    to write, a lone row the warp-a-row kernel), within ``KV8_REL_LIMIT``
+    (relative Frobenius) and 2e-2 absolute, a fully masked row giving zeros.
+    Returns the warp-a-row kernel's record, timed at the certify batch's
+    lone row against its plain version and ``scaled_dot_product_attention``
+    on the cache dequantized to bf16 beforehand."""
     import torch.nn.functional as F
 
     from certifiedgpt_tpu_torch.ops import attention as A
@@ -1233,49 +1264,175 @@ def check_attention_kv8(torch, device):
     for name, b, sq, h, h_kv, t, offset in KV8_CASES:
         args = kv8_case(torch, device, g, b, sq, h, h_kv, t, offset)
         q, kq, ks, vq, vs, mask = args
+        rows = A.multi_head_attention_kv8.launches
         out = A.multi_head_attention_kv8(*args)
         ref = A._multi_head_attention_kv8_plain(*args)
         torch.cuda.synchronize()
+        kernel = "warp-a-row" if A.multi_head_attention_kv8.launches > rows else "prefill's"
         rel, err = rel_err(out, ref), max_err(out, ref)
         zeros = b == 1 or not bool(out[-1].any())
         log(f"[kernel] attention_kv8 {name} q [{b}, {sq}, {h}, {LLAMA_HEAD_DIM}] over "
-            f"{t} cached positions of {h_kv} heads: relative error (Frobenius) {rel:.3e}, max "
-            f"abs {err:.3e}; fully masked row zeros: {zeros}")
+            f"{t} cached positions of {h_kv} heads ({kernel} kernel): relative error "
+            f"(Frobenius) {rel:.3e}, max abs {err:.3e}; fully masked row zeros: {zeros}")
         if not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
             fail(f"attention_kv8 disagrees with its plain version ({name})")
-        record["max_abs_err"] = max(record["max_abs_err"], err)
-        record["max_rel_err"] = max(record["max_rel_err"], rel)
-        if name in ("eval prefill", "prefill"):
-            rep = h // h_kv
-            kd = (kq.float() * ks).to(torch.bfloat16).repeat_interleave(rep, 2).transpose(1, 2)
-            vd = (vq.float() * vs).to(torch.bfloat16).repeat_interleave(rep, 2).transpose(1, 2)
+        if (kernel == "warp-a-row") != (sq == 1):
+            fail(f"attention_kv8 {name}: {sq} query rows ran the {kernel} kernel")
+        if sq == 1:
+            record["max_abs_err"] = max(record["max_abs_err"], err)
+            record["max_rel_err"] = max(record["max_rel_err"], rel)
+        if name == "lone row":
+            kd, vd = dequantized(torch, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs},
+                                 h // h_kv)
             qh = q.transpose(1, 2)
-            scale = LLAMA_HEAD_DIM ** -0.5
             tm = {"ms": cuda_ms(torch, lambda: A.multi_head_attention_kv8(*args), iters=20),
                   "plain_ms": cuda_ms(torch, lambda: A._multi_head_attention_kv8_plain(*args),
                                       iters=5, warmup=1),
                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                      qh, kd, vd, attn_mask=mask, scale=scale), iters=20),
+                      qh, kd, vd, attn_mask=mask, scale=LLAMA_HEAD_DIM ** -0.5), iters=20),
                   "graph_ms": graph_ms(torch, lambda: A.multi_head_attention_kv8(*args))}
             kept = float(mask.expand(b, 1, sq, t).sum())
             moved = (2.0 * 2 * b * sq * h * LLAMA_HEAD_DIM + 2.0 * b * t * h_kv * LLAMA_HEAD_DIM
                      + 8.0 * b * t * h_kv + b * sq * t)
             tm["bound_ms"], by = bound_ms(moved, 4.0 * LLAMA_HEAD_DIM * h * kept,
                                           PEAK_BF16_FLOPS)
-            log(f"[kernel] attention_kv8 {name}: {tm['ms']:.4f} ms ({tm['graph_ms']:.4f} from a "
-                f"CUDA graph), plain {tm['plain_ms']:.4f} ms, scaled_dot_product_attention on a "
-                f"dequantized bf16 cache {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
-                f"({by})")
+            log(f"[kernel] attention_kv8 {name} (warp-a-row): {tm['ms']:.4f} ms "
+                f"({tm['graph_ms']:.4f} from a CUDA graph), plain {tm['plain_ms']:.4f} ms, "
+                f"scaled_dot_product_attention on a dequantized bf16 cache "
+                f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms ({by})")
             record["shapes"][name] = tm
-            if name == "eval prefill":
-                record.update(tm, replaced_ms=tm["plain_ms"], bound_by=by)
-            else:
-                prefill = dict(tm, replaced_ms=tm["plain_ms"], bound_by=by, max_abs_err=err,
-                               max_rel_err=rel)
+            record.update(tm, replaced_ms=tm["plain_ms"], bound_by=by)
             del kd, vd, qh
         del args, q, kq, ks, vq, vs, mask, out, ref
         torch.cuda.empty_cache()
-    return record, prefill
+    return record
+
+
+# the prefill's kernel with its cache write: the certify prefill, eval's, a
+# caption's (batch 1), grouped-query heads and a 2048-position cache at an
+# offset past 0: (batch, new rows, heads, kv heads, cached positions, the
+# first new row's slot)
+KV8_PREFILL_CASES = (
+    ("certify prefill", MC_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, 0),
+    ("eval prefill", EVAL_BATCH, EVAL_SEQ, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, 0),
+    ("caption prefill", 1, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, 0),
+    ("grouped", MC_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, 8, CACHE_LEN, 0),
+    ("long cache", EVAL_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, 2048, 1900))
+
+
+def kv8_prefill_case(torch, device, g, b, s, h, h_kv, t, offset):
+    """A prefill's q, k and v (bf16) and a quantized cache of ``t`` slots
+    with the decoder's mask [B, 1, S, T] (``decoder_mask``)."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    d = LLAMA_HEAD_DIM
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=device).to(torch.bfloat16)
+               for n in (h, h_kv, h_kv))
+    kq, ks = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=device)
+                             .to(torch.bfloat16))
+    vq, vs = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=device)
+                             .to(torch.bfloat16))
+    return (q, k, v, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}, offset,
+            decoder_mask(torch, device, b, s, t, offset))
+
+
+def check_attention_kv8_prefill(torch, device):
+    """The prefill's kernel against its plain version (the quantization,
+    the slot writes and the plain attention) at ``KV8_PREFILL_CASES``: the
+    cache's codes and scales bit for bit, the output within
+    ``KV8_REL_LIMIT`` (relative Frobenius) and 2e-2 absolute, a fully masked
+    row giving zeros. Each case timed eager and from a CUDA graph (alone):
+    the kernel, the sequence it replaced (two ``quantize_rows`` launches,
+    the four slice writes and ``multi_head_attention_kv8``, which now runs
+    the prefill's kernel with no rows to write; and its quantization and
+    writes apart) and ``scaled_dot_product_attention`` on the written cache
+    dequantized to bf16 beforehand; the plain version at the certify
+    prefill. The bound counts q, the new k and v rows and the cache's kept
+    old slots read, the output, the codes and the scales written."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=device).manual_seed(11)
+    record = {"max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": {}}
+    d = LLAMA_HEAD_DIM
+    for name, b, s, h, h_kv, t, offset in KV8_PREFILL_CASES:
+        q, k, v, cache, offset, mask = kv8_prefill_case(torch, device, g, b, s, h, h_kv, t,
+                                                        offset)
+        mine, theirs = copy_cache(cache), copy_cache(cache)
+        out = A.prefill_attention_kv8(q, k, v, mine, offset, mask)
+        ref = A._prefill_attention_kv8_plain(q, k, v, theirs, offset, mask)
+        torch.cuda.synchronize()
+        off = cache_bits_unequal(torch, mine, theirs)
+        rel, err = rel_err(out, ref), max_err(out, ref)
+        zeros = b == 1 or not bool(out[-1].any())
+        plan = A.prefill_kv8_plan(b, s, h, h_kv, t, offset, s)
+        log(f"[kernel] attention_kv8_prefill {name} q [{b}, {s}, {h}, {d}], {s} new rows of "
+            f"{h_kv} heads at slot {offset} of {t}: {off} cache codes and scales not "
+            f"bit-identical to the plain version's; relative error (Frobenius) {rel:.3e}, max "
+            f"abs {err:.3e}; fully masked row zeros: {zeros}; plan {json.dumps(plan)}")
+        if off or not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
+            fail(f"attention_kv8_prefill disagrees with its plain version ({name})")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["max_rel_err"] = max(record["max_rel_err"], rel)
+
+        def kernel():
+            return A.prefill_attention_kv8(q, k, v, mine, offset, mask)
+
+        def writes():
+            kq, ks = Q.quantize_rows(k)
+            vq, vs = Q.quantize_rows(v)
+            at = slice(offset, offset + s)
+            theirs["k"][:, at] = kq
+            theirs["v"][:, at] = vq
+            theirs["k_scale"][:, at] = ks
+            theirs["v_scale"][:, at] = vs
+
+        def replaced():
+            writes()
+            return A.multi_head_attention_kv8(q, theirs["k"], theirs["k_scale"], theirs["v"],
+                                              theirs["v_scale"], mask)
+
+        kd, vd = dequantized(torch, mine, h // h_kv)
+        qh = q.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask, scale=d ** -0.5)
+
+        tm = {"ms": cuda_ms(torch, kernel, iters=20), "graph_ms": graph_ms(torch, kernel),
+              "replaced_ms": cuda_ms(torch, replaced, iters=20),
+              "replaced_graph_ms": graph_ms(torch, replaced),
+              "writes_ms": cuda_ms(torch, writes, iters=20),
+              "writes_graph_ms": graph_ms(torch, writes),
+              "library_ms": cuda_ms(torch, sdpa, iters=20),
+              "library_graph_ms": graph_ms(torch, sdpa), "plan": plan}
+        if name == "certify prefill":
+            tm["plain_ms"] = cuda_ms(torch, lambda: A._prefill_attention_kv8_plain(
+                q, k, v, theirs, offset, mask), iters=3, warmup=1)
+        full = mask.expand(b, 1, s, t)[:, 0]
+        kept = float(full.sum())
+        new = torch.zeros(t, dtype=torch.bool, device=device)
+        new[offset:offset + s] = True
+        old_kept = float((full.any(dim=1) & ~new).sum())  # (batch row, old slot) pairs
+        moved = (2.0 * 2 * b * s * h * d + 2.0 * 2 * b * s * h_kv * d  # q, out; the new k, v
+                 + 2.0 * b * s * h_kv * d + 8.0 * b * s * h_kv  # their codes and scales
+                 + (2.0 * d + 8.0) * h_kv * old_kept + b * s * t)  # kept old slots, the mask
+        tm["bound_ms"], by = bound_ms(moved, 4.0 * d * h * kept, PEAK_BF16_FLOPS)
+        log(f"[kernel] attention_kv8_prefill {name}: {tm['ms']:.4f} ms eager, "
+            f"{tm['graph_ms']:.4f} ms alone (CUDA graph); the replaced sequence "
+            f"{tm['replaced_ms']:.4f} ms eager, {tm['replaced_graph_ms']:.4f} ms alone (its "
+            f"quantization and slice writes {tm['writes_ms']:.4f} / {tm['writes_graph_ms']:.4f} "
+            f"ms); scaled_dot_product_attention on a dequantized bf16 cache "
+            f"{tm['library_ms']:.4f} / {tm['library_graph_ms']:.4f} ms; "
+            + (f"plain {tm['plain_ms']:.4f} ms; " if "plain_ms" in tm else "")
+            + f"bound {tm['bound_ms']:.4f} ms ({by})")
+        record["shapes"][name] = tm
+        if name == "certify prefill":
+            record.update(tm, bound_by=by)
+        del q, k, v, cache, mine, theirs, mask, out, ref, kd, vd, qh
+        torch.cuda.empty_cache()
+    return record
 
 
 # the decode step's kernel: the certify decode, a caption's, eval's,
@@ -1542,11 +1699,13 @@ def phase_kernels(torch, device):
     records["noisy_tile_kernel"] = check_noise(torch, device)
     records["w8a8_epilogue"] = check_w8a8_epilogue(torch, device)
     records["int8_weight_matmul"] = check_int8_weight(torch, device)
-    records["attention_kv8"], records["attention_kv8_prefill"] = check_attention_kv8(torch,
-                                                                                     device)
+    records["attention_kv8"] = check_attention_kv8(torch, device)
+    records["attention_kv8_prefill"] = check_attention_kv8_prefill(torch, device)
     records["attention_kv8_decode"] = check_attention_kv8_decode(torch, device)
-    records["attention_kv8_decode"]["sass_i2f"] = {
-        fn: n for fn, n in records["int8_weight_matmul"]["sass_i2f"].items() if "kv8_decode" in fn}
+    for name, part in (("attention_kv8_prefill", "kv8_prefill"),
+                       ("attention_kv8_decode", "kv8_decode")):
+        records[name]["sass_i2f"] = {
+            fn: n for fn, n in records["int8_weight_matmul"]["sass_i2f"].items() if part in fn}
     records["quant_rows"] = check_quant_rows(torch, device)
     check_f32_instances(torch, device, records)
     return records
@@ -1571,13 +1730,14 @@ KERNELS = [
      "certifiedgpt_tpu/ops/quantization.py:68", "certify flash_cls"),
     ("int8_weight_matmul", "certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu",
      "certifiedgpt_tpu/models/layers.py:61", "certify flash_cls"),
-    # its warp-a-row instance now serves eval's prefill (a cache past 256
-    # positions) and f32 queries of several rows; timed at eval's prefill
+    # the warp-a-row kernel: f32 queries and a lone query row outside the
+    # decoder; driven through its own entry (phase 7)
     ("attention_kv8", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
-     "certifiedgpt_tpu/ops/attention.py:76", "eval"),
-    # its tensor-core instance, which the prefill runs
-    ("attention_kv8_prefill", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
-     "certifiedgpt_tpu/ops/attention.py:76", "certify flash_cls"),
+     "certifiedgpt_tpu/ops/attention.py:76", "multi_head_attention_kv8 lone row"),
+    # the prefill's cache write (two quantize_rows, four slice writes) and
+    # attention in one launch, the JAX block's cached branch
+    ("attention_kv8_prefill", "certifiedgpt_tpu_torch/csrc/attention_kv8_prefill.cu",
+     "certifiedgpt_tpu/models/llama.py:243", "certify flash_cls"),
     ("quant_rows", "certifiedgpt_tpu_torch/csrc/row_quant.cu",
      "certifiedgpt_tpu/ops/quantization.py:52", "certify flash_cls"),
     # the decode step's cache write (two quantize_rows, four slice writes)
@@ -1605,16 +1765,16 @@ def times(counts, k):
 # quantization on each; the flash block: its four products and the qkv, proj
 # and fc1 inputs' quantization on its one stream); the prefill (seven W8A8
 # products a layer, the q/k/v input quantized once for the three and the
-# gate/up input once for the two, the o and down inputs, the k and v rows
-# written to the int8 cache, the attention over it); a decode step (seven
+# gate/up input once for the two, the o and down inputs; the k and v rows'
+# cache write and the attention in one launch); a decode step (seven
 # weight-only products a layer, the cache write and the attention in one
 # launch); and a
 # training forward of the decoder (seven W8A8 products a layer, each
 # quantizing its own input)
 VIT_INT8 = {"flash_cls": {"w8a8_epilogue": 8 * VIT_DEPTH, "quant_rows": 2 * VIT_DEPTH},
             "flash_custom": {"w8a8_epilogue": 4 * VIT_DEPTH, "quant_rows": 3 * VIT_DEPTH}}
-PREFILL_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 6 * LLAMA_DEPTH,
-                "attention_kv8": LLAMA_DEPTH}
+PREFILL_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 4 * LLAMA_DEPTH,
+                "attention_kv8_prefill": LLAMA_DEPTH}
 PER_DECODE_STEP = {"int8_weight_matmul": 7 * LLAMA_DEPTH, "attention_kv8_decode": LLAMA_DEPTH}
 TRAIN_DECODER_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 7 * LLAMA_DEPTH}
 
@@ -1645,7 +1805,11 @@ def wrappers():
         flash_attention,
     )
     from certifiedgpt_tpu_torch.ops import quantization as Q
-    from certifiedgpt_tpu_torch.ops.attention import decode_attention_kv8, multi_head_attention_kv8
+    from certifiedgpt_tpu_torch.ops.attention import (
+        decode_attention_kv8,
+        multi_head_attention_kv8,
+        prefill_attention_kv8,
+    )
     from certifiedgpt_tpu_torch.ops.noise import noisy_tile
 
     return {"cls_split_attention": cls_split_attention_parts,
@@ -1654,6 +1818,7 @@ def wrappers():
             "cls_split_attention_scaled": cls_split_attention_scaled,
             "w8a8_epilogue": Q.w8a8_epilogue, "int8_weight_matmul": Q.int8_weight_forward,
             "attention_kv8": multi_head_attention_kv8, "quant_rows": Q.quantize_rows,
+            "attention_kv8_prefill": prefill_attention_kv8,
             "attention_kv8_decode": decode_attention_kv8}
 
 
@@ -1663,11 +1828,8 @@ def reset_counts():
     from certifiedgpt_tpu_torch.models import minigpt4 as M
     from certifiedgpt_tpu_torch.ops.flash_attention import _cls_query_row
 
-    from certifiedgpt_tpu_torch.ops.attention import multi_head_attention_kv8
-
     for fn in wrappers().values():
         fn.launches = 0
-    multi_head_attention_kv8.tensor_core_launches = 0
     _cls_query_row.calls = 0
     M.generate.decode_steps = 0
 
@@ -1752,26 +1914,14 @@ def phase_main_path(torch, device, card):
         f"card during the run: {card_state.summary()}")
     log(f"[main] launches {json.dumps(launches)}")
     check_counts("certify flash_cls", launches, PER_CHUNK["flash_cls"], chunks, steps)
-    launches["attention_kv8_prefill"] = check_prefill_instance(chunks)
     check_row(row, CLOCKED_RUN_CFG)
+    prefill = prefill_costs(torch, model, device)
     decode_costs(torch, model, device)
     check_outputs(torch, model, device)
     phase_profile(torch, model, image)
     return model, image, launches, {"wall_seconds": wall, "stage_seconds": stages,
-                                    "chunks": chunks, "peak_gb": peak_gb, "row": row}
-
-
-def check_prefill_instance(chunks: int) -> int:
-    """The int8-KV attention's launches in the run that took its tensor-core
-    instance: every prefill launch (one a layer a chunk), no decode launch."""
-    from certifiedgpt_tpu_torch.ops.attention import multi_head_attention_kv8
-
-    n = multi_head_attention_kv8.tensor_core_launches
-    log(f"[main] attention_kv8 tensor-core (prefill) instance: {n} launches")
-    if n != LLAMA_DEPTH * chunks:
-        fail(f"the int8-KV attention's tensor-core instance launched {n} times, expected "
-             f"{LLAMA_DEPTH} x {chunks} chunks (the prefill's)")
-    return n
+                                    "chunks": chunks, "peak_gb": peak_gb, "row": row,
+                                    "prefill": prefill}
 
 
 def stage_seconds(clock, wall):
@@ -1790,6 +1940,70 @@ def check_row(row, run_cfg):
     budget = run_cfg["certify_n0"] + run_cfg["certify_n"]
     if row["abstain"] != (row["label"] == -1) or not 0 < row["draws"] <= budget:
         fail(f"inconsistent certify row {row}")
+
+
+def prefill_costs(torch, model, device):
+    """A certify chunk's prefill (the full-width decoder over 96 prompts of
+    96 positions into a 106-slot int8 cache), as the port runs it and with
+    ``prefill_attention_kv8`` replaced by the sequence it took the place of
+    (two ``quantize_rows``, four slice writes, ``multi_head_attention_kv8``),
+    in turns in one process: device operations (``torch.profiler``) and
+    eager milliseconds; the kernel's launch saves 6 operations a layer."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from certifiedgpt_tpu_torch.models.llama import init_kv_cache, llama_apply
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    params = model.params["llama"]
+    cfg = model.cfg.llama
+    s = RUN_CFG["seq_len"]
+    cache = init_kv_cache(cfg, MC_BATCH, CACHE_LEN, device)
+    mask = torch.ones((MC_BATCH, CACHE_LEN), dtype=torch.int32, device=device)
+    g = torch.Generator(device=device).manual_seed(13)
+    x = torch.randn((MC_BATCH, s, cfg.hidden_size), generator=g, device=device).to(torch.bfloat16)
+    pos = torch.arange(s, device=device)[None].expand(MC_BATCH, s)
+
+    def prefill():
+        llama_apply(params, cfg, x, mask, pos, cache, 0)
+
+    def replaced(q, k, v, c, offset, m=None, scale=None):
+        kq, ks = Q.quantize_rows(k)
+        vq, vs = Q.quantize_rows(v)
+        at = slice(offset, offset + k.shape[1])
+        c["k"][:, at] = kq
+        c["v"][:, at] = vq
+        c["k_scale"][:, at] = ks
+        c["v_scale"][:, at] = vs
+        return A.multi_head_attention_kv8(q, c["k"], c["k_scale"], c["v"], c["v_scale"], m, scale)
+
+    runs = {}
+    for turn in ("kernel", "replaced", "replaced", "kernel"):
+        patch = mock.patch.object(A, "prefill_attention_kv8", replaced) if turn == "replaced" \
+            else mock.patch.object(A, "prefill_attention_kv8", A.prefill_attention_kv8)
+        with patch:
+            ms = cuda_ms(torch, prefill, iters=3, warmup=1)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                prefill()
+                torch.cuda.synchronize()
+        ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        runs.setdefault(turn, []).append((ops, ms))
+    fewer = runs["replaced"][0][0] - runs["kernel"][0][0]
+    log(f"[main] a certify chunk's prefill: {runs['kernel'][0][0]} device operations with the "
+        f"prefill's kernel, {runs['replaced'][0][0]} with the sequence it replaced ({fewer} "
+        f"fewer; eager ms in turns: kernel {runs['kernel'][0][1]:.3f}, replaced "
+        f"{runs['replaced'][0][1]:.3f}, replaced {runs['replaced'][1][1]:.3f}, kernel "
+        f"{runs['kernel'][1][1]:.3f})")
+    if fewer != 6 * LLAMA_DEPTH:
+        fail(f"the prefill's kernel saved {fewer} device operations a chunk, expected "
+             f"{6 * LLAMA_DEPTH}")
+    del cache, x
+    torch.cuda.empty_cache()
+    return {"ops": runs["kernel"][0][0], "replaced_ops": runs["replaced"][0][0],
+            "ms": [r[1] for r in runs["kernel"]], "replaced_ms": [r[1] for r in runs["replaced"]]}
 
 
 def decode_costs(torch, model, device):
@@ -2051,10 +2265,13 @@ def phase_forms(torch, model, image, device):
 # ----------------------------------------------------------------------
 def phase_entries(torch, device):
     """``noisy_tile``'s kernel mode and ``cls_split_attention_scaled``, which
-    no certify path calls (as in the JAX package), each driven once through
-    its entry at the main path's shapes, its launches counted."""
+    no certify path calls (as in the JAX package), and the warp-a-row int8-KV
+    kernel (``multi_head_attention_kv8`` of a lone query row, which the
+    decoder no longer calls), each driven once through its entry at the
+    main path's shapes, its launches counted."""
     import numpy as np
 
+    from certifiedgpt_tpu_torch.ops import attention as A
     from certifiedgpt_tpu_torch.ops import flash_attention as FA
     from certifiedgpt_tpu_torch.ops.noise import noisy_tile
 
@@ -2064,6 +2281,8 @@ def phase_entries(torch, device):
     d = VIT_HEAD_DIM
     qkv = [torch.randn((MC_BATCH, VIT_HEADS, VIT_SEQ, d), generator=g, device=device)
            .to(torch.bfloat16) for _ in range(3)]
+    row = kv8_case(torch, device, g, MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN,
+                   CACHE_LEN - 2)
     torch.cuda.synchronize()
     counted = {}
     for name, run, shape in (
@@ -2072,6 +2291,8 @@ def phase_entries(torch, device):
          (MC_BATCH,) + IMAGE_HWC),
         ("cls_split_attention_scaled",
          lambda: FA.cls_split_attention_scaled(*qkv, d), (MC_BATCH, VIT_HEADS, VIT_SEQ, d)),
+        ("attention_kv8", lambda: A.multi_head_attention_kv8(*row),
+         (MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEAD_DIM)),
     ):
         reset_counts()
         out = run()
@@ -2747,6 +2968,7 @@ def plain_versions():
             mock.patch.object(Q, "w8a8_epilogue", Q._w8a8_epilogue_plain),
             mock.patch.object(Q, "int8_weight_forward", Q._int8_weight_forward_plain),
             mock.patch.object(A, "multi_head_attention_kv8", A._multi_head_attention_kv8_plain),
+            mock.patch.object(A, "prefill_attention_kv8", A._prefill_attention_kv8_plain),
             mock.patch.object(A, "decode_attention_kv8", A._decode_attention_kv8_plain)]
 
 

@@ -1,28 +1,32 @@
 #!/usr/bin/env python3
-"""Where the time of the weight-only int8 product, of the int8-KV
-attention's prefill and of the decode step's int8-KV kernel goes, on one
-NVIDIA GPU.
+"""Where the time of the weight-only int8 product, of the prefill's and of
+the decode step's int8-KV kernels goes, on one NVIDIA GPU.
 
 Times a decode layer's seven weight-only products (q/k/v/o at 4096 x 4096,
 gate/up at 4096 x 11008, down at 11008 x 4096; ``int8_weight_forward``) at
-96, 8 and 1 rows, and the int8-KV attention's prefill launch (q [96, 96,
-32, 128] over a [96, 106, 32, 128] int8 cache with the decoder's causal,
-left-padded mask; ``multi_head_attention_kv8``), each replayed from a CUDA
-graph (the card's time alone), first as built from
-``certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu`` and
-``csrc/attention_kv8.cu`` and then with one part compiled out or a design
-alternative: the tensor-core products, the int8 -> bf16 conversion, the
-weight kernel's x fragments, its whole compute loop (the copies stay), its
-cluster reduction, the split of K, a deeper ring, eight warps a block; the
-attention's softmax, its mask reads, its q copies and output stores. The
-decode step's launch (``decode_attention_kv8``, ``csrc/attention_kv8_decode.cu``)
-at the certify decode (q [96, 1, 32, 128] over a [96, 106, 32, 128] cache),
-a caption's, eval's and a 2048-position cache: as built, its conversion
-cut to a bit operation, its compute loops skipped (the copies alone), a
-block a batch row, a three-stage ring, a register cap for four blocks an
-SM, every launch at 4 or at 8 warps a block, and its blocks' timelines
-(first tile in place, first item done, the rest). A variant
-computes wrong values; only its time means anything.
+96, 8 and 1 rows; the prefill's launch with its cache write
+(``prefill_attention_kv8``, ``csrc/attention_kv8_prefill.cu``) at the
+certify prefill (q [96, 96, 32, 128], 96 new rows into a 106-slot int8
+cache), eval's (q [8, 320, 32, 128] over 330 slots) and a caption's (batch
+1), with the decoder's causal, left-padded mask; and the decode step's
+launch (``decode_attention_kv8``, ``csrc/attention_kv8_decode.cu``) at the
+certify decode, a caption's, eval's and a 2048-position cache; each
+replayed from a CUDA graph (the card's time alone), first as built and then
+with one part compiled out or a design alternative. The weight kernel:
+its tensor-core products, the int8 -> bf16 conversion, its x fragments,
+its whole compute loop (the copies stay), its cluster reduction, the split
+of K, a deeper ring, eight warps a block. The prefill kernel: its mask
+reads, its products and softmax (the copies, conversions and cache write
+stay), its quantization, its mask scan, its K tiles kept for pass 2 and
+the row scales reused, 16 warps a block, the units in grid order, the
+proxy fences; its blocks' timelines (the mask's bits, pass
+1, pass 2; or staging and scan), and thread 0's summed waits on the copies
+and at the barrier. The decode kernel: its conversion cut to a bit
+operation, its compute loops skipped (the copies alone), a block a batch
+row, a three-stage ring, a register cap for four blocks an SM, every launch
+at 4 or at 8 warps a block, and its blocks' timelines (first tile in place,
+first item done, the rest). A variant computes wrong values; only its time
+means anything.
 
 Each variant is a copy of the source with its edits applied, built by
 ``nvcc`` into a library of its own; all builds run in parallel, then every
@@ -30,7 +34,7 @@ variant is timed through the package's wrappers in one process, in turns, so
 that their times compare on one card:
 
     python3 scripts/bench_torch_int8_ops.py            # all variants
-    python3 scripts/bench_torch_int8_ops.py weight:whole attention:whole
+    python3 scripts/bench_torch_int8_ops.py weight:whole prefill:whole prefill:timeline
     python3 scripts/bench_torch_int8_ops.py decode:whole decode:copies_only decode:timeline
 
 Prints one line per variant with the card's name and power limit, the
@@ -57,8 +61,11 @@ PLAN_FIELDS = ("rows a block", "row tiles", "channel tiles", "splits", "K a spli
 # (K, N, products a decoder layer) of Vicuna-7B
 LAYER = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))
 ROWS = (96, 8, 1)
-# the certify prefill: (batch, query rows, heads, cached positions, head_dim)
-PREFILL = (96, 96, 32, 106, 128)
+# the certify prefill, eval's and a caption's: (batch, query rows, heads, kv
+# heads, cached positions, head_dim, the first new row's slot)
+PREFILLS = {"certify prefill": (96, 96, 32, 32, 106, 128, 0),
+            "eval prefill": (8, 320, 32, 32, 330, 128, 0),
+            "caption prefill": (1, 96, 32, 32, 106, 128, 0)}
 # the certify decode, a caption's, eval's and a long cache: (batch, heads,
 # kv heads, cached positions, head_dim, the step's slot)
 DECODES = {"certify decode": (96, 32, 32, 106, 128, 100),
@@ -105,27 +112,35 @@ WEIGHT_VARIANTS = {
     # x read by the first column of blocks only: the L2 traffic of x gone
     "x_once": [(r"(x\[i\] = r < Tile<MT>::kRows && m0 \+ r < a\.M)", r"\1 && blockIdx.x == 0")],
 }
-ATTENTION_VARIANTS = {
+# the prefill's launch (csrc/attention_kv8_prefill.cu): as built; its mask
+# reads gone (every position of a row kept); its products and softmax
+# skipped (the copies, the conversions and the cache write stay); up to 16
+# warps a block (one block an SM)
+PREFILL_VARIANTS = {
     "whole": [],
-    "no_mma": [(r"(void mma_bf16_if\(bool on, float \(&c\)\[4\], const uint32_t \(&a\)\[4\],\s*"
-                r"uint32_t b0, uint32_t b1\) \{)",
-                r"\1\n  c[0] = __fadd_rn(c[0], __uint_as_float((a[0] ^ b0 ^ b1) & 0x3f800000u));"
-                r"\n  return;")],
-    "no_convert": _NO_CONVERT,
-    "no_softmax": [(r"exp_sfu\(__fsub_rn\(s\[nt\]\[e\], mx\[e >> 1\]\)\)", "s[nt][e]")],
-    "no_rows": [(r"    // the lane's mask bits of rows gr \(lo\).*?(    // the output rows, staged)",
-                 r"    const RowPos first = row_pos(16 * rt, a.Sq);\n"
-                 r"    float o[kMmaDh / 8][4] = {};\n\1")],
-    "no_q_loads": [(r"src, in \? 16 : 0\);", "src, 0);")],
-    "no_out_stores": [(r"\*reinterpret_cast<uint4\*>\(dst\) =\s*\*reinterpret_cast<const uint4\*>\(qt \+ "
-                       r"r \* kMmaRowBytes \+ 16 \* part\);",
-                       "const uint4 v = *reinterpret_cast<const uint4*>(qt + r * kMmaRowBytes + "
-                       "16 * part); if (v.x == 0x12345678u) *reinterpret_cast<uint4*>(dst) = v;")],
-    "slab_only": [(r"  \} else \{\n    const uint8_t\* grow =.*?\n  \}\n\}", "  }\n}")],
-    # without the instance for T <= 112 (the certify prefill's 106 then
-    # takes the one for T <= 128)
-    "no_nt14": [(r"  \} else if \(T <= 112\) \{\n    launch_mma<14>\(a, warps, smem, st\);\n", "")],
-    "no_mask_loads": [(r"\(srow\[8 \* nt \+ e\] != 0\)", "true")],
+    "no_mask_reads": [(r"uint32_t v = __funnelshift_r\(w\[0\], w\[1\], 8 \* \(at & 3\)\);",
+                       "uint32_t v = 0x01010101u;"),
+                      (r"mb\[k\]\[j\] = __ldg\([^;]*;", "mb[k][j] = 1;")],
+    "copies_only": [(r"    if \(!has_rows\) continue;", "    if (!has_rows || a.scale != 12345.f) continue;")],
+    "warps_16": [(r"kMaxWarps = 8;", "kMaxWarps = 16;"), (r"kMinBlocks = 2;", "kMinBlocks = 1;")],
+    # the units in grid order (an item's longest last)
+    "unit_order": [(r"unit = gridDim\.z - 1 - blockIdx\.z;", "unit = blockIdx.z;")],
+    # no proxy fence before a stage is refilled (the barrier alone orders the
+    # reads before the next copy)
+    "no_proxy_fence": [(r"(\n  )?  fence_proxy_async\(\);[^\n]*\n", "\n")],
+    # pass 2 quantizes K's rows anew, scales and all
+    "no_scale_reuse": [(r"two && !walk\.cached && sp\.tile < walk\.n1, st,", "false, st,")],
+    # pass 1's K tiles never kept for pass 2
+    "no_cache": [(r"p->cache = full <= two \|\| \(bare > two && full <= most\) \? keys : 0;",
+                  "p->cache = 0;")],
+    # the new rows' codes made copies of their values (no quantization)
+    "no_quantize": [(r"codes_of\(x, xs, rcp, qf, bytes\);",
+                     "for (int j = 0; j < 8; ++j) qf[j] = x[j]; "
+                     "for (int j = 0; j < 2; ++j) bytes[j] = ws[j];")],
+    # no scan of the mask: every position of the unit's rows kept
+    "no_scan": [(r"  \{\n    const int hi =\n        staged \?.*?    if \(lane == 0\) atomicMax\(range, warp_hi\);\n  \}\n",
+                 "  for (int i = threadIdx.x; i < 16 * warps * L.stride; i += blockDim.x) "
+                 "bits[i] = 0xffffffffu;\n  if (threadIdx.x == 0) range[0] = a.T - 1;\n")],
 }
 # the timeline variants: thread 0 of each block writes %globaltimer at its
 # phases' ends into g_stamps (4 a block), read back by cgpt_debug_stamps
@@ -158,15 +173,49 @@ WEIGHT_VARIANTS["timeline"] = [
      r"gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)); st[0] = t_start; st[1] = t_loop; "
      r"st[2] = t_sync; st[3] = stamp_now(); }\n}"),
 ]
-ATTENTION_VARIANTS["timeline"] = [
+# the prologue's phase ends: q's rows and the mask's bytes landed (the
+# staging __syncthreads), the mask's bits made, the rest
+PREFILL_VARIANTS["timeline_prologue"] = [
     _STAMPS,
-    (r"(  unsigned char\* smem = mma_smem;\n)",
+    (r"(  extern __shared__ __align__\(128\) unsigned char smem\[\];\n)",
      r"\1  const unsigned long long t_start = stamp_now();\n"),
-    (r"(  for \(int rt = warp; rt < row_tiles; rt \+= warps\) \{)",
-     r"  const unsigned long long t_staged = stamp_now();\n\1"),
-    (r"(    __syncwarp\(\);  // the tile is out before the next row tile's q lands\n  \}\n)\}",
-     r"\1  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * blockIdx.x; "
-     r"st[0] = t_start; st[1] = t_staged; st[2] = stamp_now(); st[3] = st[2]; }\n}"),
+    (r"(  __syncthreads\(\);  // the staged mask bytes are in place\n)",
+     r"\1  const unsigned long long t_sync = stamp_now();\n"),
+    (r"(  __syncthreads\(\);  // the bits and the last kept position are in place\n)",
+     r"\1  const unsigned long long t_scan = stamp_now();\n"),
+    (r"(  // the output rows gr and gr \+ 8 of the warp's tile)",
+     r"  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * (blockIdx.x + "
+     r"gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)); st[0] = t_start; st[1] = t_sync; "
+     r"st[2] = t_scan; st[3] = stamp_now(); }\n\1"),
+]
+# thread 0's waits in the tile loop, summed: on the tensor copies (the
+# mbarrier) and at the loop's __syncthreads; and the loop's steps
+PREFILL_VARIANTS["timeline_waits"] = [
+    _STAMPS,
+    (r"(  extern __shared__ __align__\(128\) unsigned char smem\[\];\n)",
+     r"\1  const unsigned long long t_start = stamp_now();\n"
+     r"  unsigned long long w_copy = 0, w_sync = 0, n_steps = 0;\n"),
+    (r"(    mbarrier_wait\(bars \+ 8 \* stage, \(phases >> stage\) & 1\);\n)",
+     r"    const unsigned long long w0 = stamp_now();\n\1    w_copy += stamp_now() - w0;\n"
+     r"    ++n_steps;\n"),
+    (r"(    __syncthreads\(\);  // the codes are in place, the stage is read\n)",
+     r"    const unsigned long long w1 = stamp_now();\n\1    w_sync += stamp_now() - w1;\n"),
+    (r"(  asm volatile\(\"cp\.async\.wait_all;\\n\" ::: \"memory\"\);)",
+     r"  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * (blockIdx.x + "
+     r"gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)); st[0] = stamp_now() - t_start; "
+     r"st[1] = w_copy; st[2] = w_sync; st[3] = n_steps; }\n\1"),
+]
+PREFILL_VARIANTS["timeline"] = [
+    _STAMPS,
+    (r"(  extern __shared__ __align__\(128\) unsigned char smem\[\];\n)",
+     r"\1  const unsigned long long t_start = stamp_now();\n"),
+    (r"(  __syncthreads\(\);  // the bits and the last kept position are in place\n)",
+     r"\1  const unsigned long long t_scan = stamp_now();\n  unsigned long long t_pass1 = t_scan;\n"),
+    (r"(    if \(e == walk\.n1\) \{\n)", r"\1      t_pass1 = stamp_now();\n"),
+    (r"(  // the output rows gr and gr \+ 8 of the warp's tile)",
+     r"  if (threadIdx.x == 0) { unsigned long long* st = g_stamps + 4 * (blockIdx.x + "
+     r"gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)); st[0] = t_start; st[1] = t_scan; "
+     r"st[2] = t_pass1; st[3] = stamp_now(); }\n\1"),
 ]
 # the decode step's launch (csrc/attention_kv8_decode.cu): as built; its
 # conversion made one bit operation a value; its compute loops skipped (the
@@ -205,7 +254,7 @@ DECODE_VARIANTS = {
     ],
 }
 SOURCES = {"weight": ("int8_weight_matmul.cu", WEIGHT_VARIANTS, "cgpt_int8_weight_matmul"),
-           "attention": ("attention_kv8.cu", ATTENTION_VARIANTS, "cgpt_attention_kv8"),
+           "prefill": ("attention_kv8_prefill.cu", PREFILL_VARIANTS, "cgpt_attention_kv8_prefill"),
            "decode": ("attention_kv8_decode.cu", DECODE_VARIANTS, "cgpt_attention_kv8_decode")}
 _ERROR_STRING = """#include <cuda_runtime.h>
 extern "C" const char* cgpt_error_string(int code) {
@@ -331,22 +380,35 @@ def product_cases(torch, dev):
     return out
 
 
-def prefill_case(torch, dev):
+def prefill_case(torch, dev, b, sq, h, h_kv, t, d, offset):
+    """A prefill's launch (``prefill_attention_kv8``: its new rows written
+    into a quantized cache) with the decoder's mask, row 0 left-padded."""
     from certifiedgpt_tpu_torch.ops import attention as A
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
-    b, sq, h, t, d = PREFILL
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((b, sq, h, d), generator=g, device=dev).to(torch.bfloat16)
-    kq, ks = Q.quantize_rows(torch.randn((b, t, h, d), generator=g, device=dev)
+    k, v = (torch.randn((b, sq, h_kv, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    kq, ks = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=dev)
                              .to(torch.bfloat16))
-    vq, vs = Q.quantize_rows(torch.randn((b, t, h, d), generator=g, device=dev)
+    vq, vs = Q.quantize_rows(torch.randn((b, t, h_kv, d), generator=g, device=dev)
                              .to(torch.bfloat16))
+    cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     valid = torch.ones((b, t), dtype=torch.bool, device=dev)
-    valid[:, :2] = False
-    mask = ((torch.arange(t, device=dev)[None, :] <= torch.arange(sq, device=dev)[:, None])
-            [None, None] & valid[:, None, None])
-    return lambda: A.multi_head_attention_kv8(q, kq, ks, vq, vs, mask)
+    valid[0, :2] = False
+    q_pos = offset + torch.arange(sq, device=dev)[:, None]
+    mask = (torch.arange(t, device=dev)[None, :] <= q_pos)[None, None] & valid[:, None, None]
+    return lambda: A.prefill_attention_kv8(q, k, v, cache, offset, mask)
+
+
+def prefill_blocks(lib, b, sq, h, h_kv, t, _d, offset) -> int:
+    """Blocks the prefill's launcher plans: kv heads x batch x units."""
+    plan = (ctypes.c_int * 5)()
+    lib.cgpt_attention_kv8_prefill_plan.argtypes = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+    if lib.cgpt_attention_kv8_prefill_plan(b, sq, h, h_kv, t, offset, sq, plan) != 0:
+        raise SystemExit("cgpt_attention_kv8_prefill_plan failed")
+    return h_kv * b * plan[1]
 
 
 def decode_case(torch, dev, b, h, h_kv, t, d, offset):
@@ -420,6 +482,29 @@ def timeline(torch, lib, call, blocks: int) -> str:
     return "; ".join(parts)
 
 
+def waits(torch, lib, call, blocks: int) -> str:
+    """One launch of ``call`` with the timeline_waits variant: the medians
+    of a block's span, thread 0's summed waits on the tensor copies and at
+    the loop's barrier, and its steps."""
+    import numpy as np
+
+    call()
+    torch.cuda.synchronize()
+    if lib.cgpt_debug_clear_stamps() != 0:
+        raise SystemExit("cgpt_debug_clear_stamps failed")
+    call()
+    torch.cuda.synchronize()
+    stamps = np.zeros(4 * blocks, dtype=np.uint64)
+    lib.cgpt_debug_stamps.argtypes = (ctypes.c_void_p, ctypes.c_longlong)
+    if lib.cgpt_debug_stamps(stamps.ctypes.data, stamps.nbytes) != 0:
+        raise SystemExit("cgpt_debug_stamps failed")
+    st = stamps.reshape(blocks, 4).astype(np.float64)
+    st = st[st[:, 3] > 0]
+    med = np.median(st, axis=0)
+    return (f"{blocks} blocks: median span {med[0] / 1e3:.2f} us, waits on the copies "
+            f"{med[1] / 1e3:.2f} us, at the barrier {med[2] / 1e3:.2f} us, over {med[3]:.0f} steps")
+
+
 def main() -> int:
     import torch
 
@@ -439,7 +524,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         built = build_variants(names, Path(tmp))
         layer_calls, layer_bytes = weight_cases(torch, dev)
-        prefill = prefill_case(torch, dev)
+        prefills = {label: prefill_case(torch, dev, *shape) for label, shape in PREFILLS.items()}
         decodes = {label: decode_case(torch, dev, *shape) for label, shape in DECODES.items()}
         times = {}
         for _ in range(2):  # two rounds, variants in turns
@@ -448,14 +533,15 @@ def main() -> int:
                 if key[0] == "weight":
                     for m, call in layer_calls.items():
                         times.setdefault((key, m), []).append(graph_ms(torch, call))
-                elif key[0] == "attention":
-                    times.setdefault((key, 0), []).append(graph_ms(torch, prefill))
+                elif key[0] == "prefill":
+                    for label, call in prefills.items():
+                        times.setdefault((key, label), []).append(graph_ms(torch, call))
                 else:
                     for label, call in decodes.items():
                         times.setdefault((key, label), []).append(graph_ms(torch, call))
         lines = []
         for key in names:
-            if "timeline" not in key[1].split("+"):
+            if not any(part.startswith("timeline") for part in key[1].split("+")):
                 continue
             cuda_kernels.build = lambda lib=built[key][0]: _Build(lib)
             if key[0] == "weight":
@@ -463,10 +549,17 @@ def main() -> int:
                           f"reduction): {timeline(torch, built[key][0], call, blocks(lib, mkn))}"
                           for label, call, mkn in product_cases(torch, dev)
                           for lib in (built[key][0],)]
-            elif key[0] == "attention":
-                b, _sq, h, _t, _d = PREFILL
-                lines.append(f"attention:timeline prefill (phases: staging, row tiles): "
-                             f"{timeline(torch, built[key][0], prefill, b * h)}")
+            elif key[0] == "prefill" and "timeline_waits" in key[1]:
+                lines += [f"prefill:{key[1]} {label}: "
+                          f"{waits(torch, built[key][0], call, prefill_blocks(built[key][0], *shape))}"
+                          for label, call in prefills.items() for shape in (PREFILLS[label],)]
+            elif key[0] == "prefill":
+                phases = ("q and the mask's bytes landed, the mask's bits, the rest"
+                          if "timeline_prologue"
+                          in key[1] else "the mask's bits, pass 1, pass 2")
+                lines += [f"prefill:{key[1]} {label} (phases: {phases}): "
+                          f"{timeline(torch, built[key][0], call, prefill_blocks(built[key][0], *shape))}"
+                          for label, call in prefills.items() for shape in (PREFILLS[label],)]
             else:
                 lines += [f"decode:timeline {label} (phases: the first K tile in place, "
                           f"the first item done, the remaining items): "
@@ -487,9 +580,9 @@ def main() -> int:
                              f"weights, {100 * bound / ms:.0f} % of the byte bound)")
             print(f"weight:{key[1]}: a decode layer's seven products {', '.join(parts)} "
                   f"[ptxas: {regs}] ({smi})", flush=True)
-        elif key[0] == "attention":
-            print(f"attention:{key[1]}: the prefill launch {min(times[(key, 0)]):.4f} ms "
-                  f"[ptxas: {regs}] ({smi})", flush=True)
+        elif key[0] == "prefill":
+            parts = [f"{label} {min(times[(key, label)]):.4f} ms" for label in PREFILLS]
+            print(f"prefill:{key[1]}: {', '.join(parts)} [ptxas: {regs}] ({smi})", flush=True)
         else:
             parts = [f"{label} {min(times[(key, label)]):.4f} ms" for label in DECODES]
             print(f"decode:{key[1]}: {', '.join(parts)} [ptxas: {regs}] ({smi})", flush=True)

@@ -175,10 +175,11 @@ def test_quantize_rows_matches_jax_on_reciprocal_rows():
 
 def test_prefill_quantizes_a_shared_input_once():
     """The cached W8A8 prefill quantizes each layer's q/k/v input once and
-    its gate/up input once: six row quantizations a layer (with the o and
-    down inputs and the two cache writes) where the training forward makes
-    seven; a decode step none: its two cache writes are inside
-    ``decode_attention_kv8``, called once a layer."""
+    its gate/up input once: four row quantizations a layer (with the o and
+    down inputs; its two cache writes are inside ``prefill_attention_kv8``,
+    called once a layer) where the training forward makes seven; a decode
+    step none: its two cache writes are inside ``decode_attention_kv8``,
+    called once a layer."""
     cfg = TLM.LlamaConfig.tiny(act_quant=True, kv_quant=True)
     params = TQ.quantize_llama(_tiny_llama_params(cfg))
     calls = []
@@ -192,21 +193,28 @@ def test_prefill_quantizes_a_shared_input_once():
     x = torch.randn(b, s, cfg.hidden_size)
     mask = torch.ones(b, s + 2, dtype=torch.int32)
     pos = torch.arange(s)[None].expand(b, s)
-    decodes = []
-    real_decode = TA.decode_attention_kv8
+    decodes, prefills = [], []
+    real_decode, real_prefill = TA.decode_attention_kv8, TA.prefill_attention_kv8
 
     def decode_counted(*args, **kwargs):
         decodes.append(args[0].shape)
         return real_decode(*args, **kwargs)
 
+    def prefill_counted(*args, **kwargs):
+        prefills.append(args[0].shape)
+        return real_prefill(*args, **kwargs)
+
     with mock.patch.object(TQ, "quantize_rows", counted), \
-            mock.patch.object(TA, "decode_attention_kv8", decode_counted):
+            mock.patch.object(TA, "decode_attention_kv8", decode_counted), \
+            mock.patch.object(TA, "prefill_attention_kv8", prefill_counted):
         cache = TLM.init_kv_cache(cfg, b, s + 2, "cpu")
         TLM.llama_apply(params, cfg, x, mask, pos, cache, 0)
-        assert len(calls) == 6 * cfg.num_layers and not decodes
+        assert len(calls) == 4 * cfg.num_layers and not decodes
+        assert len(prefills) == cfg.num_layers
         calls.clear()
+        prefills.clear()
         TLM.llama_apply(params, cfg, x[:, :1], mask, pos[:, :1] + s, cache, s)
-        assert not calls and len(decodes) == cfg.num_layers
+        assert not calls and len(decodes) == cfg.num_layers and not prefills
         calls.clear()
         TLM.llama_apply(params, cfg, x, mask[:, :s], pos)
         assert len(calls) == 7 * cfg.num_layers
@@ -221,7 +229,8 @@ def _tiny_llama_params(cfg):
 def test_int8_wrappers_count_no_launch_on_cpu():
     """On CPU tensors every wrapper takes its plain version: no launch."""
     before = (TQ.quantize_rows.launches, TQ.w8a8_epilogue.launches,
-              TQ.int8_weight_forward.launches, TA.multi_head_attention_kv8.launches)
+              TQ.int8_weight_forward.launches, TA.multi_head_attention_kv8.launches,
+              TA.prefill_attention_kv8.launches)
     x = torch.randn(4, 16).to(torch.bfloat16)
     TQ.quantize_rows(x)
     TQ.w8a8_epilogue(torch.zeros(4, 8), torch.ones(4, 1), torch.ones(8))
@@ -230,8 +239,11 @@ def test_int8_wrappers_count_no_launch_on_cpu():
     cache = torch.zeros(1, 3, 2, 16, dtype=torch.int8)
     scales = torch.ones(1, 3, 2, 1)
     TA.multi_head_attention_kv8(torch.randn(1, 1, 2, 16), cache, scales, cache, scales)
+    TA.multi_head_attention_kv8(torch.randn(1, 2, 2, 16).to(torch.bfloat16), cache, scales,
+                                cache, scales)
     assert (TQ.quantize_rows.launches, TQ.w8a8_epilogue.launches,
-            TQ.int8_weight_forward.launches, TA.multi_head_attention_kv8.launches) == before
+            TQ.int8_weight_forward.launches, TA.multi_head_attention_kv8.launches,
+            TA.prefill_attention_kv8.launches) == before
 
 
 def test_model_zoo_matches_jax():

@@ -730,28 +730,28 @@ def _kv8_case(b, sq, h, h_kv, t, dh, offset, device, seed=0):
     (2, 7, 8, 4, 40, 3),
     (2, 1, 4, 4, 1500, 1400),  # a long cache
     (96, 96, 32, 32, 106, 0),  # the certify prefill
-    (3, 9, 8, 2, 77, 5),  # grouped heads (36 rows a kv head), T off the 16-key step
-    (2, 40, 8, 2, 200, 0),  # 160 rows a kv head (two row tiles a warp), 32 key tiles
-    (2, 33, 4, 4, 50, 10),  # T <= 64: 8 key tiles
+    (3, 9, 8, 2, 77, 5),  # grouped heads (36 rows a kv head), T off the 32-key tile
+    (2, 40, 8, 2, 200, 0),  # 160 rows a kv head (ten row tiles: two units)
+    (2, 33, 4, 4, 50, 10),  # two key tiles
     (2, 12, 4, 4, 300, 280),  # several query rows over a cache past 256
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_attention_kv8_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, offset, dtype):
-    """The kernel against its plain version within KV8_REL_LIMIT (relative
-    Frobenius) and 2e-2 absolute, for bf16 and f32 queries: decode and
-    prefill rows, grouped-query heads, a left-padded row, a long cache;
+    """The kernels against their plain version within KV8_REL_LIMIT
+    (relative Frobenius) and 2e-2 absolute, for bf16 and f32 queries: decode
+    and prefill rows, grouped-query heads, a left-padded row, a long cache;
     with no mask and with one mask row for every query; and a fully masked
     row gives zeros, as the plain version's guard does. bf16 queries of
-    several rows over at most 256 positions take the tensor-core instance,
-    the rest the warp-a-row one."""
+    several rows take the prefill kernel with no rows to write (counted in
+    ``prefill_attention_kv8.launches``), the rest the warp-a-row kernel."""
     q, *cache = _kv8_case(b, sq, h, h_kv, t, 128, offset, cuda)
     args = (q.to(dtype), *cache)
     before = A.multi_head_attention_kv8.launches
-    before_tc = A.multi_head_attention_kv8.tensor_core_launches
+    before_prefill = A.prefill_attention_kv8.launches
     out = A.multi_head_attention_kv8(*args)
-    assert A.multi_head_attention_kv8.launches == before + 1
-    tensor_cores = dtype == torch.bfloat16 and sq > 1 and t <= 256
-    assert A.multi_head_attention_kv8.tensor_core_launches == before_tc + tensor_cores
+    prefill = dtype == torch.bfloat16 and sq > 1
+    assert A.multi_head_attention_kv8.launches == before + (not prefill)
+    assert A.prefill_attention_kv8.launches == before_prefill + prefill
     ref = A._multi_head_attention_kv8_plain(*args)
     assert out.shape == ref.shape == (b, sq, h, 128) and out.dtype == dtype
     assert _rel(out, ref) < KV8_REL_LIMIT
@@ -763,8 +763,7 @@ def test_attention_kv8_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, offset, dty
     out = A.multi_head_attention_kv8(*args[:5], mask)
     assert not out[-1].any() and torch.isfinite(out).all()
     assert _rel(out, A._multi_head_attention_kv8_plain(*args[:5], mask)) < KV8_REL_LIMIT
-    # one mask row for every query ([B, 1, 1, T], a stride of 0): read from
-    # device memory by the tensor-core instance, not staged
+    # one mask row for every query ([B, 1, 1, T], a stride of 0)
     pad = args[5][:, :, -1:]
     out = A.multi_head_attention_kv8(*args[:5], pad)
     assert _rel(out, A._multi_head_attention_kv8_plain(*args[:5], pad)) < KV8_REL_LIMIT
@@ -774,7 +773,8 @@ def test_attention_kv8_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, offset, dty
 def test_attention_kv8_prefill_takes_strided_queries_on_gpu(cuda):
     """q as a view of the fused qkv product (head stride 3 * 128, an offset
     row pointer) and a cache slice of a longer cache, as the decoder hands
-    them over: the tensor-core instance against the plain version."""
+    them over: the prefill kernel (no rows to write) against the plain
+    version."""
     q, kq, ks, vq, vs, mask = _kv8_case(3, 20, 8, 8, 120, 128, 0, cuda, seed=4)
     fused = torch.stack([q, q, q], dim=3).reshape(3, 20, 8 * 3, 128)[:, :, 1::3]
     assert not fused.is_contiguous()
@@ -962,3 +962,203 @@ def test_decode_attention_kv8_refuses_bad_operands_on_gpu(cuda):
     with pytest.raises(ValueError, match="outside"):
         A.decode_attention_kv8(q, k, v, cache, 16, mask)
     assert A.decode_attention_kv8.launches == n
+
+
+# ----------------------------------------------------------------------
+# the prefill's int8-KV attention with its cache write
+# (csrc/attention_kv8_prefill.cu)
+# ----------------------------------------------------------------------
+def _prefill_case(b, s, t, h, h_kv, offset, dtype, device, seed=0):
+    """The prefill's q, k and v [B, S, ., 128] in ``dtype``; a cache of
+    ``t`` slots holding quantized rows of N(0, 2^2) data; the decoder's
+    mask [B, 1, S, T]: query i at slot offset + i sees the slots up to its
+    own, row 0 left-padded by two slots, the last row of a batch fully
+    masked."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, s, n, 128), generator=g, device=device).to(dtype) * sc
+               for n, sc in ((h, 1.0), (h_kv, 3.0), (h_kv, 1.0)))
+    kc, ksc = Q._quantize_rows_plain(torch.randn((b, t, h_kv, 128), generator=g,
+                                                 device=device) * 2)
+    vc, vsc = Q._quantize_rows_plain(torch.randn((b, t, h_kv, 128), generator=g, device=device))
+    cache = {"k": kc, "v": vc, "k_scale": ksc, "v_scale": vsc}
+    valid = torch.ones((b, t), dtype=torch.bool, device=device)
+    valid[0, :2] = False
+    if b > 1:
+        valid[-1] = False
+    q_pos = offset + torch.arange(s, device=device)[:, None]
+    mask = (torch.arange(t, device=device)[None, :] <= q_pos)[None, None] & \
+        valid[:, None, None, :]
+    return q, k, v, cache, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,h_kv,offset", [
+    (96, 96, 106, 32, 32, 0),  # the certify prefill
+    (8, 320, 330, 32, 32, 0),  # eval's prefill
+    (1, 96, 106, 32, 32, 0),  # a caption's prefill (batch 1)
+    (4, 40, 256, 32, 8, 216),  # grouped heads (4 a kv head), the new rows last
+    (3, 33, 257, 16, 2, 100),  # eight a kv head, a tile past 256 positions
+    (2, 64, 330, 32, 16, 7),  # two a kv head, old slots on both sides
+    (8, 96, 2048, 32, 32, 1900),  # a long cache at an offset
+    (2, 64, 4096, 32, 32, 4000),  # the longest
+    (3, 7, 106, 12, 4, 50),  # three a kv head, one row tile
+    (2, 2, 40, 4, 4, 37),  # two rows, at the cache's end
+])
+def test_prefill_attention_kv8_matches_plain_on_gpu(cuda, b, s, t, h, h_kv, offset):
+    """One launch writes the cache bit for bit as the plain sequence does
+    (quantize_rows of k and v, the slot writes) and attends within
+    KV8_REL_LIMIT (relative Frobenius) and 2e-2 absolute of the plain
+    attention; a fully masked row gives zeros; with no mask and another
+    scale too; and the same launch with no rows to write
+    (``multi_head_attention_kv8``) over the written cache."""
+    q, k, v, cache, mask = _prefill_case(b, s, t, h, h_kv, offset, torch.bfloat16, cuda)
+    mine, ref_cache = _copy(cache), _copy(cache)
+    before = A.prefill_attention_kv8.launches
+    out = A.prefill_attention_kv8(q, k, v, mine, offset, mask)
+    assert A.prefill_attention_kv8.launches == before + 1
+    ref = A._prefill_attention_kv8_plain(q, k, v, ref_cache, offset, mask)
+    torch.cuda.synchronize()
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert out.shape == ref.shape == (b, s, h, 128) and out.dtype == torch.bfloat16
+    assert _rel(out, ref) < KV8_REL_LIMIT
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2
+    if b > 1:
+        assert not out[-1].any() and torch.isfinite(out).all()
+    args = (q, mine["k"], mine["k_scale"], mine["v"], mine["v_scale"], mask)
+    assert _rel(A.multi_head_attention_kv8(*args), ref) < KV8_REL_LIMIT
+    mine, ref_cache = _copy(cache), _copy(cache)
+    out = A.prefill_attention_kv8(q, k, v, mine, offset, None, 0.1)
+    ref = A._prefill_attention_kv8_plain(q, k, v, ref_cache, offset, None, 0.1)
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert _rel(out, ref) < KV8_REL_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["one_row", "keys", "random"])
+def test_prefill_attention_kv8_takes_any_head_agnostic_mask_on_gpu(cuda, kind):
+    """A mask [1, 1, S, T] for every batch row, [B, 1, 1, T] for every
+    query, and any [B, 1, S, T] (holes anywhere: tiles kept after dead
+    ones); k and v as views of a fused product (strided rows)."""
+    b, s, t, h, h_kv, offset = 3, 70, 200, 8, 4, 60
+    q, k, v, cache, mask = _prefill_case(b, s, t, h, h_kv, offset, torch.bfloat16, cuda, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    mask = {"one_row": mask[:1],
+            "keys": torch.rand((b, 1, 1, t), generator=g, device=cuda) < 0.5,
+            "random": torch.rand((b, 1, s, t), generator=g, device=cuda) < 0.3}[kind]
+    fused = torch.cat([k, v], dim=2)
+    k, v = fused[:, :, :h_kv], fused[:, :, h_kv:]
+    assert not k.is_contiguous()
+    mine, ref_cache = _copy(cache), _copy(cache)
+    out = A.prefill_attention_kv8(q, k, v, mine, offset, mask)
+    ref = A._prefill_attention_kv8_plain(q, k, v, ref_cache, offset, mask)
+    torch.cuda.synchronize()
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert _rel(out, ref) < KV8_REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_prefill_attention_kv8_f32_runs_the_sequence_on_gpu(cuda):
+    """f32 q, k and v (the tiny and f32 configurations) take the sequence
+    the kernel replaced: ``quantize_rows``' kernel on k and v, the slot
+    writes and the warp-a-row attention; no launch of the prefill kernel."""
+    q, k, v, cache, mask = _prefill_case(3, 20, 50, 8, 2, 10, torch.float32, cuda)
+    mine, ref_cache = _copy(cache), _copy(cache)
+    before = (A.prefill_attention_kv8.launches, A.multi_head_attention_kv8.launches,
+              Q.quantize_rows.launches)
+    out = A.prefill_attention_kv8(q, k, v, mine, 10, mask)
+    assert (A.prefill_attention_kv8.launches, A.multi_head_attention_kv8.launches,
+            Q.quantize_rows.launches) == (before[0], before[1] + 1, before[2] + 2)
+    ref = A._prefill_attention_kv8_plain(q, k, v, ref_cache, 10, mask)
+    torch.cuda.synchronize()
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert out.dtype == torch.float32 and _rel(out, ref) < KV8_REL_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,offset", [(96, 96, 106, 0), (8, 320, 330, 0), (2, 64, 2048, 1900)],
+                         ids=["certify", "eval", "long"])
+def test_prefill_attention_kv8_is_deterministic_on_gpu(cuda, b, s, t, offset):
+    """Each row's sums run in a fixed order: repeated launches agree bit
+    for bit, the cache too, with one unit an item and with several."""
+    q, k, v, cache, mask = _prefill_case(b, s, t, 32, 32, offset, torch.bfloat16, cuda, seed=2)
+    caches = [_copy(cache) for _ in range(3)]
+    outs = [A.prefill_attention_kv8(q, k, v, c, offset, mask) for c in caches]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert all(_cache_bits_unequal(c, caches[0]) == {name: 0 for name in cache} for c in caches)
+
+
+@pytest.mark.gpu
+def test_prefill_attention_kv8_in_a_cuda_graph_and_on_two_streams_on_gpu(cuda):
+    """Captured in a CUDA graph, a prefill layer's launch replays to the
+    eager output and cache, replay after replay; launches on two streams at
+    once, each on a cache of its own, give the output of a launch alone."""
+    q, k, v, cache, mask = _prefill_case(8, 320, 330, 32, 32, 0, torch.bfloat16, cuda, seed=3)
+    eager_cache = _copy(cache)
+    eager = A.prefill_attention_kv8(q, k, v, eager_cache, 0, mask)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        A.prefill_attention_kv8(q, k, v, _copy(cache), 0, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graphed = _copy(cache)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.prefill_attention_kv8(q, k, v, graphed, 0, mask)
+    for _ in range(3):
+        out.zero_()
+        for name in graphed:
+            graphed[name].copy_(cache[name])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert _cache_bits_unequal(graphed, eager_cache) == {name: 0 for name in cache}
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    caches = [_copy(cache) for _ in range(6)]
+    torch.cuda.synchronize()
+    outs = []
+    for i, c in enumerate(caches):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(A.prefill_attention_kv8(q, k, v, c, 0, mask))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, eager) for o in outs)
+    assert all(_cache_bits_unequal(c, eager_cache) == {name: 0 for name in cache}
+               for c in caches)
+
+
+@pytest.mark.gpu
+def test_prefill_attention_kv8_is_one_kernel_and_no_memset_on_gpu(cuda):
+    """Each call puts one operation on the card, the kernel: the cache
+    write rides in it, no copy, no quantization launch, no memset; a bare
+    ``multi_head_attention_kv8`` of several bf16 rows is the same kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, cache, mask = _prefill_case(96, 96, 106, 32, 32, 0, torch.bfloat16, cuda)
+    A.prefill_attention_kv8(q, k, v, cache, 0, mask)  # the build and the device queries
+    args = (q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask)
+    A.multi_head_attention_kv8(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        A.prefill_attention_kv8(q, k, v, cache, 0, mask)
+        A.multi_head_attention_kv8(*args)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 2, ops
+    assert all("kv8_prefill_kernel" in name for name in ops), ops
+
+
+@pytest.mark.gpu
+def test_prefill_attention_kv8_refuses_bad_operands_on_gpu(cuda):
+    q, k, v, cache, mask = _prefill_case(2, 6, 16, 8, 4, 5, torch.bfloat16, cuda)
+    n = A.prefill_attention_kv8.launches
+    with pytest.raises(ValueError, match="head-agnostic"):
+        A.prefill_attention_kv8(q, k, v, cache, 5, mask.expand(2, 8, 6, 16))
+    with pytest.raises(ValueError, match="outside"):
+        A.prefill_attention_kv8(q, k, v, cache, 11, mask)
+    with pytest.raises(ValueError, match="prefill_attention_kv8"):
+        A.prefill_attention_kv8(q, k[:, :, :2], v[:, :, :2], cache, 5, mask)
+    bad = dict(cache, k_scale=cache["k_scale"].double())
+    with pytest.raises(TypeError):
+        A.prefill_attention_kv8(q, k, v, bad, 5, mask)
+    assert A.prefill_attention_kv8.launches == n
