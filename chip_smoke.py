@@ -263,10 +263,29 @@ Phases, each of which exits non-zero on any failure:
    three, warmed by 16.1) with its peak device memory; 16.3 the sequential
    step and the 4-microbatch one under ``torch.profiler`` (summed kernel
    time, busy share, kernel launches), on ``[pipe]`` lines.
+17. The twins of the JAX package's scripts, run as a user runs them (after
+   phase 15, the earlier models freed): 17.1
+   ``scripts/demo_chat_torch.py --config
+   configs/certify_configs/vqav2_certify_noise_0.5.yaml`` (unchanged; its
+   checkpoint variables where nothing exists, so seeded weights at full
+   width) over a written 448x448 JPEG with two questions on its input, once
+   answering and once with ``--stream``, each in a process of its own: exit
+   0, two ``bot>`` lines each, turn 1's streamed text the answer's; beside
+   them ``scripts/verify_attack_torch.py --synthetic``: exit 0, ``ok``, the
+   grid of ``vit_tiny`` and ``rn_tiny``. 17.2: the same chat in this process
+   on one model: a streamed turn's launches (a batch-1 chunk and its decode
+   steps; the ``chat`` entry of ``cli_launches``), the model build, the
+   seconds to turn 1's first piece and a piece after it, the peak memory,
+   and turn 1 through ``Chat.answer`` giving the stream's token ids. 17.3:
+   ``scripts/verify_attack_torch.py --images 1`` on
+   ``configs/attack_configs/vqav2_attack.yaml`` over phase 14.3's written
+   set with no CLIP checkpoint: exit 1, ``undischarged``, 0 checked, 20
+   skipped, 0 failed, 20 rows; its seconds.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
-14.1's; ``cli_launches``: the launches in each launcher run of phases 8-15),
+14.1's; ``cli_launches``: the launches in each launcher run of phases 8-15
+and in phase 17.2's chat turn),
 and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
@@ -4766,6 +4785,258 @@ def phase_stage_split(torch, card, device):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 17: the chat demo and the attack runbook, the port's twins of the
+# JAX package's scripts/demo_chat.py and scripts/verify_attack.py
+# ----------------------------------------------------------------------
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+DEMO_SCRIPT = "scripts/demo_chat_torch.py"
+ATTACK_RUNBOOK = "scripts/verify_attack_torch.py"
+CHAT_CONFIG = LAUNCH_RUNS[0][1]  # the shipped certify YAML, unchanged
+# two short questions: with the byte-level tokenizer every character is a
+# token, and the second turn's prompt carries the first turn's answer
+CHAT_QUESTIONS = ("what is in this picture?", "what colour is it?")
+CHAT_MAX_NEW_TOKENS = 20  # the demo's default
+CHAT_TEMPLATE = "minigptv2"  # the demo's default
+CLIP_ENV = ("CLIP_HF_DIR", "CLIP_VIT_B16", "CLIP_VIT_B32", "CLIP_VIT_L14", "CLIP_RN50",
+            "CLIP_RN101")
+SCRIPT_TIMEOUT_S = 300
+
+
+def load_script(path):
+    """A script under ``scripts/`` as a module."""
+    import importlib.util
+
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def start_script(root, label, argv, env, stdin_text=""):
+    """``python <argv>`` from the repository's root with ``env`` added, its
+    input from ``stdin_text`` and its output to files under ``root``."""
+    (root / f"{label}.in").write_text(stdin_text)
+    files = [open(root / f"{label}.in"), open(root / f"{label}.out", "w"),
+             open(root / f"{label}.err", "w")]
+    proc = subprocess.Popen([sys.executable, *argv], cwd=REPO_DIR, env=dict(os.environ, **env),
+                            stdin=files[0], stdout=files[1], stderr=files[2])
+    return {"label": label, "proc": proc, "files": files, "t0": time.perf_counter()}
+
+
+def finish_scripts(root, started):
+    """Waits for each started script (at most ``SCRIPT_TIMEOUT_S`` from its
+    start); returns label -> (exit code, stdout, stderr, seconds until it
+    was seen to end). One that outlives the limit is killed, and so are the
+    others, and the phase fails."""
+    done = {}
+    try:
+        for s in started:
+            left = SCRIPT_TIMEOUT_S - (time.perf_counter() - s["t0"])
+            try:
+                rc = s["proc"].wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"17: {s['label']} ran past {SCRIPT_TIMEOUT_S} s")
+            done[s["label"]] = (rc, (root / f"{s['label']}.out").read_text(),
+                                (root / f"{s['label']}.err").read_text(),
+                                time.perf_counter() - s["t0"])
+    finally:
+        for s in started:
+            if s["proc"].poll() is None:
+                s["proc"].kill()
+                s["proc"].wait()
+            for f in s["files"]:
+                f.close()
+    return done
+
+
+def read_report(path) -> dict:
+    """A runbook's JSON report, or {} where it wrote none."""
+    return json.loads(path.read_text()) if path.exists() else {}
+
+
+def demo_answers(label, rc, out, err):
+    """The two answers a demo run printed after ``bot>``: it must exit 0,
+    print the image line, and prompt ``you> `` once a question and once at
+    the end of its input."""
+    if rc != 0:
+        fail(f"17.1 {label}: the demo exited {rc}:\n{out[-2000:]}\n{err[-4000:]}")
+    parts = out.split("you> ")
+    bots = parts[1:-1]
+    if not parts[0].startswith("Image loaded: ") or parts[-1] != "" \
+            or len(bots) != len(CHAT_QUESTIONS) \
+            or not all(p.startswith("bot> ") and p.endswith("\n") for p in bots):
+        fail(f"17.1 {label}: the demo's output is not two bot> lines after the image line:\n"
+             f"{out[-2000:]}")
+    return [p[len("bot> "):-1] for p in bots]
+
+
+def chat_turn(torch, chat, question):
+    """One streamed turn: the pieces, the seconds to the first one and the
+    seconds at each later one."""
+    chat.ask(question)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pieces, stamps = [], []
+    for piece in chat.stream_answer(max_new_tokens=CHAT_MAX_NEW_TOKENS):
+        stamps.append(time.perf_counter() - t0)  # each piece read its token on the host
+        pieces.append(piece)
+    if not pieces:
+        fail(f"17.2: no piece streamed for {question!r}")
+    return pieces, stamps
+
+
+def phase_chat(torch, card, demo, image_path, env):
+    """17.2: the demo's chat in-process on one model (``build_chat`` on the
+    shipped certify YAML): two streamed turns, the first with its kernel
+    launches counted (a batch-1 chunk and its decode steps), and the first
+    turn again through ``Chat.answer`` on a fresh conversation, which must
+    give the stream's token ids and text (the byte-level tokenizer of a
+    model without a Vicuna directory decodes only ids 4-259, so at random
+    weights the text is mostly empty: the ids are the check). Returns the
+    launches of the first turn."""
+    from unittest import mock
+
+    from PIL import Image
+
+    from certifiedgpt_tpu_torch.data.text import strip_generation_markers
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env):
+        chat = demo.build_chat(CHAT_CONFIG, CHAT_TEMPLATE, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the ids each decode is given: the stream decodes its growing id list,
+    # the answer its ids up to EOS
+    tok, decoded = chat.model.tokenizer, []
+    decode = tok.decode
+
+    def recording_decode(ids, skip_special_tokens=True):
+        decoded.append([int(i) for i in ids])
+        return decode(ids, skip_special_tokens=skip_special_tokens)
+
+    tok.decode = recording_decode
+    image = Image.open(image_path)
+    chat.upload_img(image)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    pieces, stamps = chat_turn(torch, chat, CHAT_QUESTIONS[0])
+    launches = read_counts()
+    stream_ids = decoded[-1]
+    # a decode step after every piece but the last, unless the budget ran out
+    steps = len(pieces) - (len(pieces) == CHAT_MAX_NEW_TOKENS)
+    check_counts("17.2 chat turn", launches, PER_CHUNK["flash_cls"], 1, steps)
+    pieces2, stamps2 = chat_turn(torch, chat, CHAT_QUESTIONS[1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    streamed = chat.conv.messages[1][1]
+    other = demo.Chat(chat.model, chat.vis_processor, template=CHAT_TEMPLATE)
+    other.upload_img(image)
+    other.ask(CHAT_QUESTIONS[0])
+    t0 = time.perf_counter()
+    answer = other.answer(max_new_tokens=CHAT_MAX_NEW_TOKENS)
+    answer_s = time.perf_counter() - t0
+    del tok.decode
+    if decoded[-1] != stream_ids or answer != strip_generation_markers(streamed):
+        fail(f"17.2: turn 1's answer (ids {decoded[-1]}, {answer!r}) is not its stream's "
+             f"(ids {stream_ids}, {streamed!r})")
+    per_piece = [(s[-1] - s[0]) / (len(s) - 1) if len(s) > 1 else float("nan")
+                 for s in (stamps, stamps2)]
+    log(f"[chat] 17.2 {CHAT_CONFIG} in-process: model build {build_s:.3f} s; turn 1: first "
+        f"piece after {stamps[0]:.4f} s, then {per_piece[0]:.4f} s a piece over "
+        f"{len(pieces) - 1} more ({steps} decode steps); turn 2: {stamps2[0]:.4f} s, then "
+        f"{per_piece[1]:.4f} s a piece over {len(pieces2) - 1} more; turn 1 through "
+        f"Chat.answer {answer_s:.4f} s, the same ids and text; peak memory {peak_gb:.2f} GB; "
+        f"{card}")
+    log(f"[chat] 17.2 launches of turn 1 {json.dumps(launches)}; turn 1's ids {stream_ids} "
+        f"(answer and stream); answers {json.dumps([streamed, chat.conv.messages[3][1]])}")
+    del chat, other
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_scripts(torch, card, d_in: int, d_out: int):
+    """17: the twins of the JAX package's two scripts. 17.1 runs
+    ``scripts/demo_chat_torch.py`` on the shipped certify YAML unchanged
+    (its checkpoint variables where nothing exists: seeded weights at full
+    width) over a written 448-pixel JPEG with two questions on its input,
+    once answering and once streaming; each exits 0 with two ``bot>``
+    lines, and turn 1's streamed text is the answer's. Beside them runs
+    17.3's ``scripts/verify_attack_torch.py --synthetic``: exit 0, ``ok``,
+    the grid of ``vit_tiny`` and ``rn_tiny``. Then 17.2 (``phase_chat``) in
+    this process, then 17.3's full mode at ``--images 1`` on the shipped
+    attack YAML over phase 14.3's written set and no CLIP checkpoint: exit 1,
+    ``undischarged``, 0 checked, 20 skipped, 0 failed, 20 rows. Returns the
+    launches of 17.2's chat turn."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from certifiedgpt_tpu_torch.common.config import Config
+    from certifiedgpt_tpu_torch.data.text import strip_generation_markers
+
+    demo = load_script(os.path.join(REPO_DIR, DEMO_SCRIPT))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp:
+        root = Path(tmp)
+        env, _ = launch_files(root, ATTACK_IMAGES, d_in, d_out)
+        env.update({name: str(root / "absent" / name.lower()) for name in CLIP_ENV},
+                   TMPDIR=str(root))
+        image_path = root / "chat.jpg"
+        Image.fromarray(np.random.RandomState(17).randint(0, 255, (448, 448, 3),
+                                                          dtype=np.uint8)).save(image_path)
+        questions = "".join(f"{q}\n" for q in CHAT_QUESTIONS)
+        demo_argv = [DEMO_SCRIPT, "--image", str(image_path), "--config", CHAT_CONFIG]
+        t0 = time.perf_counter()
+        started = [start_script(root, "answer", demo_argv, env, questions),
+                   start_script(root, "stream", [*demo_argv, "--stream"], env, questions),
+                   start_script(root, "synthetic", [ATTACK_RUNBOOK, "--synthetic", "--report",
+                                                    str(root / "synthetic.json")], env)]
+        done = finish_scripts(root, started)
+        together_s = time.perf_counter() - t0
+        answers = {label: demo_answers(label, *done[label][:3]) for label in ("answer", "stream")}
+        if strip_generation_markers(answers["stream"][0]) != answers["answer"][0]:
+            fail(f"17.1: turn 1 streamed {answers['stream'][0]!r}, answered "
+                 f"{answers['answer'][0]!r}")
+        log(f"[scripts] 17.1 {DEMO_SCRIPT} --config {CHAT_CONFIG}: bot> lines answered "
+            f"{json.dumps(answers['answer'])}, streamed {json.dumps(answers['stream'])}; "
+            f"commands {done['answer'][3]:.3f} / {done['stream'][3]:.3f} s")
+        rc, out, err, _ = done["synthetic"]
+        report = read_report(root / "synthetic.json")
+        if rc != 0 or not report.get("ok") or report.get("synthetic") is not True \
+                or set(report.get("grid", {})) != {"vit_tiny", "rn_tiny"}:
+            fail(f"17.3: {ATTACK_RUNBOOK} --synthetic exited {rc}, report {report}:\n"
+                 f"{out[-2000:]}\n{err[-4000:]}")
+        log(f"[scripts] 17.3 {ATTACK_RUNBOOK} --synthetic: rc 0, grid "
+            f"{json.dumps(report['grid'])}, command {done['synthetic'][3]:.3f} s; the three "
+            f"commands together {together_s:.3f} s; {card}")
+
+        launches = phase_chat(torch, card, demo, image_path, env)
+
+        out_dir = root / "out_verify"
+        full = start_script(root, "full", [ATTACK_RUNBOOK, "--images", "1", "--report",
+                                           str(root / "full.json")],
+                            dict(env, OUTPUT_DIR=str(out_dir)))
+        rc, out, err, seconds = finish_scripts(root, [full])["full"]
+        report = read_report(root / "full.json")
+        results = out_dir / "attack_results.jsonl"
+        rows = read_rows(results) if results.exists() else []
+        n_rows = len(ATTACK_BACKBONES) * len(Config(ATTACK_CONFIG).run.get("sigma_grid"))
+        if rc != 1 or "verify_attack_torch: undischarged" not in err \
+                or [report.get(k) for k in ("checked", "skipped", "failed", "ok")] \
+                != [0, 20, 0, False] or (report.get("ancova") or {}).get("status") != "skipped" \
+                or len(rows) != n_rows:
+            fail(f"17.3: {ATTACK_RUNBOOK} --images 1 exited {rc} with {len(rows)} rows, "
+                 f"report {report}:\n{out[-2000:]}\n{err[-4000:]}")
+        log(f"[scripts] 17.3 {ATTACK_RUNBOOK} --images 1 on {ATTACK_CONFIG} (no CLIP "
+            f"checkpoint): rc 1, undischarged; checked 0, skipped 20, failed 0, ANCOVA "
+            f"skipped; {len(rows)} rows; command {seconds:.3f} s; {card}")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--phase15-worker"]:  # one rank of phase 15.1's run
         return phase15_worker(sys.argv[2])
@@ -4824,6 +5095,12 @@ def main() -> int:
                                                                 serial_rows)
         phase_stage_split(torch, card, device)
     log(f"[main] phase 15 took {time.perf_counter() - t0:.1f} s")
+    # phase 17: the port's twins of the JAX package's chat demo and attack
+    # runbook, as a user runs them
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cli_launches["chat"] = phase_scripts(torch, card, *widths)
+    log(f"[main] phase 17 took {time.perf_counter() - t0:.1f} s")
     for name, rec in batch1.items():
         records[name]["attack_batch1"] = {k: rec[k] for k in (
             "ms", "ms_cls", "plain_ms", "bound_ms", "bound_by", "max_abs_err") if k in rec}

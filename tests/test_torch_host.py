@@ -112,14 +112,21 @@ print(" ".join(names))
         "common.profiling", "utils.gcs", "utils.subset", "utils.dataset_stats",
         "parallel.mesh", "parallel.tensor_parallel", "parallel.processes",
         "parallel.dryrun", "parallel.pipeline")} <= names
-    # the port's quality runbook imports neither either
-    script = os.path.join(REPO, "scripts", "verify_checkpoints_torch.py")
+    # the port's scripts (the quality runbook, the chat demo, the attack
+    # runbook) import neither either; the last two import their port
+    # modules at the top, so loading them imports what they run
+    scripts = [os.path.join(REPO, "scripts", f"{name}.py") for name in (
+        "verify_checkpoints_torch", "demo_chat_torch", "verify_attack_torch")]
     code = (
         "import importlib.util, sys\n"
         "sys.modules['jax'] = None\n"
-        f"spec = importlib.util.spec_from_file_location('vct', {script!r})\n"
-        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        f"for i, script in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', script)\n"
+        "    mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
         "import certifiedgpt_tpu_torch.launch\n"
+        "for name in ('certifiedgpt_tpu_torch.models.conversation',\n"
+        "             'certifiedgpt_tpu_torch.attack.agent'):\n"
+        "    assert name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m == 'certifiedgpt_tpu' "
         "or m.startswith('certifiedgpt_tpu.')]\n"
         "assert not bad, bad\n"
