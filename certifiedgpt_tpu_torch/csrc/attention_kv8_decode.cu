@@ -41,6 +41,9 @@
 //   under its output. With an item's first tile, cp.async brings its q rows,
 //   the step's k and v rows and its K and V row scales (two item slots each);
 //   its mask bytes are loaded into registers an item ahead.
+// - With no step rows (k and v null, offset T) it writes nothing and is
+//   multi_head_attention_kv8 of a lone query row (ops/attention.py routes
+//   such rows here): the cache comes out bit for bit as it went in.
 // - The cache write rides along: warps 0 and 1 quantize the step's k and v
 //   rows (from shared memory) and write codes and scales to the cache in
 //   device memory; the staged tile's copy of slot `offset`, read before or
@@ -312,7 +315,8 @@ __device__ __forceinline__ void stage_next(const DecodeArgs<E>& a, const CUtenso
       constexpr int g = G;
       unsigned char* qd = smem + L.q + (cur.k & 1) * g * row_pieces * 16;
       unsigned char* xd = smem + L.x + (cur.k & 1) * 2 * row_pieces * 16;
-      for (int i = threadIdx.x; i < (g + 2) * row_pieces; i += blockDim.x) {
+      const int rows = a.kn != nullptr ? g + 2 : g;  // no new rows: q alone
+      for (int i = threadIdx.x; i < rows * row_pieces; i += blockDim.x) {
         int row = 0, r = i;  // row: q rows 0..g-1, then k and v (no division: no I2F)
         while (r >= row_pieces) {
           r -= row_pieces;
@@ -430,7 +434,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
     }
 
     // the cache write: warp 0 quantizes the step's k row, warp 1 its v row
-    if (warp < 2) {
+    if (warp < 2 && a.kn != nullptr) {
       const bool is_v = warp == 1;
       const E* x = xs_rows + is_v * Dh;
       float xv[kMaxHeadDim / 32];
@@ -466,7 +470,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
     for (int h = 0; h < G; ++h) mx[h] = -FLT_MAX;
     for (int c = 0; c < n; ++c) {
       mbarrier_wait(bars + 8 * stage, (phases >> stage) & 1);
-      if (c == offset_tile) patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow, a);
+      if (a.kn != nullptr && c == offset_tile) {
+        patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow, a);
+      }
       __syncthreads();  // the tile, the scales, the mask and the quantized rows are in place
       const unsigned char* tile = smem + L.ring + stage * L.tile * Dh;
       const int t0 = c << kTileShift, rows = T - t0 < L.tile ? T - t0 : L.tile;
@@ -564,7 +570,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
       for (int i = 0; i < 16; ++i) acc[h][i] = 0.f;
     for (int c = 0; c < n; ++c) {
       mbarrier_wait(bars + 8 * stage, (phases >> stage) & 1);
-      if (c == offset_tile) {
+      if (a.kn != nullptr && c == offset_tile) {
         patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow + Dh, a);
       }
       __syncthreads();  // the tile and the weights are in place
@@ -686,7 +692,8 @@ int encode_cache_map(CUtensorMap* map, void* base, int B, int T, int Hkv, int Dh
 // `offset`; the f32 scales ks, vs [B, T, Hkv] by shared strides, written
 // at `offset`; mask bool [B, T] by strides or null; out [B, 1, H, Dh] in q's
 // dtype, contiguous. H / Hkv in {1, 2, 4, 8}, Dh a multiple of 16 up to 256,
-// 0 <= offset < T, B at most 65535. Returns kCacheTooLong when the block's shared memory exceeds
+// 0 <= offset < T, B at most 65535; kn and vn null with offset T: nothing is
+// written (the cache is only read). Returns kCacheTooLong when the block's shared memory exceeds
 // the card's. The grid is the kv heads times as many blocks of batch rows as
 // fill the card once (its SMs times the blocks an SM holds at this width and
 // shared memory), at most B: each block then walks its batch rows.
@@ -698,7 +705,8 @@ extern "C" int cgpt_attention_kv8_decode(
     int q_f32, void* stream) {
   const int g = Hkv > 0 ? H / Hkv : 0;
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || instance<float>(g) == nullptr ||
-      Dh <= 0 || Dh % 16 != 0 || Dh > kMaxHeadDim || offset < 0 || offset >= T ||
+      Dh <= 0 || Dh % 16 != 0 || Dh > kMaxHeadDim || offset < 0 ||
+      (kn == nullptr) != (vn == nullptr) || offset > T || (kn != nullptr && offset == T) ||
       c_t % 16 != 0 || c_h % 16 != 0 || c_b % 16 != 0 ||
       reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(q) % 16 != 0 || q_b % (q_f32 ? 4 : 8) != 0 ||

@@ -53,14 +53,27 @@
 // itself, at about half the card's rate with a few blocks an SM, and at
 // M = 96 the mma.sync issue and its latency on four warps a block.
 //
-// An f32 instance (f32 x and output, the tiny and f32 configurations) is a
-// plain tiled product on the CUDA cores: each int8 value goes to f32 (exact)
-// and is multiplied by f32 FMAs, the sum scaled and stored in f32, as the
-// plain version's f32 product of the upcast operands is.
+// The f32 instance (f32 x and output: the tiny and f32 configurations) is
+// the same kernel with x as three bf16 terms: hi = x truncated to bf16 (the
+// low 16 bits masked off), mid = (x - hi) truncated, lo = x - hi - mid, each
+// subtraction exact, so hi + mid + lo = x (8 significant bits a term). An
+// int8 weight is exact in bf16, so three mma.sync products with f32
+// accumulation give the f32 product; the weight fragment is converted once
+// for the three. The tensor cores truncate their sums to the largest
+// addend's exponent, so each 16-wide step's three products are summed from
+// zero and then added to the accumulator by an IEEE addition (summed into
+// the accumulator itself, K = 11008 rows came out 3.3e-5 off cuBLAS's f32
+// product, relative Frobenius, H100). x stays f32 in the ring and is split in registers; 64 rows
+// a block at most (three stages in ~110 KB). Below |x| = 2^-110, lo lies in
+// bf16's subnormals and loses what is under 2^-133; an infinite x is its own
+// hi. Bound at [96, 4096] x [4096, 4096]: the three bf16 products' 9.66
+// GFLOP at the bf16 peak, 0.0098 ms (f32 FMAs: 3.22 GFLOP, 0.048 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -69,7 +82,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBN = 32 * kWarps;        // output channels a block (128)
 constexpr int kBK = 64;                 // K values a stage
 constexpr int kWStride = kBK + 16;      // bytes a channel of the weight tile (80)
-constexpr int kXStride = 2 * kBK + 32;  // bytes a row of the x tile (160)
 constexpr int kPStride = kBN + 4;       // floats a row of the partial tile
 // the most K splits (a cluster): beyond 3 the exchange of partials costs
 // more than the extra blocks add (scripts/bench_torch_int8_ops.py)
@@ -79,13 +91,22 @@ constexpr int kRingBytes = 110 * 1024;  // two blocks an SM
 // the 8-row steps of the instances, and the most rows a block takes
 constexpr int kMTs[] = {1, 2, 4, 8, 12, 16};
 constexpr int kInstances = sizeof(kMTs) / sizeof(kMTs[0]);
-constexpr int kMaxRows = 8 * 16;
 
-template <int MT>
+// x's side of an instance (X: x's and the output's dtype): bf16 terms a
+// value, bytes a row of the x tile (padded: fragment reads free of bank
+// conflicts), the most rows a block takes.
+template <typename X>
+struct Side {
+  static constexpr bool kF32 = sizeof(X) == 4;
+  static constexpr int kTerms = kF32 ? 3 : 1, kXStride = kF32 ? 4 * kBK + 64 : 2 * kBK + 32,
+                       kMaxRows = kF32 ? 64 : 128;
+};
+
+template <int MT, typename X = __nv_bfloat16>
 struct Tile {
   static constexpr int kRows = 8 * MT;
   static constexpr int kWBytes = kBN * kWStride;
-  static constexpr int kStageBytes = kWBytes + kRows * kXStride;
+  static constexpr int kStageBytes = kWBytes + kRows * Side<X>::kXStride;
   static constexpr int kStages = kRingBytes / kStageBytes > 8 ? 8 : kRingBytes / kStageBytes;
   static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kPartial = kRows * kPStride * 4;
@@ -93,32 +114,17 @@ struct Tile {
   static_assert(kStages >= 3, "the ring needs three stages");
 };
 
+template <typename X>
 struct Args {
-  const __nv_bfloat16* x;
+  const X* x;
   long long ldx;  // elements
   const int8_t* w;
   long long ldw;  // bytes between channels
   const float* scale;
-  __nv_bfloat16* out;
+  X* out;
   long long ldo;  // elements
   int M, N, K;
   int k_per_split;  // a multiple of kBK
-};
-
-// the f32 instance's tile: 32 rows x 64 channels, K in steps of 32; each of
-// the 256 threads keeps 2 rows x 4 channels
-constexpr int kFThreads = 256;
-constexpr int kFBM = 32, kFBN = 64, kFBK = 32;
-
-struct F32Args {
-  const float* x;
-  long long ldx;  // elements
-  const int8_t* w;
-  long long ldw;  // bytes between channels
-  const float* scale;
-  float* out;
-  long long ldo;  // elements
-  int M, N, K;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -204,20 +210,71 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four x values at K offset 4t of a 16-wide step (a row of the x tile):
+// the B fragment's registers of each term, bf16 x as it is, f32 x as its
+// three bf16 terms, smallest first (an x with nothing below hi: mid = lo = 0).
+template <typename X>
+__device__ __forceinline__ void x_frags(const unsigned char* at,
+                                        uint32_t (&b)[Side<X>::kTerms][2]) {
+  if constexpr (!Side<X>::kF32) {
+    const uint2 xb = *reinterpret_cast<const uint2*>(at);
+    b[0][0] = xb.x;
+    b[0][1] = xb.y;
+  } else {
+    const float4 xv = *reinterpret_cast<const float4*>(at);
+    const float x[4] = {xv.x, xv.y, xv.z, xv.w};
+    uint32_t t[3][4];  // lo, mid and hi of each value
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      t[2][i] = __float_as_uint(x[i]) & 0xFFFF0000u;
+      const float hi = __uint_as_float(t[2][i]);
+      const float r = hi == x[i] ? 0.f : __fsub_rn(x[i], hi);
+      t[1][i] = __float_as_uint(r) & 0xFFFF0000u;
+      t[0][i] = __float_as_uint(__fsub_rn(r, __uint_as_float(t[1][i])));
+    }
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      b[e][0] = __byte_perm(t[e][0], t[e][1], 0x7632);
+      b[e][1] = __byte_perm(t[e][2], t[e][3], 0x7632);
+    }
+  }
+}
+
+// Eight scaled sums of a row's neighbouring channels stored in x's dtype.
+template <typename X>
+__device__ __forceinline__ void store8(X* out, const float (&s)[8], const float* scale) {
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(s[e], scale[e]);
+  if constexpr (Side<X>::kF32) {
+    reinterpret_cast<float4*>(out)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(out)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      o[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(out) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
 // A thread's share of each stage's copies, its addresses worked out once:
-// the weight chunks (16 bytes of a channel) and x chunks (8 values of a row)
+// the weight chunks (16 bytes of a channel) and x chunks (16 bytes of a row)
 // it copies at every K tile; channels past N and rows past M are not loaded
 // (they only reach outputs that are never stored).
-template <int MT>
+template <int MT, typename X>
 struct Copies {
+  static constexpr int kXChunk = 16 / static_cast<int>(sizeof(X));  // x values a chunk
   static constexpr int kW = kBN * (kBK / 16) / kThreads;
-  static constexpr int kX = (Tile<MT>::kRows * (kBK / 8) + kThreads - 1) / kThreads;
+  static constexpr int kX = (Tile<MT, X>::kRows * (kBK / kXChunk) + kThreads - 1) / kThreads;
   const int8_t* w[kW];
-  const __nv_bfloat16* x[kX];
+  const X* x[kX];
   uint32_t w_dst[kW], x_dst[kX];  // offsets in a stage
   int w_k[kW], x_k[kX];           // K offsets in a tile
 
-  __device__ __forceinline__ Copies(const Args& a, int m0, int n0) {
+  __device__ __forceinline__ Copies(const Args<X>& a, int m0, int n0) {
 #pragma unroll
     for (int i = 0; i < kW; ++i) {
       const int c = threadIdx.x + i * kThreads;
@@ -229,10 +286,11 @@ struct Copies {
 #pragma unroll
     for (int i = 0; i < kX; ++i) {
       const int c = threadIdx.x + i * kThreads;
-      const int r = c / (kBK / 8), part = c % (kBK / 8);
-      x[i] = r < Tile<MT>::kRows && m0 + r < a.M ? a.x + (m0 + r) * a.ldx + 8 * part : nullptr;
-      x_dst[i] = Tile<MT>::kWBytes + r * kXStride + 16 * part;
-      x_k[i] = 8 * part;
+      const int r = c / (kBK / kXChunk), part = c % (kBK / kXChunk);
+      x[i] = r < Tile<MT, X>::kRows && m0 + r < a.M ? a.x + (m0 + r) * a.ldx + kXChunk * part
+                                                     : nullptr;
+      x_dst[i] = Tile<MT, X>::kWBytes + r * Side<X>::kXStride + 16 * part;
+      x_k[i] = kXChunk * part;
     }
   }
 
@@ -254,9 +312,10 @@ struct Copies {
   }
 };
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads, 2) int8_weight_matmul_kernel(const Args a) {
-  using T = Tile<MT>;
+template <int MT, typename X>
+__global__ void __launch_bounds__(kThreads, 2) int8_weight_matmul_kernel(const Args<X> a) {
+  using T = Tile<MT, X>;
+  constexpr int kTerms = Side<X>::kTerms, kXStride = Side<X>::kXStride;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -274,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, 2) int8_weight_matmul_kernel(const A
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  const Copies<MT> copies(a, m0, n0);
+  const Copies<MT, X> copies(a, m0, n0);
 #pragma unroll
   for (int s = 0; s < T::kStages - 1; ++s) {
     if (s < tiles) copies.issue(base + s * T::kStageBytes, k_begin + s * kBK, k_end);
@@ -303,13 +362,26 @@ __global__ void __launch_bounds__(kThreads, 2) int8_weight_matmul_kernel(const A
         bf16x4_of(w_lo, af[i][0], af[i][2]);
         bf16x4_of(w_hi, af[i][1], af[i][3]);
       }
-      // B: row g of each 8-row step of x, the same k
+      // B: row g of each 8-row step of x, the same k, each term in turn
 #pragma unroll
       for (int j = 0; j < MT; ++j) {
-        const uint2 xb =
-            *reinterpret_cast<const uint2*>(xt + (8 * j + g) * kXStride + 2 * (k16 + 4 * t));
-        mma_bf16(acc[0][j], af[0], xb.x, xb.y);
-        mma_bf16(acc[1][j], af[1], xb.x, xb.y);
+        uint32_t xb[kTerms][2];
+        x_frags<X>(xt + (8 * j + g) * kXStride + sizeof(X) * (k16 + 4 * t), xb);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if constexpr (kTerms == 1) {
+            mma_bf16(acc[i][j], af[i], xb[0][0], xb[0][1]);
+          } else {
+            // the step's three products summed apart, then added in IEEE
+            // order: the tensor cores truncate a sum to the exponent of
+            // its largest addend, which the whole accumulator would be
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int e = 0; e < kTerms; ++e) mma_bf16(part, af[i], xb[e][0], xb[e][1]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][j][c] = __fadd_rn(acc[i][j][c], part[c]);
+          }
+        }
       }
     }
   }
@@ -367,66 +439,18 @@ __global__ void __launch_bounds__(kThreads, 2) int8_weight_matmul_kernel(const A
         s[7] = __fadd_rn(s[7], v[q][1].w);
       }
     }
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(s[2 * e], a.scale[n + 2 * e]),
-                                                     __fmul_rn(s[2 * e + 1],
-                                                               a.scale[n + 2 * e + 1]));
-      o[e] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(a.out + (m0 + r) * a.ldo + n) = make_uint4(o[0], o[1], o[2], o[3]);
+    store8(a.out + (m0 + r) * a.ldo + n, s, a.scale + n);
   }
   if (splits > 1) cluster_sync();  // a block's partials stay until every peer has read them
 }
 
-__global__ void __launch_bounds__(kFThreads) int8_weight_matmul_f32_kernel(const F32Args a) {
-  __shared__ float xt[kFBK][kFBM + 1];  // the x tile, k-major
-  __shared__ float wt[kFBK][kFBN + 1];  // the weight tile, k-major
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
-  float acc[2][4] = {};
-  for (int k0 = 0; k0 < a.K; k0 += kFBK) {
-    for (int i = threadIdx.x; i < kFBM * kFBK; i += kFThreads) {
-      const int r = i / kFBK, c = i % kFBK, m = m0 + r, k = k0 + c;
-      xt[c][r] = m < a.M && k < a.K ? a.x[m * a.ldx + k] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kFBN * kFBK; i += kFThreads) {
-      const int n = n0 + i / kFBK, c = i % kFBK, k = k0 + c;
-      wt[c][i / kFBK] = n < a.N && k < a.K ? static_cast<float>(a.w[n * a.ldw + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kFBK; ++kk) {
-      const float x0 = xt[kk][2 * ty], x1 = xt[kk][2 * ty + 1];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float w = wt[kk][tx + 16 * j];
-        acc[0][j] = fmaf(x0, w, acc[0][j]);
-        acc[1][j] = fmaf(x1, w, acc[1][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + 2 * ty + i;
-    if (m >= a.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < a.N) a.out[m * a.ldo + n] = __fmul_rn(acc[i][j], a.scale[n]);
-    }
-  }
-}
-
-// The card's SM count, and for each instance how many of its blocks the
-// card holds at once in clusters of s blocks (s = 1 .. kMaxSplits): read once
-// a device with the instance's shared-memory opt-in, so a launch inside a
-// CUDA graph's capture makes no query.
+// The card's SM count, and for each instance (bf16, then f32) how many of
+// its blocks the card holds at once in clusters of s blocks (s = 1 ..
+// kMaxSplits): read once a device with the instance's shared-memory opt-in,
+// so a launch inside a CUDA graph's capture makes no query.
 struct Device {
   int sms = 0;
-  int resident[kInstances][kMaxSplits + 1] = {};
+  int resident[2][kInstances][kMaxSplits + 1] = {};
 };
 
 cudaError_t device_info(Device** out) {
@@ -444,19 +468,21 @@ cudaError_t device_info(Device** out) {
   return cudaSuccess;
 }
 
-// the instance for M rows: the fewest 8-row steps that hold min(M, 128) rows
+// the instance for M rows: the fewest 8-row steps that hold min(M, the
+// side's most rows a block) rows
+template <typename X>
 int instance_for(int M) {
-  const int steps = ((M < kMaxRows ? M : kMaxRows) + 7) / 8;
+  const int steps = ((M < Side<X>::kMaxRows ? M : Side<X>::kMaxRows) + 7) / 8;
   int i = 0;
   while (kMTs[i] < steps) ++i;
   return i;
 }
 
-template <int MT>
-cudaError_t configure(Device& d, int index) {
-  using T = Tile<MT>;
-  if (d.resident[index][1] != 0) return cudaSuccess;
-  const void* fn = reinterpret_cast<const void*>(int8_weight_matmul_kernel<MT>);
+template <int MT, typename X>
+cudaError_t configure(int* resident) {
+  using T = Tile<MT, X>;
+  if (resident[1] != 0) return cudaSuccess;
+  const void* fn = reinterpret_cast<const void*>(int8_weight_matmul_kernel<MT, X>);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
@@ -476,9 +502,9 @@ cudaError_t configure(Device& d, int index) {
     cfg.attrs = cluster;
     cfg.numAttrs = 1;
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, int8_weight_matmul_kernel<MT>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, int8_weight_matmul_kernel<MT, X>, &cfg);
     if (err != cudaSuccess) return err;
-    d.resident[index][s] = clusters > 0 ? clusters * s : 1;
+    resident[s] = clusters > 0 ? clusters * s : 1;
   }
   return cudaSuccess;
 }
@@ -520,29 +546,40 @@ Plan plan_for(int M, int N, int K, int rows, const int* resident) {
   return p;
 }
 
-// The instance and plan for an M x K x N product.
-cudaError_t choose(int M, int N, int K, Device& d, int* index, Plan* plan) {
-  const int idx = instance_for(M);
-  cudaError_t err;
-  switch (kMTs[idx]) {
-    case 1: err = configure<1>(d, idx); break;
-    case 2: err = configure<2>(d, idx); break;
-    case 4: err = configure<4>(d, idx); break;
-    case 8: err = configure<8>(d, idx); break;
-    case 12: err = configure<12>(d, idx); break;
-    default: err = configure<16>(d, idx); break;
+// Calls f(std::integral_constant<int, MT>()) with the 8-row steps of the
+// side's instance `index`.
+template <typename X, typename F>
+auto with_instance(int index, F&& f) {
+  if constexpr (!Side<X>::kF32) {
+    if (kMTs[index] == 12) return f(std::integral_constant<int, 12>());
+    if (kMTs[index] == 16) return f(std::integral_constant<int, 16>());
   }
+  switch (kMTs[index]) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    default: return f(std::integral_constant<int, 8>());
+  }
+}
+
+// The instance and plan for an M x K x N product with x of dtype X.
+template <typename X>
+cudaError_t choose(int M, int N, int K, Device& d, int* index, Plan* plan) {
+  const int idx = instance_for<X>(M);
+  int* resident = d.resident[Side<X>::kF32][idx];
+  const cudaError_t err =
+      with_instance<X>(idx, [&](auto mt) { return configure<decltype(mt)::value, X>(resident); });
   if (err != cudaSuccess) return err;
   *index = idx;
-  *plan = plan_for(M, N, K, 8 * kMTs[idx], d.resident[idx]);
+  *plan = plan_for(M, N, K, 8 * kMTs[idx], resident);
   return cudaSuccess;
 }
 
-template <int MT>
-cudaError_t launch_bf16(const Args& base, const Plan& p, cudaStream_t stream) {
-  using T = Tile<MT>;
+template <int MT, typename X>
+cudaError_t launch_mt(const Args<X>& base, const Plan& p, cudaStream_t stream) {
+  using T = Tile<MT, X>;
   if (p.row_tiles > 65535) return cudaErrorInvalidValue;
-  Args a = base;
+  Args<X> a = base;
   a.k_per_split = p.k_per_split;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.col_tiles, p.row_tiles, p.splits);
@@ -556,18 +593,32 @@ cudaError_t launch_bf16(const Args& base, const Plan& p, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = p.splits;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, int8_weight_matmul_kernel<MT>, a);
+  return cudaLaunchKernelEx(&cfg, int8_weight_matmul_kernel<MT, X>, a);
 }
 
-int stages_of(int index) {
-  switch (kMTs[index]) {
-    case 1: return Tile<1>::kStages;
-    case 2: return Tile<2>::kStages;
-    case 4: return Tile<4>::kStages;
-    case 8: return Tile<8>::kStages;
-    case 12: return Tile<12>::kStages;
-    default: return Tile<16>::kStages;
-  }
+// One launch of the instance `choose` picks for x of dtype X.
+template <typename X>
+cudaError_t run(const Args<X>& a, Device& d, cudaStream_t st) {
+  int index = 0;
+  Plan p;
+  const cudaError_t err = choose<X>(a.M, a.N, a.K, d, &index, &p);
+  if (err != cudaSuccess) return err;
+  return with_instance<X>(index, [&](auto mt) { return launch_mt<decltype(mt)::value>(a, p, st); });
+}
+
+// The plan for x of dtype X into out[7] (cgpt_int8_weight_matmul_plan's fields).
+template <typename X>
+cudaError_t plan_into(int M, int N, int K, Device& d, int* out) {
+  int index = 0;
+  Plan p;
+  const cudaError_t err = choose<X>(M, N, K, d, &index, &p);
+  if (err != cudaSuccess) return err;
+  const int values[] = {p.rows, p.row_tiles, p.col_tiles, p.splits, p.k_per_split, p.resident,
+                        with_instance<X>(index, [](auto mt) {
+                          return Tile<decltype(mt)::value, X>::kStages;
+                        })};
+  for (int i = 0; i < 7; ++i) out[i] = values[i];
+  return cudaSuccess;
 }
 
 bool bad_shape(int M, int N, int K) {
@@ -578,62 +629,42 @@ bool bad_shape(int M, int N, int K) {
 
 // x [M, K] bf16 (row stride ldx elements), w: channel n's K int8 values at
 // w + n * ldw, scale [N] f32, out [M, N] bf16 (row stride ldo); with x_f32,
-// x and out are f32. K a multiple of 16, N of 8; x, w, ldx * 2 and ldw
-// 16-byte aligned, and for bf16 out and ldo * 2 too. One kernel launch, no
-// memset, no workspace.
+// x and out are f32. K a multiple of 16, N of 8; x, w, out, and the row
+// strides in bytes (ldx and ldo times the element size, ldw) 16-byte
+// aligned. One kernel launch, no memset, no workspace.
 extern "C" int cgpt_int8_weight_matmul(const void* x, long long ldx, const void* w, long long ldw,
                                        const void* scale, void* out, long long ldo, int M, int N,
                                        int K, int x_f32, void* stream) {
-  if (bad_shape(M, N, K) || ldx < K || ldw < K || ldo < N || (2 * ldx) % 16 != 0 ||
-      ldw % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      (!x_f32 && ((2 * ldo) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0))) {
+  const long long esize = x_f32 ? 4 : 2;
+  if (bad_shape(M, N, K) || ldx < K || ldw < K || ldo < N || (esize * ldx) % 16 != 0 ||
+      ldw % 16 != 0 || (esize * ldo) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Device* d = nullptr;
   cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (x_f32) {
-    F32Args a{static_cast<const float*>(x), ldx, static_cast<const int8_t*>(w), ldw,
-              static_cast<const float*>(scale), static_cast<float*>(out), ldo, M, N, K};
-    const dim3 grid((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM);
-    int8_weight_matmul_f32_kernel<<<grid, kFThreads, 0, st>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const Args a{static_cast<const __nv_bfloat16*>(x), ldx, static_cast<const int8_t*>(w), ldw,
-               static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), ldo, M, N, K,
-               0};
-  int index = 0;
-  Plan p;
-  err = choose(M, N, K, *d, &index, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  switch (kMTs[index]) {
-    case 1: err = launch_bf16<1>(a, p, st); break;
-    case 2: err = launch_bf16<2>(a, p, st); break;
-    case 4: err = launch_bf16<4>(a, p, st); break;
-    case 8: err = launch_bf16<8>(a, p, st); break;
-    case 12: err = launch_bf16<12>(a, p, st); break;
-    default: err = launch_bf16<16>(a, p, st); break;
-  }
+  // one launch of the instance for x's dtype (`typed` carries it)
+  const auto launch = [&](auto* typed) {
+    using X = std::remove_pointer_t<decltype(typed)>;
+    return run(Args<X>{static_cast<const X*>(x), ldx, static_cast<const int8_t*>(w), ldw,
+                       static_cast<const float*>(scale), static_cast<X*>(out), ldo, M, N, K, 0},
+               *d, static_cast<cudaStream_t>(stream));
+  };
+  err = x_f32 ? launch(static_cast<float*>(nullptr)) : launch(static_cast<__nv_bfloat16*>(nullptr));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 launch's plan for an M x K x N product, into out[7]: rows a
-// block, row tiles, channel tiles, K splits (the cluster size), K values a
-// split, blocks the card holds at once in such clusters, ring stages.
-extern "C" int cgpt_int8_weight_matmul_plan(int M, int N, int K, int* out) {
+// The launch's plan for an M x K x N product (x_f32: the f32 instance's),
+// into out[7]: rows a block, row tiles, channel tiles, K splits (the
+// cluster size), K values a split, blocks the card holds at once in such
+// clusters, ring stages.
+extern "C" int cgpt_int8_weight_matmul_plan(int M, int N, int K, int x_f32, int* out) {
   if (bad_shape(M, N, K)) return static_cast<int>(cudaErrorInvalidValue);
   Device* d = nullptr;
   cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int index = 0;
-  Plan p;
-  err = choose(M, N, K, *d, &index, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int values[] = {p.rows, p.row_tiles, p.col_tiles, p.splits, p.k_per_split, p.resident,
-                        stages_of(index)};
-  for (int i = 0; i < 7; ++i) out[i] = values[i];
-  return 0;
+  return static_cast<int>(x_f32 ? plan_into<float>(M, N, K, *d, out)
+                                : plan_into<__nv_bfloat16>(M, N, K, *d, out));
 }

@@ -9,20 +9,23 @@ values as JAX's ``preferred_element_type=float32`` (bf16 products are exact
 in f32). Shapes follow [batch, seq, heads, head_dim].
 
 ``multi_head_attention_kv8`` is a hand-written CUDA kernel on the card,
-which dequantizes the cache inside the kernel: bf16 queries of several rows
-at head_dim 128 run ``csrc/attention_kv8_prefill.cu`` (writing nothing),
-f32 queries, a lone query row and other head widths the warp-a-row kernel
-of ``csrc/attention_kv8.cu``; CPU tensors take its plain version,
+which dequantizes the cache inside the kernel; ``kv8_kernel`` names which:
+bf16 queries of several rows at head_dim 128 run
+``csrc/attention_kv8_prefill.cu``, a lone query row at 1, 2, 4 or 8 query
+heads a kv head ``csrc/attention_kv8_decode.cu`` (both writing nothing),
+anything else (f32 queries, other head widths, other groups) the tiled
+kernel of ``csrc/attention_kv8.cu``; CPU tensors take its plain version,
 ``_multi_head_attention_kv8_plain``. ``prefill_attention_kv8`` is the
 prefill's: the S new k and v rows quantized into the int8 cache and the
-attention over it in one launch (``csrc/attention_kv8_prefill.cu``).
+attention over it in one launch of the kernel ``kv8_kernel`` names.
 ``decode_attention_kv8`` is the decode step's (one query row), the same in
 one launch of ``csrc/attention_kv8_decode.cu``. The plain versions of both
 are the quantization, the slice writes and
-``_multi_head_attention_kv8_plain``. Each wrapper's ``launches`` counts its
-kernel's launches: ``multi_head_attention_kv8.launches`` the warp-a-row
-kernel's, ``prefill_attention_kv8.launches`` every launch of the prefill
-kernel, from either entry.
+``_multi_head_attention_kv8_plain``. Each kernel's launches are counted on
+one wrapper, from whichever entry launched it:
+``multi_head_attention_kv8.launches`` the tiled kernel's,
+``prefill_attention_kv8.launches`` the prefill kernel's,
+``decode_attention_kv8.launches`` the decode kernel's.
 """
 
 from __future__ import annotations
@@ -71,19 +74,30 @@ def multi_head_attention(
     return out.to(q.dtype)
 
 
-#: most warps a block of the warp-a-row kv8 kernel (csrc/attention_kv8.cu kMaxWarps)
-KV8_MAX_WARPS = 8
 #: the head_dim of the prefill's kv8 kernel (csrc/attention_kv8_prefill.cu kDh)
 KV8_PREFILL_HEAD_DIM = 128
+#: query heads a kv head that the decode kernel takes (its instances)
+KV8_DECODE_GROUPS = (1, 2, 4, 8)
 #: the kv8 launchers' code for a cache too long for their shared memory
-#: (kCacheTooLong of csrc/attention_kv8.cu and csrc/attention_kv8_prefill.cu)
+#: (kCacheTooLong of csrc/attention_kv8_prefill.cu and csrc/attention_kv8_decode.cu)
 _KV8_CACHE_TOO_LONG = -1
 
 
-def _takes_prefill_kernel(q: torch.Tensor, dh: int) -> bool:
-    """bf16 queries of several rows at head_dim 128: the shapes that
-    ``csrc/attention_kv8_prefill.cu`` takes."""
-    return q.dtype == torch.bfloat16 and q.shape[1] > 1 and dh == KV8_PREFILL_HEAD_DIM
+def kv8_kernel(dtype: torch.dtype, rows: int, head_dim: int, group: int, writes: bool) -> str:
+    """Which int8-KV kernel a CUDA call launches, for q of ``dtype`` with
+    ``rows`` query rows a batch row, ``head_dim``, ``group`` query heads a
+    kv head, writing new rows into the cache or not: ``"prefill"``
+    (csrc/attention_kv8_prefill.cu: bf16, several rows, head_dim 128, any
+    group), ``"decode"`` (csrc/attention_kv8_decode.cu: one row, bf16 or
+    f32, a group in ``KV8_DECODE_GROUPS``) or ``"tiled"``
+    (csrc/attention_kv8.cu: the rest). Each takes new rows or none, so
+    ``writes`` changes no choice; it is part of the question all the same."""
+    del writes
+    if dtype == torch.bfloat16 and rows > 1 and head_dim == KV8_PREFILL_HEAD_DIM:
+        return "prefill"
+    if rows == 1 and group in KV8_DECODE_GROUPS:
+        return "decode"
+    return "tiled"
 
 
 def _check_cache(name, b, h, dh, kq8, vq8, ks, vs):
@@ -139,51 +153,37 @@ def multi_head_attention_kv8(
 
     Replaces the XLA-fused ``multi_head_attention_kv8`` of the JAX package
     (certifiedgpt_tpu/ops/attention.py:76). CPU tensors take
-    ``_multi_head_attention_kv8_plain``. CUDA tensors launch a kernel that
-    reads the int8 cache and makes no dequantized copy, chosen by dtype and
-    shape: bf16 queries of more than one row at head_dim 128 launch
-    ``cgpt_attention_kv8_prefill`` (csrc/attention_kv8_prefill.cu, counted
-    in ``prefill_attention_kv8.launches``) with no rows to write; f32
-    queries, a lone query row and other head widths launch the warp-a-row
-    ``cgpt_attention_kv8`` (csrc/attention_kv8.cu, counted in
-    ``multi_head_attention_kv8.launches``), whose rows of logits live in
-    shared memory. The decoder's decode step takes ``decode_attention_kv8``
-    and its prefill ``prefill_attention_kv8`` instead. The kernels take a
-    head-agnostic mask (dimension 1 of size 1) and raise on a per-head one,
-    and on a cache too long for their shared memory."""
+    ``_multi_head_attention_kv8_plain``. CUDA tensors launch the kernel
+    ``kv8_kernel`` names, with no rows to write; each reads the int8 cache
+    and makes no dequantized copy: bf16 queries of several rows at head_dim
+    128 ``cgpt_attention_kv8_prefill`` (counted in
+    ``prefill_attention_kv8.launches``), a lone row at a group of
+    ``KV8_DECODE_GROUPS`` ``cgpt_attention_kv8_decode`` (counted in
+    ``decode_attention_kv8.launches``; the cache comes out bit for bit as it
+    went in), anything else the tiled ``cgpt_attention_kv8`` (counted in
+    ``multi_head_attention_kv8.launches``). The decoder's decode step takes
+    ``decode_attention_kv8`` and its prefill ``prefill_attention_kv8``
+    instead. The kernels take a head-agnostic mask (dimension 1 of size 1)
+    and raise on a per-head one."""
     if q.device.type == "cpu":
         return _multi_head_attention_kv8_plain(q, kq8, ks, vq8, vs, mask, scale)
     b, sq, h, dh = q.shape
-    t = kq8.shape[1]
+    t, h_kv = kq8.shape[1], kq8.shape[2]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"multi_head_attention_kv8: the CUDA kernel takes bf16 or f32 q, got "
                         f"{q.dtype}")
     ks3, vs3 = _check_cache("multi_head_attention_kv8", b, h, dh, kq8, vq8, ks, vs)
     if scale is None:
         scale = dh ** -0.5
-    if _takes_prefill_kernel(q, dh):
-        return _launch_prefill_kv8(q, None, None, kq8, vq8, ks3, vs3, t, mask, scale)
-    if q.stride(3) != 1:
-        q = q.clone(memory_format=torch.contiguous_format)
-    mask_ptr, mask_strides = _mask_bytes("multi_head_attention_kv8", mask, b, sq, t)
-    warps = min(KV8_MAX_WARPS, (h // kq8.shape[2]) * sq)
-    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
-    code = cuda_kernels.build().lib.cgpt_attention_kv8(
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        kq8.data_ptr(), vq8.data_ptr(), *kq8.stride()[:3],
-        ks3.data_ptr(), vs3.data_ptr(), *ks3.stride(),
-        mask_ptr, *mask_strides, out.data_ptr(),
-        b, sq, h, kq8.shape[2], t, dh, float(scale), warps, int(q.dtype == torch.float32),
-        cuda_kernels.stream_of(q))
-    if code == _KV8_CACHE_TOO_LONG:
-        raise ValueError(f"multi_head_attention_kv8: a cache of {t} positions does not fit "
-                         f"the kernel's shared memory ({warps} rows of {dh} + {t} floats)")
-    multi_head_attention_kv8.launches += 1
-    cuda_kernels.check(code, "multi_head_attention_kv8")
-    return out
+    kernel = kv8_kernel(q.dtype, sq, dh, h // h_kv, False)
+    launch = {"prefill": _launch_prefill_kv8, "decode": _launch_decode_kv8,
+              "tiled": _launch_tiled_kv8}[kernel]
+    return launch(q, None, None, kq8, vq8, ks3, vs3, t, mask, scale)
 
 
 multi_head_attention_kv8.launches = 0
+# the counter's owner, whatever a caller later binds to the module's name
+_tiled_counter = multi_head_attention_kv8
 
 
 def _multi_head_attention_kv8_plain(q, kq8, ks, vq8, vs, mask=None, scale=None):
@@ -212,10 +212,6 @@ def _multi_head_attention_kv8_plain(q, kq8, ks, vq8, vs, mask=None, scale=None):
         "bhgqk,bkhd->bqhgd", (weights * vs_b).to(q.dtype).float(), vq8.float()
     )
     return out.reshape(b, sq, h, dh).to(q.dtype)
-
-
-#: query heads a kv head that the decode kernel takes (its instances)
-KV8_DECODE_GROUPS = (1, 2, 4, 8)
 
 
 def decode_attention_kv8(
@@ -250,34 +246,49 @@ def decode_attention_kv8(
         return _decode_attention_kv8_plain(q, k, v, cache, offset, mask, scale)
     b, _, h, dh = q.shape
     kc, vc = cache["k"], cache["v"]
-    h_kv = kc.shape[2]
-    ks3, vs3 = cache["k_scale"][..., 0], cache["v_scale"][..., 0]
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
-            or v.dtype != q.dtype or kc.dtype != torch.int8 or vc.dtype != torch.int8:
-        raise TypeError(f"decode_attention_kv8: the CUDA kernel takes bf16 or f32 q, k, v and "
-                        f"an int8 cache, got {q.dtype}, {k.dtype}, {v.dtype}, {kc.dtype}")
-    if vc.shape != kc.shape or kc.shape[0] != b or kc.shape[3] != dh \
-            or k.shape != (b, 1, h_kv, dh) or h % h_kv or h // h_kv not in KV8_DECODE_GROUPS:
+            or v.dtype != q.dtype:
+        raise TypeError(f"decode_attention_kv8: the CUDA kernel takes bf16 or f32 q, k, v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    ks3, vs3 = _check_cache("decode_attention_kv8", b, h, dh, kc, vc, cache["k_scale"],
+                            cache["v_scale"])
+    if k.shape != (b, 1, kc.shape[2], dh) or h // kc.shape[2] not in KV8_DECODE_GROUPS:
         raise ValueError(f"decode_attention_kv8: q {tuple(q.shape)}, k {tuple(k.shape)} against "
                          f"a cache {tuple(kc.shape)}: the kernel takes {KV8_DECODE_GROUPS} "
                          "query heads a kv head")
-    if dh % 16 or dh > 256:
-        raise ValueError(f"decode_attention_kv8: head_dim {dh} must be a multiple of 16 up "
-                         "to 256")
-    if vc.stride() != kc.stride() or kc.stride(3) != 1 or any(
-            st % 16 for st in kc.stride()[:3]):
-        raise ValueError("decode_attention_kv8: the cache's k and v must share strides with "
-                         "contiguous, 16-byte aligned rows")
-    if ks3.shape != (b, t, h_kv) or vs3.stride() != ks3.stride() \
-            or ks3.dtype != torch.float32 or vs3.dtype != torch.float32:
-        raise ValueError(f"decode_attention_kv8: scales {tuple(cache['k_scale'].shape)} must be "
-                         f"f32 [{b}, {t}, {h_kv}, 1] with equal strides")
-    # the kernel copies q, k and v rows 16 bytes at a time
-    q, k, v = (x if x.stride(3) == 1 and x.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in x.stride()[:3])
-               else x.clone(memory_format=torch.contiguous_format) for x in (q, k, v))
-    if v.stride() != k.stride():
-        k, v = k.contiguous(), v.contiguous()
+    if scale is None:
+        scale = dh ** -0.5
+    return _launch_decode_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale)
+
+
+decode_attention_kv8.launches = 0
+# the counter's owner, whatever a caller later binds to the module's name
+_decode_counter = decode_attention_kv8
+
+
+def _aligned_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its rows are contiguous, 16-byte aligned and 16-byte
+    strided in elements of 2 or 4 bytes (a kernel copies them 16 bytes at a
+    time), else a contiguous copy."""
+    if x.stride(3) == 1 and x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_decode_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale):
+    """One launch of ``cgpt_attention_kv8_decode`` for one query row a batch
+    row: with the step's rows ``k``, ``v`` it writes them at ``offset``
+    (``k`` None: it writes nothing and ``offset`` is the cache length),
+    then attends over the whole cache. The caller has checked the cache."""
+    b, _, h, dh = q.shape
+    t, h_kv = kc.shape[1], kc.shape[2]
+    q = _aligned_rows(q)
+    new = (None, None, 0, 0)
+    if k is not None:
+        k, v = _aligned_rows(k), _aligned_rows(v)
+        if v.stride() != k.stride():
+            k, v = k.contiguous(), v.contiguous()
+        new = (k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(2))
     mask_ptr, mask_strides = None, (0, 0)
     if mask is not None:
         if mask.dim() != 4 or mask.shape[1] != 1 or mask.shape[2] != 1:
@@ -285,12 +296,9 @@ def decode_attention_kv8(
                              f"mask [B|1, 1, 1, T], got {tuple(mask.shape)}")
         m2 = mask.to(torch.bool).expand(b, 1, 1, t)[:, 0, 0]
         mask_ptr, mask_strides = m2.data_ptr(), m2.stride()
-    if scale is None:
-        scale = dh ** -0.5
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
     code = cuda_kernels.build().lib.cgpt_attention_kv8_decode(
-        q.data_ptr(), q.stride(0), q.stride(2),
-        k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(2),
+        q.data_ptr(), q.stride(0), q.stride(2), *new,
         kc.data_ptr(), vc.data_ptr(), *kc.stride()[:3],
         ks3.data_ptr(), vs3.data_ptr(), *ks3.stride(),
         mask_ptr, *mask_strides, out.data_ptr(),
@@ -299,12 +307,9 @@ def decode_attention_kv8(
     if code == _KV8_CACHE_TOO_LONG:
         raise ValueError(f"decode_attention_kv8: a cache of {t} positions does not fit the "
                          "kernel's shared memory")
-    decode_attention_kv8.launches += 1
+    _decode_counter.launches += 1
     cuda_kernels.check(code, "decode_attention_kv8")
     return out
-
-
-decode_attention_kv8.launches = 0
 
 
 def _decode_attention_kv8_plain(q, k, v, cache, offset, mask=None, scale=None):
@@ -342,15 +347,15 @@ def prefill_attention_kv8(
     and ``multi_head_attention_kv8`` of the JAX package's cached block
     (certifiedgpt_tpu/models/llama.py:243-270), which XLA runs as one
     program. CPU tensors take ``_prefill_attention_kv8_plain`` (that
-    sequence). On CUDA the choice is by dtype and shape: bf16 q, k and v of
-    more than one row at head_dim 128 launch ``cgpt_attention_kv8_prefill``
-    (csrc/attention_kv8_prefill.cu), one launch that writes the cache and
-    attends, at any cache length and any ``H / H_kv``; anything else (f32,
-    which serves the tiny and f32 configurations only; one row; another
-    head width) runs the sequence itself: ``quantize_rows``' kernel on k
-    and v, the four slice writes and ``multi_head_attention_kv8``. The
-    kernel takes a head-agnostic mask and raises otherwise; a build or
-    launch failure raises."""
+    sequence). CUDA tensors launch the kernel ``kv8_kernel`` names, one
+    launch that writes the cache and attends, at any cache length: bf16 q,
+    k and v of more than one row at head_dim 128
+    ``cgpt_attention_kv8_prefill`` (csrc/attention_kv8_prefill.cu, any
+    ``H / H_kv``), one row at a group of ``KV8_DECODE_GROUPS`` the decode
+    kernel, anything else (f32, which serves the tiny and f32
+    configurations; another head width) the tiled ``cgpt_attention_kv8``
+    (csrc/attention_kv8.cu). The kernels take a head-agnostic mask and
+    raise otherwise; a build or launch failure raises."""
     t = cache["k"].shape[1]
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2]:
         raise ValueError(f"prefill_attention_kv8: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -362,16 +367,10 @@ def prefill_attention_kv8(
     if q.device.type == "cpu":
         return _prefill_attention_kv8_plain(q, k, v, cache, offset, mask, scale)
     b, _, h, dh = q.shape
-    if not (_takes_prefill_kernel(q, dh) and k.dtype == q.dtype and v.dtype == q.dtype):
-        kq, ks = Q.quantize_rows(k)
-        vq, vs = Q.quantize_rows(v)
-        at = slice(offset, offset + s)
-        cache["k"][:, at] = kq
-        cache["v"][:, at] = vq
-        cache["k_scale"][:, at] = ks
-        cache["v_scale"][:, at] = vs
-        return multi_head_attention_kv8(q, cache["k"], cache["k_scale"], cache["v"],
-                                        cache["v_scale"], mask, scale)
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"prefill_attention_kv8: the CUDA kernels take bf16 or f32 q, k, v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     kc, vc = cache["k"], cache["v"]
     if k.shape != (b, s, kc.shape[2], dh):
         raise ValueError(f"prefill_attention_kv8: k {tuple(k.shape)} against a cache "
@@ -380,11 +379,13 @@ def prefill_attention_kv8(
                             cache["v_scale"])
     if scale is None:
         scale = dh ** -0.5
-    # the kernel's tensor copies read the new rows 16 bytes at a time
-    k, v = (x if x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in x.stride()[:3])
-            else x.clone(memory_format=torch.contiguous_format) for x in (k, v))
-    return _launch_prefill_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale)
+    kernel = kv8_kernel(q.dtype, s, dh, h // kc.shape[2], True)
+    if kernel == "prefill":
+        # the kernel's tensor copies read the new rows 16 bytes at a time
+        k, v = _aligned_rows(k), _aligned_rows(v)
+    launch = {"prefill": _launch_prefill_kv8, "decode": _launch_decode_kv8,
+              "tiled": _launch_tiled_kv8}[kernel]
+    return launch(q, k, v, kc, vc, ks3, vs3, offset, mask, scale)
 
 
 prefill_attention_kv8.launches = 0
@@ -420,6 +421,43 @@ def _launch_prefill_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale):
     _prefill_counter.launches += 1
     cuda_kernels.check(code, "prefill_attention_kv8")
     return out
+
+
+def _launch_tiled_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale):
+    """One launch of the tiled ``cgpt_attention_kv8``: with new rows ``k``,
+    ``v`` it writes them at ``offset`` (``k`` None: it writes nothing), then
+    attends over the whole cache. The caller has checked the cache."""
+    b, sq, h, dh = q.shape
+    t, h_kv = kc.shape[1], kc.shape[2]
+    q = _aligned_rows(q)  # the kernel reads q, k and v four values at a time
+    mask_ptr, mask_strides = _mask_bytes("multi_head_attention_kv8", mask, b, sq, t)
+    sn, new = 0, (None, 0, 0, 0, None, 0, 0, 0)
+    if k is not None:
+        k, v = _aligned_rows(k), _aligned_rows(v)
+        sn = k.shape[1]
+        new = (k.data_ptr(), *k.stride()[:3], v.data_ptr(), *v.stride()[:3])
+    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    code = cuda_kernels.build().lib.cgpt_attention_kv8(
+        q.data_ptr(), *q.stride()[:3], *new,
+        kc.data_ptr(), vc.data_ptr(), *kc.stride()[:3],
+        ks3.data_ptr(), vs3.data_ptr(), *ks3.stride(),
+        mask_ptr, *mask_strides, out.data_ptr(),
+        b, sq, h, h_kv, t, dh, offset, sn, float(scale), int(q.dtype == torch.float32),
+        cuda_kernels.stream_of(q))
+    _tiled_counter.launches += 1
+    cuda_kernels.check(code, "multi_head_attention_kv8")
+    return out
+
+
+def tiled_kv8_plan(sq: int, group: int, head_dim: int, f32: bool) -> dict:
+    """The tiled kernel's launch plan (a host computation): warps a block,
+    row tiles a (batch row, kv head) item, shared bytes a block."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    code = cuda_kernels.build().lib.cgpt_attention_kv8_plan(sq, group, head_dim, int(f32), out)
+    cuda_kernels.check(code, "tiled_kv8_plan")
+    return dict(zip(("warps", "row_tiles", "smem_bytes"), out))
 
 
 def prefill_kv8_plan(b: int, sq: int, h: int, h_kv: int, t: int, offset: int, sn: int) -> dict:

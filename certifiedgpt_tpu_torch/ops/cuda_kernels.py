@@ -65,7 +65,7 @@ _SIGNATURES = {
     "cgpt_quant_rows": (_P, _P, _P, _I64, _I32, _P),  # x, q, s, M, K
     "cgpt_quant_rows_f32": (_P, _P, _P, _I64, _I32, _P),  # x, q, s, M, K
     "cgpt_w8a8_epilogue": (_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _P),  # acc, lda, xs, ws, bias, out, M, N, out f32
-    "cgpt_int8_weight_matmul_plan": (_I32, _I32, _I32, _P),  # M, N, K, int[7] out
+    "cgpt_int8_weight_matmul_plan": (_I32, _I32, _I32, _I32, _P),  # M, N, K, x f32, int[7] out
     "cgpt_int8_weight_matmul": (
         _P, _I64, _P, _I64, _P, _P, _I64,  # x, ldx, kernel, its channel stride, scale, out, ldo
         _I32, _I32, _I32, _I32,  # M, N, K, x f32
@@ -73,14 +73,17 @@ _SIGNATURES = {
     ),
     "cgpt_attention_kv8": (
         _P, _I64, _I64, _I64,  # q and its (b, s, h) strides
-        _P, _P, _I64, _I64, _I64,  # k, v and their (b, t, h) strides
+        _P, _I64, _I64, _I64,  # the new k rows and their (b, s, h) strides
+        _P, _I64, _I64, _I64,  # the new v rows and their (b, s, h) strides
+        _P, _P, _I64, _I64, _I64,  # the int8 cache k, v and their (b, t, h) strides
         _P, _P, _I64, _I64, _I64,  # k_scale, v_scale and their (b, t, h) strides
         _P, _I64, _I64, _I64,  # mask and its (b, s, t) strides
         _P,  # out
-        _I32, _I32, _I32, _I32, _I32, _I32,  # B, Sq, H, Hkv, T, Dh
-        _F32, _I32, _I32,  # scale, warps, q f32
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # B, Sq, H, Hkv, T, Dh, offset, Sn
+        _F32, _I32,  # scale, q f32
         _P,  # stream
     ),
+    "cgpt_attention_kv8_plan": (_I32, _I32, _I32, _I32, _P),  # Sq, g, Dh, q f32, int[3] out
     "cgpt_attention_kv8_prefill": (
         _P, _I64, _I64, _I64,  # q and its (b, s, h) strides
         _P, _I64, _I64, _I64,  # the new k rows and their (b, s, h) strides

@@ -355,7 +355,8 @@ def int8_weight_forward(x: torch.Tensor, kernel_q: torch.Tensor,
     bf16 convert into the matrix unit. CPU tensors take
     ``_int8_weight_forward_plain``; bf16 and f32 CUDA tensors launch
     ``cgpt_int8_weight_matmul`` (csrc/int8_weight_matmul.cu), which reads
-    the column-major int8 kernel once and makes no float copy of it. A call
+    the column-major int8 kernel once and makes no float copy of it; f32 x
+    is multiplied on the tensor cores as three exact bf16 terms. A call
     is one kernel launch: where the launcher splits K, the splits of a tile
     form a thread-block cluster and sum their partials in shared memory, so
     no workspace and no memset go with it."""

@@ -12,9 +12,9 @@ Phases, each of which exits non-zero on any failure:
 2. Build: compiles the CUDA kernels from ``certifiedgpt_tpu_torch/csrc/``
    (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary
    (registers, spills, shared memory, performance warnings), with a line of
-   registers and spills for each instance of the weight-only and int8-KV
-   attention kernels and the decode's int8-KV kernel (also in their
-   ``kernels`` records, ``ptxas``).
+   registers and spills for each instance of the weight-only kernel (bf16
+   and f32), of the int8-KV kernels (the prefill's, the decode's, the tiled
+   one) (also in their ``kernels`` records, ``ptxas``).
 3. Kernels: calls each kernel's wrapper at the main path's
    shapes, holds the result against its plain PyTorch version on the same
    card, and times the kernel, the plain version and, where one PyTorch call
@@ -46,14 +46,27 @@ Phases, each of which exits non-zero on any failure:
    and 9216 rows of the decoder's three weight shapes, within
    ``INT8_MATMUL_REL_LIMIT`` (relative Frobenius), timed also against the
    bf16 copy + matmul it replaces and cuBLAS on a bf16 weight, its bf16
-   instances' SASS holding no I2F (``sass_count.py``); the entry
+   and f32 instances' SASS holding no I2F (``sass_count.py``; the tiled
+   int8-KV kernel's count is recorded); the entry
    ``multi_head_attention_kv8`` over the int8 KV cache at the certify and
    eval prefills (the prefill's kernel with no rows to write), eval's and a
-   caption's decode rows and a lone row at the certify batch (the warp-a-row
-   kernel, record ``attention_kv8``, timed at that row also against
-   ``scaled_dot_product_attention`` on a dequantized bf16 cache) and
-   grouped-query heads, within the attention limits, a fully masked row
-   giving zeros. Then the prefill's kernel (``prefill_attention_kv8``: the
+   caption's decode rows and a lone row at the certify batch (the decode
+   kernel with nothing to write, timed at that row eager and from a CUDA
+   graph against its plain version, the tiled kernel on the same row and
+   ``scaled_dot_product_attention`` on a dequantized bf16 cache; in the
+   decode kernel's record) and grouped-query heads, within the attention
+   limits, a fully masked row giving zeros, each call one launch of the
+   kernel ``ops/attention.py::kv8_kernel`` names, the cache unchanged. Then
+   the tiled kernel (``csrc/attention_kv8.cu``, record ``attention_kv8``)
+   through ``prefill_attention_kv8`` on f32 at the certify prefill, eval's
+   and a 2048-slot cache at offset 1900: one launch, the cache bit for bit
+   its plain version's, the output within the attention limits; each timed
+   eager and from a CUDA graph against its plain version, the launches it
+   replaces (``quantize_rows`` of k and v, the four slice writes, the
+   attention) and ``scaled_dot_product_attention`` on a dequantized f32
+   cache, with its launch plan and its bounds (its three bf16 products at
+   the bf16 peak; f32 FMAs at the f32 peak beside). Then the prefill's
+   kernel (``prefill_attention_kv8``: the
    new k and v rows quantized into the cache and the attention over it, one
    launch, ``csrc/attention_kv8_prefill.cu``) at the certify prefill, eval's,
    a caption's (batch 1), grouped-query heads and a 2048-position cache at an
@@ -71,9 +84,16 @@ Phases, each of which exits non-zero on any failure:
    bit its plain version's, the output within the attention limits, a
    fully masked row giving zeros, its SASS holding no I2F; timed eager and
    from a CUDA graph against its plain version, the sequence it replaced
-   (``quantize_rows`` of k and v, the four slice writes, the warp-a-row
-   attention launch) and ``scaled_dot_product_attention`` on a dequantized
-   bf16 cache.
+   (``quantize_rows`` of k and v, the four slice writes, the attention
+   launch) and ``scaled_dot_product_attention`` on a dequantized bf16 cache.
+   Then every kernel's f32 instance against its plain version: the row
+   quantization and the epilogue bit for bit, the weight-only product
+   within ``F32_MATMUL_REL_LIMIT`` at ``F32_WEIGHT_ONLY`` (the prefill's
+   down_proj, 9216 x 11008 x 4096, among them) with TF32 off, timed against
+   the upcast + cuBLAS (its plain version), from a CUDA graph, with its plan
+   and two bounds (three bf16 products at the bf16 peak, the one it is held
+   to; f32 FMAs at the f32 peak), the attention and the decode's kernel
+   within ``KV8_REL_LIMIT``.
 4. Main path: builds MiniGPT-4 at full width (EVA ViT-g/14 at 448 px with 39
    layers, the 12-layer Q-Former, a 32-layer 4096-wide Vicuna-7B-shaped
    decoder) through ``MiniGPT4Model.from_config`` from the model block of
@@ -113,9 +133,9 @@ Phases, each of which exits non-zero on any failure:
    GELU kernel once a layer per chunk, no other kernel).
 7. Entries: the noise kernel mode of ``noisy_tile``,
    ``cls_split_attention_scaled`` and ``multi_head_attention_kv8`` of a lone
-   query row (the warp-a-row kernel), which no certify path calls, each
-   driven once through its entry point at the shapes above, launches
-   counted.
+   query row (one launch of the decode kernel, nothing written), which no
+   certify path calls, each driven once through its entry point at the
+   shapes above, launches counted.
 9.1-9.2. Look-ahead and early exit, on phase 4's model (run before phase
    8, which builds its own): ``certify_item`` with no clock at (window,
    early exit) (1, off), (4, off), (1, on), (4, on), (1, off) over four
@@ -281,11 +301,27 @@ Phases, each of which exits non-zero on any failure:
    ``configs/attack_configs/vqav2_attack.yaml`` over phase 14.3's written
    set with no CLIP checkpoint: exit 1, ``undischarged``, 0 checked, 20
    skipped, 0 failed, 20 rows; its seconds.
+18. The f32 paths: 18.1 the full-width Vicuna-7B decoder at f32
+   (``LlamaConfig(dtype=torch.float32, kv_quant=True)``, 32 layers, int8
+   weight-only layer kernels, seeded on the card) prefills 96 tokens of 8
+   rows into a 106-slot int8 cache through ``llama_apply`` and takes 10
+   greedy decode steps, through the kernels and under their plain
+   versions: every call's cache write bit for bit the plain quantization of
+   its k and v; the prefill's logits within ``F32_DECODER_REL_LIMIT`` and
+   ``F32_DECODER_LOGIT_FACTOR`` times a control (the plain run with its
+   input embeddings changed at random by as much as the kernels change the
+   first layer's q product); a prefill layer launches the tiled kernel once
+   (the ``attention_kv8`` record's path) and the weight-only kernel seven
+   times, no ``quant_rows``; a decode step ``PER_DECODE_STEP``; seconds of
+   each run. 18.2 ``launch.main`` certifies two written images with the
+   tiny model at f32 (int8 weight-only decoder kernels, int8 KV cache),
+   once through the kernels and once under their plain versions: the rows
+   (but their seconds) equal, each chunk's and decode step's launches.
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
-14.1's; ``cli_launches``: the launches in each launcher run of phases 8-15
-and in phase 17.2's chat turn),
+14.1's; ``cli_launches``: the launches in each launcher run of phases 8-15,
+in phase 17.2's chat turn and in phase 18.2's tiny certify run),
 and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels`` stops after phase 3 (for work on one
@@ -1104,17 +1140,19 @@ WEIGHT_ONLY_PLAN = ("rows", "row_tiles", "channel_tiles", "splits", "k_per_split
                     "resident_blocks", "stages")
 
 
-def weight_only_plan(m: int, k: int, n: int) -> dict:
-    """The weight-only launcher's plan for an [m, k] x [k, n] product: rows
-    a block, row and channel tiles, K splits (the cluster size), K values a
-    split, blocks the card holds at once in such clusters, ring stages."""
+def weight_only_plan(m: int, k: int, n: int, f32: bool = False) -> dict:
+    """The weight-only launcher's plan for an [m, k] x [k, n] product (bf16
+    x, or f32 with ``f32``): rows a block, row and channel tiles, K splits
+    (the cluster size), K values a split, blocks the card holds at once in
+    such clusters, ring stages."""
     import ctypes
 
     from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     plan = (ctypes.c_int * len(WEIGHT_ONLY_PLAN))()
-    cuda_kernels.check(cuda_kernels.build().lib.cgpt_int8_weight_matmul_plan(m, n, k, plan),
-                       "int8_weight_matmul plan")
+    cuda_kernels.check(
+        cuda_kernels.build().lib.cgpt_int8_weight_matmul_plan(m, n, k, int(f32), plan),
+        "int8_weight_matmul plan")
     return dict(zip(WEIGHT_ONLY_PLAN, plan))
 
 
@@ -1187,23 +1225,26 @@ def check_int8_weight(torch, device):
 
 
 def check_no_i2f() -> dict:
-    """I2F/I2FP instructions in each bf16 instance of the weight-only
-    kernel and in the decode's and the prefill's int8-KV kernels
+    """I2F/I2FP instructions in each instance of the weight-only kernel
+    (bf16 and f32) and in the decode's and the prefill's int8-KV kernels
     (``cuobjdump -sass``): their conversion is byte permutes and an f32
-    subtraction (the prefill's codes a magic add), so there must be none."""
+    subtraction (the prefill's codes a magic add), so there must be none.
+    The tiled int8-KV kernel's count is recorded beside: its conversion is
+    the same, its index arithmetic divides by run-time sizes."""
     import sass_count
     from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     text = sass_count.sass_of(cuda_kernels.build().path)
     found = {}
-    for part in ("int8_weight_matmul_kernelILi", "kv8_prefill_kernel", "kv8_decode_kernel"):
+    for part in ("int8_weight_matmul_kernelILi", "kv8_prefill_kernel", "kv8_decode_kernel",
+                 "attention_kv8_kernel"):
         counts = sass_count.opcode_counts(text, part)
         if not counts:
             fail(f"no SASS function matching {part!r} in the built library")
         for fn, ops in counts.items():
             found[fn] = sum(n for op, n in ops.items() if op.startswith("I2F"))
             log(f"[kernel] SASS {fn}: {sum(ops.values())} instructions, {found[fn]} I2F/I2FP")
-    bad = {fn: n for fn, n in found.items() if n}
+    bad = {fn: n for fn, n in found.items() if n and "attention_kv8_kernel" not in fn}
     if bad:
         fail(f"the weight-only or an int8-KV kernel converts with I2F: {bad}")
     return found
@@ -1212,8 +1253,8 @@ def check_no_i2f() -> dict:
 # the entry multi_head_attention_kv8 over the int8 cache: the certify and
 # eval prefills (bf16 rows: the prefill's kernel with no rows to write),
 # eval's and a caption's decode rows and a lone row at the certify batch (the
-# warp-a-row kernel), grouped-query heads: (batch, query rows, heads, kv
-# heads, cached positions, offset of the first query)
+# decode kernel with nothing to write), grouped-query heads: (batch, query
+# rows, heads, kv heads, cached positions, offset of the first query)
 KV8_CASES = (("eval prefill", EVAL_BATCH, EVAL_SEQ, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, 0),
              ("prefill", MC_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, 0),
              ("eval decode", EVAL_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, EVAL_SEQ),
@@ -1266,63 +1307,194 @@ def dequantized(torch, cache, rep):
 KV8_REL_LIMIT = 5e-4
 
 
+def kernel_of(counters_before):
+    """The int8-KV kernel that ran since ``counters_before`` (the three
+    wrappers' launches), by the counter that moved: "tiled", "prefill" or
+    "decode"; None unless exactly one moved by one."""
+    from certifiedgpt_tpu_torch.ops import attention as A
+
+    moved = [name for name, fn, n in zip(("tiled", "prefill", "decode"),
+                                          (A.multi_head_attention_kv8, A.prefill_attention_kv8,
+                                           A.decode_attention_kv8), counters_before)
+             if fn.launches != n]
+    return moved[0] if len(moved) == 1 and sum(
+        fn.launches - n for fn, n in zip((A.multi_head_attention_kv8, A.prefill_attention_kv8,
+                                          A.decode_attention_kv8), counters_before)) == 1 else None
+
+
+def kv8_counters():
+    from certifiedgpt_tpu_torch.ops import attention as A
+
+    return (A.multi_head_attention_kv8.launches, A.prefill_attention_kv8.launches,
+            A.decode_attention_kv8.launches)
+
+
 def check_attention_kv8(torch, device):
     """The entry ``multi_head_attention_kv8`` against its plain version at
-    ``KV8_CASES`` (several bf16 rows run the prefill's kernel with no rows
-    to write, a lone row the warp-a-row kernel), within ``KV8_REL_LIMIT``
-    (relative Frobenius) and 2e-2 absolute, a fully masked row giving zeros.
-    Returns the warp-a-row kernel's record, timed at the certify batch's
-    lone row against its plain version and ``scaled_dot_product_attention``
-    on the cache dequantized to bf16 beforehand."""
+    ``KV8_CASES`` within ``KV8_REL_LIMIT`` (relative Frobenius) and 2e-2
+    absolute, a fully masked row giving zeros, each call one launch of the
+    kernel ``kv8_kernel`` names (several bf16 rows the prefill's kernel, a
+    lone row the decode kernel, both with nothing to write), the cache bit
+    for bit as it was. Returns the lone bf16 row's times at the certify
+    batch (the decode kernel), eager and from a CUDA graph, against its
+    plain version, the tiled kernel on the same row and
+    ``scaled_dot_product_attention`` on the cache dequantized to bf16
+    beforehand."""
     import torch.nn.functional as F
 
     from certifiedgpt_tpu_torch.ops import attention as A
 
     g = torch.Generator(device=device).manual_seed(8)
-    record = {"max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": {}}
+    lone = {}
     for name, b, sq, h, h_kv, t, offset in KV8_CASES:
         args = kv8_case(torch, device, g, b, sq, h, h_kv, t, offset)
         q, kq, ks, vq, vs, mask = args
-        rows = A.multi_head_attention_kv8.launches
+        kept = [c.clone() for c in (kq, ks, vq, vs)]
+        before = kv8_counters()
         out = A.multi_head_attention_kv8(*args)
         ref = A._multi_head_attention_kv8_plain(*args)
         torch.cuda.synchronize()
-        kernel = "warp-a-row" if A.multi_head_attention_kv8.launches > rows else "prefill's"
+        kernel, want = kernel_of(before), A.kv8_kernel(q.dtype, sq, LLAMA_HEAD_DIM, h // h_kv,
+                                                        False)
         rel, err = rel_err(out, ref), max_err(out, ref)
         zeros = b == 1 or not bool(out[-1].any())
+        same = all(bits_unequal(torch, a, c) == 0 for a, c in zip((kq, ks, vq, vs), kept))
         log(f"[kernel] attention_kv8 {name} q [{b}, {sq}, {h}, {LLAMA_HEAD_DIM}] over "
             f"{t} cached positions of {h_kv} heads ({kernel} kernel): relative error "
-            f"(Frobenius) {rel:.3e}, max abs {err:.3e}; fully masked row zeros: {zeros}")
-        if not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
-            fail(f"attention_kv8 disagrees with its plain version ({name})")
-        if (kernel == "warp-a-row") != (sq == 1):
-            fail(f"attention_kv8 {name}: {sq} query rows ran the {kernel} kernel")
-        if sq == 1:
-            record["max_abs_err"] = max(record["max_abs_err"], err)
-            record["max_rel_err"] = max(record["max_rel_err"], rel)
+            f"(Frobenius) {rel:.3e}, max abs {err:.3e}; fully masked row zeros: {zeros}; "
+            f"cache unchanged: {same}")
+        if not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros or not same:
+            fail(f"attention_kv8 disagrees with its plain version or wrote the cache ({name})")
+        if kernel != want:
+            fail(f"attention_kv8 {name}: {sq} query rows ran the {kernel} kernel, not {want}")
         if name == "lone row":
             kd, vd = dequantized(torch, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs},
                                  h // h_kv)
             qh = q.transpose(1, 2)
+            ks3, vs3 = ks[..., 0], vs[..., 0]
+            tiled = lambda: A._launch_tiled_kv8(q, None, None, kq, vq, ks3, vs3, t, mask,  # noqa: E731
+                                                LLAMA_HEAD_DIM ** -0.5)
             tm = {"ms": cuda_ms(torch, lambda: A.multi_head_attention_kv8(*args), iters=20),
+                  "graph_ms": graph_ms(torch, lambda: A.multi_head_attention_kv8(*args)),
                   "plain_ms": cuda_ms(torch, lambda: A._multi_head_attention_kv8_plain(*args),
                                       iters=5, warmup=1),
+                  "tiled_ms": cuda_ms(torch, tiled, iters=20),
+                  "tiled_graph_ms": graph_ms(torch, tiled),
                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                      qh, kd, vd, attn_mask=mask, scale=LLAMA_HEAD_DIM ** -0.5), iters=20),
-                  "graph_ms": graph_ms(torch, lambda: A.multi_head_attention_kv8(*args))}
-            kept = float(mask.expand(b, 1, sq, t).sum())
+                      qh, kd, vd, attn_mask=mask, scale=LLAMA_HEAD_DIM ** -0.5), iters=20)}
+            rows_kept = float(mask.expand(b, 1, sq, t).sum())
             moved = (2.0 * 2 * b * sq * h * LLAMA_HEAD_DIM + 2.0 * b * t * h_kv * LLAMA_HEAD_DIM
                      + 8.0 * b * t * h_kv + b * sq * t)
-            tm["bound_ms"], by = bound_ms(moved, 4.0 * LLAMA_HEAD_DIM * h * kept,
-                                          PEAK_BF16_FLOPS)
-            log(f"[kernel] attention_kv8 {name} (warp-a-row): {tm['ms']:.4f} ms "
-                f"({tm['graph_ms']:.4f} from a CUDA graph), plain {tm['plain_ms']:.4f} ms, "
-                f"scaled_dot_product_attention on a dequantized bf16 cache "
-                f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms ({by})")
-            record["shapes"][name] = tm
-            record.update(tm, replaced_ms=tm["plain_ms"], bound_by=by)
+            tm["bound_ms"], tm["bound_by"] = bound_ms(moved, 4.0 * LLAMA_HEAD_DIM * h * rows_kept,
+                                                      PEAK_BF16_FLOPS)
+            tm["rel_err"], tm["max_abs_err"] = rel, err
+            log(f"[kernel] attention_kv8 {name} (the decode kernel, nothing written): "
+                f"{tm['ms']:.4f} ms ({tm['graph_ms']:.4f} from a CUDA graph), plain "
+                f"{tm['plain_ms']:.4f} ms, the tiled kernel on the same row {tm['tiled_ms']:.4f} "
+                f"ms ({tm['tiled_graph_ms']:.4f} from a graph), scaled_dot_product_attention on "
+                f"a dequantized bf16 cache {tm['library_ms']:.4f} ms, bound "
+                f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+            lone = tm
             del kd, vd, qh
-        del args, q, kq, ks, vq, vs, mask, out, ref
+        del args, q, kq, ks, vq, vs, mask, out, ref, kept
+        torch.cuda.empty_cache()
+    return lone
+
+
+# the f32 prefill (the tiled kernel with its cache write): the certify
+# prefill, eval's and a 2048-slot cache at an offset past 0: (batch, new
+# rows, heads, kv heads, cached positions, the first new row's slot)
+KV8_TILED_CASES = (
+    ("certify f32 prefill", MC_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, 0),
+    ("eval f32 prefill", EVAL_BATCH, EVAL_SEQ, LLAMA_HEADS, LLAMA_HEADS, EVAL_SEQ + 10, 0),
+    ("long f32 cache", EVAL_BATCH, RUN_CFG["seq_len"], LLAMA_HEADS, LLAMA_HEADS, 2048, 1900))
+
+
+def check_attention_kv8_tiled(torch, device):
+    """The tiled kernel (``csrc/attention_kv8.cu``) at ``KV8_TILED_CASES``
+    through ``prefill_attention_kv8`` on f32: one launch, the cache's codes
+    and scales bit for bit its plain version's, the output within
+    ``KV8_REL_LIMIT`` and 2e-2 absolute, a fully masked row zeros; each
+    timed eager and from a CUDA graph against its plain version, the
+    launches it replaces (``quantize_rows``' kernel on k and v, the four
+    slice writes and the attention, here the tiled kernel with nothing to
+    write) and ``scaled_dot_product_attention`` on the cache dequantized to
+    f32 beforehand, with its launch plan and two bounds: the three bf16
+    products of its design at the bf16 peak (the one it is held to) and
+    the f32 FMAs of the plain version's arithmetic at the f32 peak."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=device).manual_seed(18)
+    record = {"max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": {}}
+    d = LLAMA_HEAD_DIM
+    for name, b, s, h, h_kv, t, offset in KV8_TILED_CASES:
+        _, _, _, cache, offset, mask = kv8_prefill_case(torch, device, g, b, s, h, h_kv, t,
+                                                        offset)
+        # f32 values that are not bf16 values: every term of the split counts
+        q, k, v = (torch.randn((b, s, n, d), generator=g, device=device) for n in (h, h_kv, h_kv))
+        mine, theirs = copy_cache(cache), copy_cache(cache)
+        before = kv8_counters()
+        out = A.prefill_attention_kv8(q, k, v, mine, offset, mask)
+        kernel = kernel_of(before)
+        ref = A._prefill_attention_kv8_plain(q, k, v, theirs, offset, mask)
+        torch.cuda.synchronize()
+        off, rel, err = cache_bits_unequal(torch, mine, theirs), rel_err(out, ref), \
+            max_err(out, ref)
+        zeros = not bool(out[-1].any())
+        log(f"[kernel] attention_kv8 {name} (f32 q [{b}, {s}, {h}, {d}], {s} new rows at "
+            f"{offset} into {t} slots; the {kernel} kernel): cache {off} values not bit for "
+            f"bit, relative error (Frobenius) {rel:.3e}, max abs {err:.3e}; fully masked row "
+            f"zeros: {zeros}")
+        if kernel != "tiled" or off or not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
+            fail(f"attention_kv8 {name}: the tiled kernel disagrees with its plain version")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["max_rel_err"] = max(record["max_rel_err"], rel)
+
+        def replaced(q=q, k=k, v=v, c=copy_cache(cache), offset=offset, mask=mask):
+            kq, ks = Q.quantize_rows(k)
+            vq, vs = Q.quantize_rows(v)
+            at = slice(offset, offset + k.shape[1])
+            c["k"][:, at], c["v"][:, at], c["k_scale"][:, at], c["v_scale"][:, at] = \
+                kq, vq, ks, vs
+            return A.multi_head_attention_kv8(q, c["k"], c["k_scale"], c["v"], c["v_scale"],
+                                              mask)
+
+        kd = (mine["k"].float() * mine["k_scale"]).transpose(1, 2)
+        vd = (mine["v"].float() * mine["v_scale"]).transpose(1, 2)
+        qh = q.transpose(1, 2)
+        tm = {"ms": cuda_ms(torch, lambda: A.prefill_attention_kv8(q, k, v, mine, offset, mask),
+                            iters=10),
+              "graph_ms": graph_ms(torch, lambda: A.prefill_attention_kv8(q, k, v, mine, offset,
+                                                                          mask)),
+              "plain_ms": cuda_ms(torch, lambda: A._prefill_attention_kv8_plain(
+                  q, k, v, theirs, offset, mask), iters=3, warmup=1),
+              "replaced_ms": cuda_ms(torch, replaced, iters=10),
+              "replaced_graph_ms": graph_ms(torch, replaced),
+              "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                  qh, kd, vd, attn_mask=mask, scale=d ** -0.5), iters=10)}
+        kept = float(mask.expand(b, 1, s, t).sum()) * h
+        moved = (4.0 * b * s * h * d * 2 + 4.0 * 2 * b * s * h_kv * d
+                 + 2.0 * b * (t - s) * h_kv * d + 2.0 * b * s * h_kv * d + 8.0 * b * t * h_kv
+                 + b * s * t)
+        tm["bound_ms"], tm["bound_by"] = bound_ms(moved, 3 * 4.0 * d * kept, PEAK_BF16_FLOPS)
+        tm["f32_fma_bound_ms"], _ = bound_ms(moved, 4.0 * d * kept, PEAK_F32_FLOPS)
+        tm["plan"] = A.tiled_kv8_plan(s, h // h_kv, d, True)
+        tm["rel_err"], tm["max_abs_err"] = rel, err
+        log(f"[kernel] attention_kv8 {name}: {tm['ms']:.4f} ms ({tm['graph_ms']:.4f} from a "
+            f"CUDA graph), plain {tm['plain_ms']:.4f} ms, the replaced launches (quantize_rows "
+            f"x2, four slice writes, the attention) {tm['replaced_ms']:.4f} ms "
+            f"({tm['replaced_graph_ms']:.4f} from a graph), scaled_dot_product_attention on a "
+            f"dequantized f32 cache {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+            f"({tm['bound_by']}; f32 FMAs {tm['f32_fma_bound_ms']:.4f} ms); plan "
+            f"{json.dumps(tm['plan'])}")
+        record["shapes"][name] = tm
+        if name == KV8_TILED_CASES[0][0]:
+            record.update({key: tm[key] for key in ("ms", "graph_ms", "plain_ms", "replaced_ms",
+                                                    "library_ms", "bound_ms", "bound_by")})
+        del q, k, v, cache, mine, theirs, mask, out, ref, kd, vd, qh
         torch.cuda.empty_cache()
     return record
 
@@ -1504,8 +1676,9 @@ def check_attention_kv8_decode(torch, device):
     ``KV8_REL_LIMIT`` (relative Frobenius) and 2e-2 absolute, a fully masked
     row giving zeros. The certify decode timed eager and from a CUDA graph
     against the plain version, the sequence the kernel replaced (two
-    ``quantize_rows`` launches, the four slice writes and the warp-a-row
-    attention launch, eager and from a graph) and
+    ``quantize_rows`` launches, the four slice writes and the attention
+    launch of a lone row, which is now the decode kernel with nothing to
+    write; eager and from a graph) and
     ``scaled_dot_product_attention`` on the cache dequantized to bf16
     beforehand; a caption's (batch 1) and the long cache timed too."""
     import torch.nn.functional as F
@@ -1588,13 +1761,17 @@ def check_attention_kv8_decode(torch, device):
 # cache) at a tiny model's shapes and at the main path's
 F32_QUANT_ROWS = ((5, 24), (MC_BATCH, LLAMA_WIDTH))
 F32_EPILOGUE = ((7, 64, False), (MC_BATCH, 3 * VIT_WIDTH, True))
-F32_WEIGHT_ONLY = ((3, 64, 24), (MC_BATCH, LLAMA_WIDTH, LLAMA_WIDTH), (1, LLAMA_WIDTH, LLAMA_MLP))
+# the weight-only product: a tiny model's, the certify decode's q/k/v/o, a
+# caption's gate/up and the prefill's down_proj (the deepest K)
+F32_WEIGHT_ONLY = ((3, 64, 24), (MC_BATCH, LLAMA_WIDTH, LLAMA_WIDTH), (1, LLAMA_WIDTH, LLAMA_MLP),
+                   (PREFILL_ROWS, LLAMA_MLP, LLAMA_WIDTH))
 F32_KV8 = (("decode", MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
            ("grouped", 4, 5, LLAMA_HEADS, 8, CACHE_LEN, 3))
 F32_KV8_DECODE = (("certify decode", MC_BATCH, LLAMA_HEADS, LLAMA_HEADS, CACHE_LEN, CACHE_LEN - 2),
                   ("grouped", 4, LLAMA_HEADS, 8, CACHE_LEN, 3))
-# the f32 weight-only kernel sums exact f32 products on the CUDA cores in
-# another order than cuBLAS: a few f32 ulps
+# the f32 weight-only kernel sums the exact products of x's three bf16 terms
+# in f32, each 16-wide step's apart, in another order than cuBLAS: a few f32
+# ulps (1.9e-6 measured at the prefill's down_proj, H100 80GB HBM3, 700 W)
 F32_MATMUL_REL_LIMIT = 1e-5
 
 
@@ -1610,13 +1787,14 @@ def check_f32_instances(torch, device, records):
 
     g = torch.Generator(device=device).manual_seed(9)
 
-    def record(name, shape, kernel, plain, off, rel):
+    def record(name, shape, kernel, plain, off, rel, **extra):
         ms = cuda_ms(torch, kernel, iters=10)
         plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
         log(f"[kernel] {name} f32 {shape}: {off} outputs not bit-identical, relative error "
-            f"(Frobenius) {rel:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"(Frobenius) {rel:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + "".join(f"; {key} {json.dumps(v)}" for key, v in extra.items()))
         records[name].setdefault("f32", {})[shape] = {"ms": ms, "plain_ms": plain_ms,
-                                                      "rel_err": rel, "off": off}
+                                                      "rel_err": rel, "off": off, **extra}
 
     for m, k in F32_QUANT_ROWS:
         x = torch.randn((m, k), generator=g, device=device) * 3
@@ -1654,9 +1832,16 @@ def check_f32_instances(torch, device, records):
             ref = Q._int8_weight_forward_plain(x, kq, scale)
             torch.cuda.synchronize()
             rel = rel_err(out, ref)
+            moved = 1.0 * k * n + 4.0 * m * k + 4.0 * m * n + 4.0 * n
+            bound, by = bound_ms(moved, 3 * 2.0 * m * k * n, PEAK_BF16_FLOPS)
+            # the plain version is the upcast plus cuBLAS's f32 product (TF32 off)
             record("int8_weight_matmul", f"{m}x{k}x{n}",
                    lambda: Q.int8_weight_forward(x, kq, scale),
-                   lambda: Q._int8_weight_forward_plain(x, kq, scale), 0, rel)
+                   lambda: Q._int8_weight_forward_plain(x, kq, scale), 0, rel,
+                   graph_ms=graph_ms(torch, lambda: Q.int8_weight_forward(x, kq, scale)),
+                   bound_ms=bound, bound_by=by,
+                   f32_fma_bound_ms=bound_ms(moved, 2.0 * m * k * n, PEAK_F32_FLOPS)[0],
+                   plan=weight_only_plan(m, k, n, f32=True))
             if not (math.isfinite(rel) and rel < F32_MATMUL_REL_LIMIT) \
                     or out.dtype != torch.float32:
                 fail(f"int8_weight_matmul's f32 instance disagrees with its plain version at "
@@ -1664,15 +1849,19 @@ def check_f32_instances(torch, device, records):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for name, b, sq, h, h_kv, t, offset in F32_KV8:
-        q, *rest = kv8_case(torch, device, g, b, sq, h, h_kv, t, offset)
-        args = (q.float(), *rest)
+        _, *rest = kv8_case(torch, device, g, b, sq, h, h_kv, t, offset)
+        args = (torch.randn((b, sq, h, LLAMA_HEAD_DIM), generator=g, device=device), *rest)
+        before = kv8_counters()
         out = A.multi_head_attention_kv8(*args)
+        kernel = kernel_of(before)
         ref = A._multi_head_attention_kv8_plain(*args)
         torch.cuda.synchronize()
         rel = rel_err(out, ref)
-        record("attention_kv8", name, lambda: A.multi_head_attention_kv8(*args),
+        owner = "attention_kv8" if kernel == "tiled" else f"attention_kv8_{kernel}"
+        record(owner, name, lambda: A.multi_head_attention_kv8(*args),
                lambda: A._multi_head_attention_kv8_plain(*args), 0, rel)
-        if not rel < KV8_REL_LIMIT or out.dtype != torch.float32 or bool(out[-1].any()):
+        if not rel < KV8_REL_LIMIT or out.dtype != torch.float32 or bool(out[-1].any()) \
+                or kernel != A.kv8_kernel(torch.float32, sq, LLAMA_HEAD_DIM, h // h_kv, False):
             fail(f"attention_kv8's f32 instance disagrees with its plain version ({name})")
     for name, b, h, h_kv, t, offset in F32_KV8_DECODE:
         q, k, v, cache, offset, mask = kv8_decode_case(torch, device, g, b, h, h_kv, t, offset,
@@ -1718,10 +1907,13 @@ def phase_kernels(torch, device):
     records["noisy_tile_kernel"] = check_noise(torch, device)
     records["w8a8_epilogue"] = check_w8a8_epilogue(torch, device)
     records["int8_weight_matmul"] = check_int8_weight(torch, device)
-    records["attention_kv8"] = check_attention_kv8(torch, device)
+    lone_row = check_attention_kv8(torch, device)
+    records["attention_kv8"] = check_attention_kv8_tiled(torch, device)
     records["attention_kv8_prefill"] = check_attention_kv8_prefill(torch, device)
     records["attention_kv8_decode"] = check_attention_kv8_decode(torch, device)
-    for name, part in (("attention_kv8_prefill", "kv8_prefill"),
+    records["attention_kv8_decode"]["shapes"]["lone bf16 row, nothing written"] = lone_row
+    for name, part in (("attention_kv8", "attention_kv8_kernel"),
+                       ("attention_kv8_prefill", "kv8_prefill"),
                        ("attention_kv8_decode", "kv8_decode")):
         records[name]["sass_i2f"] = {
             fn: n for fn, n in records["int8_weight_matmul"]["sass_i2f"].items() if part in fn}
@@ -1749,10 +1941,11 @@ KERNELS = [
      "certifiedgpt_tpu/ops/quantization.py:68", "certify flash_cls"),
     ("int8_weight_matmul", "certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu",
      "certifiedgpt_tpu/models/layers.py:61", "certify flash_cls"),
-    # the warp-a-row kernel: f32 queries and a lone query row outside the
-    # decoder; driven through its own entry (phase 7)
+    # the tiled kernel: the f32 prefill's cache write and attention in one
+    # launch (f32 configurations), bf16 at other head widths, lone rows at
+    # other group sizes; its path is the f32 decoder's prefill (phase 18.1)
     ("attention_kv8", "certifiedgpt_tpu_torch/csrc/attention_kv8.cu",
-     "certifiedgpt_tpu/ops/attention.py:76", "multi_head_attention_kv8 lone row"),
+     "certifiedgpt_tpu/ops/attention.py:76", "f32 decoder prefill"),
     # the prefill's cache write (two quantize_rows, four slice writes) and
     # attention in one launch, the JAX block's cached branch
     ("attention_kv8_prefill", "certifiedgpt_tpu_torch/csrc/attention_kv8_prefill.cu",
@@ -2284,10 +2477,11 @@ def phase_forms(torch, model, image, device):
 # ----------------------------------------------------------------------
 def phase_entries(torch, device):
     """``noisy_tile``'s kernel mode and ``cls_split_attention_scaled``, which
-    no certify path calls (as in the JAX package), and the warp-a-row int8-KV
-    kernel (``multi_head_attention_kv8`` of a lone query row, which the
-    decoder no longer calls), each driven once through its entry at the
-    main path's shapes, its launches counted."""
+    no certify path calls (as in the JAX package), each driven once through
+    its entry at the main path's shapes, its launches counted; and
+    ``multi_head_attention_kv8`` of a lone query row at the certify batch,
+    which the decoder does not call: one launch of the decode kernel,
+    nothing written."""
     import numpy as np
 
     from certifiedgpt_tpu_torch.ops import attention as A
@@ -2304,13 +2498,13 @@ def phase_entries(torch, device):
                    CACHE_LEN - 2)
     torch.cuda.synchronize()
     counted = {}
-    for name, run, shape in (
-        ("noisy_tile_kernel",
+    for name, kernel, run, shape in (
+        ("noisy_tile_kernel", "noisy_tile_kernel",
          lambda: noisy_tile(x, MC_BATCH, RUN_CFG["noise_level"], gen, use_kernel=True),
          (MC_BATCH,) + IMAGE_HWC),
-        ("cls_split_attention_scaled",
+        ("cls_split_attention_scaled", "cls_split_attention_scaled",
          lambda: FA.cls_split_attention_scaled(*qkv, d), (MC_BATCH, VIT_HEADS, VIT_SEQ, d)),
-        ("attention_kv8", lambda: A.multi_head_attention_kv8(*row),
+        ("lone kv8 row", "attention_kv8_decode", lambda: A.multi_head_attention_kv8(*row),
          (MC_BATCH, 1, LLAMA_HEADS, LLAMA_HEAD_DIM)),
     ):
         reset_counts()
@@ -2320,8 +2514,8 @@ def phase_entries(torch, device):
         log(f"[entry] {name}: output {tuple(out.shape)}; launches {json.dumps(launches)}")
         if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
             fail(f"{name}: output {tuple(out.shape)} is not finite or not {shape}")
-        check_counts(name, launches, {name: 1}, 1)
-        counted[name] = launches[name]
+        check_counts(name, launches, {kernel: 1}, 1)
+        counted[name] = launches[kernel]
     return counted
 
 
@@ -5037,6 +5231,256 @@ def phase_scripts(torch, card, d_in: int, d_out: int):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 18: the f32 paths at full width
+# ----------------------------------------------------------------------
+F32_SEED = 18
+F32_BATCH = EVAL_BATCH  # 8 rows
+F32_PROMPT = RUN_CFG["seq_len"]  # 96 tokens into a cache of 96 + 10 slots
+F32_STEPS = RUN_CFG["max_new_tokens"]  # 10 greedy decode steps
+# a prefill layer of the f32 decoder (weight-only int8 products, no
+# activation quant): its seven products and its cache write and attention
+# in one launch of the tiled kernel
+F32_PREFILL = {"int8_weight_matmul": 7 * LLAMA_DEPTH, "attention_kv8": LLAMA_DEPTH}
+# the f32 decoder's prefill logits through the kernels against their plain
+# versions: each f32 product and attention is a few f32 ulps off its plain
+# version (its sums' order); the int8 KV cache turns such changes into code
+# flips, which 32 random layers carry to the logits: a random change of the
+# input embeddings as large as the kernels' first one moves them 1.0e-2
+# (H100 80GB HBM3, 700 W). The logits must stay within this relative limit
+# and within F32_DECODER_LOGIT_FACTOR times that control's change.
+F32_DECODER_REL_LIMIT = 5e-2
+F32_DECODER_LOGIT_FACTOR = 2.0
+# the tiny certify run of 18.2: two images, sigma 0.25 (tiny model: two
+# decoder layers of head_dim 16)
+TINY_IMAGES = 2
+TINY_LAYERS = 2
+TINY_RUN = {"agent": "image_text_certify", "seq_len": 48, "max_new_tokens": 4,
+            "noise_level": 0.25, "certify_n0": 8, "certify_n": 16, "certify_alpha": 0.05,
+            "mc_batch": 8, "max_images": TINY_IMAGES, "seed": 3}
+
+
+def f32_decoder_run(torch, params, cfg, ids, valid, record=None):
+    """``llama_apply`` over the prompt ``ids`` into a fresh int8 cache of
+    ``F32_PROMPT + F32_STEPS`` slots, then ``F32_STEPS`` greedy decode
+    steps (the last fills the cache's last slot); returns the prefill's
+    logits, the tokens, the prefill's and the decode steps' launches and
+    their seconds."""
+    from certifiedgpt_tpu_torch.models import llama as TLM
+
+    b, s = ids.shape
+    dev = ids.device
+    cache = TLM.init_kv_cache(cfg, b, s + F32_STEPS, dev)
+    x = TLM.embed_tokens(params, ids)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, _, cache = TLM.llama_apply(params, cfg, x, valid,
+                                       torch.arange(s, device=dev)[None].expand(b, s), cache, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill = read_counts()
+    reset_counts()
+    tok = logits[:, -1].argmax(-1)
+    tokens = [tok]
+    for i in range(F32_STEPS):
+        step, _, cache = TLM.llama_apply(params, cfg, TLM.embed_tokens(params, tok[:, None]),
+                                         valid, torch.full((b, 1), s + i, device=dev), cache,
+                                         s + i)
+        tok = step[:, -1].argmax(-1)
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    decode = read_counts()
+    return logits, torch.stack(tokens, 1), prefill, decode, t1 - t0, time.perf_counter() - t1
+
+
+def cache_checker(torch):
+    """Patches that wrap ``prefill_attention_kv8`` and
+    ``decode_attention_kv8`` (the kernels' entries, called as they are) to
+    check each call's cache: the written slots bit for bit the plain
+    ``quantize_rows`` of the call's k and v, every other slot as it was.
+    Returns the patches and the count of values off."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    off = {"values": 0, "calls": 0}
+
+    class Checked:
+        """The entry ``real`` with its cache checked; its ``launches`` are
+        the real counter's."""
+
+        def __init__(self, real):
+            self.real = real
+
+        @property
+        def launches(self):
+            return self.real.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.real.launches = n
+
+        def __call__(self, q, k, v, cache, offset, mask=None, scale=None):
+            before = copy_cache(cache)
+            out = self.real(q, k, v, cache, offset, mask, scale)
+            at = slice(offset, offset + k.shape[1])
+            kq, ks = Q._quantize_rows_plain(k)
+            vq, vs = Q._quantize_rows_plain(v)
+            for name, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+                before[name][:, at] = new
+            off["values"] += cache_bits_unequal(torch, cache, before)
+            off["calls"] += 1
+            return out
+
+    return [mock.patch.object(A, "prefill_attention_kv8", Checked(A.prefill_attention_kv8)),
+            mock.patch.object(A, "decode_attention_kv8", Checked(A.decode_attention_kv8))], off
+
+
+def phase_f32_decoder(torch, card, device):
+    """18.1: the full-width Vicuna-7B decoder at f32 (``LlamaConfig(dtype=
+    torch.float32, kv_quant=True)``, 32 layers, int8 weight-only layer
+    kernels, seeded) prefills ``F32_PROMPT`` tokens of ``F32_BATCH`` rows
+    into a cache of ``F32_PROMPT + F32_STEPS`` slots (row 0 left-padded by
+    two), then takes ``F32_STEPS`` greedy decode steps: through the kernels
+    (each call's cache checked bit for bit against the plain quantization
+    of its k and v) and under ``plain_versions()``. The prefill's logits
+    within ``F32_DECODER_REL_LIMIT`` of the plain run's, beside a control:
+    the plain run with its input embeddings changed at random by as much as
+    the kernels change the first layer's q product, the logits within
+    ``F32_DECODER_LOGIT_FACTOR`` times its change. Launches: a prefill
+    layer ``F32_PREFILL`` (no ``quant_rows``), a decode step
+    ``PER_DECODE_STEP``. Returns the prefill's launches."""
+    from certifiedgpt_tpu_torch.models import layers as L
+    from certifiedgpt_tpu_torch.models import llama as TLM
+    from certifiedgpt_tpu_torch.models.model_zoo import _Init, _llama_params
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    t0 = time.perf_counter()
+    cfg = TLM.LlamaConfig(dtype=torch.float32, kv_quant=True)
+    params = _llama_params(_Init(F32_SEED, device), cfg, True)
+    g = torch.Generator(device=device).manual_seed(F32_SEED)
+    ids = torch.randint(0, cfg.vocab_size, (F32_BATCH, F32_PROMPT), generator=g, device=device)
+    valid = torch.ones((F32_BATCH, F32_PROMPT + F32_STEPS), dtype=torch.long, device=device)
+    valid[0, :2] = 0
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    f32_decoder_run(torch, params, cfg, ids, valid)  # warm-up: first calls, device queries
+    # the control's size: how far the kernels move the first layer's q product
+    lp = L.layer_slice(params["layers"], 0)
+    x0 = TLM.embed_tokens(params, ids).reshape(-1, cfg.hidden_size)
+    kq0, sc0 = lp["q_proj"]["kernel_q"], lp["q_proj"]["scale"]
+    first = rel_err(Q.int8_weight_forward(x0, kq0, sc0),
+                    Q._int8_weight_forward_plain(x0, kq0, sc0))
+    patches, off = cache_checker(torch)
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        logits, tokens, pre, dec, pre_s, dec_s = f32_decoder_run(torch, params, cfg, ids, valid)
+    _, _, _, _, pre_s, dec_s = f32_decoder_run(torch, params, cfg, ids, valid)  # unchecked times
+    with contextlib.ExitStack() as stack:
+        for patch in plain_versions():
+            stack.enter_context(patch)
+        plain_logits, plain_tokens, plain_pre, plain_dec, plain_pre_s, plain_dec_s = \
+            f32_decoder_run(torch, params, cfg, ids, valid)
+        # control: the kernels' first change (layer 0's q product) as a
+        # random change of the plain run's input embeddings
+        emb = TLM.embed_tokens(params, ids)
+        noise = torch.randn(emb.shape, generator=g, device=device)
+        shifted = emb + noise * (first * emb.norm() / noise.norm())
+        cache = TLM.init_kv_cache(cfg, F32_BATCH, F32_PROMPT + F32_STEPS, device)
+        control, _, _ = TLM.llama_apply(
+            params, cfg, shifted, valid,
+            torch.arange(F32_PROMPT, device=device)[None].expand(F32_BATCH, F32_PROMPT), cache, 0)
+    dev_k, dev_c = rel_err(logits, plain_logits), rel_err(control, plain_logits)
+    same = int((tokens == plain_tokens).sum())
+    log(f"[f32] 18.1 the full-width f32 decoder ({LLAMA_DEPTH} layers, int8 weight-only, int8 "
+        f"KV cache; built in {build_s:.1f} s): prefill of {F32_BATCH} x {F32_PROMPT} tokens "
+        f"{pre_s:.4f} s through the kernels, {plain_pre_s:.4f} s through their plain versions; "
+        f"{F32_STEPS} decode steps {dec_s:.4f} s, plain {plain_dec_s:.4f} s; prefill logits "
+        f"{dev_k:.3e} apart (limits {F32_DECODER_REL_LIMIT:g} and {F32_DECODER_LOGIT_FACTOR:g} x "
+        f"the control, a random change of the input embeddings as large as the kernels' change "
+        f"of layer 0's q product ({first:.3e}): {dev_c:.3e}); greedy tokens equal to the plain "
+        f"run's: {same} of {tokens.numel()}; "
+        f"cache values off {off['values']} over {off['calls']} calls; launches: prefill "
+        f"{json.dumps(pre)}, decode {json.dumps(dec)}; {card}")
+    check_counts("f32 decoder prefill", pre, F32_PREFILL, 1)
+    check_counts("f32 decoder decode", dec, {}, 1, F32_STEPS)
+    if off["values"] or off["calls"] != LLAMA_DEPTH * (1 + F32_STEPS):
+        fail(f"f32 decoder: {off['values']} cache values off bit for bit over {off['calls']} "
+             "calls")
+    if not (bool(torch.isfinite(logits).all()) and dev_k < F32_DECODER_REL_LIMIT
+            and dev_k <= F32_DECODER_LOGIT_FACTOR * dev_c):
+        fail(f"f32 decoder: the prefill's logits are {dev_k:.3e} off the plain run's (control "
+             f"{dev_c:.3e})")
+    del params, logits, plain_logits, control, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pre
+
+
+def phase_f32_tiny_certify(torch, card):
+    """18.2: the certify CLI (``launch.main``) on the tiny model at f32
+    (``model_size: tiny`` with int8 weight-only decoder kernels and the
+    int8 KV cache, the path the f32 instances serve in the tests' tiny
+    configurations) over ``TINY_IMAGES`` written images, once through the
+    kernels and once under ``plain_versions()``: the rows (all but their
+    seconds) equal the plain run's; each chunk's prefill launches the tiled
+    kernel once a layer, each decode step the decode kernel, the f32
+    weight-only kernel seven times a layer each. Returns the launches."""
+    import tempfile
+    from pathlib import Path
+
+    from certifiedgpt_tpu_torch.agents import certify as CA
+    from certifiedgpt_tpu_torch.common.config import Config
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiny_") as tmp:
+        root = Path(tmp)
+        write_vqa_set(root, TINY_IMAGES)
+        runs = {}
+        for mode in ("kernels", "plain"):
+            out = root / f"out_{mode}"
+            cfg = {"model": {"arch": "minigpt4", "model_size": "tiny", "quantize_llama": True,
+                             "kv_quant": True},
+                   "datasets": {"evalvqav2": {
+                       "vis_processor": {"val": {"name": "blip2_image_val", "image_size": 28}},
+                       "build_info": {"images": {"storage": str(root / "images")},
+                                      "questions": {"val": [str(root / "questions.json")]},
+                                      "annotations": {"val": [str(root / "annotations.json")]}},
+                   }},
+                   "run": dict(TINY_RUN, output_dir=str(out))}
+            path = root / f"tiny_{mode}.yaml"
+            path.write_text(json.dumps(cfg))
+            with contextlib.ExitStack() as stack:
+                if mode == "plain":
+                    for patch in plain_versions():
+                        stack.enter_context(patch)
+                res = run_launch(torch, ["certify", "--config-path", str(path)], {}, out)
+            runs[mode] = (res, read_rows(out / "certify_results.jsonl"))
+        knobs = CA.SmoothingKnobs.from_run(Config(str(root / "tiny_kernels.yaml")).run)
+    (res, rows), (plain_res, plain_rows) = runs["kernels"], runs["plain"]
+    strip = [{k: v for k, v in r.items() if k != "seconds"} for r in rows]
+    plain_strip = [{k: v for k, v in r.items() if k != "seconds"} for r in plain_rows]
+    chunks = sum(dispatched_chunks(r, knobs.n0, knobs.n, knobs.mc_batch, knobs.dispatch_window)
+                 for r in rows)
+    steps = res["decode_steps"]
+    want = {"int8_weight_matmul": 7 * TINY_LAYERS * (chunks + steps),
+            "attention_kv8": TINY_LAYERS * chunks, "attention_kv8_decode": TINY_LAYERS * steps}
+    got = {name: n for name, n in res["launches"].items() if n}
+    log(f"[f32] 18.2 the tiny f32 model through the certify CLI: rows {json.dumps(strip)}; "
+        f"equal to the plain run's: {strip == plain_strip}; CLI wall {res['wall']:.3f} s "
+        f"(plain {plain_res['wall']:.3f} s); {chunks} chunks, {steps} decode steps; launches "
+        f"{json.dumps(got)}; {card}")
+    check_certify_rows("tiny f32 certify", rows, "certify", TINY_IMAGES,
+                       knobs.n0 + knobs.n, knobs.sigma)
+    if strip != plain_strip:
+        fail(f"tiny f32 certify: rows {strip} differ from the plain run's {plain_strip}")
+    if got != want:
+        fail(f"tiny f32 certify: launches {got}, expected {want}")
+    return res["launches"]
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--phase15-worker"]:  # one rank of phase 15.1's run
         return phase15_worker(sys.argv[2])
@@ -5101,13 +5545,20 @@ def main() -> int:
     with torch.no_grad():
         cli_launches["chat"] = phase_scripts(torch, card, *widths)
     log(f"[main] phase 17 took {time.perf_counter() - t0:.1f} s")
+    # phase 18: the f32 paths at full width (the f32 decoder) and on the tiny
+    # model through the certify CLI
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        f32_prefill = phase_f32_decoder(torch, card, device)
+        cli_launches["tiny f32 certify"] = phase_f32_tiny_certify(torch, card)
+    log(f"[main] phase 18 took {time.perf_counter() - t0:.1f} s")
     for name, rec in batch1.items():
         records[name]["attack_batch1"] = {k: rec[k] for k in (
             "ms", "ms_cls", "plain_ms", "bound_ms", "bound_by", "max_abs_err") if k in rec}
     summary["lookahead"] = lookahead
     log(f"[main] summary {json.dumps(summary)}")
     by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches,
-               "eval": cli_launches["eval"]}
+               "eval": cli_launches["eval"], "f32 decoder prefill": f32_prefill}
     kernels = []
     for name, source, replaces, path in KERNELS:
         rec = records[name]

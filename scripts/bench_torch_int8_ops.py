@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the weight-only int8 product, of the prefill's and of
-the decode step's int8-KV kernels goes, on one NVIDIA GPU.
+"""Where the time of the weight-only int8 product, of the prefill's, of
+the decode step's and of the tiled int8-KV kernels goes, on one NVIDIA GPU.
 
 Times a decode layer's seven weight-only products (q/k/v/o at 4096 x 4096,
 gate/up at 4096 x 11008, down at 11008 x 4096; ``int8_weight_forward``) at
@@ -15,7 +15,9 @@ replayed from a CUDA graph (the card's time alone), first as built and then
 with one part compiled out or a design alternative. The weight kernel:
 its tensor-core products, the int8 -> bf16 conversion, its x fragments,
 its whole compute loop (the copies stay), its cluster reduction, the split
-of K, a deeper ring, eight warps a block. The prefill kernel: its mask
+of K, a deeper ring, eight warps a block; its f32 instance (weight32: the
+layer on f32 x): the three-term split, the products, the hi term alone,
+each step's products summed into the accumulator. The prefill kernel: its mask
 reads, its products and softmax (the copies, conversions and cache write
 stay), its quantization, its mask scan, its K tiles kept for pass 2 and
 the row scales reused, 16 warps a block, the units in grid order, the
@@ -25,8 +27,10 @@ and at the barrier. The decode kernel: its conversion cut to a bit
 operation, its compute loops skipped (the copies alone), a block a batch
 row, a three-stage ring, a register cap for four blocks an SM, every launch
 at 4 or at 8 warps a block, and its blocks' timelines (first tile in place,
-first item done, the rest). A variant computes wrong values; only its time
-means anything.
+first item done, the rest). The tiled kernel (the f32 prefill at the
+certify prefill, eval's and a 2048-slot cache): its new rows' quantization,
+its mask reads, its products, its first pass. A variant computes wrong
+values; only its time means anything.
 
 Each variant is a copy of the source with its edits applied, built by
 ``nvcc`` into a library of its own; all builds run in parallel, then every
@@ -66,6 +70,10 @@ ROWS = (96, 8, 1)
 PREFILLS = {"certify prefill": (96, 96, 32, 32, 106, 128, 0),
             "eval prefill": (8, 320, 32, 32, 330, 128, 0),
             "caption prefill": (1, 96, 32, 32, 106, 128, 0)}
+# the f32 prefill (the tiled kernel) at the certify prefill, eval's and a
+# 2048-slot cache: (batch, new rows, cached positions, the first new row's slot)
+TILED = {"certify prefill": (96, 96, 106, 0), "eval prefill": (8, 320, 330, 0),
+         "2048 slots": (8, 96, 2048, 1900)}
 # the certify decode, a caption's, eval's and a long cache: (batch, heads,
 # kv heads, cached positions, head_dim, the step's slot)
 DECODES = {"certify decode": (96, 32, 32, 106, 128, 100),
@@ -85,8 +93,9 @@ WEIGHT_VARIANTS = {
     "whole": [],
     "no_mma": _NO_MMA,
     "no_convert": _NO_CONVERT,
-    "no_x_frags": [(r"const uint2 xb =\s*\*reinterpret_cast<const uint2\*>\(xt[^;]*\);",
-                    "const uint2 xb = make_uint2(af[0][j & 3], af[1][(j + 1) & 3]);")],
+    "no_x_frags": [(r"x_frags<X>\(xt \+ [^;]*;",
+                    "for (int e = 0; e < kTerms; ++e) { xb[e][0] = af[0][(j + e) & 3]; "
+                    "xb[e][1] = af[1][(j + e + 1) & 3]; }")],
     "copies_only": [(r"(    cp_async_commit\(\);\n)(    const unsigned char\* wt = )",
                      r"\1    if (a.M > 0) continue;\n\2")],
     "no_reduction": [(r"(  cp_async_wait<0>\(\);\n  __syncthreads\(\);[^\n]*\n)",
@@ -110,7 +119,7 @@ WEIGHT_VARIANTS = {
                (r"k_begin \+ s \* kBK", "k_begin + ((s + rot) % tiles) * kBK"),
                (r"k_begin \+ next \* kBK", "k_begin + ((next + rot) % tiles) * kBK")],
     # x read by the first column of blocks only: the L2 traffic of x gone
-    "x_once": [(r"(x\[i\] = r < Tile<MT>::kRows && m0 \+ r < a\.M)", r"\1 && blockIdx.x == 0")],
+    "x_once": [(r"(x\[i\] = r < Tile<MT, X>::kRows && m0 \+ r < a\.M)", r"\1 && blockIdx.x == 0")],
 }
 # the prefill's launch (csrc/attention_kv8_prefill.cu): as built; its mask
 # reads gone (every position of a row kept); its products and softmax
@@ -134,7 +143,7 @@ PREFILL_VARIANTS = {
     "no_cache": [(r"p->cache = full <= two \|\| \(bare > two && full <= most\) \? keys : 0;",
                   "p->cache = 0;")],
     # the new rows' codes made copies of their values (no quantization)
-    "no_quantize": [(r"codes_of\(x, xs, rcp, qf, bytes\);",
+    "no_quantize": [(r"cgpt_kv8::codes_of\(x, xs, rcp, qf, bytes\);",
                      "for (int j = 0; j < 8; ++j) qf[j] = x[j]; "
                      "for (int j = 0; j < 2; ++j) bytes[j] = ws[j];")],
     # no scan of the mask: every position of the unit's rows kept
@@ -253,9 +262,43 @@ DECODE_VARIANTS = {
          r"st[3] = stamp_now(); }\n}"),
     ],
 }
+# the weight-only kernel's f32 instance (the same file, f32 x): as built; x's
+# three-term split replaced by plain bit copies; its products skipped; the
+# hi term's product alone; each step's products summed into the accumulator
+# (no separate sum and IEEE add)
+WEIGHT_F32_VARIANTS = {
+    "whole": [],
+    "no_split": [(r"      t\[2\]\[i\] = __float_as_uint\(x\[i\]\) & 0xFFFF0000u;\n.*?"
+                  r"t\[0\]\[i\] = __float_as_uint\(__fsub_rn\(r, __uint_as_float\(t\[1\]\[i\]\)\)\);",
+                  "      t[2][i] = __float_as_uint(x[i]); t[1][i] = t[2][i] ^ 1u; "
+                  "t[0][i] = t[2][i] ^ 2u;")],
+    "no_mma": _NO_MMA,
+    "hi_only": [(r"for \(int e = 0; e < kTerms; \+\+e\) mma_bf16\(part",
+                 "for (int e = kTerms - 1; e < kTerms; ++e) mma_bf16(part")],
+    "direct_acc": [(r"float part\[4\] = \{0\.f, 0\.f, 0\.f, 0\.f\};",
+                    "float (&part)[4] = acc[i][j];"),
+                   (r"for \(int c = 0; c < 4; \+\+c\) acc\[i\]\[j\]\[c\] = "
+                    r"__fadd_rn\(acc\[i\]\[j\]\[c\], part\[c\]\);", "")],
+    "copies_only": WEIGHT_VARIANTS["copies_only"],
+}
+# the tiled kernel (csrc/attention_kv8.cu) at the f32 prefill: as built; its
+# new rows' quantization into the cache skipped; its mask reads gone; its
+# products skipped; its first pass skipped; launched without clusters
+TILED_VARIANTS = {
+    "whole": [],
+    "no_quantize": [(r"    write_new_rows\(a, it, cluster_rank\(\), cluster_blocks\(\)\);",
+                     "")],
+    "no_mask": [(r"byte\[c\] = m == nullptr \? 1 : __ldg\([^;]*;", "byte[c] = 1;")],
+    "no_mma": _NO_MMA,
+    "one_pass": [(r"  pass\(false, \[&\]", "  if (a.Sq < 0) pass(false, [&]")],
+    # no cluster: each block quantizes every new row itself
+    "no_cluster": [(r"const int cluster = a\.kn == nullptr \? 1 : [^;]*;", "const int cluster = 1;")],
+}
 SOURCES = {"weight": ("int8_weight_matmul.cu", WEIGHT_VARIANTS, "cgpt_int8_weight_matmul"),
+           "weight32": ("int8_weight_matmul.cu", WEIGHT_F32_VARIANTS, "cgpt_int8_weight_matmul"),
            "prefill": ("attention_kv8_prefill.cu", PREFILL_VARIANTS, "cgpt_attention_kv8_prefill"),
-           "decode": ("attention_kv8_decode.cu", DECODE_VARIANTS, "cgpt_attention_kv8_decode")}
+           "decode": ("attention_kv8_decode.cu", DECODE_VARIANTS, "cgpt_attention_kv8_decode"),
+           "tiled": ("attention_kv8.cu", TILED_VARIANTS, "cgpt_attention_kv8")}
 _ERROR_STRING = """#include <cuda_runtime.h>
 extern "C" const char* cgpt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -320,8 +363,9 @@ def build_variants(names, tmp: Path):
         unit.write_text(text)
         lib = tmp / f"lib{src}_{name}.so"
         procs[(src, name)] = (lib, subprocess.Popen(
-            [cuda_kernels._nvcc(), *cuda_kernels.NVCC_FLAGS, "-shared", str(unit), str(errors),
-             "-o", str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [cuda_kernels._nvcc(), *cuda_kernels.NVCC_FLAGS, "-I", str(cuda_kernels.CSRC),
+             "-shared", str(unit), str(errors), "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for key, (path, proc) in procs.items():
         out, _ = proc.communicate()
@@ -338,9 +382,9 @@ def build_variants(names, tmp: Path):
     return built
 
 
-def weight_cases(torch, dev):
-    """{rows: a call of a decoder layer's seven products}, and the layer's
-    weight bytes."""
+def weight_cases(torch, dev, dtype=None):
+    """{rows: a call of a decoder layer's seven products} on x of ``dtype``
+    (bf16 by default), and the layer's weight bytes."""
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -352,7 +396,7 @@ def weight_cases(torch, dev):
             weights.append((kq, torch.rand(n, generator=g, device=dev) * 1e-3))
     calls = {}
     for m in ROWS:
-        xs = {k: torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        xs = {k: torch.randn((m, k), generator=g, device=dev).to(dtype or torch.bfloat16)
               for k in {k for k, _n, _p in LAYER}}
 
         def layer(xs=xs):
@@ -411,6 +455,22 @@ def prefill_blocks(lib, b, sq, h, h_kv, t, _d, offset) -> int:
     return h_kv * b * plan[1]
 
 
+def tiled_case(torch, dev, b, s, t, offset):
+    """An f32 prefill's launch (``prefill_attention_kv8`` on f32: the tiled
+    kernel with its cache write), 32 heads of 128, with the causal mask."""
+    from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((b, s, 32, 128), generator=g, device=dev) for _ in range(3))
+    kq, ks = Q._quantize_rows_plain(torch.randn((b, t, 32, 128), generator=g, device=dev))
+    vq, vs = Q._quantize_rows_plain(torch.randn((b, t, 32, 128), generator=g, device=dev))
+    cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    q_pos = offset + torch.arange(s, device=dev)[:, None]
+    mask = (torch.arange(t, device=dev)[None, :] <= q_pos)[None, None]
+    return lambda: A.prefill_attention_kv8(q, k, v, cache, offset, mask)
+
+
 def decode_case(torch, dev, b, h, h_kv, t, d, offset):
     """A decode step's launch (``decode_attention_kv8``) over a quantized
     cache with the decoder's mask, row 0 left-padded."""
@@ -435,20 +495,20 @@ def blocks(lib, mkn) -> int:
     """Blocks the launcher plans for an (M, K, N) product."""
     m, k, n = mkn
     plan = (ctypes.c_int * 7)()
-    lib.cgpt_int8_weight_matmul_plan.argtypes = (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
-    if lib.cgpt_int8_weight_matmul_plan(m, n, k, plan) != 0:
+    lib.cgpt_int8_weight_matmul_plan.argtypes = (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+    if lib.cgpt_int8_weight_matmul_plan(m, n, k, 0, plan) != 0:
         raise SystemExit("cgpt_int8_weight_matmul_plan failed")
     return plan[1] * plan[2] * plan[3]
 
 
 def plans(lib):
     """The launcher's plan for each product of a decoder layer at ``ROWS``."""
-    lib.cgpt_int8_weight_matmul_plan.argtypes = (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+    lib.cgpt_int8_weight_matmul_plan.argtypes = (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
     out = []
     for m in ROWS:
         for k, n, _p in LAYER:
             plan = (ctypes.c_int * 7)()
-            if lib.cgpt_int8_weight_matmul_plan(m, n, k, plan) != 0:
+            if lib.cgpt_int8_weight_matmul_plan(m, n, k, 0, plan) != 0:
                 raise SystemExit("cgpt_int8_weight_matmul_plan failed")
             out.append(f"weight:plan [{m}, {k}] x [{k}, {n}]: " + ", ".join(
                 f"{name} {v}" for name, v in zip(PLAN_FIELDS, plan)))
@@ -524,17 +584,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         built = build_variants(names, Path(tmp))
         layer_calls, layer_bytes = weight_cases(torch, dev)
+        layer_calls32, _ = weight_cases(torch, dev, torch.float32)
         prefills = {label: prefill_case(torch, dev, *shape) for label, shape in PREFILLS.items()}
         decodes = {label: decode_case(torch, dev, *shape) for label, shape in DECODES.items()}
+        tiled = {label: tiled_case(torch, dev, *shape) for label, shape in TILED.items()}
         times = {}
         for _ in range(2):  # two rounds, variants in turns
             for key in names:
                 cuda_kernels.build = lambda lib=built[key][0]: _Build(lib)
-                if key[0] == "weight":
-                    for m, call in layer_calls.items():
+                if key[0] in ("weight", "weight32"):
+                    for m, call in (layer_calls if key[0] == "weight" else layer_calls32).items():
                         times.setdefault((key, m), []).append(graph_ms(torch, call))
-                elif key[0] == "prefill":
-                    for label, call in prefills.items():
+                elif key[0] in ("prefill", "tiled"):
+                    for label, call in (prefills if key[0] == "prefill" else tiled).items():
                         times.setdefault((key, label), []).append(graph_ms(torch, call))
                 else:
                     for label, call in decodes.items():
@@ -572,17 +634,19 @@ def main() -> int:
     bound = layer_bytes / PEAK_BYTES_PER_S * 1e3
     for key in names:
         regs = "; ".join(built[key][1])
-        if key[0] == "weight":
+        if key[0] in ("weight", "weight32"):
             parts = []
             for m in ROWS:
                 ms = min(times[(key, m)])
                 parts.append(f"M={m} {ms:.4f} ms ({layer_bytes / ms * 1e-6:.0f} GB/s of "
                              f"weights, {100 * bound / ms:.0f} % of the byte bound)")
-            print(f"weight:{key[1]}: a decode layer's seven products {', '.join(parts)} "
+            print(f"{key[0]}:{key[1]}: a decode layer's seven products "
+                  f"{'(f32 x) ' if key[0] == 'weight32' else ''}{', '.join(parts)} "
                   f"[ptxas: {regs}] ({smi})", flush=True)
-        elif key[0] == "prefill":
-            parts = [f"{label} {min(times[(key, label)]):.4f} ms" for label in PREFILLS]
-            print(f"prefill:{key[1]}: {', '.join(parts)} [ptxas: {regs}] ({smi})", flush=True)
+        elif key[0] in ("prefill", "tiled"):
+            parts = [f"{label} {min(times[(key, label)]):.4f} ms"
+                     for label in (PREFILLS if key[0] == "prefill" else TILED)]
+            print(f"{key[0]}:{key[1]}: {', '.join(parts)} [ptxas: {regs}] ({smi})", flush=True)
         else:
             parts = [f"{label} {min(times[(key, label)]):.4f} ms" for label in DECODES]
             print(f"decode:{key[1]}: {', '.join(parts)} [ptxas: {regs}] ({smi})", flush=True)

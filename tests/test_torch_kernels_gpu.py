@@ -602,16 +602,20 @@ def test_int8_weight_matmul_refuses_bad_operands_on_gpu(cuda):
 
 
 #: relative Frobenius error of the weight-only kernel's f32 instance: exact
-#: f32 products summed in another order than cuBLAS's, a few f32 ulps
+#: products of x's three bf16 terms summed in f32 in another order than
+#: cuBLAS's, a few f32 ulps
 F32_MATMUL_REL_LIMIT = 1e-5
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 64, 24), (3, 64, 128), (33, 1408, 200),
-                                   (96, 4096, 4096)])
+                                   (96, 4096, 4096), (1, 4096, 11008), (8, 11008, 4096),
+                                   (768, 4096, 4096), (9216, 11008, 4096)])
 def test_int8_weight_matmul_f32_matches_plain_on_gpu(cuda, m, k, n):
     """The f32 instance (f32 configurations) launches the kernel and agrees
-    with the plain version's full-precision f32 product."""
+    with the exact (f64) product and with the plain version's f32 product
+    (TF32 off), at chip_smoke.py's shapes and the prefill's ``down_proj``
+    (the deepest K)."""
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     x = torch.randn((m, k), generator=g, device=cuda)
     kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=cuda,
@@ -622,6 +626,45 @@ def test_int8_weight_matmul_f32_matches_plain_on_gpu(cuda, m, k, n):
     assert Q.int8_weight_forward.launches == before + 1
     exact = ((x.double() @ kq.double()) * scale.double()).float()
     assert out.dtype == torch.float32 and _rel(out, exact) < F32_MATMUL_REL_LIMIT
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = Q._int8_weight_forward_plain(x, kq, scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert _rel(out, ref) < F32_MATMUL_REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_int8_weight_matmul_f32_split_edges_on_gpu(cuda):
+    """x at the three-term split's edges: rows of tiny values (|x| near
+    2^-120, where the lo term is a bf16 subnormal: the kernel loses at most
+    2^-126 a value, against the f64 product), huge ones near the top of the
+    f32 range (truncation never rounds up into infinity), zeros of both
+    signs, and an infinite value (its own hi term: the row is infinite where
+    the plain product is, NaN nowhere else)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    k, n = 256, 64
+    kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                                            dtype=torch.int8))
+    scale = torch.ones(n, device=cuda)
+    x = torch.randn((4, k), generator=g, device=cuda)
+    x[0] *= 2.0 ** -120
+    x[1] = x[1].sign() * 3.4e38 / k / 127
+    x[2] = 0.0
+    x[2, ::2] = -0.0
+    out = Q.int8_weight_forward(x, kq, scale)
+    exact = x.double() @ kq.double()
+    budget = (2.0 ** -126) * kq.double().abs().sum(dim=0)
+    assert bool(((out[0].double() - exact[0]).abs() <= budget + 1e-6 * exact[0].abs()).all())
+    assert float((out[1].double() - exact[1]).norm() / exact[1].norm()) < F32_MATMUL_REL_LIMIT
+    assert bool(torch.isfinite(out[1]).all())
+    assert not out[2].any()
+    x[3, 5] = float("inf")
+    out = Q.int8_weight_forward(x, kq, scale)
+    ref = Q._int8_weight_forward_plain(x, kq, scale)
+    assert torch.equal(out[3].isinf(), ref[3].isinf()) and torch.equal(out[3].isnan(),
+                                                                        ref[3].isnan())
 
 
 @pytest.mark.gpu
@@ -741,17 +784,26 @@ def test_attention_kv8_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, offset, dty
     (relative Frobenius) and 2e-2 absolute, for bf16 and f32 queries: decode
     and prefill rows, grouped-query heads, a left-padded row, a long cache;
     with no mask and with one mask row for every query; and a fully masked
-    row gives zeros, as the plain version's guard does. bf16 queries of
-    several rows take the prefill kernel with no rows to write (counted in
-    ``prefill_attention_kv8.launches``), the rest the warp-a-row kernel."""
+    row gives zeros, as the plain version's guard does. Each call is one
+    launch of the kernel ``kv8_kernel`` names, with no rows to write: bf16
+    queries of several rows the prefill kernel (counted in
+    ``prefill_attention_kv8.launches``), a lone row the decode kernel
+    (``decode_attention_kv8.launches``), f32 queries of several rows the
+    tiled kernel; the cache comes out bit for bit as it went in."""
     q, *cache = _kv8_case(b, sq, h, h_kv, t, 128, offset, cuda)
     args = (q.to(dtype), *cache)
-    before = A.multi_head_attention_kv8.launches
-    before_prefill = A.prefill_attention_kv8.launches
+    kept = [c.clone() for c in cache[:4]]
+    counters = (A.multi_head_attention_kv8, A.prefill_attention_kv8, A.decode_attention_kv8)
+    before = [c.launches for c in counters]
     out = A.multi_head_attention_kv8(*args)
-    prefill = dtype == torch.bfloat16 and sq > 1
-    assert A.multi_head_attention_kv8.launches == before + (not prefill)
-    assert A.prefill_attention_kv8.launches == before_prefill + prefill
+    kernel = A.kv8_kernel(dtype, sq, 128, h // h_kv, False)
+    want = {"tiled": (1, 0, 0), "prefill": (0, 1, 0), "decode": (0, 0, 1)}[kernel]
+    assert [c.launches - n for c, n in zip(counters, before)] == list(want)
+    assert kernel == ("decode" if sq == 1 else "prefill" if dtype == torch.bfloat16 else "tiled")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.uint8) if a.dtype == torch.int8 else a.view(torch.int32),
+                           b_.view(torch.uint8) if b_.dtype == torch.int8 else b_.view(torch.int32))
+               for a, b_ in zip(cache[:4], kept))
     ref = A._multi_head_attention_kv8_plain(*args)
     assert out.shape == ref.shape == (b, sq, h, 128) and out.dtype == dtype
     assert _rel(out, ref) < KV8_REL_LIMIT
@@ -796,6 +848,83 @@ def test_attention_kv8_refuses_bad_operands_on_gpu(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         A.multi_head_attention_kv8(*long)
     assert A.multi_head_attention_kv8.launches == n
+
+
+def _bits(t):
+    return t.view(torch.uint8 if t.dtype == torch.int8 else torch.int32)
+
+
+def _kv8_any(b, sq, h, h_kv, t, dh, offset, dtype, device, seed=0):
+    """``_kv8_case`` at any head_dim and dtype, the last batch row fully
+    masked when there are several."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, sq, h, dh), generator=g, device=device).to(dtype)
+    kq, ks = Q._quantize_rows_plain(torch.randn((b, t, h_kv, dh), generator=g, device=device))
+    vq, vs = Q._quantize_rows_plain(torch.randn((b, t, h_kv, dh), generator=g, device=device))
+    valid = torch.ones((b, t), dtype=torch.bool, device=device)
+    valid[0, :2] = False
+    if b > 1:
+        valid[-1] = False
+    q_pos = offset + torch.arange(sq, device=device)[:, None]
+    mask = (torch.arange(t, device=device)[None, :] <= q_pos)[None, None] & \
+        valid[:, None, None, :]
+    return q, kq, ks, vq, vs, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dh", [16, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kv8_lone_row_runs_the_decode_kernel_on_gpu(cuda, g, dh, dtype):
+    """A lone query row (bf16 or f32) at a group of ``KV8_DECODE_GROUPS``
+    is one launch of the decode kernel with nothing to write: the cache
+    comes out bit for bit as it went in, the output within KV8_REL_LIMIT of
+    the plain version, a fully masked row zeros."""
+    q, *cache = _kv8_any(6, 1, 4 * g, 4, 106, dh, 100, dtype, cuda, seed=g + dh)
+    kept = [c.clone() for c in cache[:4]]
+    before = (A.decode_attention_kv8.launches, A.multi_head_attention_kv8.launches)
+    out = A.multi_head_attention_kv8(q, *cache)
+    assert (A.decode_attention_kv8.launches, A.multi_head_attention_kv8.launches) == \
+        (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(cache[:4], kept))
+    ref = A._multi_head_attention_kv8_plain(q, *cache)
+    assert out.dtype == dtype and _rel(out, ref) < KV8_REL_LIMIT
+    assert not out[-1].any() and torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,h,h_kv,t,dh,offset,dtype", [
+    (4, 1, 12, 4, 106, 128, 100, torch.bfloat16),  # a lone row, three a kv head
+    (3, 1, 6, 1, 300, 64, 299, torch.float32),  # a lone row, six a kv head
+    (2, 7, 8, 8, 40, 64, 3, torch.bfloat16),  # another head width
+    (2, 33, 4, 2, 90, 80, 50, torch.bfloat16),  # five 16-value pieces a row
+    (2, 5, 4, 4, 77, 256, 60, torch.bfloat16),  # the widest head_dim
+    (2, 40, 8, 2, 200, 128, 0, torch.float32),  # 160 rows a kv head: three row tiles
+    (3, 17, 4, 4, 33, 16, 10, torch.float32),  # the tiny configuration's head_dim
+    (2, 9, 4, 4, 4096, 256, 4000, torch.float32),  # a long cache at the widest head_dim
+])
+def test_attention_kv8_tiled_matches_plain_on_gpu(cuda, b, sq, h, h_kv, t, dh, offset, dtype):
+    """The tiled kernel (``kv8_kernel`` "tiled"): f32 queries, bf16 at
+    other head widths, lone rows at other groups, one launch each with no
+    rows to write; the cache unchanged, the output within KV8_REL_LIMIT
+    of the plain version with the decoder's mask and with none, a fully
+    masked row zeros."""
+    q, *cache = _kv8_any(b, sq, h, h_kv, t, dh, offset, dtype, cuda, seed=dh + sq)
+    assert A.kv8_kernel(dtype, sq, dh, h // h_kv, False) == "tiled"
+    kept = [c.clone() for c in cache[:4]]
+    before = A.multi_head_attention_kv8.launches
+    out = A.multi_head_attention_kv8(q, *cache)
+    assert A.multi_head_attention_kv8.launches == before + 1
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b_)) for a, b_ in zip(cache[:4], kept))
+    ref = A._multi_head_attention_kv8_plain(q, *cache)
+    assert out.dtype == dtype and _rel(out, ref) < KV8_REL_LIMIT
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2
+    assert not out[-1].any() and torch.isfinite(out).all()
+    nomask = A.multi_head_attention_kv8(q, *cache[:4], None, 0.1)
+    assert _rel(nomask, A._multi_head_attention_kv8_plain(q, *cache[:4], None, 0.1)) \
+        < KV8_REL_LIMIT
 
 
 # ----------------------------------------------------------------------
@@ -1058,20 +1187,116 @@ def test_prefill_attention_kv8_takes_any_head_agnostic_mask_on_gpu(cuda, kind):
 
 @pytest.mark.gpu
 def test_prefill_attention_kv8_f32_runs_the_sequence_on_gpu(cuda):
-    """f32 q, k and v (the tiny and f32 configurations) take the sequence
-    the kernel replaced: ``quantize_rows``' kernel on k and v, the slot
-    writes and the warp-a-row attention; no launch of the prefill kernel."""
+    """f32 q, k and v (the tiny and f32 configurations) take what replaced
+    the sequence (``quantize_rows``' kernel on k and v, the slot writes and
+    the attention): one launch of the tiled kernel, which writes the cache
+    bit for bit; no launch of the prefill kernel or of ``quantize_rows``."""
     q, k, v, cache, mask = _prefill_case(3, 20, 50, 8, 2, 10, torch.float32, cuda)
     mine, ref_cache = _copy(cache), _copy(cache)
     before = (A.prefill_attention_kv8.launches, A.multi_head_attention_kv8.launches,
               Q.quantize_rows.launches)
     out = A.prefill_attention_kv8(q, k, v, mine, 10, mask)
     assert (A.prefill_attention_kv8.launches, A.multi_head_attention_kv8.launches,
-            Q.quantize_rows.launches) == (before[0], before[1] + 1, before[2] + 2)
+            Q.quantize_rows.launches) == (before[0], before[1] + 1, before[2])
     ref = A._prefill_attention_kv8_plain(q, k, v, ref_cache, 10, mask)
     torch.cuda.synchronize()
     assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
     assert out.dtype == torch.float32 and _rel(out, ref) < KV8_REL_LIMIT
+
+
+def _prefill_any(b, s, t, h, h_kv, dh, offset, dtype, device, seed=0):
+    """``_prefill_case`` at any head_dim."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, s, n, dh), generator=g, device=device).to(dtype) * sc
+               for n, sc in ((h, 1.0), (h_kv, 3.0), (h_kv, 1.0)))
+    kc, ksc = Q._quantize_rows_plain(torch.randn((b, t, h_kv, dh), generator=g,
+                                                 device=device) * 2)
+    vc, vsc = Q._quantize_rows_plain(torch.randn((b, t, h_kv, dh), generator=g, device=device))
+    valid = torch.ones((b, t), dtype=torch.bool, device=device)
+    valid[0, :2] = False
+    if b > 1:
+        valid[-1] = False
+    q_pos = offset + torch.arange(s, device=device)[:, None]
+    mask = (torch.arange(t, device=device)[None, :] <= q_pos)[None, None] & \
+        valid[:, None, None, :]
+    return q, k, v, {"k": kc, "v": vc, "k_scale": ksc, "v_scale": vsc}, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,t,h,h_kv,dh,offset", [
+    (96, 96, 106, 32, 32, 128, 0),  # the certify prefill
+    (8, 320, 330, 32, 32, 128, 0),  # eval's prefill
+    (2, 64, 2048, 32, 32, 128, 1900),  # a long cache, the new rows at an offset
+    (4, 40, 256, 32, 8, 128, 216),  # grouped heads (4 a kv head), the new rows last
+    (3, 21, 60, 12, 4, 64, 30),  # three a kv head, another head width
+    (2, 9, 20, 4, 4, 16, 5),  # the tiny configuration's head_dim
+    (2, 5, 30, 4, 2, 256, 25),  # the widest head_dim
+])
+def test_prefill_attention_kv8_f32_is_one_launch_on_gpu(cuda, b, s, t, h, h_kv, dh, offset):
+    """The f32 prefill is one launch of the tiled kernel: the cache's codes
+    and scales bit for bit the plain sequence's, the output within
+    KV8_REL_LIMIT, a fully masked row zeros, no ``quantize_rows`` launch."""
+    q, k, v, cache, mask = _prefill_any(b, s, t, h, h_kv, dh, offset, torch.float32, cuda)
+    mine, ref_cache = _copy(cache), _copy(cache)
+    before = (A.multi_head_attention_kv8.launches, Q.quantize_rows.launches)
+    out = A.prefill_attention_kv8(q, k, v, mine, offset, mask)
+    assert (A.multi_head_attention_kv8.launches, Q.quantize_rows.launches) == \
+        (before[0] + 1, before[1])
+    ref = A._prefill_attention_kv8_plain(q, k, v, ref_cache, offset, mask)
+    torch.cuda.synchronize()
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert out.dtype == torch.float32 and _rel(out, ref) < KV8_REL_LIMIT
+    assert not out[-1].any() and torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_prefill_attention_kv8_f32_long_cache_runs_on_gpu(cuda):
+    """A 2048-slot f32 cache runs in one launch: the new rows at 1900, then a
+    bare f32 call of several rows over the whole cache; the tiled launches
+    are deterministic, replay from a CUDA graph and are one kernel and no
+    memset a call. An 8192-slot cache under several f32 rows runs too (eight
+    rows of Dh + T floats would not fit in shared memory)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, cache, mask = _prefill_any(8, 96, 2048, 32, 32, 128, 1900, torch.float32, cuda,
+                                        seed=5)
+    mine, ref_cache = _copy(cache), _copy(cache)
+    out = A.prefill_attention_kv8(q, k, v, mine, 1900, mask)
+    ref = A._prefill_attention_kv8_plain(q, k, v, ref_cache, 1900, mask)
+    assert _cache_bits_unequal(mine, ref_cache) == {name: 0 for name in cache}
+    assert _rel(out, ref) < KV8_REL_LIMIT
+    args = (q, mine["k"], mine["k_scale"], mine["v"], mine["v_scale"], mask)
+    bare = A.multi_head_attention_kv8(*args)
+    assert _rel(bare, A._multi_head_attention_kv8_plain(*args)) < KV8_REL_LIMIT
+    assert torch.equal(A.multi_head_attention_kv8(*args), bare)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        A.prefill_attention_kv8(q, k, v, _copy(cache), 1900, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graphed = _copy(cache)
+    with torch.cuda.graph(graph):
+        replayed = A.prefill_attention_kv8(q, k, v, graphed, 1900, mask)
+    for _ in range(2):
+        replayed.zero_()
+        for name in graphed:
+            graphed[name].copy_(cache[name])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, out)
+        assert _cache_bits_unequal(graphed, mine) == {name: 0 for name in cache}
+    fresh = _copy(cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        A.prefill_attention_kv8(q, k, v, fresh, 1900, mask)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 1 and "attention_kv8_kernel" in ops[0], ops
+    q, *cache = _kv8_any(2, 9, 8, 8, 8192, 128, 8190, torch.float32, cuda, seed=6)
+    out = A.multi_head_attention_kv8(q, *cache)
+    assert _rel(out, A._multi_head_attention_kv8_plain(q, *cache)) < KV8_REL_LIMIT
 
 
 @pytest.mark.gpu
