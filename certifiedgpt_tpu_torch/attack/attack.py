@@ -6,10 +6,15 @@ Port of ``certifiedgpt_tpu/attack/attack.py``:
    pixels inside an l-inf ball around the clean image, minimizing the mean
    cosine distance between the adversary's surrogate embeddings and the
    target's. Each pixel image is resized to the surrogate's size
-   (bilinear, anti-aliased when it downsamples, as ``jax.image.resize``)
-   and CLIP-normalized inside the loss. The loop is a Python loop of
-   ``torch.autograd.grad`` with respect to the pixels alone; the surrogate
-   parameters take no gradient.
+   (bilinear, anti-aliased when it downsamples, as ``jax.image.resize``,
+   by two contractions with the filter's weights) and CLIP-normalized
+   inside the loss. One step is the ensemble loss,
+   ``torch.autograd.grad`` with respect to the pixels alone (the surrogate
+   parameters take no gradient), and the signed step clamped into the ball,
+   in place on fixed tensors (``_pgd_step``). On the card that step is
+   captured once into a CUDA graph and replayed ``steps`` times, the
+   counterpart of the JAX package's ``lax.scan`` inside ``jax.jit``; on the
+   CPU it runs eagerly.
 2. **Query stage**, ``rgf_refine``: derivative-free refinement against the
    victim with random-gradient-free two-point estimates (numpy, a copy of
    the JAX package's, the same ``np.random.default_rng(seed)`` stream).
@@ -18,15 +23,17 @@ Port of ``certifiedgpt_tpu/attack/attack.py``:
 
 The surrogates are float32 in the JAX package. Their forward and backward
 run here inside ``exact_f32``, which turns TF32 off for CUDA matmuls and
-cuDNN convolutions for the duration of the block and restores the caller's
-settings after it, so the CLI and the chip script compute the same f32
-products whatever the process-wide flags are.
+cuDNN convolutions and asks cuDNN for its deterministic algorithms for the
+duration of the block and restores the caller's settings after it, so the
+CLI and the chip script compute the same f32 products whatever the
+process-wide flags are, and a PGD loop on the card repeats bit for bit.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
@@ -34,21 +41,28 @@ import torch
 import torch.nn.functional as F
 from scipy import stats as sps
 
+from certifiedgpt_tpu_torch.common.graphs import Captured, GraphStore
 from certifiedgpt_tpu_torch.data.processors import CLIP_MEAN, CLIP_STD
+from certifiedgpt_tpu_torch.models.layers import tree_addresses
 
 
 @contextlib.contextmanager
 def exact_f32():
-    """f32 CUDA matmuls and convolutions without TF32 inside the block."""
+    """f32 CUDA matmuls and convolutions without TF32 inside the block, and
+    cuDNN's deterministic convolution algorithms (its others may sum a
+    backward with atomics), so that a PGD loop repeats bit for bit."""
     matmul = torch.backends.cuda.matmul.allow_tf32
     cudnn = torch.backends.cudnn.allow_tf32
+    deterministic = torch.backends.cudnn.deterministic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cudnn.deterministic = deterministic
 
 
 def cosine_similarity(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -67,23 +81,43 @@ class SurrogateEncoder:
     image_size: int = 224
 
 
+@functools.lru_cache(maxsize=None)
+def _clip_stats(device: torch.device):
+    """CLIP's mean and std on ``device``, made once (a copy to the card
+    has no place inside a captured step)."""
+    return (torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(CLIP_STD, dtype=torch.float32, device=device))
+
+
 def _normalize(pixels: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=pixels.device)
-    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=pixels.device)
+    mean, std = _clip_stats(pixels.device)
     return (pixels - mean) / std
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] f32 weights of the 1-D bilinear resize with half-pixel
+    centres and anti-aliasing: ``F.interpolate``'s filter, read off as the
+    resize of the identity (each output row holds its input weights)."""
+    eye = torch.eye(n_in, dtype=torch.float32, device=device)
+    return F.interpolate(eye[None, None], size=(n_out, n_in), mode="bilinear",
+                         align_corners=False, antialias=True)[0, 0].contiguous()
 
 
 def _resize(pixels: torch.Tensor, size: int) -> torch.Tensor:
     """[B, H, W, C] -> [B, size, size, C], bilinear with half-pixel centres
     and anti-aliasing (a triangle filter widened by the scale when it
     downsamples): the function ``jax.image.resize(..., "bilinear")``
-    computes."""
+    computes, and as it computes it, two contractions with the filter's
+    weights (in f32, TF32 off). Its gradient is two products too, which
+    sum in a fixed order (``F.interpolate``'s anti-aliased backward sums
+    with atomics, so a PGD loop through it would not repeat bit for bit)."""
     h, w = pixels.shape[1:3]
     if h == size and w == size:
         return pixels
-    out = F.interpolate(pixels.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
-                        align_corners=False, antialias=True)
-    return out.permute(0, 2, 3, 1)
+    with exact_f32():
+        out = torch.einsum("oh,bhwc->bowc", _resize_weights(h, size, pixels.device), pixels)
+        return torch.einsum("pw,bowc->bopc", _resize_weights(w, size, pixels.device), out)
 
 
 def ensemble_loss(encoders: Sequence[SurrogateEncoder], x_pixels: torch.Tensor,
@@ -98,6 +132,38 @@ def ensemble_loss(encoders: Sequence[SurrogateEncoder], x_pixels: torch.Tensor,
     return total / len(encoders)
 
 
+class _PGDState(Captured):
+    """The tensors a PGD step reads and updates: the adversarial pixels
+    ``x`` (a leaf that takes the gradient, updated in place), the ball's
+    bounds and the target embeddings; ``graph`` is the step captured on
+    them."""
+
+    def __init__(self, x_clean: torch.Tensor, epsilon: float, target_embeds):
+        super().__init__()
+        self.x = x_clean.clone().requires_grad_(True)
+        self.lo = torch.clamp(x_clean - epsilon, 0.0, 1.0)
+        self.hi = torch.clamp(x_clean + epsilon, 0.0, 1.0)
+        self.targets = {k: v.detach().clone() for k, v in target_embeds.items()}
+
+    def load(self, x_clean: torch.Tensor, epsilon: float, target_embeds) -> None:
+        with torch.no_grad():
+            self.x.copy_(x_clean)
+            torch.clamp(x_clean - epsilon, 0.0, 1.0, out=self.lo)
+            torch.clamp(x_clean + epsilon, 0.0, 1.0, out=self.hi)
+            for k, v in target_embeds.items():
+                self.targets[k].copy_(v)
+
+
+def _pgd_step(encoders, params_by_name, st: _PGDState, step_size: float) -> None:
+    """One sign step of the PGD loop, in place on ``st.x``: the gradient of
+    the ensemble loss with respect to the pixels, then ``x - step_size *
+    sign(grad)`` clamped into the ball."""
+    loss = ensemble_loss(encoders, st.x, params_by_name, st.targets)
+    (grad,) = torch.autograd.grad(loss, st.x)
+    with torch.no_grad():
+        st.x.copy_(torch.clamp(st.x - step_size * torch.sign(grad), st.lo, st.hi))
+
+
 def make_pgd_attack(
     encoders: Sequence[SurrogateEncoder],
     epsilon: float = 8.0 / 255.0,
@@ -107,23 +173,50 @@ def make_pgd_attack(
     """Build the targeted PGD loop.
 
     Returns ``attack(params_by_name, x_clean_pixels [B,H,W,3] in [0,1],
-    target_embeds: {name: [B, D]}) -> x_adv_pixels``: ``steps`` sign steps
-    of ``step_size``, each clipped to the ``epsilon`` ball intersected with
-    [0, 1]. Autograd is on inside the loop whatever the caller's mode."""
+    target_embeds: {name: [B, D]}, cuda_graph=True) -> x_adv_pixels``:
+    ``steps`` sign steps of ``step_size``, each clipped to the ``epsilon``
+    ball intersected with [0, 1]. Autograd is on inside the loop whatever
+    the caller's mode. On the card the step (``_pgd_step``) is captured
+    once for each (surrogate tensors, pixel shape, target shapes), at most
+    two captures kept, sharing one memory pool, and replayed ``steps``
+    times (``attack.captures`` counts the captures; a capture that fails
+    raises); ``cuda_graph=False`` runs it eagerly there, as the CPU always
+    does."""
+    store = GraphStore(most=2)
 
-    def attack(params_by_name, x_clean: torch.Tensor, target_embeds) -> torch.Tensor:
+    def attack(params_by_name, x_clean: torch.Tensor, target_embeds,
+               cuda_graph: bool = True) -> torch.Tensor:
         x_clean = x_clean.detach()
-        lo = torch.clamp(x_clean - epsilon, 0.0, 1.0)
-        hi = torch.clamp(x_clean + epsilon, 0.0, 1.0)
-        x_adv = x_clean
-        with exact_f32(), torch.enable_grad():
-            for _ in range(steps):
-                x = x_adv.detach().requires_grad_(True)
-                loss = ensemble_loss(encoders, x, params_by_name, target_embeds)
-                (grad,) = torch.autograd.grad(loss, x)
-                x_adv = torch.clamp(x_adv - step_size * torch.sign(grad), lo, hi)
-        return x_adv.detach()
+        graphed = cuda_graph and x_clean.device.type == "cuda"
+        if not graphed:
+            st = _PGDState(x_clean, epsilon, target_embeds)
+        else:
+            key = (tree_addresses({enc.name: params_by_name[enc.name] for enc in encoders}),
+                   tuple(x_clean.shape), x_clean.dtype, x_clean.device,
+                   tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(target_embeds.items())))
+            st = store.state(key, lambda: _PGDState(x_clean, epsilon, target_embeds))
+            st.load(x_clean, epsilon, target_embeds)
 
+        def step():
+            _pgd_step(encoders, params_by_name, st, step_size)
+
+        def restore():
+            with torch.no_grad():
+                st.x.copy_(x_clean)
+
+        with exact_f32(), torch.enable_grad():
+            if graphed and st.graph is None:
+                # a real step (the warm-up), the pixels put back, the capture
+                store.capture(st, step, restore, x_clean.device)
+                attack.captures += 1
+            for _ in range(steps):
+                if graphed:
+                    st.replay()
+                else:
+                    step()
+        return st.x.detach().clone()
+
+    attack.captures = 0
     return attack
 
 

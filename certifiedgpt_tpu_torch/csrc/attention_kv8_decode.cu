@@ -44,6 +44,11 @@
 // - With no step rows (k and v null, offset T) it writes nothing and is
 //   multi_head_attention_kv8 of a lone query row (ops/attention.py routes
 //   such rows here): the cache comes out bit for bit as it went in.
+// - The slot can come from the device (`offset_dev`, an int32 that the
+//   decode loop advances on the card), so one captured launch serves every
+//   step of a CUDA graph's replays: each thread reads it once, before the
+//   tile plan and the copies that depend on it, and a slot outside
+//   [0, T) traps instead of writing outside the cache.
 // - The cache write rides along: warps 0 and 1 quantize the step's k and v
 //   rows (from shared memory) and write codes and scales to the cache in
 //   device memory; the staged tile's copy of slot `offset`, read before or
@@ -109,6 +114,7 @@ struct DecodeArgs {
   long long m_b, m_t;
   E* out;  // [B, 1, H, Dh] contiguous
   int B, H, Hkv, T, Dh, offset;
+  const int* offset_dev;  // the slot on the device (read in place of `offset`), or null
   float scale;
 };
 
@@ -297,7 +303,8 @@ struct Cursor {
 template <typename E, int G>
 __device__ __forceinline__ void stage_next(const DecodeArgs<E>& a, const CUtensorMap* tk,
                                            const CUtensorMap* tv, const Layout& L,
-                                           unsigned char* smem, int hk, int n, Cursor& cur) {
+                                           unsigned char* smem, int hk, int n, int offset,
+                                           Cursor& cur) {
   if (cur.b < a.B) {
     const bool is_v = cur.c >= n;
     const int t0 = (is_v ? cur.c - n : cur.c) << kTileShift;  // n == 1: tile 0
@@ -306,7 +313,7 @@ __device__ __forceinline__ void stage_next(const DecodeArgs<E>& a, const CUtenso
       float* ks = reinterpret_cast<float*>(smem + L.ks) + (cur.k & 1) * L.ts;
       float* vs = reinterpret_cast<float*>(smem + L.vs) + (cur.k & 1) * L.ts;
       for (int t = threadIdx.x; t < a.T; t += blockDim.x) {
-        if (t == a.offset) continue;
+        if (t == offset) continue;
         cp_async4(smem_u32(ks + t), a.ks + sb + t * a.s_t);
         cp_async4(smem_u32(vs + t), a.vs + sb + t * a.s_t);
       }
@@ -345,11 +352,10 @@ __device__ __forceinline__ void stage_next(const DecodeArgs<E>& a, const CUtenso
 
 // The quantized row (after the barrier of the item's start) over the staged
 // tile's slot `offset`, once the tile has landed (this thread waited on it).
-template <typename E>
 __device__ __forceinline__ void patch_slot(unsigned char* tile, const unsigned char* row,
-                                           const DecodeArgs<E>& a) {
-  unsigned char* dst = tile + (a.offset & (kTile - 1)) * a.Dh;
-  for (int i = threadIdx.x; i < a.Dh / 16; i += blockDim.x) {
+                                           int offset, int Dh) {
+  unsigned char* dst = tile + (offset & (kTile - 1)) * Dh;
+  for (int i = threadIdx.x; i < Dh / 16; i += blockDim.x) {
     reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(row)[i];
   }
 }
@@ -373,10 +379,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
   const int grp = lane >> shift, piece = lane & (gl - 1);
   const bool on = piece < pieces;
   const Layout L = layout(T, Dh, G, warps, sizeof(E));
+  // the slot of the step's row: read once, before anything that uses it
+  const int offset = a.offset_dev != nullptr ? *a.offset_dev : a.offset;
+  if (a.kn != nullptr && (offset < 0 || offset >= T)) __trap();
   // tiles (chunks: n K tiles, then n V tiles); no integer division: the
   // SASS holds no I2F
   const int n = L.tile < kTile ? 1 : (T + kTile - 1) >> kTileShift;
-  const int offset_tile = L.tile < kTile ? 0 : a.offset >> kTileShift;
+  const int offset_tile = L.tile < kTile ? 0 : offset >> kTileShift;
   float* lg = reinterpret_cast<float*>(smem + L.lg);
   unsigned char* smask = smem + L.mask;
   float* red = reinterpret_cast<float*>(smem + L.red);
@@ -389,7 +398,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
   }
   __syncthreads();
   Cursor cur{static_cast<int>(blockIdx.y), 0, 0, 0};
-  for (int s = 0; s < kStages; ++s) stage_next<E, G>(a, &tk, &tv, L, smem, hk, n, cur);
+  for (int s = 0; s < kStages; ++s) stage_next<E, G>(a, &tk, &tv, L, smem, hk, n, offset, cur);
   int stage = 0;        // the stage of the next chunk to compute on
   uint32_t phases = 0;  // each stage's mbarrier parity, a bit a stage
 
@@ -446,7 +455,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
         amax = fmaxf(amax, fabsf(xv[i]));
       }
       const float xs = __fdiv_rn(fmaxf(warp_max(amax), 1e-8f), 127.f);
-      int8_t* crow = (is_v ? a.v : a.k) + b * a.c_b + a.offset * a.c_t + hk * a.c_h;
+      int8_t* crow = (is_v ? a.v : a.k) + b * a.c_b + offset * a.c_t + hk * a.c_h;
 #pragma unroll
       for (int i = 0; i < kMaxHeadDim / 32; ++i) {
         const int d = lane + 32 * i;
@@ -458,8 +467,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
         }
       }
       if (lane == 0) {
-        (is_v ? a.vs : a.ks)[b * a.s_b + a.offset * a.s_t + hk * a.s_h] = xs;
-        (is_v ? svs : sks)[a.offset] = xs;
+        (is_v ? a.vs : a.ks)[b * a.s_b + offset * a.s_t + hk * a.s_h] = xs;
+        (is_v ? svs : sks)[offset] = xs;
       }
       __syncwarp();  // warp 0's row is in place for the lanes that patch the K tile
     }
@@ -471,7 +480,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
     for (int c = 0; c < n; ++c) {
       mbarrier_wait(bars + 8 * stage, (phases >> stage) & 1);
       if (a.kn != nullptr && c == offset_tile) {
-        patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow, a);
+        patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow, offset, Dh);
       }
       __syncthreads();  // the tile, the scales, the mask and the quantized rows are in place
       const unsigned char* tile = smem + L.ring + stage * L.tile * Dh;
@@ -509,7 +518,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
       }
       fence_proxy_async();
       __syncthreads();  // the stage is read
-      stage_next<E, G>(a, &tk, &tv, L, smem, hk, n, cur);
+      stage_next<E, G>(a, &tk, &tv, L, smem, hk, n, offset, cur);
       phases ^= 1u << stage;
       stage = stage + 1 == kStages ? 0 : stage + 1;
     }
@@ -571,7 +580,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
     for (int c = 0; c < n; ++c) {
       mbarrier_wait(bars + 8 * stage, (phases >> stage) & 1);
       if (a.kn != nullptr && c == offset_tile) {
-        patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow + Dh, a);
+        patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow + Dh, offset, Dh);
       }
       __syncthreads();  // the tile and the weights are in place
       const unsigned char* tile = smem + L.ring + stage * L.tile * Dh;
@@ -591,7 +600,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
       }
       fence_proxy_async();
       __syncthreads();  // the stage is read
-      stage_next<E, G>(a, &tk, &tv, L, smem, hk, n, cur);
+      stage_next<E, G>(a, &tk, &tv, L, smem, hk, n, offset, cur);
       phases ^= 1u << stage;
       stage = stage + 1 == kStages ? 0 : stage + 1;
     }
@@ -693,7 +702,9 @@ int encode_cache_map(CUtensorMap* map, void* base, int B, int T, int Hkv, int Dh
 // at `offset`; mask bool [B, T] by strides or null; out [B, 1, H, Dh] in q's
 // dtype, contiguous. H / Hkv in {1, 2, 4, 8}, Dh a multiple of 16 up to 256,
 // 0 <= offset < T, B at most 65535; kn and vn null with offset T: nothing is
-// written (the cache is only read). Returns kCacheTooLong when the block's shared memory exceeds
+// written (the cache is only read). offset_dev, when not null (with kn and
+// vn), points at the slot as an int32 on the device, which the kernel reads
+// in place of `offset` (then unchecked here) and traps on outside [0, T). Returns kCacheTooLong when the block's shared memory exceeds
 // the card's. The grid is the kv heads times as many blocks of batch rows as
 // fill the card once (its SMs times the blocks an SM holds at this width and
 // shared memory), at most B: each block then walks its batch rows.
@@ -701,12 +712,15 @@ extern "C" int cgpt_attention_kv8_decode(
     const void* q, long long q_b, long long q_h, const void* kn, const void* vn, long long n_b,
     long long n_h, void* k, void* v, long long c_b, long long c_t, long long c_h, void* ks,
     void* vs, long long s_b, long long s_t, long long s_h, const void* mask, long long m_b,
-    long long m_t, void* out, int B, int H, int Hkv, int T, int Dh, int offset, float scale,
-    int q_f32, void* stream) {
+    long long m_t, void* out, int B, int H, int Hkv, int T, int Dh, int offset,
+    const void* offset_dev, float scale, int q_f32, void* stream) {
   const int g = Hkv > 0 ? H / Hkv : 0;
+  if (offset_dev != nullptr) offset = 0;  // the kernel reads the slot from the device
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || instance<float>(g) == nullptr ||
       Dh <= 0 || Dh % 16 != 0 || Dh > kMaxHeadDim || offset < 0 ||
       (kn == nullptr) != (vn == nullptr) || offset > T || (kn != nullptr && offset == T) ||
+      (offset_dev != nullptr && kn == nullptr) ||
+      reinterpret_cast<uintptr_t>(offset_dev) % 4 != 0 ||
       c_t % 16 != 0 || c_h % 16 != 0 || c_b % 16 != 0 ||
       reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(q) % 16 != 0 || q_b % (q_f32 ? 4 : 8) != 0 ||
@@ -765,17 +779,18 @@ extern "C" int cgpt_attention_kv8_decode(
   const auto k8 = static_cast<int8_t*>(k), v8 = static_cast<int8_t*>(v);
   const auto ksf = static_cast<float*>(ks), vsf = static_cast<float*>(vs);
   const auto m8 = static_cast<const uint8_t*>(mask);
+  const auto od = static_cast<const int*>(offset_dev);
   if (q_f32) {
     const DecodeArgs<float> a{static_cast<const float*>(q), q_b, q_h,
                               static_cast<const float*>(kn), static_cast<const float*>(vn), n_b,
                               n_h, k8, v8, c_b, c_t, c_h, ksf, vsf, s_b, s_t, s_h, m8, m_b, m_t,
-                              static_cast<float*>(out), B, H, Hkv, T, Dh, offset, scale};
+                              static_cast<float*>(out), B, H, Hkv, T, Dh, offset, od, scale};
     launch(a, tk, tv, g, static_cast<int>(rows_blocks), warps, smem, st);
   } else {
     const DecodeArgs<__nv_bfloat16> a{
         static_cast<const __nv_bfloat16*>(q), q_b, q_h, static_cast<const __nv_bfloat16*>(kn),
         static_cast<const __nv_bfloat16*>(vn), n_b, n_h, k8, v8, c_b, c_t, c_h, ksf, vsf, s_b,
-        s_t, s_h, m8, m_b, m_t, static_cast<__nv_bfloat16*>(out), B, H, Hkv, T, Dh, offset,
+        s_t, s_h, m8, m_b, m_t, static_cast<__nv_bfloat16*>(out), B, H, Hkv, T, Dh, offset, od,
         scale};
     launch(a, tk, tv, g, static_cast<int>(rows_blocks), warps, smem, st);
   }

@@ -176,27 +176,27 @@ class Chat:
         self.conv.messages[-1][1] = text
         return text
 
-    def stream_answer(self, max_new_tokens: int = 20, seq_len: int = 160) -> Iterator[str]:
+    def stream_answer(self, max_new_tokens: int = 20, seq_len: int = 160,
+                      cuda_graph: bool = True) -> Iterator[str]:
         """Yield the greedy answer piece by piece, one decode step over the
-        KV cache for each token. The growing id list is decoded and its new
+        KV cache for each token (``minigpt4.stream_greedy``: ``generate``'s
+        step, replayed from its CUDA graph on the card), launched when the
+        consumer asks for the next piece. The growing id list is decoded and its new
         text yielded (decoding each id alone would drop SentencePiece's
         leading spaces); the history is updated at every piece, so a
-        consumer that stops early leaves a whole turn."""
+        consumer that stops early leaves a whole turn. ``cuda_graph=False``
+        runs the step eagerly on the card."""
         if self.image is None:
             raise RuntimeError("upload_img must be called before stream_answer")
-        from certifiedgpt_tpu_torch.models.llama import embed_tokens, llama_apply, lm_head_logits
-        from certifiedgpt_tpu_torch.models.minigpt4 import prefill
+        from certifiedgpt_tpu_torch.models.minigpt4 import stream_greedy
 
-        params, cfg, tok = self.model.params, self.model.cfg, self.model.tokenizer
+        tok = self.model.tokenizer
         batch = self._prompt_batch(seq_len)
-        with torch.no_grad():
-            last, cache, cache_mask, s, prompt_len = prefill(params, cfg, batch, max_new_tokens)
-            token = int(torch.argmax(lm_head_logits(params["llama"], last[0])))
-        next_pos = int(prompt_len[0])
         ids: List[int] = []
         emitted = ""
         self.conv.messages[-1][1] = ""  # an answer that is EOS at once is empty
-        for t in range(max_new_tokens):
+        for token in stream_greedy(self.model.params, self.model.cfg, batch, max_new_tokens,
+                                   tok.eos_token_id, tok.pad_token_id, cuda_graph=cuda_graph):
             if token == tok.eos_token_id:
                 break
             ids.append(token)
@@ -204,12 +204,3 @@ class Chat:
             piece, emitted = text[len(emitted):], text
             self.conv.messages[-1][1] = text.strip()
             yield piece
-            if t == max_new_tokens - 1:
-                break  # the budget is spent
-            with torch.no_grad():
-                tok_embed = embed_tokens(params["llama"],
-                                         torch.tensor([[token]], device=last.device))
-                positions = torch.tensor([[next_pos + t]], device=last.device)
-                logits, _, cache = llama_apply(params["llama"], cfg.llama, tok_embed,
-                                               cache_mask, positions, cache, s + t)
-                token = int(torch.argmax(logits[0, -1]))

@@ -51,6 +51,19 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_addresses(tree) -> tuple:
+    """Where each tensor of a nested dict/list tree lives (address, shape,
+    strides, dtype), in a fixed order: a CUDA graph captured over the tree
+    replays over exactly these addresses, so a capture is reused only when
+    this key is unchanged (an in-place update keeps it, a replaced tensor
+    does not)."""
+    if isinstance(tree, Mapping):
+        return tuple((k, tree_addresses(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return tuple(tree_addresses(v) for v in tree)
+    return (tree.data_ptr(), tuple(tree.shape), tuple(tree.stride()), tree.dtype)
+
+
 def layer_slice(stacked: Dict[str, Any], layer: int) -> Dict[str, Any]:
     """Layer ``layer`` of a tree stacked on a leading ``[L, ...]`` axis
     (views, no copies)."""

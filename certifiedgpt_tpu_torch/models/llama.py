@@ -42,6 +42,7 @@ from certifiedgpt_tpu_torch.ops import attention as A
 from certifiedgpt_tpu_torch.ops import quantization as Q
 from certifiedgpt_tpu_torch.parallel.tensor_parallel import (
     copy_to_model,
+    f32_product,
     gather_from_model,
     row_parallel_dense,
     tensor_parallel,
@@ -97,11 +98,20 @@ def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
 
 def lm_head_logits(params, hidden: torch.Tensor) -> torch.Tensor:
     """Hidden states [..., D] -> f32 vocabulary logits (+ the optional bias);
-    under tensor parallelism this rank's vocabulary columns, gathered whole."""
+    under tensor parallelism this rank's vocabulary columns, gathered whole.
+    bf16 operands on the card stay bf16 with an f32 output, as the JAX
+    package's ``preferred_element_type=float32`` (no f32 copy of the head);
+    a forward that autograd records (training) takes f32 copies of both
+    (exact for bf16), which it can differentiate."""
     tp = tensor_parallel()
     if tp is not None:
         hidden = copy_to_model(hidden, tp)
-    logits = torch.matmul(hidden.float(), params["lm_head"]["kernel"].float())
+    kernel = params["lm_head"]["kernel"]
+    if torch.is_grad_enabled() and (hidden.requires_grad or kernel.requires_grad):
+        logits = torch.matmul(hidden.float(), kernel.float())
+    else:
+        logits = f32_product(hidden.reshape(-1, hidden.shape[-1]), kernel).reshape(
+            *hidden.shape[:-1], kernel.shape[-1])
     if tp is not None:
         logits = gather_from_model(logits, tp)
     bias = params["lm_head"].get("bias")
@@ -170,9 +180,8 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
         # the prefill: the cache write and the attention in one launch
         attn = A.prefill_attention_kv8(q, k, v, cache, cache_offset, mask)
     else:
-        at = slice(cache_offset, cache_offset + s)
-        cache["k"][:, at] = k
-        cache["v"][:, at] = v
+        A.write_slots(cache["k"], cache_offset, k)
+        A.write_slots(cache["v"], cache_offset, v)
         attn = A.multi_head_attention(q, cache["k"], cache["v"], mask)
 
     x = x + row_dense(lp["o_proj"], attn.reshape(b, s, -1))
@@ -247,7 +256,7 @@ def llama_apply(
     attention_mask: torch.Tensor,  # [B, S] (no cache) or [B, max_len] 1 = valid
     positions: torch.Tensor,  # [B, S] rotary positions of the query tokens
     kv_cache: Optional[Dict[str, Tuple[torch.Tensor, ...]]] = None,
-    cache_offset: Optional[int] = None,
+    cache_offset=None,  # int, or a 0-dim int32 tensor on the device (a decode step's slot)
     compute_logits: bool = True,
     segment_ids: Optional[torch.Tensor] = None,  # [B, S] packed-segment ids
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, Optional[Dict[str, Tuple[torch.Tensor, ...]]]]:
@@ -260,7 +269,9 @@ def llama_apply(
     With a cache: the S query tokens write their keys/values at
     ``cache_offset`` and attend over the whole cache; query i (position
     ``cache_offset + i``) sees slot j iff ``j <= cache_offset + i`` and the
-    slot is valid."""
+    slot is valid. A decode step may give ``cache_offset`` as a 0-dim int32
+    tensor on the device: the mask and the cache write read it there, so
+    the step needs no host value and one CUDA graph serves every step."""
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     cos, sin = L.rotary_tables(cfg.head_dim, cfg.max_position_embeddings,

@@ -13,15 +13,25 @@ right-padded. Sampling draws from an explicit ``torch.Generator`` (the
 Gumbel-max draw of ``jax.random.categorical``; the streams differ, the
 distribution is the same).
 
-``early_exit`` never waits for the device (under tensor parallelism over
-more than one rank it is off: the ranks of a model group must launch the
-same steps, and each sees its flags land at its own time; the tokens do not
-change): the JAX package ends its decode
-loop on the device (``lax.while_loop``); here each step queues a copy of
-"every row is done" into pinned host memory with an event behind it, and
-the host stops launching steps once a copy whose event has completed reads
-true. An exit seen late is exact: a step after every row is done writes
-``pad`` where the output already holds ``pad``.
+``early_exit`` never synchronizes with the device (under tensor
+parallelism over more than one rank it is off: the ranks of a model group
+must launch the same steps, and each sees its flags land at its own time;
+the tokens do not change): the JAX package ends its decode loop on the
+device (``lax.while_loop``); here each step queues a copy of "every row is
+done" into pinned host memory with an event behind it, and the host stops
+launching steps once a copy whose event has completed reads true. A
+replayed step takes the host a small fraction of the card's time, so the
+host keeps at most ``_DoneFlags.AHEAD`` steps queued beyond the flags it
+has seen, polling their events (``Event.query``, which PyTorch does not
+count as a synchronization; the card always has a step queued). An exit
+seen late is exact: a step after every row is done writes ``pad`` where
+the output already holds ``pad``.
+
+The decode step is one function of fixed tensors (``_decode_step``) that
+reads its step index and cache slot on the device; on the card it is
+captured once into a CUDA graph and replayed for every step
+(``_decode_graphs``, ``common/graphs.py``), the counterpart of the JAX
+package's compiled loop.
 
 The parameter tree is ``{"vit", "ln_vision", "qformer", "llama_proj",
 "llama"}`` as in the JAX package.
@@ -30,11 +40,13 @@ The parameter tree is ``{"vit", "ln_vision", "qformer", "llama_proj",
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import time
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from certifiedgpt_tpu_torch.common.graphs import Captured, GraphStore
 from certifiedgpt_tpu_torch.common.stages import StageClock, stage
 from certifiedgpt_tpu_torch.models import layers as L
 from certifiedgpt_tpu_torch.models.eva_vit import EvaViT, EvaViTConfig, eva_vit_apply
@@ -48,6 +60,7 @@ from certifiedgpt_tpu_torch.models.llama import (
     lm_head_logits,
 )
 from certifiedgpt_tpu_torch.models.qformer import QFormer, QFormerConfig, qformer_apply
+from certifiedgpt_tpu_torch.ops import quantization as Q
 from certifiedgpt_tpu_torch.ops.quantization import ieee_div
 from certifiedgpt_tpu_torch.parallel.tensor_parallel import tensor_parallel
 
@@ -197,8 +210,14 @@ class _DoneFlags:
     ``record`` queues ``done.all()`` into one slot of a host buffer (pinned
     on the card, copied with ``non_blocking``) and records an event behind
     the copy; ``seen_all_done`` reads only the slots whose events have
-    completed (``Event.query``, which does not wait). On the CPU the copy
-    is done when ``record`` returns."""
+    completed (``Event.query``, which does not wait), and while ``AHEAD``
+    or more recorded slots have not landed it polls the oldest one's event
+    until it has. On the CPU the copy is done when ``record`` returns."""
+
+    # steps the host keeps queued beyond the flags it has seen, and the
+    # pause between two polls of an event
+    AHEAD = 2
+    POLL_S = 2e-5
 
     def __init__(self, steps: int, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -217,7 +236,10 @@ class _DoneFlags:
         while self.read < len(self.events):
             event = self.events[self.read]
             if event is not None and not event.query():
-                return False
+                if len(self.events) - self.read < self.AHEAD:
+                    return False
+                time.sleep(self.POLL_S)
+                continue
             if bool(self.host[self.read]):
                 return True
             self.read += 1
@@ -264,11 +286,15 @@ def apply_repetition_penalty(logits: torch.Tensor, counts: torch.Tensor,
 
 
 def prefill(params, cfg: MiniGPT4Config, batch, max_new_tokens: int,
-            clock: Optional[StageClock] = None):
-    """Encode the images and run the prompt through the decoder into a new
-    KV cache. Returns the last position's hidden state [B, D], the cache,
-    its validity mask [B, S + max_new_tokens], the prompt length S and each
-    row's next rotary position."""
+            clock: Optional[StageClock] = None, cache=None):
+    """Encode the images and run the prompt through the decoder into a KV
+    cache: a new one, or ``cache`` (``init_kv_cache``'s layout for
+    ``S + max_new_tokens`` slots), whose slots past the prompt may hold an
+    earlier call's rows: a decode step's causal mask hides every slot after
+    its own, so none of them is ever read. Returns the last position's
+    hidden state [B, D], the cache, its validity mask [B, S +
+    max_new_tokens], the prompt length S and each row's next rotary
+    position."""
     img_embeds = encode_img(params, cfg, batch["image"], clock)
     with stage(clock, "prefill"):
         embeds = assemble_embeds(params, cfg, batch["input_ids"], img_embeds, batch["img_pos"])
@@ -277,7 +303,8 @@ def prefill(params, cfg: MiniGPT4Config, batch, max_new_tokens: int,
         mask = batch["attention_mask"].to(torch.int32)
         # rotary positions: left pads get 0, real tokens count up
         positions = (torch.cumsum(mask, dim=1) - 1).clamp_min(0)
-        cache = init_kv_cache(cfg.llama, b, s + max_new_tokens, device)
+        if cache is None:
+            cache = init_kv_cache(cfg.llama, b, s + max_new_tokens, device)
         # decode slots are marked valid up front; causal masking hides the
         # unwritten ones
         cache_mask = torch.cat(
@@ -287,6 +314,198 @@ def prefill(params, cfg: MiniGPT4Config, batch, max_new_tokens: int,
         _, hidden, cache = llama_apply(params["llama"], cfg.llama, embeds, cache_mask,
                                        positions, cache, 0, compute_logits=False)
         return hidden[:, -1, :], cache, cache_mask, s, mask.sum(dim=1).long()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Knobs:
+    """What a decode step does besides the decoder: the token choice and
+    the ids it writes."""
+    eos: int
+    pad: int
+    do_sample: bool
+    temperature: float
+    top_p: float
+    min_length: int
+    repetition_penalty: float
+
+
+class _DecodeState(Captured):
+    """The tensors a decode step reads and updates in place: the KV cache
+    and its mask, each row's current token, next rotary position and done
+    flag, the output ids, the step index ``t`` (0-dim int32 on the device)
+    and the repetition penalty's table of emitted tokens. A captured step
+    (``graph``) reads and writes these same tensors at every replay;
+    ``generator`` is the sampling generator registered with the graph."""
+
+    def __init__(self, cfg: MiniGPT4Config, b: int, s: int, max_new_tokens: int,
+                 knobs: _Knobs, device: torch.device):
+        super().__init__()
+        self.cache = init_kv_cache(cfg.llama, b, s + max_new_tokens, device)
+        self.cache_mask = torch.ones((b, s + max_new_tokens), dtype=torch.int32, device=device)
+        self.token = torch.zeros((b,), dtype=torch.long, device=device)
+        self.positions = torch.zeros((b,), dtype=torch.long, device=device)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.out = torch.zeros((b, max_new_tokens), dtype=torch.long, device=device)
+        self.t = torch.zeros((), dtype=torch.int32, device=device)
+        # the table of the tokens emitted so far (the repetition penalty's)
+        self.counts = (torch.zeros((b, cfg.llama.vocab_size), dtype=torch.int32, device=device)
+                       if knobs.repetition_penalty != 1.0 else None)
+        self.s = s
+        self.generator: Optional[torch.Generator] = None
+
+    def small(self):
+        """The state beside the cache (what a warm-up step changes)."""
+        return [x for x in (self.token, self.positions, self.done, self.out, self.t,
+                            self.counts) if x is not None]
+
+
+def _pick(logits: torch.Tensor, t, knobs: _Knobs, counts: Optional[torch.Tensor],
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Token ``t`` (0-based; an int, or a 0-dim tensor on the device) of
+    each row from ``logits`` [B, V] f32: the repetition penalty, EOS held
+    back while ``t + 1 < min_length`` (a ``where`` on ``t``, as the JAX
+    package's), the choice, and the choice counted in ``counts``."""
+    if counts is not None:
+        logits = apply_repetition_penalty(logits, counts, knobs.repetition_penalty)
+    if knobs.min_length > 1:
+        eos_col = torch.arange(logits.shape[-1], device=logits.device) == knobs.eos
+        logits = torch.where(eos_col & (t + 1 < knobs.min_length), _F32_MIN, logits)
+    token = select_token(logits, do_sample=knobs.do_sample, temperature=knobs.temperature,
+                         top_p=knobs.top_p, generator=generator)
+    if counts is not None:
+        counts.scatter_add_(1, token[:, None], torch.ones_like(token[:, None], dtype=torch.int32))
+    return token
+
+
+def _decode_step(params, cfg: MiniGPT4Config, st: _DecodeState, knobs: _Knobs,
+                 generator: Optional[torch.Generator]) -> None:
+    """One decode step, in place on ``st`` and with no host value (the JAX
+    package's ``step``): column ``t`` of the output takes the current token
+    (``pad`` once the row is done), the row is done once that token is EOS,
+    the decoder runs the token at cache slot ``s + t``, and the next token
+    (EOS once done) replaces it; ``positions`` and ``t`` move on by one."""
+    t = st.t
+    st.out.index_copy_(1, t.long().reshape(1), torch.where(st.done, knobs.pad, st.token)[:, None])
+    st.done |= st.token == knobs.eos
+    tok_embed = embed_tokens(params["llama"], st.token[:, None])
+    logits, _, _ = llama_apply(params["llama"], cfg.llama, tok_embed, st.cache_mask,
+                               st.positions[:, None], st.cache, t + st.s)
+    new_token = _pick(logits[:, -1, :], t + 1, knobs, st.counts, generator)
+    st.token.copy_(torch.where(st.done, knobs.eos, new_token))
+    st.positions += 1
+    st.t += 1
+
+
+def _step_functions() -> Tuple:
+    """The kernel entries a decode step reaches through its modules'
+    attributes, as they are bound now: a capture serves only the functions
+    it recorded (a caller that routes them to their plain versions gets a
+    capture of its own)."""
+    from certifiedgpt_tpu_torch.ops import attention as A
+
+    return (A.decode_attention_kv8, A.prefill_attention_kv8, A.multi_head_attention_kv8,
+            Q.int8_weight_forward, Q.quantize_rows, Q.w8a8_epilogue)
+
+
+def _decode_graphs(params) -> GraphStore:
+    """A model's captured decode steps (at most two), kept as an attribute
+    of its ``lm_head`` weight tensor, so the captures and their pool go
+    with the model's weights."""
+    head = params["llama"]["lm_head"]["kernel"]
+    graphs = getattr(head, "_cgpt_decode_graphs", None)
+    if graphs is None:
+        graphs = head._cgpt_decode_graphs = GraphStore(most=2)
+    return graphs
+
+
+def _count_step(clock: Optional[StageClock]) -> None:
+    generate.decode_steps += 1
+    if clock is not None:
+        clock.count("decode_step")
+
+
+class _Decode:
+    """One ``generate`` call's decode: the prefill into the state's cache,
+    the first token, then ``step`` once for each later token, replayed
+    from the state's CUDA graph or run eagerly (on the CPU, under tensor
+    parallelism, or when the caller asks for it)."""
+
+    def __init__(self, params, cfg: MiniGPT4Config, batch, max_new_tokens: int, knobs: _Knobs,
+                 generator: Optional[torch.Generator], clock: Optional[StageClock],
+                 cuda_graph: bool):
+        b, s = batch["input_ids"].shape
+        device = batch["input_ids"].device
+        self.params, self.cfg, self.knobs, self.clock = params, cfg, knobs, clock
+        self.generator = generator
+        graphed = cuda_graph and device.type == "cuda" and tensor_parallel() is None
+        make = lambda: _DecodeState(cfg, b, s, max_new_tokens, knobs, device)  # noqa: E731
+        if graphed:
+            key = (b, s, max_new_tokens, cfg.llama, knobs, device, _step_functions(),
+                   L.tree_addresses(params["llama"]))
+            st = _decode_graphs(params).state(key, make)
+        else:
+            st = make()
+        self.st, self.graphed = st, graphed
+        last, _, cache_mask, _, prompt_len = prefill(params, cfg, batch, max_new_tokens, clock,
+                                                     cache=st.cache)
+        with stage(clock, "prefill"):
+            st.cache_mask.copy_(cache_mask)
+            if st.counts is not None:
+                st.counts.zero_()
+            st.token.copy_(_pick(lm_head_logits(params["llama"], last), 0, knobs, st.counts,
+                                 generator))
+        with stage(clock, "decode"):
+            st.positions.copy_(prompt_len)
+            st.done.zero_()
+            st.out.fill_(knobs.pad)
+            st.t.zero_()
+            if graphed and knobs.do_sample and st.generator is None:
+                st.generator = torch.Generator(device=device)
+            if graphed and st.graph is None and max_new_tokens > 1:
+                self._capture()
+            if st.generator is not None:
+                # the captured draws continue the caller's generator
+                st.generator.set_state(generator.get_state())
+
+    def _capture(self) -> None:
+        """Capture the step on the state (``GraphStore.capture``): its
+        warm-up is a real step, counted as one, after which the state
+        beside the cache is put back (the cache slot it wrote is the one
+        the first replay writes again)."""
+        st = self.st
+        kept = [x.clone() for x in st.small()]
+
+        def restore():
+            for x, was in zip(st.small(), kept):
+                x.copy_(was)
+
+        _decode_graphs(self.params).capture(st, self._body, restore, st.t.device, st.generator)
+        _count_step(self.clock)
+        generate.captures += 1
+
+    def _body(self) -> None:
+        _decode_step(self.params, self.cfg, self.st, self.knobs,
+                     self.st.generator if self.graphed else self.generator)
+
+    def step(self) -> None:
+        """The next decode step: a replay (which adds its captured launches
+        to the kernels' counters), or the step run eagerly."""
+        _count_step(self.clock)
+        if self.graphed:
+            self.st.replay()
+        else:
+            self._body()
+
+    def finish(self, steps_run: int) -> torch.Tensor:
+        """The output ids after ``steps_run`` steps (a copy: the state is
+        reused); after every step, the last column takes the last token."""
+        st = self.st
+        last = st.out.shape[1] - 1
+        if steps_run == last:
+            st.out[:, last] = torch.where(st.done, self.knobs.pad, st.token)
+        if st.generator is not None:
+            self.generator.set_state(st.generator.get_state())
+        return st.out.clone() if self.graphed else st.out
 
 
 def generate(
@@ -305,6 +524,7 @@ def generate(
     generator: Optional[torch.Generator] = None,
     early_exit: bool = False,
     clock: Optional[StageClock] = None,
+    cuda_graph: bool = True,
 ) -> torch.Tensor:
     """Decode with a KV cache: greedy by default; ``do_sample`` draws from
     the nucleus (``top_p``) of the softmax at ``temperature`` with
@@ -316,64 +536,71 @@ def generate(
 
     Returns [B, max_new_tokens] token ids, ``pad_token_id`` after a row's
     EOS. ``early_exit`` stops launching decode steps once the host sees,
-    without waiting, that every row has emitted EOS (``_DoneFlags``); the
-    output is identical to the full loop's. ``generate.decode_steps``
-    counts the decode steps launched (``generate_beam``'s too)."""
-    last, cache, cache_mask, s, prompt_len = prefill(params, cfg, batch, max_new_tokens, clock)
-    b, device = last.shape[0], last.device
+    without a synchronization, that every row has emitted EOS
+    (``_DoneFlags``: at most ``_DoneFlags.AHEAD`` steps are queued beyond
+    the flags seen); the output is identical to the full loop's. ``generate.decode_steps``
+    counts the decode steps launched (``generate_beam``'s too).
+
+    Each decode step is one function of fixed tensors that takes its step
+    index from the device (``_decode_step``), the counterpart of the JAX
+    package's compiled ``scan``/``while_loop``. On the card it is captured
+    once into a CUDA graph and replayed for every step: the captures are
+    kept per model (``_decode_graphs``, at most two), keyed on the batch,
+    the prompt and output lengths, the decoder's config, the knobs and
+    the address of every decoder tensor (``layers.tree_addresses``), so a
+    replaced weight is captured anew; ``generate.captures`` counts the captures. The first capture
+    synchronizes the card; a capture that fails raises. ``cuda_graph=False``
+    runs the same step eagerly on the card; on the CPU and under tensor
+    parallelism it always runs eagerly."""
     if tensor_parallel() is not None:
         early_exit = False  # every rank of the model group launches every step
+    device = batch["input_ids"].device
     if do_sample and generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
-    # the repetition penalty's table of the tokens emitted so far
-    counts = (torch.zeros((b, cfg.llama.vocab_size), dtype=torch.int32, device=device)
-              if repetition_penalty != 1.0 else None)
-
-    def pick(logits: torch.Tensor, t: int) -> torch.Tensor:
-        """Token ``t`` (0-based) of each row."""
-        if counts is not None:
-            logits = apply_repetition_penalty(logits, counts, repetition_penalty)
-        if t + 1 < min_length:
-            logits = logits.clone()
-            logits[:, eos_token_id] = _F32_MIN
-        token = select_token(logits, do_sample=do_sample, temperature=temperature,
-                             top_p=top_p, generator=generator)
-        if counts is not None:
-            counts.scatter_add_(1, token[:, None], torch.ones_like(token[:, None],
-                                                                   dtype=torch.int32))
-        return token
-
-    with stage(clock, "prefill"):
-        token = pick(lm_head_logits(params["llama"], last), 0)
-
-    with stage(clock, "decode"):
-        out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
-        positions = prompt_len
-        done = torch.zeros((b,), dtype=torch.bool, device=device)
-        flags = _DoneFlags(max_new_tokens, device) if early_exit else None
-        for t in range(max_new_tokens):
-            if flags is not None and flags.seen_all_done():
-                break
-            out[:, t] = torch.where(done, pad_token_id, token)
-            done = done | (token == eos_token_id)
-            if t == max_new_tokens - 1:
-                break  # the next token would fall outside the output
-            if flags is not None:
-                flags.record(done)
-            generate.decode_steps += 1
-            if clock is not None:
-                clock.count("decode_step")
-            tok_embed = embed_tokens(params["llama"], token[:, None])
-            logits, _, cache = llama_apply(params["llama"], cfg.llama, tok_embed, cache_mask,
-                                           positions[:, None], cache, s + t)
-            new_token = pick(logits[:, -1, :], t + 1)
-            token = torch.where(done, eos_token_id, new_token)
-            positions = positions + 1
-        return out
+    knobs = _Knobs(int(eos_token_id), int(pad_token_id), bool(do_sample), float(temperature),
+                   float(top_p), int(min_length), float(repetition_penalty))
+    with torch.no_grad():
+        dec = _Decode(params, cfg, batch, max_new_tokens, knobs, generator, clock, cuda_graph)
+        with stage(clock, "decode"):
+            flags = _DoneFlags(max_new_tokens, device) if early_exit else None
+            steps = 0
+            while steps < max_new_tokens - 1:
+                if flags is not None and flags.seen_all_done():
+                    break  # the columns left hold pad already
+                dec.step()
+                steps += 1
+                if flags is not None:
+                    flags.record(dec.st.done)
+            return dec.finish(steps)
 
 
 generate.decode_steps = 0
+generate.captures = 0
+
+
+def stream_greedy(params, cfg: MiniGPT4Config, batch, max_new_tokens: int, eos_token_id: int,
+                  pad_token_id: int = 0, *, cuda_graph: bool = True) -> Iterator[int]:
+    """The greedy tokens of a one-row ``batch``, one at a time: the first
+    after the prefill, each later one after one more decode step, launched
+    only when the consumer asks for it (at most ``max_new_tokens``; EOS
+    repeats once the row is done). The same step as ``generate``'s, with
+    the same captures; each token is one host read. While the stream is
+    open its state is in use: a decode of the same shape in between takes
+    a state of its own (and a capture of its own) and leaves the stream's
+    alone."""
+    knobs = _Knobs(int(eos_token_id), int(pad_token_id), False, 1.0, 0.9, 1, 1.0)
+    with torch.no_grad():
+        dec = _Decode(params, cfg, batch, max_new_tokens, knobs, None, None, cuda_graph)
+    dec.st.in_use = True
+    try:
+        for t in range(max_new_tokens):
+            if t:
+                with torch.no_grad():
+                    dec.step()
+            yield int(dec.st.token[0])
+    finally:
+        dec.st.in_use = False
 
 
 def generate_greedy(params, cfg, batch, max_new_tokens, eos_token_id, pad_token_id=0,

@@ -181,7 +181,7 @@ def multi_head_attention_kv8(
     return launch(q, None, None, kq8, vq8, ks3, vs3, t, mask, scale)
 
 
-multi_head_attention_kv8.launches = 0
+cuda_kernels.launch_counter(multi_head_attention_kv8, r"\battention_kv8_kernel\b")
 # the counter's owner, whatever a caller later binds to the module's name
 _tiled_counter = multi_head_attention_kv8
 
@@ -219,7 +219,7 @@ def decode_attention_kv8(
     k: torch.Tensor,  # [B, 1, H_kv, Dh] the step's rotated keys
     v: torch.Tensor,  # [B, 1, H_kv, Dh] the step's values
     cache: dict,  # "k", "v" int8 [B, T, H_kv, Dh]; "k_scale", "v_scale" f32 [B, T, H_kv, 1]
-    offset: int,  # the cache slot of the step
+    offset,  # the cache slot of the step: an int, or a 0-dim int32 tensor on q's device
     mask: Optional[torch.Tensor] = None,  # bool, broadcastable to [B, 1, 1, T]
     scale: Optional[float] = None,
 ) -> torch.Tensor:
@@ -227,6 +227,11 @@ def decode_attention_kv8(
     rows into slot ``offset`` of the cache (in place; codes and scales bit
     for bit ``quantize_rows``'), then attends over the whole cache as
     ``multi_head_attention_kv8`` does. Returns [B, 1, H, Dh] in q's dtype.
+
+    ``offset`` may be a 0-dim int32 tensor on q's device (the slot of a
+    decode loop that advances it on the device, so that one CUDA graph
+    serves every step): the kernel reads it when it runs, and traps on a
+    slot outside ``[0, T)``; an int slot is checked here.
 
     Replaces the decode's quantize_rows of k and v, the four cache writes
     and ``multi_head_attention_kv8`` of the JAX package's cached block
@@ -240,7 +245,12 @@ def decode_attention_kv8(
     if q.shape[1] != 1 or k.shape[1] != 1 or v.shape != k.shape:
         raise ValueError(f"decode_attention_kv8: one query row, got q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not 0 <= offset < t:
+    if isinstance(offset, torch.Tensor):
+        if offset.dim() != 0 or offset.dtype != torch.int32 or offset.device != q.device:
+            raise TypeError(f"decode_attention_kv8: a tensor offset must be a 0-dim int32 "
+                            f"tensor on {q.device}, got {offset.dtype} {tuple(offset.shape)} "
+                            f"on {offset.device}")
+    elif not 0 <= offset < t:
         raise ValueError(f"decode_attention_kv8: offset {offset} outside a cache of {t} slots")
     if q.device.type == "cpu":
         return _decode_attention_kv8_plain(q, k, v, cache, offset, mask, scale)
@@ -261,9 +271,20 @@ def decode_attention_kv8(
     return _launch_decode_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale)
 
 
-decode_attention_kv8.launches = 0
+cuda_kernels.launch_counter(decode_attention_kv8, r"\bkv8_decode_kernel\b")
 # the counter's owner, whatever a caller later binds to the module's name
 _decode_counter = decode_attention_kv8
+
+
+def write_slots(buf: torch.Tensor, offset, rows: torch.Tensor) -> None:
+    """``buf[:, offset:offset + S] = rows`` for ``rows`` [B, S, ...]; an
+    ``offset`` given as a 0-dim tensor on ``buf``'s device is read there
+    (``index_copy_`` at ``offset + arange(S)``), with no host read."""
+    if isinstance(offset, torch.Tensor):
+        at = offset.long() + torch.arange(rows.shape[1], device=buf.device)
+        buf.index_copy_(1, at, rows.to(buf.dtype))
+    else:
+        buf[:, offset:offset + rows.shape[1]] = rows
 
 
 def _aligned_rows(x: torch.Tensor) -> torch.Tensor:
@@ -277,9 +298,10 @@ def _aligned_rows(x: torch.Tensor) -> torch.Tensor:
 
 def _launch_decode_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale):
     """One launch of ``cgpt_attention_kv8_decode`` for one query row a batch
-    row: with the step's rows ``k``, ``v`` it writes them at ``offset``
-    (``k`` None: it writes nothing and ``offset`` is the cache length),
-    then attends over the whole cache. The caller has checked the cache."""
+    row: with the step's rows ``k``, ``v`` it writes them at ``offset``, an
+    int or a 0-dim int32 tensor that the kernel reads on the device (``k``
+    None: it writes nothing and ``offset`` is the cache length), then
+    attends over the whole cache. The caller has checked the cache."""
     b, _, h, dh = q.shape
     t, h_kv = kc.shape[1], kc.shape[2]
     q = _aligned_rows(q)
@@ -296,13 +318,16 @@ def _launch_decode_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale):
                              f"mask [B|1, 1, 1, T], got {tuple(mask.shape)}")
         m2 = mask.to(torch.bool).expand(b, 1, 1, t)[:, 0, 0]
         mask_ptr, mask_strides = m2.data_ptr(), m2.stride()
+    slot = None
+    if isinstance(offset, torch.Tensor):
+        slot, offset = offset.data_ptr(), 0
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
     code = cuda_kernels.build().lib.cgpt_attention_kv8_decode(
         q.data_ptr(), q.stride(0), q.stride(2), *new,
         kc.data_ptr(), vc.data_ptr(), *kc.stride()[:3],
         ks3.data_ptr(), vs3.data_ptr(), *ks3.stride(),
         mask_ptr, *mask_strides, out.data_ptr(),
-        b, h, h_kv, t, dh, offset, float(scale), int(q.dtype == torch.float32),
+        b, h, h_kv, t, dh, offset, slot, float(scale), int(q.dtype == torch.float32),
         cuda_kernels.stream_of(q))
     if code == _KV8_CACHE_TOO_LONG:
         raise ValueError(f"decode_attention_kv8: a cache of {t} positions does not fit the "
@@ -315,15 +340,13 @@ def _launch_decode_kv8(q, k, v, kc, vc, ks3, vs3, offset, mask, scale):
 def _decode_attention_kv8_plain(q, k, v, cache, offset, mask=None, scale=None):
     """``decode_attention_kv8`` in plain PyTorch: the decoder block's
     sequence before the kernel, as the JAX package runs it: the step's k
-    and v rows quantized, written to slot ``offset`` of the four cache
-    tensors, then ``_multi_head_attention_kv8_plain`` over the cache."""
+    and v rows quantized, written to slot ``offset`` (an int, or a 0-dim
+    tensor: ``index_copy_`` at that index) of the four cache tensors, then
+    ``_multi_head_attention_kv8_plain`` over the cache."""
     kq, ks = Q._quantize_rows_plain(k)
     vq, vs = Q._quantize_rows_plain(v)
-    at = slice(offset, offset + 1)
-    cache["k"][:, at] = kq
-    cache["v"][:, at] = vq
-    cache["k_scale"][:, at] = ks
-    cache["v_scale"][:, at] = vs
+    for name, rows in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+        write_slots(cache[name], offset, rows)
     return _multi_head_attention_kv8_plain(q, cache["k"], cache["k_scale"], cache["v"],
                                            cache["v_scale"], mask, scale)
 
@@ -388,7 +411,7 @@ def prefill_attention_kv8(
     return launch(q, k, v, kc, vc, ks3, vs3, offset, mask, scale)
 
 
-prefill_attention_kv8.launches = 0
+cuda_kernels.launch_counter(prefill_attention_kv8, r"\bkv8_prefill_kernel\b")
 # the counter's owner, whatever a caller later binds to the module's name
 _prefill_counter = prefill_attention_kv8
 

@@ -10,6 +10,10 @@ compile in parallel, one ``nvcc`` per file, and link once.
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception. Nothing here falls back:
 a missing ``nvcc`` or a failed build raises.
+
+Each wrapper that launches a kernel carries a launch counter
+(``launch_counter``), listed in ``LAUNCH_COUNTERS`` with the kernel's name;
+``traced_launches`` counts the same launches in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -105,6 +110,7 @@ _SIGNATURES = {
         _P, _I64, _I64,  # mask and its (b, t) strides
         _P,  # out
         _I32, _I32, _I32, _I32, _I32, _I32,  # B, H, Hkv, T, Dh, offset
+        _P,  # the slot as an int32 on the device (read in place of offset), or null
         _F32, _I32,  # scale, q f32
         _P,  # stream
     ),
@@ -213,3 +219,35 @@ def check(code: int, kernel: str) -> None:
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# every wrapper that counts its kernel's launches (``launch_counter``)
+LAUNCH_COUNTERS: list = []
+
+
+def launch_counter(owner, kernel: str):
+    """Give the wrapper ``owner`` its launch counter: ``owner.launches``
+    (0), to which the wrapper adds one where it launches its kernel, and
+    ``owner.kernel_name``, a regular expression for the kernel's name as a
+    profiler shows it. The owner is listed in ``LAUNCH_COUNTERS``."""
+    owner.launches = 0
+    owner.kernel_name = re.compile(kernel)
+    LAUNCH_COUNTERS.append(owner)
+    return owner
+
+
+def traced_launches(fn):
+    """Run ``fn()`` under ``torch.profiler`` and count the kernels it put on
+    the card: ``({counter: launches}, device operations)``, the first for
+    each counter whose kernel ran, the second every CUDA event of the
+    trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {c: sum(1 for n in names if c.kernel_name.search(n)) for c in LAUNCH_COUNTERS}
+    return {c: n for c, n in counts.items() if n}, len(names)

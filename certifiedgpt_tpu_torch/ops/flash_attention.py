@@ -150,7 +150,7 @@ def flash_attention(
     return _bhsd(_launch_flash(_bhsd(q), _bhsd(k), _bhsd(v), causal, scale))
 
 
-flash_attention.launches = 0
+cuda_kernels.launch_counter(flash_attention, r"\battention_kernel<\d+,\s*true,\s*false>")
 
 
 def builtin_flash_attention(
@@ -313,7 +313,8 @@ def cls_split_attention_parts(
     return out_c, out_p
 
 
-cls_split_attention_parts.launches = 0
+cuda_kernels.launch_counter(cls_split_attention_parts,
+                            r"\battention_kernel<\d+,\s*false,\s*true>")
 
 
 def cls_split_attention(qp, kp, vp, qc, kc, vc) -> torch.Tensor:
@@ -362,4 +363,5 @@ def cls_split_attention_scaled(
     return _bhsd(out)
 
 
-cls_split_attention_scaled.launches = 0
+cuda_kernels.launch_counter(cls_split_attention_scaled,
+                            r"\battention_kernel<\d+,\s*true,\s*true>")

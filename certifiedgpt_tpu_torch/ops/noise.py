@@ -159,5 +159,5 @@ def _launch_noise(x: torch.Tensor, n: int, sigma: torch.Tensor,
     return out
 
 
-noisy_tile.launches = 0
+cuda_kernels.launch_counter(noisy_tile, r"\bnoise_kernel\b")
 

@@ -124,7 +124,7 @@ def quantize_rows(x: torch.Tensor, reduce_amax: Optional[Callable[[torch.Tensor]
     return xq, xs
 
 
-quantize_rows.launches = 0
+cuda_kernels.launch_counter(quantize_rows, r"\bquant_rows(_f32)?_kernel\b")
 
 
 def int8_kernel_layout(kernel_q: torch.Tensor) -> torch.Tensor:
@@ -223,7 +223,7 @@ def w8a8_epilogue(acc: torch.Tensor, xs: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-w8a8_epilogue.launches = 0
+cuda_kernels.launch_counter(w8a8_epilogue, r"\bw8a8_epilogue_kernel\b")
 
 
 def _w8a8_epilogue(xq, xs, kernel_q, scale, dtype, bias=None) -> torch.Tensor:
@@ -388,7 +388,7 @@ def int8_weight_forward(x: torch.Tensor, kernel_q: torch.Tensor,
     return out.reshape(*x.shape[:-1], n)
 
 
-int8_weight_forward.launches = 0
+cuda_kernels.launch_counter(int8_weight_forward, r"\bint8_weight_matmul_kernel\b")
 
 
 class _Int8WeightMatmul(torch.autograd.Function):
@@ -557,7 +557,7 @@ def gelu_quant_rows(x: torch.Tensor):
     return xq, xs
 
 
-gelu_quant_rows.launches = 0
+cuda_kernels.launch_counter(gelu_quant_rows, r"\bgelu_quant_kernel\b")
 
 
 def ln_quant_rows(
@@ -586,7 +586,7 @@ def ln_quant_rows(
     return xq, xs
 
 
-ln_quant_rows.launches = 0
+cuda_kernels.launch_counter(ln_quant_rows, r"\bln_quant_kernel\b")
 
 
 # ----------------------------------------------------------------------

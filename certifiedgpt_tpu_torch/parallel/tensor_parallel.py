@@ -104,7 +104,7 @@ def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor, mesh: ProcessMe
     return out
 
 
-def _f32_product(x2: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def f32_product(x2: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """``x2 [M, K] @ weight [K, N]`` as f32, not rounded to x's dtype. On
     CUDA a bf16/f16 ``x2`` keeps the one-process product's operands (the
     weight cast to x's dtype) with an f32 output; elsewhere the operands
@@ -133,7 +133,7 @@ class _RowParallelDense(torch.autograd.Function):
             dist.all_reduce(acc, group=group)
             out = acc.float() * xs * scale
         else:
-            acc = _f32_product(x2, weight)
+            acc = f32_product(x2, weight)
             dist.all_reduce(acc, group=group)
             out = acc * scale if scale is not None else acc
         return out.to(x.dtype).reshape(*lead, -1)

@@ -110,13 +110,20 @@ Phases, each of which exits non-zero on any failure:
    kernel never, and the plain cls query row not once (the cls-split kernel
    computes that row in its one launch). Prints per-stage seconds, peak
    device memory and the
-   certify row, and checks the row. Then one chunk's prefill, as the port
+   certify row, and checks the row. ``generate`` replays each decode step
+   from the CUDA graph the warm-up's chunk captured, and each replay adds
+   its captured launches to the counters, so the launch check holds as for
+   eager steps (a capture's warm-up step is a step launched). Then one
+   chunk's prefill, as the port
    runs it and with ``prefill_attention_kv8`` replaced by the sequence it
    took the place of, in turns: device operations (192 fewer) and eager
    time. Then times one decode step against
    converting the int8 decoder weights to bf16, the host's launch of one
    step from an idle card and behind a spin that holds the card (does the
-   step fill the launch queue?), and checks the outputs: the
+   step fill the launch queue?), ``generate``'s captured step (embedding,
+   decoder at the device slot, lm_head, choice, output column): its device
+   ms a replay and the host's ms to launch a replay, beside the same step
+   eager, and checks the outputs: the
    ViT through the kernels against the ViT through their plain versions on
    8 images (a cls stream below the 17 rows ``torch._int_mm`` takes), finite
    projected image tokens, greedy tokens in range.
@@ -317,6 +324,26 @@ Phases, each of which exits non-zero on any failure:
    tiny model at f32 (int8 weight-only decoder kernels, int8 KV cache),
    once through the kernels and once under their plain versions: the rows
    (but their seconds) equal, each chunk's and decode step's launches.
+
+19. The decode step replayed from a CUDA graph against the same step run
+   eagerly (``generate(..., cuda_graph=False)``), on phase 4's model
+   (after 9.2): (a) one certify chunk both ways, from a fresh capture:
+   tokens equal and the last step's logits bit for bit (recorded by a
+   wrapper of the token choice; otherwise within ``KV8_REL_LIMIT``, and
+   printed), decode seconds both ways; (b) the early exit at full width:
+   an EOS bias on the lm_head (a ``bias`` leaf, as the JAX ``bench.py``
+   adds one), chosen from the eager run's logits so that every row stops
+   by token ``EXIT_BY_TOKEN``: fewer than 9 steps launched, the tokens the
+   eager full loop's; (c) two more chunks: one capture, none for the
+   second; (d) the final norm's scale replaced by a copy: a new capture,
+   the tokens the eager step's; (g) the peak memory over a graphed chunk
+   beside phase 4's with the eager decode. (e) runs inside 14.2: for each surrogate,
+   ``x_adv`` after ``ATTACK_TIMED_STEPS`` steps replayed bit for bit the
+   eager loop's at one and four images, ms a step both ways; (f) inside
+   17.2: turn 1 again replayed and eager, the same ids, seconds to the
+   first piece and a piece both ways. Phase 3's decode kernel record also
+   holds the kernel with its slot on the card (``slot_ms``,
+   ``slot_graph_ms``: the output and cache bit for bit the int slot's).
 
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
@@ -1691,18 +1718,26 @@ def check_attention_kv8_decode(torch, device):
     for name, b, h, h_kv, t, offset in KV8_DECODE_CASES:
         q, k, v, cache, offset, mask = kv8_decode_case(torch, device, g, b, h, h_kv, t, offset)
         mine, theirs = copy_cache(cache), copy_cache(cache)
+        slot = torch.tensor(offset, dtype=torch.int32, device=device)
+        on_card = copy_cache(cache)
         out = A.decode_attention_kv8(q, k, v, mine, offset, mask)
         ref = A._decode_attention_kv8_plain(q, k, v, theirs, offset, mask)
+        # the slot read on the card (a decode loop's captured step): the
+        # same launch, bit for bit the int slot's output and cache
+        out_slot = A.decode_attention_kv8(q, k, v, on_card, slot, mask)
         torch.cuda.synchronize()
         off = cache_bits_unequal(torch, mine, theirs)
+        slot_off = cache_bits_unequal(torch, on_card, mine) + bits_unequal(torch, out_slot, out)
         rel, err = rel_err(out, ref), max_err(out, ref)
         zeros = b == 1 or not bool(out[-1].any())
         log(f"[kernel] attention_kv8_decode {name} q [{b}, 1, {h}, {LLAMA_HEAD_DIM}] over {t} "
             f"cached positions of {h_kv} heads, slot {offset}: {off} cache codes and scales not "
             f"bit-identical to the plain version's; relative error (Frobenius) {rel:.3e}, max "
-            f"abs {err:.3e}; fully masked row zeros: {zeros}")
-        if off or not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
-            fail(f"attention_kv8_decode disagrees with its plain version ({name})")
+            f"abs {err:.3e}; fully masked row zeros: {zeros}; the slot on the card: {slot_off} "
+            "output and cache values not bit-identical to the int slot's")
+        if off or slot_off or not (rel < KV8_REL_LIMIT and err <= 2e-2) or not zeros:
+            fail(f"attention_kv8_decode disagrees with its plain version or its int slot "
+                 f"({name})")
         record["max_abs_err"] = max(record["max_abs_err"], err)
         record["max_rel_err"] = max(record["max_rel_err"], rel)
         if name in ("certify decode", "caption decode", "long cache"):
@@ -1720,7 +1755,12 @@ def check_attention_kv8_decode(torch, device):
                 return A.multi_head_attention_kv8(q, theirs["k"], theirs["k_scale"], theirs["v"],
                                                   theirs["v_scale"], mask)
 
+            def slot_step():
+                return A.decode_attention_kv8(q, k, v, on_card, slot, mask)
+
             tm = {"ms": cuda_ms(torch, step, iters=20), "graph_ms": graph_ms(torch, step),
+                  "slot_ms": cuda_ms(torch, slot_step, iters=20),
+                  "slot_graph_ms": graph_ms(torch, slot_step),
                   "plain_ms": cuda_ms(torch, lambda: A._decode_attention_kv8_plain(
                       q, k, v, theirs, offset, mask), iters=5, warmup=1),
                   "replaced_ms": cuda_ms(torch, replaced, iters=20),
@@ -1743,7 +1783,9 @@ def check_attention_kv8_decode(torch, device):
             tm["bound_ms"], by = bound_ms(moved, 4.0 * LLAMA_HEAD_DIM * h * kept,
                                           PEAK_BF16_FLOPS)
             log(f"[kernel] attention_kv8_decode {name}: {tm['ms']:.4f} ms eager, "
-                f"{tm['graph_ms']:.4f} ms from a CUDA graph; plain {tm['plain_ms']:.4f} ms; the "
+                f"{tm['graph_ms']:.4f} ms from a CUDA graph; with the slot on the card "
+                f"{tm['slot_ms']:.4f} ms eager, {tm['slot_graph_ms']:.4f} ms from a CUDA graph; "
+                f"plain {tm['plain_ms']:.4f} ms; the "
                 f"replaced sequence {tm['replaced_ms']:.4f} ms eager, "
                 f"{tm['replaced_graph_ms']:.4f} ms from a CUDA graph; "
                 f"scaled_dot_product_attention on a dequantized bf16 cache "
@@ -1752,7 +1794,7 @@ def check_attention_kv8_decode(torch, device):
             if name == "certify decode":
                 record.update(tm, bound_by=by)
             del kd, vd, qh
-        del q, k, v, cache, mine, theirs, mask, out, ref
+        del q, k, v, cache, mine, theirs, mask, out, ref, on_card, out_slot
         torch.cuda.empty_cache()
     return record
 
@@ -2129,11 +2171,12 @@ def phase_main_path(torch, device, card):
     check_row(row, CLOCKED_RUN_CFG)
     prefill = prefill_costs(torch, model, device)
     decode_costs(torch, model, device)
+    step = generate_step_costs(torch, model)
     check_outputs(torch, model, device)
     phase_profile(torch, model, image)
     return model, image, launches, {"wall_seconds": wall, "stage_seconds": stages,
                                     "chunks": chunks, "peak_gb": peak_gb, "row": row,
-                                    "prefill": prefill}
+                                    "prefill": prefill, "generate_step": step}
 
 
 def stage_seconds(clock, wall):
@@ -2302,6 +2345,63 @@ def decode_costs(torch, model, device):
         f"from an idle card {min(host_ms):.2f} ms; {device_ops} device operations a step "
         f"(1950 in the run before the decode's kernel wrote the cache itself); {verdict}"
     )
+
+
+def generate_step_costs(torch, model):
+    """The certify chunk's decode step as ``generate`` runs it: replayed
+    from the CUDA graph that the warm-up's chunk captured (the embedding,
+    the 32 layers at the device slot, the lm_head, the choice and the
+    output's column), its device ms a replay and the host's ms to launch
+    a replay from an idle card, beside the same step run eagerly (device
+    ms over back-to-back calls, and the host's ms). The state is put back
+    to step 0 before each replay (a replay writes cache slot s + t)."""
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    graphs = M._decode_graphs(model.params)
+    key, st = next((k, v) for k, v in graphs.states.items() if v.graph is not None)
+    knobs = key[4]
+    kept = [x.clone() for x in st.small()]
+
+    def reset():
+        for x, was in zip(st.small(), kept):
+            x.copy_(was)
+
+    def timed(fn, iters):
+        ms = []
+        for _ in range(iters):
+            reset()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return min(ms)
+
+    def host(fn):
+        ms = []
+        for _ in range(3):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return min(ms)
+
+    def eager():
+        M._decode_step(model.params, model.cfg, st, knobs, None)
+
+    replay_ms, replay_host = timed(st.graph.replay, 5), host(st.graph.replay)
+    eager_ms, eager_host = timed(eager, 3), host(eager)
+    reset()
+    log(f"[main] generate's decode step at batch {st.token.shape[0]} (the captured step: "
+        f"embedding, {model.cfg.llama.num_layers} layers at the device slot, lm_head, the "
+        f"choice, the output column): {replay_ms:.3f} ms a replay on the card, the host "
+        f"launches a replay in {replay_host:.3f} ms; the same step eager {eager_ms:.3f} ms "
+        f"(the host launches it in {eager_host:.3f} ms); {torch.cuda.get_device_name(0)}")
+    return {"replay_ms": replay_ms, "replay_host_ms": replay_host, "eager_ms": eager_ms,
+            "eager_host_ms": eager_host}
 
 
 def check_outputs(torch, model, device):
@@ -2728,6 +2828,190 @@ def check_early_exit_fires(torch, device, card):
         f"done after {longest} steps): {launched[True]} decode steps launched, "
         f"{launched[False]} without the exit; tokens equal to the full loop's; no sync "
         f"(set_sync_debug_mode 'error'); {card}")
+
+
+# ----------------------------------------------------------------------
+# phase 19: the decode step replayed from a CUDA graph, against the eager step
+# ----------------------------------------------------------------------
+# phase 4's peak device memory with the decode launched eagerly, a fresh KV
+# cache a chunk (PERF.md section 5; H100 80GB HBM3, 700 W)
+EAGER_DECODE_PEAK_GB = 14.63
+# 19(b): the EOS bias makes every row stop by this token at the latest
+EXIT_BY_TOKEN = 4
+
+
+def phase19_chunk(torch, model, image, seed: int):
+    """A certify chunk's batch: ``MC_BATCH`` noisy copies of the image
+    (sigma 0.5, seeded) and the certify prompt."""
+    from certifiedgpt_tpu_torch.data.text import BatchSpec, build_gen_batch
+    from certifiedgpt_tpu_torch.ops.noise import noisy_tile
+
+    device = model.device
+    prompt = build_gen_batch(model.tokenizer, [QUESTION],
+                             BatchSpec(seq_len=RUN_CFG["seq_len"],
+                                       num_img_tokens=model.cfg.num_img_tokens))
+    batch = {k: torch.from_numpy(v).long().to(device).expand(MC_BATCH, -1)
+             if v.ndim == 2 else torch.from_numpy(v).long().to(device).expand(MC_BATCH)
+             for k, v in prompt.items()}
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    x = torch.from_numpy(image).to(device)
+    batch["image"] = noisy_tile(x, MC_BATCH, RUN_CFG["noise_level"], g)
+    return batch
+
+
+def phase_graphs(torch, card, model, image):
+    """Phase 19 on phase 4's model (the certify YAML's, full width): (a) one
+    chunk with the step run eagerly and then replayed from its graph (a
+    fresh capture): tokens equal, the last step's logits bit for bit (else
+    within the attention limits, and said), decode seconds both ways, and
+    the launches a replay adds to the counters those that a
+    ``torch.profiler`` trace of one replay shows, as over a whole graphed
+    chunk the trace's launches are the counters'; (b)
+    the early exit at full width, an EOS bias on the lm_head (a ``bias``
+    leaf, as the JAX ``bench.py`` adds one) chosen from the eager run's
+    logits so that every row stops by token ``EXIT_BY_TOKEN``: fewer than 9
+    steps launched, tokens the eager full loop's; (c) a second chunk
+    captures nothing; (d) a replaced weight tensor is captured anew, its
+    tokens the eager step's; (g) the peak memory beside phase 4's with the
+    eager decode.
+    (e) runs in phase 14.2 (the surrogates), (f) in phase 17.2 (the chat)."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    from certifiedgpt_tpu_torch.common.stages import StageClock
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+
+    device, cfg = model.device, model.cfg
+    eos, pad = model.tokenizer.eos_token_id, model.tokenizer.pad_token_id
+    steps = RUN_CFG["max_new_tokens"]
+    graphs = M._decode_graphs(model.params)
+    batch = phase19_chunk(torch, model, image, seed=191)
+    # (a): the step's logits recorded by a wrapper of the choice, in the eager
+    # run and in a capture of its own (cleared after)
+    seen, margins = {}, []
+    pick = M._pick
+
+    def recording_pick(logits, t, knobs, counts, generator):
+        buf = seen.get("logits")
+        if buf is None or buf.shape != logits.shape:
+            buf = seen["logits"] = torch.empty_like(logits)
+        buf.copy_(logits)
+        if not torch.cuda.is_current_stream_capturing():
+            margins.append(logits.max(dim=-1).values - logits[:, eos])
+        return pick(logits, t, knobs, counts, generator)
+
+    graphs.states.clear()
+    runs = {}
+    with mock.patch.object(M, "_pick", recording_pick):
+        for mode in ("eager", "graph"):
+            margins.clear()
+            clock = StageClock(device)
+            torch.cuda.synchronize()
+            tokens = M.generate(model.params, cfg, batch, steps, eos, pad, clock=clock,
+                                cuda_graph=mode == "graph")
+            torch.cuda.synchronize()
+            runs[mode] = (tokens.cpu(), seen["logits"].clone(), dict(clock.seconds),
+                          [m.clone() for m in margins])
+        # what a replay counts against what the card ran, from the profiler
+        (st,) = [v for v in graphs.states.values() if v.graph is not None]
+        replay_traced, replay_ops = cuda_kernels.traced_launches(st.graph.replay)
+        every = cuda_kernels.LAUNCH_COUNTERS
+        before = [c.launches for c in every]
+        chunk_traced, chunk_ops = cuda_kernels.traced_launches(
+            lambda: M.generate(model.params, cfg, batch, steps, eos, pad))
+        chunk_counted = {c: c.launches - n for c, n in zip(every, before) if c.launches != n}
+    graphs.states.clear()
+
+    def named(launches):
+        return {c.__name__: n for c, n in launches.items()}
+
+    log(f"[graph] 19(a) one replay in a torch.profiler trace: {replay_ops} device operations, "
+        f"counted kernels {named(replay_traced)}, the capture's record {named(st.launches)}; "
+        f"a graphed chunk: {chunk_ops} device operations, counted kernels in the trace "
+        f"{named(chunk_traced)}, the counters {named(chunk_counted)}")
+    if replay_traced != st.launches or not st.launches or chunk_traced != chunk_counted:
+        fail("19(a): the launches that a replay counts are not those the trace shows")
+    del st
+    (tok_e, log_e, sec_e, marg), (tok_g, log_g, sec_g, _) = runs["eager"], runs["graph"]
+    diff = bits_unequal(torch, log_g, log_e)
+    rel = rel_err(log_g, log_e)
+    log(f"[graph] 19(a) a certify chunk ({MC_BATCH} x {steps} tokens): tokens eager and from the "
+        f"graph {'equal' if torch.equal(tok_e, tok_g) else 'DIFFERENT'}; the last step's logits "
+        f"{diff} of {log_e.numel()} values not bit-identical (relative error {rel:.3e}); decode "
+        f"{sec_e.get('decode', 0.0):.4f} s eager, {sec_g.get('decode', 0.0):.4f} s replayed "
+        f"(its capture included: the first chunk), prefill {sec_e.get('prefill', 0.0):.4f} / "
+        f"{sec_g.get('prefill', 0.0):.4f} s; {card}")
+    if not torch.equal(tok_e, tok_g) or (diff and not rel < KV8_REL_LIMIT):
+        fail("19(a): the graphed step disagrees with the eager step")
+
+    # (c) a second chunk captures nothing; the first (after the clear) once
+    captures = M.generate.captures
+    clock_times = []
+    for seed in (192, 193):
+        b = phase19_chunk(torch, model, image, seed=seed)
+        clock = StageClock(device)
+        got = M.generate(model.params, cfg, b, steps, eos, pad, clock=clock)
+        want = M.generate(model.params, cfg, b, steps, eos, pad, cuda_graph=False)
+        if not torch.equal(got, want):
+            fail(f"19(c): chunk {seed}'s graphed tokens differ from the eager step's")
+        clock_times.append(clock.seconds.get("decode", 0.0))
+    if M.generate.captures != captures + 1:
+        fail(f"19(c): two chunks made {M.generate.captures - captures} captures, want 1")
+    log(f"[graph] 19(c) two more chunks: 1 capture (the first), none for the second; decode "
+        f"{clock_times[0]:.4f} s (with the capture), then {clock_times[1]:.4f} s replayed; "
+        f"tokens equal to the eager step's; {card}")
+
+    # (b) the early exit at full width: an EOS bias from the eager run's margins
+    per_row = torch.stack(marg[:EXIT_BY_TOKEN], dim=1).min(dim=1).values
+    bias_value = float(per_row.max()) * 1.001 + 1e-3
+    params = model.params
+    bias = torch.zeros((cfg.llama.vocab_size,), dtype=torch.float32, device=device)
+    bias[eos] = bias_value
+    params["llama"]["lm_head"]["bias"] = bias
+    captures = M.generate.captures
+    want = M.generate(params, cfg, batch, steps, eos, pad, cuda_graph=False)
+    M.generate(params, cfg, batch, steps, eos, pad)  # the capture
+    M.generate.decode_steps = 0
+    got = M.generate(params, cfg, batch, steps, eos, pad, early_exit=True)
+    launched = M.generate.decode_steps
+    first_eos = [row.index(eos) if eos in row else steps for row in want.tolist()]
+    if not torch.equal(got, want) or not launched < steps - 1 or max(first_eos) >= steps:
+        fail(f"19(b): early exit at full width: {launched} steps launched, tokens "
+             f"{'equal' if torch.equal(got, want) else 'different'}, EOS at {sorted(set(first_eos))}")
+    log(f"[graph] 19(b) early exit at full width (EOS bias {bias_value:.4f} on the lm_head): "
+        f"rows emit EOS at tokens {sorted(set(first_eos))}; {launched} decode steps launched of "
+        f"{steps - 1}; tokens equal to the eager full loop's; {M.generate.captures - captures} "
+        f"capture (the bias is a new tensor); {card}")
+
+    # (d) a replaced weight tensor: captured anew
+    params = model.params
+    params["llama"]["norm"]["scale"] = params["llama"]["norm"]["scale"].clone()
+    captures = M.generate.captures
+    got = M.generate(params, cfg, batch, steps, eos, pad)
+    want = M.generate(params, cfg, batch, steps, eos, pad, cuda_graph=False)
+    if M.generate.captures != captures + 1 or not torch.equal(got, want) \
+            or not torch.equal(got.cpu(), tok_e):
+        fail("19(d): a replaced weight tensor was not captured anew, or its tokens differ")
+    log(f"[graph] 19(d) the final norm's scale replaced by a copy: 1 new capture, tokens equal "
+        f"to the eager step's and to 19(a)'s; the model keeps {len(graphs.states)} captures; "
+        f"{card}")
+    del params, bias
+    graphs.states.clear()
+    gc.collect()
+
+    # (g) the peak over a graphed chunk, a fresh capture included
+    torch.cuda.reset_peak_memory_stats()
+    M.generate(model.params, cfg, batch, steps, eos, pad)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[graph] 19(g) peak memory over a graphed chunk with its capture {peak:.2f} GB; phase "
+        f"4's certify (graphed) above; phase 4 with the eager decode {EAGER_DECODE_PEAK_GB:.2f} GB; "
+        f"{card}")
+    return {"decode_s_eager": sec_e.get("decode"), "decode_s_graph_with_capture":
+            sec_g.get("decode"), "decode_s_replayed": clock_times[1],
+            "logit_bits_unequal": diff, "exit_steps": launched, "peak_gb": peak}
 
 
 # ----------------------------------------------------------------------
@@ -4133,6 +4417,9 @@ def check_decode_modes(torch, device, card):
     gen.manual_seed(5)
     knobs = dict(do_sample=True, top_p=0.9, temperature=1.0, repetition_penalty=1.2,
                  min_length=DECODE_MIN_LENGTH, generator=gen, early_exit=True)
+    # the capture of the knobs' step (it synchronizes once), on another generator
+    M.generate(chain.params, chain.cfg, batch, EXIT_STEPS, eos, pad,
+               **dict(knobs, generator=torch.Generator(device=device)))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -4287,7 +4574,7 @@ def phase_attack_surrogates(torch, card, device):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    per_step, kept = {}, []
+    per_step, kept, graphed = {}, [], {}
     for i, name in enumerate(ATTACK_BACKBONES):
         cfg, apply_fn, init_fn = AG._BACKBONES[name]()
         params = init_fn(1000 + i, cfg, device)
@@ -4316,11 +4603,27 @@ def phase_attack_surrogates(torch, card, device):
         x4 = x.expand(4, -1, -1, -1).contiguous()
         tgt4 = {name: tgt[name].expand(4, -1).contiguous()}
         ms4 = cuda_ms(torch, lambda: attack({name: params}, x4, tgt4), iters=1, warmup=1)
+        # 19(e): the replayed step against the eager loop, bit for bit
+        eager = {}
+        for b, px, tg in ((1, x, tgt), (4, x4, tgt4)):
+            got, want = attack({name: params}, px, tg), attack({name: params}, px, tg,
+                                                              cuda_graph=False)
+            if not torch.equal(got, want):
+                fail(f"19(e) {name}: the replayed PGD's pixels at {b} image(s) differ from the "
+                     f"eager loop's in {int((got != want).sum())} of {got.numel()}")
+            eager[b] = cuda_ms(torch, lambda: attack({name: params}, px, tg, cuda_graph=False),
+                               iters=1, warmup=0) / ATTACK_TIMED_STEPS
+        graphed[name] = {"ms_1": per_step[name], "ms_4": ms4 / ATTACK_TIMED_STEPS,
+                         "eager_ms_1": eager[1], "eager_ms_4": eager[4]}
         log(f"[attack] 14.2 {name}: {n_params / 1e6:.1f} M f32 parameters at {size} px; "
             f"embedding on the card vs the CPU: relative error {erel:.3e}; loss gradient signs "
             f"agreeing {share:.6f}; {per_step[name]:.3f} ms a PGD step (forward + backward, "
             f"{ATTACK_TIMED_STEPS} steps timed), {ms4 / ATTACK_TIMED_STEPS:.3f} ms a step "
             f"on 4 images")
+        log(f"[graph] 19(e) {name}: x_adv after {ATTACK_TIMED_STEPS} steps replayed from the "
+            f"graph bit for bit the eager loop's at 1 and 4 images; ms a step replayed / eager: "
+            f"{per_step[name]:.3f} / {eager[1]:.3f} (1 image), {ms4 / ATTACK_TIMED_STEPS:.3f} / "
+            f"{eager[4]:.3f} (4 images); {card}")
         if not erel < SURROGATE_EMBED_REL_LIMIT or not share >= SURROGATE_SIGN_SHARE \
                 or not bool(torch.isfinite(grads[0]).all()):
             fail(f"14.2 {name}: the card's surrogate disagrees with the CPU's "
@@ -4336,6 +4639,7 @@ def phase_attack_surrogates(torch, card, device):
 
     log(f"[attack] 14.2: the 448 -> 224 resize and normalization, forward + backward: "
         f"{cuda_ms(torch, resize_step, iters=20):.4f} ms a step")
+    log(f"[graph] 19(e) ms a PGD step {json.dumps(graphed)}; {card}")
     log(f"[attack] 14.2: ms a PGD step {json.dumps({k: round(v, 4) for k, v in per_step.items()})}; "
         f"the five surrogates {(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB resident, "
         f"peak {peak:.2f} GB over them; {card}")
@@ -5066,14 +5370,14 @@ def demo_answers(label, rc, out, err):
     return [p[len("bot> "):-1] for p in bots]
 
 
-def chat_turn(torch, chat, question):
+def chat_turn(torch, chat, question, **stream):
     """One streamed turn: the pieces, the seconds to the first one and the
-    seconds at each later one."""
+    seconds at each later one (``stream``: ``stream_answer``'s keywords)."""
     chat.ask(question)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pieces, stamps = [], []
-    for piece in chat.stream_answer(max_new_tokens=CHAT_MAX_NEW_TOKENS):
+    for piece in chat.stream_answer(max_new_tokens=CHAT_MAX_NEW_TOKENS, **stream):
         stamps.append(time.perf_counter() - t0)  # each piece read its token on the host
         pieces.append(piece)
     if not pieces:
@@ -5119,11 +5423,28 @@ def phase_chat(torch, card, demo, image_path, env):
     pieces, stamps = chat_turn(torch, chat, CHAT_QUESTIONS[0])
     launches = read_counts()
     stream_ids = decoded[-1]
-    # a decode step after every piece but the last, unless the budget ran out
+    # a decode step after every piece but the last, unless the budget ran
+    # out, and the capture's warm-up step at the turn's first piece
     steps = len(pieces) - (len(pieces) == CHAT_MAX_NEW_TOKENS)
-    check_counts("17.2 chat turn", launches, PER_CHUNK["flash_cls"], 1, steps)
+    if decode_steps() != steps + 1:
+        fail(f"17.2: {decode_steps()} decode steps for {len(pieces)} pieces, want {steps} and "
+             "the capture's warm-up")
+    check_counts("17.2 chat turn", launches, PER_CHUNK["flash_cls"], 1, decode_steps())
     pieces2, stamps2 = chat_turn(torch, chat, CHAT_QUESTIONS[1])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # 19(f): turn 1 again, replayed (captured by turn 1) and eager
+    turn_s = {}
+    for mode in ("graph", "eager"):
+        again = demo.Chat(chat.model, chat.vis_processor, template=CHAT_TEMPLATE)
+        again.upload_img(image)
+        got, got_stamps = chat_turn(torch, again, CHAT_QUESTIONS[0], cuda_graph=mode == "graph")
+        if decoded[-1] != stream_ids:
+            fail(f"19(f): the chat turn's ids {mode} {decoded[-1]} are not turn 1's {stream_ids}")
+        turn_s[mode] = (got_stamps[0], (got_stamps[-1] - got_stamps[0]) / max(len(got) - 1, 1))
+    log(f"[graph] 19(f) a chat turn (batch 1, {len(pieces)} pieces): ids equal replayed and "
+        f"eager; first piece after {turn_s['graph'][0]:.4f} s / {turn_s['eager'][0]:.4f} s, then "
+        f"{turn_s['graph'][1]:.4f} s / {turn_s['eager'][1]:.4f} s a piece (replayed / eager); "
+        f"{card}")
     streamed = chat.conv.messages[1][1]
     other = demo.Chat(chat.model, chat.vis_processor, template=CHAT_TEMPLATE)
     other.upload_img(image)
@@ -5509,6 +5830,9 @@ def main() -> int:
         # 9.1 and 9.2 run on phase 4's model, before the launcher phases
         # build their own
         lookahead = phase_lookahead(torch, model, image, card, summary)
+        t0 = time.perf_counter()
+        summary["graphs"] = phase_graphs(torch, card, model, image)
+        log(f"[main] phase 19 (a-d, g) took {time.perf_counter() - t0:.1f} s")
         widths = (model.cfg.qformer.hidden_size, model.cfg.llama.hidden_size)
         del model, image
         gc.collect()

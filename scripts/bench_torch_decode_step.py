@@ -5,11 +5,17 @@ one or more checkouts of the repository, in turns.
 The step is ``models/llama.py::llama_apply`` at the certify decode: a
 Vicuna-7B-shaped decoder (32 layers, 4096 wide, weight-only int8 products,
 an int8 KV cache) with seeded weights, 96 rows, one token each at slot 96
-of a 106-slot cache. For each checkout, in a process of its own (each
-imports its own ``certifiedgpt_tpu_torch``), prints the step's device
-operations (``torch.profiler``), its time replayed from a CUDA graph (the
-card alone) and eager, and the host's milliseconds to launch it from an
-idle card, with the card's name and power limit:
+of a 106-slot cache, the slot given as an int. For each checkout, in a
+process of its own (each imports its own ``certifiedgpt_tpu_torch``),
+prints the step's device operations (``torch.profiler``), its time
+replayed from a CUDA graph (the card alone) and eager, and the host's
+milliseconds to launch it from an idle card; where the checkout has them,
+the same step with the slot as a 0-dim int32 tensor on the card (eager and
+from a graph), and ``generate``'s whole step (``models/minigpt4.py``:
+embedding, decoder at the device slot, lm_head, the greedy choice and the
+output's column) captured as ``generate`` captures it: its replay's device
+ms (with the reset of the step index before it) and the host's ms to
+launch a replay; with the card's name and power limit:
 
     python3 scripts/bench_torch_decode_step.py                 # this checkout
     python3 scripts/bench_torch_decode_step.py OLD . . OLD     # two, in turns
@@ -85,8 +91,56 @@ def measure(root: str) -> dict:
     with torch.cuda.graph(graph):
         step()
     graph_ms = device_ms(graph.replay, 10)
-    return {"device_operations": ops, "graph_ms": graph_ms, "eager_ms": eager_ms,
-            "host_launch_ms": min(host_ms)}
+    out = {"device_operations": ops, "graph_ms": graph_ms, "eager_ms": eager_ms,
+           "host_launch_ms": min(host_ms)}
+    from certifiedgpt_tpu_torch.models import minigpt4 as TM
+
+    if not hasattr(TM, "_decode_step"):  # a checkout before the device slot
+        return out
+    from certifiedgpt_tpu_torch.common.graphs import GraphStore
+
+    slot = torch.tensor(PROMPT, dtype=torch.int32, device=device)
+
+    def slot_step():
+        TLM.llama_apply(params, cfg, x, mask, pos, cache, slot)
+
+    out["slot_eager_ms"] = device_ms(slot_step, 5)
+    with torch.cuda.stream(side):
+        slot_step()
+    torch.cuda.current_stream().wait_stream(side)
+    slot_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(slot_graph):
+        slot_step()
+    out["slot_graph_ms"] = device_ms(slot_graph.replay, 10)
+
+    mcfg = TM.MiniGPT4Config(llama=cfg)
+    knobs = TM._Knobs(2, 0, False, 1.0, 0.9, 1, 1.0)
+    st = TM._DecodeState(mcfg, BATCH, PROMPT, CACHE - PROMPT, knobs, device)
+    st.positions.fill_(PROMPT)
+    kept = [x.clone() for x in st.small()]
+
+    def restore():
+        for x, was in zip(st.small(), kept):
+            x.copy_(was)
+
+    GraphStore().capture(st, lambda: TM._decode_step({"llama": params}, mcfg, st, knobs, None),
+                         restore, device)
+
+    def replay():
+        st.t.zero_()
+        st.graph.replay()
+
+    out["generate_step_graph_ms"] = device_ms(replay, 10)
+    replay_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.graph.replay()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        st.t.zero_()
+    torch.cuda.synchronize()
+    out["generate_step_host_ms"] = min(replay_ms)
+    return out
 
 
 def main() -> int:
@@ -106,6 +160,12 @@ def main() -> int:
         print(f"decode step, {root}: {r['device_operations']} device operations, "
               f"{r['graph_ms']:.3f} ms from a CUDA graph, {r['eager_ms']:.3f} ms eager, the host "
               f"launches it in {r['host_launch_ms']:.2f} ms ({card})", flush=True)
+        if "slot_eager_ms" in r:
+            print(f"decode step, {root}, the slot on the card: {r['slot_graph_ms']:.3f} ms from a "
+                  f"CUDA graph, {r['slot_eager_ms']:.3f} ms eager; generate's captured step "
+                  f"(lm_head, the choice, the output column included) "
+                  f"{r['generate_step_graph_ms']:.3f} ms a replay, the host launches a replay "
+                  f"in {r['generate_step_host_ms']:.3f} ms ({card})", flush=True)
     return 0
 
 

@@ -4,8 +4,9 @@ Tests marked ``gpu`` hold a tiny W8A8 victim's caption at batch 1 through
 the kernels (cls-split ViT at 224 px, both row-quant kernels; one launch a
 layer each of the ViT's streams) against the same caption through their
 plain versions, a PGD step of tiny surrogates on the card against the CPU
-(with TF32 left on by the caller: the surrogates stay f32), and the agent
-end to end on the card. They skip where there is no CUDA device. This file
+(with TF32 left on by the caller: the surrogates stay f32), the PGD loop
+replayed from its CUDA graph against the same step run eagerly, and the
+agent end to end on the card. They skip where there is no CUDA device. This file
 imports neither JAX nor the JAX package, so on the GPU machine it runs
 without the conftest:
 
@@ -155,6 +156,32 @@ def test_pgd_step_on_gpu_matches_cpu(cuda):
     (g_gpu, s_gpu), (g_cpu, s_cpu) = results
     assert float((g_gpu - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max())
     assert float((s_gpu == s_cpu).float().mean()) >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4])
+def test_pgd_graph_matches_the_eager_loop(cuda, b):
+    """A tiny ViT + ResNet ensemble at 448 px, 6 steps: the pixels after
+    the replayed step bit for bit the eager loop's, for two images in turn;
+    one capture for the shape, none for the second image."""
+    encs = []
+    for i, name in enumerate(("vit_tiny", "rn_tiny")):
+        cfg, fn, init = TAG._BACKBONES[name]()
+        apply = (lambda f, c: lambda p, x: f(p, c, x))(fn, cfg)
+        encs.append(TA.SurrogateEncoder(name, apply, tree_to(init(2000 + i, cfg, "cpu"), cuda),
+                                        cfg.image_size))
+    pbn = {e.name: e.params for e in encs}
+    attack = TA.make_pgd_attack(encs, 8 / 255, 1 / 255, 6)
+    rng = np.random.RandomState(3)
+    for _ in range(2):
+        x = torch.from_numpy(rng.rand(b, 448, 448, 3).astype(np.float32)).to(cuda)
+        tg = TA.embed_images(encs, pbn, torch.from_numpy(
+            rng.rand(b, 448, 448, 3).astype(np.float32)).to(cuda))
+        want = attack(pbn, x, tg, cuda_graph=False)
+        got = attack(pbn, x, tg)
+        assert torch.equal(got, want)
+        assert float((got - x).abs().max()) <= 8 / 255 + 1e-6
+    assert attack.captures == 1
 
 
 @pytest.mark.gpu
