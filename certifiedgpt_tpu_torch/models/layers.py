@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from certifiedgpt_tpu_torch.ops import elementwise as E
 from certifiedgpt_tpu_torch.ops import quantization as Q
 
 
@@ -99,10 +100,7 @@ def layer_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    normed = x32 * torch.rsqrt(var + eps)
-    return (normed * params["scale"].float()).to(x.dtype)
+    return E.rms_norm_plain(x, params["scale"], eps)
 
 
 def embed(params, ids: torch.Tensor) -> torch.Tensor:
@@ -113,17 +111,7 @@ def rotary_tables(
     head_dim: int, max_len: int, theta: float = 10000.0, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[max_len, head_dim] f32 cos/sin tables (HF-LLaMA rotate-half)."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    inv_freq = 1.0 / (theta ** exps)
-    t = torch.arange(max_len, dtype=torch.float32, device=device)
-    freqs = torch.outer(t, inv_freq)
-    emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
-
-
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return E.make_rotary_tables(head_dim, max_len, theta, device)
 
 
 def apply_rotary(
@@ -132,10 +120,7 @@ def apply_rotary(
     sin: torch.Tensor,
     positions: torch.Tensor,  # [B, S] int
 ) -> torch.Tensor:
-    c = cos[positions][:, :, None, :]
-    s = sin[positions][:, :, None, :]
-    x32 = x.float()
-    return (x32 * c + _rotate_half(x32) * s).to(x.dtype)
+    return E.apply_rotary_plain(x, cos, sin, positions)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

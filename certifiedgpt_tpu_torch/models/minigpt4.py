@@ -402,9 +402,11 @@ def _step_functions() -> Tuple:
     it recorded (a caller that routes them to their plain versions gets a
     capture of its own)."""
     from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import elementwise as E
 
     return (A.decode_attention_kv8, A.prefill_attention_kv8, A.multi_head_attention_kv8,
-            Q.int8_weight_forward, Q.quantize_rows, Q.w8a8_epilogue)
+            Q.int8_weight_forward, Q.quantize_rows, Q.w8a8_epilogue, E.add_rms_norm,
+            E.rotary, E.silu_mul)
 
 
 def _decode_graphs(params) -> GraphStore:

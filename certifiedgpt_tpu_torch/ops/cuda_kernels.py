@@ -13,11 +13,13 @@ a missing ``nvcc`` or a failed build raises.
 
 Each wrapper that launches a kernel carries a launch counter
 (``launch_counter``), listed in ``LAUNCH_COUNTERS`` with the kernel's name;
-``traced_launches`` counts the same launches in a ``torch.profiler`` trace.
+``traced_launches`` counts the same launches in a ``torch.profiler`` trace
+(``device_trace``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -102,6 +104,21 @@ _SIGNATURES = {
         _P,  # stream
     ),
     "cgpt_attention_kv8_prefill_plan": (_I32,) * 7 + (_P,),  # B, Sq, H, Hkv, T, offset, Sn, int[5] out
+    "cgpt_add_rms_norm": (
+        _P, _P, _P, _P, _I32,  # x, y (or null), x + y, scale, scale f32
+        _P, _P, _P,  # out, or codes and row scales
+        _I64, _I32, _F32, _I32, _I32,  # M, K, eps, rows f32, quantize
+        _P,  # stream
+    ),
+    "cgpt_silu_mul": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),  # gate, up, out, q, s, M, N, f32, quantize
+    "cgpt_rotary": (
+        _P, _I64, _I64, _I64,  # q and its (b, s, h) strides
+        _P, _I64, _I64, _I64,  # k and its (b, s, h) strides
+        _P, _P,  # the cos and sin tables
+        _P, _I64, _I64, _I32,  # positions, their (b, s) strides, int64
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # B, S, Hq, Hk, Dh, max_len, f32
+        _P,  # stream
+    ),
     "cgpt_attention_kv8_decode": (
         _P, _I64, _I64,  # q and its (b, h) strides
         _P, _P, _I64, _I64,  # the step's k, v and their (b, h) strides
@@ -236,18 +253,54 @@ def launch_counter(owner, kernel: str):
     return owner
 
 
+# a trace may miss the first device operations of its session (on an
+# H100: the arange that opens a prefill, at times a dozen operations, and
+# in one process the first two of every session, also where the host had
+# waited 50 ms before the first launch). Spins of the card open and close
+# each session and take such losses in place of the traced work.
+TRACE_PAD_SPINS = (10, 2)  # before and after the traced work
+_PAD_CYCLES = 10 ** 7  # a spin of about 5 ms
+_PAD_KERNEL = "spin_kernel"  # the kernel of ``torch.cuda._sleep``
+
+
+def _pad(spins: int) -> None:
+    for _ in range(spins):
+        torch.cuda._sleep(_PAD_CYCLES)
+
+
+@contextlib.contextmanager
+def device_trace(cpu: bool = False):
+    """A ``torch.profiler`` session of the card's activity (and the host's,
+    with ``cpu``) over the body of the ``with``, which starts with the card
+    idle and is followed by a synchronize. Spins pad the session on both
+    sides; ``device_events`` leaves them out. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        _pad(TRACE_PAD_SPINS[0])
+        torch.cuda.synchronize()
+        yield prof
+        _pad(TRACE_PAD_SPINS[1])
+        torch.cuda.synchronize()
+
+
+def device_events(events) -> list:
+    """The card's operations among a ``device_trace``'s events (or their
+    ``key_averages()``), without the session's pads."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA and _PAD_KERNEL not in e.key]
+
+
 def traced_launches(fn):
-    """Run ``fn()`` under ``torch.profiler`` and count the kernels it put on
+    """Run ``fn()`` under ``device_trace`` and count the kernels it put on
     the card: ``({counter: launches}, device operations)``, the first for
     each counter whose kernel ran, the second every CUDA event of the
     trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = [e.name for e in device_events(prof.events())]
     counts = {c: sum(1 for n in names if c.kernel_name.search(n)) for c in LAUNCH_COUNTERS}
     return {c: n for c, n in counts.items() if n}, len(names)

@@ -60,6 +60,7 @@ from certifiedgpt_tpu_torch.models.llama import (
     lm_head_logits,
 )
 from certifiedgpt_tpu_torch.models.minigpt4 import decoder_inputs
+from certifiedgpt_tpu_torch.ops import elementwise as E
 from certifiedgpt_tpu_torch.optim import flatten_tree
 from certifiedgpt_tpu_torch.parallel.mesh import ProcessMesh, own_storage
 
@@ -257,7 +258,7 @@ def pipeline_llama_apply(
                          f"pipe={n_pipe} runs {local} (partition_llama_pipeline)")
 
     device = inputs_embeds.device
-    cos, sin = L.rotary_tables(cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta,
+    cos, sin = E.rotary_tables(cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta,
                                device=device)
     mask = _training_mask(attention_mask, segment_ids, s, device)
     stage_cfg = dataclasses.replace(cfg, num_layers=local)

@@ -458,6 +458,7 @@ RUN_CFG = {  # run block of configs/certify_configs/vqav2_certify_noise_0.5.yaml
 # the KV cache's positions
 VIT_ROWS = MC_BATCH * VIT_TOKENS
 PREFILL_ROWS = MC_BATCH * RUN_CFG["seq_len"]
+F32_ROWS = EVAL_BATCH * RUN_CFG["seq_len"]  # phase 18's f32 decoder prefill
 CACHE_LEN = RUN_CFG["seq_len"] + RUN_CFG["max_new_tokens"]
 # phase 4 reads per-stage seconds with a clock that synchronizes the card at
 # every stage: one chunk in flight
@@ -489,6 +490,7 @@ PROFILE_GROUPS = (
     ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel", "quant_rows_kernel")),
     ("W8A8 epilogue kernel", ("w8a8_epilogue_kernel",)),
     ("weight-only int8 kernel", ("int8_weight_matmul_kernel",)),
+    ("decoder elementwise kernels", ("add_rms_norm_kernel", "rotary_kernel", "silu_mul_kernel")),
     ("int8-KV attention kernel", ("attention_kv8_kernel", "kv8_prefill_kernel",
                                   "kv8_decode_kernel")),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
@@ -635,7 +637,9 @@ def ptxas_resources(log_text: str) -> dict:
 PTXAS_KERNELS = (("int8_weight_matmul_kernel", "int8_weight_matmul"),
                  ("kv8_prefill_kernel", "attention_kv8_prefill"),
                  ("attention_kv8_kernel", "attention_kv8"),
-                 ("kv8_decode_kernel", "attention_kv8_decode"))
+                 ("kv8_decode_kernel", "attention_kv8_decode"),
+                 ("add_rms_norm_kernel", "add_rms_norm"), ("rotary_kernel", "rotary"),
+                 ("silu_mul_kernel", "silu_mul"))
 
 
 def phase_build():
@@ -1921,6 +1925,212 @@ def check_f32_instances(torch, device, records):
             fail(f"attention_kv8_decode's f32 instance disagrees with its plain version ({name})")
 
 
+# ----------------------------------------------------------------------
+# phase 20: the decoder's fused elementwise ops (csrc/elementwise.cu)
+# ----------------------------------------------------------------------
+# the main path's calls of each op: (label, dtype, rows / q shape, width,
+# with a residual, quantized); the first is the kernel's record shape (the
+# prefill at the certify chunk)
+FUSED_NORM_SHAPES = (("prefill, residual, codes", "bf16", PREFILL_ROWS, True, True),
+                     ("prefill, first layer, codes", "bf16", PREFILL_ROWS, False, True),
+                     ("prefill, final norm, rows", "bf16", PREFILL_ROWS, True, False),
+                     ("decode, residual, rows", "bf16", MC_BATCH, True, False),
+                     ("batch 1, residual, rows", "bf16", 1, True, False),
+                     ("f32 prefill, residual, rows", "f32", F32_ROWS, True, False),
+                     ("f32 decode, residual, rows", "f32", EVAL_BATCH, True, False))
+FUSED_SILU_SHAPES = (("prefill, codes", "bf16", PREFILL_ROWS, True),
+                     ("decode, rows", "bf16", MC_BATCH, False),
+                     ("batch 1, rows", "bf16", 1, False),
+                     ("f32 prefill, rows", "f32", F32_ROWS, False),
+                     ("f32 decode, rows", "f32", EVAL_BATCH, False))
+FUSED_ROTARY_SHAPES = (("prefill", "bf16", (MC_BATCH, RUN_CFG["seq_len"])),
+                       ("decode", "bf16", (MC_BATCH, 1)), ("batch 1", "bf16", (1, 1)),
+                       ("f32 prefill", "f32", (EVAL_BATCH, RUN_CFG["seq_len"])),
+                       ("f32 decode", "f32", (EVAL_BATCH, 1)))
+# f32 operations an element counted for the bounds: the norm's add, square,
+# sum, two products, |x| and max, division, rounding and clip; SiLU x up's
+# negation, add, division, two products and the same quantization, plus one
+# exponential on the special-function unit; the rotary's two products and
+# a sum
+FUSED_NORM_OPS, FUSED_SILU_OPS, FUSED_ROTARY_OPS = 9, 10, 3
+# the limits against the plain versions: the norm's rows within one ulp of
+# bf16 (16 of f32: its sum of 4096 squares runs in the kernel's order, and
+# the sums' difference of a few ulps passes through rsqrt; 5 seen), SiLU x up
+# within one ulp (the toolkits' expf may differ), codes within one step on
+# at most FUSED_CODES_SHARE of the elements with scales within 2^-7
+# relative; the residual sum and the rotary bit for bit
+FUSED_CODES_SHARE = 1e-3
+
+
+def ulps_off(torch, got, want) -> float:
+    """The largest |got - want| in ulps of want's dtype at want."""
+    import numpy as np
+
+    spacing = torch.from_numpy(np.spacing(want.float().abs().cpu().numpy())).to(want.device)
+    if want.dtype == torch.bfloat16:
+        spacing = spacing * 2.0 ** 16
+    return float(((got.double() - want.double()).abs() / spacing.double()).max())
+
+
+def fused_codes_ok(torch, got, want):
+    """(ok, off share, largest dequantized difference) of two row
+    quantizations."""
+    off, frac, worst, rel, err = compare_codes(torch, got, want)
+    return worst <= 1 and frac <= FUSED_CODES_SHARE and rel <= 2.0 ** -7, frac, err
+
+
+def time_fused(torch, fn, plain, replaced, library=None):
+    """ms eager (back to back), alone (from a CUDA graph), the plain
+    version's, the replaced chain's and the library call's."""
+    out = {"ms": cuda_ms(torch, fn, iters=20), "graph_ms": graph_ms(torch, fn),
+           "plain_ms": cuda_ms(torch, plain, iters=5, warmup=1),
+           "replaced_ms": cuda_ms(torch, replaced, iters=5, warmup=1)}
+    out["library_ms"] = None if library is None else cuda_ms(torch, library, iters=20)
+    return out
+
+
+def fused_record(records):
+    """The kernel's record: the first shape's times, every shape's under
+    ``shapes``, the largest error over them."""
+    first = next(iter(records.values()))
+    return {"ms": first["ms"], "graph_ms": first["graph_ms"], "plain_ms": first["plain_ms"],
+            "replaced_ms": first["replaced_ms"], "library_ms": first["library_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "max_abs_err": max(r["max_abs_err"] for r in records.values()), "shapes": records}
+
+
+def phase_decoder_fusions(torch, device):
+    """Phase 20: ``add_rms_norm``, ``rotary`` and ``silu_mul`` against
+    their plain versions at the main path's shapes (the certify chunk's
+    prefill, its decode step, batch 1; the f32 decoder's), each timed eager
+    and alone (replayed from a CUDA graph) beside its bound, its plain
+    version, the chain it replaced (the plain chain with ``quantize_rows``'
+    kernel where it quantized) and, for the norm, ``F.rms_norm`` (the norm
+    without a residual or codes: the one PyTorch call for part of it).
+    Returns the three kernels' records."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import elementwise as E
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    t0 = time.perf_counter()
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    g = torch.Generator(device=device).manual_seed(20)
+
+    def rows(m, k, dt, std=1.0):
+        x = (std * torch.randn((m, k), generator=g, device=device)).to(dt)
+        x[-1] = 0.0
+        return x
+
+    def chain_norm(x, y, scale, quantize):
+        s, out = E._add_rms_norm_plain(x, y, scale, 1e-6)
+        return s, (Q.quantize_rows(out) if quantize else out)
+
+    norm = {}
+    for label, dt, m, residual, quantize in FUSED_NORM_SHAPES:
+        dtype = dtypes[dt]
+        x, y = rows(m, LLAMA_WIDTH, dtype, 3.0), (rows(m, LLAMA_WIDTH, dtype) if residual else None)
+        scale = (1.0 + 0.1 * torch.randn((LLAMA_WIDTH,), generator=g, device=device)).to(dtype)
+        s, out = E.add_rms_norm(x, y, scale, 1e-6, quantize=quantize)
+        ps, pout = E._add_rms_norm_plain(x, y, scale, 1e-6, quantize=quantize)
+        torch.cuda.synchronize()
+        sum_off = bits_unequal(torch, s, ps)
+        if quantize:
+            ok, frac, err = fused_codes_ok(torch, out, pout)
+            what = f"codes off {frac:.2e} of the elements"
+        else:
+            ulps = ulps_off(torch, out, pout)
+            ok, err = ulps <= (1 if dt == "bf16" else 16), float((out - pout).abs().max())
+            what = f"rows {ulps:.0f} ulps off at most"
+        rec = time_fused(torch, lambda: E.add_rms_norm(x, y, scale, 1e-6, quantize=quantize),
+                         lambda: E._add_rms_norm_plain(x, y, scale, 1e-6, quantize=quantize),
+                         lambda: chain_norm(x, y, scale, quantize),
+                         lambda: F.rms_norm(x, (LLAMA_WIDTH,), scale, 1e-6))
+        size = x.element_size()
+        moved = m * LLAMA_WIDTH * size * (3 if residual else 1) + LLAMA_WIDTH * size
+        moved += m * LLAMA_WIDTH + 4 * m if quantize else m * LLAMA_WIDTH * size
+        bms, by = bound_ms(moved, FUSED_NORM_OPS * m * LLAMA_WIDTH, PEAK_F32_FLOPS)
+        rec.update(bound_ms=bms, bound_by=by, max_abs_err=err, sum_bits_off=sum_off)
+        norm[f"{label} [{m}, {LLAMA_WIDTH}] {dt}"] = rec
+        log(f"[fused] 20 add_rms_norm {label} [{m}, {LLAMA_WIDTH}] {dt}: sum bits off {sum_off}, "
+            f"{what}; {rec['ms']:.4f} ms eager, {rec['graph_ms']:.4f} ms alone, bound "
+            f"{bms:.4f} ms ({by}), plain {rec['plain_ms']:.4f} ms, replaced chain "
+            f"{rec['replaced_ms']:.4f} ms, F.rms_norm (no residual, no codes) "
+            f"{rec['library_ms']:.4f} ms")
+        if sum_off or not ok:
+            fail(f"add_rms_norm disagrees with its plain version ({label}, {dt})")
+        del x, y, s, out, ps, pout
+
+    def chain_silu(gate, up, quantize):
+        out = E._silu_mul_plain(gate, up)
+        return Q.quantize_rows(out) if quantize else out
+
+    silu = {}
+    for label, dt, m, quantize in FUSED_SILU_SHAPES:
+        dtype = dtypes[dt]
+        gate, up = rows(m, LLAMA_MLP, dtype, 3.0), rows(m, LLAMA_MLP, dtype)
+        out = E.silu_mul(gate, up, quantize=quantize)
+        pout = E._silu_mul_plain(gate, up, quantize=quantize)
+        torch.cuda.synchronize()
+        if quantize:
+            ok, frac, err = fused_codes_ok(torch, out, pout)
+            off = bits_unequal(torch, out[0], pout[0])
+            what = f"codes off {frac:.2e} of the elements ({off} codes)"
+        else:
+            ulps, off = ulps_off(torch, out, pout), bits_unequal(torch, out, pout)
+            ok, err = ulps <= 1, float((out - pout).abs().max())
+            what = f"rows {ulps:.0f} ulps off at most ({off} values not bit-identical)"
+        rec = time_fused(torch, lambda: E.silu_mul(gate, up, quantize=quantize),
+                         lambda: E._silu_mul_plain(gate, up, quantize=quantize),
+                         lambda: chain_silu(gate, up, quantize))
+        size = gate.element_size()
+        moved = 2 * m * LLAMA_MLP * size + (m * LLAMA_MLP + 4 * m if quantize
+                                            else m * LLAMA_MLP * size)
+        bms, by = bound_ms(moved, FUSED_SILU_OPS * m * LLAMA_MLP, PEAK_F32_FLOPS,
+                           (m * LLAMA_MLP, PEAK_MUFU_OPS))
+        rec.update(bound_ms=bms, bound_by=by, max_abs_err=err, bits_off=off)
+        silu[f"{label} [{m}, {LLAMA_MLP}] {dt}"] = rec
+        log(f"[fused] 20 silu_mul {label} [{m}, {LLAMA_MLP}] {dt}: {what}; {rec['ms']:.4f} ms "
+            f"eager, {rec['graph_ms']:.4f} ms alone, bound {bms:.4f} ms ({by}), plain "
+            f"{rec['plain_ms']:.4f} ms, replaced chain {rec['replaced_ms']:.4f} ms")
+        if not ok:
+            fail(f"silu_mul disagrees with its plain version ({label}, {dt})")
+        del gate, up, out, pout
+
+    rotary = {}
+    cos, sin = E.rotary_tables(LLAMA_HEAD_DIM, 4096, 10000.0, device)
+    for label, dt, (b, sq) in FUSED_ROTARY_SHAPES:
+        dtype = dtypes[dt]
+        q = torch.randn((b, sq, LLAMA_HEADS, LLAMA_HEAD_DIM), generator=g, device=device).to(dtype)
+        k = torch.randn((b, sq, LLAMA_HEADS, LLAMA_HEAD_DIM), generator=g, device=device).to(dtype)
+        pos = (torch.arange(sq, device=device)[None] + torch.arange(b, device=device)[:, None]
+               + (RUN_CFG["seq_len"] if sq == 1 else 0))
+        want_q, want_k = E._rotary_plain(q, k, cos, sin, pos)
+        got_q, got_k = E.rotary(q.clone(), k.clone(), cos, sin, pos)
+        torch.cuda.synchronize()
+        off = bits_unequal(torch, got_q, want_q) + bits_unequal(torch, got_k, want_k)
+        err = max(float((got_q - want_q).abs().max()), float((got_k - want_k).abs().max()))
+        rec = time_fused(torch, lambda: E.rotary(q, k, cos, sin, pos),
+                         lambda: E._rotary_plain(q, k, cos, sin, pos),
+                         lambda: E._rotary_plain(q, k, cos, sin, pos))
+        n = q.numel() + k.numel()
+        bms, by = bound_ms(2 * n * q.element_size() + 8 * b * sq, FUSED_ROTARY_OPS * n,
+                           PEAK_F32_FLOPS)
+        rec.update(bound_ms=bms, bound_by=by, max_abs_err=err, bits_off=off)
+        rotary[f"{label} q, k [{b}, {sq}, {LLAMA_HEADS}, {LLAMA_HEAD_DIM}] {dt}"] = rec
+        log(f"[fused] 20 rotary {label} q, k [{b}, {sq}, {LLAMA_HEADS}, {LLAMA_HEAD_DIM}] {dt}: "
+            f"{off} values not bit-identical to the plain version; {rec['ms']:.4f} ms eager, "
+            f"{rec['graph_ms']:.4f} ms alone, bound {bms:.4f} ms ({by}), plain (the replaced "
+            f"chain) {rec['plain_ms']:.4f} ms")
+        if off:
+            fail(f"rotary disagrees with its plain version ({label}, {dt})")
+        del q, k, want_q, want_k, got_q, got_k
+    torch.cuda.empty_cache()
+    log(f"[fused] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return {"add_rms_norm": fused_record(norm), "rotary": fused_record(rotary),
+            "silu_mul": fused_record(silu)}
+
+
 def phase_kernels(torch, device):
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
@@ -1961,6 +2171,7 @@ def phase_kernels(torch, device):
             fn: n for fn, n in records["int8_weight_matmul"]["sass_i2f"].items() if part in fn}
     records["quant_rows"] = check_quant_rows(torch, device)
     check_f32_instances(torch, device, records)
+    records.update(phase_decoder_fusions(torch, device))
     return records
 
 
@@ -1998,6 +2209,15 @@ KERNELS = [
     # and attention in one launch, the JAX block's cached branch
     ("attention_kv8_decode", "certifiedgpt_tpu_torch/csrc/attention_kv8_decode.cu",
      "certifiedgpt_tpu/models/llama.py:243", "certify flash_cls"),
+    # the decoder block's XLA-fused elementwise chains (phase 20): the
+    # residual add + RMSNorm (+ the W8A8 input's quantize_rows), the rotary
+    # of q and k, SiLU x up (+ the down_proj input's quantize_rows)
+    ("add_rms_norm", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
+     "certifiedgpt_tpu/models/layers.py:110", "certify flash_cls"),
+    ("rotary", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
+     "certifiedgpt_tpu/models/layers.py:150", "certify flash_cls"),
+    ("silu_mul", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
+     "certifiedgpt_tpu/models/llama.py:284", "certify flash_cls"),
 ]
 
 
@@ -2027,10 +2247,24 @@ def times(counts, k):
 # quantizing its own input)
 VIT_INT8 = {"flash_cls": {"w8a8_epilogue": 8 * VIT_DEPTH, "quant_rows": 2 * VIT_DEPTH},
             "flash_custom": {"w8a8_epilogue": 4 * VIT_DEPTH, "quant_rows": 3 * VIT_DEPTH}}
-PREFILL_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 4 * LLAMA_DEPTH,
-                "attention_kv8_prefill": LLAMA_DEPTH}
-PER_DECODE_STEP = {"int8_weight_matmul": 7 * LLAMA_DEPTH, "attention_kv8_decode": LLAMA_DEPTH}
+# the decoder's fused elementwise ops in a forward that autograd does not
+# record (a prefill, a decode step, a validation batch): two norms a layer
+# (the input norm adding the previous down_proj output, the post-attention
+# norm adding the o_proj output) and the final one, one rotary (q and k)
+# and one SiLU x up a layer
+DECODER_FUSED = {"add_rms_norm": 2 * LLAMA_DEPTH + 1, "rotary": LLAMA_DEPTH,
+                 "silu_mul": LLAMA_DEPTH}
+# the prefill: the q/k/v and gate/up inputs' codes come from their norms,
+# the down input's from silu_mul; only the o input runs quantize_rows
+PREFILL_INT8 = plus({"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH,
+                     "attention_kv8_prefill": LLAMA_DEPTH}, DECODER_FUSED)
+PER_DECODE_STEP = plus({"int8_weight_matmul": 7 * LLAMA_DEPTH,
+                        "attention_kv8_decode": LLAMA_DEPTH}, DECODER_FUSED)
 TRAIN_DECODER_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 7 * LLAMA_DEPTH}
+# a validation batch's decoder (no autograd): the prefill's products and
+# fused ops, attention without a cache
+VAL_DECODER_INT8 = plus({"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH},
+                        DECODER_FUSED)
 
 # launches per certify chunk of each kernel under each ViT attention form:
 # the split-stream tower runs the cls-split kernel once a layer and the two
@@ -2064,6 +2298,7 @@ def wrappers():
         multi_head_attention_kv8,
         prefill_attention_kv8,
     )
+    from certifiedgpt_tpu_torch.ops import elementwise as E
     from certifiedgpt_tpu_torch.ops.noise import noisy_tile
 
     return {"cls_split_attention": cls_split_attention_parts,
@@ -2073,7 +2308,8 @@ def wrappers():
             "w8a8_epilogue": Q.w8a8_epilogue, "int8_weight_matmul": Q.int8_weight_forward,
             "attention_kv8": multi_head_attention_kv8, "quant_rows": Q.quantize_rows,
             "attention_kv8_prefill": prefill_attention_kv8,
-            "attention_kv8_decode": decode_attention_kv8}
+            "attention_kv8_decode": decode_attention_kv8,
+            "add_rms_norm": E.add_rms_norm, "rotary": E.rotary, "silu_mul": E.silu_mul}
 
 
 def reset_counts():
@@ -2206,11 +2442,9 @@ def prefill_costs(torch, model, device):
     eager milliseconds; the kernel's launch saves 6 operations a layer."""
     from unittest import mock
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from certifiedgpt_tpu_torch.models.llama import init_kv_cache, llama_apply
     from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
     params = model.params["llama"]
@@ -2236,21 +2470,26 @@ def prefill_costs(torch, model, device):
         return A.multi_head_attention_kv8(q, c["k"], c["k_scale"], c["v"], c["v_scale"], m, scale)
 
     runs = {}
-    for turn in ("kernel", "replaced", "replaced", "kernel"):
-        patch = mock.patch.object(A, "prefill_attention_kv8", replaced) if turn == "replaced" \
-            else mock.patch.object(A, "prefill_attention_kv8", A.prefill_attention_kv8)
-        with patch:
+    for turn in ("kernel", "replaced", "chains", "chains", "replaced", "kernel"):
+        patches = [mock.patch.object(A, "prefill_attention_kv8", replaced)] \
+            if turn == "replaced" else chain_versions() if turn == "chains" else []
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
             ms = cuda_ms(torch, prefill, iters=3, warmup=1)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                prefill()
-                torch.cuda.synchronize()
-        ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+            _, ops = cuda_kernels.traced_launches(prefill)
         runs.setdefault(turn, []).append((ops, ms))
     fewer = runs["replaced"][0][0] - runs["kernel"][0][0]
     log(f"[main] a certify chunk's prefill: {runs['kernel'][0][0]} device operations with the "
         f"prefill's kernel, {runs['replaced'][0][0]} with the sequence it replaced ({fewer} "
-        f"fewer; eager ms in turns: kernel {runs['kernel'][0][1]:.3f}, replaced "
+        f"fewer; each form's operations in its two turns "
+        f"{json.dumps({k: [r[0] for r in v] for k, v in runs.items()})}; eager ms in turns: kernel {runs['kernel'][0][1]:.3f}, replaced "
         f"{runs['replaced'][0][1]:.3f}, replaced {runs['replaced'][1][1]:.3f}, kernel "
+        f"{runs['kernel'][1][1]:.3f})")
+    log(f"[main] a certify chunk's prefill: {runs['kernel'][0][0]} device operations with the "
+        f"decoder's fused elementwise kernels, {runs['chains'][0][0]} with the chains they "
+        f"replaced (phase 20; eager ms in turns: kernels {runs['kernel'][0][1]:.3f}, chains "
+        f"{runs['chains'][0][1]:.3f}, chains {runs['chains'][1][1]:.3f}, kernels "
         f"{runs['kernel'][1][1]:.3f})")
     if fewer != 6 * LLAMA_DEPTH:
         fail(f"the prefill's kernel saved {fewer} device operations a chunk, expected "
@@ -2258,7 +2497,9 @@ def prefill_costs(torch, model, device):
     del cache, x
     torch.cuda.empty_cache()
     return {"ops": runs["kernel"][0][0], "replaced_ops": runs["replaced"][0][0],
-            "ms": [r[1] for r in runs["kernel"]], "replaced_ms": [r[1] for r in runs["replaced"]]}
+            "chains_ops": runs["chains"][0][0], "ms": [r[1] for r in runs["kernel"]],
+            "replaced_ms": [r[1] for r in runs["replaced"]],
+            "chains_ms": [r[1] for r in runs["chains"]]}
 
 
 def decode_costs(torch, model, device):
@@ -2271,10 +2512,8 @@ def decode_costs(torch, model, device):
     holds the card for ``SPIN_MS``: near the spin's length if the step's
     launches fill the launch queue (the host then waits for the card), near
     the idle card's figure if they do not (the time is the host's own)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from certifiedgpt_tpu_torch.models.llama import init_kv_cache, llama_apply
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     params = model.params["llama"]
     cfg = model.cfg.llama
@@ -2317,10 +2556,12 @@ def decode_costs(torch, model, device):
         step()
         behind_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    device_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    _, device_ops = cuda_kernels.traced_launches(step)
+    with contextlib.ExitStack() as stack:
+        for patch in chain_versions():
+            stack.enter_context(patch)
+        chains_ms = cuda_ms(torch, step, iters=3, warmup=1)
+        _, chains_ops = cuda_kernels.traced_launches(step)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2345,6 +2586,9 @@ def decode_costs(torch, model, device):
         f"from an idle card {min(host_ms):.2f} ms; {device_ops} device operations a step "
         f"(1950 in the run before the decode's kernel wrote the cache itself); {verdict}"
     )
+    log(f"[main] decode step with the decoder's fused elementwise kernels: {device_ops} device "
+        f"operations, eager {step_ms:.2f} ms; with the chains they replaced (phase 20): "
+        f"{chains_ops} device operations, eager {chains_ms:.2f} ms")
 
 
 def generate_step_costs(torch, model):
@@ -2458,10 +2702,8 @@ def phase_profile(torch, model, image):
     kernel group and the top kernels, each as a share of the profiled wall.
     The share of the summed kernel time in the wall is the device's busy
     share (kernels run one at a time on the one stream)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from certifiedgpt_tpu_torch.agents.certify import certify_item
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     def run():
         t0 = time.perf_counter()
@@ -2470,10 +2712,10 @@ def phase_profile(torch, model, image):
         return time.perf_counter() - t0
 
     plain_wall = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with cuda_kernels.device_trace(cpu=True) as prof:
         wall = run()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = [e for e in cuda_kernels.device_events(prof.key_averages())
+               if e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     log(f"[profile] two chunks of {MC_BATCH}: wall {plain_wall:.4f} s unprofiled, "
@@ -2495,8 +2737,8 @@ def phase_profile(torch, model, image):
     # per-call device time of the row-quant kernels by shape: the split-stream
     # tower calls each of them on the patch rows and then on the cls rows
     for name in ("ln_quant_kernel", "gelu_quant_kernel"):
-        calls = sorted((e for e in prof.events()
-                        if e.device_type == DeviceType.CUDA and name in e.name),
+        calls = sorted((e for e in cuda_kernels.device_events(prof.events())
+                        if name in e.name),
                        key=lambda e: e.time_range.start)
         patch = [e.time_range.elapsed_us() / 1e3 for e in calls[0::2]]
         cls = [e.time_range.elapsed_us() / 1e3 for e in calls[1::2]]
@@ -2933,6 +3175,9 @@ def phase_graphs(torch, card, model, image):
         f"{named(chunk_traced)}, the counters {named(chunk_counted)}")
     if replay_traced != st.launches or not st.launches or chunk_traced != chunk_counted:
         fail("19(a): the launches that a replay counts are not those the trace shows")
+    record = {name: st.launches[fn] for name, fn in wrappers().items() if fn in st.launches}
+    if record != PER_DECODE_STEP:
+        fail(f"19(a): a replay records {record}, not PER_DECODE_STEP {PER_DECODE_STEP}")
     del st
     (tok_e, log_e, sec_e, marg), (tok_g, log_g, sec_g, _) = runs["eager"], runs["graph"]
     diff = bits_unequal(torch, log_g, log_e)
@@ -3247,7 +3492,33 @@ def phase_launcher(torch, card, d_in: int, d_out: int, main_summary):
             rows_of[kind] = rows
             gc.collect()
             torch.cuda.empty_cache()
+            if kind == "certify":
+                check_rows_with_chains(torch, mode, path, env, root, rows)
     return counted, rows_of
+
+
+def check_rows_with_chains(torch, mode, path, env, root, rows):
+    """The certify run again with the decoder's fused elementwise ops routed
+    to the chains they replaced (phase 20): every row equal but for its
+    seconds."""
+    out = root / "out_certify_chains"
+    with contextlib.ExitStack() as stack:
+        for patch in chain_versions():
+            stack.enter_context(patch)
+        res = run_launch(torch, [mode, "--config-path", path], env, out)
+    chains = read_rows(out / "certify_results.jsonl")
+
+    def kept(r):
+        return {k: v for k, v in r.items() if k != "seconds"}
+
+    same = [kept(a) == kept(b) for a, b in zip(rows, chains)]
+    log(f"[launch] {mode} with the chains the decoder's fused kernels replaced: rows "
+        f"{json.dumps(chains)}; equal to the kernels' rows but for seconds: {same}; CLI wall "
+        f"{res['wall']:.3f} s; launches {json.dumps(res['launches'])}")
+    if len(chains) != len(rows) or not all(same):
+        fail(f"{mode}: the rows with the replaced chains differ from the kernels' rows")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -3383,11 +3654,17 @@ WEIGHT_ONLY_GRAD_REL_LIMIT = 5e-2
 # same layer with the int8 kernels dequantized to bf16 and no activation
 # quant: they differ only by the forward's int8 activation rounding (~1 %)
 LAYER_GRAD_REL_LIMIT = 5e-2
-# kernel launches a train step (and a val batch) of 48 images: the ViT once
-# and the decoder's training forward; the bf16 towers run no int8 kernel
+# kernel launches a train step of 48 images: the ViT once and the decoder's
+# training forward (autograd records it: the plain chains); the bf16 towers
+# run no int8 kernel
 PER_TRAIN_STEP = {
     "w8a8": plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"], TRAIN_DECODER_INT8),
     "bf16": {"cls_split_attention": VIT_DEPTH},
+}
+# a val batch (no autograd): the decoder through its fused elementwise ops
+PER_VAL_BATCH = {
+    "w8a8": plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"], VAL_DECODER_INT8),
+    "bf16": plus({"cls_split_attention": VIT_DEPTH}, DECODER_FUSED),
 }
 
 
@@ -3455,6 +3732,7 @@ def plain_versions():
 
     from certifiedgpt_tpu_torch.models import eva_vit as V
     from certifiedgpt_tpu_torch.ops import attention as A
+    from certifiedgpt_tpu_torch.ops import elementwise as E
     from certifiedgpt_tpu_torch.ops import flash_attention as FA
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
@@ -3466,7 +3744,33 @@ def plain_versions():
             mock.patch.object(Q, "int8_weight_forward", Q._int8_weight_forward_plain),
             mock.patch.object(A, "multi_head_attention_kv8", A._multi_head_attention_kv8_plain),
             mock.patch.object(A, "prefill_attention_kv8", A._prefill_attention_kv8_plain),
-            mock.patch.object(A, "decode_attention_kv8", A._decode_attention_kv8_plain)]
+            mock.patch.object(A, "decode_attention_kv8", A._decode_attention_kv8_plain),
+            mock.patch.object(E, "add_rms_norm", E._add_rms_norm_plain),
+            mock.patch.object(E, "rotary", E._rotary_plain),
+            mock.patch.object(E, "silu_mul", E._silu_mul_plain)]
+
+
+def chain_versions():
+    """Patches that route the decoder's fused elementwise ops to the chains
+    they replaced (the port before phase 20's kernels): the plain residual
+    add, RMSNorm, rotary and SiLU x up, and ``quantize_rows`` (its kernel)
+    where the chain quantized their rows."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.ops import elementwise as E
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    def add_rms_norm(x, y, scale, eps=1e-6, quantize=False):
+        s, out = E._add_rms_norm_plain(x, y, scale, eps)
+        return s, (Q.quantize_rows(out) if quantize else out)
+
+    def silu_mul(gate, up, quantize=False):
+        out = E._silu_mul_plain(gate, up)
+        return Q.quantize_rows(out) if quantize else out
+
+    return [mock.patch.object(E, "add_rms_norm", add_rms_norm),
+            mock.patch.object(E, "rotary", E._rotary_plain),
+            mock.patch.object(E, "silu_mul", silu_mul)]
 
 
 def phase_train_checks(torch, card, device, root, env):
@@ -3717,16 +4021,15 @@ def phase_pipeline(torch, card, agent, batch, control_rel):
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
 
     # 16.3: where a step's extra time goes: device work, or idle gaps
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
 
     for n_micro in (None, PIPE_MICRO[-1]):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with cuda_kernels.device_trace(cpu=True) as prof:
             t0 = time.perf_counter()
             step(n_micro)
             wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        kernels = [e for e in cuda_kernels.device_events(prof.key_averages())
+                   if e.self_device_time_total > 0]
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
         if busy <= 0:
             fail("pipe 16.3: the profiler saw no device time")
@@ -3802,8 +4105,8 @@ def phase_train_runs(torch, card, root, env):
         opt_keys = [k for k in np.load(out / f"{name}.npz").files if k.startswith("opt:")]
         if not opt_keys:
             fail(f"train {kind}: the resume checkpoint holds no optimizer state")
-        per_step = PER_TRAIN_STEP[kind]
         for split, rows in calls.items():
+            per_step = (PER_TRAIN_STEP if split == "train" else PER_VAL_BATCH)[kind]
             for _, launched, _, _ in rows:
                 for kernel, n in launched.items():
                     if n != per_step.get(kernel, 0):
@@ -5208,19 +5511,17 @@ class ProfiledStages:
 
     @contextlib.contextmanager
     def __call__(self, name):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from certifiedgpt_tpu_torch.ops import cuda_kernels
 
         torch = self.torch
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with cuda_kernels.device_trace() as prof:
             t0 = time.perf_counter()
             yield
             torch.cuda.synchronize()
             self.wall[name] = self.wall.get(name, 0.0) + time.perf_counter() - t0
         groups = self.groups.setdefault(name, {})
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+        for e in cuda_kernels.device_events(prof.key_averages()):
+            if e.self_device_time_total <= 0:
                 continue
             key = e.key.lower()
             group = next((g for g, keys in PROFILE_GROUPS if any(k in key for k in keys)),
@@ -5256,28 +5557,38 @@ def phase_stage_split(torch, card, device):
                             early_exit=knobs.early_exit, clock=clock, window=1)
         return fn(image, MC_BATCH, seed=0)
 
-    chunk(None)  # warm-up
-    clock = ProfiledStages(torch)
-    labels = chunk(clock)
-    if len(labels) != MC_BATCH:
-        fail(f"15.2: {len(labels)} labels for a chunk of {MC_BATCH}")
-    total = sum(sum(g.values()) for g in clock.groups.values())
-    if total <= 0:
-        fail("15.2: the profiler saw no device time")
-    for name in STAGE_NAMES:
-        groups = clock.groups.get(name, {})
-        device_s = sum(groups.values())
-        log(f"[stages] {name:11s} wall {clock.wall.get(name, 0.0):8.4f} s, device "
-            f"{device_s:8.4f} s, elementwise/copy {groups.get(ELEMENTWISE, 0.0):8.4f} s; "
-            + ", ".join(f"{g} {sec:.4f} s" for g, sec in sorted(groups.items(),
-                                                               key=lambda kv: -kv[1])))
-    elementwise = {name: groups.get(ELEMENTWISE, 0.0) for name, groups in clock.groups.items()}
-    split = {"encode_img": elementwise.get("vit", 0.0) + elementwise.get("qformer", 0.0),
-             "prefill": elementwise.get("prefill", 0.0), "decode": elementwise.get("decode", 0.0)}
-    log(f"[stages] one chunk of {MC_BATCH}: elementwise/copy device seconds by stage "
-        f"{json.dumps({k: round(v, 4) for k, v in split.items()})} of "
-        f"{sum(elementwise.values()):.4f} s; device total {total:.4f} s; decode steps "
-        f"{clock.counts.get('decode_step', 0)}; {card}")
+    # the chunk with the decoder's fused elementwise kernels, then with the
+    # chains they replaced (phase 20), each after a warm-up of its own (a
+    # capture of its own decode step)
+    for form, patches in (("kernels", []), ("chains", chain_versions())):
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            chunk(None)  # warm-up
+            clock = ProfiledStages(torch)
+            labels = chunk(clock)
+        if len(labels) != MC_BATCH:
+            fail(f"15.2: {len(labels)} labels for a chunk of {MC_BATCH}")
+        total = sum(sum(g.values()) for g in clock.groups.values())
+        if total <= 0:
+            fail("15.2: the profiler saw no device time")
+        for name in STAGE_NAMES:
+            groups = clock.groups.get(name, {})
+            device_s = sum(groups.values())
+            log(f"[stages] {form}: {name:11s} wall {clock.wall.get(name, 0.0):8.4f} s, device "
+                f"{device_s:8.4f} s, elementwise/copy {groups.get(ELEMENTWISE, 0.0):8.4f} s; "
+                + ", ".join(f"{g} {sec:.4f} s" for g, sec in sorted(groups.items(),
+                                                                   key=lambda kv: -kv[1])))
+        elementwise = {name: groups.get(ELEMENTWISE, 0.0) for name, groups in clock.groups.items()}
+        split = {"encode_img": elementwise.get("vit", 0.0) + elementwise.get("qformer", 0.0),
+                 "prefill": elementwise.get("prefill", 0.0),
+                 "decode": elementwise.get("decode", 0.0)}
+        log(f"[stages] {form}: one chunk of {MC_BATCH}: elementwise/copy device seconds by stage "
+            f"{json.dumps({k: round(v, 4) for k, v in split.items()})} of "
+            f"{sum(elementwise.values()):.4f} s; device total {total:.4f} s (prefill "
+            f"{sum(clock.groups.get('prefill', {}).values()):.4f} s, decode "
+            f"{sum(clock.groups.get('decode', {}).values()):.4f} s); decode steps "
+            f"{clock.counts.get('decode_step', 0)}; {card}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5562,7 +5873,8 @@ F32_STEPS = RUN_CFG["max_new_tokens"]  # 10 greedy decode steps
 # a prefill layer of the f32 decoder (weight-only int8 products, no
 # activation quant): its seven products and its cache write and attention
 # in one launch of the tiled kernel
-F32_PREFILL = {"int8_weight_matmul": 7 * LLAMA_DEPTH, "attention_kv8": LLAMA_DEPTH}
+F32_PREFILL = plus({"int8_weight_matmul": 7 * LLAMA_DEPTH, "attention_kv8": LLAMA_DEPTH},
+                   DECODER_FUSED)
 # the f32 decoder's prefill logits through the kernels against their plain
 # versions: each f32 product and attention is a few f32 ulps off its plain
 # version (its sums' order); the int8 KV cache turns such changes into code
@@ -5749,7 +6061,9 @@ def phase_f32_tiny_certify(torch, card):
     kernels and once under ``plain_versions()``: the rows (all but their
     seconds) equal the plain run's; each chunk's prefill launches the tiled
     kernel once a layer, each decode step the decode kernel, the f32
-    weight-only kernel seven times a layer each. Returns the launches."""
+    weight-only kernel seven times a layer each, and each of them the
+    decoder's fused elementwise kernels (two norms a layer and the final
+    one, a rotary and a SiLU x up a layer). Returns the launches."""
     import tempfile
     from pathlib import Path
 
@@ -5786,8 +6100,11 @@ def phase_f32_tiny_certify(torch, card):
     chunks = sum(dispatched_chunks(r, knobs.n0, knobs.n, knobs.mc_batch, knobs.dispatch_window)
                  for r in rows)
     steps = res["decode_steps"]
-    want = {"int8_weight_matmul": 7 * TINY_LAYERS * (chunks + steps),
-            "attention_kv8": TINY_LAYERS * chunks, "attention_kv8_decode": TINY_LAYERS * steps}
+    forwards = chunks + steps
+    want = {"int8_weight_matmul": 7 * TINY_LAYERS * forwards,
+            "attention_kv8": TINY_LAYERS * chunks, "attention_kv8_decode": TINY_LAYERS * steps,
+            "add_rms_norm": (2 * TINY_LAYERS + 1) * forwards, "rotary": TINY_LAYERS * forwards,
+            "silu_mul": TINY_LAYERS * forwards}
     got = {name: n for name, n in res["launches"].items() if n}
     log(f"[f32] 18.2 the tiny f32 model through the certify CLI: rows {json.dumps(strip)}; "
         f"equal to the plain run's: {strip == plain_strip}; CLI wall {res['wall']:.3f} s "

@@ -23,6 +23,7 @@ from certifiedgpt_tpu_torch.models import layers as TL
 from certifiedgpt_tpu_torch.models import llama as TLM
 from certifiedgpt_tpu_torch.models import model_zoo as TZ
 from certifiedgpt_tpu_torch.ops import attention as TA
+from certifiedgpt_tpu_torch.ops import elementwise as TE
 from certifiedgpt_tpu_torch.ops import quantization as TQ
 
 
@@ -175,11 +176,13 @@ def test_quantize_rows_matches_jax_on_reciprocal_rows():
 
 def test_prefill_quantizes_a_shared_input_once():
     """The cached W8A8 prefill quantizes each layer's q/k/v input once and
-    its gate/up input once: four row quantizations a layer (with the o and
-    down inputs; its two cache writes are inside ``prefill_attention_kv8``,
-    called once a layer) where the training forward makes seven; a decode
-    step none: its two cache writes are inside ``decode_attention_kv8``,
-    called once a layer."""
+    its gate/up input once, each inside the norm before them
+    (``add_rms_norm``), the down input inside ``silu_mul``: one
+    ``quantize_rows`` a layer, the o input's (its two cache writes are
+    inside ``prefill_attention_kv8``, called once a layer), where the
+    training forward (autograd on) makes seven and the same forward without
+    autograd one; a decode step none: its two cache writes are inside
+    ``decode_attention_kv8``, called once a layer."""
     cfg = TLM.LlamaConfig.tiny(act_quant=True, kv_quant=True)
     params = TQ.quantize_llama(_tiny_llama_params(cfg))
     calls = []
@@ -193,8 +196,17 @@ def test_prefill_quantizes_a_shared_input_once():
     x = torch.randn(b, s, cfg.hidden_size)
     mask = torch.ones(b, s + 2, dtype=torch.int32)
     pos = torch.arange(s)[None].expand(b, s)
-    decodes, prefills = [], []
+    decodes, prefills, fused = [], [], []
     real_decode, real_prefill = TA.decode_attention_kv8, TA.prefill_attention_kv8
+    real_norm, real_silu = TE.add_rms_norm, TE.silu_mul
+
+    def norm_counted(*args, quantize=False, **kwargs):
+        fused.append(quantize)
+        return real_norm(*args, quantize=quantize, **kwargs)
+
+    def silu_counted(*args, quantize=False):
+        fused.append(quantize)
+        return real_silu(*args, quantize=quantize)
 
     def decode_counted(*args, **kwargs):
         decodes.append(args[0].shape)
@@ -206,18 +218,27 @@ def test_prefill_quantizes_a_shared_input_once():
 
     with mock.patch.object(TQ, "quantize_rows", counted), \
             mock.patch.object(TA, "decode_attention_kv8", decode_counted), \
-            mock.patch.object(TA, "prefill_attention_kv8", prefill_counted):
+            mock.patch.object(TA, "prefill_attention_kv8", prefill_counted), \
+            mock.patch.object(TE, "add_rms_norm", norm_counted), \
+            mock.patch.object(TE, "silu_mul", silu_counted):
         cache = TLM.init_kv_cache(cfg, b, s + 2, "cpu")
         TLM.llama_apply(params, cfg, x, mask, pos, cache, 0)
-        assert len(calls) == 4 * cfg.num_layers and not decodes
+        assert len(calls) == cfg.num_layers and not decodes
         assert len(prefills) == cfg.num_layers
+        # q/k/v and gate/up codes from their norms, down's from silu_mul
+        assert fused == [True, True, True] * cfg.num_layers + [False]
         calls.clear()
         prefills.clear()
+        fused.clear()
         TLM.llama_apply(params, cfg, x[:, :1], mask, pos[:, :1] + s, cache, s)
         assert not calls and len(decodes) == cfg.num_layers and not prefills
+        assert not any(fused)
+        calls.clear()
+        TLM.llama_apply(params, cfg, x.clone().requires_grad_(True), mask[:, :s], pos)
+        assert len(calls) == 7 * cfg.num_layers
         calls.clear()
         TLM.llama_apply(params, cfg, x, mask[:, :s], pos)
-        assert len(calls) == 7 * cfg.num_layers
+        assert len(calls) == cfg.num_layers
 
 
 def _tiny_llama_params(cfg):

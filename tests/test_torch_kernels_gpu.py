@@ -21,6 +21,7 @@ import torch
 import sass_count
 from certifiedgpt_tpu_torch.ops import attention as A
 from certifiedgpt_tpu_torch.ops import cuda_kernels
+from certifiedgpt_tpu_torch.ops import elementwise as E
 from certifiedgpt_tpu_torch.ops import flash_attention as FA
 from certifiedgpt_tpu_torch.ops import noise as N
 from certifiedgpt_tpu_torch.ops import quantization as Q
@@ -102,6 +103,22 @@ def test_build_raises_without_nvcc(monkeypatch):
         cuda_kernels._nvcc()
     a = cuda_kernels._digest(cuda_kernels._sources())
     assert a == cuda_kernels._digest(cuda_kernels._sources()) and len(a) == 16
+
+
+def test_device_events_leave_out_the_trace_pads():
+    """``device_events`` keeps the card's operations of a trace, events or
+    their averages, and drops the spins that pad a ``device_trace``."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    events = [SimpleNamespace(key=key, device_type=kind) for key, kind in (
+        ("at::cuda::(anonymous namespace)::spin_kernel(long)", DeviceType.CUDA),
+        ("void (anonymous namespace)::rotary_kernel<float>(RotaryArgs)", DeviceType.CUDA),
+        ("aten::add", DeviceType.CPU),
+        ("Memset (Device)", DeviceType.CUDA),
+        ("at::cuda::(anonymous namespace)::spin_kernel(long)", DeviceType.CUDA))]
+    assert cuda_kernels.device_events(events) == [events[1], events[3]]
 
 
 # cuobjdump -sass of a small kernel: a guarded entry, an image loop with a
@@ -724,19 +741,15 @@ def test_int8_weight_matmul_in_a_cuda_graph_on_gpu(cuda, m):
 def test_int8_weight_matmul_is_one_kernel_and_no_memset_on_gpu(cuda):
     """Each call puts one operation on the card, the kernel: no memset of
     split-K counters (the first two shapes split K, the third does not)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cases = [_weight_only_case(m, k, n, 5) for m, k, n in
              ((96, 4096, 4096), (8, 11008, 4096), (9216, 4096, 1408))]
     for c in cases:  # first calls: the build and the device queries
         Q.int8_weight_forward(*c)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_kernels.device_trace() as prof:
         for c in cases:
             Q.int8_weight_forward(*c)
-        torch.cuda.synchronize()
-    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = [e.name for e in cuda_kernels.device_events(prof.events())]
     assert len(ops) == len(cases), ops
     assert all("int8_weight_matmul_kernel" in name for name in ops), ops
 
@@ -1060,19 +1073,15 @@ def test_decode_attention_kv8_in_a_cuda_graph_and_on_two_streams_on_gpu(cuda):
 def test_decode_attention_kv8_is_one_kernel_and_no_memset_on_gpu(cuda):
     """Each call puts one operation on the card, the kernel: the cache
     write rides in it, no copy, no quantization launch, no memset."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cases = [_decode_case(96, 106, 32, 32, 128, 100, dt, cuda) for dt in
              (torch.bfloat16, torch.float32)]
     for q, k, v, cache, mask in cases:  # first calls: the build and the device queries
         A.decode_attention_kv8(q, k, v, cache, 100, mask)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_kernels.device_trace() as prof:
         for q, k, v, cache, mask in cases:
             A.decode_attention_kv8(q, k, v, cache, 100, mask)
-        torch.cuda.synchronize()
-    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = [e.name for e in cuda_kernels.device_events(prof.events())]
     assert len(ops) == len(cases), ops
     assert all("kv8_decode_kernel" in name for name in ops), ops
 
@@ -1256,9 +1265,6 @@ def test_prefill_attention_kv8_f32_long_cache_runs_on_gpu(cuda):
     are deterministic, replay from a CUDA graph and are one kernel and no
     memset a call. An 8192-slot cache under several f32 rows runs too (eight
     rows of Dh + T floats would not fit in shared memory)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     q, k, v, cache, mask = _prefill_any(8, 96, 2048, 32, 32, 128, 1900, torch.float32, cuda,
                                         seed=5)
     mine, ref_cache = _copy(cache), _copy(cache)
@@ -1289,10 +1295,9 @@ def test_prefill_attention_kv8_f32_long_cache_runs_on_gpu(cuda):
         assert _cache_bits_unequal(graphed, mine) == {name: 0 for name in cache}
     fresh = _copy(cache)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_kernels.device_trace() as prof:
         A.prefill_attention_kv8(q, k, v, fresh, 1900, mask)
-        torch.cuda.synchronize()
-    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = [e.name for e in cuda_kernels.device_events(prof.events())]
     assert len(ops) == 1 and "attention_kv8_kernel" in ops[0], ops
     q, *cache = _kv8_any(2, 9, 8, 8, 8192, 128, 8190, torch.float32, cuda, seed=6)
     out = A.multi_head_attention_kv8(q, *cache)
@@ -1356,19 +1361,15 @@ def test_prefill_attention_kv8_is_one_kernel_and_no_memset_on_gpu(cuda):
     """Each call puts one operation on the card, the kernel: the cache
     write rides in it, no copy, no quantization launch, no memset; a bare
     ``multi_head_attention_kv8`` of several bf16 rows is the same kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     q, k, v, cache, mask = _prefill_case(96, 96, 106, 32, 32, 0, torch.bfloat16, cuda)
     A.prefill_attention_kv8(q, k, v, cache, 0, mask)  # the build and the device queries
     args = (q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask)
     A.multi_head_attention_kv8(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_kernels.device_trace() as prof:
         A.prefill_attention_kv8(q, k, v, cache, 0, mask)
         A.multi_head_attention_kv8(*args)
-        torch.cuda.synchronize()
-    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = [e.name for e in cuda_kernels.device_events(prof.events())]
     assert len(ops) == 2, ops
     assert all("kv8_prefill_kernel" in name for name in ops), ops
 
@@ -1387,3 +1388,164 @@ def test_prefill_attention_kv8_refuses_bad_operands_on_gpu(cuda):
     with pytest.raises(TypeError):
         A.prefill_attention_kv8(q, k, v, bad, 5, mask)
     assert A.prefill_attention_kv8.launches == n
+
+
+# ----------------------------------------------------------------------
+# the decoder's fused elementwise ops (csrc/elementwise.cu)
+# ----------------------------------------------------------------------
+def _ulps_off(got, want) -> float:
+    """The largest |got - want| in ulps of want's dtype at want."""
+    g, w = got.double(), want.double()
+    spacing = torch.from_numpy(np.spacing(want.float().abs().cpu().numpy())).to(g.device)
+    if want.dtype == torch.bfloat16:
+        spacing = spacing * 2.0 ** 16
+    return float(((g - w).abs() / spacing.double()).max())
+
+
+def _codes_agree(got, want) -> None:
+    """Codes within one step on at most 1e-3 of the elements, scales
+    within 2^-7 relative (an ulp of a row's largest value)."""
+    (gq, gs), (wq, ws) = got, want
+    diff = (gq.int() - wq.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    assert float(((gs - ws).abs() / ws).max()) <= 2.0 ** -7
+
+
+def _fused_rows(m, k, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = 3.0 * torch.randn((m, k), generator=g, device=device)
+    y = torch.randn((m, k), generator=g, device=device)
+    x[-1] = 0.0
+    y[-1] = 0.0
+    scale = 1.0 + 0.1 * torch.randn((k,), generator=g, device=device)
+    return x.to(dtype), y.to(dtype), scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,k", [(9216, 4096), (96, 4096), (1, 4096), (7, 64), (3, 11008)])
+def test_add_rms_norm_matches_plain_on_gpu(cuda, dtype, m, k):
+    """With and without a residual, rows and codes: the sum bit for bit,
+    the normalized rows within one ulp of bf16 (16 of f32: the sum of
+    squares runs in the kernel's order, and the sums' difference of a few
+    ulps passes through rsqrt; 5 seen at [9216, 4096]), a zero row
+    normalized to zeros, codes and scales within the quantization limits."""
+    x, y, scale = _fused_rows(m, k, dtype, cuda, seed=m + k)
+    for res in (y, None):
+        for sc in (scale, scale.to(dtype)):
+            s, h = E.add_rms_norm(x, res, sc, 1e-6)
+            ps, ph = E._add_rms_norm_plain(x, res, sc, 1e-6)
+            torch.cuda.synchronize()
+            assert torch.equal(s, ps) and h.dtype == dtype
+            assert _ulps_off(h, ph) <= (1 if dtype == torch.bfloat16 else 16)
+            assert not h[-1].any()
+            s2, codes = E.add_rms_norm(x, res, sc, 1e-6, quantize=True)
+            assert torch.equal(s2, ps)
+            _codes_agree(codes, E._add_rms_norm_plain(x, res, sc, 1e-6, quantize=True)[1])
+            assert not codes[0][-1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,n", [(9216, 11008), (96, 11008), (1, 11008), (5, 128), (4, 5504)])
+def test_silu_mul_matches_plain_on_gpu(cuda, dtype, m, n):
+    """``silu(gate) * up`` rows within one ulp of the plain version's (the
+    same expf and division: equal but for the toolkits' expf), codes and
+    scales within the quantization limits, a zero row to zeros."""
+    gate, up, _ = _fused_rows(m, n, dtype, cuda, seed=m + n)
+    out = E.silu_mul(gate, up)
+    want = E._silu_mul_plain(gate, up)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _ulps_off(out, want) <= 1 and not out[-1].any()
+    codes = E.silu_mul(gate, up, quantize=True)
+    _codes_agree(codes, E._silu_mul_plain(gate, up, quantize=True))
+    assert not codes[0][-1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,h,hk,dh", [(96, 96, 32, 32, 128), (96, 1, 32, 32, 128),
+                                         (1, 1, 32, 32, 128), (3, 7, 4, 2, 16)])
+def test_rotary_matches_plain_on_gpu(cuda, dtype, b, s, h, hk, dh):
+    """q and k rotated in place in one launch, bit for bit the plain
+    version, from int64 and int32 positions (left padding, a row at a late
+    position), q and k as strided views of one fused product."""
+    g = torch.Generator(device=cuda).manual_seed(b * s + h)
+    fused = torch.randn((b, s, h + 2 * hk, dh), generator=g, device=cuda).to(dtype)
+    q, k = fused[:, :, :h], fused[:, :, h:h + hk]
+    pos = torch.arange(s, device=cuda)[None].repeat(b, 1)
+    pos[0] = (pos[0] - 2).clamp_min(0)
+    pos[-1] += 4000 - s
+    cos, sin = E.rotary_tables(dh, 4096, 10000.0, cuda)
+    for positions in (pos, pos.int()):
+        want_q, want_k = E._rotary_plain(q, k, cos, sin, positions)
+        qc, kc = q.clone(), k.clone()
+        n = E.rotary.launches
+        got_q, got_k = E.rotary(qc, kc, cos, sin, positions)
+        torch.cuda.synchronize()
+        assert E.rotary.launches == n + 1 and got_q is qc and got_k is kc
+        assert torch.equal(qc, want_q) and torch.equal(kc, want_k)
+    strided_q, strided_k = q.clone(), k.clone()
+    whole = fused.clone()
+    E.rotary(whole[:, :, :h], whole[:, :, h:h + hk], cos, sin, pos)
+    E.rotary(strided_q, strided_k, cos, sin, pos)
+    assert torch.equal(whole[:, :, :h], strided_q) and torch.equal(whole[:, :, h:h + hk], strided_k)
+    assert torch.equal(whole[:, :, h + hk:], fused[:, :, h + hk:])  # v untouched
+
+
+@pytest.mark.gpu
+def test_fused_elementwise_ops_in_a_cuda_graph_one_kernel_each_on_gpu(cuda):
+    """A decode layer's three ops captured in a CUDA graph replay to the
+    eager results, and each call is one kernel in a profiler trace."""
+    x, y, scale = _fused_rows(96, 4096, torch.bfloat16, cuda, seed=1)
+    gate, up, _ = _fused_rows(96, 11008, torch.bfloat16, cuda, seed=2)
+    q = torch.randn((96, 1, 32, 128), device=cuda).to(torch.bfloat16)
+    k = torch.randn((96, 1, 32, 128), device=cuda).to(torch.bfloat16)
+    pos = torch.full((96, 1), 105, device=cuda)
+    cos, sin = E.rotary_tables(128, 4096, 10000.0, cuda)
+
+    def layer():
+        s, h = E.add_rms_norm(x, y, scale, 1e-6)
+        qr, kr = E.rotary(q.clone(), k.clone(), cos, sin, pos)
+        return s, h, qr, kr, E.silu_mul(gate, up)
+
+    eager = layer()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        layer()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = layer()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+    with cuda_kernels.device_trace() as prof:
+        E.add_rms_norm(x, y, scale, 1e-6, quantize=True)
+        E.rotary(q, k, cos, sin, pos)
+        E.silu_mul(gate, up, quantize=True)
+    ops = [e.name for e in cuda_kernels.device_events(prof.events())]
+    assert len(ops) == 3, ops
+    for name, op in zip(("add_rms_norm_kernel", "rotary_kernel", "silu_mul_kernel"), ops):
+        assert name in op, ops
+
+
+@pytest.mark.gpu
+def test_fused_elementwise_ops_refuse_bad_operands_on_gpu(cuda):
+    x = torch.zeros((4, 64), device=cuda, dtype=torch.bfloat16)
+    scale = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError):
+        E.add_rms_norm(x.half(), None, scale)
+    with pytest.raises(ValueError):
+        E.add_rms_norm(x, x[:, :32], scale)
+    with pytest.raises(ValueError):
+        E.add_rms_norm(x[:, :62], None, scale[:62])
+    with pytest.raises(ValueError):
+        E.silu_mul(x, x.float())
+    q = torch.zeros((2, 3, 4, 16), device=cuda, dtype=torch.bfloat16)
+    cos, sin = E.rotary_tables(16, 64, 10000.0, cuda)
+    with pytest.raises(ValueError, match="positions"):
+        E.rotary(q, q, cos, sin, torch.zeros((2, 3), dtype=torch.long))
+    with pytest.raises(ValueError, match="table"):
+        E.rotary(q, q, cos.double(), sin, torch.zeros((2, 3), dtype=torch.long, device=cuda))

@@ -23,6 +23,7 @@ from certifiedgpt_tpu_torch.models import layers as TL
 from certifiedgpt_tpu_torch.models import llama as TLM
 from certifiedgpt_tpu_torch.models.from_jax import tensor_from_numpy
 from certifiedgpt_tpu_torch.ops import attention as TA
+from certifiedgpt_tpu_torch.ops import elementwise as TE
 from certifiedgpt_tpu_torch.ops import quantization as TQ
 
 # the output's relative Frobenius error against the JAX function, as
@@ -181,8 +182,9 @@ def test_prefill_in_two_parts_and_greedy_decode_match_jax():
     # one compiled program a shape (the JAX block runs as one XLA program)
     japply = jax.jit(lambda p, x, m, pos, c, off: JLM.llama_apply(
         p, cfg_j, x, m, pos, kv_cache=c, cache_offset=off))
-    calls, rows = [], []
+    calls, rows, fused = [], [], []
     real_op, real_rows = TA.prefill_attention_kv8, TQ.quantize_rows
+    real_norm, real_silu = TE.add_rms_norm, TE.silu_mul
 
     def op_counted(*args, **kwargs):
         calls.append(args[4])
@@ -192,21 +194,35 @@ def test_prefill_in_two_parts_and_greedy_decode_match_jax():
         rows.append(x.shape[-1])
         return real_rows(x, *args, **kwargs)
 
+    def norm_counted(*args, quantize=False, **kwargs):
+        fused.append(("norm", quantize))
+        return real_norm(*args, quantize=quantize, **kwargs)
+
+    def silu_counted(*args, quantize=False):
+        fused.append(("silu", quantize))
+        return real_silu(*args, quantize=quantize)
+
     for lo, hi in ((0, s1), (s1, s)):
         jl, _, jcache = japply(jparams, jnp.asarray(prompt[:, lo:hi]), jnp.asarray(cache_mask),
                                jnp.asarray(positions[:, lo:hi]), jcache, jnp.int32(lo))
         with mock.patch.object(TA, "prefill_attention_kv8", op_counted), \
-                mock.patch.object(TQ, "quantize_rows", rows_counted):
+                mock.patch.object(TQ, "quantize_rows", rows_counted), \
+                mock.patch.object(TE, "add_rms_norm", norm_counted), \
+                mock.patch.object(TE, "silu_mul", silu_counted):
             tl, _, tcache = TLM.llama_apply(
                 tparams, cfg_t, torch.from_numpy(prompt[:, lo:hi]),
                 torch.from_numpy(cache_mask), torch.from_numpy(positions[:, lo:hi]).long(),
                 tcache, lo)
         assert calls == [lo] * cfg_t.num_layers
-        # the q/k/v and gate/up inputs once each, the o and down inputs: no
-        # k or v row (head_dim wide) quantized outside the op
-        assert len(rows) == 4 * cfg_t.num_layers and cfg_t.head_dim not in rows
+        # the q/k/v and gate/up inputs quantized once each by their norms,
+        # the down input by silu_mul, the o input by quantize_rows: no k or
+        # v row (head_dim wide) quantized outside the op
+        assert rows == [cfg_t.hidden_size] * cfg_t.num_layers
+        assert fused == [("norm", True), ("norm", True), ("silu", True)] * cfg_t.num_layers \
+            + [("norm", False)]
         calls.clear()
         rows.clear()
+        fused.clear()
     jtok = np.asarray(jnp.argmax(jl[:, -1], -1))
     ttok = tl[:, -1].argmax(-1).numpy()
     jtokens, ttokens = [jtok], [ttok]
