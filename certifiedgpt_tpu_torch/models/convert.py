@@ -61,7 +61,7 @@ def _stack_kernels(n: int, weight: Callable[[int], Any], dtype, device,
                    quantize: bool) -> Dict[str, torch.Tensor]:
     """The ``[n, in, out]`` kernels of ``weight(i)`` (torch layout): float in
     ``dtype``, or with ``quantize`` int8 codes (column-major, as
-    ``torch._int_mm`` takes them) and per-(layer, out-channel) f32 scales."""
+    the int8 kernels take them) and per-(layer, out-channel) f32 scales."""
     if not quantize:
         return {"kernel": _stack(n, lambda i: _kernel(weight(i), dtype, device))}
     first = _kernel(weight(0), dtype, device)

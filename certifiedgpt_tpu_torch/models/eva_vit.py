@@ -126,7 +126,7 @@ def _qkv_heads(lp: Dict[str, Any], hidden: torch.Tensor, cfg: EvaViTConfig,
             xq, xs = Q.ln_quant_rows(hidden, ln["scale"], ln["bias"], cfg.layer_norm_eps)
         else:
             xq, xs = Q.quantize_rows(hidden)
-        # the bias is added in the rescale's pass (w8a8_epilogue)
+        # the bias is added in the product's epilogue (w8a8_product)
         y = Q._w8a8_epilogue(xq, xs, p["kernel_q"], scale, hidden.dtype, bias)
     else:
         if ln is not None:

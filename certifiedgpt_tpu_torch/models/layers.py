@@ -74,7 +74,8 @@ def layer_slice(stacked: Dict[str, Any], layer: int) -> Dict[str, Any]:
 def dense(params, x: torch.Tensor, act_quant: bool = False) -> torch.Tensor:
     if "kernel_q" in params and act_quant:
         # W8A8: (xq @ wq) * xs * ws (+ bias), dynamic per-row activation
-        # quant; the rescale and the bias are one pass (w8a8_epilogue)
+        # quant; the product, the rescale and the bias are one kernel
+        # (w8a8_product)
         return Q.w8a8_matmul(x, params["kernel_q"], params["scale"], params.get("bias"))
     if "kernel_q" in params:
         # weight-only int8: the per-output-channel scale commutes with the

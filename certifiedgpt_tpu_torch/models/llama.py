@@ -274,9 +274,11 @@ def _recorded(x: torch.Tensor, params) -> bool:
 
 # the products a recomputed block keeps under each of the JAX package's
 # remat policies: "full" none, "dots" those without a batch dimension (the
-# projections, the int8 ones included), "dots_all" the attention's too
-_SAVED_PRODUCTS = {"full": (), "dots": ("mm", "addmm", "_int_mm"),
-                   "dots_all": ("mm", "addmm", "_int_mm", "bmm", "baddbmm")}
+# projections; the W8A8 ones on the CPU, where they are f32 products: on
+# the card their kernel is no aten op and a recomputed block runs it
+# again), "dots_all" the attention's too
+_SAVED_PRODUCTS = {"full": (), "dots": ("mm", "addmm"),
+                   "dots_all": ("mm", "addmm", "bmm", "baddbmm")}
 
 
 def _remat_context(policy: str):

@@ -405,7 +405,8 @@ def _step_functions() -> Tuple:
     from certifiedgpt_tpu_torch.ops import elementwise as E
 
     return (A.decode_attention_kv8, A.prefill_attention_kv8, A.multi_head_attention_kv8,
-            Q.int8_weight_forward, Q.quantize_rows, Q.w8a8_epilogue, E.add_rms_norm,
+            Q.int8_weight_forward, Q.quantize_rows, Q.w8a8_product, Q.w8a8_epilogue,
+            E.add_rms_norm,
             E.rotary, E.silu_mul)
 
 

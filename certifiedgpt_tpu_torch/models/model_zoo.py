@@ -306,7 +306,7 @@ class _Init:
                      std: float) -> Dict[str, torch.Tensor]:
         """A ``[L, in, out]`` int8 kernel with per-(layer, out-channel)
         scales, drawn in f32 one layer at a time and stored column-major
-        for ``torch._int_mm``."""
+        for the int8 kernels."""
         kq = int8_kernel_layout(
             torch.empty((layers, d_in, d_out), dtype=torch.int8, device=self.device))
         scale = torch.empty((layers, d_out), dtype=torch.float32, device=self.device)

@@ -72,6 +72,15 @@ _SIGNATURES = {
     "cgpt_quant_rows": (_P, _P, _P, _I64, _I32, _P),  # x, q, s, M, K
     "cgpt_quant_rows_f32": (_P, _P, _P, _I64, _I32, _P),  # x, q, s, M, K
     "cgpt_w8a8_epilogue": (_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _P),  # acc, lda, xs, ws, bias, out, M, N, out f32
+    "cgpt_w8a8_gemm": (
+        _P, _I64, _P, _I64,  # int8 rows and their stride, the column-major int8 kernel and its
+        # channel stride
+        _P, _P, _P,  # xs, ws, bias (or null)
+        _P, _I64,  # out and its row stride
+        _I64, _I32, _I32, _I32,  # M, N, K, out kind (0 bf16, 1 f32, 2 the int32 sums)
+        _P,  # stream
+    ),
+    "cgpt_w8a8_gemm_plan": (_I64, _I32, _I32, _P),  # M, N, K, int[6] out
     "cgpt_int8_weight_matmul_plan": (_I32, _I32, _I32, _I32, _P),  # M, N, K, x f32, int[7] out
     "cgpt_int8_weight_matmul": (
         _P, _I64, _P, _I64, _P, _P, _I64,  # x, ldx, kernel, its channel stride, scale, out, ldo

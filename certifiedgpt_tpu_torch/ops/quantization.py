@@ -7,23 +7,26 @@ symmetric, rounds half to even and clips to +-127.
 
 Two of the repository's Pallas TPU kernels live here as hand-written CUDA
 kernels (``csrc/row_quant.cu``): ``ln_quant_rows`` (LayerNorm + row quant)
-and ``gelu_quant_rows`` (GELU + row quant). So do three ops that the JAX
+and ``gelu_quant_rows`` (GELU + row quant). So do four ops that the JAX
 package leaves to XLA's fusion: ``quantize_rows`` (the same file's kernel
-with the identity as its transform), ``w8a8_epilogue`` (the int8 product's
-rescale, ``csrc/w8a8_epilogue.cu``) and ``int8_weight_forward`` (the
-weight-only product, ``csrc/int8_weight_matmul.cu``). Each wrapper
-dispatches on the tensor's device: a CPU tensor takes the plain PyTorch
-version next to it, a CUDA tensor launches the kernel or raises.
-``<wrapper>.launches`` counts the kernel launches.
+with the identity as its transform), ``w8a8_product`` (the int8 product
+with its rescale and bias, ``csrc/w8a8_gemm.cu``), ``w8a8_epilogue`` (the
+rescale alone, of int32 sums added over tensor-parallel ranks,
+``csrc/w8a8_epilogue.cu``) and ``int8_weight_forward`` (the weight-only
+product, ``csrc/int8_weight_matmul.cu``). Each wrapper dispatches on the
+tensor's device: a CPU tensor takes the plain PyTorch version next to it,
+a CUDA tensor launches the kernel or raises. ``<wrapper>.launches`` counts
+the kernel launches.
 
-The W8A8 GEMM is a plain matrix product in the JAX package (an einsum
-outside any kernel), so here it is ``torch._int_mm`` on CUDA (exact int32
-accumulation; JAX accumulates in f32, exact below 2^24 and within one f32
-ulp of the sum above it, so the two differ by less than 1e-7 relative
-before the bf16 output rounding) and an f32 product of the int8 values on
-the CPU (exact below 2^24), followed by ``w8a8_epilogue``. ``_int_mm`` takes
-the int8 kernel column-major (``int8_kernel_layout``), which the model
-builders store.
+The JAX package's W8A8 product is an einsum accumulated in f32, into whose
+epilogue XLA folds the rescale (exact below 2^24 and within one f32 ulp of
+the sum above it). Here it is one kernel on CUDA: the int8 product summed
+exactly in int32 on the tensor cores, rescaled and rounded in registers
+(``w8a8_product``; the sums differ from JAX's by less than 1e-7 relative
+before the output rounding); and an f32 product of the int8 values on the
+CPU (exact below 2^24), then the plain rescale. The kernel reads the int8
+kernel column-major (``int8_kernel_layout``), the layout in which
+``models/model_zoo.py`` and ``models/convert.py`` store it.
 
 ``w8a8_matmul``, ``w8a8_gelu_matmul`` and the weight-only product
 ``int8_weight_matmul`` are ``torch.autograd.Function``s, differentiable in
@@ -46,9 +49,6 @@ from certifiedgpt_tpu_torch.ops import cuda_kernels
 MAX_ROW_WIDTH = 8192
 #: widest row ``quantize_rows``' kernel takes (kMaxIdentityRowWidth)
 MAX_IDENTITY_ROW_WIDTH = 32768
-
-#: fewest rows ``torch._int_mm`` takes on CUDA (M > 16, a multiple of 8)
-INT_MM_MIN_ROWS = 24
 
 
 def ieee_div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -129,33 +129,21 @@ cuda_kernels.launch_counter(quantize_rows, r"\bquant_rows(_f32)?_kernel\b")
 
 def int8_kernel_layout(kernel_q: torch.Tensor) -> torch.Tensor:
     """The same ``[..., in, out]`` int8 kernel stored column-major (each
-    output channel's ``in`` values contiguous), the operand layout of
-    ``torch._int_mm`` on CUDA. Values and shape are unchanged."""
+    output channel's ``in`` values contiguous), the operand layout of the
+    W8A8 and weight-only kernels on CUDA. Values and shape are unchanged."""
     return kernel_q.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
 def int8_accumulate(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
     """``xq [M, K] int8 @ kernel_q [K, N] int8`` accumulated exactly: int32
-    on CUDA (``torch._int_mm``; fewer than ``INT_MM_MIN_ROWS`` rows, a cls
-    stream of a few images, are zero-padded to that many, as it needs
-    M > 16), f32 on the CPU (exact below 2^24). ``w8a8_epilogue`` rescales
-    it; a tensor-parallel product sums these partials over its ranks."""
-    if xq.device.type != "cuda":
+    on CUDA (``w8a8_product``'s kernel writing its sums), f32 on the CPU
+    (exact below 2^24). A tensor-parallel product sums these partials over
+    its ranks, then ``w8a8_epilogue`` rescales them."""
+    if _device_kind(xq) == "cpu":
         return xq.float() @ kernel_q.float()
-    m, k = xq.shape
-    n = kernel_q.shape[1]
-    if k % 8 or n % 8:
-        raise ValueError(
-            f"torch._int_mm needs K, N multiples of 8; got K={k}, N={n}"
-        )
-    if kernel_q.stride(0) != 1:
-        raise ValueError(
-            "the int8 kernel must be column-major on CUDA "
-            "(ops.quantization.int8_kernel_layout)"
-        )
-    if m < INT_MM_MIN_ROWS:
-        xq = F.pad(xq, (0, 0, 0, INT_MM_MIN_ROWS - m))
-    return torch._int_mm(xq.contiguous(), kernel_q)[:m]
+    m, n = xq.shape[0], kernel_q.shape[1]
+    acc = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    return _launch_w8a8_gemm(xq, kernel_q, None, None, None, acc, _OUT_I32)
 
 
 def w8a8_matmul(
@@ -226,13 +214,94 @@ def w8a8_epilogue(acc: torch.Tensor, xs: torch.Tensor, scale: torch.Tensor,
 cuda_kernels.launch_counter(w8a8_epilogue, r"\bw8a8_epilogue_kernel\b")
 
 
+#: the W8A8 kernel's output kinds (cgpt_w8a8_gemm's out_kind)
+_OUT_BF16, _OUT_F32, _OUT_I32 = 0, 1, 2
+
+
+def _w8a8_product_plain(xq, xs, kernel_q, scale, bias, dtype) -> torch.Tensor:
+    """``w8a8_product`` in plain PyTorch: the f32 product of the int8
+    values (exact below 2^24), then ``_w8a8_epilogue_plain``."""
+    acc = xq.float() @ kernel_q.float()
+    return _w8a8_epilogue_plain(acc, xs.reshape(-1, 1), scale, bias, dtype)
+
+
+def _launch_w8a8_gemm(xq, kernel_q, xs, ws, bias, out, kind) -> torch.Tensor:
+    """Launch ``cgpt_w8a8_gemm`` into ``out`` (its kind ``_OUT_*``), after
+    checking the operands the kernel reads; raises on anything it does not
+    take."""
+    m, k = xq.shape
+    n = kernel_q.shape[1]
+    if xq.dtype != torch.int8 or kernel_q.dtype != torch.int8:
+        raise TypeError(f"w8a8_product: the CUDA kernel takes int8 rows and an int8 kernel, got "
+                        f"{xq.dtype} and {kernel_q.dtype}")
+    if kernel_q.shape[0] != k or k % 16 or n % 8:
+        raise ValueError(f"w8a8_product: rows [{m}, {k}] @ kernel {tuple(kernel_q.shape)} need "
+                         "matching K, K a multiple of 16 and N of 8")
+    if kernel_q.stride(0) != 1 or kernel_q.stride(1) % 16 or kernel_q.data_ptr() % 16:
+        raise ValueError("w8a8_product: the int8 kernel must be column-major "
+                         "(ops.quantization.int8_kernel_layout) on 16-byte boundaries")
+    if any(t is not None and t.device != out.device for t in (xq, kernel_q, xs, ws, bias)):
+        raise ValueError("w8a8_product: the rows, the kernel, the scales and the bias must be "
+                         f"on the output's device, {out.device}")
+    if m == 0:
+        return out
+    x2 = xq.contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    lda = x2.stride(0) if m > 1 else k  # a lone row's stride may be anything
+    code = cuda_kernels.build().lib.cgpt_w8a8_gemm(
+        x2.data_ptr(), lda, kernel_q.data_ptr(), kernel_q.stride(1),
+        None if xs is None else xs.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), out.stride(0), m, n, k, kind,
+        cuda_kernels.stream_of(xq))
+    w8a8_product.launches += 1
+    cuda_kernels.check(code, "w8a8_product")
+    return out
+
+
+def w8a8_product(xq: torch.Tensor, xs: torch.Tensor, kernel_q: torch.Tensor,
+                 scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """``(xq @ kernel_q) * xs * scale`` rounded to ``dtype``, plus ``bias``:
+    the W8A8 product of quantized rows ``xq [M, K]`` (row scales ``xs [M,
+    1]``) and an int8 kernel ``[K, N]`` (channel scales ``scale [N]``).
+
+    Replaces the JAX package's int8 einsum with the rescale and the bias
+    that XLA fuses into it (certifiedgpt_tpu/ops/quantization.py:68-94,
+    :308; models/layers.py:50). CPU tensors take ``_w8a8_product_plain``;
+    CUDA launches ``cgpt_w8a8_gemm`` (csrc/w8a8_gemm.cu: wgmma int8 on the
+    tensor cores, the rescale in registers; bf16 or f32 out), whose output
+    is ``_w8a8_epilogue_plain`` of the exact int32 sums bit for bit. It
+    takes any row count, K a multiple of 16, N of 8 and the kernel
+    column-major (``int8_kernel_layout``)."""
+    if _device_kind(xq) == "cpu":
+        return _w8a8_product_plain(xq, xs, kernel_q, scale, bias, dtype)
+    m, n = xq.shape[0], kernel_q.shape[1]
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w8a8_product: the CUDA kernel writes bf16 or f32, not {dtype}")
+    xs = xs.reshape(m).float().contiguous()
+    ws = scale.float().contiguous()
+    if ws.shape != (n,):
+        raise ValueError(f"w8a8_product: scale must be [{n}], got {tuple(scale.shape)}")
+    if bias is not None:
+        bias = bias.to(dtype).contiguous()
+        if bias.shape != (n,):
+            raise ValueError(f"w8a8_product: bias must be [{n}], got {tuple(bias.shape)}")
+    out = torch.empty((m, n), dtype=dtype, device=xq.device)
+    kind = _OUT_F32 if dtype == torch.float32 else _OUT_BF16
+    return _launch_w8a8_gemm(xq, kernel_q, xs, ws, bias, out, kind)
+
+
+cuda_kernels.launch_counter(w8a8_product, r"\bw8a8_gemm_kernel\b")
+
+
 def _w8a8_epilogue(xq, xs, kernel_q, scale, dtype, bias=None) -> torch.Tensor:
     """``(xq @ kernel_q) * xs * scale`` in ``dtype`` (+ ``bias``) of
-    quantized rows ``xq [..., K]``, ``xs [..., 1]``: the int8 product, then
-    ``w8a8_epilogue``."""
+    quantized rows ``xq [..., K]``, ``xs [..., 1]``: ``w8a8_product`` over
+    the rows flattened."""
     lead = xq.shape[:-1]
-    acc = int8_accumulate(xq.reshape(-1, xq.shape[-1]), kernel_q)
-    out = w8a8_epilogue(acc, xs.reshape(-1, 1), scale, bias, dtype)
+    out = w8a8_product(xq.reshape(-1, xq.shape[-1]), xs.reshape(-1, 1), kernel_q, scale, bias,
+                       dtype)
     return out.reshape(*lead, -1)
 
 

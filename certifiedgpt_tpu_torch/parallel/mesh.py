@@ -286,7 +286,7 @@ def _shard(x: torch.Tensor, spec: Tuple[Optional[str], ...], mesh: ProcessMesh) 
 def own_storage(part: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
     """``part`` of the leaf ``whole`` in storage of its own (the whole leaf
     can go), in the leaf's layout: an int8 kernel stored column-major for
-    ``torch._int_mm`` stays so."""
+    the int8 kernels stays so."""
     if whole.dim() >= 2 and whole.stride(-2) == 1 and whole.stride(-1) != 1:
         part = int8_kernel_layout(part)
     else:

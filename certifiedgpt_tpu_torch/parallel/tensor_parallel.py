@@ -11,9 +11,10 @@ rank:
   the model group (each rank's heads give a part of it).
 - ``row_parallel_dense``: the row-split products (o_proj, down_proj). The
   partial products are summed *before* the single rounding: the int32 (f32
-  on the CPU) accumulator of W8A8, the f32 product of the weight-only int8
-  and float kernels, then the scale and the cast, so the split adds no
-  rounding that one process lacks. Its W8A8 input is split across the
+  on the CPU) accumulator of W8A8 (``int8_accumulate``, then the rescale
+  ``w8a8_epilogue``, the one-process product's arithmetic), the f32
+  product of the weight-only int8 and float kernels, then the scale and
+  the cast, so the split adds no rounding that one process lacks. Its W8A8 input is split across the
   ranks, and per-row quantization needs the whole row's max: a MAX over the
   model group comes first. The backward is the one-process product's on
   this rank's rows of the weight (identity through the sum); a trainable
@@ -131,11 +132,10 @@ class _RowParallelDense(torch.autograd.Function):
                 x2, lambda amax: dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group))
             acc = Q.int8_accumulate(xq, weight)
             dist.all_reduce(acc, group=group)
-            out = acc.float() * xs * scale
-        else:
-            acc = f32_product(x2, weight)
-            dist.all_reduce(acc, group=group)
-            out = acc * scale if scale is not None else acc
+            return Q.w8a8_epilogue(acc, xs, scale, None, x.dtype).reshape(*lead, -1)
+        acc = f32_product(x2, weight)
+        dist.all_reduce(acc, group=group)
+        out = acc * scale if scale is not None else acc
         return out.to(x.dtype).reshape(*lead, -1)
 
     @staticmethod

@@ -12,9 +12,11 @@ Phases, each of which exits non-zero on any failure:
 2. Build: compiles the CUDA kernels from ``certifiedgpt_tpu_torch/csrc/``
    (``nvcc``, sm_90a) and prints the build seconds and ptxas' summary
    (registers, spills, shared memory, performance warnings), with a line of
-   registers and spills for each instance of the weight-only kernel (bf16
-   and f32), of the int8-KV kernels (the prefill's, the decode's, the tiled
-   one) (also in their ``kernels`` records, ``ptxas``).
+   registers and spills for each instance of the W8A8 GEMM kernel (with
+   the IGMMA instructions, the int8 wgmma, in its SASS: each instance must
+   have some), of the weight-only kernel (bf16 and f32), of the int8-KV
+   kernels (the prefill's, the decode's, the tiled one) (also in their
+   ``kernels`` records, ``ptxas``).
 3. Kernels: calls each kernel's wrapper at the main path's
    shapes, holds the result against its plain PyTorch version on the same
    card, and times the kernel, the plain version and, where one PyTorch call
@@ -38,9 +40,10 @@ Phases, each of which exits non-zero on any failure:
    shape and at odd sizes down to one element, moments of (out - x) / sigma
    within 0.01 of 0 and 1, sigma = 0 exact; the noise kernel's SASS
    instructions an element and their time at the issue rate are printed.
-   Then the kernels of the ops that XLA fuses for the JAX package:
-   the W8A8 epilogue at the ViT's and the prefill's products and at 1 and
-   8 rows, bit for bit against its plain chain; quantize_rows' kernel at
+   Then the kernels of the ops that XLA fuses for the JAX package: the
+   W8A8 product (phase 21, below); the W8A8 epilogue alone (the
+   row-parallel dense's rescale) at the ViT's and the prefill's products
+   and at 1 and 8 rows, bit for bit against its plain chain; quantize_rows' kernel at
    the ViT's proj input, the prefill's inputs, the KV cache's rows and at
    1 and 8 rows, bit for bit; the weight-only int8 product at 96, 8, 1
    and 9216 rows of the decoder's three weight shapes, within
@@ -115,9 +118,11 @@ Phases, each of which exits non-zero on any failure:
    its captured launches to the counters, so the launch check holds as for
    eager steps (a capture's warm-up step is a step launched). Then one
    chunk's prefill, as the port
-   runs it and with ``prefill_attention_kv8`` replaced by the sequence it
-   took the place of, in turns: device operations (192 fewer) and eager
-   time. Then times one decode step against
+   runs it, with ``prefill_attention_kv8`` replaced by the sequence it
+   took the place of, and with the W8A8 products as the pair the GEMM
+   kernel replaced (``torch._int_mm``, then ``w8a8_epilogue``), in turns:
+   device operations (192 fewer than the sequence; fewer than the pair)
+   and eager time. Then times one decode step against
    converting the int8 decoder weights to bf16, the host's launch of one
    step from an idle card and behind a spin that holds the card (does the
    step fill the launch queue?), ``generate``'s captured step (embedding,
@@ -125,7 +130,7 @@ Phases, each of which exits non-zero on any failure:
    ms a replay and the host's ms to launch a replay, beside the same step
    eager, and checks the outputs: the
    ViT through the kernels against the ViT through their plain versions on
-   8 images (a cls stream below the 17 rows ``torch._int_mm`` takes), finite
+   8 images (a cls stream of 8 rows: one partial row tile), finite
    projected image tokens, greedy tokens in range.
 5. Profile: the warm-up's certification (one chunk each way) once more
    without and once under ``torch.profiler``; prints the device time summed
@@ -142,7 +147,11 @@ Phases, each of which exits non-zero on any failure:
    ``cls_split_attention_scaled`` and ``multi_head_attention_kv8`` of a lone
    query row (one launch of the decode kernel, nothing written), which no
    certify path calls, each driven once through its entry point at the
-   shapes above, launches counted.
+   shapes above, launches counted; and the row-parallel dense of the
+   tensor-parallel decoder (``row_parallel_dense``) at the prefill's
+   down_proj through an NCCL group of one rank: one launch of the W8A8 GEMM
+   kernel's int32 instance and one of ``w8a8_epilogue`` (the record's
+   path), its output bit for bit the one-rank product's.
 9.1-9.2. Look-ahead and early exit, on phase 4's model (run before phase
    8, which builds its own): ``certify_item`` with no clock at (window,
    early exit) (1, off), (4, off), (1, on), (4, on), (1, off) over four
@@ -170,7 +179,10 @@ Phases, each of which exits non-zero on any failure:
    ``encode_img`` call read the checkpoint's projection bit for bit, and
    that each path kernel launched its launches per chunk (as in phase 4)
    times the chunks dispatched (an early stop leaves up to the window's
-   chunks in flight); prints the model build seconds, the seconds per
+   chunks in flight); certifies again with the decoder's fused elementwise
+   ops routed to the chains they replaced (phase 20) and the W8A8 product
+   to the pair it replaced (phase 21): rows equal but for their seconds;
+   prints the model build seconds, the seconds per
    image, the decode steps launched, the peak memory and the card's name
    and power limit, with the card's SM clock, power draw and temperature
    (``nvidia-smi`` each second) during phase 4's certification and each
@@ -277,7 +289,9 @@ Phases, each of which exits non-zero on any failure:
    every stage (noise, ViT, Q-Former, prefill, decode, host labels) under
    its own ``torch.profiler`` context: device seconds by stage and kernel
    group, and the elementwise/copy seconds of ``encode_img``, the prefill
-   and the decode.
+   and the decode; as the port runs it, then with the W8A8 product as the
+   pair it replaced (phase 21), then with the chains the fused elementwise
+   kernels replaced (phase 20).
 16. Pipeline (run inside phase 11.1, on its full-width ``_w8a8`` model and
    packed batch of 48 images, 16 rows x 256 tokens; a one-process mesh
    whose pipe axis is 1): 16.1 ``parallel.pipeline.pipeline_minigpt4_loss``
@@ -345,6 +359,23 @@ Phases, each of which exits non-zero on any failure:
    holds the kernel with its slot on the card (``slot_ms``,
    ``slot_graph_ms``: the output and cache bit for bit the int slot's).
 
+21. The W8A8 product (inside phase 3, so ``--kernels`` runs it):
+   ``w8a8_product``, one launch of ``csrc/w8a8_gemm.cu`` (wgmma int8 on
+   TMA-fed shared memory, the rescale and the bias in registers), at every
+   shipped shape (``W8A8_GEMM_SHAPES``: the ViT's four products on the
+   patch and the cls streams, eval's 8-row cls stream, a caption's one
+   row, the prefill's three, one shape off the tiles in M, K and N), bf16
+   and f32 out, with and without a bias, on int8 operands of the full
+   range: bit for bit ``_w8a8_epilogue_plain`` of the exact int32 sums
+   (``torch._int_mm``'s, a yardstick the port never calls), and
+   ``int8_accumulate`` (the kernel's int32 instance) equal to
+   ``torch._int_mm``. Each shape is timed at the path's dtype and bias
+   eager and alone (from a CUDA graph) beside its bound (operations at the
+   int8 peak), its plain version, the pair it replaced (``torch._int_mm``
+   and ``w8a8_epilogue``), ``torch._int_mm`` alone and cuBLAS bf16
+   ``torch.mm``, with its launch plan; a chunk's ViT and prefill products
+   are summed from the alone times.
+
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
 14.1's; ``cli_launches``: the launches in each launcher run of phases 8-15,
@@ -369,6 +400,7 @@ import time
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # 32-bit integer operations: 64 INT32 lanes per SM (Hopper white paper),
@@ -488,6 +520,7 @@ GT_ANSWERS = ["cat", "cat", "cat", "dog", "cat", "cat", "kitten", "cat", "cat", 
 PROFILE_GROUPS = (
     ("attention kernel", ("attention_kernel",)),
     ("row-quant kernels", ("ln_quant_kernel", "gelu_quant_kernel", "quant_rows_kernel")),
+    ("W8A8 GEMM kernel", ("w8a8_gemm_kernel",)),
     ("W8A8 epilogue kernel", ("w8a8_epilogue_kernel",)),
     ("weight-only int8 kernel", ("int8_weight_matmul_kernel",)),
     ("decoder elementwise kernels", ("add_rms_norm_kernel", "rotary_kernel", "silu_mul_kernel")),
@@ -634,7 +667,8 @@ def ptxas_resources(log_text: str) -> dict:
 
 # the kernels whose registers and spills get a [build] line of their own and
 # go into their `kernels` records (name part of the mangled entry -> record)
-PTXAS_KERNELS = (("int8_weight_matmul_kernel", "int8_weight_matmul"),
+PTXAS_KERNELS = (("w8a8_gemm_kernel", "w8a8_gemm"),
+                 ("int8_weight_matmul_kernel", "int8_weight_matmul"),
                  ("kv8_prefill_kernel", "attention_kv8_prefill"),
                  ("attention_kv8_kernel", "attention_kv8"),
                  ("kv8_decode_kernel", "attention_kv8_decode"),
@@ -657,6 +691,7 @@ def phase_build():
     for line in build.log.splitlines():
         if line.startswith("==") or any(w in line for w in ("Used", "spill", "arning", "wgmma")):
             log(f"[build] {line.strip()}")
+    igmma = wgmma_counts()
     resources = {}
     for fn, (regs, stores, loads) in sorted(ptxas_resources(build.log).items()):
         part = next((p for p in PTXAS_KERNELS if p[0] in fn), None)
@@ -664,9 +699,28 @@ def phase_build():
             continue
         resources.setdefault(part[1], {})[fn] = {"registers": regs, "spill_stores": stores,
                                                   "spill_loads": loads}
+        extra = ""
+        if fn in igmma:
+            resources[part[1]][fn]["igmma"] = igmma[fn]
+            extra = f", {igmma[fn]} IGMMA instructions in its SASS"
         log(f"[build] {part[1]}: {fn}: {regs} registers, {stores} bytes spill stores, "
-            f"{loads} bytes spill loads")
+            f"{loads} bytes spill loads{extra}")
     return resources
+
+
+def wgmma_counts() -> dict:
+    """IGMMA instructions (the int8 wgmma) in the SASS of each instance of
+    the W8A8 GEMM kernel (``cuobjdump -sass``, ``sass_count.py``): each must
+    have some, or the kernel never reaches Hopper's int8 tensor-core path."""
+    import sass_count
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    text = sass_count.sass_of(cuda_kernels.build().path)
+    found = {fn: ops.get("IGMMA", 0)
+             for fn, ops in sass_count.opcode_counts(text, "w8a8_gemm_kernel").items()}
+    if not found or not all(found.values()):
+        fail(f"the W8A8 GEMM kernel's instances hold no IGMMA instruction: {found}")
+    return found
 
 
 # ----------------------------------------------------------------------
@@ -1153,6 +1207,152 @@ def check_w8a8_epilogue(torch, device):
                           bound_by=by, library_ms=None)
         del acc, out, ref
         torch.cuda.empty_cache()
+    return record
+
+
+# ----------------------------------------------------------------------
+# phase 21: the W8A8 product as one kernel (csrc/w8a8_gemm.cu)
+# ----------------------------------------------------------------------
+# every shipped shape of the product (label, rows, K, N, the path's bias):
+# the ViT's four on the patch stream and on the cls stream of a chunk,
+# eval's 8-row cls stream, a caption's single cls row, the prefill's three,
+# and rows, K and N all off the tiles
+W8A8_GEMM_SHAPES = (
+    ("ViT qkv", VIT_ROWS, VIT_WIDTH, 3 * VIT_WIDTH, True),
+    ("ViT proj", VIT_ROWS, VIT_WIDTH, VIT_WIDTH, True),
+    ("ViT fc1", VIT_ROWS, VIT_WIDTH, VIT_MLP, True),
+    ("ViT fc2", VIT_ROWS, VIT_MLP, VIT_WIDTH, True),
+    ("cls qkv", MC_BATCH, VIT_WIDTH, 3 * VIT_WIDTH, True),
+    ("cls proj", MC_BATCH, VIT_WIDTH, VIT_WIDTH, True),
+    ("cls fc1", MC_BATCH, VIT_WIDTH, VIT_MLP, True),
+    ("cls fc2", MC_BATCH, VIT_MLP, VIT_WIDTH, True),
+    ("eval cls qkv", EVAL_BATCH, VIT_WIDTH, 3 * VIT_WIDTH, True),
+    ("caption cls fc1", 1, VIT_WIDTH, VIT_MLP, True),
+    ("prefill q/k/v/o", PREFILL_ROWS, LLAMA_WIDTH, LLAMA_WIDTH, False),
+    ("prefill gate/up", PREFILL_ROWS, LLAMA_WIDTH, LLAMA_MLP, False),
+    ("prefill down", PREFILL_ROWS, LLAMA_MLP, LLAMA_WIDTH, False),
+    ("ragged", 1000, 4112, 200, True),
+)
+# products of one layer (label: count) in a certify chunk's ViT (patch and
+# cls streams) and prefill
+VIT_LAYER_PRODUCTS = {"ViT qkv": 1, "ViT proj": 1, "ViT fc1": 1, "ViT fc2": 1, "cls qkv": 1,
+                      "cls proj": 1, "cls fc1": 1, "cls fc2": 1}
+PREFILL_LAYER_PRODUCTS = {"prefill q/k/v/o": 4, "prefill gate/up": 2, "prefill down": 1}
+# the fields of cgpt_w8a8_gemm_plan's answer
+W8A8_GEMM_PLAN = ("tile_n", "stages", "row_tiles", "channel_tiles", "blocks", "smem_bytes")
+
+
+def w8a8_gemm_plan(m: int, k: int, n: int) -> dict:
+    """The W8A8 GEMM launcher's plan for an [m, k] x [k, n] product."""
+    import ctypes
+
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    plan = (ctypes.c_int * len(W8A8_GEMM_PLAN))()
+    cuda_kernels.check(cuda_kernels.build().lib.cgpt_w8a8_gemm_plan(m, n, k, plan),
+                       "w8a8_gemm plan")
+    return dict(zip(W8A8_GEMM_PLAN, plan))
+
+
+def int_mm(torch, xq, kq):
+    """``torch._int_mm`` of int8 rows and a column-major int8 kernel, rows
+    zero-padded to 24 where there are fewer (it takes M > 16): the library's
+    exact int32 product, a yardstick here and never called by the port."""
+    import torch.nn.functional as F
+
+    m = xq.shape[0]
+    if m < 24:
+        xq = F.pad(xq, (0, 0, 0, 24 - m))
+    return torch._int_mm(xq, kq)[:m]
+
+
+def phase_w8a8_gemm(torch, device):
+    """Phase 21: ``w8a8_product`` (one launch of ``csrc/w8a8_gemm.cu``) at
+    ``W8A8_GEMM_SHAPES`` on int8 operands of the full range, bf16 and f32
+    out, with and without a bias, bit for bit ``_w8a8_epilogue_plain`` of the
+    exact int32 sums (``torch._int_mm``'s); ``int8_accumulate`` (the
+    kernel's int32 instance) equal to ``torch._int_mm``. At the path's
+    dtype and bias each shape is timed eager and alone (replayed from a
+    CUDA graph) beside its bound, its plain version, the pair it replaced
+    (``torch._int_mm`` and ``w8a8_epilogue``, alone), ``torch._int_mm``
+    alone (the library figure) and cuBLAS bf16 ``torch.mm`` at the same
+    shape, with the launch plan; and a chunk's ViT and prefill products
+    are summed from the alone times. Returns the kernel's record."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(21)
+    record = {"max_abs_err": 0.0, "shapes": {}}
+    for label, m, k, n, path_bias in W8A8_GEMM_SHAPES:
+        xq = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+        kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=device,
+                                                dtype=torch.int8))
+        xs = torch.rand((m, 1), generator=g, device=device) * 1e-2 + 1e-3
+        ws = torch.rand(n, generator=g, device=device) * 1e-4
+        acc = int_mm(torch, xq, kq)
+        sums_off = int((Q.int8_accumulate(xq, kq) != acc).sum())
+        off, biases = {}, {}
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_bias in (False, True):
+                bias = ((torch.randn(n, generator=g, device=device) * 0.1).to(dtype)
+                        if with_bias else None)
+                got = Q.w8a8_product(xq, xs, kq, ws, bias, dtype)
+                want = Q._w8a8_epilogue_plain(acc, xs, ws, bias, dtype)
+                torch.cuda.synchronize()
+                name = f"{str(dtype)[6:]}{' + bias' if with_bias else ''}"
+                off[name] = bits_unequal(torch, got, want)
+                if got.dtype != dtype or got.shape != (m, n):
+                    fail(f"w8a8_product gave {got.dtype} {tuple(got.shape)} at {label}")
+                record["max_abs_err"] = max(record["max_abs_err"], max_err(got, want))
+                biases[(dtype, with_bias)] = bias
+                del got, want
+        bias = biases[(torch.bfloat16, path_bias)]
+        big = m * n >= 10 ** 8
+        t = {"ms": cuda_ms(torch, lambda: Q.w8a8_product(xq, xs, kq, ws, bias), iters=10),
+             "graph_ms": graph_ms(torch, lambda: Q.w8a8_product(xq, xs, kq, ws, bias)),
+             "plain_ms": cuda_ms(torch, lambda: Q._w8a8_product_plain(xq, xs, kq, ws, bias,
+                                                                      torch.bfloat16),
+                                 iters=2 if big else 5, warmup=1),
+             "replaced_eager_ms": cuda_ms(
+                 torch, lambda: Q.w8a8_epilogue(int_mm(torch, xq, kq), xs, ws, bias), iters=10),
+             "replaced_ms": graph_ms(
+                 torch, lambda: Q.w8a8_epilogue(int_mm(torch, xq, kq), xs, ws, bias)),
+             "library_ms": graph_ms(torch, lambda: int_mm(torch, xq, kq))}
+        a16, w16 = xq.to(torch.bfloat16), kq.to(torch.bfloat16)
+        t["bf16_mm_ms"] = graph_ms(torch, lambda: torch.mm(a16, w16))
+        del a16, w16
+        moved = 1.0 * m * k + k * n + 2 * m * n + 4 * m + 4 * n + (2 * n if path_bias else 0)
+        t["bound_ms"], t["bound_by"] = bound_ms(moved, 2.0 * m * k * n, PEAK_INT8_OPS)
+        t.update(plan=w8a8_gemm_plan(m, k, n), bits_off=off, sums_off=sums_off)
+        log(f"[w8a8] 21 {label} [{m}, {k}] x [{k}, {n}]: outputs not bit-identical to the "
+            f"plain rescale of the exact sums {json.dumps(off)}, int32 sums off {sums_off}; "
+            f"{t['ms']:.4f} ms eager, {t['graph_ms']:.4f} ms alone ("
+            f"{100 * t['bound_ms'] / t['graph_ms']:.0f} % of the bound {t['bound_ms']:.4f} ms, "
+            f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, replaced _int_mm + w8a8_epilogue "
+            f"{t['replaced_ms']:.4f} ms alone ({t['replaced_eager_ms']:.4f} eager), _int_mm "
+            f"{t['library_ms']:.4f} ms alone, cuBLAS bf16 mm {t['bf16_mm_ms']:.4f} ms alone; "
+            f"plan {json.dumps(t['plan'])}")
+        if sums_off or any(off.values()):
+            fail(f"w8a8_product disagrees with the plain rescale of the exact sums at {label}")
+        record["shapes"][label] = t
+        if not record.get("ms"):
+            record.update({key: t[key] for key in ("ms", "graph_ms", "plain_ms", "replaced_ms",
+                                                   "library_ms", "bound_ms", "bound_by")})
+        del xq, kq, acc, biases, bias
+        torch.cuda.empty_cache()
+    chunk = {}
+    for stage, layers, products in (("vit", VIT_DEPTH, VIT_LAYER_PRODUCTS),
+                                    ("prefill", LLAMA_DEPTH, PREFILL_LAYER_PRODUCTS)):
+        for key in ("graph_ms", "replaced_ms", "library_ms", "bound_ms"):
+            chunk[f"{stage}_{key}"] = layers * sum(
+                c * record["shapes"][label][key] for label, c in products.items())
+    record["chunk"] = chunk
+    log(f"[w8a8] 21 a certify chunk's products from the alone times: ViT "
+        f"{chunk['vit_graph_ms']:.2f} ms (the replaced pair {chunk['vit_replaced_ms']:.2f}, "
+        f"_int_mm {chunk['vit_library_ms']:.2f}, bound {chunk['vit_bound_ms']:.2f}), prefill "
+        f"{chunk['prefill_graph_ms']:.2f} ms (the pair {chunk['prefill_replaced_ms']:.2f}, "
+        f"_int_mm {chunk['prefill_library_ms']:.2f}, bound {chunk['prefill_bound_ms']:.2f}); "
+        f"phase 21 took {time.perf_counter() - t0:.1f} s")
     return record
 
 
@@ -2157,6 +2357,7 @@ def phase_kernels(torch, device):
     records["flash_attention"] = check_flash(torch, device)
     records["cls_split_attention_scaled"] = check_cls_split_scaled(torch, device)
     records["noisy_tile_kernel"] = check_noise(torch, device)
+    records["w8a8_gemm"] = phase_w8a8_gemm(torch, device)
     records["w8a8_epilogue"] = check_w8a8_epilogue(torch, device)
     records["int8_weight_matmul"] = check_int8_weight(torch, device)
     lone_row = check_attention_kv8(torch, device)
@@ -2189,9 +2390,13 @@ KERNELS = [
      "certifiedgpt_tpu/ops/noise.py:58", "noisy_tile kernel mode"),
     ("cls_split_attention_scaled", "certifiedgpt_tpu_torch/csrc/cls_split_attention.cu",
      "scripts/bench_cls_split_attention.py:35", "cls_split_attention_scaled"),
-    # the ops that XLA fuses for the JAX package (no Pallas kernel there)
-    ("w8a8_epilogue", "certifiedgpt_tpu_torch/csrc/w8a8_epilogue.cu",
+    # the ops that XLA fuses for the JAX package (no Pallas kernel there):
+    # the W8A8 product with its rescale and bias (phase 21), and the rescale
+    # alone, of the int32 sums that the row-parallel dense adds over ranks
+    ("w8a8_gemm", "certifiedgpt_tpu_torch/csrc/w8a8_gemm.cu",
      "certifiedgpt_tpu/ops/quantization.py:68", "certify flash_cls"),
+    ("w8a8_epilogue", "certifiedgpt_tpu_torch/csrc/w8a8_epilogue.cu",
+     "certifiedgpt_tpu/ops/quantization.py:68", "row-parallel dense"),
     ("int8_weight_matmul", "certifiedgpt_tpu_torch/csrc/int8_weight_matmul.cu",
      "certifiedgpt_tpu/models/layers.py:61", "certify flash_cls"),
     # the tiled kernel: the f32 prefill's cache write and attention in one
@@ -2234,7 +2439,8 @@ def times(counts, k):
     return {name: n * k for name, n in counts.items()}
 
 
-# launches of the int8 ops: an image batch through the ViT (the split-stream
+# launches of the int8 ops (a W8A8 product is one launch of the GEMM kernel,
+# its rescale and bias inside): an image batch through the ViT (the split-stream
 # tower: its four W8A8 products a layer on each stream, the proj input's
 # quantization on each; the flash block: its four products and the qkv, proj
 # and fc1 inputs' quantization on its one stream); the prefill (seven W8A8
@@ -2245,8 +2451,8 @@ def times(counts, k):
 # launch); and a
 # training forward of the decoder (seven W8A8 products a layer, each
 # quantizing its own input)
-VIT_INT8 = {"flash_cls": {"w8a8_epilogue": 8 * VIT_DEPTH, "quant_rows": 2 * VIT_DEPTH},
-            "flash_custom": {"w8a8_epilogue": 4 * VIT_DEPTH, "quant_rows": 3 * VIT_DEPTH}}
+VIT_INT8 = {"flash_cls": {"w8a8_gemm": 8 * VIT_DEPTH, "quant_rows": 2 * VIT_DEPTH},
+            "flash_custom": {"w8a8_gemm": 4 * VIT_DEPTH, "quant_rows": 3 * VIT_DEPTH}}
 # the decoder's fused elementwise ops in a forward that autograd does not
 # record (a prefill, a decode step, a validation batch): two norms a layer
 # (the input norm adding the previous down_proj output, the post-attention
@@ -2256,14 +2462,14 @@ DECODER_FUSED = {"add_rms_norm": 2 * LLAMA_DEPTH + 1, "rotary": LLAMA_DEPTH,
                  "silu_mul": LLAMA_DEPTH}
 # the prefill: the q/k/v and gate/up inputs' codes come from their norms,
 # the down input's from silu_mul; only the o input runs quantize_rows
-PREFILL_INT8 = plus({"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH,
+PREFILL_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH,
                      "attention_kv8_prefill": LLAMA_DEPTH}, DECODER_FUSED)
 PER_DECODE_STEP = plus({"int8_weight_matmul": 7 * LLAMA_DEPTH,
                         "attention_kv8_decode": LLAMA_DEPTH}, DECODER_FUSED)
-TRAIN_DECODER_INT8 = {"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": 7 * LLAMA_DEPTH}
+TRAIN_DECODER_INT8 = {"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": 7 * LLAMA_DEPTH}
 # a validation batch's decoder (no autograd): the prefill's products and
 # fused ops, attention without a cache
-VAL_DECODER_INT8 = plus({"w8a8_epilogue": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH},
+VAL_DECODER_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH},
                         DECODER_FUSED)
 
 # launches per certify chunk of each kernel under each ViT attention form:
@@ -2305,7 +2511,8 @@ def wrappers():
             "ln_quant_rows": Q.ln_quant_rows, "gelu_quant_rows": Q.gelu_quant_rows,
             "flash_attention": flash_attention, "noisy_tile_kernel": noisy_tile,
             "cls_split_attention_scaled": cls_split_attention_scaled,
-            "w8a8_epilogue": Q.w8a8_epilogue, "int8_weight_matmul": Q.int8_weight_forward,
+            "w8a8_gemm": Q.w8a8_product, "w8a8_epilogue": Q.w8a8_epilogue,
+            "int8_weight_matmul": Q.int8_weight_forward,
             "attention_kv8": multi_head_attention_kv8, "quant_rows": Q.quantize_rows,
             "attention_kv8_prefill": prefill_attention_kv8,
             "attention_kv8_decode": decode_attention_kv8,
@@ -2470,9 +2677,9 @@ def prefill_costs(torch, model, device):
         return A.multi_head_attention_kv8(q, c["k"], c["k_scale"], c["v"], c["v_scale"], m, scale)
 
     runs = {}
-    for turn in ("kernel", "replaced", "chains", "chains", "replaced", "kernel"):
-        patches = [mock.patch.object(A, "prefill_attention_kv8", replaced)] \
-            if turn == "replaced" else chain_versions() if turn == "chains" else []
+    for turn in ("kernel", "replaced", "chains", "pair", "pair", "chains", "replaced", "kernel"):
+        patches = {"replaced": [mock.patch.object(A, "prefill_attention_kv8", replaced)],
+                   "chains": chain_versions(), "pair": pair_versions(torch)}.get(turn, [])
         with contextlib.ExitStack() as stack:
             for patch in patches:
                 stack.enter_context(patch)
@@ -2491,13 +2698,23 @@ def prefill_costs(torch, model, device):
         f"replaced (phase 20; eager ms in turns: kernels {runs['kernel'][0][1]:.3f}, chains "
         f"{runs['chains'][0][1]:.3f}, chains {runs['chains'][1][1]:.3f}, kernels "
         f"{runs['kernel'][1][1]:.3f})")
+    log(f"[main] a certify chunk's prefill: {runs['kernel'][0][0]} device operations with the "
+        f"W8A8 GEMM kernel, {runs['pair'][0][0]} with the pair it replaced (_int_mm, then "
+        f"w8a8_epilogue: {runs['pair'][0][0] - runs['kernel'][0][0]} more for its "
+        f"{7 * LLAMA_DEPTH} products; phase 21; eager ms in turns: kernel "
+        f"{runs['kernel'][0][1]:.3f}, pair {runs['pair'][0][1]:.3f}, pair "
+        f"{runs['pair'][1][1]:.3f}, kernel {runs['kernel'][1][1]:.3f})")
+    if runs["pair"][0][0] <= runs["kernel"][0][0]:
+        fail("the prefill with the W8A8 GEMM kernel issues no fewer device operations than "
+             "with the pair it replaced")
     if fewer != 6 * LLAMA_DEPTH:
         fail(f"the prefill's kernel saved {fewer} device operations a chunk, expected "
              f"{6 * LLAMA_DEPTH}")
     del cache, x
     torch.cuda.empty_cache()
     return {"ops": runs["kernel"][0][0], "replaced_ops": runs["replaced"][0][0],
-            "chains_ops": runs["chains"][0][0], "ms": [r[1] for r in runs["kernel"]],
+            "chains_ops": runs["chains"][0][0], "pair_ops": runs["pair"][0][0],
+            "pair_ms": [r[1] for r in runs["pair"]], "ms": [r[1] for r in runs["kernel"]],
             "replaced_ms": [r[1] for r in runs["replaced"]],
             "chains_ms": [r[1] for r in runs["chains"]]}
 
@@ -2666,7 +2883,8 @@ def check_outputs(torch, model, device):
     cfg = model.cfg
     params = model.params
     rng = np.random.RandomState(1)
-    # 8 images: the cls stream's W8A8 products take the padded _int_mm path
+    # 8 images: the cls stream's W8A8 products are 8 rows, one partial row
+    # tile of the GEMM
     num = 8
     images = torch.from_numpy(rng.randn(num, 448, 448, 3).astype(np.float32)).to(device)
     feats = M.eva_vit_apply(params["vit"], cfg.vit, images)
@@ -2674,7 +2892,7 @@ def check_outputs(torch, model, device):
             mock.patch.object(Q, "ln_quant_rows", Q._ln_quant_rows_plain), \
             mock.patch.object(Q, "gelu_quant_rows", Q._gelu_quant_rows_plain), \
             mock.patch.object(Q, "quantize_rows", Q._quantize_rows_plain), \
-            mock.patch.object(Q, "w8a8_epilogue", Q._w8a8_epilogue_plain):
+            mock.patch.object(Q, "w8a8_product", Q._w8a8_product_plain):
         feats_plain = M.eva_vit_apply(params["vit"], cfg.vit, images)
     rel = float((feats.float() - feats_plain.float()).norm() / feats_plain.float().norm())
     log(f"[check] ViT tokens {tuple(feats.shape)}, kernels vs plain versions on {num} images: "
@@ -2858,7 +3076,55 @@ def phase_entries(torch, device):
             fail(f"{name}: output {tuple(out.shape)} is not finite or not {shape}")
         check_counts(name, launches, {kernel: 1}, 1)
         counted[name] = launches[kernel]
+    counted["w8a8_epilogue"] = row_parallel_entry(torch, device)
     return counted
+
+
+def row_parallel_entry(torch, device):
+    """The row-parallel dense (``parallel/tensor_parallel.py``: the o_proj
+    and down_proj of a decoder split over a model group) of the prefill's
+    down_proj at the certify prefill's rows, through an NCCL group of one
+    rank (the one card): its W8A8 path sums each rank's int32 products
+    (``int8_accumulate``, the GEMM kernel's int32 instance) over the group,
+    then rescales them (``w8a8_epilogue``). One launch of each, no other
+    kernel (its rows' quantization takes the MAX over the group between its
+    two passes, in plain PyTorch), and the output bit for bit the one-rank
+    product's (``w8a8_matmul``). Returns the epilogue's launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+    from certifiedgpt_tpu_torch.parallel import tensor_parallel as TP
+    from certifiedgpt_tpu_torch.parallel.mesh import make_mesh, set_active_mesh
+
+    g = torch.Generator(device=device).manual_seed(16)
+    x = torch.randn((PREFILL_ROWS, LLAMA_MLP), generator=g, device=device).to(torch.bfloat16)
+    params = Q.quantize_kernel(torch.randn((LLAMA_MLP, LLAMA_WIDTH), generator=g,
+                                           device=device) * 0.01)
+    params["kernel_q"] = Q.int8_kernel_layout(params["kernel_q"])
+    torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = make_mesh(n_model=1)
+            torch.cuda.synchronize()
+            reset_counts()
+            out = TP.row_parallel_dense(params, x, mesh, act_quant=True)
+            torch.cuda.synchronize()
+            launches = read_counts()
+        finally:
+            set_active_mesh(None)
+            dist.destroy_process_group()
+    want = Q.w8a8_matmul(x, params["kernel_q"], params["scale"])
+    off = bits_unequal(torch, out, want)
+    log(f"[entry] row-parallel dense [{PREFILL_ROWS}, {LLAMA_MLP}] x [{LLAMA_MLP}, "
+        f"{LLAMA_WIDTH}] (NCCL, one rank): {off} outputs not bit-identical to the one-rank "
+        f"product; launches {json.dumps(launches)}")
+    if off or out.shape != want.shape:
+        fail("the row-parallel dense disagrees with the one-rank W8A8 product")
+    check_counts("row-parallel dense", launches, {"w8a8_gemm": 1, "w8a8_epilogue": 1}, 1)
+    return launches["w8a8_epilogue"]
 
 
 # ----------------------------------------------------------------------
@@ -3499,11 +3765,12 @@ def phase_launcher(torch, card, d_in: int, d_out: int, main_summary):
 
 def check_rows_with_chains(torch, mode, path, env, root, rows):
     """The certify run again with the decoder's fused elementwise ops routed
-    to the chains they replaced (phase 20): every row equal but for its
-    seconds."""
+    to the chains they replaced (phase 20) and the W8A8 product to the pair
+    it replaced (phase 21), as the port computed before them: every row
+    equal but for its seconds."""
     out = root / "out_certify_chains"
     with contextlib.ExitStack() as stack:
-        for patch in chain_versions():
+        for patch in chain_versions() + pair_versions(torch):
             stack.enter_context(patch)
         res = run_launch(torch, [mode, "--config-path", path], env, out)
     chains = read_rows(out / "certify_results.jsonl")
@@ -3512,11 +3779,13 @@ def check_rows_with_chains(torch, mode, path, env, root, rows):
         return {k: v for k, v in r.items() if k != "seconds"}
 
     same = [kept(a) == kept(b) for a, b in zip(rows, chains)]
-    log(f"[launch] {mode} with the chains the decoder's fused kernels replaced: rows "
+    log(f"[launch] {mode} with the chains the decoder's fused kernels replaced and the pair "
+        f"the W8A8 GEMM replaced: rows "
         f"{json.dumps(chains)}; equal to the kernels' rows but for seconds: {same}; CLI wall "
         f"{res['wall']:.3f} s; launches {json.dumps(res['launches'])}")
     if len(chains) != len(rows) or not all(same):
-        fail(f"{mode}: the rows with the replaced chains differ from the kernels' rows")
+        fail(f"{mode}: the rows with the replaced chains and pair differ from the kernels' "
+             "rows")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3740,6 +4009,7 @@ def plain_versions():
             mock.patch.object(Q, "ln_quant_rows", Q._ln_quant_rows_plain),
             mock.patch.object(Q, "gelu_quant_rows", Q._gelu_quant_rows_as_plain),
             mock.patch.object(Q, "quantize_rows", Q._quantize_rows_plain),
+            mock.patch.object(Q, "w8a8_product", Q._w8a8_product_plain),
             mock.patch.object(Q, "w8a8_epilogue", Q._w8a8_epilogue_plain),
             mock.patch.object(Q, "int8_weight_forward", Q._int8_weight_forward_plain),
             mock.patch.object(A, "multi_head_attention_kv8", A._multi_head_attention_kv8_plain),
@@ -3748,6 +4018,21 @@ def plain_versions():
             mock.patch.object(E, "add_rms_norm", E._add_rms_norm_plain),
             mock.patch.object(E, "rotary", E._rotary_plain),
             mock.patch.object(E, "silu_mul", E._silu_mul_plain)]
+
+
+def pair_versions(torch):
+    """Patches that route the W8A8 product to the pair it replaced (the port
+    before phase 21): ``torch._int_mm`` (rows zero-padded to 24 where
+    fewer), then ``w8a8_epilogue``. A yardstick: the port never calls
+    ``torch._int_mm``."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    def product(xq, xs, kernel_q, scale, bias=None, dtype=torch.bfloat16):
+        return Q.w8a8_epilogue(int_mm(torch, xq, kernel_q), xs, scale, bias, dtype)
+
+    return [mock.patch.object(Q, "w8a8_product", product)]
 
 
 def chain_versions():
@@ -5557,10 +5842,12 @@ def phase_stage_split(torch, card, device):
                             early_exit=knobs.early_exit, clock=clock, window=1)
         return fn(image, MC_BATCH, seed=0)
 
-    # the chunk with the decoder's fused elementwise kernels, then with the
-    # chains they replaced (phase 20), each after a warm-up of its own (a
-    # capture of its own decode step)
-    for form, patches in (("kernels", []), ("chains", chain_versions())):
+    # the chunk with the decoder's fused elementwise kernels and the W8A8
+    # GEMM kernel, then with the pair the GEMM replaced (phase 21), then with
+    # the chains the elementwise kernels replaced (phase 20), each after a
+    # warm-up of its own (a capture of its own decode step)
+    for form, patches in (("kernels", []), ("pair", pair_versions(torch)),
+                          ("chains", chain_versions())):
         with contextlib.ExitStack() as stack:
             for patch in patches:
                 stack.enter_context(patch)

@@ -285,7 +285,8 @@ def test_cls_split_kernel_matches_plain_on_gpu(cuda, b, n, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows", [1, 16, 32])
 def test_int8_matmul_on_gpu(cuda, rows):
-    """Exact at any row count: fewer than 17 rows are padded for _int_mm."""
+    """Exact at any row count (the W8A8 GEMM kernel's int32 instance: a
+    single partial row tile at 1 and 16 rows)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randint(-127, 128, (rows, 64), generator=g, device=cuda, dtype=torch.int8)
     b = torch.randint(-127, 128, (64, 24), generator=g, device=cuda, dtype=torch.int8)
@@ -551,9 +552,9 @@ def test_quant_rows_kernel_matches_plain_on_gpu(cuda, k, rows, dtype):
 @pytest.mark.parametrize("m,n", [(1, 1408), (8, 4224), (96, 6144), (4097, 1408), (300, 11008)])
 def test_w8a8_epilogue_matches_plain_on_gpu(cuda, m, n, bias, dtype):
     """The epilogue (bf16 out, and the f32 instance) against its plain chain
-    bit for bit, from a padded _int_mm accumulator (a row slice, as
-    int8_accumulate hands it on) with and without a bias; and
-    _w8a8_epilogue end to end from int8 rows."""
+    bit for bit, from an int32 accumulator that is a row slice, with and
+    without a bias; and _w8a8_epilogue (the W8A8 GEMM kernel) end to end
+    from int8 rows against the plain rescale of the kernel's int32 sums."""
     g = torch.Generator(device=cuda).manual_seed(m + n)
     acc = torch.randint(-2 ** 22, 2 ** 22, (m + 5, n), generator=g, device=cuda,
                         dtype=torch.int32)[:m]
@@ -570,6 +571,87 @@ def test_w8a8_epilogue_matches_plain_on_gpu(cuda, m, n, bias, dtype):
     got = Q._w8a8_epilogue(xq, xs, kq, ws, dtype, b)
     want = Q._w8a8_epilogue_plain(Q.int8_accumulate(xq, kq), xs, ws, b, dtype)
     assert torch.equal(got, want)
+
+
+def _int_mm(xq, kq):
+    """torch._int_mm's exact int32 product (rows zero-padded to 24 where
+    fewer: it takes M > 16), the yardstick of the W8A8 GEMM kernel."""
+    m = xq.shape[0]
+    if m < 24:
+        xq = torch.nn.functional.pad(xq, (0, 0, 0, 24 - m))
+    return torch._int_mm(xq, kq)[:m]
+
+
+def _w8a8_operands(m, k, n, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+    kq = Q.int8_kernel_layout(torch.randint(-127, 128, (k, n), generator=g, device=device,
+                                            dtype=torch.int8))
+    xs = torch.rand((m, 1), generator=g, device=device) * 1e-2 + 1e-3
+    ws = torch.rand(n, generator=g, device=device) * 1e-4
+    return g, xq, kq, xs, ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("m,k,n", [(1, 1408, 4224), (8, 1408, 6144), (96, 6144, 1408),
+                                   (130, 4112, 136), (1000, 272, 200), (2048, 1408, 4224),
+                                   (9216, 4096, 4096)])
+def test_w8a8_product_matches_plain_on_gpu(cuda, m, k, n, bias, dtype):
+    """The W8A8 GEMM kernel (each tile width the launcher picks, rows, K and
+    N off the tiles) bit for bit the plain rescale of torch._int_mm's exact
+    sums, in one launch; its int32 instance equal to torch._int_mm."""
+    g, xq, kq, xs, ws = _w8a8_operands(m, k, n, cuda, m + k + n)
+    b = (torch.randn(n, generator=g, device=cuda) * 0.1).to(dtype) if bias else None
+    acc = _int_mm(xq, kq)
+    before = Q.w8a8_product.launches
+    out = Q.w8a8_product(xq, xs, kq, ws, b, dtype)
+    assert Q.w8a8_product.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert torch.equal(out, Q._w8a8_epilogue_plain(acc, xs, ws, b, dtype))
+    assert torch.equal(Q.int8_accumulate(xq, kq), acc)
+
+
+@pytest.mark.gpu
+def test_w8a8_product_of_a_stacked_layer_and_in_a_graph(cuda):
+    """A layer of a stacked [L, K, N] column-major kernel (its offset a
+    multiple of 16 bytes), replayed from a CUDA graph, gives the eager
+    launch's output; one call is one kernel and nothing else on the card."""
+    g, xq, _, xs, ws = _w8a8_operands(300, 1408, 1408, cuda, 3)
+    stacked = Q.int8_kernel_layout(torch.randint(-127, 128, (3, 1408, 1408), generator=g,
+                                                 device=cuda, dtype=torch.int8))
+    kq = stacked[1]
+    want = Q._w8a8_epilogue_plain(_int_mm(xq, kq), xs, ws, None, torch.bfloat16)
+    assert torch.equal(Q.w8a8_product(xq, xs, kq, ws), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        Q.w8a8_product(xq, xs, kq, ws)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = Q.w8a8_product(xq, xs, kq, ws)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    counts, ops = cuda_kernels.traced_launches(lambda: Q.w8a8_product(xq, xs, kq, ws))
+    assert counts == {Q.w8a8_product: 1} and ops == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k_not_16", "row_major", "float16"])
+def test_w8a8_product_refuses_on_gpu(cuda, case):
+    """What the kernel does not take raises; nothing falls back."""
+    k = 40 if case == "k_not_16" else 64
+    _, xq, kq, xs, ws = _w8a8_operands(32, k, 16, cuda, 4)
+    if case == "row_major":
+        kq = kq.contiguous()
+    dtype = torch.float16 if case == "float16" else torch.bfloat16
+    before = Q.w8a8_product.launches
+    with pytest.raises((TypeError, ValueError)):
+        Q.w8a8_product(xq, xs, kq, ws, None, dtype)
+    assert Q.w8a8_product.launches == before
 
 
 #: relative Frobenius error of the weight-only kernel against its plain

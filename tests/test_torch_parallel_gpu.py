@@ -2,7 +2,8 @@
 
 The card machine has one GPU, and NCCL refuses two ranks on one card, so
 the data-parallel and tensor-parallel paths are held there at world size 1:
-the mesh's groups exist, every collective runs on the one rank. A tiny
+the mesh's groups exist, every collective runs on the one rank. The
+row-parallel dense's W8A8 rescale is the one-rank product bit for bit. A tiny
 W8A8 decoder's prefill and int8-cache decode through the tensor-parallel
 functions (forced on: the decoder splits only past one rank) give the plain
 run's greedy tokens and its logits within 2e-2 relative (bf16 roundings:
@@ -90,6 +91,29 @@ def test_tensor_parallel_path_at_world_size_one(nccl):
     assert torch.equal(tp.argmax(-1), plain.argmax(-1))
     rel = float((tp - plain).norm() / plain.norm())
     assert rel < 2e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_row_parallel_w8a8_rescale_at_world_size_one(nccl, dtype):
+    """The row-parallel dense's W8A8 path on the card (the W8A8 GEMM
+    kernel's int32 sums, their sum over the model group, ``w8a8_epilogue``)
+    is the one-rank W8A8 product bit for bit, with a bias."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+    from certifiedgpt_tpu_torch.parallel import tensor_parallel as TP
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((130, 272), generator=g, device="cuda").to(dtype)
+    params = Q.quantize_kernel(torch.randn((272, 136), generator=g, device="cuda") * 0.05)
+    params["kernel_q"] = Q.int8_kernel_layout(params["kernel_q"])
+    params["bias"] = (torch.randn(136, generator=g, device="cuda") * 0.1).to(dtype)
+    before = (Q.w8a8_product.launches, Q.w8a8_epilogue.launches)
+    with torch.no_grad():
+        got = TP.row_parallel_dense(params, x, nccl, act_quant=True)
+    assert (Q.w8a8_product.launches, Q.w8a8_epilogue.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    want = Q.w8a8_matmul(x, params["kernel_q"], params["scale"], params["bias"])
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 @pytest.mark.gpu
