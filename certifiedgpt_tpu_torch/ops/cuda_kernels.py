@@ -78,9 +78,10 @@ _SIGNATURES = {
         _P, _P, _P,  # xs, ws, bias (or null)
         _P, _I64,  # out and its row stride
         _I64, _I32, _I32, _I32,  # M, N, K, out kind (0 bf16, 1 f32, 2 the int32 sums)
+        _I32, _P, _I32,  # K splits, the split-K scratch (or null) and its work units
         _P,  # stream
     ),
-    "cgpt_w8a8_gemm_plan": (_I64, _I32, _I32, _P),  # M, N, K, int[6] out
+    "cgpt_w8a8_gemm_plan": (_I64, _I32, _I32, _I32, _P),  # M, N, K, K splits, int[11] out
     "cgpt_int8_weight_matmul_plan": (_I32, _I32, _I32, _I32, _P),  # M, N, K, x f32, int[7] out
     "cgpt_int8_weight_matmul": (
         _P, _I64, _P, _I64, _P, _P, _I64,  # x, ldx, kernel, its channel stride, scale, out, ldo

@@ -225,10 +225,69 @@ def _w8a8_product_plain(xq, xs, kernel_q, scale, bias, dtype) -> torch.Tensor:
     return _w8a8_epilogue_plain(acc, xs.reshape(-1, 1), scale, bias, dtype)
 
 
+#: csrc/w8a8_gemm.cu's tile of a launch that splits K (rows, channels), and
+#: the K values of its step
+W8A8_SPLIT_TILE = (128, 64)
+W8A8_BLOCK_K = 128
+
+
+#: K steps a split keeps at the least: below, writing and adding the
+#: partial sums costs more than the split saves
+W8A8_SPLIT_MIN_STEPS = 8
+
+
+def w8a8_splits(m: int, n: int, k: int, sms: int) -> int:
+    """How many ways the W8A8 kernel splits the K of an ``[m, k] x [k, n]``
+    product on a card of ``sms`` SMs: 1 above one row tile; else enough
+    (channel tile, split) units to give each SM one, each split at least
+    ``W8A8_SPLIT_MIN_STEPS`` K steps, then as few splits as keep that many
+    steps each, so that every split has K steps of its own."""
+    rows, width = W8A8_SPLIT_TILE
+    if m > rows:
+        return 1
+    steps = -(-k // W8A8_BLOCK_K)
+    splits = max(1, min(steps // W8A8_SPLIT_MIN_STEPS, sms // -(-n // width)))
+    per = -(-steps // splits)
+    return -(-steps // per)
+
+
+def w8a8_scratch_ints(units: int) -> int:
+    """int32 values of the W8A8 kernel's split-K scratch for ``units``
+    (channel tile, split) units: each unit's partial sums over a whole
+    tile, then one arrival counter a tile (a tile has at least one unit)."""
+    rows, width = W8A8_SPLIT_TILE
+    return units * (rows * width + 1)
+
+
+#: each device's split-K scratch and its units (the device's SMs: a split
+#: launch has at most that many), made once and kept
+_SPLIT_SCRATCH: Dict[int, Tuple[torch.Tensor, int]] = {}
+
+
+def _split_scratch(device: torch.device) -> Tuple[torch.Tensor, int]:
+    """The device's split-K scratch (zeros: the counters start at zero and
+    every launch leaves them so) and its units. Made at the first launch on
+    the device outside a CUDA-graph capture; a capture that would make it
+    raises, since its memory would come from the capture's pool. The
+    launches that split K share it, so they run in order on one stream, as
+    the port's do."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    found = _SPLIT_SCRATCH.get(index)
+    if found is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("w8a8_product: the split-K scratch is made at the first launch "
+                               f"on cuda:{index}; run one product there before a capture")
+        units = torch.cuda.get_device_properties(index).multi_processor_count
+        found = _SPLIT_SCRATCH[index] = (
+            torch.zeros(w8a8_scratch_ints(units), dtype=torch.int32, device=device), units)
+    return found
+
+
 def _launch_w8a8_gemm(xq, kernel_q, xs, ws, bias, out, kind) -> torch.Tensor:
     """Launch ``cgpt_w8a8_gemm`` into ``out`` (its kind ``_OUT_*``), after
     checking the operands the kernel reads; raises on anything it does not
-    take."""
+    take. A product of at most 128 rows splits its K (``w8a8_splits``) over
+    the device's scratch (``_split_scratch``)."""
     m, k = xq.shape
     n = kernel_q.shape[1]
     if xq.dtype != torch.int8 or kernel_q.dtype != torch.int8:
@@ -249,10 +308,16 @@ def _launch_w8a8_gemm(xq, kernel_q, xs, ws, bias, out, kind) -> torch.Tensor:
     if x2.data_ptr() % 16:
         x2 = x2.clone()
     lda = x2.stride(0) if m > 1 else k  # a lone row's stride may be anything
+    splits = w8a8_splits(m, n, k, torch.cuda.get_device_properties(out.device)
+                         .multi_processor_count)
+    scratch, units = None, 0
+    if splits > 1 or not torch.cuda.is_current_stream_capturing():
+        scratch, units = _split_scratch(out.device)
     code = cuda_kernels.build().lib.cgpt_w8a8_gemm(
         x2.data_ptr(), lda, kernel_q.data_ptr(), kernel_q.stride(1),
         None if xs is None else xs.data_ptr(), None if ws is None else ws.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), out.stride(0), m, n, k, kind,
+        splits, None if scratch is None else scratch.data_ptr(), units,
         cuda_kernels.stream_of(xq))
     w8a8_product.launches += 1
     cuda_kernels.check(code, "w8a8_product")
@@ -269,9 +334,11 @@ def w8a8_product(xq: torch.Tensor, xs: torch.Tensor, kernel_q: torch.Tensor,
     Replaces the JAX package's int8 einsum with the rescale and the bias
     that XLA fuses into it (certifiedgpt_tpu/ops/quantization.py:68-94,
     :308; models/layers.py:50). CPU tensors take ``_w8a8_product_plain``;
-    CUDA launches ``cgpt_w8a8_gemm`` (csrc/w8a8_gemm.cu: wgmma int8 on the
-    tensor cores, the rescale in registers; bf16 or f32 out), whose output
-    is ``_w8a8_epilogue_plain`` of the exact int32 sums bit for bit. It
+    CUDA launches ``cgpt_w8a8_gemm`` (csrc/w8a8_gemm.cu: persistent blocks,
+    wgmma int8 on the tensor cores, B shared by two-block clusters, the
+    rescale in registers, the store by TMA under the next tile's products,
+    K split at most 128 rows; bf16 or f32 out), whose output is
+    ``_w8a8_epilogue_plain`` of the exact int32 sums bit for bit. It
     takes any row count, K a multiple of 16, N of 8 and the kernel
     column-major (``int8_kernel_layout``)."""
     if _device_kind(xq) == "cpu":

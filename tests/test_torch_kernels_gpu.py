@@ -597,11 +597,17 @@ def _w8a8_operands(m, k, n, device, seed):
 @pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
 @pytest.mark.parametrize("m,k,n", [(1, 1408, 4224), (8, 1408, 6144), (96, 6144, 1408),
                                    (130, 4112, 136), (1000, 272, 200), (2048, 1408, 4224),
-                                   (9216, 4096, 4096)])
+                                   (9216, 4096, 4096), (3193, 1408, 4224), (2000, 1424, 1408),
+                                   (1, 1408, 1408), (8, 1408, 1408), (96, 1408, 1408),
+                                   (128, 1408, 1408), (1, 6144, 1408), (8, 6144, 1408),
+                                   (128, 6144, 1408), (128, 6144, 4224)])
 def test_w8a8_product_matches_plain_on_gpu(cuda, m, k, n, bias, dtype):
     """The W8A8 GEMM kernel (each tile width the launcher picks, rows, K and
-    N off the tiles) bit for bit the plain rescale of torch._int_mm's exact
-    sums, in one launch; its int32 instance equal to torch._int_mm."""
+    N off the tiles; tiles several times the persistent blocks with an odd
+    count of row tiles, so a cluster's partner lies past the edge; K off the
+    128-byte step; 1-128 rows with K split over blocks) bit for bit the
+    plain rescale of torch._int_mm's exact sums, in one launch; its int32
+    instance equal to torch._int_mm."""
     g, xq, kq, xs, ws = _w8a8_operands(m, k, n, cuda, m + k + n)
     b = (torch.randn(n, generator=g, device=cuda) * 0.1).to(dtype) if bias else None
     acc = _int_mm(xq, kq)
@@ -637,6 +643,42 @@ def test_w8a8_product_of_a_stacked_layer_and_in_a_graph(cuda):
     assert torch.equal(out, want)
     counts, ops = cuda_kernels.traced_launches(lambda: Q.w8a8_product(xq, xs, kq, ws))
     assert counts == {Q.w8a8_product: 1} and ops == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(96, 6144, 1408), (8, 6144, 4224), (1, 6144, 1408)])
+def test_w8a8_split_k_leaves_its_counters_clean(cuda, m, k, n):
+    """Two split-K calls in a row on the device's scratch give equal
+    outputs, the plain rescale of the exact sums, and leave every tile
+    counter at zero; the launch plan splits K and launches a block a unit."""
+    g, xq, kq, xs, ws = _w8a8_operands(m, k, n, cuda, 7)
+    b = (torch.randn(n, generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = Q.w8a8_splits(m, n, k, sms)
+    assert splits > 1
+    plan = (ctypes.c_int * 11)()
+    cuda_kernels.check(cuda_kernels.build().lib.cgpt_w8a8_gemm_plan(m, n, k, splits, plan),
+                       "plan")
+    assert plan[8] == splits and plan[7] == 1 and plan[5] == plan[4] <= sms
+    first = Q.w8a8_product(xq, xs, kq, ws, b)
+    second = Q.w8a8_product(xq, xs, kq, ws, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, Q._w8a8_epilogue_plain(_int_mm(xq, kq), xs, ws, b, torch.bfloat16))
+    scratch, units = Q._split_scratch(cuda)
+    assert not bool(scratch[units * Q.W8A8_SPLIT_TILE[0] * Q.W8A8_SPLIT_TILE[1]:].any())
+
+
+@pytest.mark.gpu
+def test_w8a8_product_is_persistent_at_the_vit_shapes(cuda):
+    """At the ViT's patch-stream products the plan launches fewer blocks
+    than tiles, in clusters of two, with the epilogue staged apart from the
+    ring and stored by TMA."""
+    for k, n in ((1408, 4224), (1408, 1408), (1408, 6144), (6144, 1408)):
+        plan = (ctypes.c_int * 11)()
+        cuda_kernels.check(cuda_kernels.build().lib.cgpt_w8a8_gemm_plan(98304, n, k, 1, plan),
+                           "plan")
+        assert plan[5] < plan[4] and plan[7] == 2 and plan[8] == 1 and plan[10] == 1
 
 
 @pytest.mark.gpu

@@ -233,3 +233,71 @@ def test_row_parallel_rescale_is_the_one_process_product(dtype, bias):
     np.testing.assert_array_equal(
         _bits(TQ.w8a8_epilogue(acc, xs, sc, params.get("bias"), tdt)),
         _bits(TQ.w8a8_product(xq, xs, kq, sc, params.get("bias"), tdt)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dense_split(dtype):
+    """The JAX dense layer's W8A8 branch with a bias at K = 6144 (the ViT's
+    fc2 depth, where the kernel splits K below 129 rows) on 128 rows and a
+    small N, with its row codes."""
+    jdt = DTYPES[dtype][0]
+    jx, q, b = _case(22, 128, 6144, 24, jdt)
+    params = {"kernel_q": q["kernel_q"], "scale": q["scale"], "bias": jnp.asarray(b).astype(jdt)}
+    want = JL.dense(params, jx, act_quant=True)
+    jxq, jxs = JQ.quantize_rows(jx)
+    assert np.abs(_exact(jxq, q["kernel_q"])).max() < 2 ** 24
+    return params, want, jxq, jxs
+
+
+@pytest.mark.parametrize("m", [1, 96, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_w8a8_product_matches_jax_dense_at_split_k_shapes(dtype, m):
+    """At the row counts whose K the kernel splits (a caption's 1, the cls
+    stream's 96, a whole row tile of 128) and K = 6144, ``w8a8_product``'s
+    plain version is the JAX dense layer's W8A8 branch bit for bit."""
+    tdt = DTYPES[dtype][1]
+    params, want, jxq, jxs = _jax_dense_split(dtype)
+    got = TQ.w8a8_product(torch.from_numpy(np.array(jxq[:m])),
+                          torch.from_numpy(np.array(jxs[:m])),
+                          TQ.int8_kernel_layout(torch.from_numpy(np.array(params["kernel_q"]))),
+                          torch.from_numpy(np.array(params["scale"])), _torch(params["bias"]),
+                          tdt)
+    np.testing.assert_array_equal(_bits(got), _jbits(want)[:m])
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (96, 1408, 1408, 1), (96, 4224, 1408, 1), (96, 6144, 1408, 1), (96, 1408, 6144, 6),
+    (8, 4224, 1408, 1), (8, 4224, 6144, 2), (1, 6144, 1408, 1), (1, 1408, 6144, 6),
+    (128, 1408, 6144, 6), (129, 1408, 6144, 1), (98304, 4224, 1408, 1), (1, 8, 16, 1),
+    (96, 4096, 11008, 2), (1, 64, 1408, 1), (1, 64, 11008, 10)])
+def test_w8a8_splits_at_the_path_shapes(m, n, k, splits):
+    """The K splits the launcher asks for on a 132-SM H100: none above one
+    row tile, none below 16 K steps (the cls stream's K = 1408 products);
+    at K = 6144 (the cls stream's fc2, eval's and a caption's) as many as
+    give the card's SMs a (channel tile, split) unit each, 8 K steps or
+    more a split."""
+    assert TQ.w8a8_splits(m, n, k, 132) == splits
+
+
+def test_w8a8_splits_fit_the_scratch():
+    """Over many shapes and SM counts, a split launch's units (channel
+    tiles x splits) fit the scratch's SM-count units, every split keeps K
+    steps of its own (8 or more), and the scratch holds each unit's 128 x
+    64 partial sums and a counter a tile."""
+    rows, width = TQ.W8A8_SPLIT_TILE
+    assert TQ.w8a8_scratch_ints(132) == 132 * (rows * width + 1)
+    for sms in (1, 7, 78, 114, 132):
+        for m in (1, 8, 96, 128, 129, 4096):
+            for n in (8, 64, 200, 1408, 4224, 6144, 11008, 50000):
+                for k in (16, 128, 144, 1408, 4112, 6144, 11008):
+                    splits = TQ.w8a8_splits(m, n, k, sms)
+                    steps = -(-k // TQ.W8A8_BLOCK_K)
+                    assert 1 <= splits <= steps
+                    per = -(-steps // splits)
+                    assert (splits - 1) * per < steps  # the last split has steps too
+                    assert splits == 1 or per >= TQ.W8A8_SPLIT_MIN_STEPS
+                    if m > rows:
+                        assert splits == 1
+                    if splits > 1:
+                        tiles = -(-n // width)
+                        assert tiles * splits <= sms
