@@ -151,23 +151,28 @@ __device__ __forceinline__ void mbarrier_arrive_on_copies(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
-// Waits until the barrier's phase of the given parity is complete. A wait
-// that never ends (a fault of the pipeline's order) traps instead of hanging.
-__device__ __forceinline__ void mbarrier_wait(uint32_t bar, int parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1u << 26)) __trap();
-  }
+// Waits until the barrier's phase of the given parity is complete; a wait
+// that never ends traps instead of hanging the card. The poll loop is one asm
+// block: the compiler sees no branch in it, so it cannot move the warp-wide
+// (.aligned) instructions that follow a wait into code that the warp's lanes
+// reach at different times.
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 polls;\n"
+      "mov.u32 polls, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 polls, polls, 1;\n"
+      "setp.lt.u32 p, polls, %2;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity), "n"(1 << 26)
+      : "memory");
 }
 
 // Makes shared-memory writes (cp.async, plain stores) that this thread has
@@ -700,6 +705,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   };
   auto await = [&](int barrier, int parity) {
     mbarrier_wait(bars + 8 * barrier, parity);
+    __syncwarp();  // wgmma is warp-aligned: the lanes converged after the wait
     fence_proxy_async();
   };
 

@@ -192,22 +192,27 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 }
 
 // Waits until the barrier's phase of the given parity is complete; a wait
-// that never ends traps instead of hanging the card.
+// that never ends traps instead of hanging the card. The poll loop is one asm
+// block: the compiler sees no branch in it, so it cannot move the warp-wide
+// (.aligned) instructions that follow a wait into code that the warp's lanes
+// reach at different times.
 __device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1u << 26)) __trap();
-  }
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 polls;\n"
+      "mov.u32 polls, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 polls, polls, 1;\n"
+      "setp.lt.u32 p, polls, %2;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity), "n"(1 << 26)
+      : "memory");
 }
 
 // this thread's accesses of the ring come before the tensor copies that
@@ -479,6 +484,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
     for (int h = 0; h < G; ++h) mx[h] = -FLT_MAX;
     for (int c = 0; c < n; ++c) {
       mbarrier_wait(bars + 8 * stage, (phases >> stage) & 1);
+      __syncwarp();  // the lanes converged before the warp-aligned barrier
       if (a.kn != nullptr && c == offset_tile) {
         patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow, offset, Dh);
       }
@@ -579,6 +585,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 2 ? kMinBlocks : 1)
       for (int i = 0; i < 16; ++i) acc[h][i] = 0.f;
     for (int c = 0; c < n; ++c) {
       mbarrier_wait(bars + 8 * stage, (phases >> stage) & 1);
+      __syncwarp();  // the lanes converged before the warp-aligned barrier
       if (a.kn != nullptr && c == offset_tile) {
         patch_slot(smem + L.ring + stage * L.tile * Dh, smem + L.newrow + Dh, offset, Dh);
       }

@@ -21,6 +21,21 @@
 //                        optionally the down_proj input's quantize_rows:
 //                          a = dtype(dtype(silu(g)) * u)
 //
+// and the three backward kernels of the training step, where the JAX package
+// lets autodiff differentiate the same chains and XLA fuses the backward:
+//
+//   add_rms_norm_grad_kernel  the gradient of s = x + y through the norm, from the
+//                        saved s and the norm's output gradient g (and the
+//                        gradient gs that later uses of s hand back):
+//                          r = rsqrt(mean(s^2) + eps);  gw = g * w
+//                          gx = dtype(dtype(gw r + ((-0.5 sum(gw s)) r^3 / K) 2s) + gs)
+//   rotary_grad_kernel   the rotary's transpose, the rotation by -theta, of q's and
+//                        k's gradients in one launch, into new tensors:
+//                          g1' = g1 cos + g2 sin;  g2' = g2 cos - g1 sin
+//   silu_mul_grad_kernel the gradients of a = dtype(dtype(silu(g)) * u):
+//                          gu = dtype(ga * dtype(silu(g)));  t = dtype(ga * u)
+//                          gg = dtype(t * sig(g) * (1 + g (1 - sig(g))))
+//
 // Every step rounds as the plain chain does (ops/elementwise.py: the plain
 // versions): f32 products and sums one at a time with no fused multiply-add,
 // rounded to the activation dtype where the chain rounds. rsqrt is rsqrtf and
@@ -31,6 +46,12 @@
 // ulp in rare elements; the residual sum, the rotary and the SiLU product
 // are the plain version's bit for bit. The codes are rint(h / xs) with one
 // IEEE division an element, xs = max(absmax, 1e-8) / 127, as quantize_rows.
+// The backward kernels repeat the steps of autograd's backward of the plain
+// chains in order (PyTorch's silu_backward, whose 1 + g (1 - sig) is one
+// fused multiply-add on the card, included); the norm's two row sums (of s^2
+// and of gw s) run in the kernel's order, so its gradient agrees with the
+// plain version's to a few f32 ulps of |gw r| + |the second term|, the rotary's
+// and the SiLU's are the plain version's bit for bit.
 //
 // Bound on the H100: bytes. A prefill layer at the certify chunk (9216 rows):
 // add + RMSNorm + quant reads x, y (2 x 75.5 MB) and writes the sum and the
@@ -49,7 +70,17 @@
 // reduces its sums and maxima through shared memory. The rotary walks
 // (token, head, pair) units with a grid-stride loop: a thread reads two
 // neighbouring values of the first half of a head and the two that face
-// them in the second half, so it can write all four in place.
+// them in the second half, so it can write all four in place (or, for the
+// training forward and the backward, into new tensors). The norm's backward
+// gives a block a row, keeps s and gw in shared memory between its two
+// passes and reduces both row sums at once; the SiLU's backward walks quads
+// of the [M, N] operands with a grid-stride loop.
+//
+// Bounds at a train step's shapes (16 x 256 = 4096 rows): the norm's
+// backward reads s, g, gs and writes gx, [4096, 4096] (134 MB, 0.040 ms); the
+// rotary's reads and writes q's and k's gradients (134 MB, 0.040 ms); the
+// SiLU's reads g, gate, up and writes two gradients, [4096, 11008] (451 MB,
+// 0.135 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +93,7 @@ namespace {
 constexpr int kRowThreads = 256;
 constexpr int kRotaryThreads = 256;
 constexpr int kMaxRowWidth = 32768;  // a row buffer of f32 values in shared memory
+constexpr int kMaxGradRowWidth = 16384;  // the norm's backward: two f32 rows in shared memory
 constexpr int kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -277,10 +309,14 @@ __global__ void __launch_bounds__(kRowThreads) silu_mul_kernel(const SiluArgs a)
 }
 
 struct RotaryArgs {
-  void* q;
+  const void* q;  // the rows read
   long long q_b, q_s, q_h;  // strides in elements
-  void* k;
+  const void* k;
   long long k_b, k_s, k_h;
+  void* oq;  // the rows written (q itself in place)
+  long long oq_b, oq_s, oq_h;
+  void* ok;
+  long long ok_b, ok_s, ok_h;
   const float* cos;  // [max_len, Dh]
   const float* sin;
   const void* pos;  // [B, S] int32 or int64
@@ -291,9 +327,13 @@ struct RotaryArgs {
 };
 
 // Unit u: pair j of a head (values 2j, 2j + 1 and Dh/2 + 2j, Dh/2 + 2j + 1)
-// of q's or k's heads of token (b, s); in place.
-template <typename T>
-__global__ void __launch_bounds__(kRotaryThreads) rotary_kernel(const RotaryArgs a) {
+// of q's or k's heads of token (b, s). The forward rotates by theta; the
+// backward (kInverse) applies the transpose, the rotation by -theta, with the
+// table entries autograd's backward of the plain chain multiplies by. In
+// place (kInPlace) the rows are written where they were read, with no
+// address of their own to compute.
+template <typename T, bool kInverse, bool kInPlace>
+__device__ __forceinline__ void rotate(const RotaryArgs& a) {
   const int pairs = a.Dh / 4, half = a.Dh / 2, heads = a.Hq + a.Hk;
   for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; u < a.units;
        u += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -306,21 +346,145 @@ __global__ void __launch_bounds__(kRotaryThreads) rotary_kernel(const RotaryArgs
     const long long p = a.pos_i64 ? static_cast<const long long*>(a.pos)[at]
                                   : static_cast<long long>(static_cast<const int*>(a.pos)[at]);
     if (p < 0 || p >= a.max_len) __trap();  // a position outside the tables
-    T* v = head < a.Hq ? static_cast<T*>(a.q) + b * a.q_b + s * a.q_s + head * a.q_h
-                       : static_cast<T*>(a.k) + b * a.k_b + s * a.k_s + (head - a.Hq) * a.k_h;
+    const bool isq = head < a.Hq;
+    const int h = isq ? head : head - a.Hq;
+    T* o = isq ? static_cast<T*>(a.oq) + b * a.oq_b + s * a.oq_s + h * a.oq_h
+               : static_cast<T*>(a.ok) + b * a.ok_b + s * a.ok_s + h * a.ok_h;
+    const T* v = kInPlace ? o
+                          : isq ? static_cast<const T*>(a.q) + b * a.q_b + s * a.q_s + h * a.q_h
+                                : static_cast<const T*>(a.k) + b * a.k_b + s * a.k_s + h * a.k_h;
     const float* c = a.cos + p * a.Dh;
     const float* sn = a.sin + p * a.Dh;
     const int lo = 2 * j, hi = half + 2 * j;
     float x0, x1, x2, x3;
     load2(v + lo, x0, x1);
     load2(v + hi, x2, x3);
-    // x * cos + rotate_half(x) * sin; rotate_half is (-x[half:], x[:half])
-    const float o0 = __fadd_rn(__fmul_rn(x0, c[lo]), __fmul_rn(-x2, sn[lo]));
-    const float o1 = __fadd_rn(__fmul_rn(x1, c[lo + 1]), __fmul_rn(-x3, sn[lo + 1]));
-    const float o2 = __fadd_rn(__fmul_rn(x2, c[hi]), __fmul_rn(x0, sn[hi]));
-    const float o3 = __fadd_rn(__fmul_rn(x3, c[hi + 1]), __fmul_rn(x1, sn[hi + 1]));
-    store2(v + lo, o0, o1);
-    store2(v + hi, o2, o3);
+    float o0, o1, o2, o3;
+    if constexpr (!kInverse) {
+      // x * cos + rotate_half(x) * sin; rotate_half is (-x[half:], x[:half])
+      o0 = __fadd_rn(__fmul_rn(x0, c[lo]), __fmul_rn(-x2, sn[lo]));
+      o1 = __fadd_rn(__fmul_rn(x1, c[lo + 1]), __fmul_rn(-x3, sn[lo + 1]));
+      o2 = __fadd_rn(__fmul_rn(x2, c[hi]), __fmul_rn(x0, sn[hi]));
+      o3 = __fadd_rn(__fmul_rn(x3, c[hi + 1]), __fmul_rn(x1, sn[hi + 1]));
+    } else {
+      // g * cos + rotate_half^T(g * sin); rotate_half^T(t) is (t[half:], -t[:half])
+      o0 = __fadd_rn(__fmul_rn(x0, c[lo]), __fmul_rn(x2, sn[hi]));
+      o1 = __fadd_rn(__fmul_rn(x1, c[lo + 1]), __fmul_rn(x3, sn[hi + 1]));
+      o2 = __fadd_rn(__fmul_rn(x2, c[hi]), __fmul_rn(-x0, sn[lo]));
+      o3 = __fadd_rn(__fmul_rn(x3, c[hi + 1]), __fmul_rn(-x1, sn[lo + 1]));
+    }
+    store2(o + lo, o0, o1);
+    store2(o + hi, o2, o3);
+  }
+}
+
+template <typename T, bool kInPlace>
+__global__ void __launch_bounds__(kRotaryThreads) rotary_kernel(const RotaryArgs a) {
+  rotate<T, false, kInPlace>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRotaryThreads) rotary_grad_kernel(const RotaryArgs a) {
+  rotate<T, true, false>(a);
+}
+
+struct NormGradArgs {
+  const void* s;   // the saved residual stream x + y
+  const void* g;   // the gradient of the norm's output
+  const void* gs;  // the gradient of s from its other uses, or null
+  const void* scale;
+  int scale_f32;
+  void* gx;  // the gradient of x (and of y)
+  int K;
+  float eps;
+};
+
+// One block a row, the steps of autograd's backward of rms_norm_plain:
+// gw = g * w; r = rsqrt(mean(s^2) + eps); gr = sum(gw * s);
+// gx = dtype(gw * r + (((-0.5 * gr) * r^3) / K) * (2 * s)), plus gs in the dtype
+// (in f32, where no rounding separates them, gs + gw * r first, as autograd).
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) add_rms_norm_grad_kernel(const NormGradArgs a) {
+  extern __shared__ __align__(16) float buf[];  // s, then gw: 2 K floats
+  __shared__ float red[32];
+  const int K = a.K;
+  float* sv = buf;
+  float* gwv = buf + K;
+  const long long base = static_cast<long long>(blockIdx.x) * K;
+  const T* s = static_cast<const T*>(a.s) + base;
+  const T* g = static_cast<const T*>(a.g) + base;
+  float ss = 0.f, gr = 0.f;
+  for (int i = 4 * threadIdx.x; i < K; i += 4 * blockDim.x) {
+    float v[4], d[4];
+    load4(s + i, v);
+    load4(g + i, d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float w = a.scale_f32 ? static_cast<const float*>(a.scale)[i + j]
+                                  : __bfloat162float(static_cast<const __nv_bfloat16*>(a.scale)[i + j]);
+      const float gw = __fmul_rn(d[j], w);
+      sv[i + j] = v[j];
+      gwv[i + j] = gw;
+      ss = __fadd_rn(ss, __fmul_rn(v[j], v[j]));
+      gr = __fadd_rn(gr, __fmul_rn(gw, v[j]));
+    }
+  }
+  const float var = __fdiv_rn(block_reduce<false>(ss, red), static_cast<float>(K));
+  const float r = rsqrtf(__fadd_rn(var, a.eps));
+  const float r3 = __fmul_rn(__fmul_rn(r, r), r);
+  const float coef = __fdiv_rn(__fmul_rn(__fmul_rn(-0.5f, block_reduce<false>(gr, red)), r3),
+                               static_cast<float>(K));
+  const T* gs = a.gs == nullptr ? nullptr : static_cast<const T*>(a.gs) + base;
+  constexpr bool kF32 = sizeof(T) == sizeof(float);
+  for (int i = 4 * threadIdx.x; i < K; i += 4 * blockDim.x) {
+    float o[4], e[4];
+    if (gs != nullptr) load4(gs + i, e);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float t1 = __fmul_rn(gwv[i + j], r);
+      const float t2 = __fmul_rn(coef, __fmul_rn(2.f, sv[i + j]));
+      if constexpr (kF32) {  // no rounding between the terms: autograd adds gs first
+        o[j] = gs != nullptr ? __fadd_rn(__fadd_rn(e[j], t1), t2) : __fadd_rn(t1, t2);
+      } else {
+        o[j] = round_to<T>(__fadd_rn(t1, t2));
+        if (gs != nullptr) o[j] = __fadd_rn(o[j], e[j]);
+      }
+    }
+    store4(static_cast<T*>(a.gx) + base + i, o);
+  }
+}
+
+struct SiluGradArgs {
+  const void* g;  // the gradient of silu(gate) * up
+  const void* gate;
+  const void* up;
+  void* g_gate;
+  void* g_up;
+  long long quads;  // M * N / 4
+};
+
+// Quads of the operands with a grid-stride loop: gu = dtype(g * a) with a =
+// dtype(silu(gate)); ga = dtype(g * up); gg = dtype(silu_backward(ga, gate)) as
+// PyTorch's CUDA kernel computes it: (ga * sig) * fma(gate, 1 - sig, 1).
+template <typename T>
+__global__ void __launch_bounds__(kRotaryThreads) silu_mul_grad_kernel(const SiluGradArgs a) {
+  for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; u < a.quads;
+       u += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = 4 * u;
+    float d[4], x[4], up[4], gg[4], gu[4];
+    load4(static_cast<const T*>(a.g) + i, d);
+    load4(static_cast<const T*>(a.gate) + i, x);
+    load4(static_cast<const T*>(a.up) + i, up);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float e = __fadd_rn(1.f, expf(-x[j]));
+      gu[j] = __fmul_rn(d[j], round_to<T>(__fdiv_rn(x[j], e)));
+      const float ga = round_to<T>(__fmul_rn(d[j], up[j]));
+      const float sig = __fdiv_rn(1.f, e);
+      gg[j] = __fmul_rn(__fmul_rn(ga, sig), __fmaf_rn(x[j], __fsub_rn(1.f, sig), 1.f));
+    }
+    store4(static_cast<T*>(a.g_gate) + i, gg);
+    store4(static_cast<T*>(a.g_up) + i, gu);
   }
 }
 
@@ -378,6 +542,27 @@ int launch_silu(const SiluArgs& a, long long M, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// A grid-stride launch of `units` over at most 8 blocks an SM.
+cudaError_t stride_grid(long long units, unsigned* grid) {
+  int sms = 0;
+  const cudaError_t err = multiprocessors(&sms);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (units + kRotaryThreads - 1) / kRotaryThreads;
+  const long long most = 8LL * sms;
+  *grid = static_cast<unsigned>(blocks < most ? blocks : most);
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_norm_grad(const NormGradArgs& a, long long M, cudaStream_t st) {
+  const size_t smem = 8 * static_cast<size_t>(a.K);
+  const void* kernel = reinterpret_cast<const void*>(add_rms_norm_grad_kernel<T>);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  add_rms_norm_grad_kernel<T><<<static_cast<unsigned>(M), row_threads(a.K), smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x [M, K] (+ y) -> sum, and out [M, K] or q [M, K] int8 + qs [M] f32. bf16
@@ -418,34 +603,89 @@ extern "C" int cgpt_silu_mul(const void* gate, const void* up, void* out, void* 
                : launch_silu<__nv_bfloat16, false>(a, M, st);
 }
 
-// q [B, S, Hq, Dh] and k [B, S, Hk, Dh] (strided, Dh contiguous) rotated in
-// place by the tables' rows at positions [B, S].
-extern "C" int cgpt_rotary(void* q, long long q_b, long long q_s, long long q_h, void* k,
-                           long long k_b, long long k_s, long long k_h, const void* cos,
+// q [B, S, Hq, Dh] and k [B, S, Hk, Dh] (strided, Dh contiguous) rotated by
+// the tables' rows at positions [B, S] into oq and ok (q and k themselves in
+// place), or with `inverse` the gradients q and k rotated back (the backward).
+extern "C" int cgpt_rotary(const void* q, long long q_b, long long q_s, long long q_h,
+                           const void* k, long long k_b, long long k_s, long long k_h, void* oq,
+                           long long oq_b, long long oq_s, long long oq_h, void* ok,
+                           long long ok_b, long long ok_s, long long ok_h, const void* cos,
                            const void* sin, const void* pos, long long p_b, long long p_s,
                            int pos_i64, int B, int S, int Hq, int Hk, int Dh, int max_len,
-                           int f32, void* stream) {
+                           int f32, int inverse, void* stream) {
   const int pair = f32 ? 8 : 4;
   if (B < 0 || S < 0 || Hq < 0 || Hk < 0 || Dh <= 0 || Dh % 4 != 0 || max_len <= 0 ||
-      misaligned(q, pair) || misaligned(k, pair) || (q_b | q_s | q_h | k_b | k_s | k_h) % 2 != 0) {
+      misaligned(q, pair) || misaligned(k, pair) || misaligned(oq, pair) ||
+      misaligned(ok, pair) ||
+      (q_b | q_s | q_h | k_b | k_s | k_h | oq_b | oq_s | oq_h | ok_b | ok_s | ok_h) % 2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long units = static_cast<long long>(B) * S * (Hq + Hk) * (Dh / 4);
   if (units == 0) return 0;
-  int sms = 0;
-  const cudaError_t err = multiprocessors(&sms);
+  unsigned grid = 0;
+  const cudaError_t err = stride_grid(units, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (units + kRotaryThreads - 1) / kRotaryThreads;
-  const long long most = 8LL * sms;
-  const unsigned grid = static_cast<unsigned>(blocks < most ? blocks : most);
-  const RotaryArgs a{q, q_b, q_s, q_h, k, k_b, k_s, k_h, static_cast<const float*>(cos),
-                     static_cast<const float*>(sin), pos, p_b, p_s, pos_i64, S, Hq, Hk, Dh,
-                     max_len, units};
+  const RotaryArgs a{q, q_b, q_s, q_h, k, k_b, k_s, k_h, oq, oq_b, oq_s, oq_h, ok, ok_b, ok_s,
+                     ok_h, static_cast<const float*>(cos), static_cast<const float*>(sin), pos,
+                     p_b, p_s, pos_i64, S, Hq, Hk, Dh, max_len, units};
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool in_place = oq == q && ok == k && oq_b == q_b && oq_s == q_s && oq_h == q_h &&
+                        ok_b == k_b && ok_s == k_s && ok_h == k_h;
+  if (inverse) {
+    if (f32) {
+      rotary_grad_kernel<float><<<grid, kRotaryThreads, 0, st>>>(a);
+    } else {
+      rotary_grad_kernel<__nv_bfloat16><<<grid, kRotaryThreads, 0, st>>>(a);
+    }
+  } else if (f32) {
+    if (in_place) {
+      rotary_kernel<float, true><<<grid, kRotaryThreads, 0, st>>>(a);
+    } else {
+      rotary_kernel<float, false><<<grid, kRotaryThreads, 0, st>>>(a);
+    }
+  } else if (in_place) {
+    rotary_kernel<__nv_bfloat16, true><<<grid, kRotaryThreads, 0, st>>>(a);
+  } else {
+    rotary_kernel<__nv_bfloat16, false><<<grid, kRotaryThreads, 0, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// s, g [M, K] (+ gs) -> gx [M, K]: the gradient of x (and y) through
+// s = x + y and its RMSNorm with the scale [K] (bf16 or f32).
+extern "C" int cgpt_add_rms_norm_grad(const void* s, const void* g, const void* gs,
+                                      const void* scale, int scale_f32, void* gx, long long M,
+                                      int K, float eps, int f32, void* stream) {
+  const int vec = f32 ? 16 : 8;
+  if (M < 0 || M > 0x7fffffffLL || K <= 0 || K % 4 != 0 || K > kMaxGradRowWidth ||
+      misaligned(s, vec) || misaligned(g, vec) || misaligned(gs, vec) || misaligned(gx, vec) ||
+      s == nullptr || g == nullptr || gx == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return 0;
+  const NormGradArgs a{s, g, gs, scale, scale_f32, gx, K, eps};
+  auto st = static_cast<cudaStream_t>(stream);
+  return f32 ? launch_norm_grad<float>(a, M, st) : launch_norm_grad<__nv_bfloat16>(a, M, st);
+}
+
+// g, gate, up [elems] -> g_gate, g_up: the gradients of silu(gate) * up.
+extern "C" int cgpt_silu_mul_grad(const void* g, const void* gate, const void* up, void* g_gate,
+                                  void* g_up, long long elems, int f32, void* stream) {
+  const int vec = f32 ? 16 : 8;
+  if (elems < 0 || elems % 4 != 0 || misaligned(g, vec) || misaligned(gate, vec) ||
+      misaligned(up, vec) || misaligned(g_gate, vec) || misaligned(g_up, vec)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (elems == 0) return 0;
+  unsigned grid = 0;
+  const cudaError_t err = stride_grid(elems / 4, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const SiluGradArgs a{g, gate, up, g_gate, g_up, elems / 4};
   auto st = static_cast<cudaStream_t>(stream);
   if (f32) {
-    rotary_kernel<float><<<grid, kRotaryThreads, 0, st>>>(a);
+    silu_mul_grad_kernel<float><<<grid, kRotaryThreads, 0, st>>>(a);
   } else {
-    rotary_kernel<__nv_bfloat16><<<grid, kRotaryThreads, 0, st>>>(a);
+    silu_mul_grad_kernel<__nv_bfloat16><<<grid, kRotaryThreads, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -150,22 +150,27 @@ __device__ __forceinline__ void load_row_async(unsigned char* dst, const void* s
 }
 
 // Waits until the barrier's phase of the given parity is complete; a wait
-// that never ends traps instead of hanging the card.
+// that never ends traps instead of hanging the card. The poll loop is one asm
+// block: the compiler sees no branch in it, so it cannot move the warp-wide
+// (.aligned) instructions that follow a wait into code that the warp's lanes
+// reach at different times.
 __device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1u << 26)) __trap();
-  }
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 polls;\n"
+      "mov.u32 polls, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 polls, polls, 1;\n"
+      "setp.lt.u32 p, polls, %2;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity), "n"(1 << 26)
+      : "memory");
 }
 
 // ---- quantization ----
@@ -443,6 +448,7 @@ __device__ __forceinline__ void walk_rows(const RowQuantArgs& a) {
   for (long long row = first; row < a.M; row += step) {
     unsigned char* buf = ring + slot * row_bytes;
     mbarrier_wait(bar0 + 8 * slot, parity);
+    __syncwarp();  // the row's shuffles and team barriers are warp-aligned
     if constexpr (kLn) {
       ln_row(buf, gamma, beta, K, a.eps, a.q + row * K, a.s + row, team);
     } else if constexpr (kMode == kGeluMode) {

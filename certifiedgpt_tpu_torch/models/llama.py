@@ -18,13 +18,14 @@ position, head) f32 scales) is updated in place, unlike the JAX package's
 immutable arrays: ``llama_apply`` writes the new keys/values into the
 tensors it is given and returns the same dict.
 
-A forward that autograd does not record (the prefill, the decode step,
-a validation batch) runs ``_serving_block``: the decoder's elementwise
-chains as the fused ops of ``ops/elementwise.py`` (the residual add into
-the next RMSNorm with the W8A8 input's int8 codes, the rotary of q and k,
-SiLU x up with the down input's codes), each residual added by the norm
-after it. A forward that autograd records (training) runs ``_block``, the
-plain chain, which the kernels have no backward for.
+Every forward (training, a validation batch, the prefill, the decode
+step) runs one block, ``_block``: the decoder's elementwise chains as the
+fused ops of ``ops/elementwise.py`` (the residual add into the next RMSNorm
+with the W8A8 input's int8 codes, shared by the products of that input;
+the rotary of q and k; SiLU x up with the down input's codes), each
+residual added by the norm after it. Where autograd records the forward
+(training) the fused ops are ``torch.autograd.Function``s whose backward
+runs the backward kernels.
 
 Tensor parallelism (``run.model_parallel``): when the active mesh has a
 model group (``parallel/mesh.py``), the parameters are this rank's shard
@@ -173,103 +174,53 @@ def _attend(q, k, v, cfg: LlamaConfig, mask, cache, cache_offset):
     return A.multi_head_attention(q, cache["k"], cache["v"], mask)
 
 
-def _block(x, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
+def _block(x, y, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
            cache_offset=None):
-    """A decoder block of a forward that autograd records (training): the
-    plain chain, differentiable, each residual added where it is made."""
-    b, s, _ = x.shape
-    dh = cfg.head_dim
-    aq = cfg.act_quant and s > 1  # prefill and training; decode is bandwidth-bound
-    tp = tensor_parallel()
-
-    def shared_input(inp, names):
-        """The products of ``names`` on one input: under the cached W8A8
-        path the input is quantized once for all of them, as XLA's CSE
-        does for the JAX package; elsewhere each product quantizes it
-        itself (a training forward differentiates through each)."""
-        if cache is not None and aq and all("kernel_q" in lp[n] for n in names):
-            xq, xs = Q.quantize_rows(inp)
-            return [L.dense_quantized(lp[n], xq, xs, inp.dtype) for n in names]
-        return [L.dense(lp[n], inp, act_quant=aq) for n in names]
-
-    hidden = L.rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
-    if tp is not None:
-        hidden = copy_to_model(hidden, tp)
-    # heads from the shard widths: this rank's under tensor parallelism
-    q, k, v = (y.reshape(b, s, -1, dh)
-               for y in shared_input(hidden, ("q_proj", "k_proj", "v_proj")))
-    q = L.apply_rotary(q, cos, sin, positions)
-    k = L.apply_rotary(k, cos, sin, positions)
-    attn = _attend(q, k, v, cfg, mask, cache, cache_offset)
-    x = x + _row_dense(lp["o_proj"], attn.reshape(b, s, -1), aq, tp)
-    hidden = L.rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
-    if tp is not None:
-        hidden = copy_to_model(hidden, tp)
-    gate, up = shared_input(hidden, ("gate_proj", "up_proj"))
-    return x + _row_dense(lp["down_proj"], L.silu(gate) * up, aq, tp)
-
-
-def _serving_block(x, y, lp, cfg: LlamaConfig, cos, sin, positions, mask, cache=None,
-                   cache_offset=None):
-    """A decoder block of a forward that autograd does not record (the
-    prefill, the decode step, a validation batch) through the fused
-    elementwise ops (``ops/elementwise.py``): ``y``, the previous block's
-    down_proj output (None before the first block), is added into the
-    residual stream ``x`` by this block's input norm, and the o_proj output
-    by its post-attention norm. Returns ``(x, y)``: the stream and this
-    block's down_proj output, which the next norm adds. The same operations
-    as ``_block`` in the same order.
+    """A decoder block through the fused elementwise ops
+    (``ops/elementwise.py``): ``y``, the previous block's down_proj output
+    (None before the first block), is added into the residual stream ``x``
+    by this block's input norm, and the o_proj output by its post-attention
+    norm. Returns ``(x, y)``: the stream and this block's down_proj output,
+    which the next norm adds. The same operations as the JAX package's
+    block in the same order; differentiable where autograd records.
 
     On the W8A8 path (``act_quant``, several rows) each norm writes the
     int8 codes of its rows for the products that share them, and
-    ``silu_mul`` those of the down_proj's input; under a model group the
-    norms and ``silu_mul`` write rows, which the column-parallel products
-    share and ``row_parallel_dense`` quantizes itself."""
+    ``swiglu`` those of the down_proj's input. Under a model group the
+    norms and ``swiglu`` write rows, which the column-parallel products
+    share (quantized once where autograd does not record, by each product
+    where it does) and ``row_parallel_dense`` quantizes itself."""
     b, s, _ = x.shape
-    aq = cfg.act_quant and s > 1
+    aq = cfg.act_quant and s > 1  # prefill and training; decode is bandwidth-bound
     tp = tensor_parallel()
 
-    def quantized(names):
-        return aq and tp is None and all("kernel_q" in lp[n] for n in names)
+    def int8(names):
+        return aq and all("kernel_q" in lp[n] for n in names)
 
     def norm_then(x, y, norm, names):
         """``x + y`` into the norm ``norm``, then the products of ``names``
         on its output."""
-        x, out = E.add_rms_norm(x, y, lp[norm]["scale"], cfg.rms_norm_eps,
-                                quantize=quantized(names))
-        if quantized(names):
-            return x, [L.dense_quantized(lp[n], *out, x.dtype) for n in names]
+        scale = lp[norm]["scale"]
+        if tp is None and int8(names):
+            return E.residual_norm(x, y, scale, cfg.rms_norm_eps, dense=[lp[n] for n in names])
+        x, out = E.residual_norm(x, y, scale, cfg.rms_norm_eps)
         if tp is not None:
             out = copy_to_model(out, tp)
-            if aq and all("kernel_q" in lp[n] for n in names):
+            if int8(names) and not (torch.is_grad_enabled() and out.requires_grad):
                 xq, xs = Q.quantize_rows(out)
                 return x, [L.dense_quantized(lp[n], xq, xs, x.dtype) for n in names]
         return x, [L.dense(lp[n], out, act_quant=aq) for n in names]
 
     x, qkv = norm_then(x, y, "input_layernorm", ("q_proj", "k_proj", "v_proj"))
+    # heads from the shard widths: this rank's under tensor parallelism
     q, k, v = (t.reshape(b, s, -1, cfg.head_dim) for t in qkv)
-    q, k = E.rotary(q, k, cos, sin, positions)
+    q, k = E.rotate_qk(q, k, cos, sin, positions)
     attn = _attend(q, k, v, cfg, mask, cache, cache_offset)
     o = _row_dense(lp["o_proj"], attn.reshape(b, s, -1), aq, tp)
     x, (gate, up) = norm_then(x, o, "post_attention_layernorm", ("gate_proj", "up_proj"))
-    if quantized(("down_proj",)):
-        xq, xs = E.silu_mul(gate, up, quantize=True)
-        return x, L.dense_quantized(lp["down_proj"], xq, xs, x.dtype)
-    return x, _row_dense(lp["down_proj"], E.silu_mul(gate, up), aq, tp)
-
-
-def _recorded(x: torch.Tensor, params) -> bool:
-    """Whether autograd records a forward of ``params`` on ``x``."""
-    if not torch.is_grad_enabled():
-        return False
-    stack = [x, params]
-    while stack:
-        t = stack.pop()
-        if isinstance(t, dict):
-            stack.extend(t.values())
-        elif isinstance(t, torch.Tensor) and t.requires_grad:
-            return True
-    return False
+    if tp is None and int8(("down_proj",)):
+        return x, E.swiglu(gate, up, dense=lp["down_proj"])
+    return x, _row_dense(lp["down_proj"], E.swiglu(gate, up), aq, tp)
 
 
 # the products a recomputed block keeps under each of the JAX package's
@@ -323,18 +274,20 @@ def _remat_settings(cfg: LlamaConfig):
 
 
 def _run_layers(params, cfg: LlamaConfig, x, cos, sin, positions, mask):
-    """The decoder blocks of the training forward, with ``cfg.remat``'s
-    checkpointing."""
+    """The decoder blocks without a cache, with ``cfg.remat``'s
+    checkpointing where autograd records. Returns ``(x, y)``: the stream
+    and the last block's down_proj output, which the final norm adds."""
     every, context = _remat_settings(cfg)
+    y = None
     for layer in range(cfg.num_layers):
         lp = L.layer_slice(params["layers"], layer)
-        if cfg.remat and layer % every == 0:
+        if cfg.remat and layer % every == 0 and torch.is_grad_enabled():
             kwargs = {} if context is None else {"context_fn": context}
-            x = _checkpoint.checkpoint(_block, x, lp, cfg, cos, sin, positions, mask,
-                                       use_reentrant=False, **kwargs)
+            x, y = _checkpoint.checkpoint(_block, x, y, lp, cfg, cos, sin, positions, mask,
+                                          use_reentrant=False, **kwargs)
         else:
-            x = _block(x, lp, cfg, cos, sin, positions, mask)
-    return x
+            x, y = _block(x, y, lp, cfg, cos, sin, positions, mask)
+    return x, y
 
 
 def llama_apply(
@@ -366,7 +319,6 @@ def llama_apply(
                                device=device)
     x = inputs_embeds.to(cfg.dtype)
     if kv_cache is None:
-        _remat_settings(cfg)  # refused knobs raise whether or not autograd records
         mask = _training_mask(attention_mask, segment_ids, s, device)
     else:
         if segment_ids is not None:
@@ -378,26 +330,16 @@ def llama_apply(
         q_pos = cache_offset + torch.arange(s, device=device)[:, None]
         k_pos = torch.arange(sk, device=device)[None, :]
         mask = (k_pos <= q_pos)[None, None] & attention_mask[:, None, None, :].bool()
-    names = () if kv_cache is None else tuple(kv_cache)
-
-    def layer_cache(layer):
-        return None if kv_cache is None else {name: kv_cache[name][layer] for name in names}
-
-    if _recorded(x, params):
-        if kv_cache is None:
-            x = _run_layers(params, cfg, x, cos, sin, positions, mask)
-        else:
-            for layer in range(cfg.num_layers):
-                x = _block(x, L.layer_slice(params["layers"], layer), cfg, cos, sin, positions,
-                           mask, layer_cache(layer), cache_offset)
-        x = L.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+    if kv_cache is None:
+        x, y = _run_layers(params, cfg, x, cos, sin, positions, mask)
     else:
         y = None
         for layer in range(cfg.num_layers):
-            x, y = _serving_block(x, y, L.layer_slice(params["layers"], layer), cfg, cos, sin,
-                                  positions, mask, layer_cache(layer), cache_offset)
-        # the last down_proj output is added by the final norm
-        _, x = E.add_rms_norm(x, y, params["norm"]["scale"], cfg.rms_norm_eps)
+            x, y = _block(x, y, L.layer_slice(params["layers"], layer), cfg, cos, sin, positions,
+                          mask, {name: cache[layer] for name, cache in kv_cache.items()},
+                          cache_offset)
+    # the last down_proj output is added by the final norm
+    _, x = E.residual_norm(x, y, params["norm"]["scale"], cfg.rms_norm_eps)
     logits = lm_head_logits(params, x) if compute_logits else None
     return logits, x, kv_cache
 

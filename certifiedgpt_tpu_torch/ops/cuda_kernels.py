@@ -124,11 +124,20 @@ _SIGNATURES = {
     "cgpt_rotary": (
         _P, _I64, _I64, _I64,  # q and its (b, s, h) strides
         _P, _I64, _I64, _I64,  # k and its (b, s, h) strides
+        _P, _I64, _I64, _I64,  # the rotated q (q itself in place) and its strides
+        _P, _I64, _I64, _I64,  # the rotated k and its strides
         _P, _P,  # the cos and sin tables
         _P, _I64, _I64, _I32,  # positions, their (b, s) strides, int64
         _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # B, S, Hq, Hk, Dh, max_len, f32
+        _I32,  # inverse (the backward)
         _P,  # stream
     ),
+    "cgpt_add_rms_norm_grad": (
+        _P, _P, _P, _P, _I32,  # s, the output's gradient, s's other gradient (or null), scale, f32
+        _P, _I64, _I32, _F32, _I32,  # the input gradient, M, K, eps, rows f32
+        _P,  # stream
+    ),
+    "cgpt_silu_mul_grad": (_P, _P, _P, _P, _P, _I64, _I32, _P),  # g, gate, up, g_gate, g_up, elems, f32
     "cgpt_attention_kv8_decode": (
         _P, _I64, _I64,  # q and its (b, h) strides
         _P, _P, _I64, _I64,  # the step's k, v and their (b, h) strides

@@ -266,7 +266,8 @@ def pipeline_llama_apply(
 
     def stage(x, k):
         at = slice(k * per, (k + 1) * per)
-        return _run_layers(params, stage_cfg, x, cos, sin, positions[at], mask[at])
+        x, y = _run_layers(params, stage_cfg, x, cos, sin, positions[at], mask[at])
+        return x + y  # the stage's last residual add: the next stage starts a stream
 
     x = inputs_embeds.to(cfg.dtype)
     leaves = [leaf for leaf in layer_leaves if leaf.requires_grad]
@@ -275,7 +276,7 @@ def pipeline_llama_apply(
         x = _Pipeline.apply(schedule, x, *leaves)
     else:
         x = schedule.forward(x, keep_graphs=False)
-    x = L.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+    _, x = E.residual_norm(x, None, params["norm"]["scale"], cfg.rms_norm_eps)
     logits = lm_head_logits(params, x) if compute_logits else None
     return logits, x
 

@@ -212,7 +212,13 @@ Phases, each of which exits non-zero on any failure:
    decoder's activation quant off), with a control (the plain image tokens
    changed at random by as much); one decoder layer's straight-through
    backward against the layer with dequantized bf16 kernels; a batch whose
-   last packed row is all padding gives finite values. 11.2:
+   last packed row is all padding gives finite values; a train step's
+   launches (the decoder's six elementwise kernels, forward and backward,
+   65 / 32 / 32 each way; ``quant_rows`` 32 in the decoder, the o_proj
+   inputs), its synchronized stages, and its forward and backward each
+   under a device trace: device seconds by kernel group and the largest
+   kernels (``train_step_groups``; ``scripts/bench_torch_train_step.py``
+   takes the same of other checkouts in turns). 11.2:
    ``launch.main(["train", ...])`` on that YAML and on
    ``vqav2_finetuning_noise_0.5.yaml`` (bf16 towers), each a copy with only
    ``max_epoch`` cut to ``TRAIN_EPOCHS``: every train step and val batch
@@ -376,6 +382,18 @@ Phases, each of which exits non-zero on any failure:
    ``torch.mm``, with its launch plan; a chunk's ViT and prefill products
    are summed from the alone times.
 
+23. The backward kernels of the decoder's fused elementwise ops (inside
+   phase 3): ``add_rms_norm_grad``, ``rotary_grad`` and ``silu_mul_grad``
+   (``csrc/elementwise.cu``) against their plain versions (autograd's
+   backward of the plain chains, step by step) at a train step's shapes
+   (16 packed rows x 256 tokens: [4096, 4096] with and without the
+   stream's later gradient, q and k [16, 256, 32, 128] at restarting
+   positions, [4096, 11008]), a batch-1 row and f32: the rotary's and the
+   SiLU's bit for bit, the norm's within ``norm_grad_slack`` (its two row
+   sums run in the kernel's order); each timed eager and alone (from a
+   CUDA graph) beside its bound, its plain version and autograd's backward
+   of the plain chain (what a train step ran before the kernels).
+
 Prints one JSON line ``{"kernels": [...]}`` with every kernel's numbers (the
 attention kernels' achieved TFLOP/s among them; ``attack_batch1``: phase
 14.1's; ``cli_launches``: the launches in each launcher run of phases 8-15,
@@ -524,6 +542,8 @@ PROFILE_GROUPS = (
     ("W8A8 epilogue kernel", ("w8a8_epilogue_kernel",)),
     ("weight-only int8 kernel", ("int8_weight_matmul_kernel",)),
     ("decoder elementwise kernels", ("add_rms_norm_kernel", "rotary_kernel", "silu_mul_kernel")),
+    ("decoder elementwise backward kernels", ("add_rms_norm_grad_kernel", "rotary_grad_kernel",
+                                              "silu_mul_grad_kernel")),
     ("int8-KV attention kernel", ("attention_kv8_kernel", "kv8_prefill_kernel",
                                   "kv8_decode_kernel")),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
@@ -2360,6 +2380,198 @@ def phase_decoder_fusions(torch, device):
             "silu_mul": fused_record(silu)}
 
 
+# ----------------------------------------------------------------------
+# phase 23: the backward kernels of the fused elementwise ops
+# ----------------------------------------------------------------------
+# a train step of the VQAv2 finetuning configs: 48 samples packed 3 to a row
+# of 256 tokens
+TRAIN_ROWS = TRAIN_BATCH // 3
+TRAIN_SEQ = 256
+TRAIN_TOKENS = TRAIN_ROWS * TRAIN_SEQ
+# (label, dtype, rows, the stream's gradient from later uses given); the
+# first is the record's shape: a middle layer of a train step
+GRAD_NORM_SHAPES = (("train step, residual", "bf16", TRAIN_TOKENS, True),
+                    ("train step, first layer", "bf16", TRAIN_TOKENS, False),
+                    ("batch 1, residual", "bf16", 1, True),
+                    ("f32, residual", "f32", F32_ROWS, True))
+GRAD_SILU_SHAPES = (("train step", "bf16", TRAIN_TOKENS), ("batch 1", "bf16", 1),
+                    ("f32", "f32", F32_ROWS))
+GRAD_ROTARY_SHAPES = (("train step", "bf16", (TRAIN_ROWS, TRAIN_SEQ)), ("batch 1", "bf16", (1, 1)),
+                      ("f32", "f32", (EVAL_BATCH, RUN_CFG["seq_len"])))
+# f32 operations an element counted for the bounds: the norm's g w, s^2 and
+# its sum, g w s and its sum, g w r, 2 s and its product, the add and the
+# gradient's add; the rotary's two products and a sum; the SiLU's negation,
+# two adds, two divisions, four products, a subtraction and a fused
+# multiply-add, plus one exponential on the special-function unit
+GRAD_NORM_OPS, GRAD_ROTARY_OPS, GRAD_SILU_OPS = 10, 3, 11
+# the norm's backward against its plain version: its two row sums (of s^2
+# and of g w s) run in the kernel's order. Two orders of a K-term f32 sum
+# differ by at most 2 (K - 1) units of roundoff (2^-24) of the sum of the
+# terms' magnitudes (recursive summation's bound; 2^-11 at K = 4096), which
+# moves r relatively by half that and the second term's factor r^3 by three
+# halves. So an element may differ by the dtype's rounding of either side
+# (an ulp at the result and at the norm's term) plus that share of |g w r|,
+# 3 |the second term| and the second term with every product of its sum
+# taken positive, and of |gs| where f32 adds it before rounding. The
+# rotary's and the SiLU's bit for bit.
+
+
+def norm_grad_slack(torch, s, g, gs, scale, gx_plain, eps=1e-6):
+    """``add_rms_norm_grad``'s tolerance against its plain version,
+    element by element (above)."""
+    import numpy as np
+
+    def ulp(t, dtype):
+        out = torch.from_numpy(np.spacing(t.abs().float().cpu().numpy())).to(t.device)
+        return out * (2.0 ** 16 if dtype == torch.bfloat16 else 1.0)
+
+    s32 = s.float()
+    gw = g.float() * scale.float()
+    r = torch.rsqrt(s32.square().mean(dim=-1, keepdim=True) + eps)
+    k = s.shape[-1]
+    a = gw * r
+    b = ((-0.5 * (gw * s32).sum(dim=-1, keepdim=True)) * r.pow(3) / k) * (2.0 * s32)
+    b_abs = ((0.5 * (gw * s32).abs().sum(dim=-1, keepdim=True)) * r.pow(3) / k) * (2.0 * s32.abs())
+    return ulp(gx_plain, s.dtype) + ulp(a + b, s.dtype) + 2 * (k - 1) * 2.0 ** -24 * (
+        a.abs() + 3.0 * b.abs() + b_abs + (0.0 if gs is None else gs.float().abs()))
+
+
+def time_grad(torch, fn, plain, replaced):
+    """ms eager, alone (from a CUDA graph), the plain version's and the
+    replaced autograd backward's."""
+    return {"ms": cuda_ms(torch, fn, iters=20), "graph_ms": graph_ms(torch, fn),
+            "plain_ms": cuda_ms(torch, plain, iters=5, warmup=1),
+            "replaced_ms": cuda_ms(torch, replaced, iters=5, warmup=1), "library_ms": None}
+
+
+def autograd_backward(torch, forward, inputs, cotangents):
+    """A call that runs autograd's backward of ``forward`` (the plain chain)
+    on a graph built once: the backward the kernel replaced (autograd on,
+    whatever the caller's mode)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        outs = forward(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+
+    def backward():
+        with torch.enable_grad():
+            return torch.autograd.grad(outs, leaves, cotangents, retain_graph=True)
+
+    return backward
+
+
+def phase_decoder_grads(torch, device):
+    """Phase 23: ``add_rms_norm_grad``, ``rotary_grad`` and
+    ``silu_mul_grad`` against their plain versions at a train step's shapes
+    (16 packed rows x 256 tokens), a batch-1 row and f32, each timed eager
+    and alone (replayed from a CUDA graph) beside its bound, its plain
+    version and autograd's backward of the plain chain (what the training
+    step ran before the kernels). Returns the three kernels' records."""
+    from certifiedgpt_tpu_torch.ops import elementwise as E
+
+    t0 = time.perf_counter()
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    g = torch.Generator(device=device).manual_seed(23)
+
+    def normal(shape, dt, std=1.0):
+        return (std * torch.randn(shape, generator=g, device=device)).to(dt)
+
+    norm = {}
+    for label, dt, m, residual in GRAD_NORM_SHAPES:
+        dtype = dtypes[dt]
+        s, gout = normal((m, LLAMA_WIDTH), dtype, 3.0), normal((m, LLAMA_WIDTH), dtype)
+        gs = normal((m, LLAMA_WIDTH), dtype) if residual else None
+        scale = (1.0 + 0.1 * torch.randn((LLAMA_WIDTH,), generator=g, device=device)).to(dtype)
+        got = E.add_rms_norm_grad(s, gout, gs, scale)
+        want = E._add_rms_norm_grad_plain(s, gout, gs, scale)
+        torch.cuda.synchronize()
+        off = bits_unequal(torch, got, want)
+        diff = (got.float() - want.float()).abs()
+        share = float((diff / norm_grad_slack(torch, s, gout, gs, scale, want)).max())
+        ulps = ulps_off(torch, got, want)
+        rec = time_grad(
+            torch, lambda: E.add_rms_norm_grad(s, gout, gs, scale),
+            lambda: E._add_rms_norm_grad_plain(s, gout, gs, scale),
+            autograd_backward(torch, lambda x: (x, E.rms_norm_plain(x, scale)), (s,),
+                              (torch.zeros_like(s) if gs is None else gs, gout)))
+        size = s.element_size()
+        moved = m * LLAMA_WIDTH * size * (4 if residual else 3) + LLAMA_WIDTH * size
+        bms, by = bound_ms(moved, GRAD_NORM_OPS * m * LLAMA_WIDTH, PEAK_F32_FLOPS)
+        rec.update(bound_ms=bms, bound_by=by, max_abs_err=float(diff.max()), bits_off=off,
+                   tolerance_share=share)
+        norm[f"{label} [{m}, {LLAMA_WIDTH}] {dt}"] = rec
+        log(f"[grad] 23 add_rms_norm_grad {label} [{m}, {LLAMA_WIDTH}] {dt}: {off} values not "
+            f"bit-identical to the plain version ({ulps:.0f} ulps at most, {share:.3f} of the "
+            f"tolerance); {rec['ms']:.4f} ms eager, {rec['graph_ms']:.4f} ms alone, bound "
+            f"{bms:.4f} ms ({by}), plain {rec['plain_ms']:.4f} ms, autograd's backward of the "
+            f"plain chain {rec['replaced_ms']:.4f} ms")
+        if not share <= 1.0:
+            fail(f"add_rms_norm_grad disagrees with its plain version ({label}, {dt})")
+        del s, gout, gs, got, want, diff
+
+    silu = {}
+    for label, dt, m in GRAD_SILU_SHAPES:
+        dtype = dtypes[dt]
+        gate, up = normal((m, LLAMA_MLP), dtype, 3.0), normal((m, LLAMA_MLP), dtype)
+        gout = normal((m, LLAMA_MLP), dtype)
+        got = E.silu_mul_grad(gout, gate, up)
+        want = E._silu_mul_grad_plain(gout, gate, up)
+        torch.cuda.synchronize()
+        offs = [bits_unequal(torch, a, b) for a, b in zip(got, want)]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        rec = time_grad(torch, lambda: E.silu_mul_grad(gout, gate, up),
+                        lambda: E._silu_mul_grad_plain(gout, gate, up),
+                        autograd_backward(torch, E._silu_mul_plain, (gate, up), (gout,)))
+        size = gate.element_size()
+        bms, by = bound_ms(5 * m * LLAMA_MLP * size, GRAD_SILU_OPS * m * LLAMA_MLP, PEAK_F32_FLOPS,
+                           (m * LLAMA_MLP, PEAK_MUFU_OPS))
+        rec.update(bound_ms=bms, bound_by=by, max_abs_err=err, bits_off=sum(offs))
+        silu[f"{label} [{m}, {LLAMA_MLP}] {dt}"] = rec
+        log(f"[grad] 23 silu_mul_grad {label} [{m}, {LLAMA_MLP}] {dt}: {offs[0]} + {offs[1]} "
+            f"values of g_gate, g_up not bit-identical to the plain version (largest difference "
+            f"{err:.3e}); {rec['ms']:.4f} ms eager, {rec['graph_ms']:.4f} ms alone, bound "
+            f"{bms:.4f} ms ({by}), plain {rec['plain_ms']:.4f} ms, autograd's backward of the "
+            f"plain chain {rec['replaced_ms']:.4f} ms")
+        if sum(offs):
+            fail(f"silu_mul_grad disagrees with its plain version ({label}, {dt})")
+        del gate, up, gout, got, want
+
+    rotary = {}
+    cos, sin = E.rotary_tables(LLAMA_HEAD_DIM, 4096, 10000.0, device)
+    for label, dt, (b, sq) in GRAD_ROTARY_SHAPES:
+        dtype = dtypes[dt]
+        shape = (b, sq, LLAMA_HEADS, LLAMA_HEAD_DIM)
+        gq, gk = normal(shape, dtype), normal(shape, dtype)
+        # packed rows: the positions restart at each of three segments
+        pos = torch.arange(sq, device=device)[None].expand(b, sq) % max(1, (sq + 2) // 3)
+        got = E.rotary_grad(gq, gk, cos, sin, pos)
+        want = E._rotary_grad_plain(gq, gk, cos, sin, pos)
+        torch.cuda.synchronize()
+        off = bits_unequal(torch, got[0], want[0]) + bits_unequal(torch, got[1], want[1])
+        err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+        rec = time_grad(torch, lambda: E.rotary_grad(gq, gk, cos, sin, pos),
+                        lambda: E._rotary_grad_plain(gq, gk, cos, sin, pos),
+                        autograd_backward(torch, lambda q, k: E._rotary_plain(q, k, cos, sin, pos),
+                                          (gq, gk), (gq, gk)))
+        n = gq.numel() + gk.numel()
+        bms, by = bound_ms(2 * n * gq.element_size() + 8 * b * sq, GRAD_ROTARY_OPS * n,
+                           PEAK_F32_FLOPS)
+        rec.update(bound_ms=bms, bound_by=by, max_abs_err=err, bits_off=off)
+        rotary[f"{label} q, k {list(shape)} {dt}"] = rec
+        log(f"[grad] 23 rotary_grad {label} q, k {list(shape)} {dt}: {off} values not "
+            f"bit-identical to the plain version; {rec['ms']:.4f} ms eager, "
+            f"{rec['graph_ms']:.4f} ms alone, bound {bms:.4f} ms ({by}), plain "
+            f"{rec['plain_ms']:.4f} ms, autograd's backward of the plain chain "
+            f"{rec['replaced_ms']:.4f} ms")
+        if off:
+            fail(f"rotary_grad disagrees with its plain version ({label}, {dt})")
+        del gq, gk, got, want
+    torch.cuda.empty_cache()
+    log(f"[grad] phase 23 took {time.perf_counter() - t0:.1f} s")
+    return {"add_rms_norm_grad": fused_record(norm), "rotary_grad": fused_record(rotary),
+            "silu_mul_grad": fused_record(silu)}
+
+
 def phase_kernels(torch, device):
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
@@ -2402,6 +2614,7 @@ def phase_kernels(torch, device):
     records["quant_rows"] = check_quant_rows(torch, device)
     check_f32_instances(torch, device, records)
     records.update(phase_decoder_fusions(torch, device))
+    records.update(phase_decoder_grads(torch, device))
     return records
 
 
@@ -2452,6 +2665,15 @@ KERNELS = [
      "certifiedgpt_tpu/models/layers.py:150", "certify flash_cls"),
     ("silu_mul", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
      "certifiedgpt_tpu/models/llama.py:284", "certify flash_cls"),
+    # their backward in a train step (phase 23), where the JAX package's
+    # autodiff differentiates the same chains and XLA fuses the backward;
+    # their path is the W8A8 train step of phase 11.1
+    ("add_rms_norm_grad", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
+     "certifiedgpt_tpu/models/layers.py:110", "train step"),
+    ("rotary_grad", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
+     "certifiedgpt_tpu/models/layers.py:150", "train step"),
+    ("silu_mul_grad", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
+     "certifiedgpt_tpu/models/llama.py:284", "train step"),
 ]
 
 
@@ -2478,8 +2700,9 @@ def times(counts, k):
 # cache write and the attention in one launch); a decode step (seven
 # weight-only products a layer, the cache write and the attention in one
 # launch); and a
-# training forward of the decoder (seven W8A8 products a layer, each
-# quantizing its own input)
+# train step of the decoder (seven W8A8 products a layer; the q/k/v and
+# gate/up inputs' codes from their norms, the down input's from silu_mul, so
+# only the o input runs quantize_rows; the fused ops' forward and backward)
 VIT_INT8 = {"flash_cls": {"w8a8_gemm": 8 * VIT_DEPTH, "quant_rows": 2 * VIT_DEPTH},
             "flash_custom": {"w8a8_gemm": 4 * VIT_DEPTH, "quant_rows": 3 * VIT_DEPTH}}
 # the decoder's fused elementwise ops in a forward that autograd does not
@@ -2495,7 +2718,12 @@ PREFILL_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH,
                      "attention_kv8_prefill": LLAMA_DEPTH}, DECODER_FUSED)
 PER_DECODE_STEP = plus({"int8_weight_matmul": 7 * LLAMA_DEPTH,
                         "attention_kv8_decode": LLAMA_DEPTH}, DECODER_FUSED)
-TRAIN_DECODER_INT8 = {"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": 7 * LLAMA_DEPTH}
+# the backward kernels of a train step: each fused op's once
+DECODER_FUSED_GRAD = {"add_rms_norm_grad": 2 * LLAMA_DEPTH + 1, "rotary_grad": LLAMA_DEPTH,
+                      "silu_mul_grad": LLAMA_DEPTH}
+TRAIN_DECODER = plus(DECODER_FUSED, DECODER_FUSED_GRAD)
+TRAIN_DECODER_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH},
+                          TRAIN_DECODER)
 # a validation batch's decoder (no autograd): the prefill's products and
 # fused ops, attention without a cache
 VAL_DECODER_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH},
@@ -2545,7 +2773,9 @@ def wrappers():
             "attention_kv8": multi_head_attention_kv8, "quant_rows": Q.quantize_rows,
             "attention_kv8_prefill": prefill_attention_kv8,
             "attention_kv8_decode": decode_attention_kv8,
-            "add_rms_norm": E.add_rms_norm, "rotary": E.rotary, "silu_mul": E.silu_mul}
+            "add_rms_norm": E.add_rms_norm, "rotary": E.rotary, "silu_mul": E.silu_mul,
+            "add_rms_norm_grad": E.add_rms_norm_grad, "rotary_grad": E.rotary_grad,
+            "silu_mul_grad": E.silu_mul_grad}
 
 
 def reset_counts():
@@ -3970,11 +4200,11 @@ WEIGHT_ONLY_GRAD_REL_LIMIT = 5e-2
 # quant: they differ only by the forward's int8 activation rounding (~1 %)
 LAYER_GRAD_REL_LIMIT = 5e-2
 # kernel launches a train step of 48 images: the ViT once and the decoder's
-# training forward (autograd records it: the plain chains); the bf16 towers
-# run no int8 kernel
+# forward and backward (autograd records the forward: the fused ops as
+# autograd Functions); the bf16 towers run no int8 kernel
 PER_TRAIN_STEP = {
     "w8a8": plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"], TRAIN_DECODER_INT8),
-    "bf16": {"cls_split_attention": VIT_DEPTH},
+    "bf16": plus({"cls_split_attention": VIT_DEPTH}, TRAIN_DECODER),
 }
 # a val batch (no autograd): the decoder through its fused elementwise ops
 PER_VAL_BATCH = {
@@ -3985,9 +4215,11 @@ PER_VAL_BATCH = {
 
 def pipeline_step_launches(n_micro: int):
     """A pipelined W8A8 train step's launches: the ViT once, the decoder's
-    forward once a microbatch."""
-    return plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"],
-                times(TRAIN_DECODER_INT8, n_micro))
+    forward and backward once a microbatch but the final norm's, once a
+    step."""
+    final = {"add_rms_norm": 1, "add_rms_norm_grad": 1}
+    return plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"], final,
+                times(plus(TRAIN_DECODER_INT8, times(final, -1)), n_micro))
 
 
 def write_train_set(root) -> dict:
@@ -4063,7 +4295,10 @@ def plain_versions():
             mock.patch.object(A, "decode_attention_kv8", A._decode_attention_kv8_plain),
             mock.patch.object(E, "add_rms_norm", E._add_rms_norm_plain),
             mock.patch.object(E, "rotary", E._rotary_plain),
-            mock.patch.object(E, "silu_mul", E._silu_mul_plain)]
+            mock.patch.object(E, "silu_mul", E._silu_mul_plain),
+            mock.patch.object(E, "add_rms_norm_grad", E._add_rms_norm_grad_plain),
+            mock.patch.object(E, "rotary_grad", E._rotary_grad_plain),
+            mock.patch.object(E, "silu_mul_grad", E._silu_mul_grad_plain)]
 
 
 def pair_versions(torch):
@@ -4102,6 +4337,67 @@ def chain_versions():
     return [mock.patch.object(E, "add_rms_norm", add_rms_norm),
             mock.patch.object(E, "rotary", E._rotary_plain),
             mock.patch.object(E, "silu_mul", silu_mul)]
+
+
+TRACE_TOP_KERNELS = 10  # the largest kernels of a traced train step's part
+
+
+def train_step_groups(torch, model, cfg, batch) -> dict:
+    """One train step of ``model`` on ``batch`` with the forward (ViT,
+    Q-Former, projection, decoder, loss) and the backward each under a
+    ``device_trace`` of its own: for each part its wall seconds, device
+    seconds, kernel launches, device seconds by ``PROFILE_GROUPS`` and its
+    ``TRACE_TOP_KERNELS`` largest kernels. Uses
+    only entry points that the port has had since its fused elementwise
+    ops, so ``scripts/bench_torch_train_step.py`` runs it on an older
+    checkout too."""
+    from certifiedgpt_tpu_torch.models import minigpt4 as M
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+
+    proj = model.module.llama_proj
+    proj.kernel.grad = proj.bias.grad = None
+    held = {}
+
+    def forward():
+        tokens = M.encode_img(model.params, cfg, batch["image"])
+        held["loss"] = M.minigpt4_loss(model.params, cfg, batch, img_embeds=tokens)
+
+    def backward():
+        held.pop("loss").backward()
+
+    parts = {}
+    for part, fn in (("forward", forward), ("backward", backward)):
+        with cuda_kernels.device_trace() as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        groups, launches = {}, 0
+        events = [e for e in cuda_kernels.device_events(prof.key_averages())
+                  if e.self_device_time_total > 0]
+        for e in events:
+            key = e.key.lower()
+            group = next((g for g, keys in PROFILE_GROUPS if any(k in key for k in keys)),
+                         "other elementwise / copy")
+            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e6
+            launches += e.count
+        events.sort(key=lambda e: -e.self_device_time_total)
+        parts[part] = {"wall": wall, "device": sum(groups.values()), "launches": launches,
+                       "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                       "top": [(e.key[:90], e.self_device_time_total / 1e6, e.count)
+                               for e in events[:TRACE_TOP_KERNELS]]}
+    proj.kernel.grad = proj.bias.grad = None
+    return parts
+
+
+def format_groups(parts: dict) -> str:
+    """``train_step_groups``' parts as one line: each part's groups, then
+    its largest kernels (seconds, launches)."""
+    return "; ".join(
+        f"{part}: wall {p['wall']:.4f} s, device {p['device']:.4f} s, {p['launches']} launches "
+        f"(" + ", ".join(f"{g} {s:.4f}" for g, s in p["groups"].items()) + "); largest: "
+        + ", ".join(f"{name} {s:.4f} s x{n}" for name, s, n in p["top"])
+        for part, p in parts.items())
 
 
 def phase_train_checks(torch, card, device, root, env):
@@ -4205,8 +4501,8 @@ def phase_train_checks(torch, card, device, root, env):
 
     def layer_grad(params, layer_cfg):
         xx = x.clone().requires_grad_(True)
-        out = LL._block(xx, params, layer_cfg, cos, sin, batch["positions"], mask)
-        (out.float() * r).sum().backward()
+        out, y = LL._block(xx, None, params, layer_cfg, cos, sin, batch["positions"], mask)
+        ((out + y).float() * r).sum().backward()
         return xx.grad
 
     dequantized = {name: {"kernel": (leaf["kernel_q"].float() * leaf["scale"]).bfloat16()}
@@ -4251,11 +4547,17 @@ def phase_train_checks(torch, card, device, root, env):
     log(f"[train] 11.1 a train step's stages, each synchronized: ViT + Q-Former + projection "
         f"{parts[0]:.4f} s, decoder forward + loss {parts[1]:.4f} s, backward {parts[2]:.4f} s, "
         f"AdamW {parts[3]:.4f} s; {card}")
+    groups = train_step_groups(torch, model, cfg, batch)
+    if not all(p["device"] > 0 for p in groups.values()):
+        fail("train 11.1: the profiler saw no device time in the train step")
+    log(f"[train] 11.1 a train step by kernel group (device seconds): {format_groups(groups)}; "
+        f"{card}")
     del padded, plain_grad, pad_grad, tokens, plain_tokens, loss
     del tokens_grad, plain_tokens_grad, wo_grad, wo_plain_grad
     gc.collect()
     t0 = time.perf_counter()
     launched = phase_pipeline(torch, card, agent, batch, control_rel)
+    launched["train 11.1"] = launches
     log(f"[pipe] phase 16 took {time.perf_counter() - t0:.1f} s")
     del agent, model, batch, grad, control
     gc.collect()
@@ -6532,7 +6834,8 @@ def main() -> int:
     summary["lookahead"] = lookahead
     log(f"[main] summary {json.dumps(summary)}")
     by_path = {"certify flash_cls": main_launches, "certify flash_custom": flash_launches,
-               "eval": cli_launches["eval"], "f32 decoder prefill": f32_prefill}
+               "eval": cli_launches["eval"], "f32 decoder prefill": f32_prefill,
+               "train step": cli_launches["train 11.1"]}
     kernels = []
     for name, source, replaces, path in KERNELS:
         rec = records[name]

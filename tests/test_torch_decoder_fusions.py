@@ -160,13 +160,13 @@ def _tiny(serving: bool):
 @pytest.mark.parametrize("serving", [True, False], ids=["int8_kv8_w8a8", "float"])
 def test_restructured_decoder_matches_the_chain_and_jax(serving):
     """A prefill of a left-padded prompt and two decode steps through the
-    restructured decoder (no autograd: each residual added by the next
-    norm, the fused ops' plain versions) equal, bit for bit, the same calls
-    through the unrestructured chain (the training forward's blocks, which
-    run where autograd records), logits, hidden states and cache alike. So
-    does the forward without a cache. (The restructured decoder against
-    the JAX decoder: tests/test_torch_llama.py and test_torch_minigpt4.py,
-    whose calls autograd does not record.)"""
+    restructured decoder (each residual added by the next norm, the fused
+    ops' plain versions) where autograd does not record equal, bit for bit,
+    the same calls where it records (the fused ops as autograd Functions:
+    the training forward's path), logits, hidden states and cache alike. So
+    does the forward without a cache. (The decoder against the JAX decoder:
+    tests/test_torch_llama.py and test_torch_minigpt4.py; its gradients:
+    tests/test_torch_decoder_grads.py.)"""
     cfg_j, cfg_t, params, rng = _tiny(serving)
     tparams = TL.tree_map(tensor_from_numpy, params)
     b, s, new = 3, 6, 2
@@ -188,9 +188,9 @@ def test_restructured_decoder_matches_the_chain_and_jax(serving):
                                         fused_cache, offset)
         with torch.enable_grad():
             emb = torch.from_numpy(x).requires_grad_(True)
-            assert TLM._recorded(emb, tparams)
             cl, ch, _ = TLM.llama_apply(tparams, cfg_t, emb, cache_mask, tpos, chain_cache,
                                         offset)
+        assert cl.requires_grad and ch.requires_grad
         np.testing.assert_array_equal(fl.numpy(), cl.detach().numpy())
         np.testing.assert_array_equal(fh.numpy(), ch.detach().numpy())
     for name in fused_cache:
@@ -211,7 +211,7 @@ def test_restructured_decoder_matches_the_chain_and_jax(serving):
 def test_the_serving_path_runs_the_fused_ops():
     """Without autograd the decoder calls each fused op once where the
     chain ran: two norms a layer and the final one, one rotary and one
-    SiLU x up a layer; a forward autograd records calls none of them."""
+    SiLU x up a layer; a forward autograd records calls the same ones."""
     from unittest import mock
 
     cfg_j, cfg_t, params, rng = _tiny(True)
@@ -235,5 +235,6 @@ def test_the_serving_path_runs_the_fused_ops():
                  ("silu_mul", True)]
         assert seen == layer * cfg_t.num_layers + [("add_rms_norm", False)]
         seen.clear()
-        TLM.llama_apply(tparams, cfg_t, x.requires_grad_(True), valid, pos)
-        assert seen == []
+        logits, _, _ = TLM.llama_apply(tparams, cfg_t, x.requires_grad_(True), valid, pos)
+        assert logits.requires_grad
+        assert seen == layer * cfg_t.num_layers + [("add_rms_norm", False)]

@@ -179,10 +179,10 @@ def test_prefill_quantizes_a_shared_input_once():
     its gate/up input once, each inside the norm before them
     (``add_rms_norm``), the down input inside ``silu_mul``: one
     ``quantize_rows`` a layer, the o input's (its two cache writes are
-    inside ``prefill_attention_kv8``, called once a layer), where the
-    training forward (autograd on) makes seven and the same forward without
-    autograd one; a decode step none: its two cache writes are inside
-    ``decode_attention_kv8``, called once a layer."""
+    inside ``prefill_attention_kv8``, called once a layer), as do the
+    training forward (autograd on: the fused ops as autograd Functions) and
+    the same forward without autograd; a decode step none: its two cache
+    writes are inside ``decode_attention_kv8``, called once a layer."""
     cfg = TLM.LlamaConfig.tiny(act_quant=True, kv_quant=True)
     params = TQ.quantize_llama(_tiny_llama_params(cfg))
     calls = []
@@ -234,8 +234,10 @@ def test_prefill_quantizes_a_shared_input_once():
         assert not calls and len(decodes) == cfg.num_layers and not prefills
         assert not any(fused)
         calls.clear()
+        fused.clear()
         TLM.llama_apply(params, cfg, x.clone().requires_grad_(True), mask[:, :s], pos)
-        assert len(calls) == 7 * cfg.num_layers
+        assert len(calls) == cfg.num_layers
+        assert fused == [True, True, True] * cfg.num_layers + [False]
         calls.clear()
         TLM.llama_apply(params, cfg, x, mask[:, :s], pos)
         assert len(calls) == cfg.num_layers

@@ -12,12 +12,14 @@ build's failure when there is no ``nvcc`` and ``sass_count.py``'s loop count.
 """
 
 import ctypes
+import dataclasses
 import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import sass_count
 from certifiedgpt_tpu_torch.ops import attention as A
 from certifiedgpt_tpu_torch.ops import cuda_kernels
@@ -1673,3 +1675,150 @@ def test_fused_elementwise_ops_refuse_bad_operands_on_gpu(cuda):
         E.rotary(q, q, cos, sin, torch.zeros((2, 3), dtype=torch.long))
     with pytest.raises(ValueError, match="table"):
         E.rotary(q, q, cos.double(), sin, torch.zeros((2, 3), dtype=torch.long, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,k", [(4096, 4096), (96, 4096), (1, 4096), (7, 64), (3, 5120)])
+def test_add_rms_norm_grad_matches_plain_on_gpu(cuda, dtype, m, k):
+    """The norm's backward with and without the stream's later gradient,
+    bf16 and f32 scales: within ``chip_smoke.norm_grad_slack`` of the plain
+    version (autograd's backward of the plain chain: the kernel's two row
+    sums run in its own order), a zero row's gradient the later gradient
+    alone, one launch a call, a new tensor."""
+    x, gs, scale = _fused_rows(m, k, dtype, cuda, seed=m + k + 1)
+    g = _fused_rows(m, k, dtype, cuda, seed=m + k + 2)[0] / 3.0
+    for later in (gs, None):
+        for sc in (scale, scale.to(dtype)):
+            n = E.add_rms_norm_grad.launches
+            got = E.add_rms_norm_grad(x, g, later, sc, 1e-6)
+            want = E._add_rms_norm_grad_plain(x, g, later, sc, 1e-6)
+            torch.cuda.synchronize()
+            assert E.add_rms_norm_grad.launches == n + 1 and got.dtype == dtype
+            assert got.data_ptr() not in (x.data_ptr(), g.data_ptr())
+            tol = chip_smoke.norm_grad_slack(torch, x, g, later, sc, want)
+            assert bool(((got.float() - want.float()).abs() <= tol).all())
+            # the last row is zeros in x (and in g): its norm term is 0
+            assert torch.equal(got[-1], later[-1] if later is not None else torch.zeros_like(got[-1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,n", [(4096, 11008), (96, 11008), (1, 11008), (5, 128)])
+def test_silu_mul_grad_matches_plain_on_gpu(cuda, dtype, m, n):
+    """SiLU x up's backward, bit for bit the plain version's (PyTorch's
+    ``silu_backward`` on the card), from contiguous rows and from column
+    slices of a wider product; one launch a call."""
+    gate, up, _ = _fused_rows(m, n, dtype, cuda, seed=m + n + 3)
+    g = _fused_rows(m, n, dtype, cuda, seed=m + n + 4)[0]
+    wide = torch.cat([gate, up], dim=-1)
+    for a, b in ((gate, up), (wide[:, :n], wide[:, n:])):
+        count = E.silu_mul_grad.launches
+        got = E.silu_mul_grad(g, a, b)
+        want = E._silu_mul_grad_plain(g, a, b)
+        torch.cuda.synchronize()
+        assert E.silu_mul_grad.launches == count + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,h,hk,dh", [(16, 256, 32, 32, 128), (1, 1, 32, 32, 128),
+                                         (3, 7, 4, 2, 16)])
+def test_rotary_grad_matches_plain_on_gpu(cuda, dtype, b, s, h, hk, dh):
+    """The rotary's backward, bit for bit the plain version's, at packed
+    (restarting) positions, from contiguous gradients and from transposed
+    views; new tensors, the gradients left as they were; one launch for q
+    and k; and the rotation followed by its backward gives back the rows
+    within the dtype's rounding."""
+    g = torch.Generator(device=cuda).manual_seed(b + s + h)
+    gq = torch.randn((b, s, h, dh), generator=g, device=cuda).to(dtype)
+    gk = torch.randn((b, s, hk, dh), generator=g, device=cuda).to(dtype)
+    pos = torch.arange(s, device=cuda)[None].repeat(b, 1) % max(1, (s + 2) // 3)
+    cos, sin = E.rotary_tables(dh, 4096, 10000.0, cuda)
+    views = (gq.transpose(1, 2).contiguous().transpose(1, 2),
+             gk.transpose(1, 2).contiguous().transpose(1, 2))
+    for q, k in ((gq, gk), views):
+        q0, k0 = q.clone(), k.clone()
+        n = E.rotary_grad.launches
+        got = E.rotary_grad(q, k, cos, sin, pos)
+        want = E._rotary_grad_plain(q, k, cos, sin, pos)
+        torch.cuda.synchronize()
+        assert E.rotary_grad.launches == n + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(q, q0) and torch.equal(k, k0)
+    back = E.rotary_grad(*E.rotary(gq.clone(), gk.clone(), cos, sin, pos), cos, sin, pos)
+    rel = float((back[0].float() - gq.float()).norm() / gq.float().norm())
+    assert rel < (1e-2 if dtype == torch.bfloat16 else 1e-6)
+
+
+def _tiny_minigpt4(cuda, act_quant: bool):
+    """A tiny MiniGPT-4 on the card with a bf16 decoder (W8A8 or bf16
+    products) and a packed batch whose last row is all padding."""
+    from certifiedgpt_tpu_torch.data.text import BatchSpec, ByteTokenizer, pack_train_batch
+    from certifiedgpt_tpu_torch.models import minigpt4 as TM
+    from certifiedgpt_tpu_torch.models.model_zoo import MiniGPT4Model, build_synthetic_params
+
+    cfg = TM.MiniGPT4Config.tiny()
+    cfg = dataclasses.replace(
+        cfg, vit=dataclasses.replace(cfg.vit, img_size=224, attn_impl="flash_cls",
+                                     act_quant=True, dtype=torch.bfloat16),
+        llama=dataclasses.replace(cfg.llama, act_quant=act_quant, dtype=torch.bfloat16))
+    params = build_synthetic_params(cfg, cuda, seed=0, quantize_llama=act_quant)
+    model = MiniGPT4Model(cfg, params, ByteTokenizer())
+    tr = model.make_trainable(("llama_proj",))
+    questions = ["<Img><ImageHere></Img> what is it?", "<Img><ImageHere></Img> colour?",
+                 "<Img><ImageHere></Img> how many?", "<Img><ImageHere></Img> where?"] * 2
+    answers = ["a cat", "red", "two", "in the kitchen"] * 2
+    spec = BatchSpec(seq_len=80, num_img_tokens=cfg.num_img_tokens, max_answer_len=16)
+    text = pack_train_batch(ByteTokenizer(), questions, answers, spec, 2)
+    for key, fill in (("input_ids", 0), ("attention_mask", 0), ("labels", -100),
+                      ("segment_ids", 0), ("positions", 0)):
+        text[key][-1] = fill
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {k: torch.from_numpy(v).long().to(cuda) for k, v in text.items()}
+    batch["image"] = torch.randn((len(questions), 224, 224, 3), generator=g, device=cuda)
+    return TM, model, cfg, tr["llama_proj"], batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act_quant", [True, False], ids=["w8a8", "bf16"])
+def test_train_step_through_the_decoder_kernels_on_gpu(cuda, act_quant):
+    """A tiny MiniGPT-4's loss and ``llama_proj`` gradient with the
+    decoder's fused ops and their backward kernels against the same with
+    every one of the six on its plain version: within 1e-2 (loss) and 5e-2
+    (gradient), finite; each kernel launched as often as the decoder has
+    norms (two a layer and the final one), rotaries and SiLU x ups."""
+    from unittest import mock
+
+    TM, model, cfg, proj, batch = _tiny_minigpt4(cuda, act_quant)
+    fused = ("add_rms_norm", "rotary", "silu_mul", "add_rms_norm_grad", "rotary_grad",
+             "silu_mul_grad")
+
+    def loss_and_grad():
+        for p in proj.values():
+            p.grad = None
+        loss = TM.minigpt4_loss(model.params, cfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), proj["kernel"].grad.clone()
+
+    for name in fused:
+        getattr(E, name).launches = 0
+    loss, grad = loss_and_grad()
+    depth = cfg.llama.num_layers
+    assert [getattr(E, name).launches for name in fused] == [2 * depth + 1, depth, depth] * 2
+    plain = {"add_rms_norm": E._add_rms_norm_plain, "rotary": E._rotary_plain,
+             "silu_mul": E._silu_mul_plain, "add_rms_norm_grad": E._add_rms_norm_grad_plain,
+             "rotary_grad": E._rotary_grad_plain, "silu_mul_grad": E._silu_mul_grad_plain}
+    patches = [mock.patch.object(E, name, fn) for name, fn in plain.items()]
+    for p in patches:
+        p.start()
+    try:
+        plain_loss, plain_grad = loss_and_grad()
+    finally:
+        for p in patches:
+            p.stop()
+    assert torch.isfinite(loss) and bool(torch.isfinite(grad).all())
+    assert abs(float(loss) - float(plain_loss)) / abs(float(plain_loss)) < 1e-2
+    assert float((grad - plain_grad).norm() / plain_grad.norm()) < 5e-2
