@@ -71,8 +71,12 @@
 // (token, head, pair) units with a grid-stride loop: a thread reads two
 // neighbouring values of the first half of a head and the two that face
 // them in the second half, so it can write all four in place (or, for the
-// training forward and the backward, into new tensors). The norm's backward
-// gives a block a row, keeps s and gw in shared memory between its two
+// training forward, into new tensors). The rotary's backward gives a block
+// a token: the token's cos and sin rows staged in shared memory once, the
+// 16-byte chunks of each head's two halves on neighbouring threads (the
+// forward's unit-a-thread form, 4-byte accesses and 64-bit index divisions,
+// ran at 48 % of this bound on an H100). The norm's backward gives a block a
+// row, keeps s and gw in shared memory between its two
 // passes and reduces both row sums at once; the SiLU's backward walks quads
 // of the [M, N] operands with a grid-stride loop.
 //
@@ -327,12 +331,10 @@ struct RotaryArgs {
 };
 
 // Unit u: pair j of a head (values 2j, 2j + 1 and Dh/2 + 2j, Dh/2 + 2j + 1)
-// of q's or k's heads of token (b, s). The forward rotates by theta; the
-// backward (kInverse) applies the transpose, the rotation by -theta, with the
-// table entries autograd's backward of the plain chain multiplies by. In
-// place (kInPlace) the rows are written where they were read, with no
-// address of their own to compute.
-template <typename T, bool kInverse, bool kInPlace>
+// of q's or k's heads of token (b, s), rotated by theta. In place
+// (kInPlace) the rows are written where they were read, with no address of
+// their own to compute.
+template <typename T, bool kInPlace>
 __device__ __forceinline__ void rotate(const RotaryArgs& a) {
   const int pairs = a.Dh / 4, half = a.Dh / 2, heads = a.Hq + a.Hk;
   for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; u < a.units;
@@ -359,20 +361,11 @@ __device__ __forceinline__ void rotate(const RotaryArgs& a) {
     float x0, x1, x2, x3;
     load2(v + lo, x0, x1);
     load2(v + hi, x2, x3);
-    float o0, o1, o2, o3;
-    if constexpr (!kInverse) {
-      // x * cos + rotate_half(x) * sin; rotate_half is (-x[half:], x[:half])
-      o0 = __fadd_rn(__fmul_rn(x0, c[lo]), __fmul_rn(-x2, sn[lo]));
-      o1 = __fadd_rn(__fmul_rn(x1, c[lo + 1]), __fmul_rn(-x3, sn[lo + 1]));
-      o2 = __fadd_rn(__fmul_rn(x2, c[hi]), __fmul_rn(x0, sn[hi]));
-      o3 = __fadd_rn(__fmul_rn(x3, c[hi + 1]), __fmul_rn(x1, sn[hi + 1]));
-    } else {
-      // g * cos + rotate_half^T(g * sin); rotate_half^T(t) is (t[half:], -t[:half])
-      o0 = __fadd_rn(__fmul_rn(x0, c[lo]), __fmul_rn(x2, sn[hi]));
-      o1 = __fadd_rn(__fmul_rn(x1, c[lo + 1]), __fmul_rn(x3, sn[hi + 1]));
-      o2 = __fadd_rn(__fmul_rn(x2, c[hi]), __fmul_rn(-x0, sn[lo]));
-      o3 = __fadd_rn(__fmul_rn(x3, c[hi + 1]), __fmul_rn(-x1, sn[lo + 1]));
-    }
+    // x * cos + rotate_half(x) * sin; rotate_half is (-x[half:], x[:half])
+    const float o0 = __fadd_rn(__fmul_rn(x0, c[lo]), __fmul_rn(-x2, sn[lo]));
+    const float o1 = __fadd_rn(__fmul_rn(x1, c[lo + 1]), __fmul_rn(-x3, sn[lo + 1]));
+    const float o2 = __fadd_rn(__fmul_rn(x2, c[hi]), __fmul_rn(x0, sn[hi]));
+    const float o3 = __fadd_rn(__fmul_rn(x3, c[hi + 1]), __fmul_rn(x1, sn[hi + 1]));
     store2(o + lo, o0, o1);
     store2(o + hi, o2, o3);
   }
@@ -380,13 +373,108 @@ __device__ __forceinline__ void rotate(const RotaryArgs& a) {
 
 template <typename T, bool kInPlace>
 __global__ void __launch_bounds__(kRotaryThreads) rotary_kernel(const RotaryArgs a) {
-  rotate<T, false, kInPlace>(a);
+  rotate<T, kInPlace>(a);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kRotaryThreads) rotary_grad_kernel(const RotaryArgs a) {
-  rotate<T, true, false>(a);
+// kV neighbouring values from p (16 bytes at kV = 16 / sizeof(T))
+template <int kV>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[kV]) {
+  if constexpr (kV == 8) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h;
+      memcpy(&h, &u[i], 4);
+      v[2 * i] = __low2float(h), v[2 * i + 1] = __high2float(h);
+    }
+  } else {
+    static_assert(kV == 2, "bf16 pairs or 16-byte vectors");
+    load2(p, v[0], v[1]);
+  }
 }
+
+template <int kV>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[kV]) {
+  if constexpr (kV == 4) {
+    load4(p, v);
+  } else {
+    static_assert(kV == 2, "f32 pairs or 16-byte vectors");
+    load2(p, v[0], v[1]);
+  }
+}
+
+template <int kV>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[kV]) {
+  if constexpr (kV == 8) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      memcpy(&u[i], &h, 4);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+    store2(p, v[0], v[1]);
+  }
+}
+
+template <int kV>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kV]) {
+  if constexpr (kV == 4) {
+    store4(p, v);
+  } else {
+    store2(p, v[0], v[1]);
+  }
+}
+
+// The rotary's transpose, one block a token (b, s): the token's cos and sin
+// rows are staged in shared memory once, then each thread takes chunks of
+// kV neighbouring values of a head's first half and the kV facing them in
+// the second, chunks of a head on neighbouring threads (16-byte accesses at
+// kV = 16 / sizeof(T)):
+//   o1 = g1 cos1 + g2 sin2;  o2 = g2 cos2 + (-g1) sin1
+// the table entries autograd's backward of the plain chain multiplies by,
+// each product and sum rounded in f32 (no fused multiply-add).
+template <typename T, int kV>
+__global__ void __launch_bounds__(kRotaryThreads) rotary_grad_kernel(const RotaryArgs a) {
+  extern __shared__ float table[];  // cos row, then sin row
+  const int half = a.Dh / 2, chunks = half / kV, heads = a.Hq + a.Hk;
+  const long long tok = blockIdx.x;
+  const long long s = tok % a.S, b = tok / a.S;
+  const long long at = b * a.p_b + s * a.p_s;
+  const long long p = a.pos_i64 ? static_cast<const long long*>(a.pos)[at]
+                                : static_cast<long long>(static_cast<const int*>(a.pos)[at]);
+  if (p < 0 || p >= a.max_len) __trap();  // a position outside the tables
+  for (int i = threadIdx.x; i < a.Dh; i += blockDim.x) {
+    table[i] = a.cos[p * a.Dh + i];
+    table[a.Dh + i] = a.sin[p * a.Dh + i];
+  }
+  __syncthreads();
+  const float* c = table;
+  const float* sn = table + a.Dh;
+  for (int u = threadIdx.x; u < heads * chunks; u += blockDim.x) {
+    const int head = u / chunks, lo = (u - head * chunks) * kV, hi = half + lo;
+    const bool isq = head < a.Hq;
+    const int h = isq ? head : head - a.Hq;
+    const T* v = isq ? static_cast<const T*>(a.q) + b * a.q_b + s * a.q_s + h * a.q_h
+                     : static_cast<const T*>(a.k) + b * a.k_b + s * a.k_s + h * a.k_h;
+    T* o = isq ? static_cast<T*>(a.oq) + b * a.oq_b + s * a.oq_s + h * a.oq_h
+               : static_cast<T*>(a.ok) + b * a.ok_b + s * a.ok_s + h * a.ok_h;
+    float x1[kV], x2[kV], o1[kV], o2[kV];
+    load_vec<kV>(v + lo, x1);
+    load_vec<kV>(v + hi, x2);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      // g * cos + rotate_half^T(g * sin); rotate_half^T(t) is (t[half:], -t[:half])
+      o1[e] = __fadd_rn(__fmul_rn(x1[e], c[lo + e]), __fmul_rn(x2[e], sn[hi + e]));
+      o2[e] = __fadd_rn(__fmul_rn(x2[e], c[hi + e]), __fmul_rn(-x1[e], sn[lo + e]));
+    }
+    store_vec<kV>(o + lo, o1);
+    store_vec<kV>(o + hi, o2);
+  }
+}
+
 
 struct NormGradArgs {
   const void* s;   // the saved residual stream x + y
@@ -603,6 +691,26 @@ extern "C" int cgpt_silu_mul(const void* gate, const void* up, void* out, void* 
                : launch_silu<__nv_bfloat16, false>(a, M, st);
 }
 
+template <typename T, int kV>
+int launch_rotary_grad(const RotaryArgs& a, long long tokens, cudaStream_t st) {
+  const long long units = static_cast<long long>(a.Hq + a.Hk) * (a.Dh / 2 / kV);
+  const int threads = static_cast<int>(units < kRotaryThreads ? (units + 31) / 32 * 32
+                                                              : kRotaryThreads);
+  if (tokens > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rotary_grad_kernel<T, kV><<<static_cast<unsigned>(tokens), threads,
+                              2 * a.Dh * sizeof(float), st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// whether every row of the rotary's operands starts on a 16-byte boundary
+bool rows16(const RotaryArgs& a, int size) {
+  const int v = 16 / size;
+  return !misaligned(a.q, 16) && !misaligned(a.k, 16) && !misaligned(a.oq, 16) &&
+         !misaligned(a.ok, 16) && (a.Dh / 2) % v == 0 &&
+         (a.q_b | a.q_s | a.q_h | a.k_b | a.k_s | a.k_h | a.oq_b | a.oq_s | a.oq_h | a.ok_b |
+          a.ok_s | a.ok_h) % v == 0;
+}
+
 // q [B, S, Hq, Dh] and k [B, S, Hk, Dh] (strided, Dh contiguous) rotated by
 // the tables' rows at positions [B, S] into oq and ok (q and k themselves in
 // place), or with `inverse` the gradients q and k rotated back (the backward).
@@ -632,12 +740,16 @@ extern "C" int cgpt_rotary(const void* q, long long q_b, long long q_s, long lon
   const bool in_place = oq == q && ok == k && oq_b == q_b && oq_s == q_s && oq_h == q_h &&
                         ok_b == k_b && ok_s == k_s && ok_h == k_h;
   if (inverse) {
+    const long long tokens = static_cast<long long>(B) * S;
+    const bool wide = rows16(a, f32 ? 4 : 2);
     if (f32) {
-      rotary_grad_kernel<float><<<grid, kRotaryThreads, 0, st>>>(a);
-    } else {
-      rotary_grad_kernel<__nv_bfloat16><<<grid, kRotaryThreads, 0, st>>>(a);
+      return wide ? launch_rotary_grad<float, 4>(a, tokens, st)
+                  : launch_rotary_grad<float, 2>(a, tokens, st);
     }
-  } else if (f32) {
+    return wide ? launch_rotary_grad<__nv_bfloat16, 8>(a, tokens, st)
+                : launch_rotary_grad<__nv_bfloat16, 2>(a, tokens, st);
+  }
+  if (f32) {
     if (in_place) {
       rotary_kernel<float, true><<<grid, kRotaryThreads, 0, st>>>(a);
     } else {

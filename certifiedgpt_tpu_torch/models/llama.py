@@ -7,8 +7,12 @@ training; single-token decode keeps the weight-only path).
 Without a cache (training), ``llama_apply`` runs causal self-attention over
 the whole sequence, combined with the padding mask and, for packed rows,
 with ``segment_ids`` (block-diagonal: a token sees only its own segment;
-rotary positions are the caller's). ``remat`` recomputes blocks in the
-backward (``torch.utils.checkpoint``, non-reentrant): ``remat_policy``
+rotary positions are the caller's): ``ops/attention.py::training_attention``,
+given the mask as its rows (``TrainingMask``), not as a dense [S, S] tensor.
+Where autograd records, the lm_head's product is ``_LmHead``, whose backward
+is the JAX VJP's (the f32 cotangent times the head in f32). ``remat``
+recomputes blocks in the backward (``torch.utils.checkpoint``,
+non-reentrant): ``remat_policy``
 ``full`` saves nothing, ``dots`` saves the outputs of the products without
 a batch dimension (the projections), ``dots_all`` every product's (the
 attention's too), ``remat_every`` k checkpoints the first block of every k.
@@ -40,7 +44,7 @@ collective).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -106,22 +110,64 @@ def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
     return L.embed(params["embed_tokens"], ids)
 
 
+def _f32_times_t(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``g [M, N] f32 @ w [K, N]^T`` in f32, w's values exact: on the card a
+    bf16/f16 ``w`` stays in its dtype and ``g`` is split into three exact
+    terms of that dtype (``hi``, ``mid``, ``lo``: 24 bits, the whole f32
+    significand), each product summed in f32 (no f32 copy of ``w``);
+    elsewhere ``w`` is cast to f32."""
+    if g.device.type != "cuda" or w.dtype not in (torch.bfloat16, torch.float16):
+        return g @ w.float().t()
+    out, rest = None, g
+    for _ in range(3):
+        term = rest.to(w.dtype)
+        rest = rest - term.float()
+        part = torch.mm(term, w.t(), out_dtype=torch.float32)
+        out = part if out is None else out + part
+    return out
+
+
+class _LmHead(torch.autograd.Function):
+    """The lm_head product where autograd records it, as the JAX package's
+    ``einsum(..., preferred_element_type=float32)`` and its VJP compute it:
+    forward ``f32_product`` (bf16 x bf16 with an f32 output, no f32 copies);
+    backward the f32 cotangent times the head in f32, rounded to the hidden
+    rows' dtype (and, for a trainable head, the rows' transpose times the
+    cotangent, rounded to the head's dtype). Saved: the rows and the head."""
+
+    @staticmethod
+    def forward(ctx, hidden2, kernel):
+        ctx.save_for_backward(hidden2, kernel)
+        return f32_product(hidden2, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden2, kernel = ctx.saved_tensors
+        gh = gk = None
+        if ctx.needs_input_grad[0]:
+            gh = _f32_times_t(g, kernel).to(hidden2.dtype)
+        if ctx.needs_input_grad[1]:
+            gk = _f32_times_t(g.t(), hidden2.t()).t().to(kernel.dtype)
+        return gh, gk
+
+
 def lm_head_logits(params, hidden: torch.Tensor) -> torch.Tensor:
     """Hidden states [..., D] -> f32 vocabulary logits (+ the optional bias);
     under tensor parallelism this rank's vocabulary columns, gathered whole.
     bf16 operands on the card stay bf16 with an f32 output, as the JAX
     package's ``preferred_element_type=float32`` (no f32 copy of the head);
-    a forward that autograd records (training) takes f32 copies of both
-    (exact for bf16), which it can differentiate."""
+    where autograd records (training) the same product is ``_LmHead``, whose
+    backward is the JAX VJP's."""
     tp = tensor_parallel()
     if tp is not None:
         hidden = copy_to_model(hidden, tp)
     kernel = params["lm_head"]["kernel"]
+    hidden2 = hidden.reshape(-1, hidden.shape[-1])
     if torch.is_grad_enabled() and (hidden.requires_grad or kernel.requires_grad):
-        logits = torch.matmul(hidden.float(), kernel.float())
+        logits = _LmHead.apply(hidden2, kernel)
     else:
-        logits = f32_product(hidden.reshape(-1, hidden.shape[-1]), kernel).reshape(
-            *hidden.shape[:-1], kernel.shape[-1])
+        logits = f32_product(hidden2, kernel)
+    logits = logits.reshape(*hidden.shape[:-1], kernel.shape[-1])
     if tp is not None:
         logits = gather_from_model(logits, tp)
     bias = params["lm_head"].get("bias")
@@ -158,11 +204,25 @@ def _row_dense(params, inp, aq: bool, tp):
     return row_parallel_dense(params, inp, tp, act_quant=aq)
 
 
+class TrainingMask(NamedTuple):
+    """The mask of a forward without a cache, as ``training_attention``
+    takes it: causal, with the keys' validity and the packed segments."""
+
+    attention_mask: torch.Tensor  # [B, S], nonzero = a valid key
+    segment_ids: Optional[torch.Tensor]  # [B, S] packed-segment ids, or None
+
+    def rows(self, at) -> "TrainingMask":
+        """The mask of the batch rows ``at`` (a slice)."""
+        seg = self.segment_ids
+        return TrainingMask(self.attention_mask[at], None if seg is None else seg[at])
+
+
 def _attend(q, k, v, cfg: LlamaConfig, mask, cache, cache_offset):
-    """The block's attention: over the S new rows (no cache), or with the
-    new keys/values written into the cache at ``cache_offset`` and over it."""
+    """The block's attention: over the S new rows (no cache: ``mask`` a
+    ``TrainingMask``), or with the new keys/values written into the cache at
+    ``cache_offset`` and over it (``mask`` a dense bool mask)."""
     if cache is None:
-        return A.multi_head_attention(q, k, v, mask)
+        return A.training_attention(q, k, v, mask.attention_mask, mask.segment_ids)
     if cfg.kv_quant and q.shape[1] == 1:
         # the decode step: the cache write and the attention in one launch
         return A.decode_attention_kv8(q, k, v, cache, cache_offset, mask)
@@ -250,20 +310,6 @@ def _remat_context(policy: str):
     return lambda: _checkpoint.create_selective_checkpoint_contexts(decide)
 
 
-def _training_mask(attention_mask, segment_ids, s: int, device) -> torch.Tensor:
-    """Causal ``[1, 1, S, S]`` and key validity ``[B, 1, 1, S]``, and with
-    ``segment_ids`` the block diagonal ``[B, 1, S, S]``: a query sees a key
-    only inside its own packed segment. Pad slots carry id 0 and end fully
-    masked; the softmax's guard gives their rows zeros (and zero
-    gradients), not NaN."""
-    causal = torch.ones((s, s), dtype=torch.bool, device=device).tril()[None, None]
-    mask = causal & attention_mask[:, None, None, :].bool()
-    if segment_ids is not None:
-        same = segment_ids[:, :, None] == segment_ids[:, None, :]
-        mask = mask & same[:, None]
-    return mask
-
-
 def _remat_settings(cfg: LlamaConfig):
     """``(every, context)`` of ``cfg.remat``'s checkpointing; refuses knobs
     that the JAX package refuses."""
@@ -319,7 +365,7 @@ def llama_apply(
                                device=device)
     x = inputs_embeds.to(cfg.dtype)
     if kv_cache is None:
-        mask = _training_mask(attention_mask, segment_ids, s, device)
+        mask = TrainingMask(attention_mask, segment_ids)
     else:
         if segment_ids is not None:
             raise ValueError(

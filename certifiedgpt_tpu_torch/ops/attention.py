@@ -1,8 +1,13 @@
 """Attention compute ops.
 
 Port of ``certifiedgpt_tpu/ops/attention.py``. ``multi_head_attention`` serves
-the Q-Former, the decoder and the ViT's plain path; ``multi_head_attention_kv8``
-is the same numerics over an int8 KV cache. Both share the masked-softmax core.
+the Q-Former, the decoder's cached calls without int8 KV and the ViT's plain
+path; ``training_attention`` is the decoder's self-attention without a cache
+(training and validation batches: causal, the keys' validity, packed
+segments), differentiable, as hand-written kernels on the card
+(``csrc/train_attention.cu``: the forward, and the backward as two kernels);
+``multi_head_attention_kv8`` is the same numerics over an int8 KV cache. All
+share the masked-softmax core.
 As in the JAX package, products take bf16 (or f32) operands with f32
 accumulation: the operands are upcast to f32 here, which gives the same
 values as JAX's ``preferred_element_type=float32`` (bf16 products are exact
@@ -72,6 +77,170 @@ def multi_head_attention(
     weights = _masked_softmax(logits * scale, mask)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def training_mask(attention_mask: torch.Tensor, segment_ids: Optional[torch.Tensor], s: int,
+                  device) -> torch.Tensor:
+    """Causal ``[1, 1, S, S]`` and key validity ``[B, 1, 1, S]``, and with
+    ``segment_ids`` the block diagonal ``[B, 1, S, S]``: a query sees a key
+    only inside its own packed segment. Pad slots carry id 0 and end fully
+    masked; the softmax's guard gives their rows zeros (and zero
+    gradients), not NaN."""
+    causal = torch.ones((s, s), dtype=torch.bool, device=device).tril()[None, None]
+    mask = causal & attention_mask[:, None, None, :].bool()
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        mask = mask & same[:, None]
+    return mask
+
+
+def _training_attention_plain(q, k, v, attention_mask, segment_ids=None, scale=None):
+    """``multi_head_attention`` under ``training_mask``'s dense mask (the
+    JAX package's training forward), differentiable by autograd."""
+    mask = training_mask(attention_mask, segment_ids, q.shape[1], q.device)
+    return multi_head_attention(q, k, v, mask, scale)
+
+
+#: the head widths of the training attention's kernels (csrc/train_attention.cu
+#: instances: Vicuna-7B's 128, and the narrow test models')
+TRAIN_ATTENTION_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous on a 16-byte boundary."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _train_attention_args(q, k, v, attention_mask, segment_ids):
+    """The kernels' operands: q, k, v contiguous, the keys' validity and the
+    segment ids as int32 ``[B, S]`` (None without ids); raises on what the
+    kernels do not take."""
+    b, s, h, dh = q.shape
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"training_attention: the CUDA kernels take bf16 q, k, v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in TRAIN_ATTENTION_HEAD_DIMS:
+        raise ValueError(f"training_attention: the CUDA kernels take head_dim in "
+                         f"{TRAIN_ATTENTION_HEAD_DIMS}, got {dh}")
+    h_kv = k.shape[2]
+    if k.shape != (b, s, h_kv, dh) or v.shape != k.shape or h % h_kv:
+        raise ValueError(f"training_attention: q {tuple(q.shape)} against k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if attention_mask.shape != (b, s) or (segment_ids is not None and
+                                          segment_ids.shape != (b, s)):
+        raise ValueError(f"training_attention: the mask and segment ids must be [{b}, {s}]")
+    valid = (attention_mask != 0).to(torch.int32).contiguous()
+    seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
+    if any(t is not None and t.device != q.device for t in (k, v, valid, seg)):
+        raise ValueError(f"training_attention: every operand must be on {q.device}")
+    return _rows16(q), _rows16(k), _rows16(v), valid, seg
+
+
+def train_attention_fwd(q, k, v, valid, seg, scale: float):
+    """One launch of ``cgpt_train_attention_fwd``: ``(out, max, sum)``, the
+    output [B, S, H, Dh] bf16 and each query row's max and sum of
+    ``exp(l - max)`` [B, H, S] f32, from ``_train_attention_args``'
+    operands."""
+    b, s, h, dh = q.shape
+    out = torch.empty_like(q)
+    mx = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    sm = torch.empty_like(mx)
+    code = cuda_kernels.build().lib.cgpt_train_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        None if seg is None else seg.data_ptr(), out.data_ptr(), mx.data_ptr(), sm.data_ptr(),
+        b, s, h, k.shape[2], dh, scale, cuda_kernels.stream_of(q))
+    train_attention_fwd.launches += 1
+    cuda_kernels.check(code, "train_attention_fwd")
+    return out, mx, sm
+
+
+def _train_attention_bwd(part: int, q, k, v, valid, seg, g, mx, sm, dsum, dq, dk, dv, scale):
+    b, s, h, dh = q.shape
+    return cuda_kernels.build().lib.cgpt_train_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        None if seg is None else seg.data_ptr(), g.data_ptr(), mx.data_ptr(), sm.data_ptr(),
+        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], dh,
+        scale, part, cuda_kernels.stream_of(q))
+
+
+def train_attention_dq(q, k, v, valid, seg, g, mx, sm, scale: float):
+    """One launch of the backward's first kernel: ``(dq, D)``, q's gradient
+    and each row's ``D_i = sum_j P dP`` [B, H, S] f32."""
+    dq = torch.empty_like(q)
+    dsum = torch.empty_like(mx)
+    code = _train_attention_bwd(0, q, k, v, valid, seg, g, mx, sm, dsum, dq, dq, dq, scale)
+    train_attention_dq.launches += 1
+    cuda_kernels.check(code, "train_attention_dq")
+    return dq, dsum
+
+
+def train_attention_dkv(q, k, v, valid, seg, g, mx, sm, dsum, scale: float):
+    """One launch of the backward's second kernel: ``(dk, dv)``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    code = _train_attention_bwd(1, q, k, v, valid, seg, g, mx, sm, dsum, dk, dk, dv, scale)
+    train_attention_dkv.launches += 1
+    cuda_kernels.check(code, "train_attention_dkv")
+    return dk, dv
+
+
+cuda_kernels.launch_counter(train_attention_fwd, r"\btrain_attention_fwd_kernel\b")
+cuda_kernels.launch_counter(train_attention_dq, r"\btrain_attention_dq_kernel\b")
+cuda_kernels.launch_counter(train_attention_dkv, r"\btrain_attention_dkv_kernel\b")
+
+
+class _TrainingAttention(torch.autograd.Function):
+    """``training_attention`` on the card. Forward: ``train_attention_fwd``.
+    Backward: ``train_attention_dq`` (dq and each row's ``D``), then
+    ``train_attention_dkv``. Saved: q, k, v, the mask's two int32 rows and
+    the f32 row statistics [B, H, S]; no [S, S] tensor. Its output is no
+    aten product, so under ``remat_policy: dots_all`` a recomputed block
+    runs the forward kernel again, as it runs the W8A8 products."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, seg, scale):
+        out, mx, sm = train_attention_fwd(q, k, v, valid, seg, scale)
+        ctx.save_for_backward(q, k, v, valid, seg, mx, sm)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, valid, seg, mx, sm = ctx.saved_tensors
+        g = _rows16(g)
+        dq, dsum = train_attention_dq(q, k, v, valid, seg, g, mx, sm, ctx.scale)
+        dk, dv = train_attention_dkv(q, k, v, valid, seg, g, mx, sm, dsum, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def training_attention(
+    q: torch.Tensor,  # [B, S, H, Dh]
+    k: torch.Tensor,  # [B, S, H_kv, Dh]
+    v: torch.Tensor,  # [B, S, H_kv, Dh]
+    attention_mask: torch.Tensor,  # [B, S], nonzero = a valid key
+    segment_ids: Optional[torch.Tensor] = None,  # [B, S] packed-segment ids
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The decoder's self-attention without a cache (training and
+    validation): ``multi_head_attention`` under ``training_mask``'s causal,
+    key-validity and segment mask, differentiable. Returns [B, S, H, Dh] in
+    q's dtype.
+
+    Replaces the XLA fusion of the JAX package's ``multi_head_attention``
+    (certifiedgpt_tpu/ops/attention.py:23-73) with the training mask
+    (models/llama.py:323-331) and its autodiff. CPU tensors, and f32 q
+    (whose reference products are f32), take ``_training_attention_plain``
+    under autograd. bf16 q on the card runs ``csrc/train_attention.cu``
+    (head_dim 128, Vicuna-7B's, or 16/32/64; other widths raise): the
+    forward kernel (the weights normalized in f32 and rounded to bf16
+    before ``P v``, as the reference rounds them) and two backward kernels,
+    as ``_TrainingAttention``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu" or q.dtype == torch.float32:
+        return _training_attention_plain(q, k, v, attention_mask, segment_ids, scale)
+    args = _train_attention_args(q, k, v, attention_mask, segment_ids)
+    return _TrainingAttention.apply(*args, float(scale))
 
 
 #: the head_dim of the prefill's kv8 kernel (csrc/attention_kv8_prefill.cu kDh)

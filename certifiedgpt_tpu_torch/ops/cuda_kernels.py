@@ -82,6 +82,26 @@ _SIGNATURES = {
         _P,  # stream
     ),
     "cgpt_w8a8_gemm_plan": (_I64, _I32, _I32, _I32, _P),  # M, N, K, K splits, int[11] out
+    "cgpt_train_attention_fwd": (
+        _P, _P, _P, _P, _P,  # q, k, v, the keys' validity, the segment ids (or null)
+        _P, _P, _P,  # out, the rows' max and sum
+        _I32, _I32, _I32, _I32, _I32, _F32,  # B, S, H, Hkv, head_dim, scale
+        _P,  # stream
+    ),
+    "cgpt_train_attention_bwd": (
+        _P, _P, _P, _P, _P, _P,  # q, k, v, validity, segment ids (or null), the output's gradient
+        _P, _P, _P,  # the rows' max and sum, D (written by part 0, read by part 1)
+        _P, _P, _P,  # dq, dk, dv
+        _I32, _I32, _I32, _I32, _I32, _F32, _I32,  # B, S, H, Hkv, head_dim, scale, part (0 dq,
+        # 1 dk and dv)
+        _P,  # stream
+    ),
+    "cgpt_w8_grad_gemm": (
+        _P, _I64, _P, _I64, _P,  # g and its row stride, the column-major int8 kernel and its
+        # channel stride, the channel scales
+        _P, _I64, _I64, _I32, _I32,  # out and its row stride, M, N, K
+        _P,  # stream
+    ),
     "cgpt_int8_weight_matmul_plan": (_I32, _I32, _I32, _I32, _P),  # M, N, K, x f32, int[7] out
     "cgpt_int8_weight_matmul": (
         _P, _I64, _P, _I64, _P, _P, _I64,  # x, ldx, kernel, its channel stride, scale, out, ldo

@@ -388,11 +388,64 @@ def _dequantized_t(kernel_q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.
     return (kernel_q.float() * scale[None, :]).to(dtype).t()
 
 
+def _grad_input_plain(g: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
+                      dtype) -> torch.Tensor:
+    """``g [..., out] @ (kernel_q * scale)^T`` in ``g``'s dtype, cast to
+    ``dtype``: JAX's ``einsum("...o,io->...i", g, w)``, the dequantized
+    weight made first."""
+    return torch.matmul(g, _dequantized_t(kernel_q, scale, g.dtype)).to(dtype)
+
+
+def w8_grad_gemm(g: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``bf16(g [M, out] @ w^T)`` with ``w = bf16(f32(kernel_q) * scale)``
+    element by element, for bf16 ``g`` on the card: one launch of
+    ``cgpt_w8_grad_gemm`` (csrc/w8_grad_gemm.cu), which converts the int8
+    kernel into wgmma's register operand and never writes the dequantized
+    weight. The kernel ``[in, out]`` column-major (``int8_kernel_layout``)."""
+    if g.dim() != 2 or g.dtype != torch.bfloat16 or kernel_q.dtype != torch.int8:
+        raise TypeError(f"w8_grad_gemm: takes bf16 rows [M, out] and an int8 kernel, got "
+                        f"{g.dtype} {tuple(g.shape)}, {kernel_q.dtype}")
+    m, n = g.shape
+    k = kernel_q.shape[0]
+    if kernel_q.shape[1] != n or n % 8 or k % 8:
+        raise ValueError(f"w8_grad_gemm: rows [{m}, {n}] against a kernel "
+                         f"{tuple(kernel_q.shape)}; in and out must be multiples of 8")
+    if kernel_q.stride(0) != 1 or kernel_q.stride(1) % 16 or kernel_q.data_ptr() % 16:
+        raise ValueError("w8_grad_gemm: the int8 kernel must be column-major "
+                         "(ops.quantization.int8_kernel_layout) on 16-byte boundaries")
+    if any(t.device != g.device for t in (kernel_q, scale)):
+        raise ValueError(f"w8_grad_gemm: the kernel and its scale must be on {g.device}")
+    out = torch.empty((m, k), dtype=torch.bfloat16, device=g.device)
+    if m == 0:
+        return out
+    g2 = g.contiguous()
+    if g2.data_ptr() % 16:
+        g2 = g2.clone()
+    ws = scale.float().contiguous()
+    if ws.shape != (n,):
+        raise ValueError(f"w8_grad_gemm: scale must be [{n}], got {tuple(scale.shape)}")
+    code = cuda_kernels.build().lib.cgpt_w8_grad_gemm(
+        g2.data_ptr(), n, kernel_q.data_ptr(), kernel_q.stride(1), ws.data_ptr(),
+        out.data_ptr(), out.stride(0), m, n, k, cuda_kernels.stream_of(g))
+    w8_grad_gemm.launches += 1
+    cuda_kernels.check(code, "w8_grad_gemm")
+    return out
+
+
+cuda_kernels.launch_counter(w8_grad_gemm, r"\bw8_grad_gemm_kernel\b")
+
+
 def _grad_input(g: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
                 dtype) -> torch.Tensor:
-    """``g [..., out] @ (kernel_q * scale)^T`` in ``g``'s dtype, cast to
-    ``dtype``: JAX's ``einsum("...o,io->...i", g, w)``."""
-    return torch.matmul(g, _dequantized_t(kernel_q, scale, g.dtype)).to(dtype)
+    """The straight-through input gradient ``g [..., out] @ (kernel_q *
+    scale)^T`` rounded to ``g``'s dtype, cast to ``dtype`` (JAX's
+    ``_w8a8_bwd``). bf16 ``g`` on the card takes ``w8_grad_gemm``, which
+    reads the int8 kernel itself; CPU tensors and f32 ``g`` (whose reference
+    product is f32) take ``_grad_input_plain``."""
+    if _device_kind(g) == "cpu" or g.dtype != torch.bfloat16:
+        return _grad_input_plain(g, kernel_q, scale, dtype)
+    out = w8_grad_gemm(g.reshape(-1, g.shape[-1]), kernel_q, scale)
+    return out.reshape(*g.shape[:-1], -1).to(dtype)
 
 
 def _bias_grad(ctx, g, bias_dtype):

@@ -54,8 +54,8 @@ import torch.distributed as dist
 from certifiedgpt_tpu_torch.models import layers as L
 from certifiedgpt_tpu_torch.models.llama import (
     LlamaConfig,
+    TrainingMask,
     _run_layers,
-    _training_mask,
     cross_entropy_loss,
     lm_head_logits,
 )
@@ -235,7 +235,7 @@ def pipeline_llama_apply(
     final hidden)``."""
     n_pipe = n_stages(mesh)
     n_data = 1 if mesh is None else mesh.shape["data"]
-    rows, s, _ = inputs_embeds.shape
+    rows = inputs_embeds.shape[0]
     b = rows * n_data  # the whole batch's rows, as the JAX function sees them
     if cfg.num_layers % n_pipe:
         raise ValueError(f"num_layers={cfg.num_layers} does not divide into pipe={n_pipe} "
@@ -260,13 +260,13 @@ def pipeline_llama_apply(
     device = inputs_embeds.device
     cos, sin = E.rotary_tables(cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta,
                                device=device)
-    mask = _training_mask(attention_mask, segment_ids, s, device)
+    mask = TrainingMask(attention_mask, segment_ids)
     stage_cfg = dataclasses.replace(cfg, num_layers=local)
     per = rows // n_micro
 
     def stage(x, k):
         at = slice(k * per, (k + 1) * per)
-        x, y = _run_layers(params, stage_cfg, x, cos, sin, positions[at], mask[at])
+        x, y = _run_layers(params, stage_cfg, x, cos, sin, positions[at], mask.rows(at))
         return x + y  # the stage's last residual add: the next stage starts a stream
 
     x = inputs_embeds.to(cfg.dtype)

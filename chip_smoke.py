@@ -544,6 +544,9 @@ PROFILE_GROUPS = (
     ("decoder elementwise kernels", ("add_rms_norm_kernel", "rotary_kernel", "silu_mul_kernel")),
     ("decoder elementwise backward kernels", ("add_rms_norm_grad_kernel", "rotary_grad_kernel",
                                               "silu_mul_grad_kernel")),
+    ("straight-through gradient kernel", ("w8_grad_gemm_kernel",)),
+    ("training attention kernels", ("train_attention_fwd_kernel", "train_attention_dq_kernel",
+                                    "train_attention_dkv_kernel")),
     ("int8-KV attention kernel", ("attention_kv8_kernel", "kv8_prefill_kernel",
                                   "kv8_decode_kernel")),
     ("GEMMs (int8, bf16, f32)", ("gemm", "nvjet", "gemv", "cutlass", "sm90_xmma", "ampere")),
@@ -693,7 +696,11 @@ PTXAS_KERNELS = (("w8a8_gemm_kernel", "w8a8_gemm"),
                  ("attention_kv8_kernel", "attention_kv8"),
                  ("kv8_decode_kernel", "attention_kv8_decode"),
                  ("add_rms_norm_kernel", "add_rms_norm"), ("rotary_kernel", "rotary"),
-                 ("silu_mul_kernel", "silu_mul"))
+                 ("silu_mul_kernel", "silu_mul"), ("rotary_grad_kernel", "rotary_grad"),
+                 ("w8_grad_gemm_kernel", "w8_grad_gemm"),
+                 ("train_attention_fwd_kernel", "train_attention_fwd"),
+                 ("train_attention_dq_kernel", "train_attention_dq"),
+                 ("train_attention_dkv_kernel", "train_attention_dkv"))
 
 
 def phase_build():
@@ -2572,6 +2579,262 @@ def phase_decoder_grads(torch, device):
             "silu_mul_grad": fused_record(silu)}
 
 
+# ----------------------------------------------------------------------
+# phase 24: the train step's straight-through gradient and training attention
+# ----------------------------------------------------------------------
+# the straight-through input gradients of a _w8a8 train step: (label, rows
+# of g, out (the forward's N, the reduction here), in (the output width))
+GRAD_GEMM_SHAPES = (("q/k/v/o", TRAIN_TOKENS, LLAMA_WIDTH, LLAMA_WIDTH),
+                    ("gate/up", TRAIN_TOKENS, LLAMA_MLP, LLAMA_WIDTH),
+                    ("down", TRAIN_TOKENS, LLAMA_WIDTH, LLAMA_MLP))
+# the kernel against its plain version (cuBLAS on the dequantized weight):
+# both round f32 sums of the same exact products to bf16, in other orders.
+# Two orders of an N-term f32 sum differ by at most 2 (N - 1) units of
+# roundoff (2^-24) of the sum of the terms' magnitudes (|g| @ |w|^T), and
+# the rounding to bf16 then by an ulp of the result
+GRAD_GEMM_SUM_SLACK = 2.0 ** -24
+# (label, rows, tokens a row, packed, left-padded rows); the first is the
+# record's shape: a train step's layer (16 rows of 256, three segments and
+# pad slots a row), then a validation batch (48 unpacked rows, right
+# padding), left padding (queries that see no key), and a length that is
+# no multiple of the kernels' 64-row tiles
+TRAIN_ATTN_SHAPES = (("train step, packed", TRAIN_ROWS, TRAIN_SEQ, True, False),
+                     ("validation batch, unpacked", TRAIN_BATCH, TRAIN_SEQ, False, False),
+                     ("left padding", 4, TRAIN_SEQ, False, True),
+                     ("packed, 200 tokens", 4, 200, True, False))
+# kernels against the plain version under autograd (f32 products, TF32
+# off), as relative (Frobenius) errors: the output and dv sum bf16-rounded
+# weights, which an f32 ulp of the normalized weight flips in rare elements
+# (2^-8 of that term), and round to bf16 (2^-9); dq and dk take dS, whose
+# factor dP is bf16-rounded from sums in other orders, and dS's three bf16
+# terms hold its whole f32 significand
+TRAIN_ATTN_REL = {"out": 4e-3, "dq": 1e-2, "dk": 1e-2, "dv": 4e-3}
+
+
+def grad_gemm_case(torch, device, g, m, n, k):
+    """An int8 kernel [k, n] (column-major, seeded codes), its f32 channel
+    scales and bf16 rows g [m, n]."""
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    kq = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8).t()
+    scale = (torch.rand((n,), generator=g, device=device) + 0.5) * 2e-3
+    rows = torch.randn((m, n), generator=g, device=device).bfloat16()
+    return Q.int8_kernel_layout(kq), scale, rows
+
+
+def check_w8_grad_gemm(torch, device):
+    """Kernel A: ``w8_grad_gemm`` at a train step's three shapes: an
+    identity ``g`` reads back each dequantized weight bit for bit (one
+    product of 1 and the weight, summed with zeros), the products within
+    the sum-order tolerance of ``_grad_input_plain``; eager, alone, the
+    chain it replaced (``_dequantized_t`` + cuBLAS), cuBLAS on a bf16 weight
+    made beforehand, the bound."""
+    import numpy as np
+
+    import sass_count
+    from certifiedgpt_tpu_torch.ops import cuda_kernels
+    from certifiedgpt_tpu_torch.ops import quantization as Q
+
+    counts = sass_count.opcode_counts(sass_count.sass_of(cuda_kernels.build().path),
+                                      "w8_grad_gemm_kernel")
+    hgmma = {fn: ops.get("HGMMA", 0) for fn, ops in counts.items()}
+    i2f = {fn: ops.get("I2F", 0) for fn, ops in counts.items()}
+    log(f"[train] 24 w8_grad_gemm SASS: HGMMA {hgmma}, I2F {i2f}")
+    if not hgmma or not all(hgmma.values()):
+        fail(f"w8_grad_gemm holds no HGMMA instruction: {hgmma}")
+    g = torch.Generator(device=device).manual_seed(24)
+    shapes = {}
+    for label, m, n, k in GRAD_GEMM_SHAPES:
+        kq, scale, rows = grad_gemm_case(torch, device, g, m, n, k)
+        eye = torch.eye(n, device=device, dtype=torch.bfloat16)
+        tile_off = bits_unequal(torch, Q.w8_grad_gemm(eye, kq, scale),
+                                Q._dequantized_t(kq, scale, torch.bfloat16))
+        del eye
+        got = Q.w8_grad_gemm(rows, kq, scale)
+        want = Q._grad_input_plain(rows, kq, scale, torch.bfloat16)
+        w_t = Q._dequantized_t(kq, scale, torch.bfloat16)
+        mag = rows.float().abs() @ w_t.float().abs()
+        torch.cuda.synchronize()
+        slack = 2.0 * (n - 1) * GRAD_GEMM_SUM_SLACK * mag
+        ulp = torch.from_numpy(np.spacing(want.float().abs().cpu().numpy())).to(device) * 2.0 ** 16
+        diff = (got.float() - want.float()).abs()
+        share = float((diff / (ulp + slack)).max())
+        err = float(diff.max())
+        del mag, slack, ulp, diff
+        w_bf16 = w_t.contiguous()
+        rec = {"ms": cuda_ms(torch, lambda: Q.w8_grad_gemm(rows, kq, scale), iters=10),
+               "graph_ms": graph_ms(torch, lambda: Q.w8_grad_gemm(rows, kq, scale), iters=10),
+               "plain_ms": cuda_ms(torch, lambda: Q._grad_input_plain(rows, kq, scale,
+                                                                      torch.bfloat16), iters=5),
+               "replaced_graph_ms": graph_ms(
+                   torch, lambda: Q._grad_input_plain(rows, kq, scale, torch.bfloat16),
+                   iters=10),
+               "library_ms": graph_ms(torch, lambda: torch.matmul(rows, w_bf16), iters=10)}
+        rec["replaced_ms"] = rec["plain_ms"]
+        moved = 2 * m * n + k * n + 4 * n + 2 * m * k
+        rec["bound_ms"], rec["bound_by"] = bound_ms(moved, 2.0 * m * n * k, PEAK_BF16_FLOPS)
+        rec.update(max_abs_err=err, tolerance_share=share, tile_bits_off=tile_off)
+        shapes[f"{label} [{m},{n}]x[{k},{n}]^T"] = rec
+        faster = rec["graph_ms"] <= rec["replaced_graph_ms"]
+        log(f"[train] 24 w8_grad_gemm {label} g [{m}, {n}] x int8 [{k}, {n}]^T: dequantized "
+            f"tile {tile_off} values off; products {share:.3f} of the sum-order tolerance "
+            f"(largest difference {err:.3e}); {rec['ms']:.4f} ms eager, {rec['graph_ms']:.4f} "
+            f"ms alone ({rec['bound_ms'] / rec['graph_ms']:.0%} of the bound "
+            f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}); the replaced _dequantized_t + "
+            f"cuBLAS {rec['replaced_graph_ms']:.4f} ms alone ({rec['plain_ms']:.4f} eager); "
+            f"cuBLAS on a bf16 weight made beforehand {rec['library_ms']:.4f} ms; no slower "
+            f"than the replaced pair: {faster}")
+        if tile_off:
+            fail(f"w8_grad_gemm's dequantized weight differs from _dequantized_t's ({label})")
+        if not share <= 1.0:
+            fail(f"w8_grad_gemm disagrees with its plain version ({label})")
+        del kq, scale, rows, got, want, w_t, w_bf16
+    torch.cuda.empty_cache()
+    rec = fused_record(shapes)
+    rec["sass_hgmma"] = hgmma
+    return rec
+
+
+def train_attention_case(torch, device, g, b, s, packed, left):
+    """q, k, v, the output's gradient [b, s, 32, 128] bf16 (scaled as a
+    decoder's are), the keys' validity and the segment ids (packed: three
+    segments a row, its last sixth pad slots of id 0; unpacked: None)."""
+    shape = (b, s, LLAMA_HEADS, LLAMA_HEAD_DIM)
+    q, k, v, go = (torch.randn(shape, generator=g, device=device).bfloat16() for _ in range(4))
+    idx = torch.arange(s, device=device)
+    valid = torch.ones((b, s), dtype=torch.long, device=device)
+    seg = None
+    if packed:
+        used = s - s // 6
+        seg = torch.where(idx < used, 1 + (idx * 3) // used, 0)[None].repeat(b, 1)
+        valid[:, used:] = 0
+    elif left:
+        valid[:, : s // 8] = 0  # the first queries see no valid key
+    else:
+        valid[1::2, s - s // 5:] = 0  # every other row right-padded
+    return q, k, v, go, valid, seg
+
+
+def check_train_attention(torch, device):
+    """Kernels B and C: ``training_attention`` forward and backward
+    (``train_attention_fwd``, ``train_attention_dq``, ``train_attention_dkv``)
+    against ``_training_attention_plain`` and its autograd backward at a
+    train step's layer, a validation batch, left padding and a ragged
+    length; queries that see no key give exact zeros; eager, alone (a CUDA
+    graph), the plain version, SDPA with the same mask."""
+    import torch.nn.functional as F
+
+    from certifiedgpt_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=device).manual_seed(25)
+    fwd, bwd_q, bwd_kv = {}, {}, {}
+    for label, b, s, packed, left in TRAIN_ATTN_SHAPES:
+        q, k, v, go, valid, seg = train_attention_case(torch, device, g, b, s, packed, left)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            out = A.training_attention(*leaves, valid, seg)
+            grads = torch.autograd.grad(out, leaves, go)
+            pleaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            pout = A._training_attention_plain(*pleaves, valid, seg)
+            pgrads = torch.autograd.grad(pout, pleaves, go)
+        torch.cuda.synchronize()
+        errs = {"out": rel_err(out, pout)}
+        errs.update({name: rel_err(a, w) for name, a, w in zip(("dq", "dk", "dv"), grads, pgrads)})
+        mask = A.training_mask(valid, seg, s, device)
+        dead = ~mask.any(dim=-1)[:, 0]  # [b, s]: queries that see no key
+        dead_ok = not (bool(out[dead].any()) or bool(grads[0][dead].any()))
+        n_dead = int(dead.sum())
+        args = A._train_attention_args(q, k, v, valid, seg)
+        scale = LLAMA_HEAD_DIM ** -0.5
+        o2, mx, sm = A.train_attention_fwd(*args, scale)
+        dq, dsum = A.train_attention_dq(*args, go, mx, sm, scale)
+
+        def fwd_call():
+            A.train_attention_fwd(*args, scale)
+
+        def dq_call():
+            A.train_attention_dq(*args, go, mx, sm, scale)
+
+        def dkv_call():
+            A.train_attention_dkv(*args, go, mx, sm, dsum, scale)
+
+        def plain_fwd():
+            A._training_attention_plain(q, k, v, valid, seg)
+
+        plain_bwd = autograd_backward(
+            torch, lambda a, bb, c: A._training_attention_plain(a, bb, c, valid, seg),
+            (q, k, v), (go,))
+        tq, tk, tv, tgo = (t.transpose(1, 2) for t in (q, k, v, go))
+
+        def sdpa_fwd():
+            F.scaled_dot_product_attention(tq, tk, tv, attn_mask=mask)
+
+        sdpa_bwd = autograd_backward(
+            torch, lambda a, bb, c: F.scaled_dot_product_attention(a, bb, c, attn_mask=mask),
+            (tq, tk, tv), (tgo,))
+        pairs = float(mask.sum()) * LLAMA_HEADS
+        size = q.numel() * 2
+        stats = 4 * b * LLAMA_HEADS * s
+        frec = {"ms": cuda_ms(torch, fwd_call, iters=10), "graph_ms": graph_ms(torch, fwd_call),
+                "plain_ms": cuda_ms(torch, plain_fwd, iters=3, warmup=1),
+                "library_ms": graph_ms(torch, sdpa_fwd, iters=5)}
+        frec["replaced_ms"] = frec["plain_ms"]
+        frec["bound_ms"], frec["bound_by"] = bound_ms(4 * size + 2 * stats,
+                                                      4.0 * pairs * LLAMA_HEAD_DIM,
+                                                      PEAK_BF16_FLOPS)
+        qrec = {"ms": cuda_ms(torch, dq_call, iters=10), "graph_ms": graph_ms(torch, dq_call)}
+        krec = {"ms": cuda_ms(torch, dkv_call, iters=10), "graph_ms": graph_ms(torch, dkv_call)}
+        plain_bwd_ms = cuda_ms(torch, plain_bwd, iters=3, warmup=1)
+        sdpa_bwd_ms = cuda_ms(torch, sdpa_bwd, iters=5, warmup=1)
+        # the backward's bytes: q, k, v, g and the statistics read, dq, dk,
+        # dv written; its operations: P, dP, dv, dq and dk (two each a pair)
+        bwd_bound, bwd_by = bound_ms(7 * size + 2 * stats, 10.0 * pairs * LLAMA_HEAD_DIM,
+                                     PEAK_BF16_FLOPS)
+        for rec in (qrec, krec):
+            rec.update(plain_ms=plain_bwd_ms, replaced_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+                       bound_ms=bwd_bound, bound_by=bwd_by)
+        frec["max_abs_err"] = float((out.float() - pout.float()).abs().max())
+        qrec["max_abs_err"] = float((grads[0].float() - pgrads[0].float()).abs().max())
+        krec["max_abs_err"] = max(float((a.float() - w.float()).abs().max())
+                                  for a, w in zip(grads[1:], pgrads[1:]))
+        for rec in (frec, qrec, krec):
+            rec["rel_err"] = errs
+        key = f"{label} [{b}, {s}, {LLAMA_HEADS}, {LLAMA_HEAD_DIM}]"
+        fwd[key], bwd_q[key], bwd_kv[key] = frec, qrec, krec
+        both = qrec["graph_ms"] + krec["graph_ms"]
+        log(f"[train] 24 training attention {key}: relative errors against the plain version "
+            f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})} (limits "
+            f"{json.dumps(TRAIN_ATTN_REL)}); {n_dead} queries that see no key exactly zero "
+            f"with zero gradients: {dead_ok}; forward {frec['ms']:.4f} ms eager, "
+            f"{frec['graph_ms']:.4f} ms alone (bound {frec['bound_ms']:.4f} ms, "
+            f"{frec['bound_by']}), plain {frec['plain_ms']:.4f} ms, SDPA with the mask "
+            f"{frec['library_ms']:.4f} ms; backward dq {qrec['graph_ms']:.4f} + dk, dv "
+            f"{krec['graph_ms']:.4f} = {both:.4f} ms alone (bound {bwd_bound:.4f} ms, {bwd_by}), "
+            f"autograd through the plain version {plain_bwd_ms:.4f} ms, SDPA's backward "
+            f"{sdpa_bwd_ms:.4f} ms")
+        if not all(errs[n] < TRAIN_ATTN_REL[n] for n in errs):
+            fail(f"the training attention disagrees with its plain version ({label}): {errs}")
+        if not dead_ok:
+            fail(f"the training attention gives queries that see no key values ({label})")
+        del q, k, v, go, leaves, out, grads, pleaves, pout, pgrads, args, o2, mx, sm, dq, dsum
+        del plain_bwd, sdpa_bwd, mask, tq, tk, tv, tgo
+        torch.cuda.empty_cache()
+    return {"train_attention_fwd": fused_record(fwd), "train_attention_dq": fused_record(bwd_q),
+            "train_attention_dkv": fused_record(bwd_kv)}
+
+
+def phase_train_kernels(torch, device):
+    """Phase 24: the straight-through input gradient reading the int8
+    kernel (kernel A) and the training attention forward and backward
+    (kernels B and C) against their plain versions at a train step's
+    shapes."""
+    t0 = time.perf_counter()
+    records = {"w8_grad_gemm": check_w8_grad_gemm(torch, device)}
+    records.update(check_train_attention(torch, device))
+    log(f"[train] phase 24 took {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def phase_kernels(torch, device):
     from certifiedgpt_tpu_torch.ops import quantization as Q
 
@@ -2615,6 +2878,7 @@ def phase_kernels(torch, device):
     check_f32_instances(torch, device, records)
     records.update(phase_decoder_fusions(torch, device))
     records.update(phase_decoder_grads(torch, device))
+    records.update(phase_train_kernels(torch, device))
     return records
 
 
@@ -2674,6 +2938,18 @@ KERNELS = [
      "certifiedgpt_tpu/models/layers.py:150", "train step"),
     ("silu_mul_grad", "certifiedgpt_tpu_torch/csrc/elementwise.cu",
      "certifiedgpt_tpu/models/llama.py:284", "train step"),
+    # the train step's remaining XLA fusions (phase 24): the W8A8 product's
+    # straight-through input gradient reading the int8 kernel (JAX's
+    # _w8a8_bwd), and the training attention, forward and its two backward
+    # kernels (multi_head_attention under the training mask, and its VJP)
+    ("w8_grad_gemm", "certifiedgpt_tpu_torch/csrc/w8_grad_gemm.cu",
+     "certifiedgpt_tpu/ops/quantization.py:102", "train step"),
+    ("train_attention_fwd", "certifiedgpt_tpu_torch/csrc/train_attention.cu",
+     "certifiedgpt_tpu/ops/attention.py:40", "train step"),
+    ("train_attention_dq", "certifiedgpt_tpu_torch/csrc/train_attention.cu",
+     "certifiedgpt_tpu/ops/attention.py:40", "train step"),
+    ("train_attention_dkv", "certifiedgpt_tpu_torch/csrc/train_attention.cu",
+     "certifiedgpt_tpu/ops/attention.py:40", "train step"),
 ]
 
 
@@ -2721,13 +2997,19 @@ PER_DECODE_STEP = plus({"int8_weight_matmul": 7 * LLAMA_DEPTH,
 # the backward kernels of a train step: each fused op's once
 DECODER_FUSED_GRAD = {"add_rms_norm_grad": 2 * LLAMA_DEPTH + 1, "rotary_grad": LLAMA_DEPTH,
                       "silu_mul_grad": LLAMA_DEPTH}
-TRAIN_DECODER = plus(DECODER_FUSED, DECODER_FUSED_GRAD)
-TRAIN_DECODER_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH},
-                          TRAIN_DECODER)
+# the training attention (no cache), a forward launch a layer; its backward
+# two launches (dq, then dk and dv)
+TRAIN_ATTENTION = {"train_attention_fwd": LLAMA_DEPTH}
+TRAIN_ATTENTION_GRAD = {"train_attention_dq": LLAMA_DEPTH, "train_attention_dkv": LLAMA_DEPTH}
+TRAIN_DECODER = plus(DECODER_FUSED, DECODER_FUSED_GRAD, TRAIN_ATTENTION, TRAIN_ATTENTION_GRAD)
+# the W8A8 products' straight-through input gradients: one launch each, the
+# int8 kernel read in place of a dequantized copy
+TRAIN_DECODER_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH,
+                           "w8_grad_gemm": 7 * LLAMA_DEPTH}, TRAIN_DECODER)
 # a validation batch's decoder (no autograd): the prefill's products and
-# fused ops, attention without a cache
+# fused ops, the training attention's forward (no cache)
 VAL_DECODER_INT8 = plus({"w8a8_gemm": 7 * LLAMA_DEPTH, "quant_rows": LLAMA_DEPTH},
-                        DECODER_FUSED)
+                        DECODER_FUSED, TRAIN_ATTENTION)
 
 # launches per certify chunk of each kernel under each ViT attention form:
 # the split-stream tower runs the cls-split kernel once a layer and the two
@@ -2755,6 +3037,7 @@ def wrappers():
         cls_split_attention_scaled,
         flash_attention,
     )
+    from certifiedgpt_tpu_torch.ops import attention as A
     from certifiedgpt_tpu_torch.ops import quantization as Q
     from certifiedgpt_tpu_torch.ops.attention import (
         decode_attention_kv8,
@@ -2775,7 +3058,10 @@ def wrappers():
             "attention_kv8_decode": decode_attention_kv8,
             "add_rms_norm": E.add_rms_norm, "rotary": E.rotary, "silu_mul": E.silu_mul,
             "add_rms_norm_grad": E.add_rms_norm_grad, "rotary_grad": E.rotary_grad,
-            "silu_mul_grad": E.silu_mul_grad}
+            "silu_mul_grad": E.silu_mul_grad, "w8_grad_gemm": Q.w8_grad_gemm,
+            "train_attention_fwd": A.train_attention_fwd,
+            "train_attention_dq": A.train_attention_dq,
+            "train_attention_dkv": A.train_attention_dkv}
 
 
 def reset_counts():
@@ -4209,7 +4495,7 @@ PER_TRAIN_STEP = {
 # a val batch (no autograd): the decoder through its fused elementwise ops
 PER_VAL_BATCH = {
     "w8a8": plus(VIT_PER_CHUNK["flash_cls"], VIT_INT8["flash_cls"], VAL_DECODER_INT8),
-    "bf16": plus({"cls_split_attention": VIT_DEPTH}, DECODER_FUSED),
+    "bf16": plus({"cls_split_attention": VIT_DEPTH}, DECODER_FUSED, TRAIN_ATTENTION),
 }
 
 
@@ -4298,7 +4584,9 @@ def plain_versions():
             mock.patch.object(E, "silu_mul", E._silu_mul_plain),
             mock.patch.object(E, "add_rms_norm_grad", E._add_rms_norm_grad_plain),
             mock.patch.object(E, "rotary_grad", E._rotary_grad_plain),
-            mock.patch.object(E, "silu_mul_grad", E._silu_mul_grad_plain)]
+            mock.patch.object(E, "silu_mul_grad", E._silu_mul_grad_plain),
+            mock.patch.object(Q, "_grad_input", Q._grad_input_plain),
+            mock.patch.object(A, "training_attention", A._training_attention_plain)]
 
 
 def pair_versions(torch):
@@ -4340,63 +4628,121 @@ def chain_versions():
 
 
 TRACE_TOP_KERNELS = 10  # the largest kernels of a traced train step's part
+# the forward's sources of elementwise/copy device time: each function's
+# calls run under a profiler label of its name ((module, function, label));
+# the backward's are autograd's nodes (``evaluate_function: <node>``)
+FORWARD_SOURCES = (("llama", "_block", "decoder blocks"),
+                   ("llama", "lm_head_logits", "lm_head"),
+                   ("minigpt4", "cross_entropy_loss", "cross-entropy"))
+SOURCE_LABEL = "train step source: "
+NODE_LABEL = "autograd::engine::evaluate_function: "
+
+
+def labelled(torch, label, fn):
+    """``fn`` with each call under the profiler label ``label``."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(SOURCE_LABEL + label):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def source_of(event) -> str:
+    """The innermost source of a traced host operation: a
+    ``FORWARD_SOURCES`` label or an autograd node among its ancestors."""
+    while event is not None:
+        if event.name.startswith(SOURCE_LABEL):
+            return event.name[len(SOURCE_LABEL):]
+        if event.name.startswith(NODE_LABEL):
+            return event.name[len(NODE_LABEL):]
+        event = event.cpu_parent
+    return "other"
+
+
+def group_of(name: str) -> str:
+    key = name.lower()
+    return next((g for g, keys in PROFILE_GROUPS if any(k in key for k in keys)),
+                "other elementwise / copy")
 
 
 def train_step_groups(torch, model, cfg, batch) -> dict:
     """One train step of ``model`` on ``batch`` with the forward (ViT,
     Q-Former, projection, decoder, loss) and the backward each under a
-    ``device_trace`` of its own: for each part its wall seconds, device
-    seconds, kernel launches, device seconds by ``PROFILE_GROUPS`` and its
-    ``TRACE_TOP_KERNELS`` largest kernels. Uses
+    ``device_trace`` of its own (the host's operations traced too): for
+    each part its wall seconds, device seconds, kernel launches, device
+    seconds by ``PROFILE_GROUPS``, its ``TRACE_TOP_KERNELS`` largest kernels
+    and its elementwise/copy device seconds by source (``source_of``). Uses
     only entry points that the port has had since its fused elementwise
     ops, so ``scripts/bench_torch_train_step.py`` runs it on an older
     checkout too."""
+    from unittest import mock
+
+    from certifiedgpt_tpu_torch.models import llama as LL
     from certifiedgpt_tpu_torch.models import minigpt4 as M
     from certifiedgpt_tpu_torch.ops import cuda_kernels
 
+    modules = {"llama": LL, "minigpt4": M}
     proj = model.module.llama_proj
     proj.kernel.grad = proj.bias.grad = None
     held = {}
 
     def forward():
-        tokens = M.encode_img(model.params, cfg, batch["image"])
-        held["loss"] = M.minigpt4_loss(model.params, cfg, batch, img_embeds=tokens)
+        with torch.profiler.record_function(SOURCE_LABEL + "encode (ViT, Q-Former, projection)"):
+            tokens = M.encode_img(model.params, cfg, batch["image"])
+        with contextlib.ExitStack() as stack:
+            for module, name, label in FORWARD_SOURCES:
+                fn = getattr(modules[module], name)
+                stack.enter_context(mock.patch.object(modules[module], name,
+                                                      labelled(torch, label, fn)))
+            held["loss"] = M.minigpt4_loss(model.params, cfg, batch, img_embeds=tokens)
 
     def backward():
         held.pop("loss").backward()
 
     parts = {}
     for part, fn in (("forward", forward), ("backward", backward)):
-        with cuda_kernels.device_trace() as prof:
+        with cuda_kernels.device_trace(cpu=True) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         groups, launches = {}, 0
+        # the sources' labels show on the device's timeline too (as annotations
+        # spanning their kernels): not operations of their own
         events = [e for e in cuda_kernels.device_events(prof.key_averages())
-                  if e.self_device_time_total > 0]
+                  if e.self_device_time_total > 0 and not e.key.startswith(SOURCE_LABEL)]
         for e in events:
-            key = e.key.lower()
-            group = next((g for g, keys in PROFILE_GROUPS if any(k in key for k in keys)),
-                         "other elementwise / copy")
+            group = group_of(e.key)
             groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e6
             launches += e.count
+        sources = {}
+        for e in prof.events():
+            for k in getattr(e, "kernels", ()):
+                if (group_of(k.name) == "other elementwise / copy"
+                        and cuda_kernels._PAD_KERNEL not in k.name):
+                    src = source_of(e)
+                    sources[src] = sources.get(src, 0.0) + k.duration / 1e6
         events.sort(key=lambda e: -e.self_device_time_total)
         parts[part] = {"wall": wall, "device": sum(groups.values()), "launches": launches,
                        "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                        "top": [(e.key[:90], e.self_device_time_total / 1e6, e.count)
-                               for e in events[:TRACE_TOP_KERNELS]]}
+                               for e in events[:TRACE_TOP_KERNELS]],
+                       "elementwise_by_source": dict(sorted(sources.items(),
+                                                            key=lambda kv: -kv[1]))}
     proj.kernel.grad = proj.bias.grad = None
     return parts
 
 
 def format_groups(parts: dict) -> str:
-    """``train_step_groups``' parts as one line: each part's groups, then
-    its largest kernels (seconds, launches)."""
+    """``train_step_groups``' parts as one line: each part's groups, its
+    largest kernels (seconds, launches), then its elementwise/copy seconds
+    by source."""
     return "; ".join(
         f"{part}: wall {p['wall']:.4f} s, device {p['device']:.4f} s, {p['launches']} launches "
         f"(" + ", ".join(f"{g} {s:.4f}" for g, s in p["groups"].items()) + "); largest: "
         + ", ".join(f"{name} {s:.4f} s x{n}" for name, s, n in p["top"])
+        + "; elementwise/copy by source: "
+        + ", ".join(f"{src} {s:.4f}" for src, s in p["elementwise_by_source"].items())
         for part, p in parts.items())
 
 
@@ -4416,6 +4762,7 @@ def phase_train_checks(torch, card, device, root, env):
     from certifiedgpt_tpu_torch.models import layers as L
     from certifiedgpt_tpu_torch.models import llama as LL
     from certifiedgpt_tpu_torch.models import minigpt4 as M
+    from certifiedgpt_tpu_torch.ops import quantization as Q
 
     with mock.patch.dict(os.environ, dict(env, OUTPUT_DIR=str(root / "out_checks"))):
         agent = setup_agent(Config(TRAIN_W8A8_CONFIG), device=device)
@@ -4442,11 +4789,21 @@ def phase_train_checks(torch, card, device, root, env):
 
     loss_and_grad(batch)  # warm-up
     reset_counts()
+    dequantized_t = Q._dequantized_t
+    made = []  # the straight-through backward's dequantized weights (none on the card)
+
+    def counting(*args, **kwargs):
+        made.append(1)
+        return dequantized_t(*args, **kwargs)
+
     t0 = time.perf_counter()
-    loss, grad, tokens, tokens_grad, _ = loss_and_grad(batch)
+    with mock.patch.object(Q, "_dequantized_t", counting):
+        loss, grad, tokens, tokens_grad, _ = loss_and_grad(batch)
     seconds = time.perf_counter() - t0
     launches = read_counts()
     check_counts("train 11.1", launches, PER_TRAIN_STEP["w8a8"], 1)
+    if made:
+        fail(f"train 11.1: the backward dequantized {len(made)} int8 kernels")
     weight_only = dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, act_quant=False))
     wo_grad = loss_and_grad(batch, run_cfg=weight_only)[1]
     with contextlib.ExitStack() as stack:
@@ -4475,7 +4832,8 @@ def phase_train_checks(torch, card, device, root, env):
         f"{grad_rel:.3e} (limit {TRAIN_GRAD_REL_LIMIT:g}); on the way: projected image tokens "
         f"{rel_err(tokens, plain_tokens):.3e}, the loss's gradient in them (the decoder's "
         f"backward) {rel_err(tokens_grad, plain_tokens_grad):.3e}; forward + backward "
-        f"{seconds:.3f} s; launches {json.dumps(launches)}; {card}")
+        f"{seconds:.3f} s; launches {json.dumps(launches)}; the backward's dequantized int8 "
+        f"kernels (_dequantized_t) {len(made)}; {card}")
     log(f"[train] 11.1 controls: the plain path with its image tokens changed at random by as "
         f"much: the loss's gradient in them {rel_err(control[3], plain_tokens_grad):.3e}, the "
         f"projection's {control_rel:.3e}; the decoder with weight-only "
@@ -4497,7 +4855,7 @@ def phase_train_checks(torch, card, device, root, env):
     r = torch.randn((rows, seq, lcfg.hidden_size), generator=g, device=device)
     cos, sin = L.rotary_tables(lcfg.head_dim, lcfg.max_position_embeddings, lcfg.rope_theta,
                                device=device)
-    mask = LL._training_mask(batch["attention_mask"], batch["segment_ids"], seq, device)
+    mask = LL.TrainingMask(batch["attention_mask"], batch["segment_ids"])
 
     def layer_grad(params, layer_cfg):
         xx = x.clone().requires_grad_(True)

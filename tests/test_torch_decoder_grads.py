@@ -277,8 +277,8 @@ def test_block_input_grad_matches_jax(dtype, quant, packed, remat):
     params = {"layers": TL.tree_map(lambda a: a[None], lp)}
     cos, sin = E.rotary_tables(cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta)
     tpos = torch.from_numpy(pos).long()
-    tmask = TLM._training_mask(torch.from_numpy(mask), None if seg is None
-                               else torch.from_numpy(seg), x.shape[1], "cpu")
+    tmask = TLM.TrainingMask(torch.from_numpy(mask), None if seg is None
+                             else torch.from_numpy(seg))
     xt, rt = torch.from_numpy(x).to(tdt), torch.from_numpy(r).to(tdt)
 
     def run(cfg):

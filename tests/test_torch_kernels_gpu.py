@@ -1822,3 +1822,88 @@ def test_train_step_through_the_decoder_kernels_on_gpu(cuda, act_quant):
     assert torch.isfinite(loss) and bool(torch.isfinite(grad).all())
     assert abs(float(loss) - float(plain_loss)) / abs(float(plain_loss)) < 1e-2
     assert float((grad - plain_grad).norm() / plain_grad.norm()) < 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(4096, 4096, 4096), (300, 11008, 4096), (5, 72, 144),
+                                   (1, 64, 128)])
+def test_w8_grad_gemm_matches_plain_on_gpu(cuda, m, n, k):
+    """The straight-through input gradient reading the int8 kernel: an
+    identity ``g`` gives back ``_dequantized_t``'s weight bit for bit, and
+    ``_grad_input`` of bf16 rows (one launch, ragged edges included) is
+    within an ulp and the f32 sum order (``chip_smoke.GRAD_GEMM_SUM_SLACK``)
+    of ``_grad_input_plain``; f32 rows take the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    kq, scale, rows = chip_smoke.grad_gemm_case(torch, cuda, g, m, n, k)
+    eye = torch.eye(n, device=cuda, dtype=torch.bfloat16)
+    assert torch.equal(Q.w8_grad_gemm(eye, kq, scale), Q._dequantized_t(kq, scale, torch.bfloat16))
+    launches = Q.w8_grad_gemm.launches
+    got = Q._grad_input(rows.reshape(1, m, n), kq, scale, torch.float32)
+    want = Q._grad_input_plain(rows.reshape(1, m, n), kq, scale, torch.float32)
+    assert Q.w8_grad_gemm.launches == launches + 1 and got.dtype == torch.float32
+    mag = rows.float().abs() @ Q._dequantized_t(kq, scale, torch.float32).abs()
+    ulp = torch.from_numpy(np.spacing(want[0].abs().cpu().numpy())).to(cuda) * 2.0 ** 16
+    slack = (ulp + 2.0 * (n - 1) * chip_smoke.GRAD_GEMM_SUM_SLACK * mag)[None]
+    assert bool(((got[0] - want[0]).abs() <= slack[0]).all())
+    f32 = Q._grad_input(rows.float(), kq, scale, torch.float32)
+    assert Q.w8_grad_gemm.launches == launches + 1
+    assert torch.equal(f32, Q._grad_input_plain(rows.float(), kq, scale, torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 64, 16])
+@pytest.mark.parametrize("b,s,packed,left", [(2, 256, True, False), (3, 200, False, True),
+                                             (1, 70, False, False)])
+def test_training_attention_matches_plain_on_gpu(cuda, d, b, s, packed, left):
+    """The training attention's forward and backward kernels against the
+    plain version under autograd, within ``chip_smoke.TRAIN_ATTN_REL``;
+    queries that see no key give exact zeros and zero gradients; one launch
+    of each kernel; f32 operands take the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(b + s + d)
+    q, k, v, go, valid, seg = chip_smoke.train_attention_case(torch, cuda, g, b, s, packed,
+                                                              left)
+    q, k, v, go = (t[..., :d].contiguous() for t in (q, k, v, go))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    counts = [A.train_attention_fwd.launches, A.train_attention_dq.launches,
+              A.train_attention_dkv.launches]
+    out = A.training_attention(*leaves, valid, seg)
+    grads = torch.autograd.grad(out, leaves, go)
+    assert [A.train_attention_fwd.launches, A.train_attention_dq.launches,
+            A.train_attention_dkv.launches] == [c + 1 for c in counts]
+    pleaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    pout = A._training_attention_plain(*pleaves, valid, seg)
+    pgrads = torch.autograd.grad(pout, pleaves, go)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (pout, *pgrads)):
+        assert chip_smoke.rel_err(got.detach(), want.detach()) < chip_smoke.TRAIN_ATTN_REL[name]
+    dead = ~A.training_mask(valid, seg, s, cuda).any(dim=-1)[:, 0]
+    assert not out[dead].any() and not grads[0][dead].any()
+    f32 = A.training_attention(q.float(), k.float(), v.float(), valid, seg)
+    assert A.train_attention_fwd.launches == counts[0] + 1
+    assert torch.equal(f32, A._training_attention_plain(q.float(), k.float(), v.float(), valid,
+                                                        seg))
+
+
+@pytest.mark.gpu
+def test_training_attention_refuses_other_widths_on_gpu(cuda):
+    """A bf16 head width without an instance raises; nothing falls back."""
+    x = torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.training_attention(x, x, x, torch.ones((1, 8), device=cuda))
+
+
+@pytest.mark.gpu
+def test_lm_head_backward_splits_the_cotangent_on_gpu(cuda):
+    """The lm_head's backward on the card, the f32 cotangent as three bf16
+    terms times the bf16 head, against the f32 product with the head cast
+    to f32 (TF32 off): within 2e-5 relative before the rounding to bf16 (two
+    orders of f32 sums of 32000 terms)."""
+    from certifiedgpt_tpu_torch.models import llama as LL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(3)
+    cot = torch.randn((300, 32000), generator=g, device=cuda)
+    head = (torch.randn((4096, 32000), generator=g, device=cuda) * 0.02).bfloat16()
+    got = LL._f32_times_t(cot, head)
+    want = cot @ head.float().t()
+    assert got.dtype == torch.float32
+    assert float((got - want).norm() / want.norm()) < 2e-5
